@@ -1,0 +1,70 @@
+"""YOLOv8 head decode + candidate selection, batched over streams (port of
+the v8 branch of ``adas_tpu/ops/yolo_decode.py``).
+
+raw (B, 4+nc, N) -> per-anchor boxes/scores/classes -> score threshold ->
+top-k pre-selection -> class-agnostic greedy hard NMS with VOC ``+1``
+arithmetic -> (B, max_det, 6) rows ``[x1, y1, x2, y2, score, class_id]``
+padded with zeros -> letterbox inverse.  Shapes are fixed, so the
+detections stay on the device until the tick's one packed copy.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .boxes import cxcywh_to_xyxy
+from .nms import select_loop_hard
+from .preprocess import LetterboxGeometry
+
+
+def decode_predictions(raw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """YOLOv8-contract raw output (B, 4+nc, N) -> (boxes_xyxy (B, N, 4),
+    scores (B, N), class_ids (B, N)) (``yolo_decode.py:68``, v8 branch:
+    the class probability is the confidence)."""
+    preds = raw.transpose(1, 2)  # (B, N, 4+nc)
+    scores, class_ids = preds[..., 4:].max(dim=-1)
+    return cxcywh_to_xyxy(preds[..., :4]), scores, class_ids
+
+
+def select_and_nms(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    class_ids: torch.Tensor,
+    box_score: float = 0.4,
+    iou_threshold: float = 0.45,
+    max_det: int = 100,
+    pre_topk: int = 512,
+) -> torch.Tensor:
+    """Threshold + top-k preselect + class-agnostic hard NMS ->
+    (B, max_det, 6) (``yolo_decode.py:99`` with ``hard_only=True``).
+
+    The top-k is a stable descending sort, so equal scores keep index
+    order, as ``jax.lax.top_k`` does."""
+    scores = torch.where(scores > box_score, scores, torch.zeros_like(scores))
+    k = min(pre_topk, scores.shape[1])
+    top_scores, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    top_scores, idx = top_scores[:, :k], idx[:, :k]
+    top_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+    top_ids = torch.gather(class_ids, 1, idx)
+    keep = select_loop_hard(
+        top_boxes, top_scores, iou_threshold, max_det,
+        score_threshold=0.001, plus_one=True,
+    )
+    valid = keep >= 0
+    gather = keep.clamp(0, k - 1)
+    out = torch.cat(
+        [
+            torch.gather(top_boxes, 1, gather[..., None].expand(-1, -1, 4)),
+            torch.gather(top_scores, 1, gather)[..., None],
+            torch.gather(top_ids, 1, gather)[..., None].float(),
+        ],
+        dim=-1,
+    )
+    return torch.where(valid[..., None], out, torch.zeros_like(out))
+
+
+def detections_to_original(dets: torch.Tensor, geom: LetterboxGeometry) -> torch.Tensor:
+    """Map padded (..., max_det, 6) detections from letterboxed to source
+    coordinates (``yolo_decode.py:139``)."""
+    return torch.cat([geom.boxes_to_original(dets[..., :4]), dets[..., 4:]], dim=-1)

@@ -1,0 +1,116 @@
+"""YOLO detector facade (port of the YOLOv8 part of ``YoloDetector``,
+``adas_tpu/perception/object_detector.py:162``).
+
+Builds the torch net on an explicit device: weights come from a
+``params_io`` ``.npz`` (the JAX package's portable checkpoint) or, with no
+``model_path``, from the port's seeded flax-style init.  ``compute_dtype``
+is None (f32) or ``"bf16"``; in bf16 every floating leaf is cast, as
+``adas_tpu/tools/quantize.py:32-44`` does.  The multi-stream pipeline
+drives ``net`` directly and turns its detections into ``RectInfo`` rows
+through :meth:`YoloDetector._dets_to_rectinfo`.
+"""
+from __future__ import annotations
+
+import os
+import random
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+import adas_tpu
+from adas_tpu.utils.types import ObjectModelType, RectInfo, hex_to_rgb
+
+from ..models.yolo import YoloSpec, YoloV8
+from ..weights import init_params, load_flax_variables, load_npz
+
+DEFAULT_CLASSES = os.path.join(os.path.dirname(adas_tpu.__file__), "data", "coco_label.txt")
+
+_COMPUTE_DTYPES = {None: torch.float32, "bf16": torch.bfloat16}
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device with no GPU raises
+    (there is no CPU fallback for a requested GPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but no CUDA GPU is available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"the port runs on cuda or cpu, got {device!r}")
+    return dev
+
+
+def compute_torch_dtype(compute_dtype: Optional[str]) -> torch.dtype:
+    if compute_dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be None (f32) or 'bf16', got {compute_dtype!r}")
+    return _COMPUTE_DTYPES[compute_dtype]
+
+
+def build_net(make, device: torch.device, dtype: torch.dtype, model_path, seed: int):
+    """Construct ``make()`` on ``device``, fill it from ``model_path``
+    (flax ``.npz``) or the seeded init, cast to ``dtype``, freeze."""
+    with device:
+        net = make()
+    if model_path is None:
+        init_params(net, seed)
+    elif str(model_path).endswith(".npz"):
+        load_flax_variables(net, load_npz(model_path))
+    else:
+        raise ValueError(f"unsupported weights {model_path} (expect a params_io .npz or None)")
+    return net.to(dtype).eval().requires_grad_(False)
+
+
+class YoloDetector:
+    """YOLOv8 detector on the port (``object_detector.py:162``)."""
+
+    def __init__(
+        self,
+        model_path: Optional[str] = None,
+        model_type: ObjectModelType = ObjectModelType.YOLOV8,
+        scale: str = "n",
+        box_score: float = 0.4,
+        box_nms_iou: float = 0.45,
+        max_det: int = 100,
+        input_size: Tuple[int, int] = (640, 640),
+        compute_dtype: Optional[str] = None,
+        classes_path: Optional[str] = None,
+        device="cpu",
+        seed: int = 0,
+    ):
+        if model_type is not ObjectModelType.YOLOV8:
+            raise ValueError(f"the port serves YOLOV8 only, got {model_type}")
+        self.model_type = model_type
+        self.box_score = box_score
+        self.box_nms_iou = box_nms_iou
+        self.max_det = max_det
+        self.compute_dtype = compute_dtype
+        self.device = resolve_device(device)
+        self._initialize_class(classes_path)
+        self.spec = YoloSpec(
+            scale=scale, num_classes=len(self.class_names), input_size=tuple(input_size)
+        )
+        self.net = build_net(
+            lambda: YoloV8(self.spec), self.device,
+            compute_torch_dtype(compute_dtype), model_path, seed,
+        )
+
+    def _initialize_class(self, classes_path: Optional[str]) -> None:
+        classes_path = os.path.expanduser(classes_path or DEFAULT_CLASSES)
+        if not os.path.isfile(classes_path):
+            raise FileNotFoundError(f"{classes_path} is not exist.")
+        with open(classes_path) as f:
+            self.class_names = [c.strip() for c in f.readlines()]
+        colors = [hex_to_rgb("#%06x" % random.randint(0, 0xFFFFFF)) for _ in self.class_names]
+        self.colors_dict = dict(zip(self.class_names, colors))
+
+    def _dets_to_rectinfo(self, dets: np.ndarray) -> List[RectInfo]:
+        """(max_det, 6) rows -> RectInfo list, skipping zero-score padding
+        (``object_detector.py:495``)."""
+        results = []
+        for x1, y1, x2, y2, score, cid in dets:
+            if score <= 0:
+                continue
+            cid = int(cid)
+            label = self.class_names[cid] if 0 <= cid < len(self.class_names) else "unknown"
+            results.append(RectInfo(x1, y1, x2 - x1, y2 - y1, conf=float(score), label=label))
+        return results
