@@ -5,13 +5,15 @@ names so each module's counterpart is easy to find.  It imports
 ``torch`` and never ``jax`` or ``flax``; the JAX package stays the
 reference the port's tests hold it against.
 
-What it serves today is one slice: the batched multi-stream step of
+What it serves today: the batched multi-stream step of
 ``adas_tpu.pipeline.multistream.MultiStreamADAS`` over I420 transport
-(YOLOv8 + UFLDv2, f32 or bf16), on ``cuda`` or ``cpu``.  The stem
-convolution of both nets runs as a hand-written Hopper kernel
-(``csrc/stem.cu``, bound in ``ops/stem.py``); everything else is plain
-PyTorch.  The numpy-only host code (``adas_tpu.tracking``,
-``adas_tpu.utils``, ``adas_tpu.native``) is imported, not copied.
+(YOLOv8 + UFLDv2, calibrated int8, bf16 or f32), on ``cuda`` or ``cpu``.
+Three hand-written Hopper kernels carry it: the stems (``csrc/stem.cu``,
+``ops/stem.py``), the W8A8 convs (``csrc/int8_conv.cu``,
+``ops/int8_conv.py``) and the fused residual bodies (``csrc/block.cu``,
+``ops/block.py``); everything else is plain PyTorch.  The numpy-only host
+code (``adas_tpu.tracking``, ``adas_tpu.utils``, ``adas_tpu.native``) is
+imported, not copied.
 """
 
 __version__ = "0.1.0"

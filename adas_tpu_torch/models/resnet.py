@@ -6,6 +6,14 @@ Names follow the flax tree (``conv1``/``bn1``, ``layer{s}_{b}`` with
 The stem — conv1 7x7/2 + bn1 + relu + maxpool 3x3/2 — runs as ONE fused
 stem kernel (``resnet.py:346-360``), so its full-resolution activation
 never reaches device memory.
+
+``int8=True`` builds the calibrated int8 trunk: the stem stays bf16, every
+other conv is a W8A8 conv with its BN folded (``_conv_bn`` under
+``quantized("int8")``, ``resnet.py:23-58``) in the NHWC int8 domain, and
+the stride-1 same-width blocks that pass the fusion gate (``layer1``'s two
+at the served sizes) run as one fused block kernel (``ops/block.py``).
+The stage taps are NHWC bf16 then (a fused block's s8 output is
+dequantized).
 """
 from __future__ import annotations
 
@@ -15,40 +23,88 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BN_EPS, consume_stem
+from ..ops.block import fuse_gate, fused_block
+from .layers import BN_EPS, consume_stem, conv_epilogue, int8_conv_bn, make_conv
+from .quant import Int8State, QTensor, as_float, quantize_to
 
 
-def _conv_bn(cin: int, features: int, kernel: int, stride: int):
-    conv = nn.Conv2d(cin, features, kernel, stride, kernel // 2, bias=False)
-    return conv, nn.BatchNorm2d(features, eps=BN_EPS)
+def _conv_bn(cin: int, features: int, kernel: int, stride: int, int8: bool = False):
+    return make_conv(cin, features, kernel, stride, int8), nn.BatchNorm2d(features, eps=BN_EPS)
 
 
-class BasicBlock(nn.Module):
-    """conv3x3 -> conv3x3 + residual (``resnet.py:114``, non-int8 path)."""
+class BasicBlock(Int8State, nn.Module):
+    """conv3x3 -> conv3x3 + residual (``resnet.py:114``).  Under int8 a
+    stride-1 same-width block that passes the gate runs as one fused
+    block with an s8 output at ``out_ymax``'s scale (``BasicBlock._fused``,
+    ``resnet.py:194``); calibration records ``out_ymax`` on every stride-1
+    block."""
 
-    def __init__(self, cin: int, features: int, stride: int = 1):
+    def __init__(self, cin: int, features: int, stride: int = 1, int8: bool = False):
         super().__init__()
-        self.conv1, self.bn1 = _conv_bn(cin, features, 3, stride)
-        self.conv2, self.bn2 = _conv_bn(features, features, 3, 1)
+        self.conv1, self.bn1 = _conv_bn(cin, features, 3, stride, int8)
+        self.conv2, self.bn2 = _conv_bn(features, features, 3, 1, int8)
         self.has_down = stride != 1 or cin != features
         if self.has_down:
-            self.downsample_conv, self.downsample_bn = _conv_bn(cin, features, 1, stride)
+            self.downsample_conv, self.downsample_bn = _conv_bn(cin, features, 1, stride, int8)
+        self.stride = stride
+        self.int8 = int8
+        if int8:
+            self._init_int8_buffers("out_ymax")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        identity = self.downsample_bn(self.downsample_conv(x)) if self.has_down else x
-        return F.relu(y + identity)
+    def forward(self, x):
+        if not self.int8:
+            y = F.relu(self.bn1(self.conv1(x)))
+            y = self.bn2(self.conv2(y))
+            identity = self.downsample_bn(self.downsample_conv(x)) if self.has_down else x
+            return F.relu(y + identity)
+        if self._fusable(x):
+            return self._fused(x)
+        y = int8_conv_bn(self.conv1, self.bn1, x, act="relu", emit_q=True)
+        y = int8_conv_bn(self.conv2, self.bn2, y, act=None)
+        identity = x
+        if self.has_down:
+            identity = int8_conv_bn(self.downsample_conv, self.downsample_bn, x, act=None)
+        out = F.relu(y + as_float(identity))
+        if self.calibrating and self.stride == 1:
+            self.record_max("out_ymax", [out])
+        return out
+
+    def _fusable(self, x) -> bool:
+        if self.calibrating or self.stride != 1 or self.has_down or self.out_ymax is None:
+            return False
+        _, h, w, c = x.shape
+        return fuse_gate(h, w, c)
+
+    def _fused(self, x) -> QTensor:
+        xs = x.scale if isinstance(x, QTensor) else self.conv1.buffer_scale("xmax")
+        y1s = self.conv1.buffer_scale("ymax")
+        if xs is None or y1s is None:
+            raise ValueError(
+                "inconsistent calibration: out_ymax is present but conv1's xmax/ymax is "
+                "missing (recalibrate the model)"
+            )
+        if not isinstance(x, QTensor):
+            x = quantize_to(x, xs)
+        so = self.buffer_scale("out_ymax")
+        s1, b1 = conv_epilogue(self.conv1, self.bn1, xs)
+        s2, b2 = conv_epilogue(self.conv2, self.bn2, y1s)
+        out = fused_block(
+            x.data, xs, self.conv1.qweight()[0], s1, b1, y1s, self.conv2.qweight()[0], s2, b2,
+            so, act1="relu", act2=None, act_post="relu", residual=True,
+        )
+        return QTensor(out, so)
 
 
 _STAGES = {"18": (2, 2, 2, 2)}
 
 
 class ResNetFeatures(nn.Module):
-    """ResNet trunk (``resnet.py:333``) -> (stride-8, stride-16, stride-32)."""
+    """ResNet trunk (``resnet.py:333``) -> (stride-8, stride-16, stride-32):
+    NCHW, or NHWC bf16 under int8."""
 
-    def __init__(self, depth: str = "18"):
+    def __init__(self, depth: str = "18", int8: bool = False):
         super().__init__()
+        self.int8 = int8
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
         self.blocks = []
@@ -58,14 +114,20 @@ class ResNetFeatures(nn.Module):
             for block_idx in range(n_blocks):
                 stride = 2 if (stage_idx > 0 and block_idx == 0) else 1
                 name = f"layer{stage_idx + 1}_{block_idx}"
-                self.add_module(name, BasicBlock(cin, width, stride))
+                self.add_module(name, BasicBlock(cin, width, stride, int8=int8))
                 self.blocks.append((stage_idx, name))
                 cin = width
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        x = consume_stem(x, self.conv1, self.bn1, act="relu", pool=True)
+        if self.int8:
+            # the bf16 stem; its NCHW output enters the int8 domain as an
+            # NHWC view (the first quantize writes it NHWC)
+            x = consume_stem(x, self.conv1, self.bn1, act="relu", pool=True,
+                             dtype=torch.bfloat16).permute(0, 2, 3, 1)
+        else:
+            x = consume_stem(x, self.conv1, self.bn1, act="relu", pool=True)
         feats = [None] * 4
         for stage_idx, name in self.blocks:
             x = getattr(self, name)(x)
             feats[stage_idx] = x
-        return feats[1], feats[2], feats[3]
+        return tuple(as_float(f) for f in feats[1:])

@@ -1,6 +1,10 @@
 """Ultra-Fast-Lane-Detection v2 (port of ``UFLDv2Spec``, ``UFLDV2_SPECS``
 and ``UFLDv2Net`` from ``adas_tpu/models/ufld.py:32-221``; no aux
-segmentation head, no test-time augmentation)."""
+segmentation head, no test-time augmentation).
+
+``int8=True``: the int8 ResNet trunk (NHWC), the ``pool`` 1x1 conv in f32
+on its bf16 output, and ``cls_fc1``/``cls_fc2`` as W8A8 dense layers
+(``Int8Dense`` through ``head_dense``, ``ufld.py:179-202``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -13,6 +17,7 @@ from torch import nn
 
 from adas_tpu.utils.types import LaneModelType
 
+from .quant import QLinear
 from .resnet import ResNetFeatures
 
 
@@ -72,23 +77,31 @@ class UFLDv2Net(nn.Module):
     """ResNet trunk -> 1x1 conv to 8 channels -> flatten -> [LayerNorm] ->
     MLP -> loc_row/loc_col/exist_row/exist_col (``ufld.py:137``)."""
 
-    def __init__(self, spec: UFLDv2Spec):
+    def __init__(self, spec: UFLDv2Spec, int8: bool = False):
         super().__init__()
         self.spec = spec
-        self.backbone = ResNetFeatures(spec.backbone)
+        self.int8 = int8
+        self.backbone = ResNetFeatures(spec.backbone, int8=int8)
         self.pool = nn.Conv2d(512, 8, 1)
         if spec.fc_norm:
             # flax nn.LayerNorm's epsilon
             self.cls_norm = nn.LayerNorm(spec.flat_features, eps=1e-6)
-        self.cls_fc1 = nn.Linear(spec.flat_features, spec.mlp_mid)
-        self.cls_fc2 = nn.Linear(spec.mlp_mid, sum(spec.dims))
+        dense = QLinear if int8 else nn.Linear
+        self.cls_fc1 = dense(spec.flat_features, spec.mlp_mid)
+        self.cls_fc2 = dense(spec.mlp_mid, sum(spec.dims))
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         s = self.spec
         _, _, fea = self.backbone(x)
-        # NCHW flatten: the (c, h, w) element order the JAX net reaches by
-        # transposing its NHWC map (ufld.py:191-194)
-        fea = self.pool(fea).flatten(1)
+        if self.int8:
+            # NHWC bf16 trunk output -> f32 1x1 conv (flax promotes to its
+            # f32 params), then the NCHW element order of the flatten
+            w = self.pool.weight.reshape(self.pool.out_channels, -1)
+            fea = F.linear(fea.float(), w, self.pool.bias).permute(0, 3, 1, 2).flatten(1)
+        else:
+            # NCHW flatten: the (c, h, w) element order the JAX net reaches
+            # by transposing its NHWC map (ufld.py:191-194)
+            fea = self.pool(fea).flatten(1)
         if s.fc_norm:
             fea = self.cls_norm(fea)
         out = self.cls_fc2(F.relu(self.cls_fc1(fea)))

@@ -6,6 +6,14 @@ Module names follow the flax tree (``net.stem``, ``net.stage1.m0.cv1``,
 ``head.box0_0`` ...), so ``weights.py`` maps a flax variable tree onto
 these modules by path.  The 3x3/2 stem ConvBN runs through the fused stem
 kernel.
+
+``int8=True`` builds the calibrated int8 serving net (the v8 branch under
+``quantized("int8")``): every ConvBN but the stem is a W8A8 conv in the
+NHWC int8 domain (``quant.py``), activations chain as s8 through the
+epilogues and the 13 s8 concat groups (one per C2f/SPPF, two unified neck
+groups A/B), the stage-1 bottlenecks that pass the fusion gate run
+through the fused block kernel (``ops/block.py``), and the head's 1x1
+predictors run in f32.
 """
 from __future__ import annotations
 
@@ -16,7 +24,18 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from .layers import ConvBN, max_pool, resize_nearest_2x
+from ..ops.block import fuse_gate, fused_block
+from .layers import ConvBN, conv_epilogue, max_pool, resize_nearest_2x
+from .quant import (
+    Int8State,
+    QTensor,
+    as_float,
+    channels,
+    max_pool_q,
+    qconcat,
+    quantize_to,
+    upsample2x_nhwc,
+)
 
 # depth_multiple, width_multiple, max_channels (ultralytics model cards)
 _V8_SCALES = {
@@ -59,81 +78,167 @@ class YoloSpec:
 
 
 class Bottleneck(nn.Module):
-    """3x3 -> 3x3 with optional shortcut (``yolo.py:98``)."""
+    """3x3 -> 3x3 with optional shortcut (``yolo.py:98``).  Under int8, a
+    body whose output belongs to a concat group (``emit_scale``) runs both
+    convs, the shortcut and the group requantize as one fused block when
+    :func:`fuse_gate` passes (``Bottleneck._fused``, ``yolo.py:151``)."""
 
-    def __init__(self, cin: int, features: int, shortcut: bool = True):
+    def __init__(self, cin: int, features: int, shortcut: bool = True, int8: bool = False):
         super().__init__()
-        self.cv1 = ConvBN(cin, features, 3)
-        self.cv2 = ConvBN(features, features, 3)
+        self.cv1 = ConvBN(cin, features, 3, int8=int8)
+        self.cv2 = ConvBN(features, features, 3, int8=int8)
         self.use_shortcut = shortcut and cin == features
+        self.int8 = int8
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.cv2(self.cv1(x))
-        return x + y if self.use_shortcut else y
+    def forward(self, x, emit_scale=None):
+        if not self.int8:
+            y = self.cv2(self.cv1(x))
+            return x + y if self.use_shortcut else y
+        if self._fusable(x, emit_scale):
+            return self._fused(x, emit_scale)
+        y = self.cv1(x, emit_q=True)
+        if emit_scale is not None and not self.use_shortcut:
+            # the group quantize rides cv2's epilogue
+            return self.cv2(y, emit_scale=emit_scale)
+        y = self.cv2(y)
+        if self.use_shortcut:
+            y = as_float(x) + y
+        if emit_scale is not None:
+            y = quantize_to(y, emit_scale)
+        return y
+
+    def _fusable(self, x, emit_scale) -> bool:
+        """Decided before anything runs: calibrated serving (a group scale
+        and a QTensor input), a 3x3 body of one width, and the gate."""
+        if self.cv1.conv.calibrating or emit_scale is None or not isinstance(x, QTensor):
+            return False
+        _, h, w, c = x.shape
+        return self.cv1.conv.out_channels == c and fuse_gate(h, w, c)
+
+    def _fused(self, x: QTensor, emit_scale: torch.Tensor) -> QTensor:
+        c1, c2 = self.cv1.conv, self.cv2.conv
+        y1s = c1.buffer_scale("ymax")
+        if y1s is None:
+            raise ValueError(
+                "inconsistent calibration: a concat group scale is present but cv1's ymax "
+                "is missing (recalibrate the model)"
+            )
+        s1, b1 = conv_epilogue(c1, self.cv1.bn, x.scale)
+        s2, b2 = conv_epilogue(c2, self.cv2.bn, y1s)
+        out = fused_block(
+            x.data, x.scale, c1.qweight()[0], s1, b1, y1s, c2.qweight()[0], s2, b2,
+            emit_scale, act1="silu", act2="silu", act_post=None, residual=self.use_shortcut,
+        )
+        return QTensor(out, emit_scale)
 
 
-class C2f(nn.Module):
-    """Split + cascaded bottlenecks, concat all (``yolo.py:275``)."""
+class C2f(Int8State, nn.Module):
+    """Split + cascaded bottlenecks, concat all (``yolo.py:275``).  Under
+    int8 the parts form one s8 concat group at ``concat_xmax``'s scale:
+    cv1 emits at it, the split halves are s8 channel views, each
+    bottleneck exit emits at it, and cv2 reads the s8 concat."""
 
-    def __init__(self, cin: int, features: int, n: int = 1, shortcut: bool = False):
+    def __init__(self, cin: int, features: int, n: int = 1, shortcut: bool = False,
+                 int8: bool = False):
         super().__init__()
         self.hidden = features // 2
-        self.cv1 = ConvBN(cin, 2 * self.hidden, 1)
+        self.cv1 = ConvBN(cin, 2 * self.hidden, 1, int8=int8)
         self.n = n
         for i in range(n):
-            self.add_module(f"m{i}", Bottleneck(self.hidden, self.hidden, shortcut))
-        self.cv2 = ConvBN((2 + n) * self.hidden, features, 1)
+            self.add_module(f"m{i}", Bottleneck(self.hidden, self.hidden, shortcut, int8=int8))
+        self.cv2 = ConvBN((2 + n) * self.hidden, features, 1, int8=int8)
+        self.int8 = int8
+        if int8:
+            self._init_int8_buffers("concat_xmax")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.cv1(x)
-        parts = [y[:, : self.hidden], y[:, self.hidden:]]
+    def forward(self, x, emit_q: bool = False, emit_scale=None):
+        if not self.int8:
+            y = self.cv1(x)
+            parts = [y[:, : self.hidden], y[:, self.hidden:]]
+            for i in range(self.n):
+                parts.append(getattr(self, f"m{i}")(parts[-1]))
+            return self.cv2(torch.cat(parts, dim=1))
+        gscale = None if self.calibrating else self.buffer_scale("concat_xmax")
+        y = self.cv1(x, emit_scale=gscale)
+        parts = [channels(y, 0, self.hidden), channels(y, self.hidden, 2 * self.hidden)]
         for i in range(self.n):
-            parts.append(getattr(self, f"m{i}")(parts[-1]))
-        return self.cv2(torch.cat(parts, dim=1))
+            parts.append(getattr(self, f"m{i}")(parts[-1], emit_scale=gscale))
+        cat = qconcat(parts)
+        if self.calibrating:
+            self.record_max("concat_xmax", [cat])
+        return self.cv2(cat, emit_q=emit_q, emit_scale=emit_scale)
 
 
-class SPPF(nn.Module):
+class SPPF(Int8State, nn.Module):
     """Spatial pyramid pooling (fast): 3 cascaded 5x5 max pools
-    (``yolo.py:328``)."""
+    (``yolo.py:328``).  Under int8 the pools run on s8 data and the four
+    members form one concat group."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, int8: bool = False):
         super().__init__()
         hidden = cin // 2
-        self.cv1 = ConvBN(cin, hidden, 1)
-        self.cv2 = ConvBN(4 * hidden, features, 1)
+        self.cv1 = ConvBN(cin, hidden, 1, int8=int8)
+        self.cv2 = ConvBN(4 * hidden, features, 1, int8=int8)
+        self.int8 = int8
+        if int8:
+            self._init_int8_buffers("concat_xmax")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.cv1(x)
-        p1 = max_pool(y, 5, 1, pad=2)
-        p2 = max_pool(p1, 5, 1, pad=2)
-        p3 = max_pool(p2, 5, 1, pad=2)
-        return self.cv2(torch.cat([y, p1, p2, p3], dim=1))
+    def forward(self, x, emit_q: bool = False, emit_scale=None):
+        if not self.int8:
+            y = self.cv1(x)
+            p1 = max_pool(y, 5, 1, pad=2)
+            p2 = max_pool(p1, 5, 1, pad=2)
+            p3 = max_pool(p2, 5, 1, pad=2)
+            return self.cv2(torch.cat([y, p1, p2, p3], dim=1))
+        gscale = None if self.calibrating else self.buffer_scale("concat_xmax")
+        y = self.cv1(x, emit_scale=gscale)
+        pool = max_pool_q if isinstance(y, QTensor) else _max_pool_nhwc
+        p1 = pool(y, 5, 1, 2)
+        p2 = pool(p1, 5, 1, 2)
+        p3 = pool(p2, 5, 1, 2)
+        cat = qconcat([y, p1, p2, p3])
+        if self.calibrating:
+            self.record_max("concat_xmax", [cat])
+        return self.cv2(cat, emit_q=emit_q, emit_scale=emit_scale)
 
 
-class YoloBackboneNeck(nn.Module):
-    """CSP backbone + PAN neck (``yolo.py:513``, v8 without s8 groups)."""
+def _max_pool_nhwc(x: torch.Tensor, window: int, stride: int, pad: int) -> torch.Tensor:
+    return max_pool(x.permute(0, 3, 1, 2), window, stride, pad).permute(0, 2, 3, 1)
 
-    def __init__(self, spec: YoloSpec):
+
+class YoloBackboneNeck(Int8State, nn.Module):
+    """CSP backbone + PAN neck (``yolo.py:513``, the v8 branch).  Under
+    int8 the four PAN concats pair into two unified s8 groups sharing
+    producers: A = {fpn4, pan5} concats at ``neck_a_xmax``, B = {fpn3,
+    pan4} at ``neck_b_xmax``."""
+
+    def __init__(self, spec: YoloSpec, int8: bool = False):
         super().__init__()
         ch, d = spec.channels, spec.depths
-        self.stem = ConvBN(3, ch[0], 3, 2, stem=True)
-        self.down1 = ConvBN(ch[0], ch[1], 3, 2)
-        self.stage1 = C2f(ch[1], ch[1], d[0], True)
-        self.down2 = ConvBN(ch[1], ch[2], 3, 2)
-        self.stage2 = C2f(ch[2], ch[2], d[1], True)
-        self.down3 = ConvBN(ch[2], ch[3], 3, 2)
-        self.stage3 = C2f(ch[3], ch[3], d[2], True)
-        self.down4 = ConvBN(ch[3], ch[4], 3, 2)
-        self.stage4 = C2f(ch[4], ch[4], d[3], True)
-        self.sppf = SPPF(ch[4], ch[4])
-        self.fpn4 = C2f(ch[4] + ch[3], ch[3], d[0], False)
-        self.fpn3 = C2f(ch[3] + ch[2], ch[2], d[0], False)
-        self.pan3 = ConvBN(ch[2], ch[2], 3, 2)
-        self.pan4 = C2f(ch[2] + ch[3], ch[3], d[0], False)
-        self.pan5_down = ConvBN(ch[3], ch[3], 3, 2)
-        self.pan5 = C2f(ch[3] + ch[4], ch[4], d[0], False)
+        q = dict(int8=int8)
+        self.stem = ConvBN(3, ch[0], 3, 2, stem=True, **q)
+        self.down1 = ConvBN(ch[0], ch[1], 3, 2, **q)
+        self.stage1 = C2f(ch[1], ch[1], d[0], True, **q)
+        self.down2 = ConvBN(ch[1], ch[2], 3, 2, **q)
+        self.stage2 = C2f(ch[2], ch[2], d[1], True, **q)
+        self.down3 = ConvBN(ch[2], ch[3], 3, 2, **q)
+        self.stage3 = C2f(ch[3], ch[3], d[2], True, **q)
+        self.down4 = ConvBN(ch[3], ch[4], 3, 2, **q)
+        self.stage4 = C2f(ch[4], ch[4], d[3], True, **q)
+        self.sppf = SPPF(ch[4], ch[4], **q)
+        self.fpn4 = C2f(ch[4] + ch[3], ch[3], d[0], False, **q)
+        self.fpn3 = C2f(ch[3] + ch[2], ch[2], d[0], False, **q)
+        self.pan3 = ConvBN(ch[2], ch[2], 3, 2, **q)
+        self.pan4 = C2f(ch[2] + ch[3], ch[3], d[0], False, **q)
+        self.pan5_down = ConvBN(ch[3], ch[3], 3, 2, **q)
+        self.pan5 = C2f(ch[3] + ch[4], ch[4], d[0], False, **q)
+        self.int8 = int8
+        if int8:
+            self._init_int8_buffers("neck_a_xmax", "neck_b_xmax")
 
     def forward(self, x: torch.Tensor):
+        if self.int8:
+            return self._forward_int8(x)
         x = self.stage1(self.down1(self.stem(x)))
         p3 = self.stage2(self.down2(x))
         p4 = self.stage3(self.down3(p3))
@@ -142,6 +247,36 @@ class YoloBackboneNeck(nn.Module):
         n3 = self.fpn3(torch.cat([resize_nearest_2x(t1), p3], dim=1))
         n4 = self.pan4(torch.cat([self.pan3(n3), t1], dim=1))
         n5 = self.pan5(torch.cat([self.pan5_down(n4), p5], dim=1))
+        return n3, n4, n5
+
+    def _forward_int8(self, x: torch.Tensor):
+        """``yolo.py:548-691`` (v8): NCHW input -> NHWC (n3, n4, n5), s8
+        QTensors when calibrated.  The bf16 stem output enters the int8
+        domain as an NHWC view; down1's input quantize writes it NHWC."""
+        cal = self.calibrating
+        ga = None if cal else self.buffer_scale("neck_a_xmax")
+        gb = None if cal else self.buffer_scale("neck_b_xmax")
+        x = self.stem(x).permute(0, 2, 3, 1)
+        x = self.down1(x, emit_q=True)
+        x = self.stage1(x, emit_q=True)
+        x = self.down2(x, emit_q=True)
+        p3 = self.stage2(x, emit_scale=gb)
+        x = self.down3(p3, emit_q=True)
+        p4 = self.stage3(x, emit_scale=ga)
+        x = self.down4(p4, emit_q=True)
+        x = self.stage4(x, emit_q=True)
+        p5 = self.sppf(x, emit_scale=ga)
+        cat_a1 = qconcat([upsample2x_nhwc(p5), p4])
+        t1 = self.fpn4(cat_a1, emit_scale=gb)
+        cat_b1 = qconcat([upsample2x_nhwc(t1), p3])
+        n3 = self.fpn3(cat_b1, emit_q=True)
+        cat_b2 = qconcat([self.pan3(n3, emit_scale=gb), t1])
+        n4 = self.pan4(cat_b2, emit_q=True)
+        cat_a2 = qconcat([self.pan5_down(n4, emit_scale=ga), p5])
+        n5 = self.pan5(cat_a2, emit_q=True)
+        if cal:
+            self.record_max("neck_a_xmax", [cat_a1, cat_a2])
+            self.record_max("neck_b_xmax", [cat_b1, cat_b2])
         return n3, n4, n5
 
 
@@ -171,27 +306,44 @@ def _dfl_decode(box_logits: torch.Tensor, reg_max: int) -> torch.Tensor:
     return torch.sum(probs * bins.view(1, 1, -1, 1), dim=2)
 
 
-class DetectHeadV8(nn.Module):
-    """Anchor-free decoupled head with DFL (``yolo.py:721``)."""
+def _predict_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A 1x1 predictor on an NHWC bf16 activation in f32 (flax promotes
+    the bf16 input to its f32 params) -> (B, H*W, out)."""
+    w = conv.weight.float().reshape(conv.out_channels, -1)
+    y = torch.nn.functional.linear(x.float(), w, conv.bias.float())
+    return y.reshape(y.shape[0], -1, y.shape[-1])
 
-    def __init__(self, spec: YoloSpec):
+
+class DetectHeadV8(nn.Module):
+    """Anchor-free decoupled head with DFL (``yolo.py:721``).  Under int8
+    the 3x3 convs are W8A8 (``box*_0``/``cls*_0`` emit s8 to their
+    successor) and the 1x1 predictors run in f32 on NHWC features."""
+
+    def __init__(self, spec: YoloSpec, int8: bool = False):
         super().__init__()
         self.spec = spec
+        self.int8 = int8
         ch, nc = spec.channels, spec.num_classes
         c2 = max(16, ch[2] // 4, spec.reg_max * 4)
         c3 = max(ch[2], min(nc, 100))
         for li, cin in enumerate((ch[2], ch[3], ch[4])):
-            self.add_module(f"box{li}_0", ConvBN(cin, c2, 3))
-            self.add_module(f"box{li}_1", ConvBN(c2, c2, 3))
+            self.add_module(f"box{li}_0", ConvBN(cin, c2, 3, int8=int8))
+            self.add_module(f"box{li}_1", ConvBN(c2, c2, 3, int8=int8))
             self.add_module(f"box{li}_2", nn.Conv2d(c2, 4 * spec.reg_max, 1))
-            self.add_module(f"cls{li}_0", ConvBN(cin, c3, 3))
-            self.add_module(f"cls{li}_1", ConvBN(c3, c3, 3))
+            self.add_module(f"cls{li}_0", ConvBN(cin, c3, 3, int8=int8))
+            self.add_module(f"cls{li}_1", ConvBN(c3, c3, 3, int8=int8))
             self.add_module(f"cls{li}_2", nn.Conv2d(c3, nc, 1))
 
     def forward(self, feats) -> torch.Tensor:
         s = self.spec
         boxes, clss = [], []
         for li, f in enumerate(feats):
+            if self.int8:
+                box = getattr(self, f"box{li}_1")(getattr(self, f"box{li}_0")(f, emit_q=True))
+                cls = getattr(self, f"cls{li}_1")(getattr(self, f"cls{li}_0")(f, emit_q=True))
+                boxes.append(_predict_f32(getattr(self, f"box{li}_2"), box).transpose(1, 2))
+                clss.append(_predict_f32(getattr(self, f"cls{li}_2"), cls).transpose(1, 2))
+                continue
             box, cls = f, f
             for j in range(3):
                 box = getattr(self, f"box{li}_{j}")(box)
@@ -209,13 +361,14 @@ class DetectHeadV8(nn.Module):
 
 
 class YoloV8(nn.Module):
-    """YOLOv8-contract detector: output (B, 4+nc, N) (``yolo.py:788``)."""
+    """YOLOv8-contract detector: output (B, 4+nc, N) (``yolo.py:788``);
+    NCHW input in every precision."""
 
-    def __init__(self, spec: YoloSpec):
+    def __init__(self, spec: YoloSpec, int8: bool = False):
         super().__init__()
         self.spec = spec
-        self.net = YoloBackboneNeck(spec)
-        self.head = DetectHeadV8(spec)
+        self.net = YoloBackboneNeck(spec, int8=int8)
+        self.head = DetectHeadV8(spec, int8=int8)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.net(x))

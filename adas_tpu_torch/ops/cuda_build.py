@@ -3,7 +3,8 @@
 Compiles ``csrc/<name>.cu`` with ``nvcc`` for ``sm_90a`` into
 ``_build/lib<name>.so`` (a shared library with a plain C interface) the
 first time a kernel is launched, or when the source is newer than the
-binary, then loads it with ctypes.  Same scheme as
+binary, then loads it with ctypes; :func:`build_cuda_libraries` builds
+several at once (one ``nvcc`` per source, started together).  Same scheme as
 ``adas_tpu/native/build.py``; nothing is built when a module is imported,
 so the CPU tests import every module on a machine with no ``nvcc``.
 
@@ -46,31 +47,55 @@ def _nvcc() -> str:
     return found
 
 
+def _paths(name: str):
+    src = os.path.join(SRC_DIR, f"{name}.cu")
+    if not os.path.isfile(src):
+        raise FileNotFoundError(src)
+    return src, os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    src, out = _paths(name)
+    return not os.path.isfile(out) or os.path.getmtime(out) < os.path.getmtime(src)
+
+
+def build_cuda_libraries(names) -> None:
+    """Build every stale ``csrc/<name>.cu`` of ``names``, one ``nvcc`` per
+    source, all started together; raises if any build fails."""
+    with _LOCK:
+        todo = [n for n in names if _stale(n)]
+        if not todo:
+            return
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs = []
+        for name in todo:
+            src, out = _paths(name)
+            tmp = out + f".{os.getpid()}.tmp"
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, src, "-o", tmp],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            procs.append((name, src, out, tmp, proc))
+        failed = []
+        for name, src, out, tmp, proc in procs:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed to build {src} (exit {proc.returncode}):\n{log}")
+                continue
+            with open(os.path.join(BUILD_DIR, f"lib{name}.ptxas.txt"), "w") as f:
+                f.write(log)
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
 def load_cuda_library(name: str) -> ctypes.CDLL:
     """Build (if stale) and load ``_build/lib<name>.so`` from
     ``csrc/<name>.cu``."""
+    if name in _CACHE:
+        return _CACHE[name]
+    build_cuda_libraries([name])
     with _LOCK:
-        if name in _CACHE:
-            return _CACHE[name]
-        src = os.path.join(SRC_DIR, f"{name}.cu")
-        out = os.path.join(BUILD_DIR, f"lib{name}.so")
-        if not os.path.isfile(src):
-            raise FileNotFoundError(src)
-        if not os.path.isfile(out) or os.path.getmtime(out) < os.path.getmtime(src):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = out + f".{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, src, "-o", tmp],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {src} (exit {proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            with open(os.path.join(BUILD_DIR, f"lib{name}.ptxas.txt"), "w") as f:
-                f.write(proc.stdout + proc.stderr)
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(out)
-        _CACHE[name] = lib
-        return lib
+        if name not in _CACHE:
+            _CACHE[name] = ctypes.CDLL(_paths(name)[1])
+        return _CACHE[name]

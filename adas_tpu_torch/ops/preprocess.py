@@ -1,6 +1,7 @@
 """Serving-path preprocessing: letterbox geometry, the numpy I420 encoder,
 and the YUV-direct resize that turns an I420 batch into each net's NCHW
-input.
+input; and the BGR preprocess the int8 calibration runs on
+(:func:`yolo_preprocess`, :func:`ufld_v2_preprocess`).
 
 Port of the I420 branch of ``adas_tpu/ops/preprocess.py``.  Resize is two
 matmuls with precomputed bilinear interpolation matrices
@@ -257,3 +258,51 @@ def ufld_v2_preprocess_yuv(
     _check_yuv(yuv, src_h, src_w)
     mats = _ufld_mats(src_h, src_w, input_h, input_w, float(crop_ratio), str(yuv.device))
     return _resize_yuv(yuv, src_h, src_w, mats, dtype)
+
+
+def resize_bilinear(img: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tensor:
+    """Exact bilinear resize of a (..., H, W, C) f32 image as two matmuls
+    (``preprocess.py:117``)."""
+    src_h, src_w = img.shape[-3], img.shape[-2]
+    ah = torch.as_tensor(_interp_matrix(src_h, dst_h), device=img.device)
+    aw = torch.as_tensor(_interp_matrix(src_w, dst_w), device=img.device)
+    out = torch.einsum("hs,...swc->...hwc", ah, img)
+    return torch.einsum("wt,...htc->...hwc", aw, out)
+
+
+def letterbox(frame: torch.Tensor, geom: LetterboxGeometry, pad_value: float = PAD_VALUE):
+    """Resize keeping aspect, centre-pad to the target (``preprocess.py:143``):
+    (..., H, W, 3) -> (..., dst_h, dst_w, 3) f32 in [0, 255]."""
+    newh, neww = geom.new_shape
+    padh, padw = geom.pad
+    img = resize_bilinear(frame.float(), newh, neww)
+    pads = (0, 0, padw, geom.dst_w - neww - padw, padh, geom.dst_h - newh - padh)
+    return torch.nn.functional.pad(img, pads, value=pad_value)
+
+
+def _bgr_frames(frame_bgr) -> torch.Tensor:
+    """One (H, W, 3) or a batch (B, H, W, 3) of uint8 BGR frames as a
+    batched tensor."""
+    t = torch.as_tensor(frame_bgr)
+    return t[None] if t.dim() == 3 else t
+
+
+def yolo_preprocess(frame_bgr, geom: LetterboxGeometry, dtype=torch.float32, device="cpu"):
+    """BGR uint8 frame(s) -> letterboxed RGB in [0, 1], NCHW
+    (``preprocess.py:162``; the JAX one is NHWC)."""
+    canvas = letterbox(_bgr_frames(frame_bgr).to(device), geom)
+    rgb = canvas.flip(-1)
+    return (rgb * (1.0 / 255.0)).to(dtype).permute(0, 3, 1, 2).contiguous()
+
+
+def ufld_v2_preprocess(frame_bgr, input_h: int, input_w: int, crop_ratio: float,
+                       dtype=torch.float32, device="cpu"):
+    """BGR uint8 frame(s) -> UFLDv2 input: resize to (input_w,
+    input_h/crop_ratio), keep the bottom ``input_h`` rows,
+    ImageNet-normalize; NCHW (``preprocess.py:201``)."""
+    resize_h = int(input_h / crop_ratio)
+    img = resize_bilinear(_bgr_frames(frame_bgr).to(device).float(), resize_h, input_w)
+    rgb = img[..., resize_h - input_h:, :, :].flip(-1)
+    mean = torch.tensor(IMAGENET_MEAN, device=rgb.device) * 255.0
+    std = torch.tensor(IMAGENET_STD, device=rgb.device) * 255.0
+    return ((rgb - mean) / std).to(dtype).permute(0, 3, 1, 2).contiguous()

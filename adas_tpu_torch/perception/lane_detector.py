@@ -1,9 +1,11 @@
 """UFLDv2 lane detector facade (port of ``UltrafastLaneDetectorV2``,
 ``adas_tpu/perception/lane_detector.py:100``, CULane variant).
 
-Same weight and dtype handling as ``object_detector.YoloDetector``.  The
-multi-stream pipeline drives ``net`` directly and assembles each stream's
-lane points on the host with :meth:`_assemble` / :meth:`_finalize`.
+Same weight and dtype handling as ``object_detector.YoloDetector``
+(``compute_dtype="int8"`` is the JAX facade's ``dtype="int8"``,
+``lane_detector.py:146-160``).  The multi-stream pipeline drives ``net``
+directly and assembles each stream's lane points on the host with
+:meth:`_assemble` / :meth:`_finalize`.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import numpy as np
 from adas_tpu.utils.types import LaneInfo, LaneModelType
 
 from ..models.ufld import UFLDV2_SPECS, UFLDv2Net
-from .object_detector import build_net, compute_torch_dtype, resolve_device
+from ..ops.preprocess import ufld_v2_preprocess
+from .object_detector import build_net, calibrate, resolve_device
 
 
 class UltrafastLaneDetectorV2:
@@ -35,11 +38,23 @@ class UltrafastLaneDetectorV2:
         self.device = resolve_device(device)
         self.spec = UFLDV2_SPECS[model_type]
         self.net = build_net(
-            lambda: UFLDv2Net(self.spec), self.device,
-            compute_torch_dtype(compute_dtype), model_path, seed,
+            lambda: UFLDv2Net(self.spec, int8=compute_dtype == "int8"), self.device,
+            compute_dtype, model_path, seed,
         )
         self.adjust_lanes = False
         self.lane_info = LaneInfo()
+
+    def calibrate_int8(self, frames) -> None:
+        """Static activation scales from sample BGR frames
+        (``lane_detector.py:189``), preprocessed by
+        :func:`ufld_v2_preprocess` in f32 (the JAX int8 net's dtype)."""
+        if self.compute_dtype != "int8":
+            raise ValueError("calibrate_int8 requires compute_dtype='int8'")
+        s = self.spec
+        calibrate(self.net, (
+            ufld_v2_preprocess(f, s.input_height, s.input_width, s.crop_ratio, device=self.device)
+            for f in frames
+        ))
 
     def _assemble(self, decoded: dict, img_w: int, img_h: int) -> None:
         """Host-side point-list assembly for one frame (``decoded`` leaves

@@ -4,10 +4,13 @@
 Builds the torch net on an explicit device: weights come from a
 ``params_io`` ``.npz`` (the JAX package's portable checkpoint) or, with no
 ``model_path``, from the port's seeded flax-style init.  ``compute_dtype``
-is None (f32) or ``"bf16"``; in bf16 every floating leaf is cast, as
-``adas_tpu/tools/quantize.py:32-44`` does.  The multi-stream pipeline
-drives ``net`` directly and turns its detections into ``RectInfo`` rows
-through :meth:`YoloDetector._dets_to_rectinfo`.
+is None (f32), ``"bf16"`` (every floating leaf cast, as
+``adas_tpu/tools/quantize.py:32-44`` does) or ``"int8"``: the int8 net,
+f32 params, its int8 kernels packed at load (``_pack_int8``,
+``object_detector.py:291``) and static activation scales from
+:meth:`YoloDetector.calibrate_int8` (``object_detector.py:338``).  The
+multi-stream pipeline drives ``net`` directly and turns its detections
+into ``RectInfo`` rows through :meth:`YoloDetector._dets_to_rectinfo`.
 """
 from __future__ import annotations
 
@@ -21,12 +24,15 @@ import torch
 import adas_tpu
 from adas_tpu.utils.types import ObjectModelType, RectInfo, hex_to_rgb
 
+from ..models.quant import calibrating, pack_int8_weights
 from ..models.yolo import YoloSpec, YoloV8
+from ..ops.preprocess import LetterboxGeometry, yolo_preprocess
 from ..weights import init_params, load_flax_variables, load_npz
 
 DEFAULT_CLASSES = os.path.join(os.path.dirname(adas_tpu.__file__), "data", "coco_label.txt")
 
-_COMPUTE_DTYPES = {None: torch.float32, "bf16": torch.bfloat16}
+#: the params' dtype per compute dtype (an int8 net keeps f32 params)
+_COMPUTE_DTYPES = {None: torch.float32, "bf16": torch.bfloat16, "int8": torch.float32}
 
 
 def resolve_device(device) -> torch.device:
@@ -41,14 +47,23 @@ def resolve_device(device) -> torch.device:
 
 
 def compute_torch_dtype(compute_dtype: Optional[str]) -> torch.dtype:
+    """The params' dtype for ``compute_dtype`` (None, "bf16" or "int8")."""
     if compute_dtype not in _COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype must be None (f32) or 'bf16', got {compute_dtype!r}")
+        raise ValueError(f"compute_dtype must be None (f32), 'bf16' or 'int8', got {compute_dtype!r}")
     return _COMPUTE_DTYPES[compute_dtype]
 
 
-def build_net(make, device: torch.device, dtype: torch.dtype, model_path, seed: int):
+def input_torch_dtype(compute_dtype: Optional[str]) -> torch.dtype:
+    """The net input's dtype on the serving path: bf16 under int8 too (the
+    stem is bf16 by the precision policy, ``multistream.py:190-205``)."""
+    return torch.float32 if compute_dtype is None else torch.bfloat16
+
+
+def build_net(make, device: torch.device, compute_dtype: Optional[str], model_path, seed: int):
     """Construct ``make()`` on ``device``, fill it from ``model_path``
-    (flax ``.npz``) or the seeded init, cast to ``dtype``, freeze."""
+    (flax ``.npz``, possibly calibrated and packed) or the seeded init,
+    cast to the params' dtype, pack the int8 kernels of an int8 net,
+    freeze."""
     with device:
         net = make()
     if model_path is None:
@@ -57,7 +72,21 @@ def build_net(make, device: torch.device, dtype: torch.dtype, model_path, seed: 
         load_flax_variables(net, load_npz(model_path))
     else:
         raise ValueError(f"unsupported weights {model_path} (expect a params_io .npz or None)")
-    return net.to(dtype).eval().requires_grad_(False)
+    net = net.to(compute_torch_dtype(compute_dtype)).eval().requires_grad_(False)
+    if compute_dtype == "int8":
+        pack_int8_weights(net)
+    return net
+
+
+@torch.inference_mode()
+def calibrate(net, inputs) -> None:
+    """Static activation scales for an int8 net (``calibrate_act_scales``,
+    ``tools/quantize.py:189``): each input (one frame each, as JAX runs
+    them) goes through the net in calibration mode; the recorded absmaxes
+    are the union max over all of them."""
+    with calibrating(net):
+        for x in inputs:
+            net(x)
 
 
 class YoloDetector:
@@ -90,9 +119,21 @@ class YoloDetector:
             scale=scale, num_classes=len(self.class_names), input_size=tuple(input_size)
         )
         self.net = build_net(
-            lambda: YoloV8(self.spec), self.device,
-            compute_torch_dtype(compute_dtype), model_path, seed,
+            lambda: YoloV8(self.spec, int8=compute_dtype == "int8"), self.device,
+            compute_dtype, model_path, seed,
         )
+
+    def calibrate_int8(self, frames) -> None:
+        """Static activation scales from sample BGR frames
+        (``object_detector.py:338``): each frame letterboxed through
+        :func:`yolo_preprocess` in f32, as the JAX facade does."""
+        if self.compute_dtype != "int8":
+            raise ValueError("calibrate_int8 requires compute_dtype='int8'")
+        h, w = self.spec.input_size
+        calibrate(self.net, (
+            yolo_preprocess(f, LetterboxGeometry(f.shape[0], f.shape[1], h, w), device=self.device)
+            for f in frames
+        ))
 
     def _initialize_class(self, classes_path: Optional[str]) -> None:
         classes_path = os.path.expanduser(classes_path or DEFAULT_CLASSES)

@@ -8,8 +8,11 @@ letterbox inverse and UFLDv2 + lane decode for all streams at once (the
 JAX step's ``vmap`` over streams is the batch dimension here) and packs
 the results into one tensor; the host fetches it in one copy and runs
 ByteTrack, distance and TaskConditions per stream.  All cross-frame state
-is host-side per stream.  Not ported: the bgr transport, the tunnel's
-``host_downscale`` ladder, the compute probe and the step artifacts.
+is host-side per stream.  Under int8 (both facades with
+``compute_dtype="int8"``, calibrated) both nets take bf16 input from the
+YUV-direct preprocess (``multistream.py:190-205``).  Not ported: the bgr
+transport, the tunnel's ``host_downscale`` ladder, the compute probe and
+the step artifacts.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from ..ops.preprocess import (
 )
 from ..ops.ufld_decode import ufld_v2_decode
 from ..ops.yolo_decode import decode_predictions, detections_to_original, select_and_nms
-from ..perception.object_detector import compute_torch_dtype
+from ..perception.object_detector import input_torch_dtype
 
 
 class StreamState:
@@ -87,7 +90,7 @@ class MultiStreamADAS:
         yolo, lane = self.yolo, self.lane
         h, w = self.frame_hw
         lspec = lane.spec
-        xy = yolo_preprocess_yuv(x, h, w, self.geom, dtype=compute_torch_dtype(yolo.compute_dtype))
+        xy = yolo_preprocess_yuv(x, h, w, self.geom, dtype=input_torch_dtype(yolo.compute_dtype))
         raw = yolo.net(xy).float()
         boxes, scores, ids = decode_predictions(raw)
         dets = select_and_nms(
@@ -97,7 +100,7 @@ class MultiStreamADAS:
         dets = detections_to_original(dets, self.geom)
         lx = ufld_v2_preprocess_yuv(
             x, h, w, lspec.input_height, lspec.input_width, lspec.crop_ratio,
-            dtype=compute_torch_dtype(lane.compute_dtype),
+            dtype=input_torch_dtype(lane.compute_dtype),
         )
         louts = {k: v.float() for k, v in lane.net(lx).items()}
         flat, self._pack_spec = pack((dets, ufld_v2_decode(louts)))

@@ -10,7 +10,14 @@ so the mapping is by path plus a layout change per leaf:
 * conv ``kernel`` HWIO -> ``weight`` OIHW; Dense ``kernel`` (in, out) ->
   Linear ``weight`` (out, in); ``bias`` -> ``bias``;
 * BatchNorm / LayerNorm ``scale`` -> ``weight``, ``bias`` -> ``bias``,
-  ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
+  ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
+* the int8 collections of a calibrated, packed tree: ``act_scales``
+  leaves (``xmax``, ``ymax``, ``concat_xmax``, ``neck_a_xmax``,
+  ``neck_b_xmax``, ``out_ymax``) and ``wscales`` ``wscale`` keep their
+  names as buffers of the module at their path; a packed s8 ``kernel``
+  (``tools/quantize.py:117``) becomes ``wq`` (HWIO -> OHWI, Dense (in,
+  out) -> (out, in)) and, dequantized with its ``wscale``, the f32
+  ``weight``.
 
 The seeded init mirrors flax's initializers, so random-weight nets behave
 as the JAX ones do (real detection counts on random frames): conv and
@@ -27,6 +34,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.quant import QUANT_BUFFERS, reset_int8_cache
+
 _SEP = "::"
 # std of a unit normal truncated to [-2, 2] (flax variance_scaling)
 _TRUNC_STD = 0.87962566103423978
@@ -38,48 +47,73 @@ _LEAF_NAMES = {
 }
 
 
+def _t(arr: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, order="C"))
+
+
 def state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat ``::``-keyed flax variables -> torch state dict (CPU, f32 or
-    the leaf's own dtype).  Collections other than ``params`` and
-    ``batch_stats`` (the int8 ``act_scales``/``wscales``) raise: this port
-    serves f32 and bf16 only."""
+    the leaf's own dtype).  A leaf with no counterpart raises."""
     out = {}
     for key, value in flat.items():
         coll, *path, leaf = key.split(_SEP)
         arr = np.asarray(value)
+        prefix = ".".join(path + [""])
         if (coll, leaf) == ("params", "kernel"):
-            if arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-            elif arr.ndim == 2:
-                arr = arr.T  # (in, out) -> (out, in)
-            else:
+            if arr.ndim not in (2, 4):
                 raise ValueError(f"{key}: unexpected kernel rank {arr.ndim}")
-            name = "weight"
+            if arr.dtype == np.int8:
+                wkey = _SEP.join(["wscales", *path, "wscale"])
+                if wkey not in flat:
+                    raise KeyError(f"{key}: a packed s8 kernel needs {wkey}")
+                wscale = np.asarray(flat[wkey], np.float32).reshape(-1)
+                out[prefix + "wq"] = _t(arr.transpose(3, 0, 1, 2) if arr.ndim == 4 else arr.T)
+                arr = arr.astype(np.float32) * wscale
+            out[prefix + "weight"] = _t(arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T)
         elif (coll, leaf) in _LEAF_NAMES:
-            name = _LEAF_NAMES[(coll, leaf)]
+            out[prefix + _LEAF_NAMES[(coll, leaf)]] = _t(arr)
+        elif coll in ("act_scales", "wscales") and leaf in QUANT_BUFFERS:
+            out[prefix + leaf] = _t(arr.astype(np.float32))
         else:
-            raise KeyError(f"{key}: no counterpart in the port (f32/bf16 trees only)")
-        out[".".join(path + [name])] = torch.from_numpy(np.array(arr, order="C"))
+            raise KeyError(f"{key}: no counterpart in the port")
     return out
+
+
+def _int8_slots(module: nn.Module) -> Dict[str, tuple]:
+    """Every int8 buffer slot of ``module`` (``quant.QUANT_BUFFERS``, set or
+    not) as {state-dict key: (owner module, buffer name)}."""
+    slots = {}
+    for prefix, m in module.named_modules():
+        for name in getattr(m, "_buffers", {}):
+            if name in QUANT_BUFFERS:
+                slots[f"{prefix}.{name}" if prefix else name] = (m, name)
+    return slots
 
 
 def load_flax_variables(module: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     """Load a flat flax variable dict into ``module`` (in place, keeping
     the module's device and dtype).  Every parameter and statistic must be
-    covered, with the same shape; a missing or extra key raises."""
+    covered, with the same shape; a missing or extra key raises.  The int8
+    buffers (packed kernels, weight and activation scales) are optional:
+    the tree's set them, and a slot the tree lacks is cleared."""
     sd = state_dict_from_flax(flat)
+    slots = _int8_slots(module)
     own = {
         k: v for k, v in module.state_dict().items()
-        if not k.endswith("num_batches_tracked")
+        if not k.endswith("num_batches_tracked") and k not in slots
     }
     missing = sorted(set(own) - set(sd))
-    extra = sorted(set(sd) - set(own))
+    extra = sorted(set(sd) - set(own) - set(slots))
     if missing or extra:
         raise KeyError(f"flax tree does not match the module: missing {missing[:8]}, extra {extra[:8]}")
     for k, v in sd.items():
-        if tuple(v.shape) != tuple(own[k].shape):
+        if k in own and tuple(v.shape) != tuple(own[k].shape):
             raise ValueError(f"{k}: flax shape {tuple(v.shape)} != module {tuple(own[k].shape)}")
-    module.load_state_dict(sd, strict=False)
+    module.load_state_dict({k: v for k, v in sd.items() if k in own}, strict=False)
+    device = next(module.parameters()).device
+    for key, (owner, name) in slots.items():
+        setattr(owner, name, None if key not in sd else sd[key].to(device))
+    reset_int8_cache(module)
 
 
 def load_npz(path: str) -> Dict[str, np.ndarray]:

@@ -8,28 +8,57 @@ the kernels are built for sm_90a):
 Phases, each of which raises (exit code 1) on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the stem kernel (``adas_tpu_torch/csrc/stem.cu``) from source;
-3. the kernel against its plain PyTorch version ``stem_reference`` at
-   both serving shapes — YOLOv8 3x3/2 + SiLU on 8x3x640x640 and ResNet
-   7x7/2 + ReLU + max pool on 8x3x320x1600 — in bf16 (atol = rtol = 1e-2)
-   and in f32 with TF32 off (atol 2e-4, rtol 1e-4), each side timed with
-   CUDA events;
-4. the full-width slice on a small input: the port's preprocess and both
-   nets (YOLOv8l, UFLDv2 with a ResNet-18 trunk) in f32 on the GPU against
-   the same on the CPU (the plain stem), rtol 1e-3 with an atol of 1e-3
-   of the output's largest magnitude;
-5. the main path: YOLOv8l-640 bf16 + UFLDv2-CULane bf16 with seeded
-   random weights, 8 streams of 720x1280 frames over I420 transport,
-   ``process_batch`` ticks and ``serve_pipelined`` ticks.  The stem launch
-   count is reset just before and must grow by exactly 2 per tick (one
-   YOLO stem, one ResNet stem); outputs must be finite and detections
-   non-empty.  Prints per-tick times and a per-stage breakdown.
+2. build the three kernels from source, one nvcc per source, all started
+   together (``csrc/stem.cu``, ``csrc/int8_conv.cu``, ``csrc/block.cu``),
+   and print their ptxas register and spill lines;
+3. each kernel against its plain PyTorch version, each side timed with
+   CUDA events:
+   * the stem at both serving shapes — YOLOv8 3x3/2 + SiLU on
+     8x3x640x640 and ResNet 7x7/2 + ReLU + max pool on 8x3x320x1600 — in
+     bf16 (atol = rtol = 1e-2) and in f32 with TF32 off (atol 2e-4, rtol
+     1e-4);
+   * the int8 conv at the TPU conv kernel's four shapes (3x3/s1 at
+     8x160x160x64->64, 8x80x400x64->64, 8x80x80x128->128,
+     8x40x40x256->256) plus the path's 3x3/s2 down1 (8x320x320x64->128)
+     and a 1x1 (8x80x80x256->256), with s8 output (at most 1 LSB apart on
+     fewer than 0.5% of the elements) and bf16 output (within one bf16
+     ulp, or 1e-30);
+   * the fused block at its two serving shapes, 8x160x160x64 (SiLU, SiLU,
+     residual) and 8x80x400x64 (ReLU, -, residual, ReLU), s8 yardstick;
+4. the full-width nets on a small input against the CPU:
+   * f32: the port's preprocess and both nets (YOLOv8l, UFLDv2 with a
+     ResNet-18 trunk) on the GPU against the same on the CPU (the plain
+     stem), rtol 1e-3 with an atol of 1e-3 of the output's largest
+     magnitude;
+   * int8: YOLOv8l at 320x320 and UFLDv2 (ResNet-18) at 160x640, so that
+     both nets' fused bodies pass the gate, packed and calibrated on the
+     CPU from two inputs, then moved to the GPU with their scales: the GPU
+     kernels against the CPU plain versions, relative L2 error per output
+     below 2e-2 for YOLOv8l and 3e-2 for UFLDv2.  The int8 kernels agree
+     with their plain versions to the bit at these sizes; the 7x7 stem
+     kernel sums in another order than cuDNN's f32 conv, a bf16 output
+     moves by one ulp here and there, and the random-weight int8 trunk
+     carries that to ~2.4% at the lane outputs (the JAX-vs-port module
+     test sees the same from the two frameworks' stems);
+5. the int8 main path: YOLOv8l-640 + UFLDv2-CULane, int8, seeded random
+   weights, calibrated on the card with the port's calibrator from two
+   720x1280 frames, 8 streams of 720x1280 frames over I420 transport,
+   ``process_batch`` ticks and ``serve_pipelined`` ticks.  Every launch
+   count is reset just before and must grow, per tick, by exactly 2 (stem),
+   5 (block: YOLOv8l stage1's three bottlenecks, ResNet layer1's two
+   blocks) and the number of int8 convs the module tree holds outside the
+   fused bodies (int8 conv); outputs must be finite and detections
+   non-empty.  Prints per-tick times, a per-stage breakdown, the device
+   step alone and peak memory;
+6. the bf16 main path of the same configuration (fewer ticks), stem
+   launches 2 per tick, as before.
 
-Then one JSON line describing the kernel — ``launches`` from phase 5;
-``max_abs_err``, ``ms`` and ``plain_ms`` from phase 3 in bf16, the times
-summed over the two serving shapes (one tick's stems) — and last
-``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
-when no CUDA GPU is visible.
+Then one JSON line describing the kernels — ``launches`` from phase 5;
+``max_abs_err``, ``ms`` and ``plain_ms`` from phase 3 (stem: bf16, times
+summed over its two serving shapes; int8 conv: s8 output, the largest
+error in LSB and the times summed over its six shapes; block: the same
+over its two shapes) — and last ``{"ok": true, "device": {...}}``.  Exits
+non-zero, printing no result, when no CUDA GPU is visible.
 """
 from __future__ import annotations
 
@@ -37,6 +66,10 @@ import json
 import subprocess
 import sys
 import time
+
+KERNELS = ("stem", "int8_conv", "block")
+N_STREAMS, FRAME_HW = 8, (720, 1280)
+BLOCKS_PER_TICK = 5
 
 
 def check(cond, msg: str) -> None:
@@ -96,6 +129,88 @@ def kernel_phase(S, torch):
     )
 
 
+def s8_diff(got, want):
+    """(max |diff| in LSB, share of differing elements) of two s8 tensors."""
+    d = (got.int() - want.int()).abs()
+    return int(d.max().item()), float((d != 0).float().mean().item())
+
+
+def int8_kernel_phase(IC, B, torch):
+    """The int8 conv and the fused block against their plain versions at
+    the path's shapes; returns {kernel: (max err, ms, plain ms)}."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def s8(shape, lo=-127, hi=128):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    conv_sites = (
+        # (name, (n, h, w, cin), cout, k, stride, act)
+        ("stage1_3x3", (8, 160, 160, 64), 64, 3, 1, "silu"),
+        ("layer1_3x3", (8, 80, 400, 64), 64, 3, 1, "relu"),
+        ("stage2_3x3", (8, 80, 80, 128), 128, 3, 1, "silu"),
+        ("stage3_3x3", (8, 40, 40, 256), 256, 3, 1, "silu"),
+        ("down1_3x3s2", (8, 320, 320, 64), 128, 3, 2, "silu"),
+        ("stage2_cv1_1x1", (8, 80, 80, 256), 256, 1, 1, "silu"),
+    )
+    conv = [0, 0.0, 0.0]
+    for name, shape, cout, k, stride, act in conv_sites:
+        xq = s8(shape)
+        wq = s8((cout, k, k, shape[3]))
+        kk = k * k * shape[3]
+        scale = (torch.rand(cout, generator=gen, device="cuda") * 0.5 + 0.75) * 5e-4 / kk ** 0.5
+        bias = torch.randn(cout, generator=gen, device="cuda") * 0.5
+        for out_scale in (torch.tensor(0.05, device="cuda"), None):
+            args = (xq, wq, scale, bias)
+            kw = dict(stride=stride, act=act, out_scale=out_scale)
+            got = IC.int8_conv(*args, **kw)
+            want = IC.int8_conv_reference(*args, **kw)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == want.dtype, f"{name}: shape/dtype")
+            ms = cuda_ms(lambda: IC.int8_conv(*args, **kw), 20)
+            plain_ms = cuda_ms(lambda: IC.int8_conv_reference(*args, **kw), 5)
+            if out_scale is not None:
+                lsb, share = s8_diff(got, want)
+                print(f"[kernel] int8_conv {name} {shape}->{cout} k{k}/s{stride} {act} s8: "
+                      f"max diff {lsb} LSB on {share:.2e} of elements; kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms", flush=True)
+                check(lsb <= 1 and share < 5e-3, f"int8_conv {name} s8 disagrees")
+                conv = [max(conv[0], lsb), conv[1] + ms, conv[2] + plain_ms]
+            else:
+                g, w = got.float(), want.float()
+                err = (g - w).abs().max().item()
+                ok = bool(torch.all((g - w).abs() <= w.abs() * 2.0 ** -7 + 1e-30))
+                print(f"[kernel] int8_conv {name} bf16: max_abs_err {err:.4g} (one bf16 ulp); "
+                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+                check(ok, f"int8_conv {name} bf16 disagrees (max abs err {err})")
+
+    block = [0, 0.0, 0.0]
+    for name, shape, acts in (
+        ("yolo_stage1", (8, 160, 160, 64), ("silu", "silu", None)),
+        ("resnet_layer1", (8, 80, 400, 64), ("relu", None, "relu")),
+    ):
+        c = shape[3]
+        xq = s8(shape, -100, 100)
+        w1q, w2q = s8((c, 3, 3, c), -80, 80), s8((c, 3, 3, c), -80, 80)
+        s1 = torch.rand(c, generator=gen, device="cuda") * 2e-4 + 1e-4
+        s2 = torch.rand(c, generator=gen, device="cuda") * 2e-4 + 1e-4
+        b1 = torch.randn(c, generator=gen, device="cuda") * 0.2
+        b2 = torch.randn(c, generator=gen, device="cuda") * 0.2
+        sx, sm, so = (torch.tensor(v, device="cuda") for v in (0.021, 0.034, 0.027))
+        args = (xq, sx, w1q, s1, b1, sm, w2q, s2, b2, so)
+        kw = dict(act1=acts[0], act2=acts[1], act_post=acts[2], residual=True)
+        got = B.fused_block(*args, **kw)
+        want = B.block_reference(*args, **kw)
+        torch.cuda.synchronize()
+        lsb, share = s8_diff(got, want)
+        ms = cuda_ms(lambda: B.fused_block(*args, **kw), 20)
+        plain_ms = cuda_ms(lambda: B.block_reference(*args, **kw), 5)
+        print(f"[kernel] block {name} {shape} {acts}: max diff {lsb} LSB on {share:.2e} of "
+              f"elements; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+        check(lsb <= 1 and share < 5e-3, f"block {name} disagrees")
+        block = [max(block[0], lsb), block[1] + ms, block[2] + plain_ms]
+    return {"int8_conv": tuple(conv), "block": tuple(block)}
+
+
 def reference_phase(torch, np):
     """The full-width nets and preprocess in f32 on the GPU vs the CPU."""
     from adas_tpu_torch.models import ufld
@@ -144,93 +259,197 @@ def reference_phase(torch, np):
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3 * scale)
 
 
-def main_path_phase(S, torch, np):
-    """The serving slice at full width; returns the stem launches."""
+def int8_reference_phase(torch, np, IC, B):
+    """Full-width int8 nets, packed and calibrated on the CPU, then the GPU
+    kernels against the CPU plain versions on the same input."""
+    from adas_tpu_torch.models import ufld
+    from adas_tpu_torch.models.quant import pack_int8_weights
+    from adas_tpu_torch.models.ufld import LaneModelType, UFLDv2Net
+    from adas_tpu_torch.models.yolo import YoloSpec, YoloV8
+    from adas_tpu_torch.perception.object_detector import calibrate
+    from adas_tpu_torch.weights import init_params
+
+    lspec = ufld.UFLDV2_SPECS[LaneModelType.UFLDV2_CULANE]
+    lane_spec = ufld.UFLDv2Spec(160, 640, lspec.crop_ratio, 20, 72, 10, 16, mlp_mid=64)
+    rng = np.random.default_rng(5)
+    xy = torch.from_numpy(rng.uniform(0, 1, (2, 3, 320, 320)).astype(np.float32))
+    xl = torch.from_numpy(rng.standard_normal((2, 3, 160, 640)).astype(np.float32))
+    nets = {"yolo": (YoloV8(YoloSpec("l", 80, (320, 320)), int8=True), xy),
+            "lane": (UFLDv2Net(lane_spec, int8=True), xl)}
+    t = time.perf_counter()
+    for seed, (net, x) in enumerate(nets.values()):
+        init_params(net, 10 + seed)
+        net.eval().requires_grad_(False)
+        pack_int8_weights(net)
+        calibrate(net, [x[:1], x[1:]])
+    print(f"[int8-reference] packed and calibrated YOLOv8l-320 + UFLDv2-160x640 on the CPU "
+          f"in {time.perf_counter() - t:.1f} s", flush=True)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        IC.reset_launches()
+        B.reset_launches()
+        res = {}
+        with torch.inference_mode():
+            for name, (net, x) in nets.items():
+                net.to(dev)
+                y = net(x.to(dev, torch.bfloat16))
+                for k, v in (y.items() if isinstance(y, dict) else [("raw", y)]):
+                    res[f"{name}_{k}"] = v.float().cpu().numpy()
+        outs[dev] = res
+        if dev == "cuda":
+            print(f"[int8-reference] GPU launches: int8_conv {IC.launches}, block {B.launches}")
+            check(IC.launches > 0 and B.launches == BLOCKS_PER_TICK,
+                  "int8 reference run did not go through the kernels")
+    for k, want in outs["cpu"].items():
+        got = outs["cuda"][k]
+        check(got.shape == want.shape and np.all(np.isfinite(got)), f"{k}: bad GPU output")
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        bound = 2e-2 if k.startswith("yolo") else 3e-2
+        print(f"[int8-reference] {k} {want.shape}: relative L2 error {rel:.3g} (bound {bound})",
+              flush=True)
+        check(rel < bound, f"int8 {k}: GPU kernels and CPU plain versions disagree ({rel})")
+
+
+def counts(mods):
+    return {k: m.launches for k, m in mods.items()}
+
+
+def reset(mods):
+    for m in mods.values():
+        m.reset_launches()
+
+
+def stage_breakdown(ms, ticks, torch):
+    """Per-stage times of three unpipelined ticks (host clock, synced)."""
+    stages = {k: [] for k in ("host_prep", "upload", "device_step", "fetch", "host_analytics")}
+    for f in ticks[1:4]:
+        t = time.perf_counter()
+        host = ms._host_prep(f)
+        t1 = time.perf_counter()
+        xd = torch.from_numpy(host).to("cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        flat = ms._step(xd)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        hflat = flat.cpu().numpy()
+        t4 = time.perf_counter()
+        ms._analytics(hflat, f)
+        t5 = time.perf_counter()
+        for k, a, b in zip(stages, (t, t1, t2, t3, t4), (t1, t2, t3, t4, t5)):
+            stages[k].append(round((b - a) * 1e3, 3))
+    return stages
+
+
+def serve(tag, ms, mods, per_tick, ticks, n_sync, n_pipe, torch, np):
+    """process_batch and serve_pipelined ticks with exact per-tick launch
+    counts; returns the counts of the whole run."""
+    ms.process_batch(ticks[0])  # warm-up: allocator, plans
+    torch.cuda.synchronize()
+    reset(mods)
+    tick_ms, results = [], []
+    for i in range(n_sync):
+        t = time.perf_counter()
+        results.append(ms.process_batch(ticks[1 + i % 3]))
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+    after_sync = counts(mods)
+    t = time.perf_counter()
+    n = ms.serve_pipelined((ticks[i % 4] for i in range(n_pipe)), depth=3)
+    pipe_s = time.perf_counter() - t
+    run = counts(mods)
+    check(n == n_pipe, "serve_pipelined tick count")
+    for k, per in per_tick.items():
+        check(after_sync[k] == per * n_sync, f"{tag}: {k} launches {after_sync[k]} after "
+                                             f"{n_sync} ticks, expected {per} per tick")
+        check(run[k] == per * (n_sync + n_pipe), f"{tag}: {k} launches {run[k]} after "
+                                                 f"{n_sync + n_pipe} ticks")
+    print(f"[{tag}] launches over {n_sync + n_pipe} ticks: {run} (per tick {per_tick})")
+    print(f"[{tag}] process_batch per tick ms: {[round(v, 3) for v in tick_ms]} -> "
+          f"{N_STREAMS * 1e3 / np.median(tick_ms):.2f} frames/s")
+    print(f"[{tag}] serve_pipelined: {n_pipe} ticks in {pipe_s * 1e3:.1f} ms -> "
+          f"{pipe_s * 1e3 / n_pipe:.3f} ms/tick, {N_STREAMS * n_pipe / pipe_s:.2f} frames/s")
+
+    x = ms._prep_upload(ticks[1])
+    flat = ms._step(x)
+    torch.cuda.synchronize()
+    check(flat.shape[0] == N_STREAMS and bool(torch.isfinite(flat).all()),
+          "packed step output not finite")
+    n_dets = [len(r["objects"]) for r in results[-1]]
+    check(all(k > 0 for k in n_dets), f"empty detections per stream: {n_dets}")
+    for r in results[-1]:
+        for o in r["objects"]:
+            check(np.isfinite([o.x, o.y, o.width, o.height, o.conf]).all() and 0.25 < o.conf <= 1,
+                  "bad detection")
+        check(len(r["lanes_status"]) == 4, "lane status")
+    print(f"[{tag}] detections per stream (last tick): {n_dets}; lanes status "
+          f"{[r['lanes_status'] for r in results[-1]][:2]}...")
+    print(f"[{tag}] stages ms (3 unpipelined ticks): {json.dumps(stage_breakdown(ms, ticks, torch))}")
+    step_ms = cuda_ms(lambda: ms._step(x), 10)
+    print(f"[{tag}] device step alone (back-to-back, CUDA events): {step_ms:.3f} ms")
+    print(f"[{tag}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    return run
+
+
+def build_main(compute_dtype, torch):
     from adas_tpu_torch.perception.lane_detector import LaneModelType, UltrafastLaneDetectorV2
     from adas_tpu_torch.perception.object_detector import YoloDetector
     from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
 
-    n_streams, frame_hw = 8, (720, 1280)
     t0 = time.perf_counter()
     yolo = YoloDetector(
-        scale="l", input_size=(640, 640), box_score=0.25, compute_dtype="bf16",
+        scale="l", input_size=(640, 640), box_score=0.25, compute_dtype=compute_dtype,
         device="cuda", seed=0,
     )
     lane = UltrafastLaneDetectorV2(
-        model_type=LaneModelType.UFLDV2_CULANE, compute_dtype="bf16", device="cuda", seed=1,
+        model_type=LaneModelType.UFLDV2_CULANE, compute_dtype=compute_dtype, device="cuda",
+        seed=1,
     )
-    ms = MultiStreamADAS(yolo, lane, n_streams, frame_hw)
     torch.cuda.synchronize()
-    print(f"[main] built YOLOv8l-640 + UFLDv2-CULane bf16 in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    print(f"[main-{compute_dtype}] built YOLOv8l-640 + UFLDv2-CULane in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return yolo, lane, MultiStreamADAS
+
+
+def int8_main_phase(mods, torch, np):
+    """The calibrated int8 serving path at full width."""
+    from adas_tpu_torch.models.quant import QConv2d
+
+    yolo, lane, MultiStreamADAS = build_main("int8", torch)
     rng = np.random.default_rng(0)
-    ticks = [rng.integers(0, 256, (n_streams, *frame_hw, 3), dtype=np.uint8) for _ in range(4)]
+    calib = rng.integers(0, 256, (2, *FRAME_HW, 3), dtype=np.uint8)
+    t = time.perf_counter()
+    yolo.calibrate_int8(list(calib))
+    lane.calibrate_int8(list(calib))
+    torch.cuda.synchronize()
+    print(f"[main-int8] calibrated both nets on the card from 2 frames in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    n_conv = {k: sum(isinstance(m, QConv2d) for m in f.net.modules())
+              for k, f in (("yolo", yolo), ("lane", lane))}
+    per_conv = sum(n_conv.values()) - 2 * BLOCKS_PER_TICK
+    print(f"[main-int8] module tree: {n_conv['yolo']} + {n_conv['lane']} int8 convs, "
+          f"{BLOCKS_PER_TICK} fused two-conv bodies -> {per_conv} int8 conv launches per tick")
+    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW)
+    ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
     try:
-        ms.process_batch(ticks[0])  # warm-up: cuDNN plans, allocator
-        torch.cuda.synchronize()
-
-        S.reset_launches()
-        n_sync, n_pipe = 3, 8
-        tick_ms, results = [], []
-        for i in range(n_sync):
-            t = time.perf_counter()
-            results.append(ms.process_batch(ticks[1 + i % 3]))
-            tick_ms.append((time.perf_counter() - t) * 1e3)
-        after_sync = S.launches
-        t = time.perf_counter()
-        n = ms.serve_pipelined((ticks[i % 4] for i in range(n_pipe)), depth=3)
-        pipe_s = time.perf_counter() - t
-        launches = S.launches
-        check(after_sync == 2 * n_sync, f"stem launches {after_sync} after {n_sync} ticks")
-        check(n == n_pipe and launches == 2 * (n_sync + n_pipe),
-              f"stem launches {launches} after {n_sync + n_pipe} ticks")
-        print(f"[main] stem launches {launches} over {n_sync + n_pipe} ticks (2 per tick)")
-        print(f"[main] process_batch per tick ms: {[round(v, 3) for v in tick_ms]} "
-              f"-> {n_streams * 1e3 / np.median(tick_ms):.2f} frames/s")
-        print(f"[main] serve_pipelined: {n_pipe} ticks in {pipe_s * 1e3:.1f} ms -> "
-              f"{pipe_s * 1e3 / n_pipe:.3f} ms/tick, {n_streams * n_pipe / pipe_s:.2f} frames/s")
-
-        # correctness of what comes out: the packed step output, and the
-        # per-stream signals
-        x = ms._prep_upload(ticks[1])
-        flat = ms._step(x)
-        torch.cuda.synchronize()
-        check(flat.shape[0] == n_streams and bool(torch.isfinite(flat).all()),
-              "packed step output not finite")
-        n_dets = [len(r["objects"]) for r in results[-1]]
-        check(all(k > 0 for k in n_dets), f"empty detections per stream: {n_dets}")
-        for r in results[-1]:
-            for o in r["objects"]:
-                check(np.isfinite([o.x, o.y, o.width, o.height, o.conf]).all() and 0.25 < o.conf <= 1,
-                      "bad detection")
-            check(len(r["lanes_status"]) == 4, "lane status")
-        print(f"[main] detections per stream (last tick): {n_dets}; lanes status "
-              f"{[r['lanes_status'] for r in results[-1]][:2]}...")
-
-        # per-stage breakdown of an unpipelined tick (host clock, synced)
-        stages = {k: [] for k in ("host_prep", "upload", "device_step", "fetch", "host_analytics")}
-        for i in range(3):
-            f = ticks[1 + i]
-            t = time.perf_counter()
-            host = ms._host_prep(f)
-            t1 = time.perf_counter()
-            xd = torch.from_numpy(host).to("cuda")
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            flat = ms._step(xd)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            hflat = flat.cpu().numpy()
-            t4 = time.perf_counter()
-            ms._analytics(hflat, f)
-            t5 = time.perf_counter()
-            for k, a, b in zip(stages, (t, t1, t2, t3, t4), (t1, t2, t3, t4, t5)):
-                stages[k].append(round((b - a) * 1e3, 3))
-        print(f"[main] stages ms (3 unpipelined ticks): {json.dumps(stages)}")
-        print(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return serve("main-int8", ms, mods,
+                     {"stem": 2, "int8_conv": per_conv, "block": BLOCKS_PER_TICK},
+                     ticks, 3, 8, torch, np)
     finally:
         ms.close()
-    return launches
+
+
+def bf16_main_phase(mods, torch, np):
+    """The bf16 serving path at full width (fewer ticks)."""
+    yolo, lane, MultiStreamADAS = build_main("bf16", torch)
+    rng = np.random.default_rng(0)
+    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW)
+    ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
+    try:
+        serve("main-bf16", ms, mods, {"stem": 2, "int8_conv": 0, "block": 0},
+              ticks, 2, 4, torch, np)
+    finally:
+        ms.close()
 
 
 def main() -> int:
@@ -240,8 +459,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
         return 2
+    from adas_tpu_torch.ops import block as B
+    from adas_tpu_torch.ops import int8_conv as IC
     from adas_tpu_torch.ops import stem as S
-    from adas_tpu_torch.ops.cuda_build import BUILD_DIR, load_cuda_library
+    from adas_tpu_torch.ops.cuda_build import BUILD_DIR, build_cuda_libraries
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -254,27 +475,39 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t = time.perf_counter()
-    load_cuda_library("stem")
-    print(f"[build] csrc/stem.cu built in {time.perf_counter() - t:.2f} s", flush=True)
-    with open(f"{BUILD_DIR}/libstem.ptxas.txt") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                print(f"[build] {line.strip()}")
+    build_cuda_libraries(KERNELS)
+    print(f"[build] {', '.join(f'csrc/{k}.cu' for k in KERNELS)} built in parallel in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    for k in KERNELS:
+        with open(f"{BUILD_DIR}/lib{k}.ptxas.txt") as f:
+            for line in f:
+                if "Compiling entry" in line or "registers" in line or "spill" in line:
+                    print(f"[build] {k}: {line.strip()}")
 
-    max_err, ms, plain_ms = kernel_phase(S, torch)
+    stem_err, stem_ms, stem_plain = kernel_phase(S, torch)
+    int8_rows = int8_kernel_phase(IC, B, torch)
     reference_phase(torch, np)
-    launches = main_path_phase(S, torch, np)
+    int8_reference_phase(torch, np, IC, B)
+    mods = {"stem": S, "int8_conv": IC, "block": B}
+    launches = int8_main_phase(mods, torch, np)
+    bf16_main_phase(mods, torch, np)
 
+    rows = {"stem": (stem_err, stem_ms, stem_plain), **int8_rows}
+    replaces = {
+        "stem": "adas_tpu/ops/pallas_stem.py:108",
+        "int8_conv": "adas_tpu/ops/pallas_conv.py:70",
+        "block": "adas_tpu/ops/pallas_block.py:109, adas_tpu/ops/pallas_block.py:380",
+    }
     print(json.dumps({"kernels": [{
-        "name": "stem",
+        "name": k,
         "route": "cuda",
-        "source": "adas_tpu_torch/csrc/stem.cu",
-        "replaces": "adas_tpu/ops/pallas_stem.py:108",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": f"adas_tpu_torch/csrc/{k}.cu",
+        "replaces": replaces[k],
+        "launches": launches[k],
+        "max_abs_err": rows[k][0],
+        "ms": rows[k][1],
+        "plain_ms": rows[k][2],
+    } for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -111,7 +111,7 @@ def test_bridge_rejects_mismatched_trees():
     with pytest.raises(KeyError, match="missing"):
         load_flax_variables(net, missing)
     with pytest.raises(KeyError, match="counterpart"):
-        state_dict_from_flax({"act_scales::net::stem::xmax": np.ones(())})
+        state_dict_from_flax({"act_scales::net::stem::zmax": np.ones(())})
     wrong = dict(flat)
     wrong["params::net::stem::conv::kernel"] = np.zeros((3, 3, 3, 8), np.float32)
     with pytest.raises(ValueError, match="shape"):

@@ -9,7 +9,7 @@ JAX stems run their parity-pinned XLA chain
 (``ADAS_DISABLE_PALLAS_STEM=1``), the port's their plain CPU version.
 
 Also: the port imports and serves one tick in a process where ``jax`` and
-``flax`` cannot be imported.
+``flax`` cannot be imported, in bf16 and calibrated int8.
 """
 import os
 import subprocess
@@ -228,10 +228,18 @@ NO_JAX_SCRIPT = textwrap.dedent(
     frames = np.random.default_rng(0).integers(0, 256, (2, 180, 320, 3), dtype=np.uint8)
     out = ms.process_batch(frames)
     ms.close()
-    assert len(out) == 2 and not any(
+    # the calibrated int8 slice: the port's packer and calibrator, one tick
+    yolo8 = YoloDetector(scale="n", input_size=(96, 96), box_score=0.25, compute_dtype="int8")
+    lane8 = UltrafastLaneDetectorV2(compute_dtype="int8")
+    yolo8.calibrate_int8(list(frames))
+    lane8.calibrate_int8(list(frames))
+    ms8 = MultiStreamADAS(yolo8, lane8, 2, frame_hw=(180, 320))
+    out8 = ms8.process_batch(frames)
+    ms8.close()
+    assert len(out) == len(out8) == 2 and not any(
         m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules
     )
-    print("served", sum(len(r["objects"]) for r in out))
+    print("served", sum(len(r["objects"]) for r in out), sum(len(r["objects"]) for r in out8))
     """
     % (SPEC_ARGS,)
 )
