@@ -6,12 +6,15 @@ names so each module's counterpart is easy to find.  It imports
 reference the port's tests hold it against.
 
 What it serves today: the batched multi-stream step of
-``adas_tpu.pipeline.multistream.MultiStreamADAS`` over I420 transport
-(YOLOv8 + UFLDv2, calibrated int8, bf16 or f32), on ``cuda`` or ``cpu``.
-Three hand-written Hopper kernels carry it: the stems (``csrc/stem.cu``,
-``ops/stem.py``), the W8A8 convs (``csrc/int8_conv.cu``,
-``ops/int8_conv.py``) and the fused residual bodies (``csrc/block.cu``,
-``ops/block.py``); everything else is plain PyTorch.  The numpy-only host
+``adas_tpu.pipeline.multistream.MultiStreamADAS`` over I420 transport, on
+``cuda`` or ``cpu``, with YOLOv8 (calibrated int8, bf16 or f32) or
+EfficientDet D0-D7 (f32) on the object side and UFLDv2 on the lane side,
+and EfficientDet's single-frame ``DetectFrame``.  Five hand-written
+Hopper kernels carry it: the stems (``csrc/stem.cu``, ``ops/stem.py``),
+the W8A8 convs (``csrc/int8_conv.cu``, ``ops/int8_conv.py``), the fused
+residual bodies (``csrc/block.cu``, ``ops/block.py``), the pairwise-IoU
+matrix (``csrc/iou.cu``, ``ops/iou.py``) and the greedy NMS scan
+(``csrc/nms.cu``, ``ops/nms.py``); everything else is plain PyTorch.  The numpy-only host
 code (``adas_tpu.tracking``, ``adas_tpu.utils``, ``adas_tpu.native``) is
 imported, not copied.
 """

@@ -1,2 +1,3 @@
-"""Device ops of the port: preprocessing, the stem, int8 conv and fused
-block kernels, decode, NMS, packing (counterparts of ``adas_tpu/ops``)."""
+"""Device ops of the port: preprocessing, the stem, int8 conv, fused
+block, IoU and NMS-scan kernels, decode, packing (counterparts of
+``adas_tpu/ops``)."""

@@ -1,7 +1,11 @@
 """Serving-path preprocessing: letterbox geometry, the numpy I420 encoder,
 and the YUV-direct resize that turns an I420 batch into each net's NCHW
-input; and the BGR preprocess the int8 calibration runs on
-(:func:`yolo_preprocess`, :func:`ufld_v2_preprocess`).
+input; the BGR-plane chain of the EfficientDet path (I420 -> rounded BGR
+planes -> resize -> normalize, :func:`i420_to_bgr_planar`,
+:func:`imagenet_preprocess_planar`, :func:`ufld_v2_preprocess_planar`);
+and the BGR preprocess that calibration and ``DetectFrame`` run on
+(:func:`yolo_preprocess`, :func:`ufld_v2_preprocess`,
+:func:`imagenet_preprocess`).
 
 Port of the I420 branch of ``adas_tpu/ops/preprocess.py``.  Resize is two
 matmuls with precomputed bilinear interpolation matrices
@@ -23,13 +27,15 @@ Divergence from the reference (kept from the JAX YUV-direct path,
 ``preprocess.py:716-720``): the full-resolution ``round``/``clip`` that
 mimicked cv2's uint8 decode is dropped (non-linear, cannot ride a
 matrix).  For in-gamut video the difference is bounded by the resize of
-+-0.5 rounding, i.e. <=0.5/255 of input scale.
++-0.5 rounding, i.e. <=0.5/255 of input scale.  The BGR-plane chain keeps
+that ``round``/``clip`` (``torch.round`` is half-to-even, as
+``jnp.round``), as the JAX EfficientDet path does.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -306,3 +312,103 @@ def ufld_v2_preprocess(frame_bgr, input_h: int, input_w: int, crop_ratio: float,
     mean = torch.tensor(IMAGENET_MEAN, device=rgb.device) * 255.0
     std = torch.tensor(IMAGENET_STD, device=rgb.device) * 255.0
     return ((rgb - mean) / std).to(dtype).permute(0, 3, 1, 2).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_on(src: int, dst: int, device: str) -> torch.Tensor:
+    return torch.as_tensor(_interp_matrix(src, dst), device=device)
+
+
+def i420_to_bgr_planar(yuv: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(B, H*3/2, W) uint8 I420 -> (B, 3, H, W) f32 BGR planes in [0, 255]
+    (``preprocess.py:297``): BT.601 studio swing with the nearest-2x
+    chroma upsample, rounded half-to-even and clipped as cv2's uint8
+    decode."""
+    _check_yuv(yuv, height, width)
+    b, h, w = yuv.shape[0], height, width
+    y = yuv[:, :h].float()
+    u = yuv[:, h: h + h // 4].reshape(b, h // 2, w // 2).float()
+    v = yuv[:, h + h // 4:].reshape(b, h // 2, w // 2).float()
+
+    def up2(p):
+        return p.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+    uu = up2(u) - 128.0
+    vv = up2(v) - 128.0
+    yy = 1.164 * (y - 16.0)
+    r = yy + 1.596 * vv
+    g = yy - 0.391 * uu - 0.813 * vv
+    bl = yy + 2.018 * uu
+    return torch.clamp(torch.round(torch.stack([bl, g, r], dim=1)), 0.0, 255.0)
+
+
+def resize_bilinear_planar(img: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tensor:
+    """Bilinear resize of planar (..., C, H, W) f32 as two matmuls with the
+    interpolation matrices (``preprocess.py:321``)."""
+    dev = str(img.device)
+    ah = _interp_on(img.shape[-2], dst_h, dev)
+    aw = _interp_on(img.shape[-1], dst_w, dev)
+    return torch.matmul(torch.matmul(ah, img), aw.t())
+
+
+@functools.lru_cache(maxsize=16)
+def _imagenet_stats(device: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(3, 1, 1) RGB mean*255 and std*255, made once per device: the step
+    copies nothing from the host."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device)[:, None, None]
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device)[:, None, None]
+    return mean * 255.0, std * 255.0
+
+
+def _normalize(img: torch.Tensor) -> torch.Tensor:
+    """(B, 3, H, W) f32 BGR planes -> RGB, ImageNet-normalized
+    ``(img - mean*255) / (std*255)`` per channel."""
+    mean, std = _imagenet_stats(str(img.device))
+    return ((img.flip(-3) - mean) / std).contiguous()
+
+
+def imagenet_preprocess_planar(
+    bgr_chw: torch.Tensor,
+    geom: Optional[LetterboxGeometry],
+) -> torch.Tensor:
+    """(B, 3, H, W) BGR planes -> letterboxed (pad value 114, normalized
+    with the image), RGB, ImageNet-normalized f32 NCHW (B, 3, dst_h, dst_w)
+    (``preprocess.py:532``; the JAX one ends NHWC).  ``geom=None`` skips
+    the letterbox."""
+    img = bgr_chw.float()
+    if geom is not None:
+        newh, neww = geom.new_shape
+        padh, padw = geom.pad
+        img = resize_bilinear_planar(img, newh, neww)
+        pads = (padw, geom.dst_w - neww - padw, padh, geom.dst_h - newh - padh)
+        img = torch.nn.functional.pad(img, pads, value=PAD_VALUE)
+    return _normalize(img)
+
+
+def imagenet_preprocess(
+    frame_bgr,
+    geom: Optional[LetterboxGeometry] = None,
+    device="cpu",
+) -> torch.Tensor:
+    """BGR uint8 frame(s) (H, W, 3) or (B, H, W, 3) -> (letterboxed) RGB,
+    ImageNet-normalized f32 NCHW (``preprocess.py:176``; the JAX one is NHWC).
+    It runs :func:`imagenet_preprocess_planar` on the frames' planes, so
+    the single-frame and the batched I420 paths compute the same function
+    in the same order."""
+    planes = _bgr_frames(frame_bgr).to(device).permute(0, 3, 1, 2)
+    return imagenet_preprocess_planar(planes, geom)
+
+
+def ufld_v2_preprocess_planar(
+    bgr_chw: torch.Tensor,
+    input_h: int,
+    input_w: int,
+    crop_ratio: float,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """(B, 3, H, W) BGR planes -> UFLDv2 input: resize to (input_w,
+    input_h/crop_ratio), keep the bottom ``input_h`` rows, ImageNet-
+    normalize; NCHW (``preprocess.py:585-593``, the non-s2d branch)."""
+    resize_h = int(input_h / crop_ratio)
+    img = resize_bilinear_planar(bgr_chw.float(), resize_h, input_w)
+    return _normalize(img[..., resize_h - input_h:, :]).to(dtype)

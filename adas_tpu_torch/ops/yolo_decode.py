@@ -3,7 +3,7 @@ the v8 branch of ``adas_tpu/ops/yolo_decode.py``).
 
 raw (B, 4+nc, N) -> per-anchor boxes/scores/classes -> score threshold ->
 top-k pre-selection -> class-agnostic greedy hard NMS with VOC ``+1``
-arithmetic -> (B, max_det, 6) rows ``[x1, y1, x2, y2, score, class_id]``
+arithmetic (or gaussian soft-NMS) -> (B, max_det, 6) rows ``[x1, y1, x2, y2, score, class_id]``
 padded with zeros -> letterbox inverse.  Shapes are fixed, so the
 detections stay on the device until the tick's one packed copy.
 """
@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 
 from .boxes import cxcywh_to_xyxy
-from .nms import select_loop_hard
+from .nms import select_loop
 from .preprocess import LetterboxGeometry
 
 
@@ -35,9 +35,14 @@ def select_and_nms(
     iou_threshold: float = 0.45,
     max_det: int = 100,
     pre_topk: int = 512,
+    hard_only: bool = True,
 ) -> torch.Tensor:
-    """Threshold + top-k preselect + class-agnostic hard NMS ->
-    (B, max_det, 6) (``yolo_decode.py:99`` with ``hard_only=True``).
+    """Threshold + top-k preselect + class-agnostic NMS -> (B, max_det, 6)
+    rows [x1, y1, x2, y2, score, class_id], padded with zeros
+    (``yolo_decode.py:99``).  ``hard_only`` selects hard suppression (the
+    reference's effective behaviour), else gaussian soft-NMS; both with
+    VOC ``+1`` arithmetic.  On the GPU the selection is the IoU and scan
+    kernels (``ops/nms.py``), one launch each per call.
 
     The top-k is a stable descending sort, so equal scores keep index
     order, as ``jax.lax.top_k`` does."""
@@ -47,9 +52,9 @@ def select_and_nms(
     top_scores, idx = top_scores[:, :k], idx[:, :k]
     top_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
     top_ids = torch.gather(class_ids, 1, idx)
-    keep = select_loop_hard(
-        top_boxes, top_scores, iou_threshold, max_det,
-        score_threshold=0.001, plus_one=True,
+    keep = select_loop(
+        top_boxes, top_scores, iou_threshold, max_det, method=0 if hard_only else 2,
+        sigma=0.5, score_threshold=0.001, plus_one=True,
     )
     valid = keep >= 0
     gather = keep.clamp(0, k - 1)

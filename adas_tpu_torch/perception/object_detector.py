@@ -89,7 +89,38 @@ def calibrate(net, inputs) -> None:
             net(x)
 
 
-class YoloDetector:
+class ObjectDetectBase:
+    """Class names, colours and the detection rows -> ``RectInfo`` step
+    shared by the object detectors (``object_detector.py:47``)."""
+
+    def _initialize_class(self, classes_path: Optional[str]) -> None:
+        classes_path = os.path.expanduser(classes_path or DEFAULT_CLASSES)
+        if not os.path.isfile(classes_path):
+            raise FileNotFoundError(f"{classes_path} is not exist.")
+        with open(classes_path) as f:
+            self.class_names = [c.strip() for c in f.readlines()]
+        colors = [hex_to_rgb("#%06x" % random.randint(0, 0xFFFFFF)) for _ in self.class_names]
+        self.colors_dict = dict(zip(self.class_names, colors))
+
+    def _dets_to_rectinfo(self, dets: np.ndarray) -> List[RectInfo]:
+        """(max_det, 6) rows -> RectInfo list, skipping zero-score padding
+        (``object_detector.py:495``)."""
+        results = []
+        for x1, y1, x2, y2, score, cid in dets:
+            if score <= 0:
+                continue
+            cid = int(cid)
+            label = self.class_names[cid] if 0 <= cid < len(self.class_names) else "unknown"
+            results.append(RectInfo(x1, y1, x2 - x1, y2 - y1, conf=float(score), label=label))
+        return results
+
+    @property
+    def object_info(self) -> List[RectInfo]:
+        """The detections of the last :meth:`DetectFrame` call."""
+        return getattr(self, "_object_info", [])
+
+
+class YoloDetector(ObjectDetectBase):
     """YOLOv8 detector on the port (``object_detector.py:162``)."""
 
     def __init__(
@@ -134,24 +165,3 @@ class YoloDetector:
             yolo_preprocess(f, LetterboxGeometry(f.shape[0], f.shape[1], h, w), device=self.device)
             for f in frames
         ))
-
-    def _initialize_class(self, classes_path: Optional[str]) -> None:
-        classes_path = os.path.expanduser(classes_path or DEFAULT_CLASSES)
-        if not os.path.isfile(classes_path):
-            raise FileNotFoundError(f"{classes_path} is not exist.")
-        with open(classes_path) as f:
-            self.class_names = [c.strip() for c in f.readlines()]
-        colors = [hex_to_rgb("#%06x" % random.randint(0, 0xFFFFFF)) for _ in self.class_names]
-        self.colors_dict = dict(zip(self.class_names, colors))
-
-    def _dets_to_rectinfo(self, dets: np.ndarray) -> List[RectInfo]:
-        """(max_det, 6) rows -> RectInfo list, skipping zero-score padding
-        (``object_detector.py:495``)."""
-        results = []
-        for x1, y1, x2, y2, score, cid in dets:
-            if score <= 0:
-                continue
-            cid = int(cid)
-            label = self.class_names[cid] if 0 <= cid < len(self.class_names) else "unknown"
-            results.append(RectInfo(x1, y1, x2 - x1, y2 - y1, conf=float(score), label=label))
-        return results

@@ -10,9 +10,14 @@ the results into one tensor; the host fetches it in one copy and runs
 ByteTrack, distance and TaskConditions per stream.  All cross-frame state
 is host-side per stream.  Under int8 (both facades with
 ``compute_dtype="int8"``, calibrated) both nets take bf16 input from the
-YUV-direct preprocess (``multistream.py:190-205``).  Not ported: the bgr
-transport, the tunnel's ``host_downscale`` ladder, the compute probe and
-the step artifacts.
+YUV-direct preprocess (``multistream.py:190-205``).  The object side may
+instead be an ``EfficientdetDetector`` (``multistream.py:164-181,
+271-310``): then the step decodes the I420 batch into rounded BGR planes
+once, letterboxes them square and ImageNet-normalizes them for the net
+(boxes and class probabilities, anchors decoded inside), runs
+``select_and_nms`` on the class max/argmax, and feeds the lane net from
+the same planes.  Not ported: the bgr transport, the tunnel's
+``host_downscale`` ladder, the compute probe and the step artifacts.
 """
 from __future__ import annotations
 
@@ -24,18 +29,22 @@ import numpy as np
 import torch
 
 from adas_tpu.tracking import BYTETracker
-from adas_tpu.utils.types import LaneInfo
+from adas_tpu.utils.types import LaneInfo, ObjectModelType
 
 from ..analytics import PerspectiveTransformation, SingleCamDistanceMeasure, TaskConditions
 from ..ops.packing import pack, unpack
 from ..ops.preprocess import (
     LetterboxGeometry,
     bgr_to_i420,
+    i420_to_bgr_planar,
+    imagenet_preprocess_planar,
+    ufld_v2_preprocess_planar,
     ufld_v2_preprocess_yuv,
     yolo_preprocess_yuv,
 )
 from ..ops.ufld_decode import ufld_v2_decode
 from ..ops.yolo_decode import decode_predictions, detections_to_original, select_and_nms
+from ..perception.efficientdet_detector import scores_and_ids
 from ..perception.object_detector import input_torch_dtype
 
 
@@ -51,7 +60,8 @@ class StreamState:
 
 
 class MultiStreamADAS:
-    """Batch-of-streams pipeline on one device."""
+    """Batch-of-streams pipeline on one device; ``yolo`` is the object
+    side, a ``YoloDetector`` or an ``EfficientdetDetector``."""
 
     def __init__(
         self,
@@ -72,7 +82,9 @@ class MultiStreamADAS:
         self.transport = transport
         self.device = yolo.device
         h, w = self.frame_hw
-        self.geom = LetterboxGeometry(h, w, *yolo.spec.input_size)
+        self.is_effdet = yolo.model_type is ObjectModelType.EfficientDet
+        s = yolo.spec.input_size
+        self.geom = LetterboxGeometry(h, w, *((s, s) if self.is_effdet else s))
         self.streams = [StreamState((w, h), yolo.colors_dict) for _ in range(n_streams)]
         # calcCurveAndOffset reads only the canvas shape
         self._canvas = np.zeros((h, w, 3), np.uint8)
@@ -90,18 +102,30 @@ class MultiStreamADAS:
         yolo, lane = self.yolo, self.lane
         h, w = self.frame_hw
         lspec = lane.spec
-        xy = yolo_preprocess_yuv(x, h, w, self.geom, dtype=input_torch_dtype(yolo.compute_dtype))
-        raw = yolo.net(xy).float()
-        boxes, scores, ids = decode_predictions(raw)
+        lane_dtype = input_torch_dtype(lane.compute_dtype)
+        if self.is_effdet:
+            # the full-resolution decode keeps cv2's round/clip; both nets
+            # read its planes (multistream.py:271-275, 334-343)
+            bgr = i420_to_bgr_planar(x, h, w)
+            boxes, probs = yolo.net(imagenet_preprocess_planar(bgr, self.geom))
+            scores, ids = scores_and_ids(probs)
+            lx = ufld_v2_preprocess_planar(
+                bgr, lspec.input_height, lspec.input_width, lspec.crop_ratio, dtype=lane_dtype
+            )
+        else:
+            xy = yolo_preprocess_yuv(
+                x, h, w, self.geom, dtype=input_torch_dtype(yolo.compute_dtype)
+            )
+            boxes, scores, ids = decode_predictions(yolo.net(xy).float())
+            lx = ufld_v2_preprocess_yuv(
+                x, h, w, lspec.input_height, lspec.input_width, lspec.crop_ratio,
+                dtype=lane_dtype,
+            )
         dets = select_and_nms(
             boxes, scores, ids, box_score=float(yolo.box_score),
             iou_threshold=float(yolo.box_nms_iou), max_det=int(yolo.max_det),
         )
         dets = detections_to_original(dets, self.geom)
-        lx = ufld_v2_preprocess_yuv(
-            x, h, w, lspec.input_height, lspec.input_width, lspec.crop_ratio,
-            dtype=input_torch_dtype(lane.compute_dtype),
-        )
         louts = {k: v.float() for k, v in lane.net(lx).items()}
         flat, self._pack_spec = pack((dets, ufld_v2_decode(louts)))
         return flat

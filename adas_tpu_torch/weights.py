@@ -7,8 +7,11 @@ what ``save_params`` writes to ``.npz``).  The port's modules carry the
 flax names (``net::stage1::m0::cv1::conv`` is ``net.stage1.m0.cv1.conv``),
 so the mapping is by path plus a layout change per leaf:
 
-* conv ``kernel`` HWIO -> ``weight`` OIHW; Dense ``kernel`` (in, out) ->
-  Linear ``weight`` (out, in); ``bias`` -> ``bias``;
+* conv ``kernel`` HWIO -> ``weight`` OIHW (a depthwise kernel (kh, kw,
+  1, C) becomes (C, 1, kh, kw)); Dense ``kernel`` (in, out) -> Linear
+  ``weight`` (out, in); ``bias`` -> ``bias``;
+* EfficientDet's BiFPN fusion weights (``params`` leaves ``p3_w1`` ..
+  ``p7_w2``) -> the parameter of the same name;
 * BatchNorm / LayerNorm ``scale`` -> ``weight``, ``bias`` -> ``bias``,
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
 * the int8 collections of a calibrated, packed tree: ``act_scales``
@@ -23,11 +26,13 @@ The seeded init mirrors flax's initializers, so random-weight nets behave
 as the JAX ones do (real detection counts on random frames): conv and
 dense kernels are ``lecun_normal`` — a normal truncated to ±2 sigma with
 fan-in variance — biases zero, norms scale one and bias zero, BatchNorm
-statistics mean 0 and var 1.
+statistics mean 0 and var 1; the BiFPN fusion weights keep the ones they
+are built with (flax ``initializers.ones``).
 """
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -45,6 +50,7 @@ _LEAF_NAMES = {
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
+_FUSION_WEIGHT = re.compile(r"p[3-7]_w[12]")
 
 
 def _t(arr: np.ndarray) -> torch.Tensor:
@@ -72,6 +78,8 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tens
             out[prefix + "weight"] = _t(arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T)
         elif (coll, leaf) in _LEAF_NAMES:
             out[prefix + _LEAF_NAMES[(coll, leaf)]] = _t(arr)
+        elif coll == "params" and _FUSION_WEIGHT.fullmatch(leaf):
+            out[prefix + leaf] = _t(arr)
         elif coll in ("act_scales", "wscales") and leaf in QUANT_BUFFERS:
             out[prefix + leaf] = _t(arr.astype(np.float32))
         else:

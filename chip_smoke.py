@@ -8,9 +8,10 @@ the kernels are built for sm_90a):
 Phases, each of which raises (exit code 1) on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the three kernels from source, one nvcc per source, all started
-   together (``csrc/stem.cu``, ``csrc/int8_conv.cu``, ``csrc/block.cu``),
-   and print their ptxas register and spill lines;
+2. build the five kernels from source, one nvcc per source, all started
+   together (``csrc/stem.cu``, ``csrc/int8_conv.cu``, ``csrc/block.cu``,
+   ``csrc/iou.cu``, ``csrc/nms.cu``), and print their ptxas register and
+   spill lines;
 3. each kernel against its plain PyTorch version, each side timed with
    CUDA events:
    * the stem at both serving shapes — YOLOv8 3x3/2 + SiLU on
@@ -25,9 +26,17 @@ Phases, each of which raises (exit code 1) on failure:
      ulp, or 1e-30);
    * the fused block at its two serving shapes, 8x160x160x64 (SiLU, SiLU,
      residual) and 8x80x400x64 (ReLU, -, residual, ReLU), s8 yardstick;
+   * the pairwise-IoU kernel against ``pairwise_iou`` at the serving
+     shape (8 streams x the 512 boxes of the NMS top-k), ``plus_one``
+     both ways, and at N = 300 and N = 1: equal to the bit, or at worst
+     atol = rtol = 1e-6 (``tests/test_pallas_iou.py:20``);
+   * the NMS scan kernel against the plain loop at (8, 512), 100 picks:
+     hard (``plus_one``, score threshold 0.001, IoU 0.45 and 0.5), linear
+     and gaussian: identical index tensors;
 4. the full-width nets on a small input against the CPU:
-   * f32: the port's preprocess and both nets (YOLOv8l, UFLDv2 with a
-     ResNet-18 trunk) on the GPU against the same on the CPU (the plain
+   * f32: the port's preprocess and the three nets (YOLOv8l, UFLDv2 with a
+     ResNet-18 trunk, EfficientDet-D0 at 128x128 behind the BGR-plane
+     preprocess) on the GPU against the same on the CPU (the plain
      stem), rtol 1e-3 with an atol of 1e-3 of the output's largest
      magnitude;
    * int8: YOLOv8l at 320x320 and UFLDv2 (ResNet-18) at 160x640, so that
@@ -46,19 +55,30 @@ Phases, each of which raises (exit code 1) on failure:
    ``process_batch`` ticks and ``serve_pipelined`` ticks.  Every launch
    count is reset just before and must grow, per tick, by exactly 2 (stem),
    5 (block: YOLOv8l stage1's three bottlenecks, ResNet layer1's two
-   blocks) and the number of int8 convs the module tree holds outside the
-   fused bodies (int8 conv); outputs must be finite and detections
-   non-empty.  Prints per-tick times, a per-stage breakdown, the device
-   step alone and peak memory;
-6. the bf16 main path of the same configuration (fewer ticks), stem
-   launches 2 per tick, as before.
+   blocks), the number of int8 convs the module tree holds outside the
+   fused bodies (int8 conv), and 1 each for the IoU and scan kernels of
+   the NMS; outputs must be finite and detections non-empty.  Prints
+   per-tick times, a per-stage breakdown, the device step alone and peak
+   memory;
+6. the EfficientDet main path: EfficientDet-D0 at its paper size (512,
+   B0 trunk, 64-channel BiFPN x 3, heads x 3, 80 classes, f32) +
+   UFLDv2-CULane bf16, seeded random weights, the same 8 streams; per
+   tick stem 1 (the lane stem), IoU 1, scan 1.  The seeded trunk forgets
+   its input and every class probability sits a few 1e-6 above 0.5, so
+   ``box_score`` is 0.5 here (the facade's default, 0.6, passes nothing);
+7. the bf16 main path of the YOLOv8l configuration (fewer ticks), stem 2,
+   IoU 1 and scan 1 per tick.
 
-Then one JSON line describing the kernels — ``launches`` from phase 5;
-``max_abs_err``, ``ms`` and ``plain_ms`` from phase 3 (stem: bf16, times
-summed over its two serving shapes; int8 conv: s8 output, the largest
-error in LSB and the times summed over its six shapes; block: the same
-over its two shapes) — and last ``{"ok": true, "device": {...}}``.  Exits
-non-zero, printing no result, when no CUDA GPU is visible.
+Then one JSON line describing the kernels — ``launches`` summed over the
+three main paths, each counted from 0 just before it; ``max_abs_err``,
+``ms`` and ``plain_ms`` from phase 3 (stem: bf16, times summed over its
+two serving shapes; int8 conv: s8 output, the largest error in LSB and the
+times summed over its six shapes; block: the same over its two shapes;
+IoU: the largest error over its shapes, the times at (8, 512) with
+``plus_one``; scan: the number of differing indices, the times of the
+serving call, hard at IoU 0.45) — and last ``{"ok": true, "device":
+{...}}``.  Exits non-zero, printing no result, when no CUDA GPU is
+visible.
 """
 from __future__ import annotations
 
@@ -67,9 +87,11 @@ import subprocess
 import sys
 import time
 
-KERNELS = ("stem", "int8_conv", "block")
+KERNELS = ("stem", "int8_conv", "block", "iou", "nms")
 N_STREAMS, FRAME_HW = 8, (720, 1280)
 BLOCKS_PER_TICK = 5
+#: EfficientDet's box score on seeded weights (see phase 6)
+EFFDET_BOX_SCORE = 0.5
 
 
 def check(cond, msg: str) -> None:
@@ -211,15 +233,82 @@ def int8_kernel_phase(IC, B, torch):
     return {"int8_conv": tuple(conv), "block": tuple(block)}
 
 
+def nms_inputs(gen, b, n, torch):
+    """(B, N, 4) clustered xyxy boxes in a 512x512 frame and (B, N) scores
+    sorted descending, as the NMS top-k hands them over."""
+    centers = torch.rand(b, 6, 2, generator=gen, device="cuda") * 400 + 56
+    pick = torch.randint(0, 6, (b, n), generator=gen, device="cuda")
+    c = torch.gather(centers, 1, pick[..., None].expand(-1, -1, 2))
+    c = c + torch.randn(b, n, 2, generator=gen, device="cuda") * 12
+    wh = torch.rand(b, n, 2, generator=gen, device="cuda") * 80 + 10
+    boxes = torch.cat([c - wh / 2, c + wh / 2], dim=-1).contiguous()
+    scores = torch.rand(b, n, generator=gen, device="cuda").sort(dim=1, descending=True)[0]
+    return boxes, scores.contiguous()
+
+
+def nms_kernel_phase(I, S, torch):
+    """The IoU and scan kernels against their plain versions; returns
+    {kernel: (max err, ms, plain ms)}."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    iou_err, timed = 0.0, None
+    for b, n, plus_one in ((8, 512, True), (8, 512, False), (8, 300, True), (8, 1, True)):
+        boxes, _ = nms_inputs(gen, b, n, torch)
+        got = I.iou_matrix(boxes, plus_one=plus_one)
+        want = I.iou_matrix_reference(boxes, plus_one=plus_one)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape == (b, n, n), f"iou {b}x{n}: shape {tuple(got.shape)}")
+        err = (got - want).abs().max().item()
+        n_diff = int((got != want).sum().item())
+        line = f"[kernel] iou ({b}, {n}, 4) plus_one={plus_one}: {n_diff} elements differ, " \
+               f"max_abs_err {err:.3g} (0 ulp, at worst atol = rtol = 1e-6)"
+        if (n, plus_one) == (512, True):
+            ms = cuda_ms(lambda: I.iou_matrix(boxes, plus_one=True), 50)
+            plain_ms = cuda_ms(lambda: I.iou_matrix_reference(boxes, plus_one=True), 50)
+            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            timed = (ms, plain_ms)
+        print(line, flush=True)
+        check(torch.allclose(got, want, atol=1e-6, rtol=1e-6), f"iou {b}x{n}: kernel disagrees")
+        iou_err = max(iou_err, err)
+    rows = {"iou": (iou_err, *timed)}
+
+    boxes, scores = nms_inputs(gen, 8, 512, torch)
+    n_diff, serving = 0, None
+    for method, iou_t, plus_one, name in (
+        (0, 0.45, True, "hard"), (0, 0.5, True, "hard"), (1, 0.45, True, "linear"),
+        (2, 0.45, True, "gaussian"),
+    ):
+        iou = I.iou_matrix(boxes, plus_one=plus_one)
+        args = (iou, scores, iou_t, 100, method, 0.5, 0.001)
+        got = S.nms_scan(*args)
+        want = S.nms_scan_reference(*args)
+        torch.cuda.synchronize()
+        diff = int((got != want).sum().item())
+        ms = cuda_ms(lambda: S.nms_scan(*args), 20)
+        plain_ms = cuda_ms(lambda: S.nms_scan_reference(*args), 5)
+        print(f"[kernel] nms {name} iou {iou_t} (8, 512) -> {tuple(got.shape)}: {diff} indices "
+              f"differ, {int((got >= 0).sum())} picks; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+              flush=True)
+        check(got.shape == want.shape and diff == 0, f"nms {name} {iou_t}: kernel disagrees")
+        check(bool((got >= 0).any()), f"nms {name}: nothing picked")
+        n_diff += diff
+        if (method, iou_t) == (0, 0.45):
+            serving = (ms, plain_ms)
+    rows["nms"] = (n_diff, *serving)
+    return rows
+
+
 def reference_phase(torch, np):
     """The full-width nets and preprocess in f32 on the GPU vs the CPU."""
     from adas_tpu_torch.models import ufld
+    from adas_tpu_torch.models.efficientdet import EfficientDet, EfficientDetSpec
     from adas_tpu_torch.models.layers import consume_stem
     from adas_tpu_torch.models.ufld import LaneModelType, UFLDv2Net
     from adas_tpu_torch.models.yolo import YoloSpec, YoloV8
     from adas_tpu_torch.ops.preprocess import (
         LetterboxGeometry,
         bgr_to_i420,
+        i420_to_bgr_planar,
+        imagenet_preprocess_planar,
         ufld_v2_preprocess_yuv,
         yolo_preprocess_yuv,
     )
@@ -231,17 +320,22 @@ def reference_phase(torch, np):
     yuv = torch.from_numpy(np.stack([bgr_to_i420(f) for f in frames]))
     small_lane = ufld.UFLDv2Spec(64, 160, lspec.crop_ratio, 20, 72, 10, 16, mlp_mid=64)
     ynet, lnet = YoloV8(YoloSpec("l", 80, (160, 160))), UFLDv2Net(small_lane)
+    enet = EfficientDet(EfficientDetSpec(compound=0, num_classes=80))
     init_params(ynet, 3)  # on the CPU: one set of weights for both sides
     init_params(lnet, 4)
+    init_params(enet, 5)
     outs = {}
     for dev in ("cpu", "cuda"):
-        ynet, lnet = ynet.to(dev), lnet.to(dev)
+        ynet, lnet, enet = ynet.to(dev), lnet.to(dev), enet.to(dev)
         x = yuv.to(dev)
         with torch.inference_mode():
             xy = yolo_preprocess_yuv(x, h, w, LetterboxGeometry(h, w, 160, 160))
             xl = ufld_v2_preprocess_yuv(x, h, w, 64, 160, lspec.crop_ratio)
+            xe = imagenet_preprocess_planar(
+                i420_to_bgr_planar(x, h, w), LetterboxGeometry(h, w, 128, 128)
+            )
             res = {
-                "yolo_in": xy, "lane_in": xl,
+                "yolo_in": xy, "lane_in": xl, "effdet_in": xe,
                 "yolo_stem": ynet.net.stem(xy),
                 "lane_stem": consume_stem(
                     xl, lnet.backbone.conv1, lnet.backbone.bn1, act="relu", pool=True
@@ -249,6 +343,8 @@ def reference_phase(torch, np):
                 "yolo_raw": ynet.eval()(xy),
             }
             res.update({f"lane_{k}": v for k, v in lnet.eval()(xl).items()})
+            res.update(zip(("effdet_c3", "effdet_c4", "effdet_c5"), enet.eval().backbone(xe)))
+            res.update(zip(("effdet_boxes", "effdet_probs"), enet(xe)))
         outs[dev] = {k: v.cpu().numpy() for k, v in res.items()}
     for k, want in outs["cpu"].items():
         got = outs["cuda"][k]
@@ -343,7 +439,8 @@ def stage_breakdown(ms, ticks, torch):
 
 def serve(tag, ms, mods, per_tick, ticks, n_sync, n_pipe, torch, np):
     """process_batch and serve_pipelined ticks with exact per-tick launch
-    counts; returns the counts of the whole run."""
+    counts (every count is set to 0 just before); returns the counts of
+    the whole run."""
     ms.process_batch(ticks[0])  # warm-up: allocator, plans
     torch.cuda.synchronize()
     reset(mods)
@@ -378,8 +475,8 @@ def serve(tag, ms, mods, per_tick, ticks, n_sync, n_pipe, torch, np):
     check(all(k > 0 for k in n_dets), f"empty detections per stream: {n_dets}")
     for r in results[-1]:
         for o in r["objects"]:
-            check(np.isfinite([o.x, o.y, o.width, o.height, o.conf]).all() and 0.25 < o.conf <= 1,
-                  "bad detection")
+            check(np.isfinite([o.x, o.y, o.width, o.height, o.conf]).all()
+                  and ms.yolo.box_score < o.conf <= 1, "bad detection")
         check(len(r["lanes_status"]) == 4, "lane status")
     print(f"[{tag}] detections per stream (last tick): {n_dets}; lanes status "
           f"{[r['lanes_status'] for r in results[-1]][:2]}...")
@@ -433,7 +530,8 @@ def int8_main_phase(mods, torch, np):
     ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
     try:
         return serve("main-int8", ms, mods,
-                     {"stem": 2, "int8_conv": per_conv, "block": BLOCKS_PER_TICK},
+                     {"stem": 2, "int8_conv": per_conv, "block": BLOCKS_PER_TICK,
+                      "iou": 1, "nms": 1},
                      ticks, 3, 8, torch, np)
     finally:
         ms.close()
@@ -446,8 +544,36 @@ def bf16_main_phase(mods, torch, np):
     ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW)
     ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
     try:
-        serve("main-bf16", ms, mods, {"stem": 2, "int8_conv": 0, "block": 0},
-              ticks, 2, 4, torch, np)
+        return serve("main-bf16", ms, mods,
+                     {"stem": 2, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1},
+                     ticks, 2, 4, torch, np)
+    finally:
+        ms.close()
+
+
+def effdet_main_phase(mods, torch, np):
+    """EfficientDet-D0 (512, f32) + UFLDv2-CULane (bf16) on the I420 path."""
+    from adas_tpu_torch.perception.efficientdet_detector import EfficientdetDetector
+    from adas_tpu_torch.perception.lane_detector import LaneModelType, UltrafastLaneDetectorV2
+    from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
+
+    t0 = time.perf_counter()
+    det = EfficientdetDetector(compound=0, box_score=EFFDET_BOX_SCORE, device="cuda", seed=0)
+    lane = UltrafastLaneDetectorV2(
+        model_type=LaneModelType.UFLDV2_CULANE, compute_dtype="bf16", device="cuda", seed=1,
+    )
+    torch.cuda.synchronize()
+    check(det.spec.input_size == 512 and det.spec.config[3:] == (64, 3, 3)
+          and len(det.class_names) == 80, f"not EfficientDet-D0 at full width: {det.spec}")
+    print(f"[main-effdet] built EfficientDet-D0-512 (f32) + UFLDv2-CULane (bf16) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(2)
+    ms = MultiStreamADAS(det, lane, N_STREAMS, FRAME_HW)
+    ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
+    try:
+        return serve("main-effdet", ms, mods,
+                     {"stem": 1, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1},
+                     ticks, 3, 6, torch, np)
     finally:
         ms.close()
 
@@ -461,6 +587,8 @@ def main() -> int:
         return 2
     from adas_tpu_torch.ops import block as B
     from adas_tpu_torch.ops import int8_conv as IC
+    from adas_tpu_torch.ops import iou as I
+    from adas_tpu_torch.ops import nms as NMS
     from adas_tpu_torch.ops import stem as S
     from adas_tpu_torch.ops.cuda_build import BUILD_DIR, build_cuda_libraries
 
@@ -486,17 +614,24 @@ def main() -> int:
 
     stem_err, stem_ms, stem_plain = kernel_phase(S, torch)
     int8_rows = int8_kernel_phase(IC, B, torch)
+    nms_rows = nms_kernel_phase(I, NMS, torch)
     reference_phase(torch, np)
     int8_reference_phase(torch, np, IC, B)
-    mods = {"stem": S, "int8_conv": IC, "block": B}
-    launches = int8_main_phase(mods, torch, np)
-    bf16_main_phase(mods, torch, np)
+    mods = {"stem": S, "int8_conv": IC, "block": B, "iou": I, "nms": NMS}
+    runs = [
+        int8_main_phase(mods, torch, np),
+        effdet_main_phase(mods, torch, np),
+        bf16_main_phase(mods, torch, np),
+    ]
+    launches = {k: sum(run[k] for run in runs) for k in KERNELS}
 
-    rows = {"stem": (stem_err, stem_ms, stem_plain), **int8_rows}
+    rows = {"stem": (stem_err, stem_ms, stem_plain), **int8_rows, **nms_rows}
     replaces = {
         "stem": "adas_tpu/ops/pallas_stem.py:108",
         "int8_conv": "adas_tpu/ops/pallas_conv.py:70",
         "block": "adas_tpu/ops/pallas_block.py:109, adas_tpu/ops/pallas_block.py:380",
+        "iou": "adas_tpu/ops/pallas_iou.py:28",
+        "nms": "adas_tpu/ops/nms.py:111",
     }
     print(json.dumps({"kernels": [{
         "name": k,

@@ -1,5 +1,6 @@
 """Port's serving preprocess (adas_tpu_torch/ops/preprocess.py) against
-cv2 and the JAX YUV-direct emission.
+cv2, the JAX YUV-direct emission and the JAX BGR-plane chain of the
+EfficientDet path.
 
 The JAX side emits S2DPlanes (polyphase planes with halo margins); the
 test strips the margins and undoes the polyphase layout, as
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from adas_tpu.ops.pallas_stem import stem_margins
+from adas_tpu.ops import preprocess as J
 from adas_tpu.ops.preprocess import LetterboxGeometry as JaxGeometry
 from adas_tpu.ops.preprocess import (
     ufld_v2_preprocess_planes_yuv,
@@ -21,6 +23,10 @@ from adas_tpu.ops.preprocess import (
 from adas_tpu_torch.ops.preprocess import (
     LetterboxGeometry,
     bgr_to_i420,
+    i420_to_bgr_planar,
+    imagenet_preprocess,
+    imagenet_preprocess_planar,
+    ufld_v2_preprocess_planar,
     ufld_v2_preprocess_yuv,
     yolo_preprocess_yuv,
 )
@@ -111,3 +117,50 @@ def test_yuv_rejects_wrong_buffer():
             torch.zeros(1, 180, 320, dtype=torch.uint8), 180, 320,
             LetterboxGeometry(180, 320, 160, 160),
         )
+
+
+def _bgr_planes(h, w, seed):
+    """Two frames through the I420 transport: the uint8 buffers, and the
+    port's and eager JAX's (2, 3, H, W) BGR planes."""
+    yuv = np.stack([bgr_to_i420(f) for f in _frames(2, h, w, seed=seed)])
+    want = np.stack([np.asarray(J.i420_to_bgr_planar(jnp.asarray(y), h, w)) for y in yuv])
+    return yuv, want
+
+
+@pytest.mark.parametrize("hw", [(180, 320), (720, 1280)])
+def test_i420_to_bgr_planar_matches_jax_exactly(hw):
+    """The rounded, clipped BT.601 decode equals eager JAX to the bit
+    (``torch.round`` and ``jnp.round`` both round half to even)."""
+    yuv, want = _bgr_planes(*hw, seed=4)
+    got = i420_to_bgr_planar(torch.from_numpy(yuv), *hw)
+    assert got.shape == (2, 3, *hw) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("src_hw,size", [((180, 320), 128), ((720, 1280), 512)])
+def test_imagenet_planar_matches_jax(src_hw, size):
+    """Letterbox (pad normalized with the image) + RGB ImageNet normalize,
+    NCHW here and NHWC in JAX; the resize matmuls sum in another order."""
+    _, planes = _bgr_planes(*src_hw, seed=5)
+    geom = LetterboxGeometry(*src_hw, size, size)
+    got = imagenet_preprocess_planar(torch.from_numpy(planes), geom)
+    jgeom = JaxGeometry(*src_hw, size, size)
+    want = np.asarray(J.imagenet_preprocess_planar(jnp.asarray(planes), jgeom))
+    assert got.shape == (2, 3, size, size)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=1e-5)
+
+
+def test_ufld_planar_matches_jax():
+    _, planes = _bgr_planes(180, 320, seed=6)
+    got = ufld_v2_preprocess_planar(torch.from_numpy(planes), 64, 160, 0.6)
+    want = np.asarray(J.ufld_v2_preprocess_planar(jnp.asarray(planes), 64, 160, 0.6))
+    assert got.shape == (2, 3, 64, 160)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=1e-5)
+
+
+def test_imagenet_preprocess_of_frames_matches_jax():
+    """The single-frame (``DetectFrame``) preprocess from BGR uint8."""
+    frames = _frames(2, 180, 320, seed=7)
+    got = imagenet_preprocess(frames, LetterboxGeometry(180, 320, 128, 128))
+    want = np.asarray(J.imagenet_preprocess(jnp.asarray(frames), JaxGeometry(180, 320, 128, 128)))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=1e-5)

@@ -203,7 +203,8 @@ def test_serve_pipelined_matches_sequential(monkeypatch):
     assert all(s.tracker.frame_id == len(ticks) for s in pipe.streams)
 
 
-NO_JAX_SCRIPT = textwrap.dedent(
+#: the start of a script that cannot import ``jax``, ``jaxlib`` or ``flax``
+BLOCK_JAX = textwrap.dedent(
     """
     import sys
 
@@ -214,6 +215,11 @@ NO_JAX_SCRIPT = textwrap.dedent(
             return None
 
     sys.meta_path.insert(0, _Block())
+    """
+)
+
+NO_JAX_SCRIPT = BLOCK_JAX + textwrap.dedent(
+    """
     import numpy as np
     from adas_tpu.utils.types import LaneModelType
     from adas_tpu_torch.models import ufld
@@ -245,11 +251,16 @@ NO_JAX_SCRIPT = textwrap.dedent(
 )
 
 
-def test_port_serves_without_jax():
+def run_without_jax(script: str) -> str:
+    """Run ``script`` (starting with :data:`BLOCK_JAX`) in a fresh Python
+    process from the repository root; returns its standard output."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run(
-        [sys.executable, "-c", NO_JAX_SCRIPT], cwd=repo, capture_output=True,
-        text=True, timeout=120,
+        [sys.executable, "-c", script], cwd=repo, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.startswith("served")
+    return proc.stdout
+
+
+def test_port_serves_without_jax():
+    assert run_without_jax(NO_JAX_SCRIPT).startswith("served")
