@@ -17,8 +17,8 @@ from typing import Optional
 
 import numpy as np
 
-from adas_tpu.utils.limited import LimitedList
-from adas_tpu.utils.types import CollisionType, CurvatureType, OffsetType
+from ..utils.limited import LimitedList
+from ..utils.types import CollisionType, CurvatureType, OffsetType
 
 
 class TaskConditions:

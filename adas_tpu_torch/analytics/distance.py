@@ -14,7 +14,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from adas_tpu.utils.types import RectInfo
+from ..utils.types import RectInfo
 
 INCH = 0.39
 

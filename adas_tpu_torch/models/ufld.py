@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from adas_tpu.utils.types import LaneModelType
+from ..utils.types import LaneModelType
 
 from .quant import QLinear
 from .resnet import ResNetFeatures

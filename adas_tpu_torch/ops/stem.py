@@ -22,7 +22,9 @@ Layouts are NCHW: ``x`` (N, 3, H, W), ``weight`` OIHW (64, 3, k, k) in
 (N, 64, Ho, Wo) in ``x``'s dtype.  Accumulation and the epilogue run in
 f32, the result is cast once after the activation (and pooled after the
 cast, as the JAX chain does: the cast is monotone, so the order does not
-change the pooled value).
+change the pooled value).  A bf16 input runs its products on the tensor
+cores (bf16 x bf16 products are exact in f32: only the order of the sum
+differs from the plain version); an f32 input stays on the CUDA cores.
 """
 from __future__ import annotations
 

@@ -3,13 +3,14 @@
 path).
 
 Weights come from a ``params_io`` ``.npz`` or, with no ``model_path``,
-from the port's seeded flax-style init, on an explicit device; the net
-runs in f32.  Not ported: the ONNX engine path, the zylo117 ``.pth``
+from the port's seeded flax-style init, on the card unless the caller
+names the CPU; the net runs in f32.  Not ported: the ONNX engine path, the zylo117 ``.pth``
 import and int8 (the JAX facade's ``compute_dtype="int8"``).
 :meth:`DetectFrame` is the single-frame entry point: letterbox ->
 :func:`imagenet_preprocess` -> net (anchors decoded inside) -> class
 max/argmax -> ``select_and_nms`` (on the GPU: the IoU and scan kernels)
--> letterbox inverse -> ``RectInfo`` rows.  The multi-stream pipeline drives ``net`` directly.
+-> letterbox inverse -> ``RectInfo`` rows.  The multi-stream pipeline
+drives ``net`` directly.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from adas_tpu.utils.types import ObjectModelType
+from ..utils.types import ObjectModelType
 
 from ..models.efficientdet import EfficientDet, EfficientDetSpec
 from ..ops.preprocess import LetterboxGeometry, imagenet_preprocess
@@ -45,7 +46,7 @@ class EfficientdetDetector(ObjectDetectBase):
         box_nms_iou: float = 0.5,
         max_det: int = 100,
         classes_path: Optional[str] = None,
-        device="cpu",
+        device="cuda",
         seed: int = 0,
     ):
         self.model_type = ObjectModelType.EfficientDet

@@ -13,7 +13,7 @@ from typing import Optional
 
 import numpy as np
 
-from adas_tpu.utils.types import LaneInfo, LaneModelType
+from ..utils.types import LaneInfo, LaneModelType
 
 from ..models.ufld import UFLDV2_SPECS, UFLDv2Net
 from ..ops.preprocess import ufld_v2_preprocess
@@ -28,7 +28,7 @@ class UltrafastLaneDetectorV2:
         model_path: Optional[str] = None,
         model_type: LaneModelType = LaneModelType.UFLDV2_CULANE,
         compute_dtype: Optional[str] = None,
-        device="cpu",
+        device="cuda",
         seed: int = 0,
     ):
         if model_type not in UFLDV2_SPECS:

@@ -1,7 +1,8 @@
 """YOLO detector facade (port of the YOLOv8 part of ``YoloDetector``,
 ``adas_tpu/perception/object_detector.py:162``).
 
-Builds the torch net on an explicit device: weights come from a
+Builds the torch net on the card (``device="cuda"``, the default; the
+CPU only when the caller names it): weights come from a
 ``params_io`` ``.npz`` (the JAX package's portable checkpoint) or, with no
 ``model_path``, from the port's seeded flax-style init.  ``compute_dtype``
 is None (f32), ``"bf16"`` (every floating leaf cast, as
@@ -21,15 +22,16 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-import adas_tpu
-from adas_tpu.utils.types import ObjectModelType, RectInfo, hex_to_rgb
+from ..utils.types import ObjectModelType, RectInfo, hex_to_rgb
 
 from ..models.quant import calibrating, pack_int8_weights
 from ..models.yolo import YoloSpec, YoloV8
 from ..ops.preprocess import LetterboxGeometry, yolo_preprocess
 from ..weights import init_params, load_flax_variables, load_npz
 
-DEFAULT_CLASSES = os.path.join(os.path.dirname(adas_tpu.__file__), "data", "coco_label.txt")
+DEFAULT_CLASSES = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "coco_label.txt"
+)
 
 #: the params' dtype per compute dtype (an int8 net keeps f32 params)
 _COMPUTE_DTYPES = {None: torch.float32, "bf16": torch.bfloat16, "int8": torch.float32}
@@ -134,7 +136,7 @@ class YoloDetector(ObjectDetectBase):
         input_size: Tuple[int, int] = (640, 640),
         compute_dtype: Optional[str] = None,
         classes_path: Optional[str] = None,
-        device="cpu",
+        device="cuda",
         seed: int = 0,
     ):
         if model_type is not ObjectModelType.YOLOV8:

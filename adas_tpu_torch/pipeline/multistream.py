@@ -28,8 +28,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from adas_tpu.tracking import BYTETracker
-from adas_tpu.utils.types import LaneInfo, ObjectModelType
+from ..tracking import BYTETracker
+from ..utils.types import LaneInfo, ObjectModelType
 
 from ..analytics import PerspectiveTransformation, SingleCamDistanceMeasure, TaskConditions
 from ..ops.packing import pack, unpack

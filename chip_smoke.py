@@ -12,18 +12,24 @@ Phases, each of which raises (exit code 1) on failure:
    together (``csrc/stem.cu``, ``csrc/int8_conv.cu``, ``csrc/block.cu``,
    ``csrc/iou.cu``, ``csrc/nms.cu``), and print their ptxas register and
    spill lines;
-3. each kernel against its plain PyTorch version, each side timed with
-   CUDA events:
+3. each kernel against its plain PyTorch version, beside its bound (the
+   longer of its bytes at 3.35 TB/s and its operations at the data-sheet
+   peak of their type) and, where one PyTorch call computes the same
+   function, that call's time.  The kernel and the library call are timed
+   as device time (calls captured in a CUDA graph, one replay between
+   CUDA events); the plain version as eager calls between CUDA events:
    * the stem at both serving shapes — YOLOv8 3x3/2 + SiLU on
      8x3x640x640 and ResNet 7x7/2 + ReLU + max pool on 8x3x320x1600 — in
-     bf16 (atol = rtol = 1e-2) and in f32 with TF32 off (atol 2e-4, rtol
-     1e-4);
+     bf16 (atol = rtol = 1e-2; yardstick: cuDNN ``F.conv2d`` in bf16 with
+     the BN folded into its weight and bias) and in f32 with TF32 off
+     (atol 2e-4, rtol 1e-4);
    * the int8 conv at the TPU conv kernel's four shapes (3x3/s1 at
      8x160x160x64->64, 8x80x400x64->64, 8x80x80x128->128,
      8x40x40x256->256) plus the path's 3x3/s2 down1 (8x320x320x64->128)
      and a 1x1 (8x80x80x256->256), with s8 output (at most 1 LSB apart on
      fewer than 0.5% of the elements) and bf16 output (within one bf16
-     ulp, or 1e-30);
+     ulp, or 1e-30); yardstick: ``torch._int_mm`` on the same implicit
+     GEMM, its im2col operand made outside the timed window;
    * the fused block at its two serving shapes, 8x160x160x64 (SiLU, SiLU,
      residual) and 8x80x400x64 (ReLU, -, residual, ReLU), s8 yardstick;
    * the pairwise-IoU kernel against ``pairwise_iou`` at the serving
@@ -51,7 +57,11 @@ Phases, each of which raises (exit code 1) on failure:
      test sees the same from the two frameworks' stems);
 5. the int8 main path: YOLOv8l-640 + UFLDv2-CULane, int8, seeded random
    weights, calibrated on the card with the port's calibrator from two
-   720x1280 frames, 8 streams of 720x1280 frames over I420 transport,
+   720x1280 frames, 8 streams of 720x1280 frames over I420 transport.
+   First, outside the counted run, one step records every int8 conv call
+   by shape; each distinct shape is held against the plain version (as
+   in phase 3) and timed beside ``torch._int_mm``, its bound and its
+   calls per tick (``[int8-shapes]`` lines, with per-tick sums).  Then
    ``process_batch`` ticks and ``serve_pipelined`` ticks.  Every launch
    count is reset just before and must grow, per tick, by exactly 2 (stem),
    5 (block: YOLOv8l stage1's three bottlenecks, ResNet layer1's two
@@ -69,16 +79,18 @@ Phases, each of which raises (exit code 1) on failure:
 7. the bf16 main path of the YOLOv8l configuration (fewer ticks), stem 2,
    IoU 1 and scan 1 per tick.
 
-Then one JSON line describing the kernels — ``launches`` summed over the
-three main paths, each counted from 0 just before it; ``max_abs_err``,
-``ms`` and ``plain_ms`` from phase 3 (stem: bf16, times summed over its
-two serving shapes; int8 conv: s8 output, the largest error in LSB and the
-times summed over its six shapes; block: the same over its two shapes;
-IoU: the largest error over its shapes, the times at (8, 512) with
-``plus_one``; scan: the number of differing indices, the times of the
-serving call, hard at IoU 0.45) — and last ``{"ok": true, "device":
-{...}}``.  Exits non-zero, printing no result, when no CUDA GPU is
-visible.
+Then the card's name and power limit again, one JSON line describing
+the kernels — ``launches`` summed over the three main paths, each counted
+from 0 just before it; ``max_abs_err``, ``ms``, ``plain_ms``,
+``library_ms`` (null where no PyTorch call computes the function) and the
+bound (``bound_ms``, ``bound_by``) from phase 3 (stem: bf16, summed over
+its two serving shapes; int8 conv: s8 output, the largest error in LSB,
+summed over its six shapes; block: the same over its two shapes; IoU: the
+largest error over its shapes, the rest at (8, 512) with ``plus_one``;
+scan: the number of differing indices, the rest of the serving call, hard
+at IoU 0.45, its bound counting this run's picks) — and last ``{"ok":
+true, "device": {...}}``.  Exits non-zero, printing no result, when no
+CUDA GPU is visible.
 """
 from __future__ import annotations
 
@@ -92,6 +104,11 @@ N_STREAMS, FRAME_HW = 8, (720, 1280)
 BLOCKS_PER_TICK = 5
 #: EfficientDet's box score on seeded weights (see phase 6)
 EFFDET_BOX_SCORE = 0.5
+#: one H100 SXM's dense peaks (operations/s by type) and memory rate
+#: (bytes/s), NVIDIA's data sheet, at the full 700 W power limit: the
+#: bounds of the kernel lines; a card set below 700 W runs under them
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def check(cond, msg: str) -> None:
@@ -99,8 +116,61 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+def bound(nbytes: float, ops: float, kind: str):
+    """(least ms, what sets it) for work that moves ``nbytes`` (each input
+    read once, each output written once) and does ``ops`` operations of
+    ``kind``: the longer of the two at the card's peak rates."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def total_bound(parts):
+    """Sum of several shapes' bounds; what sets the larger share of it."""
+    ms = sum(b for b, _ in parts)
+    share = {}
+    for b, by in parts:
+        share[by] = share.get(by, 0.0) + b
+    return ms, max(share, key=share.get)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def fmt_bound(b, ms: float) -> str:
+    return f"bound {b[0]:.4f} ms ({b[1]}), {100 * b[0] / ms:.1f}% of bound"
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn()``: ``iters`` calls captured in one CUDA
+    graph, then one replay between two CUDA events, so the host's cost of
+    each call (the wrapper, the launch) is not counted; after warm-up."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()  # the first replay uploads the graph
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn()`` over ``iters`` launches, after warm-up."""
+    """Mean time of ``fn()`` over ``iters`` back-to-back eager calls between
+    two CUDA events, after warm-up (the host's cost of each call counts
+    where it exceeds the device's)."""
     import torch
 
     for _ in range(3):
@@ -116,7 +186,11 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def kernel_phase(S, torch):
-    """Stem kernel vs stem_reference at the two serving shapes."""
+    """Stem kernel vs stem_reference at the two serving shapes; bf16 also
+    against cuDNN's ``F.conv2d`` with the BN folded into its weight and
+    bias (the conv + BN in one call, full-resolution output)."""
+    import torch.nn.functional as F
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     sites = (
         ("yolo_stem_k3_silu", (8, 3, 640, 640), 3, "silu", False),
@@ -136,19 +210,31 @@ def kernel_phase(S, torch):
             check(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
             err = (got.float() - ref.float()).abs().max().item()
             ok = torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol)
-            ms = cuda_ms(lambda: S.fused_stem(x, w, gain, bias, **args), 20)
+            ms = device_ms(lambda: S.fused_stem(x, w, gain, bias, **args), 20)
+            eager_ms = cuda_ms(lambda: S.fused_stem(x, w, gain, bias, **args), 20)
             plain_ms = cuda_ms(lambda: S.stem_reference(x, w, gain, bias, **args), 20)
-            print(
-                f"[kernel] {name} {str(dtype)[6:]} {tuple(shape)} -> {tuple(got.shape)}: "
-                f"max_abs_err {err:.6g} (atol {atol}, rtol {rtol}) kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms", flush=True,
-            )
+            hc, wc = S.stem_out_hw(shape[2], shape[3], False)
+            b = bound(nbytes(x, w, gain, bias, got), 2 * shape[0] * 64 * hc * wc * 3 * k * k,
+                      "bf16" if dtype == torch.bfloat16 else "f32")
+            line = (f"[kernel] {name} {str(dtype)[6:]} {tuple(shape)} -> {tuple(got.shape)}: "
+                    f"max_abs_err {err:.6g} (atol {atol}, rtol {rtol}) kernel {ms:.4f} ms "
+                    f"(eager {eager_ms:.4f}), "
+                    f"plain {plain_ms:.4f} ms, {fmt_bound(b, ms)}")
+            lib_ms = None
+            if dtype == torch.bfloat16:
+                wf = (w.float() * gain.view(-1, 1, 1, 1)).to(dtype)
+                bf = bias.to(dtype)
+                lib_ms = device_ms(lambda: F.conv2d(x, wf, bf, stride=2, padding=k // 2), 20)
+                line += f", cuDNN conv2d + folded BN {lib_ms:.4f} ms"
+            print(line, flush=True)
             check(ok, f"{name} {dtype}: kernel disagrees with stem_reference (max abs err {err})")
-            rows.append((dtype, err, ms, plain_ms))
+            rows.append((dtype, err, ms, plain_ms, lib_ms, b))
     bf16 = [r for r in rows if r[0] == torch.bfloat16]
-    return (
-        max(r[1] for r in bf16), sum(r[2] for r in bf16), sum(r[3] for r in bf16),
-    )
+    return {
+        "max_abs_err": max(r[1] for r in bf16), "ms": sum(r[2] for r in bf16),
+        "plain_ms": sum(r[3] for r in bf16), "library_ms": sum(r[4] for r in bf16),
+        "bound": total_bound([r[5] for r in bf16]),
+    }
 
 
 def s8_diff(got, want):
@@ -157,9 +243,56 @@ def s8_diff(got, want):
     return int(d.max().item()), float((d != 0).float().mean().item())
 
 
+def conv_operands(gen, shape, pitch, cout, k, torch, bias=True):
+    """Random s8 input (a channel slice when ``pitch`` > Cin) and weights,
+    and an f32 epilogue that keeps |y| at a few units."""
+    n, h, w, cin = shape
+    xq = torch.randint(-127, 128, (n, h, w, pitch), generator=gen, device="cuda",
+                       dtype=torch.int8)[..., :cin]
+    wq = torch.randint(-127, 128, (cout, k, k, cin), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    scale = (torch.rand(cout, generator=gen, device="cuda") * 0.5 + 0.75) * 5e-4 / (k * k * cin) ** 0.5
+    b = torch.randn(cout, generator=gen, device="cuda") * 0.5 if bias else None
+    return xq, wq, scale, b
+
+
+def conv_against_plain(IC, torch, args, kw):
+    """The kernel against int8_conv_reference on ``args``: s8 at most 1
+    LSB on fewer than 0.5% of the elements, bf16 within one ulp (or
+    1e-30); returns (kernel output, error: LSB for s8, absolute for bf16)."""
+    got = IC.int8_conv(*args, **kw)
+    want = IC.int8_conv_reference(*args, **kw)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype, "int8 conv shape/dtype")
+    if kw.get("out_scale") is not None:
+        lsb, share = s8_diff(got, want)
+        check(lsb <= 1 and share < 5e-3, f"int8 conv s8 disagrees: {lsb} LSB on {share:.2e}")
+        return got, lsb
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    check(bool(torch.all((g - w).abs() <= w.abs() * 2.0 ** -7 + 1e-30)),
+          f"int8 conv bf16 disagrees (max abs err {err})")
+    return got, err
+
+
+def conv_yardsticks(IC, torch, args, kw, got, stride):
+    """Kernel time, ``torch._int_mm`` time on the same implicit GEMM (the
+    im2col operand made outside the timed window; it computes the s32
+    product, the whole conv for a 1x1) and the bound of the conv."""
+    xq, wq, scale, bias = args
+    k, cout = wq.shape[1], wq.shape[0]
+    ms = device_ms(lambda: IC.int8_conv(*args, **kw), 20)
+    cols = IC.im2col(xq, k, stride).contiguous()
+    w2d = wq.reshape(cout, -1)
+    lib_ms = device_ms(lambda: torch._int_mm(cols, w2d.t()), 20)
+    m, kk = cols.shape
+    b = bound(nbytes(xq, wq, scale, bias, kw.get("out_scale"), got), 2 * m * kk * cout, "int8")
+    return ms, lib_ms, b
+
+
 def int8_kernel_phase(IC, B, torch):
     """The int8 conv and the fused block against their plain versions at
-    the path's shapes; returns {kernel: (max err, ms, plain ms)}."""
+    the path's shapes; returns {kernel: row of the kernels line}."""
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def s8(shape, lo=-127, hi=128):
@@ -174,38 +307,31 @@ def int8_kernel_phase(IC, B, torch):
         ("down1_3x3s2", (8, 320, 320, 64), 128, 3, 2, "silu"),
         ("stage2_cv1_1x1", (8, 80, 80, 256), 256, 1, 1, "silu"),
     )
-    conv = [0, 0.0, 0.0]
+    conv = {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bounds": []}
     for name, shape, cout, k, stride, act in conv_sites:
-        xq = s8(shape)
-        wq = s8((cout, k, k, shape[3]))
-        kk = k * k * shape[3]
-        scale = (torch.rand(cout, generator=gen, device="cuda") * 0.5 + 0.75) * 5e-4 / kk ** 0.5
-        bias = torch.randn(cout, generator=gen, device="cuda") * 0.5
+        args = conv_operands(gen, shape, shape[3], cout, k, torch)
         for out_scale in (torch.tensor(0.05, device="cuda"), None):
-            args = (xq, wq, scale, bias)
             kw = dict(stride=stride, act=act, out_scale=out_scale)
-            got = IC.int8_conv(*args, **kw)
-            want = IC.int8_conv_reference(*args, **kw)
-            torch.cuda.synchronize()
-            check(got.shape == want.shape and got.dtype == want.dtype, f"{name}: shape/dtype")
-            ms = cuda_ms(lambda: IC.int8_conv(*args, **kw), 20)
+            got, err = conv_against_plain(IC, torch, args, kw)
+            if out_scale is None:
+                print(f"[kernel] int8_conv {name} bf16: max_abs_err {err:.4g} (one bf16 ulp)",
+                      flush=True)
+                continue
+            ms, lib_ms, b = conv_yardsticks(IC, torch, args, kw, got, stride)
             plain_ms = cuda_ms(lambda: IC.int8_conv_reference(*args, **kw), 5)
-            if out_scale is not None:
-                lsb, share = s8_diff(got, want)
-                print(f"[kernel] int8_conv {name} {shape}->{cout} k{k}/s{stride} {act} s8: "
-                      f"max diff {lsb} LSB on {share:.2e} of elements; kernel {ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms", flush=True)
-                check(lsb <= 1 and share < 5e-3, f"int8_conv {name} s8 disagrees")
-                conv = [max(conv[0], lsb), conv[1] + ms, conv[2] + plain_ms]
-            else:
-                g, w = got.float(), want.float()
-                err = (g - w).abs().max().item()
-                ok = bool(torch.all((g - w).abs() <= w.abs() * 2.0 ** -7 + 1e-30))
-                print(f"[kernel] int8_conv {name} bf16: max_abs_err {err:.4g} (one bf16 ulp); "
-                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-                check(ok, f"int8_conv {name} bf16 disagrees (max abs err {err})")
+            eager_ms = cuda_ms(lambda: IC.int8_conv(*args, **kw), 20)
+            print(f"[kernel] int8_conv {name} {shape}->{cout} k{k}/s{stride} {act} s8: "
+                  f"max diff {err} LSB; kernel {ms:.4f} ms (eager {eager_ms:.4f}), "
+                  f"plain {plain_ms:.4f} ms, "
+                  f"torch._int_mm {lib_ms:.4f} ms, {fmt_bound(b, ms)}", flush=True)
+            conv["max_abs_err"] = max(conv["max_abs_err"], err)
+            conv["ms"] += ms
+            conv["plain_ms"] += plain_ms
+            conv["library_ms"] += lib_ms
+            conv["bounds"].append(b)
+    conv["bound"] = total_bound(conv.pop("bounds"))
 
-    block = [0, 0.0, 0.0]
+    block = {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bounds": []}
     for name, shape, acts in (
         ("yolo_stage1", (8, 160, 160, 64), ("silu", "silu", None)),
         ("resnet_layer1", (8, 80, 400, 64), ("relu", None, "relu")),
@@ -224,13 +350,19 @@ def int8_kernel_phase(IC, B, torch):
         want = B.block_reference(*args, **kw)
         torch.cuda.synchronize()
         lsb, share = s8_diff(got, want)
-        ms = cuda_ms(lambda: B.fused_block(*args, **kw), 20)
+        ms = device_ms(lambda: B.fused_block(*args, **kw), 20)
         plain_ms = cuda_ms(lambda: B.block_reference(*args, **kw), 5)
+        b = bound(nbytes(*args, got), 2 * 2 * xq[..., 0].numel() * 9 * c * c, "int8")
         print(f"[kernel] block {name} {shape} {acts}: max diff {lsb} LSB on {share:.2e} of "
-              f"elements; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+              f"elements; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {fmt_bound(b, ms)}",
+              flush=True)
         check(lsb <= 1 and share < 5e-3, f"block {name} disagrees")
-        block = [max(block[0], lsb), block[1] + ms, block[2] + plain_ms]
-    return {"int8_conv": tuple(conv), "block": tuple(block)}
+        block["max_abs_err"] = max(block["max_abs_err"], lsb)
+        block["ms"] += ms
+        block["plain_ms"] += plain_ms
+        block["bounds"].append(b)
+    block["bound"] = total_bound(block.pop("bounds"))
+    return {"int8_conv": conv, "block": block}
 
 
 def nms_inputs(gen, b, n, torch):
@@ -248,9 +380,10 @@ def nms_inputs(gen, b, n, torch):
 
 def nms_kernel_phase(I, S, torch):
     """The IoU and scan kernels against their plain versions; returns
-    {kernel: (max err, ms, plain ms)}."""
+    {kernel: row of the kernels line}.  Neither has a one-call PyTorch
+    counterpart (``library_ms`` null)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    iou_err, timed = 0.0, None
+    iou_err, iou_row = 0.0, None
     for b, n, plus_one in ((8, 512, True), (8, 512, False), (8, 300, True), (8, 1, True)):
         boxes, _ = nms_inputs(gen, b, n, torch)
         got = I.iou_matrix(boxes, plus_one=plus_one)
@@ -262,14 +395,17 @@ def nms_kernel_phase(I, S, torch):
         line = f"[kernel] iou ({b}, {n}, 4) plus_one={plus_one}: {n_diff} elements differ, " \
                f"max_abs_err {err:.3g} (0 ulp, at worst atol = rtol = 1e-6)"
         if (n, plus_one) == (512, True):
-            ms = cuda_ms(lambda: I.iou_matrix(boxes, plus_one=True), 50)
+            ms = device_ms(lambda: I.iou_matrix(boxes, plus_one=True), 50)
             plain_ms = cuda_ms(lambda: I.iou_matrix_reference(boxes, plus_one=True), 50)
-            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-            timed = (ms, plain_ms)
+            # per pair: 4 min/max, 4 subtractions (+2 with plus_one), 2 clamps,
+            # the intersection product, the union's two adds and the division
+            bd = bound(nbytes(boxes, got), 15 * b * n * n, "f32")
+            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {fmt_bound(bd, ms)}"
+            iou_row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound": bd}
         print(line, flush=True)
         check(torch.allclose(got, want, atol=1e-6, rtol=1e-6), f"iou {b}x{n}: kernel disagrees")
         iou_err = max(iou_err, err)
-    rows = {"iou": (iou_err, *timed)}
+    rows = {"iou": {"max_abs_err": iou_err, **iou_row}}
 
     boxes, scores = nms_inputs(gen, 8, 512, torch)
     n_diff, serving = 0, None
@@ -283,17 +419,22 @@ def nms_kernel_phase(I, S, torch):
         want = S.nms_scan_reference(*args)
         torch.cuda.synchronize()
         diff = int((got != want).sum().item())
-        ms = cuda_ms(lambda: S.nms_scan(*args), 20)
+        ms = device_ms(lambda: S.nms_scan(*args), 20)
         plain_ms = cuda_ms(lambda: S.nms_scan_reference(*args), 5)
+        picks = int((got >= 0).sum())
+        # what this run's picks need: each pick reads one IoU row and
+        # compares, masks and rescores every candidate of its stream
+        bd = bound(picks * iou.shape[-1] * 4 + nbytes(scores, got), 4 * picks * iou.shape[-1],
+                   "f32")
         print(f"[kernel] nms {name} iou {iou_t} (8, 512) -> {tuple(got.shape)}: {diff} indices "
-              f"differ, {int((got >= 0).sum())} picks; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
-              flush=True)
+              f"differ, {picks} picks; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"{fmt_bound(bd, ms)}", flush=True)
         check(got.shape == want.shape and diff == 0, f"nms {name} {iou_t}: kernel disagrees")
-        check(bool((got >= 0).any()), f"nms {name}: nothing picked")
+        check(picks > 0, f"nms {name}: nothing picked")
         n_diff += diff
         if (method, iou_t) == (0, 0.45):
-            serving = (ms, plain_ms)
-    rows["nms"] = (n_diff, *serving)
+            serving = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound": bd}
+    rows["nms"] = {"max_abs_err": n_diff, **serving}
     return rows
 
 
@@ -508,6 +649,65 @@ def build_main(compute_dtype, torch):
     return yolo, lane, MultiStreamADAS
 
 
+def main_path_conv_shapes(ms, frames, IC, torch):
+    """Every int8 conv call of one int8 step, by shape: {(input shape,
+    channel pitch, Cout, k, stride, act, s8 output, bias): calls per
+    tick}, recorded at the module tree's one call site
+    (``models/layers.py``'s ``int8_conv``) on a step outside the counted
+    run."""
+    from adas_tpu_torch.models import layers
+
+    seen, run = {}, layers.int8_conv
+
+    def record(xq, wq, scale, bias, *, stride, act, out_scale=None):
+        key = (tuple(xq.shape), IC.channel_pitch(xq), wq.shape[0], wq.shape[1], stride, act,
+               out_scale is not None, bias is not None)
+        seen[key] = seen.get(key, 0) + 1
+        return run(xq, wq, scale, bias, stride=stride, act=act, out_scale=out_scale)
+
+    layers.int8_conv = record
+    try:
+        ms._step(ms._prep_upload(frames))
+        torch.cuda.synchronize()
+    finally:
+        layers.int8_conv = run
+    return seen
+
+
+def main_path_conv_phase(IC, shapes, torch):
+    """Each distinct int8 conv shape of the main path: the kernel against
+    its plain version (to the bit, as at the smoke shapes), its time,
+    ``torch._int_mm``'s on the same GEMM, its bound, and the per-tick sums
+    (each shape times its calls per tick)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tick = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    slower = []
+    for (shape, pitch, cout, k, stride, act, s8_out, has_bias), calls in sorted(
+        shapes.items(), key=lambda kv: -kv[1] * kv[0][0][0] * kv[0][0][1] * kv[0][0][2] * kv[0][2]
+    ):
+        args = conv_operands(gen, shape, pitch, cout, k, torch, bias=has_bias)
+        kw = dict(stride=stride, act=act,
+                  out_scale=torch.tensor(0.05, device="cuda") if s8_out else None)
+        got, err = conv_against_plain(IC, torch, args, kw)
+        ms, lib_ms, b = conv_yardsticks(IC, torch, args, kw, got, stride)
+        n, h, w, cin = shape
+        ho, wo = IC.conv_out_hw(h, w, k, stride)
+        tile = IC.tile_config(n * ho * wo, cout, IC._num_sms(torch.cuda.current_device()))
+        print(f"[int8-shapes] {n}x{h}x{w}x{cin} (pitch {pitch}) -> {cout} k{k}/s{stride} {act} "
+              f"{'s8' if s8_out else 'bf16'} x{calls}/tick tile {tile[0]}x{tile[1]}: "
+              f"err {err:.3g}; kernel {ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, "
+              f"{fmt_bound(b, ms)}", flush=True)
+        tick["ms"] += calls * ms
+        tick["library_ms"] += calls * lib_ms
+        tick["bound_ms"] += calls * b[0]
+        if ms > lib_ms:
+            slower.append(f"{n}x{h}x{w}x{cin}->{cout} k{k}/s{stride}")
+    print(f"[int8-shapes] per tick over {len(shapes)} shapes, {sum(shapes.values())} launches: "
+          f"kernel {tick['ms']:.4f} ms, torch._int_mm {tick['library_ms']:.4f} ms, bound "
+          f"{tick['bound_ms']:.4f} ms, {100 * tick['bound_ms'] / tick['ms']:.1f}% of bound; "
+          f"slower than torch._int_mm at {len(slower)} shapes: {slower}", flush=True)
+
+
 def int8_main_phase(mods, torch, np):
     """The calibrated int8 serving path at full width."""
     from adas_tpu_torch.models.quant import QConv2d
@@ -529,6 +729,10 @@ def int8_main_phase(mods, torch, np):
     ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW)
     ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
     try:
+        shapes = main_path_conv_shapes(ms, ticks[0], mods["int8_conv"], torch)
+        check(sum(shapes.values()) == per_conv,
+              f"recorded {sum(shapes.values())} int8 convs in a step, expected {per_conv}")
+        main_path_conv_phase(mods["int8_conv"], shapes, torch)
         return serve("main-int8", ms, mods,
                      {"stem": 2, "int8_conv": per_conv, "block": BLOCKS_PER_TICK,
                       "iou": 1, "nms": 1},
@@ -612,9 +816,8 @@ def main() -> int:
                 if "Compiling entry" in line or "registers" in line or "spill" in line:
                     print(f"[build] {k}: {line.strip()}")
 
-    stem_err, stem_ms, stem_plain = kernel_phase(S, torch)
-    int8_rows = int8_kernel_phase(IC, B, torch)
-    nms_rows = nms_kernel_phase(I, NMS, torch)
+    rows = {"stem": kernel_phase(S, torch), **int8_kernel_phase(IC, B, torch),
+            **nms_kernel_phase(I, NMS, torch)}
     reference_phase(torch, np)
     int8_reference_phase(torch, np, IC, B)
     mods = {"stem": S, "int8_conv": IC, "block": B, "iou": I, "nms": NMS}
@@ -625,7 +828,6 @@ def main() -> int:
     ]
     launches = {k: sum(run[k] for run in runs) for k in KERNELS}
 
-    rows = {"stem": (stem_err, stem_ms, stem_plain), **int8_rows, **nms_rows}
     replaces = {
         "stem": "adas_tpu/ops/pallas_stem.py:108",
         "int8_conv": "adas_tpu/ops/pallas_conv.py:70",
@@ -633,15 +835,19 @@ def main() -> int:
         "iou": "adas_tpu/ops/pallas_iou.py:28",
         "nms": "adas_tpu/ops/nms.py:111",
     }
+    print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": k,
         "route": "cuda",
         "source": f"adas_tpu_torch/csrc/{k}.cu",
         "replaces": replaces[k],
         "launches": launches[k],
-        "max_abs_err": rows[k][0],
-        "ms": rows[k][1],
-        "plain_ms": rows[k][2],
+        "max_abs_err": rows[k]["max_abs_err"],
+        "ms": rows[k]["ms"],
+        "plain_ms": rows[k]["plain_ms"],
+        "bound_ms": rows[k]["bound"][0],
+        "bound_by": rows[k]["bound"][1],
+        "library_ms": rows[k]["library_ms"],
     } for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -92,6 +92,79 @@ def test_conv_matches_reference(gpu, n, h, w, cin, cout, k, stride, act, requant
     (_assert_s8_close if requant else _assert_bf16_close)(got, want)
 
 
+#: the edges of every tile class: (n, h, w, cin, cout, k, stride)
+TILE_EDGE_CASES = [
+    (1, 7, 9, 64, 128, 3, 1),      # M = 63: a single ragged M tile
+    (2, 10, 10, 256, 80, 1, 1),    # Cout = 80, the class head
+    (2, 9, 11, 8, 16, 3, 1),       # Cin = 8: 8-byte copies, K = 72 (padded weight rows)
+    (1, 6, 5, 8, 24, 1, 1),        # Cin = 8 at 1x1: K = 8
+    (2, 17, 23, 64, 128, 3, 2),    # stride 2, ragged output (gathered activations)
+    (2, 17, 23, 128, 64, 3, 2),    # stride 2 through the im2col TMA
+    (1, 20, 20, 512, 512, 3, 1),   # fewer tiles than SMs, K = 4,608
+    (2, 33, 31, 128, 256, 3, 1),   # several tiles per block of the persistent grid
+]
+
+
+@pytest.mark.parametrize("tile", IC.TILES)
+@pytest.mark.parametrize("n,h,w,cin,cout,k,stride", TILE_EDGE_CASES)
+def test_conv_tile_class_is_exact(gpu, monkeypatch, tile, n, h, w, cin, cout, k, stride):
+    """Every tile the wrapper can pick, forced, at each edge: the s32
+    accumulator to the bit (unit scale, no bias, no activation, bf16 of an
+    exactly representable sum), then the full epilogue to s8."""
+    monkeypatch.setattr(IC, "tile_config", lambda m, c, sms: tile)
+    monkeypatch.setattr(IC, "_PLANS", {})  # plans cached under another tile
+    xq = _s8(gpu, (n, h, w, cin), -8, 8)
+    wq = _s8(gpu, (cout, k, k, cin), -8, 8)
+    one = torch.ones(cout, device="cuda")
+    got = IC.int8_conv(xq, wq, one, None, stride=stride, act=None)
+    acc = IC.int8_conv_accumulate(xq, wq, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(got, acc.float().to(torch.bfloat16))
+    xq, wq = _s8(gpu, (n, h, w, cin)), _s8(gpu, (cout, k, k, cin))
+    scale = torch.rand(cout, generator=gpu, device="cuda") * 2e-4 / (k * k * cin) ** 0.5 + 1e-5
+    bias = torch.randn(cout, generator=gpu, device="cuda") * 0.5
+    os_ = torch.tensor(0.02, device="cuda")
+    got = IC.int8_conv(xq, wq, scale, bias, stride=stride, act="silu", out_scale=os_)
+    want = IC.int8_conv_reference(xq, wq, scale, bias, stride=stride, act="silu", out_scale=os_)
+    torch.cuda.synchronize()
+    _assert_s8_close(got, want)
+
+
+@pytest.mark.parametrize("tile", IC.TILES)
+@pytest.mark.parametrize("k,c_total,c0", [(3, 256, 128), (1, 384, 128), (3, 192, 64)])
+def test_conv_channel_slice_every_tile(gpu, monkeypatch, tile, k, c_total, c0):
+    """A channel pitch wider than Cin (C2f's split half) under every tile,
+    through the im2col TMA (3x3 at Cin 128, 1x1 at Cin 256) and the
+    gather (3x3 at Cin 128 from a 64-byte offset)."""
+    monkeypatch.setattr(IC, "tile_config", lambda m, c, sms: tile)
+    monkeypatch.setattr(IC, "_PLANS", {})
+    y = _s8(gpu, (2, 13, 21, c_total), -8, 8)
+    part = y[..., c0:]
+    cin = c_total - c0
+    wq = _s8(gpu, (128, k, k, cin), -8, 8)
+    one = torch.ones(128, device="cuda")
+    got = IC.int8_conv(part, wq, one, None, stride=1, act=None)
+    acc = IC.int8_conv_accumulate(part.contiguous(), wq, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, acc.float().to(torch.bfloat16))
+
+
+def test_conv_weight_map_follows_the_weights(gpu):
+    """The weights' TMA map is cached by address and extents: new weights
+    in place of freed ones of the same shape, and a second call on the
+    same weights, still give the exact accumulator."""
+    xq = _s8(gpu, (2, 12, 12, 64), -8, 8)
+    one = torch.ones(128, device="cuda")
+    for _ in range(3):
+        wq = _s8(gpu, (128, 3, 3, 64), -8, 8)
+        for _ in range(2):
+            got = IC.int8_conv(xq, wq, one, None, stride=1, act=None)
+            acc = IC.int8_conv_accumulate(xq, wq, 1)
+            torch.cuda.synchronize()
+            assert torch.equal(got, acc.float().to(torch.bfloat16))
+        del wq
+
+
 def test_conv_reads_a_channel_slice_in_place(gpu):
     """C2f's split half: a channel slice with pitch 2C, read with no copy."""
     y = _s8(gpu, (2, 10, 14, 128))

@@ -71,7 +71,10 @@ def calibrated(npz_paths, tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("ADAS_DISABLE_PALLAS_STEM", "1")
         mp.setitem(JAX_UFLD_SPECS, CULANE, JaxUFLDv2Spec(**SPEC_ARGS))
-        mp.setitem(port_ufld.UFLDV2_SPECS, CULANE, port_ufld.UFLDv2Spec(**SPEC_ARGS))
+        mp.setitem(
+            port_ufld.UFLDV2_SPECS, port_ufld.LaneModelType.UFLDV2_CULANE,
+            port_ufld.UFLDv2Spec(**SPEC_ARGS),
+        )
         frames = list(_ticks(1, seed=5)[0])
         jyolo = JaxYolo(
             model_path=npz_paths["yolo"], model_type=ObjectModelType.YOLOV8, scale="n",
@@ -89,8 +92,8 @@ def calibrated(npz_paths, tmp_path_factory):
 def test_slice_int8_close_to_jax(calibrated):
     jyolo, jlane, paths, _ = calibrated
     yolo = YoloDetector(model_path=paths["yolo"], scale="n", input_size=YOLO_HW,
-                        box_score=0.25, compute_dtype="int8")
-    lane = UltrafastLaneDetectorV2(model_path=paths["lane"], compute_dtype="int8")
+                        box_score=0.25, compute_dtype="int8", device="cpu")
+    lane = UltrafastLaneDetectorV2(model_path=paths["lane"], compute_dtype="int8", device="cpu")
     jms = JaxMultiStream(jyolo, jlane, 2, frame_hw=FRAME_HW, transport="i420")
     ms = MultiStreamADAS(yolo, lane, 2, frame_hw=FRAME_HW)
     n_dets = 0
@@ -120,8 +123,8 @@ def test_slice_int8_with_port_calibration(calibrated, npz_paths):
     serve a slice that detects, with every int8 buffer set."""
     _, _, _, frames = calibrated
     yolo = YoloDetector(model_path=npz_paths["yolo"], scale="n", input_size=YOLO_HW,
-                        box_score=0.25, compute_dtype="int8")
-    lane = UltrafastLaneDetectorV2(model_path=npz_paths["lane"], compute_dtype="int8")
+                        box_score=0.25, compute_dtype="int8", device="cpu")
+    lane = UltrafastLaneDetectorV2(model_path=npz_paths["lane"], compute_dtype="int8", device="cpu")
     for facade in (yolo, lane):
         facade.calibrate_int8(frames)
         assert all(m.xmax is not None for m in facade.net.modules() if hasattr(m, "xmax"))

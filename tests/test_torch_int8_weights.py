@@ -60,13 +60,16 @@ def facades(npz):
     calibrations)."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(JAX_UFLD_SPECS, CULANE, JaxUFLDv2Spec(**SPEC_ARGS))
-        mp.setitem(port_ufld.UFLDV2_SPECS, CULANE, port_ufld.UFLDv2Spec(**SPEC_ARGS))
+        mp.setitem(
+            port_ufld.UFLDV2_SPECS, port_ufld.LaneModelType.UFLDV2_CULANE,
+            port_ufld.UFLDv2Spec(**SPEC_ARGS),
+        )
         jyolo = JaxYolo(model_path=npz["yolo"], model_type=ObjectModelType.YOLOV8, scale="n",
                         input_size=HW, compute_dtype="int8")
         jlane = JaxLane(model_path=npz["lane"], model_type=CULANE, dtype="int8")
         yolo = YoloDetector(model_path=npz["yolo"], scale="n", input_size=HW,
-                            compute_dtype="int8")
-        lane = UltrafastLaneDetectorV2(model_path=npz["lane"], compute_dtype="int8")
+                            compute_dtype="int8", device="cpu")
+        lane = UltrafastLaneDetectorV2(model_path=npz["lane"], compute_dtype="int8", device="cpu")
         yield (jyolo, yolo), (jlane, lane)
 
 

@@ -20,6 +20,8 @@ pytestmark = pytest.mark.cuda
 
 CASES = [
     # (n, h, w, k, act, pool)
+    (8, 640, 640, 3, "silu", False),  # the YOLOv8 stem at its serving shape
+    (8, 320, 1600, 7, "relu", True),  # the ResNet stem chain at UFLDv2-CULane's
     (2, 64, 96, 3, "silu", False),  # the YOLO stem
     (2, 64, 160, 7, "relu", True),  # the ResNet stem chain
     (2, 66, 160, 7, "relu", True),  # odd conv rows: pools to ceil(hc/2)
