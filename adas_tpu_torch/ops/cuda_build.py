@@ -2,8 +2,8 @@
 
 Compiles ``csrc/<name>.cu`` with ``nvcc`` for ``sm_90a`` into
 ``_build/lib<name>.so`` (a shared library with a plain C interface) the
-first time a kernel is launched, or when the source is newer than the
-binary, then loads it with ctypes; :func:`build_cuda_libraries` builds
+first time a kernel is launched, or when the source or a shared header
+(``csrc/*.cuh``) is newer than the binary, then loads it with ctypes; :func:`build_cuda_libraries` builds
 several at once (one ``nvcc`` per source, started together).  Same scheme as
 ``adas_tpu/native/build.py``; nothing is built when a module is imported,
 so the CPU tests import every module on a machine with no ``nvcc``.
@@ -55,8 +55,13 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or any shared header
+    (``csrc/*.cuh``, which every source may include)."""
     src, out = _paths(name)
-    return not os.path.isfile(out) or os.path.getmtime(out) < os.path.getmtime(src)
+    if not os.path.isfile(out):
+        return True
+    headers = [os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR) if f.endswith(".cuh")]
+    return os.path.getmtime(out) < max(os.path.getmtime(p) for p in [src, *headers])
 
 
 def build_cuda_libraries(names) -> None:

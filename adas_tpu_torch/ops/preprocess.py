@@ -293,7 +293,7 @@ def _bgr_frames(frame_bgr) -> torch.Tensor:
     return t[None] if t.dim() == 3 else t
 
 
-def yolo_preprocess(frame_bgr, geom: LetterboxGeometry, dtype=torch.float32, device="cpu"):
+def yolo_preprocess(frame_bgr, geom: LetterboxGeometry, dtype=torch.float32, device="cuda"):
     """BGR uint8 frame(s) -> letterboxed RGB in [0, 1], NCHW
     (``preprocess.py:162``; the JAX one is NHWC)."""
     canvas = letterbox(_bgr_frames(frame_bgr).to(device), geom)
@@ -302,7 +302,7 @@ def yolo_preprocess(frame_bgr, geom: LetterboxGeometry, dtype=torch.float32, dev
 
 
 def ufld_v2_preprocess(frame_bgr, input_h: int, input_w: int, crop_ratio: float,
-                       dtype=torch.float32, device="cpu"):
+                       dtype=torch.float32, device="cuda"):
     """BGR uint8 frame(s) -> UFLDv2 input: resize to (input_w,
     input_h/crop_ratio), keep the bottom ``input_h`` rows,
     ImageNet-normalize; NCHW (``preprocess.py:201``)."""
@@ -388,7 +388,7 @@ def imagenet_preprocess_planar(
 def imagenet_preprocess(
     frame_bgr,
     geom: Optional[LetterboxGeometry] = None,
-    device="cpu",
+    device="cuda",
 ) -> torch.Tensor:
     """BGR uint8 frame(s) (H, W, 3) or (B, H, W, 3) -> (letterboxed) RGB,
     ImageNet-normalized f32 NCHW (``preprocess.py:176``; the JAX one is NHWC).

@@ -31,6 +31,7 @@ from adas_tpu.models import layers as L
 from adas_tpu.ops import pallas_block as PB
 from adas_tpu.ops.pallas_conv import int8_conv3x3
 from adas_tpu_torch.models import quant as Q
+from adas_tpu_torch.ops import block as B
 from adas_tpu_torch.ops.block import block_reference, fused_block
 from adas_tpu_torch.ops.int8_conv import int8_conv, int8_conv_accumulate
 from test_pallas_block import CASES, _mk, xla_block_ref
@@ -226,3 +227,24 @@ def test_int8_dense_matches_layers(rng):
         port.bias.copy_(_t(bias))
     got = port(_t(x))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,h,w", [(1, 1, 1), (1, 7, 61), (2, 9, 62), (1, 8, 63), (2, 17, 123),
+                                   (3, 16, 125), (8, 160, 160), (8, 80, 400)])
+@pytest.mark.parametrize("th", [4, 6, 8])
+def test_block_tiles_cover_every_output_pixel_once(n, h, w, th):
+    """The fused block kernel's tiling (``ops/block.py`` ``plan_tiles`` /
+    ``tile_rect``): over ragged shapes, below one tile, at W = 62k +- 1
+    and H below a tile's rows, its tiles write every output pixel exactly
+    once, and no tile lies wholly outside the image."""
+    tiles_x, tiles_y, tiles = B.plan_tiles(n, h, w, th=th)
+    assert (tiles_x - 1) * B.TILE_W < w <= tiles_x * B.TILE_W
+    assert (tiles_y - 1) * th < h <= tiles_y * th
+    hits = np.zeros((n, h, w), np.int32)
+    for t in range(tiles):
+        img, y0, y1, x0, x1 = B.tile_rect(t, n, h, w, th=th)
+        assert 0 <= img < n and y0 < y1 <= y0 + th and x0 < x1 <= x0 + B.TILE_W
+        hits[img, y0:y1, x0:x1] += 1
+    assert (hits == 1).all()
+    with pytest.raises(ValueError):
+        B.tile_rect(tiles, n, h, w, th=th)

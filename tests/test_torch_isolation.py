@@ -90,3 +90,14 @@ def test_facade_defaults_to_the_card(name):
         pytest.skip("a CUDA GPU is present: the default builds there")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         _facades()[name]()
+
+
+@pytest.mark.parametrize("name", ["yolo_preprocess", "ufld_v2_preprocess", "imagenet_preprocess"])
+def test_preprocess_defaults_to_the_card(name):
+    """The public preprocess helpers, like the facades, put their output on
+    ``cuda`` unless the caller names the CPU."""
+    import inspect
+
+    from adas_tpu_torch.ops import preprocess
+
+    assert inspect.signature(getattr(preprocess, name)).parameters["device"].default == "cuda"

@@ -161,6 +161,6 @@ def test_ufld_planar_matches_jax():
 def test_imagenet_preprocess_of_frames_matches_jax():
     """The single-frame (``DetectFrame``) preprocess from BGR uint8."""
     frames = _frames(2, 180, 320, seed=7)
-    got = imagenet_preprocess(frames, LetterboxGeometry(180, 320, 128, 128))
+    got = imagenet_preprocess(frames, LetterboxGeometry(180, 320, 128, 128), device="cpu")
     want = np.asarray(J.imagenet_preprocess(jnp.asarray(frames), JaxGeometry(180, 320, 128, 128)))
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=1e-5)
