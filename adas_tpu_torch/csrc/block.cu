@@ -54,7 +54,7 @@
 //    an exp and two divisions per value, (TH + 2) x 64 + TH x 64 values per
 //    channel per tile against the tensor cores' 18 k32 steps per row.  So:
 //    more warps for them (four consumer warpgroups beat two and three, and
-//    6 rows beat 4 and 8: tools/block_sweep.py, PERF.md); eight values a
+//    6 rows beat 4 and 8: the sweep in PERF.md); eight values a
 //    thread as independent chains, silu a template argument so that no
 //    branch splits them; the branch-free exact division of
 //    csrc/int8_epilogue.cuh (shared with the int8 conv), with its range
@@ -86,23 +86,14 @@
 
 #include "int8_epilogue.cuh"
 
-// The tile's output rows and the consumer warpgroups (tools/block_sweep.py
-// builds other values to compare them; PERF.md has the sweep).
-#ifndef ADAS_BLOCK_TH
-#define ADAS_BLOCK_TH 6
-#endif
-#ifndef ADAS_BLOCK_WGS
-#define ADAS_BLOCK_WGS 4
-#endif
-
 namespace {
 
-constexpr int kTH = ADAS_BLOCK_TH;
+constexpr int kTH = 6;          // output rows per tile (PERF.md has the sweep)
 constexpr int kTW = 62;         // output columns per tile
 constexpr int kMW = 64;         // mid columns per tile: one wgmma M tile
 constexpr int kPW = 66;         // pixels per row of a staged plane
 static_assert(kTW + 2 == kMW && kMW + 2 == kPW, "a 3x3 ring on each side");
-constexpr int kWGs = ADAS_BLOCK_WGS;     // consumer warpgroups
+constexpr int kWGs = 4;         // consumer warpgroups
 constexpr int kConsumers = 128 * kWGs;
 constexpr int kThreads = kConsumers + 32;  // + one producer warp
 
@@ -674,14 +665,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int CP>
 cudaError_t launch(const CUtensorMap& xmap, const Params& p, int max_blocks, cudaStream_t stream) {
-  static bool attr_set = false;
   auto kern = block_kernel<CP>;
-  if (!attr_set) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<CP>::SMEM);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  // per device, so set on every launch (a host-side call, no stream work)
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<CP>::SMEM);
+  if (err != cudaSuccess) return err;
   const int grid = p.tiles < max_blocks ? p.tiles : max_blocks;
   kern<<<grid, kThreads, Cfg<CP>::SMEM, stream>>>(xmap, p);
   return cudaGetLastError();
@@ -693,19 +681,6 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 }  // namespace
-
-// The tile the library was built for and what a launch at width c takes:
-// out[0] output rows, out[1] output columns per tile, out[2] dynamic shared
-// memory bytes, out[3] threads per block.  Returns cudaErrorInvalidValue
-// for a width the kernel does not take.
-extern "C" int adas_block_config(int c, int* out) {
-  if (c != 16 && c != 32 && c != 48 && c != 64) return cudaErrorInvalidValue;
-  out[0] = kTH;
-  out[1] = kTW;
-  out[2] = c > 32 ? Cfg<64>::SMEM : Cfg<32>::SMEM;
-  out[3] = kThreads;
-  return 0;
-}
 
 // The input halo's TMA map: NHWC s8 at ``x`` (n, h, w, c) with ``pitch``
 // bytes between pixels (a multiple of 16; x 16-byte aligned), read as boxes
@@ -748,24 +723,21 @@ extern "C" int adas_block_encode_input(const void* x, int n, int h, int w, int c
 // Plain C entry for ctypes.  ``xmap``: the input's map from
 // adas_block_encode_input.  c in {16, 32, 48, 64} (= Cin = Cmid = Cout);
 // acts: 0 none, 1 relu, 2 silu; b1/b2 may be null; mid_scale, x_scale and
-// out_scale point to f32 scalars in device memory.  tiles_x / tiles_y: the
-// tile grid of the output (ops/block.py plan_tiles; tiles of the sizes
-// adas_block_config reports).  max_blocks bounds the persistent grid (the
-// caller passes the SM count).  Launches on ``stream`` and returns
+// out_scale point to f32 scalars in device memory.  max_blocks bounds the
+// persistent grid (the caller passes the SM count).  Launches on ``stream`` and returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported
 // configuration); never synchronises.
 extern "C" int adas_block_forward(const void* xmap, const void* w1, const float* s1,
                                   const float* b1, const float* mid_scale, const void* w2,
                                   const float* s2, const float* b2, const float* x_scale,
                                   const float* out_scale, void* out, int n, int h, int wd, int c,
-                                  int act1, int act2, int act_post, int residual, int tiles_x,
-                                  int tiles_y, int max_blocks, void* stream) {
+                                  int act1, int act2, int act_post, int residual,
+                                  int max_blocks, void* stream) {
   if (n <= 0 || h <= 0 || wd <= 0 || max_blocks <= 0 || act1 < 0 || act1 > 2 || act2 < 0 ||
-      act2 > 2 || act_post < 0 || act_post > 2 || tiles_x <= 0 || tiles_y <= 0 ||
-      static_cast<long long>(tiles_x) * kTW < wd || (tiles_x - 1) * kTW >= wd ||
-      static_cast<long long>(tiles_y) * kTH < h || (tiles_y - 1) * kTH >= h ||
-      static_cast<long long>(n) * tiles_x * tiles_y >= (1ll << 31))
+      act2 > 2 || act_post < 0 || act_post > 2)
     return cudaErrorInvalidValue;
+  const int tiles_x = (wd + kTW - 1) / kTW, tiles_y = (h + kTH - 1) / kTH;
+  if (static_cast<long long>(n) * tiles_x * tiles_y >= (1ll << 31)) return cudaErrorInvalidValue;
   Params p;
   p.w1 = static_cast<const int8_t*>(w1);
   p.w2 = static_cast<const int8_t*>(w2);

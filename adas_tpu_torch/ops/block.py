@@ -9,9 +9,8 @@ ctypes: wgmma from shared memory, the input halo by TMA, a persistent
 grid).  The planar domain (``PlanarQ``, ``to_planar``/``from_planar``)
 was a TPU lane-layout device and is not ported: consecutive fused blocks
 chain NHWC s8 tensors.  The kernel's source note says what bounds it on
-the card and what its design does.  :func:`plan_tiles` and
-:func:`tile_rect` are the kernel's tiling of the output; the input's TMA
-map is encoded once per address and shape and cached.
+the card, what its design does and how it tiles the output; the input's
+TMA map is encoded once per address and shape and cached.
 
     mid = clip(round(act1(conv_s8(x, w1) * scale1 + bias1) / mid_scale))
     y   = act2(conv_s8(mid, w2) * scale2 + bias2)
@@ -128,73 +127,33 @@ def _check(xq, w1q, scale1, bias1, w2q, scale2, bias2, scalars, acts, residual):
             raise ValueError(f"unsupported activation: {a}")
 
 
-#: output rows x columns of a kernel tile (``csrc/block.cu`` ``kTH`` x
-#: ``kTW``; the library reports its own, :func:`_config`)
-TILE_H, TILE_W = 6, 62
-
-
-def plan_tiles(n: int, h: int, w: int, th: int = TILE_H, tw: int = TILE_W):
-    """The kernel's tile grid over an (n, h, w) output: (tiles_x, tiles_y,
-    tiles); tile t sits at column block ``t % tiles_x``, row block
-    ``t // tiles_x % tiles_y`` of image ``t // (tiles_x * tiles_y)``."""
-    tiles_x, tiles_y = -(-w // tw), -(-h // th)
-    return tiles_x, tiles_y, n * tiles_x * tiles_y
-
-
-def tile_rect(tile: int, n: int, h: int, w: int, th: int = TILE_H, tw: int = TILE_W):
-    """The output pixels tile ``tile`` writes: (image, y0, y1, x0, x1),
-    clipped to the image (the kernel computes the whole tile and stores
-    only these)."""
-    tiles_x, tiles_y, tiles = plan_tiles(n, h, w, th, tw)
-    if not 0 <= tile < tiles:
-        raise ValueError(f"tile {tile} outside the {tiles} tiles")
-    tx, ty = tile % tiles_x, tile // tiles_x % tiles_y
-    return tile // (tiles_x * tiles_y), ty * th, min(h, ty * th + th), tx * tw, min(w, tx * tw + tw)
-
-
 @functools.lru_cache(maxsize=8)
 def _num_sms(device_index: int) -> int:
     """The persistent grid: one block per SM."""
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entries' signatures on a loaded ``libblock``."""
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = load_cuda_library("block")
     fn = lib.adas_block_forward
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     enc = lib.adas_block_encode_input
     enc.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     enc.restype = ctypes.c_int
-    lib.adas_block_config.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    lib.adas_block_config.restype = ctypes.c_int
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    return bind(load_cuda_library("block"))
-
-
-def _config(c: int):
-    """(tile rows, tile columns, dynamic shared memory bytes, threads) of
-    the built kernel at width ``c``."""
-    out = (ctypes.c_int * 4)()
-    rc = _lib().adas_block_config(c, out)
-    if rc != 0:
-        raise ValueError(f"the block kernel does not take C = {c}")
-    return tuple(out)
-
-
-#: the input's TMA maps by (address, extents, pitch, tile rows): the
+#: the input's TMA maps by (address, extents, pitch): the
 #: serving path's activations come back at the same addresses tick after
 #: tick; bounded so that a stream of new addresses cannot grow it
 _INPUT_MAPS: dict = {}
 
 
-def _input_map(xq: torch.Tensor, pitch: int, th: int):
+def _input_map(xq: torch.Tensor, pitch: int):
     n, h, w, c = xq.shape
-    key = (xq.data_ptr(), n, h, w, c, pitch, th)
+    key = (xq.data_ptr(), n, h, w, c, pitch)
     xmap = _INPUT_MAPS.get(key)
     if xmap is None:
         xmap = ctypes.create_string_buffer(128)
@@ -253,9 +212,7 @@ def fused_block(
             f"input and weights and a pitch % 16 == 0, got {c} -> {w1q.shape[0]} -> "
             f"{w2q.shape[0]}, pitch {pitch}"
         )
-    th, tw = _config(c)[:2]
-    tiles_x, tiles_y, _ = plan_tiles(n, h, w, th, tw)
-    xmap = _input_map(xq, pitch, th)
+    xmap = _input_map(xq, pitch)
     out = torch.empty((n, h, w, c), dtype=torch.int8, device=xq.device)
     index = xq.device.index if xq.device.index is not None else torch.cuda.current_device()
     with torch.cuda.device(xq.device):
@@ -266,7 +223,7 @@ def fused_block(
             None if bias2 is None else bias2.data_ptr(), x_scale.data_ptr(),
             out_scale.data_ptr(), out.data_ptr(), n, h, w, c,
             ACT_CODES[act1], ACT_CODES[act2], ACT_CODES[act_post], int(residual),
-            tiles_x, tiles_y, _num_sms(index), torch.cuda.current_stream(xq.device).cuda_stream,
+            _num_sms(index), torch.cuda.current_stream(xq.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused block kernel launch failed: cudaError_t {rc}")

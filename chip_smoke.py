@@ -10,9 +10,9 @@ Phases, each of which raises (exit code 1) on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the five kernels from source, one nvcc per source, all started
    together (``csrc/stem.cu``, ``csrc/int8_conv.cu``, ``csrc/block.cu``,
-   ``csrc/iou.cu``, ``csrc/nms.cu``; the first two and the block share
-   ``csrc/int8_epilogue.cuh``), and print their ptxas register and spill
-   lines and the block's tile, threads and dynamic shared memory;
+   ``csrc/iou.cu``, ``csrc/nms.cu``; the int8 conv and the block share
+   ``csrc/int8_epilogue.cuh``), and print their ptxas register, shared
+   memory and spill lines;
 3. each kernel against its plain PyTorch version, beside its bound (the
    longer of its bytes at 3.35 TB/s and its operations at the data-sheet
    peak of their type) and, where one PyTorch call computes the same
@@ -838,9 +838,6 @@ def main() -> int:
                 if "Compiling entry" in line or "registers" in line or "spill" in line:
                     print(f"[build] {k}: {line.strip()}")
 
-    th, tw, smem, threads = B._config(64)
-    print(f"[build] block: tile {th}x{tw} outputs, {threads} threads, {smem} bytes of dynamic "
-          f"shared memory per block at C = 64", flush=True)
     rows = {"stem": kernel_phase(S, torch), **int8_kernel_phase(IC, B, torch),
             **nms_kernel_phase(I, NMS, torch)}
     reference_phase(torch, np)

@@ -230,13 +230,55 @@ def test_block_matches_reference(gpu, n, h, w, c, acts, residual):
     assert torch.equal(got, want)
 
 
+#: every epilogue the kernel dispatches, at both of its widths (the 64-wide
+#: instance serves C = 64 and 48, the 32-wide one C = 32 and 16): conv1's
+#: with and without silu, conv2's with each of silu / not as act2 and as
+#: act_post, relu and no activation on the non-silu side, and no biases
+EPILOGUE_CASES = [
+    # (n, h, w, c, (act1, act2, act_post), residual, biases)
+    (1, 13, 70, 64, (None, None, None), True, False),
+    (1, 13, 70, 64, ("silu", "silu", "silu"), True, False),
+    (2, 7, 40, 64, ("relu", None, "silu"), False, True),
+    (1, 9, 65, 48, (None, "silu", "silu"), True, True),
+    (1, 13, 70, 64, ("silu", None, "silu"), True, False),
+    (2, 6, 62, 64, (None, "silu", None), False, False),
+    (1, 8, 33, 64, ("relu", "relu", "relu"), True, False),
+    (1, 13, 70, 32, (None, None, "silu"), True, False),
+    (2, 7, 40, 16, ("silu", "silu", "silu"), False, False),
+    (1, 9, 65, 32, ("relu", "silu", "silu"), True, True),
+    (1, 13, 70, 32, ("silu", None, None), True, False),
+    (2, 6, 62, 16, (None, "silu", "relu"), True, False),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,acts,residual,biases", EPILOGUE_CASES)
+def test_block_every_epilogue_matches_reference(gpu, n, h, w, c, acts, residual, biases):
+    """Each epilogue instance of the kernel, with biases and with None
+    (the kernel stages zeros), equals the plain version to the bit."""
+    xq = _s8(gpu, (n, h, w, c), -100, 100)
+    sx, w1q, s1, b1, sm, w2q, s2, b2, so = _block_operands(gpu, c)
+    if not biases:
+        b1 = b2 = None
+    args = (xq, sx, w1q, s1, b1, sm, w2q, s2, b2, so)
+    kw = dict(act1=acts[0], act2=acts[1], act_post=acts[2], residual=residual)
+    before = B.launches
+    got = B.fused_block(*args, **kw)
+    want = B.block_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert B.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("biases", [True, False])
 @pytest.mark.parametrize("n,h,w", [(2, 16, 32), (8, 160, 160)])
-def test_block_reads_a_channel_slice_in_place(gpu, n, h, w):
+def test_block_reads_a_channel_slice_in_place(gpu, n, h, w, biases):
     """C2f's split half: channels 64..127 of a pitch-128 tensor, read in
-    place through the input's TMA map."""
+    place through the input's TMA map; with biases and with None."""
     y = _s8(gpu, (n, h, w, 128), -100, 100)
     part = y[..., 64:]
     sx, w1q, s1, b1, sm, w2q, s2, b2, so = _block_operands(gpu, 64)
+    if not biases:
+        b1 = b2 = None
     kw = dict(act1="silu", act2="silu", act_post=None, residual=True)
     before = B.launches
     got = B.fused_block(part, sx, w1q, s1, b1, sm, w2q, s2, b2, so, **kw)

@@ -8,7 +8,9 @@ quant core) against the JAX package on the same s8 data.
   ``tests/test_pallas_conv.py``'s shapes.
 * ``ops/block.py``: against ``pallas_block.fused_block_nhwc`` (interpret
   mode) and ``xla_block_ref`` for the three ``CASES`` and both shapes of
-  ``tests/test_pallas_block.py``.
+  ``tests/test_pallas_block.py``; against ``xla_block_ref`` for every
+  epilogue pattern of the CUDA kernel, with and without biases; the
+  wrapper's operand checks.
 * ``models/quant.py``: quantize, dequant, the s8 max pool and upsample,
   the weight quantize, Int8Dense.
 
@@ -31,7 +33,6 @@ from adas_tpu.models import layers as L
 from adas_tpu.ops import pallas_block as PB
 from adas_tpu.ops.pallas_conv import int8_conv3x3
 from adas_tpu_torch.models import quant as Q
-from adas_tpu_torch.ops import block as B
 from adas_tpu_torch.ops.block import block_reference, fused_block
 from adas_tpu_torch.ops.int8_conv import int8_conv, int8_conv_accumulate
 from test_pallas_block import CASES, _mk, xla_block_ref
@@ -229,22 +230,63 @@ def test_int8_dense_matches_layers(rng):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("n,h,w", [(1, 1, 1), (1, 7, 61), (2, 9, 62), (1, 8, 63), (2, 17, 123),
-                                   (3, 16, 125), (8, 160, 160), (8, 80, 400)])
-@pytest.mark.parametrize("th", [4, 6, 8])
-def test_block_tiles_cover_every_output_pixel_once(n, h, w, th):
-    """The fused block kernel's tiling (``ops/block.py`` ``plan_tiles`` /
-    ``tile_rect``): over ragged shapes, below one tile, at W = 62k +- 1
-    and H below a tile's rows, its tiles write every output pixel exactly
-    once, and no tile lies wholly outside the image."""
-    tiles_x, tiles_y, tiles = B.plan_tiles(n, h, w, th=th)
-    assert (tiles_x - 1) * B.TILE_W < w <= tiles_x * B.TILE_W
-    assert (tiles_y - 1) * th < h <= tiles_y * th
-    hits = np.zeros((n, h, w), np.int32)
-    for t in range(tiles):
-        img, y0, y1, x0, x1 = B.tile_rect(t, n, h, w, th=th)
-        assert 0 <= img < n and y0 < y1 <= y0 + th and x0 < x1 <= x0 + B.TILE_W
-        hits[img, y0:y1, x0:x1] += 1
-    assert (hits == 1).all()
+#: the activation patterns of the CUDA kernel's epilogues (conv1's with and
+#: without silu; conv2's with each of silu / not as act2 and as act_post)
+EPILOGUE_CASES = [
+    # ((act1, act2, act_post), residual)
+    ((None, None, None), True),
+    (("silu", "silu", "silu"), True),
+    (("relu", None, "silu"), False),
+    ((None, "silu", "silu"), True),
+    (("silu", None, "silu"), True),
+    ((None, "silu", None), False),
+    (("relu", "relu", "relu"), True),
+    (("silu", None, None), True),
+]
+
+
+@pytest.mark.parametrize("biases", [True, False])
+@pytest.mark.parametrize("acts,residual", EPILOGUE_CASES)
+def test_plain_block_every_epilogue_matches_xla(rng, acts, residual, biases):
+    """The plain block, the CUDA kernel's yardstick, against the XLA block
+    for every epilogue pattern the kernel takes; a None bias is the XLA
+    block's zero bias."""
+    xq, sx, w1q, s1, b1, sm, w2q, s2, b2, so = _mk(rng, 2, 7, 13, 16, 16, 16)
+    if not biases:
+        b1, b2 = jnp.zeros_like(b1), jnp.zeros_like(b2)
+    ref = xla_block_ref(xq, sx, w1q, s1, b1, sm, w2q, s2, b2, so, *acts, residual)
+    t = {k: _t(np.asarray(v)) for k, v in dict(x=xq, sx=sx, s1=s1, b1=b1, sm=sm, s2=s2, b2=b2,
+                                                so=so).items()}
+    w1, w2 = (_t(np.asarray(wt).transpose(3, 0, 1, 2)) for wt in (w1q, w2q))
+    got = fused_block(t["x"], t["sx"], w1, t["s1"], t["b1"] if biases else None, t["sm"], w2,
+                      t["s2"], t["b2"] if biases else None, t["so"],
+                      act1=acts[0], act2=acts[1], act_post=acts[2], residual=residual)
+    assert got.dtype == torch.int8 and got.shape == xq.shape
+    assert_s8_close(got.numpy(), ref)
+
+
+_X16 = torch.zeros(1, 4, 5, 16, dtype=torch.int8)
+_W16 = torch.zeros(16, 3, 3, 16, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("bad", [
+    pytest.param(dict(xq=_X16.float()), id="float input"),
+    pytest.param(dict(xq=_X16[0]), id="3-D input"),
+    pytest.param(dict(w1q=torch.zeros(16, 3, 3, 8, dtype=torch.int8)), id="w1 of other width"),
+    pytest.param(dict(w2q=torch.zeros(32, 3, 3, 16, dtype=torch.int8), scale2=torch.ones(32)),
+                 id="residual across widths"),
+    pytest.param(dict(scale1=torch.ones(16, dtype=torch.float64)), id="f64 scale"),
+    pytest.param(dict(bias2=torch.ones(8)), id="bias of other width"),
+    pytest.param(dict(out_scale=torch.ones(2)), id="two-value scalar"),
+    pytest.param(dict(act2="gelu"), id="unknown activation"),
+    pytest.param(dict(bias1=torch.ones(16, dtype=torch.float64)), id="f64 bias"),
+    pytest.param(dict(xq=_X16.to("meta")), id="neither cpu nor cuda"),
+])
+def test_block_rejects_what_it_does_not_take(bad):
+    """The wrapper checks its operands before either path runs."""
+    v, one = torch.ones(16), torch.tensor(1.0)
+    args = dict(xq=_X16, x_scale=one, w1q=_W16, scale1=v, bias1=None, mid_scale=one, w2q=_W16,
+                scale2=v, bias2=None, out_scale=one, act1="relu", act2=None, act_post="relu",
+                residual=True)
     with pytest.raises(ValueError):
-        B.tile_rect(tiles, n, h, w, th=th)
+        fused_block(**{**args, **bad})
