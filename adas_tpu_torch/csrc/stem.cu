@@ -505,24 +505,20 @@ stem_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
   }
 }
 
+// The shared-memory attribute is per device, so it is set on every launch;
+// sms is the launching device's SM count.
 template <int K, bool POOL>
 cudaError_t launch_mma(const void* x, const void* w, const float* gain, const float* bias,
-                       void* out, int n, int h, int wd, int act, cudaStream_t stream) {
+                       void* out, int n, int h, int wd, int act, int sms, cudaStream_t stream) {
   using G = MGeom<K, POOL>;
   const int hc = (h - 1) / 2 + 1, wc = (wd - 1) / 2 + 1;
   const int ho = POOL ? (hc - 1) / 2 + 1 : hc;
   const int wo = POOL ? (wc - 1) / 2 + 1 : wc;
   auto kern = stem_mma_kernel<K, POOL>;
-  static int max_blocks = 0;  // the persistent grid: two blocks per SM
-  if (max_blocks == 0) {
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(G::SMEM));
-    int dev = 0, sms = 0;
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    max_blocks = 2 * sms;
-  }
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(G::SMEM));
+  if (err != cudaSuccess) return err;
+  const int max_blocks = 2 * sms;  // the persistent grid: two blocks per SM
   const int tiles = ((wo + G::OW - 1) / G::OW) * ((ho + G::OH - 1) / G::OH) * n;
   kern<<<tiles < max_blocks ? tiles : max_blocks, kThreads, G::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), gain, bias,
@@ -541,28 +537,30 @@ cudaError_t dispatch_f32(const void* x, const void* w, const float* gain, const 
 }
 
 cudaError_t dispatch_bf16(const void* x, const void* w, const float* gain, const float* bias,
-                          void* out, int n, int h, int wd, int k, int pool, int act,
+                          void* out, int n, int h, int wd, int k, int pool, int act, int sms,
                           cudaStream_t s) {
-  if (k == 3 && !pool) return launch_mma<3, false>(x, w, gain, bias, out, n, h, wd, act, s);
-  if (k == 3 && pool) return launch_mma<3, true>(x, w, gain, bias, out, n, h, wd, act, s);
-  if (k == 7 && !pool) return launch_mma<7, false>(x, w, gain, bias, out, n, h, wd, act, s);
-  if (k == 7 && pool) return launch_mma<7, true>(x, w, gain, bias, out, n, h, wd, act, s);
+  if (k == 3 && !pool) return launch_mma<3, false>(x, w, gain, bias, out, n, h, wd, act, sms, s);
+  if (k == 3 && pool) return launch_mma<3, true>(x, w, gain, bias, out, n, h, wd, act, sms, s);
+  if (k == 7 && !pool) return launch_mma<7, false>(x, w, gain, bias, out, n, h, wd, act, sms, s);
+  if (k == 7 && pool) return launch_mma<7, true>(x, w, gain, bias, out, n, h, wd, act, sms, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C entry for ctypes.  dtype: 0 = f32, 1 = bf16.  act: 0 none,
-// 1 relu, 2 silu.  Launches on ``stream`` and returns cudaGetLastError()
+// 1 relu, 2 silu.  sms: the launching device's SM count (sizes the bf16
+// persistent grid).  Launches on ``stream`` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported configuration); never
 // synchronises.
 extern "C" int adas_stem_forward(const void* x, const void* w,
                                  const float* gain, const float* bias,
                                  void* out, int n, int h, int wd, int k,
-                                 int pool, int act, int dtype, void* stream) {
-  if (n <= 0 || h <= 0 || wd <= 0 || act < 0 || act > 2) return cudaErrorInvalidValue;
+                                 int pool, int act, int dtype, int sms, void* stream) {
+  if (n <= 0 || h <= 0 || wd <= 0 || act < 0 || act > 2 || sms <= 0)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_f32(x, w, gain, bias, out, n, h, wd, k, pool, act, s);
-  if (dtype == 1) return dispatch_bf16(x, w, gain, bias, out, n, h, wd, k, pool, act, s);
+  if (dtype == 1) return dispatch_bf16(x, w, gain, bias, out, n, h, wd, k, pool, act, sms, s);
   return cudaErrorInvalidValue;
 }

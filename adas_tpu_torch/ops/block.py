@@ -42,7 +42,7 @@ from typing import Optional
 
 import torch
 
-from .cuda_build import load_cuda_library
+from .cuda_build import load_cuda_library, num_sms
 from .int8_conv import (
     ACT_CODES,
     activation,
@@ -125,12 +125,6 @@ def _check(xq, w1q, scale1, bias1, w2q, scale2, bias2, scalars, acts, residual):
     for a in acts:
         if a not in ACT_CODES:
             raise ValueError(f"unsupported activation: {a}")
-
-
-@functools.lru_cache(maxsize=8)
-def _num_sms(device_index: int) -> int:
-    """The persistent grid: one block per SM."""
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -223,7 +217,7 @@ def fused_block(
             None if bias2 is None else bias2.data_ptr(), x_scale.data_ptr(),
             out_scale.data_ptr(), out.data_ptr(), n, h, w, c,
             ACT_CODES[act1], ACT_CODES[act2], ACT_CODES[act_post], int(residual),
-            _num_sms(index), torch.cuda.current_stream(xq.device).cuda_stream,
+            num_sms(index), torch.cuda.current_stream(xq.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused block kernel launch failed: cudaError_t {rc}")

@@ -17,10 +17,13 @@ memory, spills per kernel) is kept beside the library as
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -92,6 +95,14 @@ def build_cuda_libraries(names) -> None:
             os.replace(tmp, out)
         if failed:
             raise RuntimeError("\n".join(failed))
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device_index: int) -> int:
+    """The SM count of a CUDA device, which sizes the persistent grids
+    (passed to each launch: a kernel's C entry keeps no per-process
+    state, since a process may drive several devices)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def load_cuda_library(name: str) -> ctypes.CDLL:

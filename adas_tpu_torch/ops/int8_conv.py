@@ -43,7 +43,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .cuda_build import load_cuda_library
+from .cuda_build import load_cuda_library, num_sms
 
 #: launches of the CUDA kernel since the last :func:`reset_launches`; the
 #: plain CPU path does not count
@@ -225,11 +225,6 @@ def _lib():
     return lib
 
 
-@lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 #: launch plans by (input shape, strides and base alignment, weight
 #: address and shape, stride); see :func:`_plan`.  A plan's weight TMA map
 #: holds only the weights' address and extents, so it stays valid for any
@@ -257,8 +252,8 @@ def _plan(xq: torch.Tensor, wq: torch.Tensor, stride: int):
         vec = 0
     ho, wo = conv_out_hw(h, w, k, stride)
     index = xq.device.index if xq.device.index is not None else torch.cuda.current_device()
-    num_sms = _num_sms(index)
-    bm, bn = tile_config(n * ho * wo, cout, num_sms)
+    sms = num_sms(index)
+    bm, bn = tile_config(n * ho * wo, cout, sms)
     kk = k * k * cin
     w2d = wq.view(cout, kk)
     padded = kk % 16 != 0
@@ -272,7 +267,7 @@ def _plan(xq: torch.Tensor, wq: torch.Tensor, stride: int):
         raise RuntimeError(f"int8 conv weight TMA map encode failed: code {rc}")
     # the C entry's integer arguments before and after the activation code
     plan = (w2d if padded else None, wmap, (n, h, w, cin, pitch, cout, k, stride),
-            (vec, bm, bn, num_sms), (n, ho, wo, cout))
+            (vec, bm, bn, sms), (n, ho, wo, cout))
     if not padded:
         _PLANS[(xq.shape, xq.stride(), xq.data_ptr() % 16, xq.device, wq.data_ptr(), wq.shape,
                 stride)] = plan

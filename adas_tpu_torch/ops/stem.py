@@ -34,7 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .cuda_build import load_cuda_library
+from .cuda_build import load_cuda_library, num_sms
 
 #: launches of the CUDA kernel since the last :func:`reset_launches`; the
 #: plain CPU path does not count
@@ -130,7 +130,7 @@ def _entry():
     """The kernel's C entry, with its ctypes signature (pointers and the
     stream as c_void_p, so they are not cut to 32 bits)."""
     fn = load_cuda_library("stem").adas_stem_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -157,12 +157,13 @@ def fused_stem(
     ho, wo = stem_out_hw(h, w, pool)
     out = torch.empty((n, _FEATURES, ho, wo), dtype=x.dtype, device=x.device)
     entry = _entry()
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = entry(
             x.data_ptr(), weight.data_ptr(), gain.data_ptr(), bias.data_ptr(),
             out.data_ptr(), n, h, w, weight.shape[-1], int(pool),
-            _ACT_CODES[act], _DTYPE_CODES[x.dtype], stream,
+            _ACT_CODES[act], _DTYPE_CODES[x.dtype], num_sms(index), stream,
         )
     if rc != 0:
         raise RuntimeError(f"stem kernel launch failed: cudaError_t {rc}")

@@ -13,8 +13,8 @@ EfficientDet-D0-512 f32 + UFLDv2-CULane bf16.  For each path:
 
 - **A/B.**  ``ROUNDS`` rounds of ``STEPS`` back-to-back device steps
   (``MultiStreamADAS._step``), CUDA events, order alternating per round.
-  "kernels" is the path as served: the IoU and scan kernels, one launch
-  each.  "plain" swaps the plain PyTorch NMS into ``select_and_nms``:
+  "kernels" is the path as served: the IoU kernel's mask mode and the
+  walk (hard suppression), one launch each.  "plain" swaps the plain PyTorch NMS into ``select_and_nms``:
   ``iou_matrix_reference`` then ``nms_scan_reference``, a torch loop of
   about 11 launches per pick.  It prints whether both give the same
   packed output.

@@ -36,13 +36,20 @@ Phases, each of which raises (exit code 1) on failure:
      (0 LSB), beside the unfused pair the nets run without the fusion gate
      (two int8 conv launches, the residual and the requantize, device
      time); no one PyTorch call computes the block (``library_ms`` null);
-   * the pairwise-IoU kernel against ``pairwise_iou`` at the serving
-     shape (8 streams x the 512 boxes of the NMS top-k), ``plus_one``
-     both ways, and at N = 300 and N = 1: equal to the bit, or at worst
-     atol = rtol = 1e-6 (``tests/test_pallas_iou.py:20``);
-   * the NMS scan kernel against the plain loop at (8, 512), 100 picks:
-     hard (``plus_one``, score threshold 0.001, IoU 0.45 and 0.5), linear
-     and gaussian: identical index tensors;
+   * the pairwise-IoU kernel in both modes at the serving shape (8
+     streams x the 512 boxes of the NMS top-k), ``plus_one`` both ways,
+     and at N = 300 and N = 1: the matrix against ``pairwise_iou``, equal
+     to the bit, or at worst atol = rtol = 1e-6
+     (``tests/test_pallas_iou.py:20``); the mask (IoU > 0.45) against
+     ``iou_mask_reference``, 0 bits apart; both timed;
+   * the selection kernels at (8, 512), 100 picks, score threshold
+     0.001, ``plus_one``: the walk (hard, IoU 0.45 and 0.5, on the mask)
+     against the plain walk and the plain scan, and the rescoring scan
+     (hard at 0.45 and 0.5, linear, gaussian, on the matrix) against the
+     plain scan: identical index tensors; then the served pair
+     (``select_loop`` hard: mask + walk) beside the matrix + scan route,
+     and an empty kernel through the same timer (the floor of a launch
+     in a graph replay);
 4. the full-width nets on a small input against the CPU:
    * f32: the port's preprocess and the three nets (YOLOv8l, UFLDv2 with a
      ResNet-18 trunk, EfficientDet-D0 at 128x128 behind the BGR-plane
@@ -70,18 +77,18 @@ Phases, each of which raises (exit code 1) on failure:
    count is reset just before and must grow, per tick, by exactly 2 (stem),
    5 (block: YOLOv8l stage1's three bottlenecks, ResNet layer1's two
    blocks), the number of int8 convs the module tree holds outside the
-   fused bodies (int8 conv), and 1 each for the IoU and scan kernels of
-   the NMS; outputs must be finite and detections non-empty.  Prints
+   fused bodies (int8 conv), and 1 each for the IoU kernel (mask mode)
+   and the walk of the NMS (hard suppression); outputs must be finite and detections non-empty.  Prints
    per-tick times, a per-stage breakdown, the device step alone and peak
    memory;
 6. the EfficientDet main path: EfficientDet-D0 at its paper size (512,
    B0 trunk, 64-channel BiFPN x 3, heads x 3, 80 classes, f32) +
    UFLDv2-CULane bf16, seeded random weights, the same 8 streams; per
-   tick stem 1 (the lane stem), IoU 1, scan 1.  The seeded trunk forgets
+   tick stem 1 (the lane stem), IoU 1, walk 1.  The seeded trunk forgets
    its input and every class probability sits a few 1e-6 above 0.5, so
    ``box_score`` is 0.5 here (the facade's default, 0.6, passes nothing);
 7. the bf16 main path of the YOLOv8l configuration (fewer ticks), stem 2,
-   IoU 1 and scan 1 per tick.
+   IoU 1 and walk 1 per tick.
 
 Then the card's name and power limit again, one JSON line describing
 the kernels — ``launches`` summed over the three main paths, each counted
@@ -91,9 +98,12 @@ bound (``bound_ms``, ``bound_by``) from phase 3 (stem: bf16, summed over
 its two serving shapes; int8 conv: s8 output, the largest error in LSB,
 summed over its six shapes; block: the same over its two shapes, plus
 ``unfused_ms``, the unfused pair's time summed the same way; IoU: the
-largest error over its shapes, the rest at (8, 512) with ``plus_one``;
-scan: the number of differing indices, the rest of the serving call, hard
-at IoU 0.45, its bound counting this run's picks) — and last ``{"ok":
+largest matrix error or count of differing mask bits over its shapes,
+the rest the served mask mode at (8, 512) with ``plus_one``, plus
+``matrix_ms`` and ``matrix_bound_ms`` of the matrix mode; nms: the number
+of differing indices over both kernels, the rest the served walk, hard at
+IoU 0.45, its bound counting this run's picks, plus ``scan_ms``, the
+rescoring scan on the same call) — and last ``{"ok":
 true, "device": {...}}``.  Exits non-zero, printing no result, when no
 CUDA GPU is visible.
 """
@@ -107,6 +117,8 @@ import time
 KERNELS = ("stem", "int8_conv", "block", "iou", "nms")
 N_STREAMS, FRAME_HW = 8, (720, 1280)
 BLOCKS_PER_TICK = 5
+#: keys of the kernels line beyond the contract's
+EXTRA_KEYS = ("unfused_ms", "matrix_ms", "matrix_bound_ms", "scan_ms")
 #: EfficientDet's box score on seeded weights (see phase 6)
 EFFDET_BOX_SCORE = 0.5
 #: one H100 SXM's dense peaks (operations/s by type) and memory rate
@@ -401,41 +413,81 @@ def nms_inputs(gen, b, n, torch):
 
 
 def nms_kernel_phase(I, S, torch):
-    """The IoU and scan kernels against their plain versions; returns
-    {kernel: row of the kernels line}.  Neither has a one-call PyTorch
-    counterpart (``library_ms`` null)."""
+    """The IoU kernel's two modes and the two selection kernels against
+    their plain versions, and the served pair; returns {kernel: row of the
+    kernels line}, the served variants (mask mode, walk) with the matrix
+    mode's and the scan's times beside them.  Neither kernel has a one-call
+    PyTorch counterpart (``library_ms`` null)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    iou_err, iou_row = 0.0, None
+    iou_err, iou_row = 0.0, {}
     for b, n, plus_one in ((8, 512, True), (8, 512, False), (8, 300, True), (8, 1, True)):
         boxes, _ = nms_inputs(gen, b, n, torch)
         got = I.iou_matrix(boxes, plus_one=plus_one)
         want = I.iou_matrix_reference(boxes, plus_one=plus_one)
+        got_m = I.iou_mask(boxes, 0.45, plus_one=plus_one)
+        want_m = I.iou_mask_reference(boxes, 0.45, plus_one=plus_one)
         torch.cuda.synchronize()
         check(got.shape == want.shape == (b, n, n), f"iou {b}x{n}: shape {tuple(got.shape)}")
+        check(got_m.shape == want_m.shape == (b, n, (n + 31) // 32),
+              f"iou mask {b}x{n}: shape {tuple(got_m.shape)}")
         err = (got - want).abs().max().item()
         n_diff = int((got != want).sum().item())
-        line = f"[kernel] iou ({b}, {n}, 4) plus_one={plus_one}: {n_diff} elements differ, " \
-               f"max_abs_err {err:.3g} (0 ulp, at worst atol = rtol = 1e-6)"
+        bits = int(I.unpack_bits(got_m ^ want_m, n).sum().item())
+        line = f"[kernel] iou ({b}, {n}, 4) plus_one={plus_one}: matrix {n_diff} elements " \
+               f"differ, max_abs_err {err:.3g} (0 ulp, at worst atol = rtol = 1e-6); mask " \
+               f"(IoU > 0.45) {bits} bits differ (0)"
         if (n, plus_one) == (512, True):
-            ms = device_ms(lambda: I.iou_matrix(boxes, plus_one=True), 50)
-            plain_ms = cuda_ms(lambda: I.iou_matrix_reference(boxes, plus_one=True), 50)
+            ms = device_ms(lambda: I.iou_mask(boxes, 0.45, plus_one=True), 50)
+            plain_ms = cuda_ms(lambda: I.iou_mask_reference(boxes, 0.45, plus_one=True), 50)
+            matrix_ms = device_ms(lambda: I.iou_matrix(boxes, plus_one=True), 50)
+            matrix_plain_ms = cuda_ms(lambda: I.iou_matrix_reference(boxes, plus_one=True), 50)
             # per pair: 4 min/max, 4 subtractions (+2 with plus_one), 2 clamps,
-            # the intersection product, the union's two adds and the division
-            bd = bound(nbytes(boxes, got), 15 * b * n * n, "f32")
-            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {fmt_bound(bd, ms)}"
-            iou_row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound": bd}
+            # the intersection product, the union's two adds and the
+            # division; the mask mode adds the comparison
+            bd = bound(nbytes(boxes, got_m), 16 * b * n * n, "f32")
+            matrix_bd = bound(nbytes(boxes, got), 15 * b * n * n, "f32")
+            line += (f"; mask kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {fmt_bound(bd, ms)}; "
+                     f"matrix kernel {matrix_ms:.4f} ms, plain {matrix_plain_ms:.4f} ms, "
+                     f"{fmt_bound(matrix_bd, matrix_ms)}")
+            iou_row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound": bd,
+                       "matrix_ms": matrix_ms, "matrix_bound_ms": matrix_bd[0]}
         print(line, flush=True)
         check(torch.allclose(got, want, atol=1e-6, rtol=1e-6), f"iou {b}x{n}: kernel disagrees")
-        iou_err = max(iou_err, err)
+        check(bits == 0, f"iou mask {b}x{n}: {bits} bits differ from iou_mask_reference")
+        iou_err = max(iou_err, err, bits)
     rows = {"iou": {"max_abs_err": iou_err, **iou_row}}
 
     boxes, scores = nms_inputs(gen, 8, 512, torch)
-    n_diff, serving = 0, None
-    for method, iou_t, plus_one, name in (
-        (0, 0.45, True, "hard"), (0, 0.5, True, "hard"), (1, 0.45, True, "linear"),
-        (2, 0.45, True, "gaussian"),
-    ):
-        iou = I.iou_matrix(boxes, plus_one=plus_one)
+    n = boxes.shape[1]
+    n_diff, serving = 0, {}
+    for iou_t in (0.45, 0.5):  # hard suppression, as served: the mask and the walk
+        mask = I.iou_mask(boxes, iou_t, plus_one=True)
+        args = (mask, scores, 100, 0.001)
+        got = S.nms_walk(*args)
+        want = S.nms_walk_reference(*args)
+        scan_want = S.nms_scan_reference(I.iou_matrix_reference(boxes, plus_one=True), scores,
+                                         iou_t, 100, 0, 0.5, 0.001)
+        torch.cuda.synchronize()
+        diff = int((got != want).sum().item()) + int((got != scan_want).sum().item())
+        ms = device_ms(lambda: S.nms_walk(*args), 20)
+        plain_ms = cuda_ms(lambda: S.nms_walk_reference(*args), 5)
+        picks = int((got >= 0).sum())
+        # what this run's picks need: each pick reads its mask row (N/32
+        # words) and ORs it into the removed set; the scores in, the
+        # indices out
+        words = mask.shape[-1]
+        bd = bound(picks * words * 4 + nbytes(scores, got), picks * words, "f32")
+        print(f"[kernel] nms walk (hard, mask) iou {iou_t} (8, 512) -> {tuple(got.shape)}: "
+              f"{diff} indices differ from the plain walk and scan, {picks} picks; kernel "
+              f"{ms:.4f} ms, plain walk {plain_ms:.4f} ms, {fmt_bound(bd, ms)}", flush=True)
+        check(got.shape == want.shape and diff == 0, f"nms walk {iou_t}: kernel disagrees")
+        check(picks > 0, "nms walk: nothing picked")
+        n_diff += diff
+        if iou_t == 0.45:
+            serving = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound": bd}
+    for method, iou_t, name in ((0, 0.45, "hard"), (0, 0.5, "hard"), (1, 0.45, "linear"),
+                                (2, 0.45, "gaussian")):
+        iou = I.iou_matrix(boxes, plus_one=True)
         args = (iou, scores, iou_t, 100, method, 0.5, 0.001)
         got = S.nms_scan(*args)
         want = S.nms_scan_reference(*args)
@@ -446,16 +498,28 @@ def nms_kernel_phase(I, S, torch):
         picks = int((got >= 0).sum())
         # what this run's picks need: each pick reads one IoU row and
         # compares, masks and rescores every candidate of its stream
-        bd = bound(picks * iou.shape[-1] * 4 + nbytes(scores, got), 4 * picks * iou.shape[-1],
-                   "f32")
-        print(f"[kernel] nms {name} iou {iou_t} (8, 512) -> {tuple(got.shape)}: {diff} indices "
-              f"differ, {picks} picks; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"{fmt_bound(bd, ms)}", flush=True)
+        bd = bound(picks * n * 4 + nbytes(scores, got), 4 * picks * n, "f32")
+        print(f"[kernel] nms scan (rescoring, matrix) {name} iou {iou_t} (8, 512) -> "
+              f"{tuple(got.shape)}: {diff} indices differ, {picks} picks; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, {fmt_bound(bd, ms)}", flush=True)
         check(got.shape == want.shape and diff == 0, f"nms {name} {iou_t}: kernel disagrees")
         check(picks > 0, f"nms {name}: nothing picked")
         n_diff += diff
         if (method, iou_t) == (0, 0.45):
-            serving = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound": bd}
+            serving["scan_ms"] = ms
+
+    # the served pair as select_and_nms calls it, against the matrix route
+    pair_ms = device_ms(lambda: S.select_loop(boxes, scores, 0.45, 100, 0, 0.5, 0.001, True), 20)
+    old_pair_ms = device_ms(lambda: S.nms_scan(I.iou_matrix(boxes, plus_one=True), scores, 0.45,
+                                               100, 0, 0.5, 0.001), 20)
+    pair_bd = rows["iou"]["bound"][0] + serving["bound"][0]
+    print(f"[kernel] served pair select_loop hard iou 0.45 (8, 512): mask + walk {pair_ms:.4f} "
+          f"ms (bound {pair_bd:.4f} ms); matrix + scan {old_pair_ms:.4f} ms", flush=True)
+    # the latency floor of one launch in a graph replay, which the scan's
+    # and the walk's bytes bounds cannot show
+    empty_ms = device_ms(lambda: torch.cuda._sleep(0), 50)
+    print(f"[kernel] empty kernel (torch.cuda._sleep(0), one thread) through device_ms: "
+          f"{empty_ms:.4f} ms per launch", flush=True)
     rows["nms"] = {"max_abs_err": n_diff, **serving}
     return rows
 
@@ -701,6 +765,8 @@ def main_path_conv_phase(IC, shapes, torch):
     its plain version (to the bit, as at the smoke shapes), its time,
     ``torch._int_mm``'s on the same GEMM, its bound, and the per-tick sums
     (each shape times its calls per tick)."""
+    from adas_tpu_torch.ops.cuda_build import num_sms
+
     gen = torch.Generator(device="cuda").manual_seed(3)
     tick = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     slower = []
@@ -714,7 +780,7 @@ def main_path_conv_phase(IC, shapes, torch):
         ms, lib_ms, b = conv_yardsticks(IC, torch, args, kw, got, stride)
         n, h, w, cin = shape
         ho, wo = IC.conv_out_hw(h, w, k, stride)
-        tile = IC.tile_config(n * ho * wo, cout, IC._num_sms(torch.cuda.current_device()))
+        tile = IC.tile_config(n * ho * wo, cout, num_sms(torch.cuda.current_device()))
         print(f"[int8-shapes] {n}x{h}x{w}x{cin} (pitch {pitch}) -> {cout} k{k}/s{stride} {act} "
               f"{'s8' if s8_out else 'bf16'} x{calls}/tick tile {tile[0]}x{tile[1]}: "
               f"err {err:.3g}; kernel {ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, "
@@ -870,7 +936,9 @@ def main() -> int:
         "bound_ms": rows[k]["bound"][0],
         "bound_by": rows[k]["bound"][1],
         "library_ms": rows[k]["library_ms"],
-        **({"unfused_ms": rows[k]["unfused_ms"]} if "unfused_ms" in rows[k] else {}),
+        # a kernel's other variants: the block's unfused pair, the IoU
+        # matrix mode, the rescoring scan
+        **{key: v for key, v in rows[k].items() if key in EXTRA_KEYS},
     } for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -74,3 +74,40 @@ def test_iou_matrix_batched_cpu_is_the_plain_version(plus_one):
 def test_iou_matrix_rejects_bad_shapes():
     with pytest.raises(ValueError, match=r"\(B, N, 4\)"):
         port_iou.iou_matrix(torch.zeros(5, 4))
+
+
+def _packed_jax_bits(boxes, iou_threshold, plus_one):
+    """numpy packing of the JAX ``pairwise_iou(...) > thr`` bits, written
+    apart from the port's: element 32 w + k is bit k of int32 word w."""
+    over = np.asarray(jax_boxes.pairwise_iou(jnp.asarray(boxes), jnp.asarray(boxes),
+                                             plus_one=plus_one) > iou_threshold)
+    n = over.shape[-1]
+    words = -(-n // 32)
+    padded = np.zeros((*over.shape[:-1], 32 * words), dtype=bool)
+    padded[..., :n] = over
+    return np.packbits(padded, axis=-1, bitorder="little").view("<u4").view(np.int32)
+
+
+@pytest.mark.parametrize("iou_threshold", [0.45, 0.5])
+@pytest.mark.parametrize("plus_one", [False, True])
+@pytest.mark.parametrize("n", [1, 31, 300, 512])
+def test_iou_mask_reference_matches_jax_bits(n, plus_one, iou_threshold):
+    """The mask mode's plain version (and the wrapper on a CPU tensor, which
+    counts no launch) equals the packed bits of the JAX comparison."""
+    b = _boxes(n, seed=n + 1, batch=2)
+    want = np.stack([_packed_jax_bits(b[s], iou_threshold, plus_one) for s in range(2)])
+    got = port_iou.iou_mask_reference(torch.from_numpy(b), iou_threshold, plus_one=plus_one)
+    assert got.dtype == torch.int32 and got.shape == (2, n, -(-n // 32))
+    np.testing.assert_array_equal(got.numpy(), want)
+    port_iou.reset_launches()
+    wrapped = port_iou.iou_mask(torch.from_numpy(b), iou_threshold, plus_one=plus_one)
+    assert port_iou.launches == 0
+    assert torch.equal(wrapped, got)
+    bits = port_iou.unpack_bits(got, n)
+    assert torch.equal(port_iou.pack_bits(bits), got)
+    assert int(bits.sum()) > 0 or n == 1  # box 0 is degenerate: IoU(0, 0) = 0
+
+
+def test_iou_mask_rejects_bad_shapes():
+    with pytest.raises(ValueError, match=r"\(B, N, 4\)"):
+        port_iou.iou_mask(torch.zeros(2, 5, 5), 0.5)

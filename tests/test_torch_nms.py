@@ -149,3 +149,92 @@ def test_ab_tool_plain_nms_equals_served_select_loop():
     with nms_ab.plain_nms():
         assert port_decode.select_loop is nms_ab.plain_select_loop
     assert port_decode.select_loop is served
+
+
+def _walk_inputs(n, seed, order, with_nan):
+    """``_inputs`` with the scores sorted descending (as the top-k hands
+    them over: ties keep index order) or left unsorted, optionally with a
+    NaN score."""
+    boxes, scores = _inputs(n, seed)
+    if with_nan:
+        scores[:, n // 2] = np.nan
+    if order == "sorted":
+        scores = -np.sort(-scores, axis=1, kind="stable")
+    return boxes, scores
+
+
+@pytest.mark.parametrize("score_threshold", [0.0, 0.001])
+@pytest.mark.parametrize("order,with_nan", [("sorted", False), ("unsorted", False),
+                                            ("unsorted", True), ("sorted", True)])
+@pytest.mark.parametrize("n,max_out", [(96, 40), (40, 64), (1, 3)])
+def test_nms_walk_reference_matches_jax(n, max_out, order, with_nan, score_threshold):
+    """The walk over the packed mask picks what the JAX ``_select_loop``
+    (hard) and the plain rescoring scan pick: sorted, unsorted and exactly
+    tied scores, zeros, a NaN, ``max_out`` above and below N, N = 1."""
+    boxes, scores = _walk_inputs(n, seed=n + max_out, order=order, with_nan=with_nan)
+    args = dict(iou_threshold=0.45, max_out=max_out, method=0, sigma=0.5,
+                score_threshold=score_threshold, plus_one=True)
+    want = _jax_per_stream(lambda b, s: jax_nms._select_loop(b, s, **args)[0], boxes, scores)
+    b, s = torch.from_numpy(boxes), torch.from_numpy(scores)
+    mask = port_nms.iou_mask(b, 0.45, plus_one=True)
+    got = port_nms.nms_walk_reference(mask, s, max_out, score_threshold)
+    assert got.dtype == torch.int64 and got.shape == (N_STREAMS, max_out)
+    np.testing.assert_array_equal(got.numpy(), want)
+    scan = port_nms.nms_scan_reference(port_nms.iou_matrix(b, plus_one=True), s, 0.45, max_out,
+                                       0, 0.5, score_threshold)
+    assert torch.equal(got, scan)
+    # the walk picked something, except where the one box's score is NaN
+    assert (want >= 0).sum() >= N_STREAMS or (n == 1 and with_nan)
+
+
+def test_nms_walk_reference_stops_at_a_suppressed_inf():
+    """A suppressed +inf score turns into NaN in the rescoring scan, whose
+    next argmax ends the stream; the walk stops after that pick too."""
+    boxes, scores = _inputs(64, seed=31)
+    scores[:, 7] = np.inf
+    scores[:, 20] = np.inf
+    boxes[:, 20] = boxes[:, 7] + 1.0  # box 7, picked first, suppresses box 20
+    b, s = torch.from_numpy(boxes), torch.from_numpy(scores)
+    mask = port_nms.iou_mask(b, 0.5)
+    got = port_nms.nms_walk_reference(mask, s, 30, 0.001)
+    want = port_nms.nms_scan_reference(port_nms.iou_matrix(b), s, 0.5, 30, 0, 0.5, 0.001)
+    assert torch.equal(got, want)
+    assert got[:, 0].tolist() == [7] * N_STREAMS and (got[:, 1:] == -1).all()
+
+
+def test_select_loop_routes_hard_to_the_walk(monkeypatch):
+    """On the CPU ``select_loop`` takes the walk's plain version for hard
+    suppression with ``score_threshold >= 0``, and the rescoring scan's
+    for the soft methods and a negative threshold."""
+    calls = []
+    for name in ("nms_walk_reference", "nms_scan_reference"):
+        fn = getattr(port_nms, name)
+        monkeypatch.setattr(port_nms, name,
+                            lambda *a, _fn=fn, _name=name: calls.append(_name) or _fn(*a))
+    boxes, scores = (torch.from_numpy(a) for a in _inputs(48, seed=41))
+    for method, score_threshold, route in ((0, 0.001, "nms_walk_reference"),
+                                           (0, 0.0, "nms_walk_reference"),
+                                           (0, -0.5, "nms_scan_reference"),
+                                           (1, 0.001, "nms_scan_reference"),
+                                           (2, 0.001, "nms_scan_reference")):
+        calls.clear()
+        got = port_nms.select_loop(boxes, scores, 0.45, 30, method=method,
+                                   score_threshold=score_threshold, plus_one=True)
+        assert calls == [route]
+        want = port_nms.select_loop(boxes, scores, 0.45, 30, method=method,
+                                    score_threshold=score_threshold, plus_one=True,
+                                    use_iou_matrix=False)
+        assert torch.equal(got, want)
+
+
+def test_nms_walk_rejects_bad_arguments():
+    s = torch.zeros(2, 40)
+    mask = torch.zeros(2, 40, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="score_threshold >= 0"):
+        port_nms.nms_walk(mask, s, 10, score_threshold=-0.1)
+    with pytest.raises(ValueError, match="score_threshold >= 0"):
+        port_nms.nms_walk_reference(mask, s, 10, score_threshold=float("nan"))
+    with pytest.raises(ValueError, match=r"\(B, N, 2\) operand"):
+        port_nms.nms_walk(torch.zeros(2, 40, 3, dtype=torch.int32), s, 10)
+    with pytest.raises(ValueError, match="max_out"):
+        port_nms.nms_walk(mask, s, 0)

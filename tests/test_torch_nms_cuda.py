@@ -8,11 +8,13 @@ GPU machine without the repository's conftest:
     python -m pytest tests/test_torch_nms_cuda.py -q --noconftest -p no:cacheprovider
 
 Yardsticks: the IoU kernel rounds every operation as the plain version
-does, so the two matrices are equal to the bit (and symmetric); the scan
-kernel picks exactly the indices of the plain loop, for the hard, linear
-and gaussian methods.  Shapes: the serving one (8 streams, N = 512, the
-top-k of ``select_and_nms``) and ragged ones (N not a multiple of the IoU
-tile or of a warp).
+does, so the two matrices are equal to the bit (and symmetric), and so are
+the packed masks of its mask mode; the rescoring scan picks exactly the
+indices of the plain loop, for the hard, linear and gaussian methods; the
+walk picks exactly what the plain scan picks on the matrix the mask came
+from.  Shapes: the serving one (8 streams, N = 512, the top-k of
+``select_and_nms``) and ragged ones (N not a multiple of the IoU tile or
+of a warp), up to the kernels' 1024 candidates.
 """
 import pytest
 import torch
@@ -86,6 +88,94 @@ def test_scan_kernel_equals_plain(gpu, method, iou_threshold, score_threshold, p
     assert (got >= 0).sum() > 0
 
 
+@pytest.mark.parametrize("iou_threshold", [0.45, 0.5])
+@pytest.mark.parametrize("plus_one", [False, True])
+@pytest.mark.parametrize("b,n", [(8, 512), (3, 300), (2, 1), (1, 65), (2, 1000)])
+def test_iou_mask_kernel_equals_plain(gpu, b, n, plus_one, iou_threshold):
+    boxes = _boxes(gpu, b, n)
+    before = I.launches
+    got = I.iou_mask(boxes, iou_threshold, plus_one=plus_one)
+    want = I.iou_mask_reference(boxes, iou_threshold, plus_one=plus_one)
+    torch.cuda.synchronize()
+    assert I.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == want.shape == (b, n, (n + 31) // 32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+@pytest.mark.parametrize("score_threshold", [0.0, 0.001])
+@pytest.mark.parametrize("b,n,max_out", [(8, 512, 100), (3, 300, 300), (2, 33, 64), (1, 1, 4),
+                                         (2, 1000, 600), (2, 1024, 100)])
+def test_walk_kernel_equals_plain(gpu, b, n, max_out, score_threshold, order):
+    """The walk over the kernel's mask against the plain scan on the
+    kernel's matrix, and against the plain walk: sorted scores take the
+    walk's rank-order path, unsorted ones its ranking; ties and zeros in
+    both."""
+    boxes, scores = _boxes(gpu, b, n), _scores(gpu, b, n)
+    if order == "sorted":
+        scores = scores.sort(dim=1, descending=True, stable=True)[0].contiguous()
+    mask = I.iou_mask(boxes, 0.45, plus_one=True)
+    before = S.launches
+    got = S.nms_walk(mask, scores, max_out, score_threshold)
+    torch.cuda.synchronize()
+    assert S.launches == before + 1
+    assert got.dtype == torch.int64 and got.shape == (b, max_out)
+    want = S.nms_scan_reference(I.iou_matrix(boxes, plus_one=True), scores, 0.45, max_out, 0,
+                                0.5, score_threshold)
+    assert torch.equal(got, want)
+    assert torch.equal(got, S.nms_walk_reference(mask, scores, max_out, score_threshold))
+    assert (got >= 0).sum() > 0
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_walk_kernel_nan_and_inf_scores(gpu, order):
+    """NaN scores are never active; a suppressed +inf score ends the
+    stream after the pick that suppressed it, as in the plain scan (sorted:
+    boxes permuted with their scores; NaN only unsorted, since a
+    descending sort puts it first)."""
+    boxes, scores = _boxes(gpu, 4, 200), _scores(gpu, 4, 200)
+    scores[:2, 7] = float("inf")
+    scores[:2, 90] = float("inf")
+    boxes[:2, 90] = boxes[:2, 7] + 1.0
+    if order == "sorted":
+        scores, idx = scores.sort(dim=1, descending=True, stable=True)
+        boxes = boxes.gather(1, idx[..., None].expand(-1, -1, 4)).contiguous()
+    else:
+        scores[:, 50] = float("nan")
+    scores = scores.contiguous()
+    mask = I.iou_mask(boxes, 0.5)
+    got = S.nms_walk(mask, scores, 120, 0.001)
+    want = S.nms_scan_reference(I.iou_matrix(boxes), scores, 0.5, 120, 0, 0.5, 0.001)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("method,score_threshold,route", [
+    (0, 0.001, ("iou_mask", "nms_walk")),  # select_and_nms, hard: the serving path
+    (0, 0.0, ("iou_mask", "nms_walk")),  # nms_padded
+    (0, -0.5, ("iou_matrix", "nms_scan")),  # a negative threshold keeps the scan
+    (1, 0.001, ("iou_matrix", "nms_scan")),
+    (2, 0.001, ("iou_matrix", "nms_scan")),
+])
+def test_select_loop_routes(gpu, monkeypatch, method, score_threshold, route):
+    """``select_loop`` on CUDA tensors: one IoU launch and one selection
+    launch, mask + walk for hard suppression with a non-negative score
+    threshold, matrix + scan otherwise; picks equal to the plain scan."""
+    calls = []
+    for name in ("iou_mask", "iou_matrix", "nms_walk", "nms_scan"):
+        fn = getattr(S, name)
+        monkeypatch.setattr(S, name, lambda *a, _fn=fn, _n=name, **k: calls.append(_n) or _fn(*a, **k))
+    boxes, scores = _boxes(gpu, 8, 512), _scores(gpu, 8, 512)
+    i0, s0 = I.launches, S.launches
+    got = S.select_loop(boxes, scores, 0.45, 100, method=method, score_threshold=score_threshold,
+                        plus_one=True)
+    assert (I.launches, S.launches) == (i0 + 1, s0 + 1)
+    assert tuple(calls) == route
+    iou = I.iou_matrix_reference(boxes, plus_one=True)
+    assert torch.equal(got, S.nms_scan_reference(iou, scores, 0.45, 100, method, 0.5,
+                                                 score_threshold))
+
+
 def test_select_loop_runs_both_kernels(gpu):
     """On CUDA tensors ``select_loop`` is one IoU launch and one scan
     launch, whatever the method."""
@@ -114,3 +204,18 @@ def test_kernels_reject_what_they_do_not_take(gpu):
         S.nms_scan(I.iou_matrix(big), _scores(gpu, 1, 1100), 0.5, 10)
     with pytest.raises(ValueError, match="use_iou_matrix"):
         S.select_loop(boxes, scores, 0.5, 10, use_iou_matrix=False)
+    mask = I.iou_mask(boxes, 0.5)
+    with pytest.raises(ValueError, match="score_threshold >= 0"):
+        S.nms_walk(mask, scores, 10, score_threshold=-0.01)
+    with pytest.raises(ValueError, match="contiguous int32 mask"):
+        S.nms_walk(mask.long(), scores, 10)
+    with pytest.raises(ValueError, match="contiguous f32 scores"):
+        S.nms_walk(mask, scores.double(), 10)
+    with pytest.raises(ValueError, match="one cuda device"):
+        S.nms_walk(mask.cpu(), scores, 10)
+    with pytest.raises(ValueError, match=r"\(B, N, 2\) operand"):
+        S.nms_walk(mask[..., :1].contiguous(), scores, 10)
+    with pytest.raises(ValueError, match="at most 1024"):
+        S.nms_walk(I.iou_mask(big, 0.5), _scores(gpu, 1, 1100), 10)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        I.iou_mask(boxes.half(), 0.5)
