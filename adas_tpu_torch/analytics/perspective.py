@@ -1,29 +1,40 @@
-"""Frontal <-> bird's-eye-view geometry for LDWS/LKAS: the parts of
-``adas_tpu/analytics/perspective.py`` the serving path calls
-(``updateTransformParams``, ``transformToBirdViewPoints``,
-``calcCurveAndOffset`` without drawing), all host numpy.
+"""Frontal <-> bird's-eye-view geometry for LDWS/LKAS (port of
+``adas_tpu/analytics/perspective.py``): the trapezoid and its homographies,
+point projection and the curvature/offset fit on the host (numpy), the
+image warps (``transformToBirdView`` / ``transformToFrontalView``) on the
+device through ``ops/warp.warp_perspective``.
 
-Not ported yet: the image warps (``transformToBirdView`` /
-``transformToFrontalView``, which need ``ops/warp.warp_perspective``) and
-the cv2 drawing.
+Not ported: the cv2 drawing (``calcCurveAndOffset(draw=True)``,
+``DrawDetectedOnBirdView``, ``DrawTransformFrontalViewArea``), which waits
+for the cv2-free renderer (``ROADMAP.md`` §1).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
 import numpy as np
+import torch
 
-from ..ops.warp import get_perspective_transform, transform_points
+from ..ops.warp import get_perspective_transform, transform_points, warp_perspective
 
 YM_PER_PIX = 30 / 720
 XM_PER_PIX = 3.7 / 700
 
+#: why a drawing call raises: the renderer is not ported
+NO_RENDERER = (
+    "drawing is not ported: the port has no cv2 and no renderer yet "
+    "(ROADMAP.md §1, the cv2-free renderer and video I/O)"
+)
+
 
 class PerspectiveTransformation:
-    """Maintains src/dst quads + homographies; projects lane points."""
+    """Maintains src/dst quads + homographies; warps images (on ``device``,
+    the card unless the caller names the CPU) and projects points."""
 
-    def __init__(self, img_size=(1280, 720)):
+    def __init__(self, img_size=(1280, 720), logger=None, device="cuda"):
         self.img_size = img_size
+        self.logger = logger
+        self.device = torch.device(device)
         w, h = img_size
         self.src = np.float32(
             [(w * 0.3, h * 0.7), (w * 0.2, h), (w * 0.95, h), (w * 0.8, h * 0.7)]
@@ -68,8 +79,27 @@ class PerspectiveTransformation:
             top_right = (right[:, 0].min() + 20, top_y)
         else:
             return
+        if self.logger is not None:
+            self.logger.debug(
+                f"Transform Type : {type} {top_left} {bottom_left} {bottom_right} {top_right}"
+            )
         self.src = np.float32([top_left, bottom_left, bottom_right, top_right])
         self._update_matrices()
+
+    def _warp(self, img: np.ndarray, matrix: np.ndarray) -> np.ndarray:
+        """Upload ``img``, warp it by ``matrix`` to the frame size on the
+        device, and return a writable host copy, as the JAX methods do."""
+        w, h = self.img_size
+        x = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+        return warp_perspective(x, np.asarray(matrix, np.float32), (h, w)).cpu().numpy()
+
+    def transformToBirdView(self, img: np.ndarray) -> np.ndarray:
+        """Warp a frontal frame to bird view on the device."""
+        return self._warp(img, self.M)
+
+    def transformToFrontalView(self, img: np.ndarray) -> np.ndarray:
+        """Warp a bird-view frame back to the frontal view on the device."""
+        return self._warp(img, self.M_inv)
 
     def transformToBirdViewPoints(self, points) -> np.ndarray:
         """Project frontal-view lane points into bird view."""
@@ -82,12 +112,15 @@ class PerspectiveTransformation:
         return np.clip(out, -(2**30), 2**30).astype(np.int64)
 
     def calcCurveAndOffset(
-        self, img: np.ndarray, left_lanes, right_lanes
+        self, img: np.ndarray, left_lanes, right_lanes, draw: bool = True
     ) -> Tuple[Tuple[Optional[str], Optional[float]], Optional[float]]:
-        """Curvature radius (m), direction ("L"/"R"/"F") and center offset
-        (the JAX method with ``draw=False``); ``img`` gives the bird-view
-        canvas size.  Lane width samples the bottom row of the bird image,
-        as the JAX package does."""
+        """Curvature radius (m), direction ("L"/"R"/"F") and center offset;
+        ``img`` gives the bird-view canvas size.  Lane width samples the
+        bottom row of the bird image, as the JAX package does.  ``draw=True``
+        (the JAX default, which draws on ``img``) raises
+        ``NotImplementedError``: pass ``draw=False``."""
+        if draw:
+            raise NotImplementedError(NO_RENDERER)
         left = np.asarray(left_lanes, dtype=np.float64).reshape(-1, 2)
         right = np.asarray(right_lanes, dtype=np.float64).reshape(-1, 2)
         if len(left) < 3 or len(right) < 3:

@@ -1,5 +1,5 @@
 """Ultra-Fast-Lane-Detection v2 (port of ``UFLDv2Spec``, ``UFLDV2_SPECS``
-and ``UFLDv2Net`` from ``adas_tpu/models/ufld.py:32-221``; no aux
+and ``UFLDv2Net`` from ``adas_tpu/models/ufld.py:32-221``, the CULane and TuSimple variants; no aux
 segmentation head, no test-time augmentation).
 
 ``int8=True``: the int8 ResNet trunk (NHWC), the ``pool`` 1x1 conv in f32
@@ -69,6 +69,11 @@ UFLDV2_SPECS: Dict[LaneModelType, UFLDv2Spec] = {
         input_height=320, input_width=1600, crop_ratio=0.6,
         num_cell_row=200, num_row=72, num_cell_col=100, num_col=81,
         fc_norm=True, img_w=1600, img_h=320,
+    ),
+    LaneModelType.UFLDV2_TUSIMPLE: UFLDv2Spec(
+        input_height=320, input_width=800, crop_ratio=0.8,
+        num_cell_row=100, num_row=56, num_cell_col=100, num_col=41,
+        fc_norm=False, img_w=800, img_h=320,
     ),
 }
 

@@ -266,12 +266,18 @@ def ufld_v2_preprocess_yuv(
     return _resize_yuv(yuv, src_h, src_w, mats, dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def _interp_on(src: int, dst: int, device: str) -> torch.Tensor:
+    return torch.as_tensor(_interp_matrix(src, dst), device=device)
+
+
 def resize_bilinear(img: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tensor:
     """Exact bilinear resize of a (..., H, W, C) f32 image as two matmuls
     (``preprocess.py:117``)."""
     src_h, src_w = img.shape[-3], img.shape[-2]
-    ah = torch.as_tensor(_interp_matrix(src_h, dst_h), device=img.device)
-    aw = torch.as_tensor(_interp_matrix(src_w, dst_w), device=img.device)
+    dev = str(img.device)
+    ah = _interp_on(src_h, dst_h, dev)
+    aw = _interp_on(src_w, dst_w, dev)
     out = torch.einsum("hs,...swc->...hwc", ah, img)
     return torch.einsum("wt,...htc->...hwc", aw, out)
 
@@ -284,6 +290,11 @@ def letterbox(frame: torch.Tensor, geom: LetterboxGeometry, pad_value: float = P
     img = resize_bilinear(frame.float(), newh, neww)
     pads = (0, 0, padw, geom.dst_w - neww - padw, padh, geom.dst_h - newh - padh)
     return torch.nn.functional.pad(img, pads, value=pad_value)
+
+
+def frame_to_device(frame: np.ndarray, device) -> torch.Tensor:
+    """Upload one host frame (any layout, made contiguous) to ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(frame)).to(device)
 
 
 def _bgr_frames(frame_bgr) -> torch.Tensor:
@@ -309,14 +320,8 @@ def ufld_v2_preprocess(frame_bgr, input_h: int, input_w: int, crop_ratio: float,
     resize_h = int(input_h / crop_ratio)
     img = resize_bilinear(_bgr_frames(frame_bgr).to(device).float(), resize_h, input_w)
     rgb = img[..., resize_h - input_h:, :, :].flip(-1)
-    mean = torch.tensor(IMAGENET_MEAN, device=rgb.device) * 255.0
-    std = torch.tensor(IMAGENET_STD, device=rgb.device) * 255.0
-    return ((rgb - mean) / std).to(dtype).permute(0, 3, 1, 2).contiguous()
-
-
-@functools.lru_cache(maxsize=64)
-def _interp_on(src: int, dst: int, device: str) -> torch.Tensor:
-    return torch.as_tensor(_interp_matrix(src, dst), device=device)
+    mean, std = _imagenet_stats(str(rgb.device))
+    return ((rgb - mean.view(3)) / std.view(3)).to(dtype).permute(0, 3, 1, 2).contiguous()
 
 
 def i420_to_bgr_planar(yuv: torch.Tensor, height: int, width: int) -> torch.Tensor:

@@ -14,8 +14,6 @@ drives ``net`` directly.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 import torch
 
@@ -26,6 +24,20 @@ from ..ops.preprocess import LetterboxGeometry, imagenet_preprocess
 from ..ops.yolo_decode import detections_to_original, select_and_nms
 from .object_detector import ObjectDetectBase, build_net, resolve_device
 
+#: the options of :class:`EfficientdetDetector` and their defaults
+#: (``efficientdet_detector.py:29-43``, less ``compute_dtype``: f32 only);
+#: ``input_size`` (a multiple of 128) overrides the paper's square input
+EFFDET_OPTIONS = {
+    "model_path": None,
+    "model_type": ObjectModelType.EfficientDet,
+    "classes_path": None,
+    "box_score": 0.6,
+    "box_nms_iou": 0.5,
+    "compound": 0,
+    "max_det": 100,
+    "input_size": None,
+}
+
 
 def scores_and_ids(probs: torch.Tensor):
     """(B, N, C) class probabilities -> per-anchor (max score, first class
@@ -34,32 +46,25 @@ def scores_and_ids(probs: torch.Tensor):
 
 
 class EfficientdetDetector(ObjectDetectBase):
-    """EfficientDet-D{0..7} on the port; ``compound`` picks the scale and
-    ``input_size`` (a multiple of 128) overrides the paper's square input."""
+    """EfficientDet-D{0..7} on the port; options as :data:`EFFDET_OPTIONS`
+    (``compound`` picks the scale), on ``device`` from the seeded init
+    (``seed``) unless ``model_path`` names weights."""
 
-    def __init__(
-        self,
-        model_path: Optional[str] = None,
-        compound: int = 0,
-        input_size: Optional[int] = None,
-        box_score: float = 0.6,
-        box_nms_iou: float = 0.5,
-        max_det: int = 100,
-        classes_path: Optional[str] = None,
-        device="cuda",
-        seed: int = 0,
-    ):
-        self.model_type = ObjectModelType.EfficientDet
-        self.box_score = box_score
-        self.box_nms_iou = box_nms_iou
-        self.max_det = max_det
+    _defaults = EFFDET_OPTIONS
+
+    def __init__(self, logger=None, device="cuda", seed: int = 0, **kwargs):
+        super().__init__(EFFDET_OPTIONS, kwargs, logger)
+        if self.model_type is not ObjectModelType.EfficientDet:
+            raise ValueError(f"EfficientdetDetector can't use {self.model_type} type.")
         self.device = resolve_device(device)
-        self._initialize_class(classes_path)
+        self._initialize_class(self.classes_path)
         self.spec = EfficientDetSpec(
-            compound=int(compound), num_classes=len(self.class_names),
-            input_size_override=input_size,
+            compound=int(self.compound), num_classes=len(self.class_names),
+            input_size_override=self.input_size,
         )
-        self.net = build_net(lambda: EfficientDet(self.spec), self.device, None, model_path, seed)
+        self.net = build_net(
+            lambda: EfficientDet(self.spec), self.device, None, self.model_path, seed,
+        )
 
     @torch.inference_mode()
     def detect(self, frame_bgr: np.ndarray) -> torch.Tensor:

@@ -29,33 +29,22 @@ import numpy as np
 import torch
 
 from ..tracking import BYTETracker
-from ..utils.types import LaneInfo, ObjectModelType
+from ..utils.types import LaneInfo
 
 from ..analytics import PerspectiveTransformation, SingleCamDistanceMeasure, TaskConditions
-from ..ops.packing import pack, unpack
-from ..ops.preprocess import (
-    LetterboxGeometry,
-    bgr_to_i420,
-    i420_to_bgr_planar,
-    imagenet_preprocess_planar,
-    ufld_v2_preprocess_planar,
-    ufld_v2_preprocess_yuv,
-    yolo_preprocess_yuv,
-)
-from ..ops.ufld_decode import ufld_v2_decode
-from ..ops.yolo_decode import decode_predictions, detections_to_original, select_and_nms
-from ..perception.efficientdet_detector import scores_and_ids
-from ..perception.object_detector import input_torch_dtype
+from ..ops.packing import unpack
+from ..ops.preprocess import bgr_to_i420
+from .fused import fused_step, letterbox_geometry
 
 
 class StreamState:
     """Host-side temporal state for one video feed (``multistream.py:52``)."""
 
-    def __init__(self, frame_size, colors_dict):
+    def __init__(self, frame_size, colors_dict, device):
         self.tracker = BYTETracker(names=dict(colors_dict))
         self.distance = SingleCamDistanceMeasure()
         self.conditions = TaskConditions()
-        self.perspective = PerspectiveTransformation(frame_size)
+        self.perspective = PerspectiveTransformation(frame_size, device=device)
         self.lane_info = LaneInfo()
 
 
@@ -82,10 +71,8 @@ class MultiStreamADAS:
         self.transport = transport
         self.device = yolo.device
         h, w = self.frame_hw
-        self.is_effdet = yolo.model_type is ObjectModelType.EfficientDet
-        s = yolo.spec.input_size
-        self.geom = LetterboxGeometry(h, w, *((s, s) if self.is_effdet else s))
-        self.streams = [StreamState((w, h), yolo.colors_dict) for _ in range(n_streams)]
+        self.geom = letterbox_geometry(yolo, self.frame_hw)
+        self.streams = [StreamState((w, h), yolo.colors_dict, self.device) for _ in range(n_streams)]
         # calcCurveAndOffset reads only the canvas shape
         self._canvas = np.zeros((h, w, 3), np.uint8)
         self._pack_spec = None
@@ -95,39 +82,11 @@ class MultiStreamADAS:
 
     # ---- device step ----
 
-    @torch.inference_mode()
     def _step(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H*3/2, W) uint8 I420 on the device -> (B, total) f32 packed
-        detections + decoded lanes (``multistream.py:248-362``)."""
-        yolo, lane = self.yolo, self.lane
-        h, w = self.frame_hw
-        lspec = lane.spec
-        lane_dtype = input_torch_dtype(lane.compute_dtype)
-        if self.is_effdet:
-            # the full-resolution decode keeps cv2's round/clip; both nets
-            # read its planes (multistream.py:271-275, 334-343)
-            bgr = i420_to_bgr_planar(x, h, w)
-            boxes, probs = yolo.net(imagenet_preprocess_planar(bgr, self.geom))
-            scores, ids = scores_and_ids(probs)
-            lx = ufld_v2_preprocess_planar(
-                bgr, lspec.input_height, lspec.input_width, lspec.crop_ratio, dtype=lane_dtype
-            )
-        else:
-            xy = yolo_preprocess_yuv(
-                x, h, w, self.geom, dtype=input_torch_dtype(yolo.compute_dtype)
-            )
-            boxes, scores, ids = decode_predictions(yolo.net(xy).float())
-            lx = ufld_v2_preprocess_yuv(
-                x, h, w, lspec.input_height, lspec.input_width, lspec.crop_ratio,
-                dtype=lane_dtype,
-            )
-        dets = select_and_nms(
-            boxes, scores, ids, box_score=float(yolo.box_score),
-            iou_threshold=float(yolo.box_nms_iou), max_det=int(yolo.max_det),
-        )
-        dets = detections_to_original(dets, self.geom)
-        louts = {k: v.float() for k, v in lane.net(lx).items()}
-        flat, self._pack_spec = pack((dets, ufld_v2_decode(louts)))
+        detections + decoded lanes (``multistream.py:248-362``), through
+        the fused step of ``pipeline/fused.py``."""
+        flat, self._pack_spec = fused_step(self.yolo, self.lane, x, self.frame_hw, "i420")
         return flat
 
     # ---- host orchestration ----
@@ -198,7 +157,7 @@ class MultiStreamADAS:
                 for p in lane_info.lanes_points
             ]
             (direction, curvature), offset = stream.perspective.calcCurveAndOffset(
-                self._canvas, *bird_lanes[1:3]
+                self._canvas, *bird_lanes[1:3], draw=False
             )
             stream.conditions.UpdateCollisionStatus(collision_pt, lane_info.area_status)
             stream.conditions.UpdateOffsetStatus(offset)

@@ -88,10 +88,30 @@ Phases, each of which raises (exit code 1) on failure:
    its input and every class probability sits a few 1e-6 above 0.5, so
    ``box_score`` is 0.5 here (the facade's default, 0.6, passes nothing);
 7. the bf16 main path of the YOLOv8l configuration (fewer ticks), stem 2,
-   IoU 1 and walk 1 per tick.
+   IoU 1 and walk 1 per tick;
+8. the single-frame path in int8 (``[frame-int8]``): ``ADASPipeline`` with
+   YOLOv8l-640 + UFLDv2-CULane on the card, one pipeline per route (fused,
+   the default, and unfused: object -> tracker -> lane) from the same
+   seeds, each calibrated from the same two 720p frames (the two routes'
+   weights and scales must be equal); 10 seeded 720x1280 frames through
+   ``process_frame(draw=False)`` on each route after a warm-up frame.
+   Per frame exactly 2 stem, 105 int8 conv (the module tree's count), 5
+   block, 1 IoU and 1 walk launches; every frame's detections non-empty
+   and finite; the fused route's detections and lanes equal to the
+   unfused route's; the bird-view warp on the card within one level of
+   the plain CPU warp, with the pageable upload, the warp and the fetch
+   timed; the i420 fused step on one frame against stream 0 of a
+   ``MultiStreamADAS`` tick holding it (counts within 2, at least 90%
+   matched: same label, IoU > 0.9, confidence within 0.01).  Prints the
+   per-frame and per-stage times (p50, p95).  Then every kernel at the
+   path's batch-1 shapes against its plain version, beside its bound and
+   the library call (``[frame-kernel]`` lines; the int8 conv over every
+   distinct shape of the frame, ``[frame-int8-shapes]``);
+9. the same path in bf16 (``[frame-bf16]``): stem 2, IoU 1, walk 1 per
+   frame.
 
 Then the card's name and power limit again, one JSON line describing
-the kernels — ``launches`` summed over the three main paths, each counted
+the kernels — ``launches`` summed over the five paths, each counted
 from 0 just before it; ``max_abs_err``, ``ms``, ``plain_ms``,
 ``library_ms`` (null where no PyTorch call computes the function) and the
 bound (``bound_ms``, ``bound_by``) from phase 3 (stem: bf16, summed over
@@ -103,9 +123,11 @@ the rest the served mask mode at (8, 512) with ``plus_one``, plus
 ``matrix_ms`` and ``matrix_bound_ms`` of the matrix mode; nms: the number
 of differing indices over both kernels, the rest the served walk, hard at
 IoU 0.45, its bound counting this run's picks, plus ``scan_ms``, the
-rescoring scan on the same call) — and last ``{"ok":
-true, "device": {...}}``.  Exits non-zero, printing no result, when no
-CUDA GPU is visible.
+rescoring scan on the same call; and from phase 8 the launches per frame
+and the kernel's batch-1 time, bound and library time, summed per frame
+as above: ``launches_per_frame``, ``batch1_ms``, ``batch1_bound_ms``,
+``batch1_library_ms``) — and last ``{"ok": true, "device": {...}}``.
+Exits non-zero, printing no result, when no CUDA GPU is visible.
 """
 from __future__ import annotations
 
@@ -202,49 +224,62 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_phase(S, torch):
-    """Stem kernel vs stem_reference at the two serving shapes; bf16 also
-    against cuDNN's ``F.conv2d`` with the BN folded into its weight and
-    bias (the conv + BN in one call, full-resolution output)."""
+def stem_case(S, torch, gen, name, shape, k, act, pool, dtype, atol, rtol):
+    """One stem site: the kernel against ``stem_reference`` (fails beyond
+    ``atol``/``rtol``), its device time, the plain version's, its bound
+    and, in bf16, cuDNN's ``F.conv2d`` with the BN folded into its weight
+    and bias (the conv + BN in one call, full-resolution output); prints
+    a ``[kernel]`` line and returns (err, ms, plain_ms, library_ms, bound)."""
     import torch.nn.functional as F
 
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(64, 3, k, k, generator=gen, device="cuda") * 0.1).to(dtype)
+    gain = torch.randn(64, generator=gen, device="cuda")
+    bias = torch.randn(64, generator=gen, device="cuda")
+    args = dict(act=act, pool=pool)
+    got = S.fused_stem(x, w, gain, bias, **args)
+    ref = S.stem_reference(x, w, gain, bias, **args)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    err = (got.float() - ref.float()).abs().max().item()
+    ok = torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol)
+    ms = device_ms(lambda: S.fused_stem(x, w, gain, bias, **args), 20)
+    eager_ms = cuda_ms(lambda: S.fused_stem(x, w, gain, bias, **args), 20)
+    plain_ms = cuda_ms(lambda: S.stem_reference(x, w, gain, bias, **args), 20)
+    hc, wc = S.stem_out_hw(shape[2], shape[3], False)
+    b = bound(nbytes(x, w, gain, bias, got), 2 * shape[0] * 64 * hc * wc * 3 * k * k,
+              "bf16" if dtype == torch.bfloat16 else "f32")
+    line = (f"[kernel] {name} {str(dtype)[6:]} {tuple(shape)} -> {tuple(got.shape)}: "
+            f"max_abs_err {err:.6g} (atol {atol}, rtol {rtol}) kernel {ms:.4f} ms "
+            f"(eager {eager_ms:.4f}), "
+            f"plain {plain_ms:.4f} ms, {fmt_bound(b, ms)}")
+    lib_ms = None
+    if dtype == torch.bfloat16:
+        wf = (w.float() * gain.view(-1, 1, 1, 1)).to(dtype)
+        bf = bias.to(dtype)
+        lib_ms = device_ms(lambda: F.conv2d(x, wf, bf, stride=2, padding=k // 2), 20)
+        line += f", cuDNN conv2d + folded BN {lib_ms:.4f} ms"
+    print(line, flush=True)
+    check(ok, f"{name} {dtype}: kernel disagrees with stem_reference (max abs err {err})")
+    return err, ms, plain_ms, lib_ms, b
+
+
+#: the stem's two sites: (name, input shape at batch 1, k, act, pool)
+STEM_SITES = (
+    ("yolo_stem_k3_silu", (1, 3, 640, 640), 3, "silu", False),
+    ("resnet_stem_k7_relu_pool", (1, 3, 320, 1600), 7, "relu", True),
+)
+
+
+def kernel_phase(S, torch):
+    """Stem kernel vs stem_reference at the two serving shapes, in bf16
+    and f32 (see :func:`stem_case`)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    sites = (
-        ("yolo_stem_k3_silu", (8, 3, 640, 640), 3, "silu", False),
-        ("resnet_stem_k7_relu_pool", (8, 3, 320, 1600), 7, "relu", True),
-    )
     rows = []
     for dtype, atol, rtol in ((torch.bfloat16, 1e-2, 1e-2), (torch.float32, 2e-4, 1e-4)):
-        for name, shape, k, act, pool in sites:
-            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            w = (torch.randn(64, 3, k, k, generator=gen, device="cuda") * 0.1).to(dtype)
-            gain = torch.randn(64, generator=gen, device="cuda")
-            bias = torch.randn(64, generator=gen, device="cuda")
-            args = dict(act=act, pool=pool)
-            got = S.fused_stem(x, w, gain, bias, **args)
-            ref = S.stem_reference(x, w, gain, bias, **args)
-            torch.cuda.synchronize()
-            check(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
-            err = (got.float() - ref.float()).abs().max().item()
-            ok = torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol)
-            ms = device_ms(lambda: S.fused_stem(x, w, gain, bias, **args), 20)
-            eager_ms = cuda_ms(lambda: S.fused_stem(x, w, gain, bias, **args), 20)
-            plain_ms = cuda_ms(lambda: S.stem_reference(x, w, gain, bias, **args), 20)
-            hc, wc = S.stem_out_hw(shape[2], shape[3], False)
-            b = bound(nbytes(x, w, gain, bias, got), 2 * shape[0] * 64 * hc * wc * 3 * k * k,
-                      "bf16" if dtype == torch.bfloat16 else "f32")
-            line = (f"[kernel] {name} {str(dtype)[6:]} {tuple(shape)} -> {tuple(got.shape)}: "
-                    f"max_abs_err {err:.6g} (atol {atol}, rtol {rtol}) kernel {ms:.4f} ms "
-                    f"(eager {eager_ms:.4f}), "
-                    f"plain {plain_ms:.4f} ms, {fmt_bound(b, ms)}")
-            lib_ms = None
-            if dtype == torch.bfloat16:
-                wf = (w.float() * gain.view(-1, 1, 1, 1)).to(dtype)
-                bf = bias.to(dtype)
-                lib_ms = device_ms(lambda: F.conv2d(x, wf, bf, stride=2, padding=k // 2), 20)
-                line += f", cuDNN conv2d + folded BN {lib_ms:.4f} ms"
-            print(line, flush=True)
-            check(ok, f"{name} {dtype}: kernel disagrees with stem_reference (max abs err {err})")
+        for name, shape, k, act, pool in STEM_SITES:
+            err, ms, plain_ms, lib_ms, b = stem_case(
+                S, torch, gen, name, (N_STREAMS, *shape[1:]), k, act, pool, dtype, atol, rtol)
             rows.append((dtype, err, ms, plain_ms, lib_ms, b))
     bf16 = [r for r in rows if r[0] == torch.bfloat16]
     return {
@@ -320,14 +355,51 @@ def unfused_pair(IC, args, kw):
     return IC.requantize(IC.activation(y, kw["act_post"]), so)
 
 
+#: the fused block's two sites: (name, input shape at batch 1, activations)
+BLOCK_SITES = (
+    ("yolo_stage1", (1, 160, 160, 64), ("silu", "silu", None)),
+    ("resnet_layer1", (1, 80, 400, 64), ("relu", None, "relu")),
+)
+
+
+def block_case(IC, B, torch, gen, name, shape, acts):
+    """One block site: the kernel against ``block_reference`` to the bit,
+    its device time, the plain version's, the unfused pair's and its
+    bound; prints a ``[kernel]`` line and returns (LSB, ms, plain_ms,
+    unfused_ms, bound)."""
+    def s8(shape, lo=-127, hi=128):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    c = shape[3]
+    xq = s8(shape, -100, 100)
+    w1q, w2q = s8((c, 3, 3, c), -80, 80), s8((c, 3, 3, c), -80, 80)
+    s1 = torch.rand(c, generator=gen, device="cuda") * 2e-4 + 1e-4
+    s2 = torch.rand(c, generator=gen, device="cuda") * 2e-4 + 1e-4
+    b1 = torch.randn(c, generator=gen, device="cuda") * 0.2
+    b2 = torch.randn(c, generator=gen, device="cuda") * 0.2
+    sx, sm, so = (torch.tensor(v, device="cuda") for v in (0.021, 0.034, 0.027))
+    args = (xq, sx, w1q, s1, b1, sm, w2q, s2, b2, so)
+    kw = dict(act1=acts[0], act2=acts[1], act_post=acts[2], residual=True)
+    got = B.fused_block(*args, **kw)
+    want = B.block_reference(*args, **kw)
+    torch.cuda.synchronize()
+    lsb, share = s8_diff(got, want)
+    ms = device_ms(lambda: B.fused_block(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: B.block_reference(*args, **kw), 5)
+    unfused_ms = device_ms(lambda: unfused_pair(IC, args, kw), 20)
+    b = bound(nbytes(*args, got), 2 * 2 * xq[..., 0].numel() * 9 * c * c, "int8")
+    print(f"[kernel] block {name} {shape} {acts}: max diff {lsb} LSB on {share:.2e} of "
+          f"elements; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused pair (two "
+          f"int8_conv + residual + requantize) {unfused_ms:.4f} ms, {fmt_bound(b, ms)}",
+          flush=True)
+    check(lsb == 0, f"block {name} disagrees with block_reference ({lsb} LSB on {share:.2e})")
+    return lsb, ms, plain_ms, unfused_ms, b
+
+
 def int8_kernel_phase(IC, B, torch):
     """The int8 conv and the fused block against their plain versions at
     the path's shapes; returns {kernel: row of the kernels line}."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-
-    def s8(shape, lo=-127, hi=128):
-        return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int8)
-
     conv_sites = (
         # (name, (n, h, w, cin), cout, k, stride, act)
         ("stage1_3x3", (8, 160, 160, 64), 64, 3, 1, "silu"),
@@ -363,33 +435,9 @@ def int8_kernel_phase(IC, B, torch):
 
     block = {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
              "unfused_ms": 0.0, "bounds": []}
-    for name, shape, acts in (
-        ("yolo_stage1", (8, 160, 160, 64), ("silu", "silu", None)),
-        ("resnet_layer1", (8, 80, 400, 64), ("relu", None, "relu")),
-    ):
-        c = shape[3]
-        xq = s8(shape, -100, 100)
-        w1q, w2q = s8((c, 3, 3, c), -80, 80), s8((c, 3, 3, c), -80, 80)
-        s1 = torch.rand(c, generator=gen, device="cuda") * 2e-4 + 1e-4
-        s2 = torch.rand(c, generator=gen, device="cuda") * 2e-4 + 1e-4
-        b1 = torch.randn(c, generator=gen, device="cuda") * 0.2
-        b2 = torch.randn(c, generator=gen, device="cuda") * 0.2
-        sx, sm, so = (torch.tensor(v, device="cuda") for v in (0.021, 0.034, 0.027))
-        args = (xq, sx, w1q, s1, b1, sm, w2q, s2, b2, so)
-        kw = dict(act1=acts[0], act2=acts[1], act_post=acts[2], residual=True)
-        got = B.fused_block(*args, **kw)
-        want = B.block_reference(*args, **kw)
-        torch.cuda.synchronize()
-        lsb, share = s8_diff(got, want)
-        ms = device_ms(lambda: B.fused_block(*args, **kw), 20)
-        plain_ms = cuda_ms(lambda: B.block_reference(*args, **kw), 5)
-        unfused_ms = device_ms(lambda: unfused_pair(IC, args, kw), 20)
-        b = bound(nbytes(*args, got), 2 * 2 * xq[..., 0].numel() * 9 * c * c, "int8")
-        print(f"[kernel] block {name} {shape} {acts}: max diff {lsb} LSB on {share:.2e} of "
-              f"elements; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused pair (two "
-              f"int8_conv + residual + requantize) {unfused_ms:.4f} ms, {fmt_bound(b, ms)}",
-              flush=True)
-        check(lsb == 0, f"block {name} disagrees with block_reference ({lsb} LSB on {share:.2e})")
+    for name, shape, acts in BLOCK_SITES:
+        lsb, ms, plain_ms, unfused_ms, b = block_case(
+            IC, B, torch, gen, name, (N_STREAMS, *shape[1:]), acts)
         block["max_abs_err"] = max(block["max_abs_err"], lsb)
         block["ms"] += ms
         block["plain_ms"] += plain_ms
@@ -735,10 +783,10 @@ def build_main(compute_dtype, torch):
     return yolo, lane, MultiStreamADAS
 
 
-def main_path_conv_shapes(ms, frames, IC, torch):
-    """Every int8 conv call of one int8 step, by shape: {(input shape,
-    channel pitch, Cout, k, stride, act, s8 output, bias): calls per
-    tick}, recorded at the module tree's one call site
+def main_path_conv_shapes(step, IC, torch):
+    """Every int8 conv call of ``step()`` (one int8 step), by shape:
+    {(input shape, channel pitch, Cout, k, stride, act, s8 output, bias):
+    calls per step}, recorded at the module tree's one call site
     (``models/layers.py``'s ``int8_conv``) on a step outside the counted
     run."""
     from adas_tpu_torch.models import layers
@@ -753,18 +801,18 @@ def main_path_conv_shapes(ms, frames, IC, torch):
 
     layers.int8_conv = record
     try:
-        ms._step(ms._prep_upload(frames))
+        step()
         torch.cuda.synchronize()
     finally:
         layers.int8_conv = run
     return seen
 
 
-def main_path_conv_phase(IC, shapes, torch):
-    """Each distinct int8 conv shape of the main path: the kernel against
-    its plain version (to the bit, as at the smoke shapes), its time,
-    ``torch._int_mm``'s on the same GEMM, its bound, and the per-tick sums
-    (each shape times its calls per tick)."""
+def main_path_conv_phase(IC, shapes, torch, tag="int8-shapes", per="tick"):
+    """Each distinct int8 conv shape of a path: the kernel against its
+    plain version (to the bit, as at the smoke shapes), its time,
+    ``torch._int_mm``'s on the same GEMM, its bound, and the sums per step
+    (each shape times its calls per step); returns the sums."""
     from adas_tpu_torch.ops.cuda_build import num_sms
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -781,8 +829,8 @@ def main_path_conv_phase(IC, shapes, torch):
         n, h, w, cin = shape
         ho, wo = IC.conv_out_hw(h, w, k, stride)
         tile = IC.tile_config(n * ho * wo, cout, num_sms(torch.cuda.current_device()))
-        print(f"[int8-shapes] {n}x{h}x{w}x{cin} (pitch {pitch}) -> {cout} k{k}/s{stride} {act} "
-              f"{'s8' if s8_out else 'bf16'} x{calls}/tick tile {tile[0]}x{tile[1]}: "
+        print(f"[{tag}] {n}x{h}x{w}x{cin} (pitch {pitch}) -> {cout} k{k}/s{stride} {act} "
+              f"{'s8' if s8_out else 'bf16'} x{calls}/{per} tile {tile[0]}x{tile[1]}: "
               f"err {err:.3g}; kernel {ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, "
               f"{fmt_bound(b, ms)}", flush=True)
         tick["ms"] += calls * ms
@@ -790,10 +838,11 @@ def main_path_conv_phase(IC, shapes, torch):
         tick["bound_ms"] += calls * b[0]
         if ms > lib_ms:
             slower.append(f"{n}x{h}x{w}x{cin}->{cout} k{k}/s{stride}")
-    print(f"[int8-shapes] per tick over {len(shapes)} shapes, {sum(shapes.values())} launches: "
+    print(f"[{tag}] per {per} over {len(shapes)} shapes, {sum(shapes.values())} launches: "
           f"kernel {tick['ms']:.4f} ms, torch._int_mm {tick['library_ms']:.4f} ms, bound "
           f"{tick['bound_ms']:.4f} ms, {100 * tick['bound_ms'] / tick['ms']:.1f}% of bound; "
           f"slower than torch._int_mm at {len(slower)} shapes: {slower}", flush=True)
+    return tick
 
 
 def int8_main_phase(mods, torch, np):
@@ -817,7 +866,8 @@ def int8_main_phase(mods, torch, np):
     ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW)
     ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
     try:
-        shapes = main_path_conv_shapes(ms, ticks[0], mods["int8_conv"], torch)
+        shapes = main_path_conv_shapes(lambda: ms._step(ms._prep_upload(ticks[0])),
+                                       mods["int8_conv"], torch)
         check(sum(shapes.values()) == per_conv,
               f"recorded {sum(shapes.values())} int8 convs in a step, expected {per_conv}")
         main_path_conv_phase(mods["int8_conv"], shapes, torch)
@@ -870,6 +920,247 @@ def effdet_main_phase(mods, torch, np):
         ms.close()
 
 
+#: seeded 720p frames that each route of a single-frame phase runs
+N_FRAMES = 10
+
+
+def frame_digest(pipe):
+    """What one ``process_frame`` leaves in the facades: the detections
+    (label, confidence, box) and the lanes (status, points)."""
+    objs = [(o.label, o.conf, o.x, o.y, o.width, o.height)
+            for o in pipe.objectDetector.object_info]
+    info = pipe.laneDetector.lane_info
+    return objs, list(info.lanes_status), [[tuple(p) for p in pts] for pts in info.lanes_points]
+
+
+def build_frame_pipelines(cd, torch, np):
+    """``ADASPipeline`` on the card for each route (fused, the default, and
+    unfused): YOLOv8l-640 + UFLDv2-CULane from the same seeds, under int8
+    calibrated from the same two 720p frames.  Fails unless both routes'
+    nets hold the same weights and scales."""
+    from adas_tpu_torch.pipeline.app import ADASPipeline
+    from adas_tpu_torch.utils.types import LaneModelType
+
+    h, w = FRAME_HW
+    calib = list(np.random.default_rng(7).integers(0, 256, (2, h, w, 3), dtype=np.uint8))
+    pipes = {}
+    for route in ("fused", "unfused"):
+        t = time.perf_counter()
+        pipe = ADASPipeline(
+            frame_size=(w, h), use_fused=route == "fused", device="cuda",
+            object_config={"scale": "l", "input_size": (640, 640), "box_score": 0.25,
+                           "compute_dtype": cd, "seed": 0},
+            lane_config={"model_type": LaneModelType.UFLDV2_CULANE, "compute_dtype": cd,
+                         "seed": 1},
+        )
+        if cd == "int8":
+            pipe.objectDetector.calibrate_int8(calib)
+            pipe.laneDetector.calibrate_int8(calib)
+        torch.cuda.synchronize()
+        print(f"[frame-{cd}] built the {route} route's ADASPipeline (YOLOv8l-640 + "
+              f"UFLDv2-CULane{', calibrated from 2 frames' if cd == 'int8' else ''}) in "
+              f"{time.perf_counter() - t:.2f} s", flush=True)
+        pipes[route] = pipe
+    for side in ("objectDetector", "laneDetector"):
+        a, b = (getattr(pipes[r], side).net.state_dict() for r in pipes)
+        check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+              f"frame-{cd}: the two routes' {side} nets differ")
+    return pipes
+
+
+def frame_route(tag, route, pipe, frames, mods, per_frame, torch, np):
+    """``process_frame(draw=False)`` on every frame after one warm-up
+    frame, with exact per-frame launch counts (every count set to 0 just
+    before); checks finite, non-empty results and prints the per-frame
+    and per-stage times (host clock; each stage ends in a fetch).
+    Returns (digests, launch counts)."""
+    from adas_tpu_torch.utils.profiling import StageTimers
+
+    pipe.process_frame(frames[0], draw=False)  # warm-up: allocator, plans
+    torch.cuda.synchronize()
+    pipe.timers = StageTimers()
+    reset(mods)
+    digests, frame_ms = [], []
+    for f in frames:
+        t = time.perf_counter()
+        out = pipe.process_frame(f, draw=False)
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+        check(out.shape == f.shape and out.dtype == f.dtype, f"{tag} {route}: returned frame")
+        digests.append(frame_digest(pipe))
+    run = counts(mods)
+    for k, per in per_frame.items():
+        check(run[k] == per * len(frames), f"{tag} {route}: {k} launches {run[k]} over "
+                                           f"{len(frames)} frames, expected {per} per frame")
+    for objs, status, _ in digests:
+        check(len(objs) > 0, f"{tag} {route}: a frame without detections")
+        check(all(np.isfinite(o[1:]).all() and pipe.objectDetector.box_score < o[1] <= 1
+                  for o in objs), f"{tag} {route}: bad detection")
+        check(len(status) == 4, f"{tag} {route}: lane status")
+    stages = {k: {q: round(v[q], 3) for q in ("p50_ms", "p95_ms")}
+              for k, v in pipe.timers.summary().items()}
+    print(f"[{tag}] {route}: launches over {len(frames)} frames {run} (per frame {per_frame}); "
+          f"detections per frame {[len(d[0]) for d in digests]}")
+    print(f"[{tag}] {route}: process_frame(draw=False) ms p50 "
+          f"{np.percentile(frame_ms, 50):.3f}, p95 {np.percentile(frame_ms, 95):.3f}, all "
+          f"{[round(v, 3) for v in frame_ms]}; stages {json.dumps(stages)}", flush=True)
+    return digests, run
+
+
+def warp_check(tag, pipe, frame, torch, np):
+    """The bird-view warp on the card (``transformToBirdView``, the trapezoid
+    as the frames left it) within one level of the plain CPU warp, and its
+    times: the pageable upload of the frame, the warp (eager calls between
+    CUDA events), the fetch, and the whole call."""
+    from adas_tpu_torch.ops.warp import warp_perspective
+
+    h, w = FRAME_HW
+    tv = pipe.transformView
+    got = tv.transformToBirdView(frame)
+    want = warp_perspective(torch.from_numpy(frame), tv.M, (h, w)).numpy()
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    xd = torch.from_numpy(frame).to("cuda")
+    out = warp_perspective(xd, tv.M, (h, w))
+    times = {"upload": [], "fetch": [], "transformToBirdView": []}
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(frame).to("cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out.cpu()
+        t2 = time.perf_counter()
+        tv.transformToBirdView(frame)
+        t3 = time.perf_counter()
+        for k, a, b in zip(times, (t0, t1, t2), (t1, t2, t3)):
+            times[k].append((b - a) * 1e3)
+    warp_ms = cuda_ms(lambda: warp_perspective(xd, tv.M, (h, w)), 20)
+    print(f"[{tag}] warp on the card vs the plain CPU warp: max diff {int(d.max())} level(s), "
+          f"{100 * (d == 0).mean():.4f}% equal; {frame.nbytes / 1e6:.2f} MB each way: upload "
+          f"{np.median(times['upload']):.3f} ms, warp {warp_ms:.4f} ms (eager), fetch "
+          f"{np.median(times['fetch']):.3f} ms, transformToBirdView "
+          f"{np.median(times['transformToBirdView']):.3f} ms (medians of 10)", flush=True)
+    check(d.max() <= 1, f"{tag}: the card's warp is {int(d.max())} levels off the plain warp")
+
+
+def i420_vs_multistream(tag, pipe, frames, np):
+    """The i420 fused step on one frame against stream 0 of a
+    ``MultiStreamADAS`` tick holding that frame, on the same detectors:
+    detection counts within 2 and at least 90% of the fused step's
+    detections matched (same label, IoU > 0.9, confidence within 0.01)."""
+    from adas_tpu_torch.pipeline.fused import FusedADASStep
+    from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
+
+    yolo, lane = pipe.objectDetector, pipe.laneDetector
+    FusedADASStep(yolo, lane, transport="i420").run(frames[0])
+    single = list(yolo.object_info)
+    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW)
+    try:
+        tick = np.stack([frames[i % len(frames)] for i in range(N_STREAMS)])
+        batched = ms.process_batch(tick)[0]["objects"]
+    finally:
+        ms.close()
+    wb = np.array([o.tolist(dtype=float) for o in batched]).reshape(-1, 4)
+    matched, equal = 0, 0
+    for o in single:
+        box = np.array(o.tolist(dtype=float))
+        lt, rb = np.maximum(box[:2], wb[:, :2]), np.minimum(box[2:], wb[:, 2:])
+        inter = np.prod(np.clip(rb - lt, 0, None), axis=1)
+        area = (wb[:, 2] - wb[:, 0]) * (wb[:, 3] - wb[:, 1])
+        iou = inter / ((box[2] - box[0]) * (box[3] - box[1]) + area - inter)
+        j = int(np.argmax(iou)) if len(wb) else None
+        if j is not None and iou[j] > 0.9 and batched[j].label == o.label \
+                and abs(batched[j].conf - o.conf) <= 0.01:
+            matched += 1
+            equal += bool(np.array_equal(wb[j], box) and batched[j].conf == o.conf)
+    print(f"[{tag}] i420 fused step vs MultiStreamADAS stream 0: {len(single)} vs "
+          f"{len(batched)} detections, {matched} matched, {equal} equal to the bit", flush=True)
+    check(len(single) > 0 and abs(len(single) - len(batched)) <= 2
+          and matched >= 0.9 * len(single), f"{tag}: the i420 step and stream 0 disagree")
+
+
+def frame_kernel_phase(mods, shapes, torch):
+    """Every kernel at the single-frame path's batch-1 shapes, against its
+    plain version: device time, bound and the library call's time
+    (``[frame-kernel]`` lines); the int8 conv over every distinct shape
+    of the frame, summed per frame.  Returns {kernel: batch-1 row}."""
+    S, IC, B, I, NMS = (mods[k] for k in KERNELS)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    stem = [stem_case(S, torch, gen, name, shape, k, act, pool, torch.bfloat16, 1e-2, 1e-2)
+            for name, shape, k, act, pool in STEM_SITES]
+    conv = main_path_conv_phase(IC, shapes, torch, tag="frame-int8-shapes", per="frame")
+    block = [block_case(IC, B, torch, gen, name, shape, acts) for name, shape, acts in BLOCK_SITES]
+    boxes, scores = nms_inputs(gen, 1, 512, torch)
+    mask = I.iou_mask(boxes, 0.45, plus_one=True)
+    bits = int(I.unpack_bits(mask ^ I.iou_mask_reference(boxes, 0.45, plus_one=True),
+                             512).sum().item())
+    check(bits == 0, f"iou mask (1, 512): {bits} bits differ")
+    keep = NMS.nms_walk(mask, scores, 100, 0.001)
+    n_diff = int((keep != NMS.nms_walk_reference(mask, scores, 100, 0.001)).sum().item())
+    check(n_diff == 0, f"nms walk (1, 512): {n_diff} indices differ")
+    picks = int((keep >= 0).sum())
+    rows = {
+        "stem": {"ms": sum(r[1] for r in stem), "library_ms": sum(r[3] for r in stem),
+                 "bound": total_bound([r[4] for r in stem])},
+        "int8_conv": {"ms": conv["ms"], "library_ms": conv["library_ms"],
+                      "bound": (conv["bound_ms"], "bytes and operations by shape")},
+        "block": {"ms": sum(r[1] for r in block), "library_ms": None,
+                  "bound": total_bound([r[4] for r in block]),
+                  "unfused_ms": sum(r[3] for r in block)},
+        "iou": {"ms": device_ms(lambda: I.iou_mask(boxes, 0.45, plus_one=True), 50),
+                "library_ms": None, "bound": bound(nbytes(boxes, mask), 16 * 512 * 512, "f32")},
+        "nms": {"ms": device_ms(lambda: NMS.nms_walk(mask, scores, 100, 0.001), 20),
+                "library_ms": None,
+                "bound": bound(picks * mask.shape[-1] * 4 + nbytes(scores, keep),
+                               picks * mask.shape[-1], "f32")},
+    }
+    for k, r in rows.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"[frame-kernel] {k} at batch 1 (per frame): kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), {100 * r['bound'][0] / r['ms']:.1f}% of "
+              f"bound, library {lib}", flush=True)
+    return rows
+
+
+def frame_phase(cd, mods, torch, np):
+    """The single-frame path (``ADASPipeline.process_frame(draw=False)``)
+    under ``cd``: both routes over the same seeded 720p frames, exact
+    per-frame launch counts, the fused route's results equal to the
+    unfused route's, the warp; under int8 also the i420 fused step
+    against a batched tick and every kernel at its batch-1 shapes.
+    Returns (launch counts of both routes, batch-1 rows or None)."""
+    from adas_tpu_torch.models.quant import QConv2d
+
+    tag = f"frame-{cd}"
+    pipes = build_frame_pipelines(cd, torch, np)
+    rng = np.random.default_rng(8)
+    frames = [rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8) for _ in range(N_FRAMES)]
+    per_frame = {"stem": 2, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1}
+    if cd == "int8":
+        n_conv = sum(isinstance(m, QConv2d) for side in ("objectDetector", "laneDetector")
+                     for m in getattr(pipes["fused"], side).net.modules())
+        per_frame.update(int8_conv=n_conv - 2 * BLOCKS_PER_TICK, block=BLOCKS_PER_TICK)
+    results = {route: frame_route(tag, route, pipe, frames, mods, per_frame, torch, np)
+               for route, pipe in pipes.items()}
+    same = [a == b for a, b in zip(results["fused"][0], results["unfused"][0])]
+    print(f"[{tag}] fused route equal to the unfused route (detections and lanes) on "
+          f"{sum(same)} of {len(same)} frames", flush=True)
+    check(all(same), f"{tag}: the fused route's results differ from the unfused route's")
+    warp_check(tag, pipes["fused"], frames[-1], torch, np)
+    run = {k: sum(r[1][k] for r in results.values()) for k in KERNELS}
+    if cd != "int8":
+        return run, None
+    fused = pipes["fused"]
+    shapes = main_path_conv_shapes(lambda: fused.fused.run(frames[0]), mods["int8_conv"], torch)
+    check(sum(shapes.values()) == per_frame["int8_conv"],
+          f"recorded {sum(shapes.values())} int8 convs in a frame, expected "
+          f"{per_frame['int8_conv']}")
+    i420_vs_multistream(tag, fused, frames, np)
+    rows = frame_kernel_phase(mods, shapes, torch)
+    for k, r in rows.items():
+        r["launches_per_frame"] = per_frame[k]
+    return run, rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -914,6 +1205,8 @@ def main() -> int:
         effdet_main_phase(mods, torch, np),
         bf16_main_phase(mods, torch, np),
     ]
+    frame_run, frame_rows = frame_phase("int8", mods, torch, np)
+    runs += [frame_run, frame_phase("bf16", mods, torch, np)[0]]
     launches = {k: sum(run[k] for run in runs) for k in KERNELS}
 
     replaces = {
@@ -939,6 +1232,12 @@ def main() -> int:
         # a kernel's other variants: the block's unfused pair, the IoU
         # matrix mode, the rescoring scan
         **{key: v for key, v in rows[k].items() if key in EXTRA_KEYS},
+        # the single-frame path: launches per frame, and the kernel at
+        # its batch-1 shapes (summed per frame as the kernels line sums)
+        "launches_per_frame": frame_rows[k]["launches_per_frame"],
+        "batch1_ms": frame_rows[k]["ms"],
+        "batch1_bound_ms": frame_rows[k]["bound"][0],
+        "batch1_library_ms": frame_rows[k]["library_ms"],
     } for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``adas_tpu_torch`` (and not
-``chip_smoke.py``) imports ``jax`` or anything of the JAX package
-``adas_tpu``, and its facades run on the card unless the caller names the
-CPU."""
+``chip_smoke.py``) imports ``jax``, anything of the JAX package
+``adas_tpu`` or ``cv2`` (the GPU host has none), its single-frame path runs
+in a process where none of them can be imported, and its facades and
+pipeline run on the card unless the caller names the CPU."""
 from __future__ import annotations
 
 import ast
@@ -15,7 +16,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "adas_tpu_torch")
-BLOCKED = ("adas_tpu", "jax", "jaxlib", "flax")
+BLOCKED = ("adas_tpu", "jax", "jaxlib", "flax", "cv2")
 
 
 def port_sources():
@@ -71,21 +72,72 @@ def test_every_module_imports_with_jax_package_blocked():
         [sys.executable, "-c", IMPORT_ALL], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 40  # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 50  # every module was walked
+
+
+FRAME_SCRIPT = textwrap.dedent(
+    """
+    import sys
+
+    class _Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in %r:
+                raise ImportError(f"{name} is blocked in this process")
+            return None
+
+    sys.meta_path.insert(0, _Block())
+    import numpy as np
+    from adas_tpu_torch.models import ufld
+    from adas_tpu_torch.pipeline.app import ADASPipeline
+    from adas_tpu_torch.pipeline.fused import FusedADASStep
+    from adas_tpu_torch.utils.types import LaneModelType
+
+    ufld.UFLDV2_SPECS[LaneModelType.UFLDV2_CULANE] = ufld.UFLDv2Spec(
+        64, 160, 0.6, 20, 72, 10, 16, mlp_mid=64)
+    frames = np.random.default_rng(0).integers(0, 256, (2, 180, 320, 3), dtype=np.uint8)
+    n = 0
+    for use_fused in (True, False):
+        pipe = ADASPipeline(frame_size=(320, 180), use_fused=use_fused, device="cpu",
+                            object_config={"input_size": (96, 96), "box_score": 0.25})
+        for f in frames:
+            pipe.process_frame(f, draw=False)
+            n += len(pipe.objectDetector.object_info)
+    FusedADASStep(pipe.objectDetector, pipe.laneDetector, transport="i420").run(frames[0])
+    bird = pipe.transformView.transformToBirdView(frames[0])
+    assert bird.shape == frames[0].shape and bird.flags.writeable
+    assert not [m for m in sys.modules if m.split(".")[0] in %r]
+    print("frames", n)
+    """
+    % (BLOCKED, BLOCKED)
+)
+
+
+def test_single_frame_path_runs_with_jax_package_and_cv2_blocked():
+    """``ADASPipeline.process_frame`` on both routes, the i420 fused step
+    and the bird-view warp, in a process that cannot import ``jax``,
+    ``adas_tpu`` or ``cv2``."""
+    proc = subprocess.run(
+        [sys.executable, "-c", FRAME_SCRIPT], cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("frames")
 
 
 def _facades():
     from adas_tpu_torch.perception.efficientdet_detector import EfficientdetDetector
     from adas_tpu_torch.perception.lane_detector import UltrafastLaneDetectorV2
     from adas_tpu_torch.perception.object_detector import YoloDetector
+    from adas_tpu_torch.pipeline.app import ADASPipeline
 
-    return {"yolo": YoloDetector, "lane": UltrafastLaneDetectorV2, "effdet": EfficientdetDetector}
+    return {"yolo": YoloDetector, "lane": UltrafastLaneDetectorV2, "effdet": EfficientdetDetector,
+            "pipeline": ADASPipeline}
 
 
-@pytest.mark.parametrize("name", ["yolo", "lane", "effdet"])
+@pytest.mark.parametrize("name", ["yolo", "lane", "effdet", "pipeline"])
 def test_facade_defaults_to_the_card(name):
-    """With no device named, a facade builds on ``cuda``; without a card it
-    raises rather than carry on on the CPU."""
+    """With no device named, a facade (and the per-frame pipeline) builds
+    on ``cuda``; without a card it raises rather than carry on on the
+    CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present: the default builds there")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
