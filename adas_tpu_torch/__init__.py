@@ -10,15 +10,18 @@ What it serves today: the batched multi-stream step of
 ``cuda`` or ``cpu``, with YOLOv8 (calibrated int8, bf16 or f32) or
 EfficientDet D0-D7 (f32) on the object side and UFLDv2 on the lane side;
 and the single-frame path, ``pipeline/app.ADASPipeline.process_frame``
-(without drawing) over the facades' ``DetectFrame`` and
-``pipeline/fused.FusedADASStep``.  Five hand-written Hopper kernels carry
+over the facades' ``DetectFrame`` and ``pipeline/fused.FusedADASStep``,
+with the HUD drawn on the host by the cv2-free renderer (``render/``)
+and the demo's video I/O in YUV4MPEG2 (``run_video``, ``run_synthetic``,
+``python -m adas_tpu_torch.pipeline.app``).  Five hand-written Hopper kernels carry
 both: the stems (``csrc/stem.cu``, ``ops/stem.py``), the W8A8 convs
 (``csrc/int8_conv.cu``, ``ops/int8_conv.py``), the fused residual bodies
 (``csrc/block.cu``, ``ops/block.py``), the pairwise IoU (``csrc/iou.cu``,
 ``ops/iou.py``) and the greedy NMS selection (``csrc/nms.cu``,
 ``ops/nms.py``); everything else is plain PyTorch.  The numpy-only host
 code it needs (the tracker, the LAPJV solver, the value types, the
-logger) is the port's own copy.
+logger) is the port's own copy; its C++ (the LAPJV solver, the stroke
+rasterizer) is built with g++ on first use.
 """
 
 __version__ = "0.1.0"

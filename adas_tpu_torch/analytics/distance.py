@@ -1,6 +1,6 @@
 """FCWS single-camera distance estimation (port of
-``adas_tpu/analytics/distance.py`` without the cv2 drawing; see
-``conditions.py`` for why it is not imported).
+``adas_tpu/analytics/distance.py``; it draws with the port's cv2-free
+renderer).
 
 Behavior parity with reference ObjectDetector/distanceMeasure.py: pinhole
 distance from box pixel height against per-class reference heights
@@ -15,6 +15,10 @@ from typing import List, Optional
 import numpy as np
 
 from ..utils.types import RectInfo
+
+from ..render import draw as D
+from ..render.text import FONT_HERSHEY_TRIPLEX, get_text_size
+from ..tracking.core import putText_shadow
 
 INCH = 0.39
 
@@ -81,3 +85,18 @@ class SingleCamDistanceMeasure:
             if point_in_polygon((x, y), poly):
                 return [x, y, d]
         return None
+
+    def DrawDetectedOnFrame(self, frame_show: np.ndarray) -> None:
+        """Each measured point as a white disc with its distance beneath
+        (``distance.py:83``): the label sized with font 0 at thickness 3,
+        drawn in TRIPLEX over a COMPLEX shadow."""
+        for x, y, d in self.distance_points:
+            D.circle(frame_show, (int(x), int(y)), 4, (255, 255, 255), -1)
+            text = " unknown m" if d < 0 else " {:.2f} m".format(d)
+            font_scale = max(0.4, min(1, 1 / d)) if d > 0 else 0.4
+            size = get_text_size(text, 0, font_scale, 3)[0]
+            tx = int(x - size[0] / 2)
+            ty = int(y + size[1])
+            putText_shadow(frame_show, text, (tx + 1, ty + 5), fontFace=FONT_HERSHEY_TRIPLEX,
+                           fontScale=font_scale, color=(255, 255, 255), thickness=1,
+                           shadow_color=(150, 150, 150))

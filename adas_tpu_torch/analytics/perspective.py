@@ -1,12 +1,9 @@
 """Frontal <-> bird's-eye-view geometry for LDWS/LKAS (port of
 ``adas_tpu/analytics/perspective.py``): the trapezoid and its homographies,
-point projection and the curvature/offset fit on the host (numpy), the
-image warps (``transformToBirdView`` / ``transformToFrontalView``) on the
-device through ``ops/warp.warp_perspective``.
-
-Not ported: the cv2 drawing (``calcCurveAndOffset(draw=True)``,
-``DrawDetectedOnBirdView``, ``DrawTransformFrontalViewArea``), which waits
-for the cv2-free renderer (``ROADMAP.md`` §1).
+point projection, the curvature/offset fit and the drawing on the host
+(numpy and the port's cv2-free renderer), the image warps
+(``transformToBirdView`` / ``transformToFrontalView``) on the device
+through ``ops/warp.warp_perspective``.
 """
 from __future__ import annotations
 
@@ -15,17 +12,14 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils.types import LANE_COLORS, OffsetType
+
 from ..ops.warp import get_perspective_transform, transform_points, warp_perspective
+from ..render import draw as D
+from ..render.text import FONT_HERSHEY_SIMPLEX, put_text
 
 YM_PER_PIX = 30 / 720
 XM_PER_PIX = 3.7 / 700
-
-#: why a drawing call raises: the renderer is not ported
-NO_RENDERER = (
-    "drawing is not ported: the port has no cv2 and no renderer yet "
-    "(ROADMAP.md §1, the cv2-free renderer and video I/O)"
-)
-
 
 class PerspectiveTransformation:
     """Maintains src/dst quads + homographies; warps images (on ``device``,
@@ -116,11 +110,9 @@ class PerspectiveTransformation:
     ) -> Tuple[Tuple[Optional[str], Optional[float]], Optional[float]]:
         """Curvature radius (m), direction ("L"/"R"/"F") and center offset;
         ``img`` gives the bird-view canvas size.  Lane width samples the
-        bottom row of the bird image, as the JAX package does.  ``draw=True``
-        (the JAX default, which draws on ``img``) raises
-        ``NotImplementedError``: pass ``draw=False``."""
-        if draw:
-            raise NotImplementedError(NO_RENDERER)
+        bottom row of the bird image, as the JAX package does.  ``draw``
+        draws the vehicle and centre arrows and the two readings on
+        ``img`` (``perspective.py:164-194``)."""
         left = np.asarray(left_lanes, dtype=np.float64).reshape(-1, 2)
         right = np.asarray(right_lanes, dtype=np.float64).reshape(-1, 2)
         if len(left) < 3 or len(right) < 3:
@@ -156,4 +148,47 @@ class PerspectiveTransformation:
         veh_pos = (leftx[-1] + rightx[-1]) / 2.0
         cen_pos = img.shape[1] / 2.0
         offset = (veh_pos - cen_pos) * lane_xm_per_pix
+
+        if draw:
+            # a degenerate fit can put veh_pos anywhere: clamp it near the
+            # canvas as the JAX package does
+            def _cx(v):
+                if not np.isfinite(v):
+                    return int(cen_pos)
+                return int(np.clip(v, -img.shape[1], 2 * img.shape[1]))
+
+            D.arrowed_line(img, (_cx(veh_pos), int(y_eval)), (_cx(veh_pos), int(img.shape[1] / 3)),
+                           (255, 255, 255), 5, 0, 0, 0.2)
+            D.arrowed_line(img, (int(cen_pos), int(y_eval)), (int(cen_pos), int(img.shape[0] / 1.3)),
+                           (150, 150, 150), 10, 0, 0, 0.5)
+            put_text(img, "Offset: %.1f m" % offset, (20, 80), FONT_HERSHEY_SIMPLEX, 3,
+                     (0, 0, 255), 5)
+            put_text(img, "R : %.1f m" % curvature, (20, 180), FONT_HERSHEY_SIMPLEX, 3,
+                     (0, 0, 255), 5)
         return (direction, curvature), offset
+
+    def DrawDetectedOnBirdView(self, image: np.ndarray, lanes_points,
+                               type: OffsetType = OffsetType.UNKNOWN) -> None:
+        """The bird-view lane points as radius-10 discs, the departing ego
+        lane in red (``perspective.py:196``); points that are not finite or
+        lie farther than a canvas size outside it are skipped, as the JAX
+        package skips them."""
+        h, w = image.shape[:2]
+        for lane_num, lane_points in enumerate(lanes_points):
+            if lane_num == 1 and type == OffsetType.RIGHT:
+                color = (0, 0, 255)
+            elif lane_num == 2 and type == OffsetType.LEFT:
+                color = (0, 0, 255)
+            else:
+                color = LANE_COLORS[lane_num]
+            pts = np.asarray(lane_points, dtype=np.float64).reshape(-1, 2)
+            x, y = pts[:, 0], pts[:, 1]
+            keep = np.isfinite(x) & np.isfinite(y) & (x >= -w) & (x <= 2 * w) \
+                & (y >= -h) & (y <= 2 * h)
+            D.circles(image, [(int(a), int(b)) for a, b in pts[keep]], 10, color, -1)
+
+    def DrawTransformFrontalViewArea(self, image: np.ndarray) -> None:
+        """The source trapezoid's outline in red (``perspective.py:225``)."""
+        pts = self.src.astype(int)
+        for a, b in ((0, 1), (1, 2), (2, 3), (3, 0)):
+            D.line(image, tuple(pts[a]), tuple(pts[b]), (0, 0, 255), 5)

@@ -11,40 +11,23 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 from typing import Tuple
 
 import numpy as np
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "lapjv.cpp")
-_BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+from .gxx import build_library
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "lapjv.cpp")
 _LOCK = threading.Lock()
 _lib = None
-
-
-def _build() -> str:
-    """Compile ``lapjv.cpp`` into ``_build/liblapjv.so`` if it is stale."""
-    out = os.path.join(_BUILD_DIR, "liblapjv.so")
-    if not os.path.isfile(out) or os.path.getmtime(out) < os.path.getmtime(_SRC):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = out + f".{os.getpid()}.tmp"
-        proc = subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed to build {_SRC}:\n{proc.stderr}")
-        os.replace(tmp, out)
-    return out
 
 
 def _native() -> ctypes.CDLL:
     global _lib
     with _LOCK:
         if _lib is None:
-            lib = ctypes.CDLL(_build())
+            lib = ctypes.CDLL(build_library(_SRC, "lapjv"))
             lib.lapjv.restype = ctypes.c_int
             lib.lapjv.argtypes = [
                 ctypes.c_int,

@@ -8,8 +8,9 @@ is the single-frame entry point: preprocess -> net -> ``ufld_v2_decode``
 -> ``pack`` on the device, one fetch, then the point assembly on the
 host.  The multi-stream pipeline drives ``net`` directly and assembles
 each stream's lane points with :meth:`_assemble` / :meth:`_finalize`.
-Not ported: UFLD v1, CurveLanes, the ONNX and ``.adas`` engines and the
-cv2 drawing (``ROADMAP.md`` §1).
+The drawing (``DrawDetectedOnFrame``, ``DrawAreaOnFrame``,
+``AutoDrawLanes``) uses the port's cv2-free renderer.  Not ported: UFLD
+v1, CurveLanes, the ONNX and ``.adas`` engines (``ROADMAP.md`` §1).
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..utils.types import LaneInfo, LaneModelType
+from ..utils.types import LANE_COLORS, LaneInfo, LaneModelType, OffsetType
+
+from ..render import draw as D
 
 from ..models.ufld import UFLDV2_SPECS, UFLDv2Net
 from ..ops.packing import pack, unpack
@@ -52,6 +55,38 @@ class LaneDetectBase:
         self.logger = logger
         self.adjust_lanes = False
         self.lane_info = LaneInfo()
+
+    def DrawDetectedOnFrame(self, image, type: OffsetType = OffsetType.UNKNOWN,
+                            alpha: float = 0.3) -> None:
+        """Each lane's points as radius-3 discs, the departing ego lane in
+        red, blended ``alpha`` over the frame (``lane_detector.py:59``)."""
+        overlay = image.copy()
+        for lane_num, lane_points in enumerate(self.lane_info.lanes_points):
+            if lane_num == 1 and type == OffsetType.RIGHT:
+                color = (0, 0, 255)
+            elif lane_num == 2 and type == OffsetType.LEFT:
+                color = (0, 0, 255)
+            else:
+                color = LANE_COLORS[lane_num]
+            D.circles(overlay, [(int(x), int(y)) for x, y in lane_points], 3, color, -1)
+        image[:] = D.add_weighted(overlay, alpha, image, 1 - alpha, 0)
+
+    def DrawAreaOnFrame(self, image, color: tuple = (255, 191, 0), alpha: float = 0.85) -> None:
+        """The ego-lane area filled in ``color`` under the frame at
+        ``1 - alpha`` (``lane_detector.py:76``)."""
+        if self.lane_info.area_status and len(self.lane_info.area_points):
+            overlay = image.copy()
+            D.fill_poly(overlay, [np.asarray(self.lane_info.area_points, np.int32)], color)
+            image[:] = D.add_weighted(image, alpha, overlay, 1 - alpha, 0)
+
+    def AutoDrawLanes(self, image, draw_points: bool = True, draw_area: bool = True):
+        """Detect with ``adjust_lanes`` and draw (``lane_detector.py:87``)."""
+        self.DetectFrame(image, adjust_lanes=True)
+        if draw_points:
+            self.DrawDetectedOnFrame(image)
+        if draw_area:
+            self.DrawAreaOnFrame(image)
+        return image
 
     def _finalize(self, img_height: int) -> None:
         """``lane_detector.py:95``."""

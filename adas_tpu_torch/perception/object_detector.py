@@ -32,6 +32,9 @@ import torch
 
 from ..utils.types import ObjectModelType, RectInfo, hex_to_rgb
 
+from ..render import draw as D
+from ..render.text import FONT_HERSHEY_TRIPLEX, get_text_size, put_text
+
 from ..models.quant import calibrating, pack_int8_weights
 from ..models.yolo import YoloSpec, YoloV8
 from ..ops.preprocess import LetterboxGeometry, frame_to_device, yolo_preprocess
@@ -161,6 +164,44 @@ class ObjectDetectBase:
     def object_info(self) -> List[RectInfo]:
         """The detections of the last :meth:`DetectFrame` call."""
         return getattr(self, "_object_info", [])
+
+    @staticmethod
+    def cornerRect(img, bbox, t: int = 5, rt: int = 1, colorR=(255, 0, 255),
+                   colorC=(0, 255, 0)):
+        """The box outline (``rt`` thick, none at 0) and its eight corner
+        ticks, a fifth of the shorter side long (``object_detector.py:121``)."""
+        xmin, ymin, xmax, ymax = bbox
+        tick = max(1, int(min(ymax - ymin, xmax - xmin) * 0.2))
+        if rt != 0:
+            D.rectangle(img, (xmin, ymin), (xmax, ymax), colorR, rt)
+        # the eight ticks as eight 2-point polylines in one native call
+        # (each is cv2.line: a thick segment capped at both ends)
+        D.polylines(img, [
+            [(cx, cy), (cx + dx, cy + dy)] for (cx, cy), (dx, dy) in (
+                ((xmin, ymin), (tick, 0)), ((xmin, ymin), (0, tick)),
+                ((xmax, ymin), (-tick, 0)), ((xmax, ymin), (0, tick)),
+                ((xmin, ymax), (tick, 0)), ((xmin, ymax), (0, -tick)),
+                ((xmax, ymax), (-tick, 0)), ((xmax, ymax), (0, -tick)),
+            )
+        ], False, colorC, t)
+        return img
+
+    def DrawDetectedOnFrame(self, frame_show: np.ndarray) -> None:
+        """Each detection's keypoints, label box, corner box and label
+        (``object_detector.py:140``): the label box is sized with font 0
+        and the label drawn in TRIPLEX, as the JAX facade does."""
+        tl = 3
+        for info in self.object_info:
+            xmin, ymin, xmax, ymax = info.tolist()
+            label = info.label
+            D.circles(frame_show, info.kpss, 1, (255, 255, 255), -1)
+            color = self.colors_dict.get(label, (0, 0, 0))
+            t_size = get_text_size(label, 0, tl / 3, 2)[0]
+            c2 = (xmin + t_size[0], ymin - t_size[1] - 3)
+            D.rectangle(frame_show, (xmin, ymin), c2, color, -1, D.LINE_AA)
+            self.cornerRect(frame_show, info.tolist(), colorR=color, colorC=color)
+            put_text(frame_show, label, (xmin + 2, ymin - 7), FONT_HERSHEY_TRIPLEX, tl / 4,
+                     (255, 255, 255), 2)
 
 
 #: the options of :class:`YoloDetector` and their defaults

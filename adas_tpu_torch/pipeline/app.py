@@ -1,18 +1,21 @@
 """The per-frame ADAS pipeline: detect -> track -> lanes -> geometry ->
-signals, one frame per step (port of ``ADASPipeline``,
-``adas_tpu/pipeline/app.py:59-215``).
+signals -> render, one frame per step (port of ``ADASPipeline``,
+``adas_tpu/pipeline/app.py:59-228``), and the demo around it: ``run_video``,
+``run_synthetic`` and the CLI (``python -m adas_tpu_torch.pipeline.app``).
 
 The default route runs both nets as one fused device step with one
 fetch (``pipeline/fused.py``); the unfused route detects objects, updates
 the tracker, then detects lanes, one device step and fetch each.  The
-tracker, distance, bird-view geometry and signals run on the host; the
-bird-view warp of the frame runs on the device every frame.  Not ported:
-rendering (``draw=True``, the control panel, every ``Draw*`` call) and
-video I/O (``run_video``), which wait for a cv2-free renderer
-(``ROADMAP.md`` §1); UFLD v1 lane models.
+tracker, distance, bird-view geometry, signals and the HUD run on the
+host (the HUD with the port's cv2-free renderer, ``render/``); the
+bird-view warp of the frame runs on the device every frame.  Video is
+YUV4MPEG2 (``render/video.py``): the port has no codec.  Not ported: UFLD
+v1 lane models, and ``display=True`` (a window: the card's host has no
+window system).
 """
 from __future__ import annotations
 
+import argparse
 import logging
 import time
 from typing import Optional
@@ -25,11 +28,12 @@ from ..utils.profiling import FPSCounter, StageTimers
 from ..utils.types import LaneModelType, ObjectModelType
 
 from ..analytics import PerspectiveTransformation, SingleCamDistanceMeasure, TaskConditions
-from ..analytics.perspective import NO_RENDERER
 from ..perception.efficientdet_detector import EfficientdetDetector
 from ..perception.lane_detector import UltrafastLaneDetectorV2
 from ..perception.object_detector import YoloDetector
+from ..render.video import Y4MReader, Y4MWriter
 from .fused import FusedADASStep
+from .panel import ControlPanel
 
 DEFAULT_LANE_CONFIG = {
     "model_path": None,
@@ -87,6 +91,7 @@ class ADASPipeline:
         self.objectTracker = (
             BYTETracker(names=self.objectDetector.colors_dict) if enable_tracker else None
         )
+        self.displayPanel = ControlPanel()
         self.analyzeMsg = TaskConditions()
         self.object_infer_time = 0.0
         self.lane_infer_time = 0.0
@@ -101,11 +106,8 @@ class ADASPipeline:
 
     def process_frame(self, frame: np.ndarray, draw: bool = True) -> np.ndarray:
         """Run the per-frame stack on one BGR uint8 frame and return the
-        frame.  ``draw=True`` (the JAX default, which renders the HUD onto
-        the returned frame) raises ``NotImplementedError``: pass
-        ``draw=False``, which returns an unannotated copy."""
-        if draw:
-            raise NotImplementedError(NO_RENDERER)
+        annotated copy (``draw=False``: the copy unannotated; the signals
+        do not depend on ``draw``)."""
         frame_show = frame.copy()
 
         self.fps.tick()
@@ -118,7 +120,7 @@ class ADASPipeline:
             with self.timers.stage("tracker"):
                 self._update_tracker(frame)
             with self.timers.stage("analytics_render"):
-                return self._analyze(frame_show)
+                return self._analyze_and_render(frame_show, draw)
 
         t0 = time.time()
         with self.timers.stage("object_infer"):
@@ -133,7 +135,7 @@ class ADASPipeline:
             self.laneDetector.DetectFrame(frame)
         self.lane_infer_time = round(time.time() - t0, 4)
         with self.timers.stage("analytics_render"):
-            return self._analyze(frame_show)
+            return self._analyze_and_render(frame_show, draw)
 
     def _update_tracker(self, frame: np.ndarray) -> None:
         if self.objectTracker is None:
@@ -146,11 +148,14 @@ class ADASPipeline:
             frame,
         )
 
-    def _analyze(self, frame_show: np.ndarray) -> np.ndarray:
-        """The analytics half of ``_analyze_and_render`` (``app.py:171-198``):
-        distances, the collision point, the bird-view re-fit, the bird-view
-        warp of the frame (its canvas sizes the curvature fit) and the
-        signals.  Returns ``frame_show`` as it came."""
+    def _analyze_and_render(self, frame_show: np.ndarray, draw: bool) -> np.ndarray:
+        """``app.py:170-228``: distances, the collision point, the
+        bird-view re-fit, the bird-view warp of the frame (its canvas sizes
+        the curvature fit and, drawn on, becomes the HUD's inset), the
+        signals; then under ``draw`` the HUD onto ``frame_show``: the
+        bird-view lanes, the trapezoid (at DEBUG), the lanes and their
+        area, the detections, the tracks, the distances and the three
+        panels."""
         self.distanceDetector.updateDistance(self.objectDetector.object_info)
         lane_info = self.laneDetector.lane_info
         vehicle_distance = self.distanceDetector.calcCollisionPoint(lane_info.area_points)
@@ -163,9 +168,117 @@ class ADASPipeline:
             self.transformView.transformToBirdViewPoints(pts) for pts in lane_info.lanes_points
         ]
         (direction, curvature), offset = self.transformView.calcCurveAndOffset(
-            birdview_show, *birdview_lanes[1:3], draw=False
+            birdview_show, *birdview_lanes[1:3], draw=draw
         )
         self.analyzeMsg.UpdateCollisionStatus(vehicle_distance, lane_info.area_status)
         self.analyzeMsg.UpdateOffsetStatus(offset)
         self.analyzeMsg.UpdateRouteStatus(direction, curvature)
+        if not draw:
+            return frame_show
+
+        msg = self.analyzeMsg
+        self.transformView.DrawDetectedOnBirdView(birdview_show, birdview_lanes, msg.offset_msg)
+        if self.logger and self.logger.clevel == logging.DEBUG:
+            self.transformView.DrawTransformFrontalViewArea(frame_show)
+        self.laneDetector.DrawDetectedOnFrame(frame_show, msg.offset_msg)
+        self.laneDetector.DrawAreaOnFrame(frame_show,
+                                          self.displayPanel.CollisionDict[msg.collision_msg])
+        self.objectDetector.DrawDetectedOnFrame(frame_show)
+        if self.objectTracker is not None:
+            self.objectTracker.DrawTrackedOnFrame(frame_show, False)
+        self.distanceDetector.DrawDetectedOnFrame(frame_show)
+
+        self.displayPanel.DisplayBirdViewPanel(frame_show, birdview_show)
+        self.displayPanel.DisplaySignsPanel(frame_show, msg.offset_msg, msg.curvature_msg)
+        self.displayPanel.DisplayCollisionPanel(
+            frame_show, msg.collision_msg, self.object_infer_time, self.lane_infer_time,
+        )
         return frame_show
+
+
+def _no_display() -> None:
+    raise NotImplementedError(
+        "display=True opens a window, and the card's host has no window system: write the "
+        "annotated frames to a .y4m instead (ROADMAP.md §1)"
+    )
+
+
+def run_video(
+    video_path: str,
+    output_path: Optional[str] = None,
+    lane_config: Optional[dict] = None,
+    object_config: Optional[dict] = None,
+    display: bool = False,
+    max_frames: Optional[int] = None,
+    device="cuda",
+) -> int:
+    """Process a ``.y4m`` video end to end on ``device``, writing the
+    annotated frames to ``output_path`` (a ``.y4m``) at the input's rate;
+    returns the number of frames processed."""
+    if display:
+        _no_display()
+    n = 0
+    with Y4MReader(video_path) as reader:
+        pipeline = ADASPipeline(
+            frame_size=(reader.width, reader.height),
+            lane_config=lane_config,
+            object_config=object_config,
+            device=device,
+        )
+        vout = (Y4MWriter(output_path, reader.width, reader.height, reader.fps)
+                if output_path else None)
+        try:
+            for frame in reader:
+                frame_show = pipeline.process_frame(frame)
+                if vout is not None:
+                    vout.write(frame_show)
+                n += 1
+                if max_frames is not None and n >= max_frames:
+                    break
+        finally:
+            if vout is not None:
+                vout.close()
+    return n
+
+
+def run_synthetic(output_path: str, frames: int = 16, frame_hw=(720, 1280), device="cuda") -> int:
+    """Headless run on seeded noise frames (``default_rng(0)``, as the JAX
+    package's): the full pipeline and HUD on ``device``, the annotated
+    frames written to ``output_path`` (a ``.y4m``) at 30 fps."""
+    h, w = frame_hw
+    pipeline = ADASPipeline(frame_size=(w, h), device=device)
+    rng = np.random.default_rng(0)
+    with Y4MWriter(output_path, w, h, 30.0) as vout:
+        for _ in range(frames):
+            frame = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+            vout.write(pipeline.process_frame(frame))
+    return frames
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="ADAS demo pipeline (PyTorch port)")
+    ap.add_argument("-i", "--input", default=None, help="input video (.y4m)")
+    ap.add_argument("-o", "--output", default=None, help="output video (.y4m)")
+    ap.add_argument("--display", action="store_true")
+    ap.add_argument("--max-frames", type=int, default=None)
+    ap.add_argument("--synthetic", action="store_true",
+                    help="run on synthetic noise frames (no input video needed)")
+    ap.add_argument("--frames", type=int, default=16, help="frame count for --synthetic")
+    ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    args = ap.parse_args(argv)
+    if args.display:
+        _no_display()
+    if args.synthetic:
+        out = args.output or "synthetic_out.y4m"
+        n = run_synthetic(out, frames=args.frames, device=args.device)
+        print(f"wrote {n} frames to {out}")
+        return
+    if not args.input:
+        ap.error("-i/--input is required unless --synthetic")
+    out = args.output or args.input[:-4] + "_out.y4m"
+    frames = run_video(args.input, out, max_frames=args.max_frames, device=args.device)
+    print(f"wrote {frames} frames to {out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -9,8 +9,9 @@ uploads its 4:2:0 planes (half the bytes) and preprocesses them
 YUV-direct (``yolo_preprocess_yuv`` / ``ufld_v2_preprocess_yuv``, the
 counterpart of the JAX planes path); an EfficientDet object side decodes
 the planes to rounded BGR once and feeds both nets from them
-(``fused.py:180-201``).  Not ported: ``host_downscale``, the host
-pre-resize, which needs a cv2-free host resize (``ROADMAP.md`` §1).
+(``fused.py:180-201``).  ``host_downscale`` resizes a larger frame on the
+host before the upload (``render/draw.resize_linear``, cv2's
+``INTER_LINEAR`` to the bit) and scales the detections back.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from ..ops.preprocess import (
     yolo_preprocess_yuv,
 )
 from ..ops.ufld_decode import ufld_v2_decode
+from ..render.draw import resize_linear
 from ..ops.yolo_decode import decode_predictions, detections_to_original, select_and_nms
 from ..perception.efficientdet_detector import scores_and_ids
 from ..perception.object_detector import input_torch_dtype
@@ -113,33 +115,42 @@ class FusedADASStep:
     would."""
 
     def __init__(self, yolo, lane, host_downscale=None, transport: str = "bgr"):
-        if host_downscale:
-            raise NotImplementedError(
-                "host_downscale resizes on the host with cv2, which the port does not have "
-                "(ROADMAP.md §1, host_downscale)"
-            )
         if transport not in ("bgr", "i420"):
             raise ValueError(f"transport must be 'bgr' or 'i420', got {transport!r}")
         if yolo.device != lane.device:
             raise ValueError(f"detectors on {yolo.device} and {lane.device}")
         self.yolo = yolo
         self.lane = lane
+        self.host_downscale = host_downscale
         self.transport = transport
         self.device = yolo.device
 
-    def submit(self, frame: np.ndarray) -> Tuple[torch.Tensor, object, Tuple[int, int]]:
-        """Upload one BGR uint8 frame and launch the fused step; returns an
-        opaque handle for :meth:`fetch`."""
+    def submit(self, frame: np.ndarray) -> Tuple[torch.Tensor, object, Tuple[int, int],
+                                                 Tuple[int, int]]:
+        """Upload one BGR uint8 frame (resized on the host first when it is
+        larger than ``host_downscale`` (H, W)) and launch the fused step;
+        returns an opaque handle for :meth:`fetch`."""
+        orig_shape = frame.shape[:2]
+        if self.host_downscale and (orig_shape[0] > self.host_downscale[0]
+                                    or orig_shape[1] > self.host_downscale[1]):
+            dh, dw = self.host_downscale
+            frame = resize_linear(frame, (dw, dh))
         src_shape = frame.shape[:2]
         payload = bgr_to_i420(frame) if self.transport == "i420" else frame
         x = frame_to_device(payload, self.device)[None]
         flat, spec = fused_step(self.yolo, self.lane, x, src_shape, self.transport)
-        return flat, spec, src_shape
+        return flat, spec, src_shape, orig_shape
 
     def fetch(self, handle) -> None:
-        """Copy the step's result to the host and populate both detectors."""
-        flat, spec, (h, w) = handle
+        """Copy the step's result to the host and populate both detectors
+        (detections scaled from a downscaled frame back to the source's
+        pixels; the lanes are normalized and rescale in ``_assemble``)."""
+        flat, spec, src_shape, (h, w) = handle
         dets, decoded = unpack(flat.cpu().numpy()[0], spec)
+        if src_shape != (h, w):
+            dets = dets.copy()
+            dets[:, [0, 2]] *= w / src_shape[1]
+            dets[:, [1, 3]] *= h / src_shape[0]
         self.yolo._object_info = self.yolo._dets_to_rectinfo(dets)
         self.lane._assemble(decoded, w, h)
         self.lane._finalize(h)

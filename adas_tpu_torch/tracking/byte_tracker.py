@@ -7,7 +7,7 @@ low-score (0.1 < s < track_thresh) detections; unconfirmed tracks match at
 a looser threshold; survivors of neither are lost then removed after
 ``buffer_size`` frames.  The KF predict runs once, batched, per frame
 (tracking/kalman.py); association solves exactly via the in-repo C++ LAPJV.
-The JAX copy's ``DrawTrackedOnFrame`` (cv2) is not ported.
+``DrawTrackedOnFrame`` draws with the port's cv2-free renderer.
 """
 from __future__ import annotations
 
@@ -199,3 +199,21 @@ class BYTETracker(ObjectTrackBase):
         self.lost_stracks = []
         self.removed_stracks = []
         BaseTrack.reset_counter()
+
+    def DrawTrackedOnFrame(self, frame: np.ndarray, show_box: bool = True,
+                           show_traject: bool = True) -> None:
+        """Draw every activated track above the area gate: its tinted box
+        (``show_box``), its trajectory dots, ID and direction arrow or
+        lock-on box (``show_traject``), ``byte_tracker.py:202-219``."""
+        for t in self.tracked_stracks:
+            if not t.is_activated:
+                continue
+            tlwh = t.tlwh
+            if tlwh[2] * tlwh[3] <= self.min_box_area:
+                continue
+            if show_box:
+                self.plot_bbox(frame, tlwh, t.class_id, t.track_id)
+            if show_traject:
+                self.plot_trajectories(frame, list(t.trajectories), t.class_id, t.track_id)
+                kept = t.filter_trajectories(frame, (10, 10))
+                self.plot_directions(frame, t.xyah, kept, t.class_id)

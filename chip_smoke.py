@@ -11,8 +11,9 @@ Phases, each of which raises (exit code 1) on failure:
 2. build the five kernels from source, one nvcc per source, all started
    together (``csrc/stem.cu``, ``csrc/int8_conv.cu``, ``csrc/block.cu``,
    ``csrc/iou.cu``, ``csrc/nms.cu``; the int8 conv and the block share
-   ``csrc/int8_epilogue.cuh``), and print their ptxas register, shared
-   memory and spill lines;
+   ``csrc/int8_epilogue.cuh``), beside the HUD's host rasterizer
+   (``native/draw.cpp``, g++, ``_build/libdraw.so``), and print the
+   kernels' ptxas register, shared memory and spill lines;
 3. each kernel against its plain PyTorch version, beside its bound (the
    longer of its bytes at 3.35 TB/s and its operations at the data-sheet
    peak of their type) and, where one PyTorch call computes the same
@@ -108,10 +109,24 @@ Phases, each of which raises (exit code 1) on failure:
    the library call (``[frame-kernel]`` lines; the int8 conv over every
    distinct shape of the frame, ``[frame-int8-shapes]``);
 9. the same path in bf16 (``[frame-bf16]``): stem 2, IoU 1, walk 1 per
-   frame.
+   frame;
+10. the demo's video path with the HUD (``[render-int8]``): ten seeded
+    720p frames written to a temporary ``.y4m`` by the port's writer,
+    ``pipeline/app.run_video`` over it on phase 8's calibrated fused
+    pipeline (reset to a new pipeline's host state: nothing is calibrated
+    twice), ``process_frame(draw=True)`` on the card and the drawn frames
+    written to a ``.y4m``.  Fails unless the output holds 10 frames of
+    720x1280 under a valid header, each differing from its input in the
+    signs panel and the bird-view inset, every frame launched exactly
+    2 / 105 / 5 / 1 / 1 kernels, and the track ids and signals equal a
+    ``draw=False`` pass over the same frames from the same state.  Prints
+    process_frame p50/p95, the ``analytics_render`` stage with drawing and
+    of it the panel, the text and the two ``add_weighted`` passes, and the
+    Y4M reader's and writer's ms per frame, beside the card's name and
+    power limit.
 
 Then the card's name and power limit again, one JSON line describing
-the kernels — ``launches`` summed over the five paths, each counted
+the kernels — ``launches`` summed over the six paths, each counted
 from 0 just before it; ``max_abs_err``, ``ms``, ``plain_ms``,
 ``library_ms`` (null where no PyTorch call computes the function) and the
 bound (``bound_ms``, ``bound_by``) from phase 3 (stem: bf16, summed over
@@ -135,6 +150,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 KERNELS = ("stem", "int8_conv", "block", "iou", "nms")
 N_STREAMS, FRAME_HW = 8, (720, 1280)
@@ -1127,7 +1143,8 @@ def frame_phase(cd, mods, torch, np):
     per-frame launch counts, the fused route's results equal to the
     unfused route's, the warp; under int8 also the i420 fused step
     against a batched tick and every kernel at its batch-1 shapes.
-    Returns (launch counts of both routes, batch-1 rows or None)."""
+    Returns (launch counts of both routes, batch-1 rows or None, the
+    pipelines by route)."""
     from adas_tpu_torch.models.quant import QConv2d
 
     tag = f"frame-{cd}"
@@ -1148,7 +1165,7 @@ def frame_phase(cd, mods, torch, np):
     warp_check(tag, pipes["fused"], frames[-1], torch, np)
     run = {k: sum(r[1][k] for r in results.values()) for k in KERNELS}
     if cd != "int8":
-        return run, None
+        return run, None, pipes
     fused = pipes["fused"]
     shapes = main_path_conv_shapes(lambda: fused.fused.run(frames[0]), mods["int8_conv"], torch)
     check(sum(shapes.values()) == per_frame["int8_conv"],
@@ -1158,7 +1175,179 @@ def frame_phase(cd, mods, torch, np):
     rows = frame_kernel_phase(mods, shapes, torch)
     for k, r in rows.items():
         r["launches_per_frame"] = per_frame[k]
-    return run, rows
+    return run, rows, pipes
+
+
+def reset_pipeline(pipe):
+    """Put a pipeline's host state back to that of a new one on the same
+    nets: tracker (and the id counter), trapezoid, signals, distances,
+    panel, timers."""
+    from adas_tpu_torch.analytics import (PerspectiveTransformation, SingleCamDistanceMeasure,
+                                          TaskConditions)
+    from adas_tpu_torch.pipeline.panel import ControlPanel
+    from adas_tpu_torch.utils.profiling import StageTimers
+
+    h, w = FRAME_HW
+    pipe.objectTracker.reset()
+    pipe.transformView = PerspectiveTransformation((w, h), logger=pipe.logger, device="cuda")
+    pipe.distanceDetector = SingleCamDistanceMeasure()
+    pipe.analyzeMsg = TaskConditions()
+    pipe.displayPanel = ControlPanel()
+    pipe.timers = StageTimers()
+
+
+def signals(pipe):
+    """Track ids (tracked, lost) and the three signals after a frame."""
+    msg, tr = pipe.analyzeMsg, pipe.objectTracker
+    return ([t.track_id for t in tr.tracked_stracks], [t.track_id for t in tr.lost_stracks],
+            msg.offset_msg, msg.curvature_msg, msg.collision_msg)
+
+
+class Timed:
+    """Replaces ``owner.name`` with a wrapper that adds each call's host
+    time to ``ms[key]`` (undone on exit)."""
+
+    def __init__(self, ms, key, *targets):
+        self.ms, self.key, self.targets, self.saved = ms, key, targets, []
+
+    def __enter__(self):
+        self.ms.setdefault(self.key, 0.0)
+        for owner, name in self.targets:
+            fn = getattr(owner, name)
+
+            def timed(*a, _fn=fn, **kw):
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.ms[self.key] += (time.perf_counter() - t) * 1e3
+
+            self.saved.append((owner, name, fn))
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+
+
+def render_phase(pipe, mods, smi, torch, np):
+    """Phase 10 (``[render-int8]``): the demo's video path with the HUD on
+    the card.  Ten seeded 720p frames go to a temporary ``.y4m`` through
+    the port's writer; ``run_video`` processes them with phase 8's
+    calibrated fused pipeline (reset to a new pipeline's host state) and
+    writes the drawn frames.  Fails unless the output has 10 frames of
+    720x1280 under a valid header, every output frame differs from its
+    input in the signs panel and the bird-view inset, every frame
+    launched exactly 2 stem / 105 int8 conv / 5 block / 1 IoU / 1 walk
+    kernels, and the track ids and signals equal those of a
+    ``draw=False`` pass over the same decoded frames from the same reset
+    state.  Prints process_frame p50/p95, the ``analytics_render`` stage
+    with drawing and of it the panel, the text and the two
+    ``add_weighted`` passes, and the reader's and writer's ms per frame.
+    Returns the launch counts of the run."""
+    import os
+    import tempfile
+
+    import adas_tpu_torch.analytics.perspective as persp
+    import adas_tpu_torch.perception.object_detector as objdet
+    import adas_tpu_torch.pipeline.panel as panel
+    import adas_tpu_torch.render.draw as draw
+    import adas_tpu_torch.tracking.core as core
+    from adas_tpu_torch.models.quant import QConv2d
+    from adas_tpu_torch.pipeline import app
+    from adas_tpu_torch.render.video import Y4MReader, Y4MWriter
+
+    tag = "render-int8"
+    h, w = FRAME_HW
+    n_conv = sum(isinstance(m, QConv2d) for side in ("objectDetector", "laneDetector")
+                 for m in getattr(pipe, side).net.modules())
+    per_frame = {"stem": 2, "int8_conv": n_conv - 2 * BLOCKS_PER_TICK, "block": BLOCKS_PER_TICK,
+                 "iou": 1, "nms": 1}
+    rng = np.random.default_rng(10)
+    frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(N_FRAMES)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    src, out = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "in_out.y4m")
+    try:
+        t = time.perf_counter()
+        with Y4MWriter(src, w, h, 30.0) as vw:
+            for f in frames:
+                vw.write(f)
+        write_ms = (time.perf_counter() - t) * 1e3 / N_FRAMES
+
+        reset_pipeline(pipe)
+        drawn_signals, frame_ms, sub = [], [], {}
+        serve_frame = pipe.process_frame
+
+        def process_frame(frame, draw=True):
+            t0 = time.perf_counter()
+            shown = serve_frame(frame, draw)
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            drawn_signals.append(signals(pipe))
+            return shown
+
+        pipe.process_frame = process_frame
+        panel_targets = [(pipe.displayPanel, m) for m in
+                         ("DisplayBirdViewPanel", "DisplaySignsPanel", "DisplayCollisionPanel")]
+        text_targets = [(m, "put_text") for m in (panel, core, objdet, persp)]
+        factory = app.ADASPipeline
+        app.ADASPipeline = lambda frame_size, **kw: pipe
+        reset(mods)
+        try:
+            with Timed(sub, "panel", *panel_targets), Timed(sub, "text", *text_targets), \
+                    Timed(sub, "add_weighted", (draw, "add_weighted")):
+                n = app.run_video(src, out, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            app.ADASPipeline = factory
+            del pipe.process_frame
+        run = counts(mods)
+        check(n == N_FRAMES, f"{tag}: run_video processed {n} frames")
+        for k, per in per_frame.items():
+            check(run[k] == per * N_FRAMES, f"{tag}: {k} launches {run[k]} over {N_FRAMES} "
+                                            f"frames, expected {per} per frame")
+        stage = pipe.timers.summary()["analytics_render"]
+
+        t = time.perf_counter()
+        with Y4MReader(out) as vr:
+            check((vr.width, vr.height) == (w, h), f"{tag}: output header {vr.width}x{vr.height}")
+            drawn = list(vr)
+        read_ms = (time.perf_counter() - t) * 1e3 / max(1, len(drawn))
+        with Y4MReader(src) as vr:
+            decoded = list(vr)
+        check(len(drawn) == N_FRAMES and all(f.shape == (h, w, 3) for f in drawn),
+              f"{tag}: the output holds {len(drawn)} frames")
+        inset = (slice(0, int(h * 0.25) + 20), slice(w - int(w * 0.25) - 20, w))
+        for i, (a, b) in enumerate(zip(decoded, drawn)):
+            check(not np.array_equal(a[:365, :400], b[:365, :400]),
+                  f"{tag}: frame {i}: the signs panel is not drawn")
+            check(not np.array_equal(a[inset], b[inset]), f"{tag}: frame {i}: no bird-view inset")
+
+        reset_pipeline(pipe)
+        plain = []
+        for f in decoded:
+            pipe.process_frame(f, draw=False)
+            plain.append(signals(pipe))
+        same = sum(a == b for a, b in zip(drawn_signals, plain))
+        print(f"[{tag}] run_video over {N_FRAMES} frames of {w}x{h} (.y4m in and out): launches "
+              f"{run} (per frame {per_frame}); track ids and signals equal to a draw=False pass "
+              f"on {same} of {N_FRAMES} frames; detections on the last frame "
+              f"{len(pipe.objectDetector.object_info)}", flush=True)
+        check(same == N_FRAMES, f"{tag}: drawing changed the track ids or signals")
+        print(f"[{tag}] process_frame(draw=True) ms p50 {np.percentile(frame_ms, 50):.3f}, p95 "
+              f"{np.percentile(frame_ms, 95):.3f}, all {[round(v, 3) for v in frame_ms]}; "
+              f"analytics_render with drawing p50 {stage['p50_ms']:.3f}, p95 "
+              f"{stage['p95_ms']:.3f}; of it per frame: panel "
+              f"{sub['panel'] / N_FRAMES:.3f}, text {sub['text'] / N_FRAMES:.3f} (all put_text, "
+              f"the panel's included), add_weighted x2 {sub['add_weighted'] / N_FRAMES:.3f}; "
+              f"Y4M writer {write_ms:.3f} ms/frame, reader {read_ms:.3f} ms/frame; {smi}",
+              flush=True)
+        return run
+    finally:
+        for path in (src, out):
+            if os.path.exists(path):
+                os.remove(path)
+        os.rmdir(tmp)
 
 
 def main() -> int:
@@ -1173,6 +1362,7 @@ def main() -> int:
     from adas_tpu_torch.ops import iou as I
     from adas_tpu_torch.ops import nms as NMS
     from adas_tpu_torch.ops import stem as S
+    from adas_tpu_torch.native import draw as native_draw
     from adas_tpu_torch.ops.cuda_build import BUILD_DIR, build_cuda_libraries
 
     smi = subprocess.run(
@@ -1186,9 +1376,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t = time.perf_counter()
-    build_cuda_libraries(KERNELS)
-    print(f"[build] {', '.join(f'csrc/{k}.cu' for k in KERNELS)} built in parallel in "
-          f"{time.perf_counter() - t:.2f} s", flush=True)
+    with ThreadPoolExecutor(1) as pool:  # the HUD's rasterizer (g++) beside the kernels
+        draw_build = pool.submit(native_draw._native)
+        build_cuda_libraries(KERNELS)
+        print(f"[build] {', '.join(f'csrc/{k}.cu' for k in KERNELS)} built in parallel in "
+              f"{time.perf_counter() - t:.2f} s", flush=True)
+        draw_build.result()
+    print("[build] native/draw.cpp -> _build/libdraw.so (g++) built beside them", flush=True)
     for k in KERNELS:
         with open(f"{BUILD_DIR}/lib{k}.ptxas.txt") as f:
             for line in f:
@@ -1205,8 +1399,9 @@ def main() -> int:
         effdet_main_phase(mods, torch, np),
         bf16_main_phase(mods, torch, np),
     ]
-    frame_run, frame_rows = frame_phase("int8", mods, torch, np)
+    frame_run, frame_rows, int8_pipes = frame_phase("int8", mods, torch, np)
     runs += [frame_run, frame_phase("bf16", mods, torch, np)[0]]
+    runs.append(render_phase(int8_pipes["fused"], mods, smi, torch, np))
     launches = {k: sum(run[k] for run in runs) for k in KERNELS}
 
     replaces = {

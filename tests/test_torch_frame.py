@@ -249,12 +249,48 @@ def test_fused_efficientdet_matches_jax(weights, transport):
 
 
 def test_host_downscale_and_transport_raise(weights):
+    """An unknown transport raises; so does a ``host_downscale`` target
+    that I420 cannot carry (odd sides), at the first frame it resizes."""
     _, yolo = yolo_pair(weights)
     _, lane = lane_pair(weights, "culane")
-    with pytest.raises(NotImplementedError, match="host_downscale"):
-        FusedADASStep(yolo, lane, host_downscale=(180, 320))
     with pytest.raises(ValueError, match="transport"):
         FusedADASStep(yolo, lane, transport="nv12")
+    fused = FusedADASStep(yolo, lane, host_downscale=(181, 320), transport="i420")
+    with pytest.raises(ValueError, match="even"):
+        fused.submit(frames(1)[0])
+
+
+@pytest.mark.parametrize("transport", ["bgr", "i420"])
+def test_host_downscale_matches_jax(weights, transport):
+    """``FusedADASStep(host_downscale=(180, 320))`` against JAX's
+    (``fused.py:238-245``): a 360x640 frame resized on the host (the
+    port's ``resize_linear``, cv2's ``INTER_LINEAR`` to the bit), the
+    detections scaled back to the source's pixels; under the detection
+    tolerance of :func:`assert_same_objects`, the lanes identical.  A
+    frame no larger than the target is not resized."""
+    from adas_tpu_torch.render.draw import resize_linear
+
+    jyolo, yolo = yolo_pair(weights)
+    jlane, lane = lane_pair(weights)
+    jfused = JaxFused(jyolo, jlane, host_downscale=(180, 320), transport=transport)
+    fused = FusedADASStep(yolo, lane, host_downscale=(180, 320), transport=transport)
+    n = 0
+    for f in frames(2, seed=9):
+        jfused.run(f)
+        fused.run(f)
+        n += assert_same_objects(jyolo.object_info, yolo.object_info)
+        assert lanes(lane.lane_info) == lanes(jlane.lane_info)
+    assert n > 0
+    small = frames(1, seed=10, hw=(180, 320))[0]
+    assert fused.submit(small)[2] == (180, 320)
+    np.testing.assert_array_equal(resize_linear(frames(1, seed=9)[0], (320, 180)),
+                                  cv2_resize(frames(1, seed=9)[0], (320, 180)))
+
+
+def cv2_resize(img, dsize):
+    import cv2
+
+    return cv2.resize(img, dsize, interpolation=cv2.INTER_LINEAR)
 
 
 def test_int8_detect_frame_close_to_jax(calibrated):
@@ -298,3 +334,17 @@ def test_int8_head_at_one_row_matches_batched(calibrated):
     for k, v in both.items():
         for i in range(2):
             torch.testing.assert_close(one[i][k][0], v[i], rtol=0, atol=0)
+
+
+def test_auto_draw_lanes_matches_jax(weights):
+    """``AutoDrawLanes`` (``lane_detector.py:87``): detect with
+    ``adjust_lanes``, then draw the lane points and the area, on the
+    frame, as the JAX facade does."""
+    jlane, lane = lane_pair(weights)
+    for f in frames(2, seed=13):
+        want, got = f.copy(), f.copy()
+        assert jlane.AutoDrawLanes(want) is want
+        assert lane.AutoDrawLanes(got) is got
+        assert lanes(lane.lane_info) == lanes(jlane.lane_info)
+        assert not np.array_equal(got, f)
+        np.testing.assert_array_equal(got, want)

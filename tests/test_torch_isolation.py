@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``adas_tpu_torch`` (and not
 ``chip_smoke.py``) imports ``jax``, anything of the JAX package
-``adas_tpu`` or ``cv2`` (the GPU host has none), its single-frame path runs
-in a process where none of them can be imported, and its facades and
-pipeline run on the card unless the caller names the CPU."""
+``adas_tpu`` or ``cv2`` (the GPU host has none), its single-frame path (with
+the HUD) and its demo CLI run in a process where none of them can be
+imported, and its facades and pipeline run on the card unless the caller
+names the CPU."""
 from __future__ import annotations
 
 import ast
@@ -101,10 +102,21 @@ FRAME_SCRIPT = textwrap.dedent(
                             object_config={"input_size": (96, 96), "box_score": 0.25})
         for f in frames:
             pipe.process_frame(f, draw=False)
+            drawn = pipe.process_frame(f)
+            assert drawn.shape == f.shape and not np.array_equal(drawn, f)
             n += len(pipe.objectDetector.object_info)
     FusedADASStep(pipe.objectDetector, pipe.laneDetector, transport="i420").run(frames[0])
     bird = pipe.transformView.transformToBirdView(frames[0])
     assert bird.shape == frames[0].shape and bird.flags.writeable
+    from adas_tpu_torch.perception.object_detector import YOLO_OPTIONS, YoloDetector
+    from adas_tpu_torch.pipeline.app import run_synthetic
+    from adas_tpu_torch.render.video import Y4MReader
+
+    YoloDetector.set_defaults({**YOLO_OPTIONS, "input_size": (96, 96)})
+    out = sys.argv[1]
+    assert run_synthetic(out, frames=2, frame_hw=(180, 320), device="cpu") == 2
+    with Y4MReader(out) as r:
+        assert len(list(r)) == 2
     assert not [m for m in sys.modules if m.split(".")[0] in %r]
     print("frames", n)
     """
@@ -112,15 +124,53 @@ FRAME_SCRIPT = textwrap.dedent(
 )
 
 
-def test_single_frame_path_runs_with_jax_package_and_cv2_blocked():
-    """``ADASPipeline.process_frame`` on both routes, the i420 fused step
-    and the bird-view warp, in a process that cannot import ``jax``,
-    ``adas_tpu`` or ``cv2``."""
+def test_single_frame_path_runs_with_jax_package_and_cv2_blocked(tmp_path):
+    """``ADASPipeline.process_frame`` on both routes, with and without the
+    HUD, the i420 fused step, the bird-view warp and ``run_synthetic`` to a
+    ``.y4m``, in a process that cannot import ``jax``, ``adas_tpu`` or
+    ``cv2``."""
     proc = subprocess.run(
-        [sys.executable, "-c", FRAME_SCRIPT], cwd=REPO, capture_output=True, text=True, timeout=300,
+        [sys.executable, "-c", FRAME_SCRIPT, str(tmp_path / "synthetic.y4m")], cwd=REPO,
+        capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("frames")
+
+
+CLI_SCRIPT = textwrap.dedent(
+    """
+    import runpy, sys
+
+    class _Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in %r:
+                raise ImportError(f"{name} is blocked in this process")
+            return None
+
+    sys.meta_path.insert(0, _Block())
+    sys.argv = ["app"] + sys.argv[1:]
+    runpy.run_module("adas_tpu_torch.pipeline.app", run_name="__main__")
+    """
+    % (BLOCKED,)
+)
+
+
+def test_demo_cli_runs_with_jax_package_and_cv2_blocked(tmp_path):
+    """``python -m adas_tpu_torch.pipeline.app --synthetic --frames 2
+    --device cpu`` (the default nets, 720p) writes a readable ``.y4m`` in
+    a process that cannot import ``jax``, ``adas_tpu`` or ``cv2``."""
+    from adas_tpu_torch.render.video import Y4MReader
+
+    out = str(tmp_path / "out.y4m")
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_SCRIPT, "--synthetic", "--frames", "2", "--device", "cpu",
+         "-o", out], cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"wrote 2 frames to {out}" in proc.stdout
+    with Y4MReader(out) as r:
+        frames = list(r)
+    assert (r.width, r.height, len(frames)) == (1280, 720, 2)
 
 
 def _facades():

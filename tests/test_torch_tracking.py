@@ -92,3 +92,30 @@ def test_port_lapjv_matches_jax_package(shape, limit):
     got = port_lapjv(cost, cost_limit=limit)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("show_box", [False, True])
+def test_draw_tracked_matches_jax(show_box):
+    """``DrawTrackedOnFrame`` on the port's cv2-free renderer against the
+    JAX tracker's cv2 drawing, frame by frame over a seeded sequence:
+    trajectory dots (radius 0 for the first three), the shadowed ID, the
+    lock-on box of a young track and the median-direction arrow of an
+    older one, and with ``show_box`` the tinted box and its label."""
+    pytest.importorskip("cv2")
+    colors = {"car": (40, 200, 250), "truck": (5, 20, 250), "person": (250, 120, 25)}
+    trackers = []
+    for tracker_cls, base_cls in ((RefTracker, RefBaseTrack), (PortTracker, PortBaseTrack)):
+        base_cls.reset_counter()
+        trackers.append(tracker_cls(names=dict(colors)))
+    background = np.random.default_rng(3).integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+    drawn = 0
+    for boxes, scores, names in detection_sequence(4):
+        frames = []
+        for tracker in trackers:
+            frame = background.copy()
+            tracker.update(boxes, scores, names, frame)
+            tracker.DrawTrackedOnFrame(frame, show_box)
+            frames.append(frame)
+        np.testing.assert_array_equal(frames[1], frames[0])
+        drawn += int(np.any(frames[0] != background))
+    assert drawn > FRAMES // 2

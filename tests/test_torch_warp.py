@@ -31,7 +31,7 @@ import torch
 
 from adas_tpu.analytics.perspective import PerspectiveTransformation as JaxPerspective
 from adas_tpu.ops.warp import warp_perspective as jax_warp
-from adas_tpu_torch.analytics.perspective import NO_RENDERER, PerspectiveTransformation
+from adas_tpu_torch.analytics.perspective import PerspectiveTransformation
 from adas_tpu_torch.ops.warp import _fma_f32, warp_inverse, warp_perspective
 
 H, W = 720, 1280
@@ -127,19 +127,68 @@ def test_transform_views_match_jax(view):
     assert gap <= 1 and equal >= (0.99 if view == "transformToBirdView" else 0.999), (gap, equal)
 
 
+@pytest.mark.parametrize("lanes", ["curved", "degenerate"])
+def test_calc_curve_draw_matches_jax(lanes):
+    """``calcCurveAndOffset(draw=True)`` (the JAX default) draws the
+    vehicle and centre arrows and the offset and radius readings on the
+    canvas as the JAX method does, to the pixel, and returns its numbers;
+    ``draw=False`` returns the same numbers and leaves the canvas alone.
+    The degenerate lanes put the vehicle position far off the canvas
+    (the JAX method's ``_cx`` clamp)."""
+    if lanes == "curved":
+        left = np.array([[400.0, 719], [410, 500], [430, 300], [460, 100]])
+        right = np.array([[900.0, 719], [905, 500], [915, 300], [930, 100]])
+    else:
+        left = np.array([[400.0, 719], [400, 718], [4e6, 717]])
+        right = np.array([[900.0, 719], [900, 718], [9e6, 717]])
+    canvas = _frame(np.uint8, seed=4)
+    want_img, got_img, plain = canvas.copy(), canvas.copy(), canvas.copy()
+    pt = PerspectiveTransformation((W, H), device="cpu")
+    want = JaxPerspective((W, H)).calcCurveAndOffset(want_img, left, right)
+    got = pt.calcCurveAndOffset(got_img, left, right)
+    assert got == want or (np.isnan(got[1]).all() and np.isnan(want[1]).all())
+    assert not np.array_equal(got_img, canvas)
+    np.testing.assert_array_equal(got_img, want_img)
+    assert pt.calcCurveAndOffset(plain, left, right, draw=False) == got
+    np.testing.assert_array_equal(plain, canvas)
+
+
 def test_calc_curve_draw_raises():
-    """Drawing is not ported: ``draw=True`` (the JAX default) raises, and
-    ``draw=False`` gives the JAX method's numbers."""
+    """Drawing on a canvas the renderer cannot write (read-only) raises
+    rather than drawing nothing; ``draw=False`` gives the JAX method's
+    numbers on it."""
     left = np.array([[400.0, 719], [410, 500], [430, 300], [460, 100]])
     right = np.array([[900.0, 719], [905, 500], [915, 300], [930, 100]])
     canvas = np.zeros((H, W, 3), np.uint8)
+    canvas.flags.writeable = False
     pt = PerspectiveTransformation((W, H), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="writable"):
         pt.calcCurveAndOffset(canvas, left, right)
-    assert "renderer" in NO_RENDERER
     got = pt.calcCurveAndOffset(canvas, left, right, draw=False)
     want = JaxPerspective((W, H)).calcCurveAndOffset(canvas, left, right, draw=False)
     assert got == want
+
+
+def test_bird_view_drawing_matches_jax():
+    """``DrawDetectedOnBirdView`` (the departing ego lane in red, points
+    far outside the canvas or not finite skipped as the JAX method skips
+    them) and ``DrawTransformFrontalViewArea`` draw the JAX methods'
+    pixels."""
+    from adas_tpu_torch.utils.types import OffsetType
+    from adas_tpu.utils.types import OffsetType as JaxOffsetType
+
+    rng = np.random.default_rng(5)
+    lanes = [rng.integers(-2 * W, 3 * W, (40, 2)) for _ in range(4)]
+    lanes[1][:3] = [[2 ** 30, 5], [-(2 ** 30), 7], [W - 1, 2 * H]]
+    for offset, jax_offset in ((OffsetType.RIGHT, JaxOffsetType.RIGHT),
+                               (OffsetType.LEFT, JaxOffsetType.LEFT)):
+        jpt, pt = JaxPerspective((W, H)), PerspectiveTransformation((W, H), device="cpu")
+        want, got = _frame(np.uint8, seed=6), _frame(np.uint8, seed=6)
+        jpt.DrawDetectedOnBirdView(want, lanes, jax_offset)
+        pt.DrawDetectedOnBirdView(got, lanes, offset)
+        jpt.DrawTransformFrontalViewArea(want)
+        pt.DrawTransformFrontalViewArea(got)
+        np.testing.assert_array_equal(got, want)
 
 
 def _round_f32(q: Fraction) -> np.float32:
