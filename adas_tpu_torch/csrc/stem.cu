@@ -9,19 +9,25 @@
 //
 // What bounds it on an H100: the stems have C_in = 3, so the conv is
 // 27 (k=3) or 147 (k=7) MACs per output feature.  The YOLO 3x3 stem
-// (8x3x640x640 -> 8x64x320x320) is bound by writing its 52M-element output
-// (~0.037 ms of bytes); the ResNet 7x7 stem (8x3x320x1600 -> conv
-// 8x64x160x800 -> pool 8x64x80x400) by its 9.6 GMAC (~0.02 ms on the bf16
-// tensor cores, ~0.29 ms on the f32 CUDA cores).
+// (8x3x640x640 -> 8xFx320x320, F = 16..80 features by scale) is bound by
+// writing its output (~0.037 ms of bytes at F = 64); the ResNet 7x7 stem
+// (8x3x320x1600 -> conv 8x64x160x800 -> pool 8x64x80x400) by its 9.6 GMAC
+// (~0.02 ms on the bf16 tensor cores, ~0.29 ms on the f32 CUDA cores).
+//
+// The feature count F is a template parameter of both paths; only the
+// served combinations are instantiated (3x3 without the pool at F = 16,
+// 32, 48, 64, 80: the YOLOv8/v10 n/s/m/l/x stems; 7x7 with the pool at
+// F = 64: the ResNet stem), and the C entry returns cudaErrorInvalidValue
+// for any other.
 //
 // What the design does about it, bf16 (the serving path; stem_mma_kernel):
 //  * A persistent grid (two blocks per SM) walks the output tiles; each
-//    block stages the 64 x K weights once, K padded from 27 to 32 (3x3) or
+//    block stages the F x K weights once, K padded from 27 to 32 (3x3) or
 //    147 to 160 (7x7) with zero weights.  A tile's input is read once from
 //    device memory into shared memory (zero padding by bounds checks, no
 //    padded copy); for the 3x3 stem the next tile's input is loaded into
 //    registers while this tile computes.
-//  * The conv is a GEMM of the block's conv pixels x 64 features x K on the
+//  * The conv is a GEMM of the block's conv pixels x F features x K on the
 //    tensor cores, mma.sync m16n8k16 bf16 with f32 accumulation.  The A
 //    fragments are gathered straight from the staged input (a pixel's
 //    offset plus a per-k tap offset from a table), so the im2col tile is
@@ -37,17 +43,21 @@
 //    full-resolution stem activation never reaches device memory (odd
 //    sizes and non-ReLU pools are exact with no routing).
 //  * 8 warps, each 2 (no pool: 4x64 pixel tile) or 4 (pool: 15x33 conv
-//    pixels for a 7x16 pool tile) 16-pixel fragments by 64 features, two
-//    fragments at a time: 64 f32 accumulators per thread.
+//    pixels for a 7x16 pool tile) 16-pixel fragments by F features, two
+//    fragments at a time (one at F = 80): at most 64 f32 accumulators per
+//    thread.  At F = 16 the tile is bound by its stores; it is not tuned.
 //
 // f32 (stem_f32_kernel) stays on the CUDA cores: TF32 tensor cores cannot meet
 // the f32 yardstick (atol 2e-4, rtol 1e-4, tests/test_pallas_stem.py:80),
-// and no serving path runs the stem in f32 (int8 and bf16 nets stem in
-// bf16).  It stages the input tile split by column parity and the weights
-// as f32 [tap][feature]; each thread holds 16 features x R pixels.
+// and the batched serving paths stem in bf16 (int8 and bf16 nets); the
+// f32 nets (the demo's default YOLOv8n) run it.  It stages the input tile
+// split by column parity and the weights as f32 [tap][feature]; the 8
+// warps split the features into 1, 2 or 4 groups (F / 16 up to 4) and the
+// pixels among the rest, so each thread holds F accumulators (one block
+// per SM at F = 80, to keep them in registers).
 //
-// Layouts: x NCHW (N, 3, H, W); w OIHW (64, 3, k, k) in the input's type;
-// gain, bias f32 (64); out NCHW (N, 64, Ho, Wo) in the input's type.
+// Layouts: x NCHW (N, 3, H, W); w OIHW (F, 3, k, k) in the input's type;
+// gain, bias f32 (F); out NCHW (N, F, Ho, Wo) in the input's type.
 // Accumulation and the epilogue run in f32.
 
 #include <cuda_bf16.h>
@@ -58,11 +68,7 @@
 namespace {
 
 constexpr int kC = 3;                       // input channels
-constexpr int kF = 64;                      // output features
 constexpr int kThreads = 256;
-constexpr int kFG = 16;                     // features per thread
-constexpr int kFeatGroups = kF / kFG;       // 4
-constexpr int kPixGroups = kThreads / 32 / kFeatGroups;  // 2
 
 enum Act { kActNone = 0, kActRelu = 1, kActSilu = 2 };
 
@@ -76,10 +82,18 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
-// Tile geometry.  Without the pool a block computes an 8 x 32 conv tile;
-// with it, a 4 x 16 pool tile, i.e. the 9 x 33 conv tile its windows cover.
-template <int K, bool POOL>
+// Tile geometry of stem_f32_kernel.  Without the pool a block computes an
+// 8 x 32 conv tile; with it, a 4 x 16 pool tile, i.e. the 9 x 33 conv tile
+// its windows cover.  The warps split the F features into kFeatGroups of
+// kFG (a multiple of 4: float4 weight loads) and the pixels among the
+// kPixGroups warps of each feature group.
+template <int K, bool POOL, int F>
 struct Geom {
+  static constexpr int kFeatGroups = F >= 48 ? 4 : F / 16;   // 1, 2, 4, 4, 4
+  static constexpr int kFG = F / kFeatGroups;                // 16, 16, 12, 16, 20
+  static constexpr int kPixGroups = kThreads / 32 / kFeatGroups;
+  static_assert(F % kFeatGroups == 0 && kFG % 4 == 0 &&
+                kPixGroups * kFeatGroups == kThreads / 32, "feature split");
   static constexpr int OH = POOL ? 4 : 8;    // output rows per block
   static constexpr int OW = POOL ? 16 : 32;  // output cols per block
   static constexpr int CR = POOL ? 2 * OH + 1 : OH;  // conv rows computed
@@ -90,27 +104,30 @@ struct Geom {
   static constexpr int IN_H = 2 * (CR - 1) + K;
   static constexpr int IN_W = 2 * (CC - 1) + K;
   static constexpr int IN_WH = (IN_W + 1) / 2;  // width of one column phase
-  static constexpr int W_FLOATS = kC * K * K * kF;
+  static constexpr int W_FLOATS = kC * K * K * F;
   static constexpr int IN_FLOATS = kC * IN_H * 2 * IN_WH;
 };
 
-template <int K, bool POOL>
+template <int K, bool POOL, int F>
 constexpr size_t smem_bytes() {
-  using G = Geom<K, POOL>;
+  using G = Geom<K, POOL, F>;
   return sizeof(float) * (G::W_FLOATS + G::IN_FLOATS) +
-         (POOL ? sizeof(float) * kF * G::NPIX : 0);
+         (POOL ? sizeof(float) * F * G::NPIX : 0);
 }
 
-template <int K, bool POOL>
-__global__ void __launch_bounds__(kThreads, 2)
+// F accumulators per thread: one block per SM above 64 features, so that
+// they stay in registers
+template <int K, bool POOL, int F>
+__global__ void __launch_bounds__(kThreads, F > 64 ? 1 : 2)
 stem_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
             const float* __restrict__ gain, const float* __restrict__ bias,
             float* __restrict__ out, int H, int W, int Hc, int Wc, int Ho, int Wo,
             int act) {
-  using G = Geom<K, POOL>;
+  using G = Geom<K, POOL, F>;
+  constexpr int kFG = G::kFG, kFeatGroups = G::kFeatGroups, kPixGroups = G::kPixGroups;
   constexpr int pad = K / 2;
   extern __shared__ float4 smem_raw[];
-  float* w_s = reinterpret_cast<float*>(smem_raw);  // [tap][kF]
+  float* w_s = reinterpret_cast<float*>(smem_raw);  // [tap][F]
   float* in_s = w_s + G::W_FLOATS;                   // [c][row][phase][IN_WH]
   float* ct_s = reinterpret_cast<float*>(in_s + G::IN_FLOATS);  // [f][CR][CC] (pool)
 
@@ -124,7 +141,7 @@ stem_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int ix0 = 2 * ccol0 - pad;
 
   for (int i = tid; i < G::W_FLOATS; i += kThreads) {
-    const int f = i % kF, tap = i / kF;
+    const int f = i % F, tap = i / F;
     w_s[i] = w[f * (kC * K * K) + tap];
   }
   const float* xn = x + static_cast<size_t>(n) * kC * H * W;
@@ -165,10 +182,10 @@ stem_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int c = 0; c < kC; ++c) {
     for (int ky = 0; ky < K; ++ky) {
       const float* in_row = in_s + (c * G::IN_H + ky) * 2 * G::IN_WH;
-      const float* w_row = w_s + ((c * K + ky) * K) * kF + fg * kFG;
+      const float* w_row = w_s + ((c * K + ky) * K) * F + fg * kFG;
 #pragma unroll
       for (int kx = 0; kx < K; ++kx) {
-        const float4* wp = reinterpret_cast<const float4*>(w_row + kx * kF);
+        const float4* wp = reinterpret_cast<const float4*>(w_row + kx * F);
         float wv[kFG];
 #pragma unroll
         for (int q = 0; q < kFG / 4; ++q) {
@@ -194,7 +211,7 @@ stem_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 
   if constexpr (!POOL) {
-    float* on = out + static_cast<size_t>(n) * kF * Ho * Wo;
+    float* on = out + static_cast<size_t>(n) * F * Ho * Wo;
 #pragma unroll
     for (int j = 0; j < G::R; ++j) {
       const int oy = crow0 + pix_row[j], ox = ccol0 + pix_col[j];
@@ -221,8 +238,8 @@ stem_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
     __syncthreads();
     const int py0 = by * G::OH, px0 = bx * G::OW;
-    float* on = out + static_cast<size_t>(n) * kF * Ho * Wo;
-    for (int i = tid; i < kF * G::OH * G::OW; i += kThreads) {
+    float* on = out + static_cast<size_t>(n) * F * Ho * Wo;
+    for (int i = tid; i < F * G::OH * G::OW; i += kThreads) {
       const int pc = i % G::OW;
       const int pr = (i / G::OW) % G::OH;
       const int f = i / (G::OW * G::OH);
@@ -239,16 +256,16 @@ stem_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <int K, bool POOL>
+template <int K, bool POOL, int F>
 cudaError_t launch_f32(const void* x, const void* w, const float* gain,
                    const float* bias, void* out, int n, int h, int wd,
                    int act, cudaStream_t stream) {
-  using G = Geom<K, POOL>;
+  using G = Geom<K, POOL, F>;
   const int hc = (h - 1) / 2 + 1, wc = (wd - 1) / 2 + 1;
   const int ho = POOL ? (hc - 1) / 2 + 1 : hc;
   const int wo = POOL ? (wc - 1) / 2 + 1 : wc;
-  constexpr size_t smem = smem_bytes<K, POOL>();
-  auto kern = stem_f32_kernel<K, POOL>;
+  constexpr size_t smem = smem_bytes<K, POOL, F>();
+  auto kern = stem_f32_kernel<K, POOL, F>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -264,9 +281,13 @@ cudaError_t launch_f32(const void* x, const void* w, const float* gain,
 // Tile geometry of stem_mma_kernel.  Without the pool a block computes a
 // 4 x 64 conv tile; with it, a 7 x 16 pool tile, i.e. the 15 x 33 conv tile
 // its windows cover.  Rows of the GEMM are the conv pixels in row-major
-// order, 16 to an m16n8k16 fragment.
-template <int K, bool POOL>
+// order, 16 to an m16n8k16 fragment; the F features are NT n-tiles of 8.
+// A warp computes Q fragments at a time: 2 (8 * NT accumulators per
+// thread, at most 64), 1 at F = 80.
+template <int K, bool POOL, int F>
 struct MGeom {
+  static constexpr int NT = F / 8;
+  static constexpr int Q = F > 64 ? 1 : 2;
   static constexpr int OH = POOL ? 7 : 4;     // output rows per block
   static constexpr int OW = POOL ? 16 : 64;   // output cols per block
   static constexpr int CR = POOL ? 2 * OH + 1 : OH;  // conv rows computed
@@ -280,12 +301,12 @@ struct MGeom {
   static constexpr int CTS = POOL ? 504 : 264;  // conv-tile row stride, = 8 or 24 mod 32 words
   static constexpr int IN_H = 2 * (CR - 1) + K;
   static constexpr int IN_W = 2 * (CC - 1) + K;
-  static constexpr size_t W_BYTES = 2 * kF * WS;
-  static constexpr size_t CT_BYTES = 2 * kF * CTS;
+  static constexpr size_t W_BYTES = 2 * F * WS;
+  static constexpr size_t CT_BYTES = 2 * F * CTS;
   static constexpr size_t TAP_BYTES = 4 * KP;
   static constexpr size_t IN_BYTES = 2 * kC * IN_H * IN_W;
   static constexpr size_t SMEM = W_BYTES + CT_BYTES + TAP_BYTES + IN_BYTES;
-  static_assert(FPW % 2 == 0, "fragments go two at a time");
+  static_assert(F % 8 == 0 && FPW % Q == 0, "fragments go Q at a time");
   static_assert(CTS >= NPIX && W_BYTES % 16 == 0 && CT_BYTES % 16 == 0, "layout");
 };
 
@@ -296,10 +317,10 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
 
 // Element i ([c][row][col]) of the input tile whose first input row and
 // column are iy0 and ix0, from image xn; zero outside the image.
-template <int K, bool POOL>
+template <int K, bool POOL, int F>
 __device__ __forceinline__ __nv_bfloat16 input_at(const __nv_bfloat16* __restrict__ xn, int iy0,
                                                   int ix0, int i, int H, int W) {
-  using G = MGeom<K, POOL>;
+  using G = MGeom<K, POOL, F>;
   const int col = i % G::IN_W;
   const int r = (i / G::IN_W) % G::IN_H;
   const int c = i / (G::IN_W * G::IN_H);
@@ -316,13 +337,14 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int K, bool POOL>
+template <int K, bool POOL, int F>
 __global__ void __launch_bounds__(kThreads, 2)
 stem_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                 const float* __restrict__ gain, const float* __restrict__ bias,
                 __nv_bfloat16* __restrict__ out, int N, int H, int W, int Hc, int Wc, int Ho,
                 int Wo, int act) {
-  using G = MGeom<K, POOL>;
+  using G = MGeom<K, POOL, F>;
+  constexpr int NT = G::NT, Q = G::Q;
   constexpr int pad = K / 2;
   extern __shared__ float4 smem_raw[];
   auto* w_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);                 // [f][WS]
@@ -337,7 +359,7 @@ stem_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
 
   // weights and tap offsets once per block: the grid is persistent
-  for (int i = tid; i < kF * G::KP; i += kThreads) {
+  for (int i = tid; i < F * G::KP; i += kThreads) {
     const int f = i / G::KP, k = i % G::KP;
     w_s[f * G::WS + k] = k < G::KK ? w[f * G::KK + k] : zero;
   }
@@ -369,7 +391,7 @@ stem_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
 #pragma unroll
     for (int j = 0; j < kPre; ++j) {
       const int i = tid + j * kThreads;
-      pre[j] = i < kIn ? input_at<K, POOL>(xn, 2 * crow0 - pad, 2 * ccol0 - pad, i, H, W) : zero;
+      pre[j] = i < kIn ? input_at<K, POOL, F>(xn, 2 * crow0 - pad, 2 * ccol0 - pad, i, H, W) : zero;
     }
   };
   if constexpr (kPrefetch) {
@@ -383,7 +405,7 @@ stem_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
     if constexpr (!kPrefetch) {
       const __nv_bfloat16* xn = x + static_cast<size_t>(n) * kC * H * W;
       for (int i = tid; i < kIn; i += kThreads)
-        in_s[i] = input_at<K, POOL>(xn, 2 * crow0 - pad, 2 * ccol0 - pad, i, H, W);
+        in_s[i] = input_at<K, POOL, F>(xn, 2 * crow0 - pad, 2 * ccol0 - pad, i, H, W);
     } else {
 #pragma unroll
       for (int j = 0; j < kPre; ++j)
@@ -397,24 +419,24 @@ stem_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
     const int warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll 1
-    for (int pair = 0; pair < G::FPW / 2; ++pair) {
+    for (int pair = 0; pair < G::FPW / Q; ++pair) {
       // this thread's GEMM rows: fragment q, rows g and g + 8
-      int poff[2][2];
-      bool pok[2][2];
+      int poff[Q][2];
+      bool pok[Q][2];
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
+      for (int q = 0; q < Q; ++q)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int p = ((warp * G::FPW + 2 * pair + q) * 16) + g + 8 * h;
+          const int p = ((warp * G::FPW + Q * pair + q) * 16) + g + 8 * h;
           pok[q][h] = p < G::NPIX;
           const int pp = pok[q][h] ? p : 0;
           poff[q][h] = 2 * (pp / G::CC) * G::IN_W + 2 * (pp % G::CC);
         }
-      float acc[2][8][4];
+      float acc[Q][NT][4];
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
+      for (int q = 0; q < Q; ++q)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[q][j][e] = 0.f;
 
@@ -422,9 +444,9 @@ stem_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
       for (int ks = 0; ks < G::KP / 16; ++ks) {
         const int k0 = ks * 16 + 2 * t;
         const int o0 = tap_s[k0], o1 = tap_s[k0 + 1], o2 = tap_s[k0 + 8], o3 = tap_s[k0 + 9];
-        uint32_t a[2][4];
+        uint32_t a[Q][4];
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
+        for (int q = 0; q < Q; ++q) {
           const __nv_bfloat16* r0 = in_s + poff[q][0];
           const __nv_bfloat16* r1 = in_s + poff[q][1];
           a[q][0] = pack_bf16(r0[o0], r0[o1]);
@@ -433,29 +455,29 @@ stem_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
           a[q][3] = pack_bf16(r1[o2], r1[o3]);
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < NT; ++j) {
           const __nv_bfloat16* wr = w_s + (j * 8 + g) * G::WS + k0;
           uint32_t b[2];
           b[0] = *reinterpret_cast<const uint32_t*>(wr);
           b[1] = *reinterpret_cast<const uint32_t*>(wr + 8);
-          mma_bf16(acc[0][j], a[0], b);
-          mma_bf16(acc[1][j], a[1], b);
+#pragma unroll
+          for (int q = 0; q < Q; ++q) mma_bf16(acc[q][j], a[q], b);
         }
       }
 
       // accumulator e of (q, j): row g + 8*(e/2), feature j*8 + 2t + e%2
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NT; ++j) {
 #pragma unroll
         for (int e2 = 0; e2 < 2; ++e2) {
           const int f = j * 8 + 2 * t + e2;
           const float gf = gain[f], bf = bias[f];
 #pragma unroll
-          for (int q = 0; q < 2; ++q)
+          for (int q = 0; q < Q; ++q)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               if (!pok[q][h]) continue;
-              const int p = ((warp * G::FPW + 2 * pair + q) * 16) + g + 8 * h;
+              const int p = ((warp * G::FPW + Q * pair + q) * 16) + g + 8 * h;
               float v = activate(fmaf(acc[q][j][2 * h + e2], gf, bf), act);
               if constexpr (POOL) {
                 const int cy = crow0 + p / G::CC, cx = ccol0 + p % G::CC;
@@ -468,10 +490,10 @@ stem_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
     }
     __syncthreads();
 
-    __nv_bfloat16* on = out + static_cast<size_t>(n) * kF * Ho * Wo;
+    __nv_bfloat16* on = out + static_cast<size_t>(n) * F * Ho * Wo;
     if constexpr (!POOL) {
       // rows of 64 pixels leave as 8 16-byte pieces per feature
-      for (int i = tid; i < kF * G::OH * (G::OW / 8); i += kThreads) {
+      for (int i = tid; i < F * G::OH * (G::OW / 8); i += kThreads) {
         const int piece = i % (G::OW / 8);
         const int r = (i / (G::OW / 8)) % G::OH;
         const int f = i / ((G::OW / 8) * G::OH);
@@ -487,7 +509,7 @@ stem_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
       }
     } else {
       const int py0 = by * G::OH, px0 = bx * G::OW;
-      for (int i = tid; i < kF * G::OH * G::OW; i += kThreads) {
+      for (int i = tid; i < F * G::OH * G::OW; i += kThreads) {
         const int pc = i % G::OW;
         const int pr = (i / G::OW) % G::OH;
         const int f = i / (G::OW * G::OH);
@@ -507,14 +529,14 @@ stem_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
 
 // The shared-memory attribute is per device, so it is set on every launch;
 // sms is the launching device's SM count.
-template <int K, bool POOL>
+template <int K, bool POOL, int F>
 cudaError_t launch_mma(const void* x, const void* w, const float* gain, const float* bias,
                        void* out, int n, int h, int wd, int act, int sms, cudaStream_t stream) {
-  using G = MGeom<K, POOL>;
+  using G = MGeom<K, POOL, F>;
   const int hc = (h - 1) / 2 + 1, wc = (wd - 1) / 2 + 1;
   const int ho = POOL ? (hc - 1) / 2 + 1 : hc;
   const int wo = POOL ? (wc - 1) / 2 + 1 : wc;
-  auto kern = stem_mma_kernel<K, POOL>;
+  auto kern = stem_mma_kernel<K, POOL, F>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(G::SMEM));
   if (err != cudaSuccess) return err;
@@ -526,41 +548,62 @@ cudaError_t launch_mma(const void* x, const void* w, const float* gain, const fl
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_f32(const void* x, const void* w, const float* gain, const float* bias,
-                         void* out, int n, int h, int wd, int k, int pool, int act,
-                         cudaStream_t s) {
-  if (k == 3 && !pool) return launch_f32<3, false>(x, w, gain, bias, out, n, h, wd, act, s);
-  if (k == 3 && pool) return launch_f32<3, true>(x, w, gain, bias, out, n, h, wd, act, s);
-  if (k == 7 && !pool) return launch_f32<7, false>(x, w, gain, bias, out, n, h, wd, act, s);
-  if (k == 7 && pool) return launch_f32<7, true>(x, w, gain, bias, out, n, h, wd, act, s);
-  return cudaErrorInvalidValue;
-}
+// The served combinations, (k, pool, features): 3x3 without the pool at
+// each YOLO width, 7x7 with the pool at 64 (the ResNet stem).  The one
+// list both the dispatch and ``adas_stem_configs`` read.
+#define ADAS_STEM_CONFIGS(X) \
+  X(3, false, 16)            \
+  X(3, false, 32)            \
+  X(3, false, 48)            \
+  X(3, false, 64)            \
+  X(3, false, 80)            \
+  X(7, true, 64)
 
-cudaError_t dispatch_bf16(const void* x, const void* w, const float* gain, const float* bias,
-                          void* out, int n, int h, int wd, int k, int pool, int act, int sms,
-                          cudaStream_t s) {
-  if (k == 3 && !pool) return launch_mma<3, false>(x, w, gain, bias, out, n, h, wd, act, sms, s);
-  if (k == 3 && pool) return launch_mma<3, true>(x, w, gain, bias, out, n, h, wd, act, sms, s);
-  if (k == 7 && !pool) return launch_mma<7, false>(x, w, gain, bias, out, n, h, wd, act, sms, s);
-  if (k == 7 && pool) return launch_mma<7, true>(x, w, gain, bias, out, n, h, wd, act, sms, s);
+// BF16 picks the path.
+template <bool BF16>
+cudaError_t dispatch(const void* x, const void* w, const float* gain, const float* bias,
+                     void* out, int n, int h, int wd, int k, int pool, int f, int act, int sms,
+                     cudaStream_t s) {
+#define ADAS_STEM_CASE(K_, POOL_, F_)                                                      \
+  if (k == K_ && pool == POOL_ && f == F_)                                                 \
+    return BF16 ? launch_mma<K_, POOL_, F_>(x, w, gain, bias, out, n, h, wd, act, sms, s)   \
+                : launch_f32<K_, POOL_, F_>(x, w, gain, bias, out, n, h, wd, act, s);
+  ADAS_STEM_CONFIGS(ADAS_STEM_CASE)
+#undef ADAS_STEM_CASE
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C entry for ctypes.  dtype: 0 = f32, 1 = bf16.  act: 0 none,
-// 1 relu, 2 silu.  sms: the launching device's SM count (sizes the bf16
-// persistent grid).  Launches on ``stream`` and returns cudaGetLastError()
-// (cudaErrorInvalidValue for an unsupported configuration); never
-// synchronises.
+// Plain C entry for ctypes.  f: output features.  dtype: 0 = f32,
+// 1 = bf16.  act: 0 none, 1 relu, 2 silu.  sms: the launching device's SM
+// count (sizes the bf16 persistent grid).  Launches on ``stream`` and
+// returns cudaGetLastError() (cudaErrorInvalidValue for a configuration
+// that is not instantiated); never synchronises.
 extern "C" int adas_stem_forward(const void* x, const void* w,
                                  const float* gain, const float* bias,
                                  void* out, int n, int h, int wd, int k,
-                                 int pool, int act, int dtype, int sms, void* stream) {
+                                 int pool, int f, int act, int dtype, int sms, void* stream) {
   if (n <= 0 || h <= 0 || wd <= 0 || act < 0 || act > 2 || sms <= 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_f32(x, w, gain, bias, out, n, h, wd, k, pool, act, s);
-  if (dtype == 1) return dispatch_bf16(x, w, gain, bias, out, n, h, wd, k, pool, act, sms, s);
+  if (dtype == 0) return dispatch<false>(x, w, gain, bias, out, n, h, wd, k, pool, f, act, sms, s);
+  if (dtype == 1) return dispatch<true>(x, w, gain, bias, out, n, h, wd, k, pool, f, act, sms, s);
   return cudaErrorInvalidValue;
+}
+
+// The instantiated (k, pool, features) combinations, as consecutive int
+// triples in ``out`` (room for ``cap`` triples); returns their number.
+extern "C" int adas_stem_configs(int* out, int cap) {
+  int i = 0;
+#define ADAS_STEM_CONFIG(K_, POOL_, F_) \
+  if (i < cap) {                        \
+    out[3 * i] = K_;                    \
+    out[3 * i + 1] = POOL_;             \
+    out[3 * i + 2] = F_;                \
+  }                                     \
+  ++i;
+  ADAS_STEM_CONFIGS(ADAS_STEM_CONFIG)
+#undef ADAS_STEM_CONFIG
+  return i;
 }

@@ -3,9 +3,13 @@
 The f32/bf16 path is NCHW.  Under int8 (``ConvBN(..., int8=True)``) a
 ConvBN is a W8A8 conv with the folded-BN epilogue (``Int8Conv``,
 ``layers.py:328-512``) in the NHWC int8 domain of ``quant.py``, served by
-the ``ops/int8_conv.py`` kernel.  Module and attribute names follow the
-flax tree (``conv``/``bn`` under each ConvBN), so ``weights.py`` maps a
-flax variable tree onto these modules by path.
+the ``ops/int8_conv.py`` kernel, where the precision policy makes it int8
+(``int8_conv_eligible``: dense, more than 4 input channels); the others
+(depthwise convs, the YOLOv5 6x6 stem) run in bf16 on the NHWC domain's
+values, as ``ConvBN.__call__`` serves them (``layers.py:960-967``).
+Module and attribute names follow the flax tree (``conv``/``bn`` under
+each ConvBN), so ``weights.py`` maps a flax variable tree onto these
+modules by path.
 """
 from __future__ import annotations
 
@@ -19,8 +23,10 @@ from ..ops.int8_conv import int8_conv
 from ..ops.stem import fused_stem
 from .quant import (
     Act,
+    Int8State,
     QConv2d,
     QTensor,
+    as_float,
     bn_fold,
     dynamic_scale,
     int8_conv_eligible,
@@ -103,35 +109,43 @@ def conv_epilogue(conv: QConv2d, bn: nn.BatchNorm2d, xs: torch.Tensor, static: b
     return conv.cached(("epilogue", id(xs)), lambda: (wscale * xs * gain, bias, xs))[:2]
 
 
-def make_conv(cin: int, features: int, kernel: int, stride: int, int8: bool) -> nn.Conv2d:
-    """The conv of a Conv+BN pair (torch ``pad=k//2``, no bias): a
-    :class:`QConv2d` in an int8 net, which serves no bf16 conv but its
-    stem."""
-    if int8 and not int8_conv_eligible(1, cin):
-        raise NotImplementedError(f"an int8 net's {cin}-channel conv would serve bf16")
-    return (QConv2d if int8 else nn.Conv2d)(cin, features, kernel, stride, kernel // 2, bias=False)
+def make_conv(cin: int, features: int, kernel: int, stride: int, int8: bool,
+              groups: int = 1) -> nn.Conv2d:
+    """The conv of a Conv+BN pair (symmetric ``pad=(k-1)//2``, the JAX
+    ConvBN's, which is torch's ``k//2`` for odd k; no bias): a
+    :class:`QConv2d` for an int8 conv (``int8`` only where the precision
+    policy takes it)."""
+    if int8 and not int8_conv_eligible(groups, cin):
+        raise ValueError(f"a {cin}-channel conv of {groups} groups is not an int8 conv")
+    return (QConv2d if int8 else nn.Conv2d)(cin, features, kernel, stride, (kernel - 1) // 2,
+                                            groups=groups, bias=False)
 
 
-class ConvBN(nn.Module):
-    """Conv2d (torch ``pad=k//2``, no bias) + BatchNorm + activation
-    (``layers.py:828``).  ``stem=True`` marks a stride-2 3-channel stem,
-    which runs through the fused stem kernel (in bf16 in an int8 net).
-    ``int8=True``: a W8A8 conv (:func:`int8_conv_bn`) on NHWC activations;
-    the policy's bf16 convs other than the stem are not served."""
+class ConvBN(Int8State, nn.Module):
+    """Conv2d (symmetric ``pad=(k-1)//2``, no bias, ``groups``) + BatchNorm
+    + activation (``layers.py:828``).  ``stem=True`` marks a stride-2
+    3-channel odd-k stem, which runs through the fused stem kernel (in
+    bf16 in an int8 net).  ``int8=True`` (an int8 net): a W8A8 conv
+    (:func:`int8_conv_bn`) on NHWC activations where the policy takes it,
+    else a bf16 conv on the NHWC values (a QTensor input dequantized), its
+    BN in f32, the result and the activation in bf16, as flax's bf16
+    ``nn.Conv`` + ``nn.BatchNorm`` compute them."""
 
     def __init__(
         self, cin: int, features: int, kernel: int = 3, stride: int = 1,
         act: Optional[str] = "silu", stem: bool = False, int8: bool = False,
+        groups: int = 1,
     ):
         super().__init__()
-        self.int8 = int8 and not stem
-        self.conv = make_conv(cin, features, kernel, stride, self.int8)
+        self.int8 = int8 and not stem and int8_conv_eligible(groups, cin)
+        self.bf16 = int8 and not stem and not self.int8
+        self.conv = make_conv(cin, features, kernel, stride, self.int8, groups)
         self.bn = nn.BatchNorm2d(features, eps=BN_EPS)
         self.act = act
         self.stem = stem
         self.stem_dtype = torch.bfloat16 if int8 else None
-        if stem and (stride != 2 or cin != 3):
-            raise ValueError("a fused stem is a stride-2 conv on 3 channels")
+        if stem and (stride != 2 or cin != 3 or kernel % 2 == 0 or groups != 1):
+            raise ValueError("a fused stem is an odd-k stride-2 conv on 3 channels")
 
     def forward(self, x: Act, emit_q: bool = False, emit_scale=None) -> Act:
         if self.stem:
@@ -140,6 +154,12 @@ class ConvBN(nn.Module):
         if self.int8:
             return int8_conv_bn(self.conv, self.bn, x, act=self.act, emit_q=emit_q,
                                 emit_scale=emit_scale)
+        if self.bf16:
+            # NHWC values through an NCHW view (no copy), the weight cast once
+            w = self.cached("w_bf16", lambda: self.conv.weight.to(torch.bfloat16))
+            y = F.conv2d(as_float(x).to(torch.bfloat16).permute(0, 3, 1, 2), w, None,
+                         self.conv.stride, self.conv.padding, 1, self.conv.groups)
+            return activation(self.bn(y.float()).to(torch.bfloat16), self.act).permute(0, 2, 3, 1)
         return activation(self.bn(self.conv(x)), self.act)
 
 

@@ -1,13 +1,17 @@
-"""Ultra-Fast-Lane-Detection v2 (port of ``UFLDv2Spec``, ``UFLDV2_SPECS``
-and ``UFLDv2Net`` from ``adas_tpu/models/ufld.py:32-221``, the CULane and TuSimple variants; no aux
-segmentation head, no test-time augmentation).
+"""Ultra-Fast-Lane-Detection v1 and v2 (port of ``UFLDv2Spec``,
+``UFLDV2_SPECS``, ``UFLDv2Net``, ``UFLDv1Spec``, ``UFLDV1_SPECS`` and
+``UFLDv1Net`` from ``adas_tpu/models/ufld.py:32-354``: v2 on CULane,
+TuSimple and CurveLanes, v1 on TuSimple and CULane; no aux segmentation
+head, no test-time augmentation; the 20-token ``UFLDv2CurveLanesNet``,
+reached only through the engine registry, waits with the engines).
 
-``int8=True``: the int8 ResNet trunk (NHWC), the ``pool`` 1x1 conv in f32
-on its bf16 output, and ``cls_fc1``/``cls_fc2`` as W8A8 dense layers
-(``Int8Dense`` through ``head_dense``, ``ufld.py:179-202``)."""
+``int8=True`` (v2): the int8 ResNet trunk (NHWC), the ``pool`` 1x1 conv in
+f32 on its bf16 output, and ``cls_fc1``/``cls_fc2`` as W8A8 dense layers
+(``Int8Dense`` through ``head_dense``, ``ufld.py:179-202``).  v1 serves
+f32 and bf16 (its int8 is dynamic-scale, unported)."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
 import numpy as np
@@ -75,6 +79,11 @@ UFLDV2_SPECS: Dict[LaneModelType, UFLDv2Spec] = {
         num_cell_row=100, num_row=56, num_cell_col=100, num_col=41,
         fc_norm=False, img_w=800, img_h=320,
     ),
+    LaneModelType.UFLDV2_CURVELANES: UFLDv2Spec(
+        input_height=800, input_width=1600, crop_ratio=0.8,
+        num_cell_row=200, num_row=72, num_cell_col=100, num_col=41,
+        fc_norm=True, img_w=1600, img_h=800,
+    ),
 }
 
 
@@ -118,3 +127,55 @@ class UFLDv2Net(nn.Module):
             "exist_row": out[:, d1 + d2: d1 + d2 + d3].reshape(b, 2, s.num_row, s.num_lanes),
             "exist_col": out[:, d1 + d2 + d3:].reshape(b, 2, s.num_col, s.num_lanes),
         }
+
+
+@dataclass(frozen=True)
+class UFLDv1Spec:
+    """Static geometry of a UFLD v1 variant (``ufld.py:296``)."""
+
+    input_height: int = 288
+    input_width: int = 800
+    griding_num: int = 100
+    cls_num_per_lane: int = 56
+    num_lanes: int = 4
+    backbone: str = "18"
+    mlp_mid: int = 2048
+    img_w: int = 1280
+    img_h: int = 720
+    row_anchor: tuple = field(default_factory=lambda: tuple(np.linspace(64, 284, 56)))
+
+    @property
+    def flat_features(self) -> int:
+        return 8 * (self.input_height // 32) * (self.input_width // 32)
+
+
+UFLDV1_SPECS: Dict[LaneModelType, UFLDv1Spec] = {
+    LaneModelType.UFLD_TUSIMPLE: UFLDv1Spec(
+        griding_num=100, cls_num_per_lane=56, img_w=1280, img_h=720,
+        row_anchor=tuple(np.linspace(64, 284, 56)),
+    ),
+    LaneModelType.UFLD_CULANE: UFLDv1Spec(
+        griding_num=200, cls_num_per_lane=18, img_w=1640, img_h=590,
+        row_anchor=tuple(round(v) for v in np.linspace(121, 287, 18)),
+    ),
+}
+
+
+class UFLDv1Net(nn.Module):
+    """ResNet trunk -> 1x1 conv to 8 channels -> flatten (NCHW order) ->
+    MLP -> (B, griding+1, rows, lanes) logits (``ufld.py:327``)."""
+
+    def __init__(self, spec: UFLDv1Spec):
+        super().__init__()
+        self.spec = spec
+        self.backbone = ResNetFeatures(spec.backbone)
+        self.pool = nn.Conv2d(512, 8, 1)
+        self.cls_fc1 = nn.Linear(spec.flat_features, spec.mlp_mid)
+        self.cls_fc2 = nn.Linear(spec.mlp_mid,
+                                 (spec.griding_num + 1) * spec.cls_num_per_lane * spec.num_lanes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.spec
+        fea = self.pool(self.backbone(x)[2]).flatten(1)
+        out = self.cls_fc2(F.relu(self.cls_fc1(fea)))
+        return out.reshape(-1, s.griding_num + 1, s.cls_num_per_lane, s.num_lanes)

@@ -324,6 +324,15 @@ def ufld_v2_preprocess(frame_bgr, input_h: int, input_w: int, crop_ratio: float,
     return ((rgb - mean.view(3)) / std.view(3)).to(dtype).permute(0, 3, 1, 2).contiguous()
 
 
+def ufld_v1_preprocess(frame_bgr, input_h: int, input_w: int, dtype=torch.float32,
+                       device="cuda"):
+    """BGR uint8 frame(s) -> UFLD v1 input: plain resize to (input_w,
+    input_h), ImageNet-normalize; NCHW (``preprocess.py:219``)."""
+    img = resize_bilinear(_bgr_frames(frame_bgr).to(device).float(), input_h, input_w)
+    mean, std = _imagenet_stats(str(img.device))
+    return ((img.flip(-1) - mean.view(3)) / std.view(3)).to(dtype).permute(0, 3, 1, 2).contiguous()
+
+
 def i420_to_bgr_planar(yuv: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """(B, H*3/2, W) uint8 I420 -> (B, 3, H, W) f32 BGR planes in [0, 255]
     (``preprocess.py:297``): BT.601 studio swing with the nearest-2x

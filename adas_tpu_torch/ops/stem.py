@@ -3,10 +3,11 @@
 Port of ``adas_tpu/ops/pallas_stem.py``.  The TPU kernel there
 (``_stem_kernel``, entered through ``fused_stem``) becomes the Hopper
 kernel ``csrc/stem.cu``, built with nvcc for ``sm_90a`` and bound through
-ctypes.  It serves the two stems of the main path: the YOLOv8 3x3/2 stem
-(SiLU) and the ResNet 7x7/2 stem (ReLU, then the max pool, whose
-full-resolution input never reaches device memory).  The kernel's source
-note says what bounds it on the card and what its design does about it.
+ctypes.  It serves the stems of the ported nets: the YOLOv8/v10 3x3/2 stem
+(SiLU) at the 16/32/48/64/80 features of the n/s/m/l/x scales, and the
+ResNet 7x7/2 stem at 64 (ReLU, then the max pool, whose full-resolution
+input never reaches device memory).  The kernel's source note says what
+bounds it on the card and what its design does about it.
 
 A CUDA tensor always launches the kernel (or raises); a CPU tensor takes
 the plain version :func:`stem_reference`.  There is no compile probe and
@@ -17,12 +18,13 @@ and so is routed away from odd sizes and non-ReLU pools
 (``pallas_stem.py:471-476``), this kernel pads with real -inf and covers
 every case itself.
 
-Layouts are NCHW: ``x`` (N, 3, H, W), ``weight`` OIHW (64, 3, k, k) in
-``x``'s dtype (f32 or bf16), ``gain``/``bias`` f32 (64,); the output is
-(N, 64, Ho, Wo) in ``x``'s dtype.  Accumulation and the epilogue run in
-f32, the result is cast once after the activation (and pooled after the
-cast, as the JAX chain does: the cast is monotone, so the order does not
-change the pooled value).  A bf16 input runs its products on the tensor
+Layouts are NCHW: ``x`` (N, 3, H, W), ``weight`` OIHW (F, 3, k, k) in
+``x``'s dtype (f32 or bf16), ``gain``/``bias`` f32 (F,); the output is
+(N, F, Ho, Wo) in ``x``'s dtype.  The plain version takes any odd k, F and
+pool; the kernel the combinations :func:`kernel_configs` lists.  Accumulation
+and the epilogue run in f32, the result is cast once after the activation
+(and pooled after the cast, as the JAX chain does: the cast is monotone,
+so the order does not change the pooled value).  A bf16 input runs its products on the tensor
 cores (bf16 x bf16 products are exact in f32: only the order of the sum
 differs from the plain version); an f32 input stays on the CUDA cores.
 """
@@ -42,8 +44,7 @@ launches = 0
 
 _ACT_CODES = {None: 0, "relu": 1, "silu": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_FEATURES = 64
-_KERNEL_SIZES = (3, 7)
+_configs: Optional[frozenset] = None
 
 
 def reset_launches() -> None:
@@ -110,13 +111,30 @@ def _check(x, weight, gain, bias, act):
         raise ValueError(f"unsupported stem activation: {act}")
 
 
-def _check_cuda(x, weight, gain, bias):
+def kernel_configs() -> frozenset:
+    """The (k, pool, features) combinations the CUDA kernel is
+    instantiated for (the 3x3 YOLO stems at each scale's width, the pooled
+    ResNet stem), as the built library lists them
+    (``ADAS_STEM_CONFIGS`` in ``csrc/stem.cu``)."""
+    global _configs
+    if _configs is None:
+        fn = load_cuda_library("stem").adas_stem_configs
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        n = fn(None, 0)
+        buf = (ctypes.c_int * (3 * n))()
+        fn(ctypes.addressof(buf), n)
+        _configs = frozenset((buf[3 * i], bool(buf[3 * i + 1]), buf[3 * i + 2]) for i in range(n))
+    return _configs
+
+
+def _check_cuda(x, weight, gain, bias, pool):
     """What the CUDA kernel takes beyond :func:`_check`."""
-    k = weight.shape[-1]
-    if weight.shape[0] != _FEATURES or k not in _KERNEL_SIZES:
+    config = (weight.shape[-1], bool(pool), weight.shape[0])
+    if config not in kernel_configs():
         raise ValueError(
-            f"the stem kernel takes 64 features and k in {_KERNEL_SIZES}, "
-            f"got weight {tuple(weight.shape)}"
+            f"the stem kernel is not instantiated for (k, pool, features) = {config}; "
+            f"it takes {sorted(kernel_configs())}"
         )
     for t in (weight, gain, bias):
         if t.device != x.device:
@@ -130,7 +148,7 @@ def _entry():
     """The kernel's C entry, with its ctypes signature (pointers and the
     stream as c_void_p, so they are not cut to 32 bits)."""
     fn = load_cuda_library("stem").adas_stem_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -152,17 +170,18 @@ def fused_stem(
         return stem_reference(x, weight, gain, bias, act=act, pool=pool)
     if x.device.type != "cuda":
         raise ValueError(f"stem runs on cuda or cpu, got {x.device}")
-    _check_cuda(x, weight, gain, bias)
+    _check_cuda(x, weight, gain, bias, pool)
     n, _, h, w = x.shape
+    feat = weight.shape[0]
     ho, wo = stem_out_hw(h, w, pool)
-    out = torch.empty((n, _FEATURES, ho, wo), dtype=x.dtype, device=x.device)
+    out = torch.empty((n, feat, ho, wo), dtype=x.dtype, device=x.device)
     entry = _entry()
     index = x.device.index if x.device.index is not None else torch.cuda.current_device()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = entry(
             x.data_ptr(), weight.data_ptr(), gain.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), n, h, w, weight.shape[-1], int(pool),
+            out.data_ptr(), n, h, w, weight.shape[-1], int(pool), feat,
             _ACT_CODES[act], _DTYPE_CODES[x.dtype], num_sms(index), stream,
         )
     if rc != 0:

@@ -1,5 +1,6 @@
-"""UFLDv2 lane decode on tensors (port of ``ufld_v2_decode`` /
-``_axis_decode``, ``adas_tpu/ops/ufld_decode.py:29,60``).
+"""UFLD lane decodes on tensors (port of ``ufld_v2_decode`` /
+``_axis_decode`` and ``ufld_v1_decode``, ``adas_tpu/ops/ufld_decode.py:29,
+60,86``).
 
 Softmax expectation over a ``±local_width`` window around the argmax
 cell; at the grid edges the window shrinks through an additive -inf mask
@@ -41,3 +42,17 @@ def _axis_decode(
     probs = torch.softmax(vals, dim=-1)
     expectation = torch.sum(probs * torch.where(in_range, idx, 0).to(probs.dtype), dim=-1)
     return (expectation + 0.5) / (num_grid - 1), valid
+
+
+def ufld_v1_decode(output: torch.Tensor) -> torch.Tensor:
+    """UFLD v1 logits (B, G+1, R, L) -> grid locations (B, R, L)
+    (``ufld_decode.py:86``): rows flipped, the softmax expectation over the
+    G lane cells with 1-based indices, 0 (no lane) where the argmax picks
+    the background cell."""
+    griding_num = output.shape[1] - 1
+    flipped = output.flip(2)
+    prob = torch.softmax(flipped[:, :-1], dim=1)
+    idx = torch.arange(1, griding_num + 1, dtype=prob.dtype, device=prob.device)
+    loc = torch.sum(prob * idx.view(1, -1, 1, 1), dim=1)
+    background = torch.argmax(flipped, dim=1) == griding_num
+    return torch.where(background, torch.zeros_like(loc), loc)

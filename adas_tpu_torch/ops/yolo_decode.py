@@ -1,7 +1,8 @@
-"""YOLOv8 head decode + candidate selection, batched over streams (port of
-the v8 branch of ``adas_tpu/ops/yolo_decode.py``).
+"""YOLO head decode + candidate selection, batched over streams (port of
+``adas_tpu/ops/yolo_decode.py``: the v8/v9/v10 and v5/v6/v7 output
+contracts; v5-lite's grid decode waits with its family, ``ROADMAP.md`` §1).
 
-raw (B, 4+nc, N) -> per-anchor boxes/scores/classes -> score threshold ->
+raw -> per-anchor boxes/scores/classes -> score threshold ->
 top-k pre-selection -> class-agnostic greedy hard NMS with VOC ``+1``
 arithmetic (or gaussian soft-NMS) -> (B, max_det, 6) rows ``[x1, y1, x2, y2, score, class_id]``
 padded with zeros -> letterbox inverse.  Shapes are fixed, so the
@@ -9,21 +10,42 @@ detections stay on the device until the tick's one packed copy.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from ..utils.types import ObjectModelType
 from .boxes import cxcywh_to_xyxy
 from .nms import select_loop
 from .preprocess import LetterboxGeometry
 
 
-def decode_predictions(raw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """YOLOv8-contract raw output (B, 4+nc, N) -> (boxes_xyxy (B, N, 4),
-    scores (B, N), class_ids (B, N)) (``yolo_decode.py:68``, v8 branch:
-    the class probability is the confidence)."""
-    preds = raw.transpose(1, 2)  # (B, N, 4+nc)
-    scores, class_ids = preds[..., 4:].max(dim=-1)
+#: the families whose raw output is (B, 4+nc, N), the class probability
+#: the confidence
+_V8_LIKE = (ObjectModelType.YOLOV8, ObjectModelType.YOLOV9, ObjectModelType.YOLOV10)
+#: the families whose raw output is (B, N, 5+nc), confidence = obj x cls
+_V5_LIKE = (ObjectModelType.YOLOV5, ObjectModelType.YOLOV6, ObjectModelType.YOLOV7)
+
+
+def decode_predictions(
+    raw: torch.Tensor,
+    model_type: ObjectModelType = ObjectModelType.YOLOV8,
+    num_classes: Optional[int] = None,
+    input_hw: Optional[Tuple[int, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Raw output -> (boxes_xyxy (B, N, 4), scores (B, N), class_ids (B, N))
+    (``yolo_decode.py:68``): v8/v9/v10 raw (B, 4+nc, N), the class
+    probability the confidence; v5/v6/v7 raw (B, N, 5+nc), the confidence
+    objectness x class probability.  ``num_classes`` and ``input_hw`` are
+    the JAX signature's (v5-lite's grid decode reads ``input_hw``)."""
+    if model_type in _V8_LIKE:
+        preds = raw.transpose(1, 2)  # (B, N, 4+nc)
+        scores, class_ids = preds[..., 4:].max(dim=-1)
+    elif model_type in _V5_LIKE:
+        preds = raw
+        scores, class_ids = (preds[..., 5:] * preds[..., 4:5]).max(dim=-1)
+    else:
+        raise NotImplementedError(f"{model_type.name} decode is not ported (ROADMAP.md §1)")
     return cxcywh_to_xyxy(preds[..., :4]), scores, class_ids
 
 

@@ -1,5 +1,7 @@
-"""UFLDv2 lane detector facade (port of ``UltrafastLaneDetectorV2``,
-``adas_tpu/perception/lane_detector.py:100``, CULane and TuSimple).
+"""UFLD lane detector facades (port of ``UltrafastLaneDetectorV2``,
+``adas_tpu/perception/lane_detector.py:100``, on CULane, TuSimple and
+CurveLanes, and ``UltrafastLaneDetector``, UFLD v1, ``:343``, on TuSimple
+and CULane).
 
 Same weight and dtype handling as ``object_detector.YoloDetector``
 (``compute_dtype="int8"`` is the JAX facade's ``dtype="int8"``,
@@ -9,8 +11,13 @@ is the single-frame entry point: preprocess -> net -> ``ufld_v2_decode``
 host.  The multi-stream pipeline drives ``net`` directly and assembles
 each stream's lane points with :meth:`_assemble` / :meth:`_finalize`.
 The drawing (``DrawDetectedOnFrame``, ``DrawAreaOnFrame``,
-``AutoDrawLanes``) uses the port's cv2-free renderer.  Not ported: UFLD
-v1, CurveLanes, the ONNX and ``.adas`` engines (``ROADMAP.md`` §1).
+``AutoDrawLanes``) uses the port's cv2-free renderer.  UFLD v1 serves f32
+and bf16 (:class:`UltrafastLaneDetector`: preprocess -> net ->
+``ufld_v1_decode`` on the device, one fetch of the grid locations, the
+reference's point math on the host).  Not ported: v1's dynamic-scale
+int8, the ONNX and ``.adas`` engines (``ROADMAP.md`` §1).  The JAX
+``UltrafastLaneDetectorV2`` refuses ``UFLDV2_CURVELANES``
+(``lane_detector.py:125-128``); the port builds it from its spec row.
 """
 from __future__ import annotations
 
@@ -23,10 +30,10 @@ from ..utils.types import LANE_COLORS, LaneInfo, LaneModelType, OffsetType
 
 from ..render import draw as D
 
-from ..models.ufld import UFLDV2_SPECS, UFLDv2Net
+from ..models.ufld import UFLDV1_SPECS, UFLDV2_SPECS, UFLDv1Net, UFLDv2Net
 from ..ops.packing import pack, unpack
-from ..ops.preprocess import frame_to_device, ufld_v2_preprocess
-from ..ops.ufld_decode import ufld_v2_decode
+from ..ops.preprocess import frame_to_device, ufld_v1_preprocess, ufld_v2_preprocess
+from ..ops.ufld_decode import ufld_v1_decode, ufld_v2_decode
 from .object_detector import build_net, calibrate, resolve_device
 
 
@@ -88,6 +95,25 @@ class LaneDetectBase:
             self.DrawAreaOnFrame(image)
         return image
 
+    def _init_net(self, model_path, model_type, specs, compute_dtype, device, seed, make) -> None:
+        """The facades' construction: ``model_path`` and ``model_type`` over
+        the class's ``_defaults``, the type checked against ``specs``, and
+        ``make(spec)`` built on ``device`` (``object_detector.build_net``)."""
+        if model_path is not None:
+            self.model_path = model_path
+        if model_type is not None:
+            self.model_type = model_type
+        if self.model_type not in specs:
+            msg = f"{type(self).__name__} can't use {self.model_type} type."
+            if self.logger:
+                self.logger.error(msg)
+            raise ValueError(msg)
+        self.compute_dtype = compute_dtype
+        self.device = resolve_device(device)
+        self.spec = specs[self.model_type]
+        self.net = build_net(lambda: make(self.spec), self.device, compute_dtype, self.model_path,
+                             seed)
+
     def _finalize(self, img_height: int) -> None:
         """``lane_detector.py:95``."""
         self.lane_info.update_status()
@@ -112,22 +138,8 @@ class UltrafastLaneDetectorV2(LaneDetectBase):
         seed: int = 0,
     ):
         super().__init__(logger)
-        if model_path is not None:
-            self.model_path = model_path
-        if model_type is not None:
-            self.model_type = model_type
-        if self.model_type not in UFLDV2_SPECS:
-            msg = f"UltrafastLaneDetectorV2 can't use {self.model_type} type."
-            if self.logger:
-                self.logger.error(msg)
-            raise ValueError(msg)
-        self.compute_dtype = compute_dtype
-        self.device = resolve_device(device)
-        self.spec = UFLDV2_SPECS[self.model_type]
-        self.net = build_net(
-            lambda: UFLDv2Net(self.spec, int8=compute_dtype == "int8"), self.device,
-            compute_dtype, self.model_path, seed,
-        )
+        self._init_net(model_path, model_type, UFLDV2_SPECS, compute_dtype, device, seed,
+                       lambda spec: UFLDv2Net(spec, int8=compute_dtype == "int8"))
         if self.logger:
             self.logger.info(
                 f"UfldDetectorV2 [{self.model_type.name}] input "
@@ -205,3 +217,76 @@ class UltrafastLaneDetectorV2(LaneDetectBase):
 
         self.lane_info.lanes_points = np.array(list(points.values()), dtype=object)
         self.lane_info.lanes_status = list(detected.values())
+
+
+class UltrafastLaneDetector(LaneDetectBase):
+    """UFLD v1 lane detector on the port (``lane_detector.py:343``): the
+    class's ``_defaults`` give ``model_path`` and ``model_type`` where the
+    caller passes None; ``compute_dtype`` None (f32) or ``"bf16"``."""
+
+    _defaults = {"model_path": None, "model_type": LaneModelType.UFLD_TUSIMPLE}
+
+    def __init__(
+        self,
+        model_path: Optional[str] = None,
+        model_type: Optional[LaneModelType] = None,
+        compute_dtype: Optional[str] = None,
+        logger=None,
+        device="cuda",
+        seed: int = 0,
+    ):
+        super().__init__(logger)
+        if compute_dtype not in (None, "bf16"):
+            raise NotImplementedError(
+                f"UFLD v1 compute_dtype {compute_dtype!r}: v1's int8 is dynamic-scale, "
+                "not ported (ROADMAP.md §1)"
+            )
+        self._init_net(model_path, model_type, UFLDV1_SPECS, compute_dtype, device, seed,
+                       UFLDv1Net)
+        if self.logger:
+            self.logger.info(
+                f"UfldDetector [{self.model_type.name}] input "
+                f"{self.spec.input_height}x{self.spec.input_width} torch {self.device}"
+            )
+
+    @torch.inference_mode()
+    def _step(self, frame: torch.Tensor) -> torch.Tensor:
+        """(H, W, 3) uint8 BGR on the device -> (1, rows, lanes) grid
+        locations (``lane_detector.py:420``)."""
+        s = self.spec
+        in_dtype = torch.bfloat16 if self.compute_dtype == "bf16" else torch.float32
+        x = ufld_v1_preprocess(frame, s.input_height, s.input_width, dtype=in_dtype,
+                               device=self.device)
+        return ufld_v1_decode(self.net(x).float())
+
+    def DetectFrame(self, image: np.ndarray, adjust_lanes: bool = False) -> None:
+        """Detect lanes on one BGR uint8 frame; the result is
+        :attr:`lane_info` (``lane_detector.py:453``)."""
+        h, w = image.shape[:2]
+        loc = self._step(frame_to_device(image, self.device)).cpu().numpy()[0]
+        self.adjust_lanes = adjust_lanes
+        self._assemble(loc, w, h)
+        self._finalize(h)
+
+    def _assemble(self, loc: np.ndarray, img_w: int, img_h: int) -> None:
+        """The reference's point math on the (rows, lanes) grid locations
+        (``lane_detector.py:476``)."""
+        s = self.spec
+        h_ratio, w_ratio = img_h / s.img_h, img_w / s.img_w
+        col_sample_w = (s.input_width - 1) / (s.griding_num - 1)
+        lanes_points, lanes_detected = [], []
+        for lane in range(loc.shape[1]):
+            pts = []
+            if np.sum(loc[:, lane] != 0) > 2:
+                lanes_detected.append(True)
+                for k in range(loc.shape[0]):
+                    if loc[k, lane] > 0:
+                        x = loc[k, lane] * col_sample_w * s.img_w / s.input_width - 1
+                        y = s.img_h * (s.row_anchor[s.cls_num_per_lane - 1 - k]
+                                       / s.input_height) - 1
+                        pts.append([int(x * w_ratio), int(y * h_ratio)])
+            else:
+                lanes_detected.append(False)
+            lanes_points.append(pts)
+        self.lane_info.lanes_points = np.array(lanes_points, dtype=object)
+        self.lane_info.lanes_status = lanes_detected

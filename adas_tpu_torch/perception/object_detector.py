@@ -1,5 +1,7 @@
-"""YOLO detector facade (port of the YOLOv8 part of ``YoloDetector``,
-``adas_tpu/perception/object_detector.py:162``).
+"""YOLO detector facade (port of ``YoloDetector``,
+``adas_tpu/perception/object_detector.py:162``, for the YOLOv5, YOLOv8 and
+YOLOv10 families at every scale; v5-lite, v6, v7 and v9 raise
+``NotImplementedError``).
 
 Builds the torch net on the card (``device="cuda"``, the default; the
 CPU only when the caller names it): weights come from a
@@ -12,14 +14,16 @@ f32 params, its int8 kernels packed at load (``_pack_int8``,
 :meth:`YoloDetector.calibrate_int8` (``object_detector.py:338``).
 Options come as keywords over the class's ``_defaults``
 (``set_defaults``/``check_defaults``/``get_defaults``, as the JAX
-facades); the ONNX, ``.adas`` engine and YOLOv10 options are not ported.
+facades): JAX's, the default family YOLOv5 included, less the ONNX and
+``.adas`` engine ones.
 
 :meth:`YoloDetector.DetectFrame` is the single-frame entry point: one
 step per source frame shape (letterbox -> net -> decode -> NMS, on the
-GPU the IoU and walk kernels -> letterbox inverse) and one fetch of the
-(max_det, 6) rows.  The multi-stream pipeline drives ``net`` directly
-and turns its detections into ``RectInfo`` rows through
-:meth:`YoloDetector._dets_to_rectinfo`.
+GPU the IoU and walk kernels -> letterbox inverse; with ``nms_free`` a
+YOLOv10's one-to-one head and its top-k instead of decode and NMS) and one
+fetch of the (max_det, 6) rows.  The fused steps call
+:meth:`YoloDetector.detections` on their preprocessed batch and turn the
+rows into ``RectInfo`` through :meth:`YoloDetector._dets_to_rectinfo`.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from ..render import draw as D
 from ..render.text import FONT_HERSHEY_TRIPLEX, get_text_size, put_text
 
 from ..models.quant import calibrating, pack_int8_weights
-from ..models.yolo import YoloSpec, YoloV8
+from ..models.yolo import FAMILIES, YoloSpec, build_yolo
 from ..ops.preprocess import LetterboxGeometry, frame_to_device, yolo_preprocess
 from ..ops.yolo_decode import decode_predictions, detections_to_original, select_and_nms
 from ..weights import init_params, load_flax_variables, load_npz
@@ -93,14 +97,15 @@ def build_net(make, device: torch.device, compute_dtype: Optional[str], model_pa
 
 
 @torch.inference_mode()
-def calibrate(net, inputs) -> None:
+def calibrate(net, inputs, forward=None) -> None:
     """Static activation scales for an int8 net (``calibrate_act_scales``,
     ``tools/quantize.py:189``): each input (one frame each, as JAX runs
-    them) goes through the net in calibration mode; the recorded absmaxes
-    are the union max over all of them."""
+    them) goes through ``forward`` (default ``net``; a YOLOv10's ``both``,
+    so that both heads calibrate) in calibration mode; the recorded
+    absmaxes are the union max over all of them."""
     with calibrating(net):
         for x in inputs:
-            net(x)
+            (forward or net)(x)
 
 
 class ObjectDetectBase:
@@ -205,10 +210,10 @@ class ObjectDetectBase:
 
 
 #: the options of :class:`YoloDetector` and their defaults
-#: (``object_detector.py:167-189``, less the engine, ONNX and v10 ones)
+#: (``object_detector.py:167-193``, less the ONNX engine's ``onnx_mode``)
 YOLO_OPTIONS = {
     "model_path": None,
-    "model_type": ObjectModelType.YOLOV8,
+    "model_type": ObjectModelType.YOLOV5,
     "classes_path": None,
     "box_score": 0.4,
     "box_nms_iou": 0.45,
@@ -216,29 +221,47 @@ YOLO_OPTIONS = {
     "max_det": 100,
     "input_size": (640, 640),
     "compute_dtype": None,
+    # v10 only: serve the one-to-one head (top-k, no NMS)
+    "nms_free": False,
+}
+
+#: ``object_detector.py:36``: the YOLO family of each ported model type
+#: (v5-lite, v6, v7 and v9 wait, ``ROADMAP.md`` §1)
+_FAMILY_OF = {
+    ObjectModelType.YOLOV5: "v5",
+    ObjectModelType.YOLOV8: "v8",
+    ObjectModelType.YOLOV10: "v10",
 }
 
 
 class YoloDetector(ObjectDetectBase):
-    """YOLOv8 detector on the port (``object_detector.py:162``); options as
+    """YOLO detector on the port (``object_detector.py:162``); options as
     :data:`YOLO_OPTIONS`, on ``device`` from the seeded init (``seed``)
-    unless ``model_path`` names weights."""
+    unless ``model_path`` names weights.  ``nms_free`` on a model that is
+    not YOLOv10 raises here (JAX raises at the first step)."""
 
     _defaults = YOLO_OPTIONS
 
     def __init__(self, logger=None, device="cuda", seed: int = 0, **kwargs):
         super().__init__(YOLO_OPTIONS, kwargs, logger)
-        if self.model_type is not ObjectModelType.YOLOV8:
-            raise ValueError(f"the port serves YOLOV8 only, got {self.model_type}")
+        family = _FAMILY_OF.get(self.model_type)
+        if family is None:
+            raise NotImplementedError(
+                f"{getattr(self.model_type, 'name', self.model_type)}: the port builds the "
+                f"{', '.join(FAMILIES)} families only (ROADMAP.md §1)"
+            )
+        if self.nms_free and family != "v10":
+            raise ValueError("nms_free serving requires a YOLOv10 model")
         self.device = resolve_device(device)
         self._initialize_class(self.classes_path)
         self.spec = YoloSpec(
             scale=self.scale, num_classes=len(self.class_names),
-            input_size=tuple(self.input_size),
+            input_size=tuple(self.input_size), family=family,
         )
         cd = self.compute_dtype
         self.net = build_net(
-            lambda: YoloV8(self.spec, int8=cd == "int8"), self.device, cd, self.model_path, seed,
+            lambda: build_yolo(self.spec, int8=cd == "int8"), self.device, cd, self.model_path,
+            seed,
         )
         self._steps = {}
         if self.logger:
@@ -257,27 +280,39 @@ class YoloDetector(ObjectDetectBase):
         calibrate(self.net, (
             yolo_preprocess(f, LetterboxGeometry(f.shape[0], f.shape[1], h, w), device=self.device)
             for f in frames
-        ))
+        ), getattr(self.net, "both", None))
+
+    def detections(self, x: torch.Tensor, nms_free: bool) -> torch.Tensor:
+        """The net on a preprocessed batch ``x`` -> (B, max_det, 6)
+        detection rows in letterbox coordinates, zero-padded
+        (``object_detector.py:389-417``): decode + NMS, or with
+        ``nms_free`` the one-to-one head's top-k rows with a score below
+        ``box_score`` zeroed."""
+        box_score, max_det = float(self.box_score), int(self.max_det)
+        if nms_free:
+            dets = self.net.one2one(x).float()
+            return (dets * (dets[..., 4:5] >= box_score).float())[:, :max_det]
+        boxes, scores, ids = decode_predictions(
+            self.net(x).float(), self.model_type, self.spec.num_classes, self.spec.input_size,
+        )
+        return select_and_nms(boxes, scores, ids, box_score=box_score,
+                              iou_threshold=float(self.box_nms_iou), max_det=max_det)
 
     def _build_step(self, src_shape):
         """The step for one source frame shape (``object_detector.py:370``):
         (H, W, 3) uint8 BGR on the device -> (max_det, 6) detection rows in
-        source coordinates.  The net's input is bf16 for a bf16 net only:
-        an int8 net takes f32 here, as the JAX facade feeds it
-        (``:383-386``; its stem rounds to bf16 either way)."""
+        source coordinates (:meth:`detections`).  The net's input is bf16
+        for a bf16 net only: an int8 net takes f32 here, as the JAX facade
+        feeds it (``:383-386``; its stem rounds to bf16 either way)."""
         h, w = self.spec.input_size
         geom = LetterboxGeometry(src_shape[0], src_shape[1], h, w)
         in_dtype = torch.bfloat16 if self.compute_dtype == "bf16" else torch.float32
-        box_score, iou, max_det = float(self.box_score), float(self.box_nms_iou), int(self.max_det)
+        nms_free = bool(self.nms_free)
 
         @torch.inference_mode()
         def step(frame: torch.Tensor) -> torch.Tensor:
             x = yolo_preprocess(frame, geom, dtype=in_dtype, device=self.device)
-            boxes, scores, ids = decode_predictions(self.net(x).float())
-            dets = select_and_nms(
-                boxes, scores, ids, box_score=box_score, iou_threshold=iou, max_det=max_det,
-            )
-            return detections_to_original(dets, geom)[0]
+            return detections_to_original(self.detections(x, nms_free), geom)[0]
 
         return step
 

@@ -8,10 +8,12 @@ fetch (``pipeline/fused.py``); the unfused route detects objects, updates
 the tracker, then detects lanes, one device step and fetch each.  The
 tracker, distance, bird-view geometry, signals and the HUD run on the
 host (the HUD with the port's cv2-free renderer, ``render/``); the
-bird-view warp of the frame runs on the device every frame.  Video is
-YUV4MPEG2 (``render/video.py``): the port has no codec.  Not ported: UFLD
-v1 lane models, and ``display=True`` (a window: the card's host has no
-window system).
+bird-view warp of the frame runs on the device every frame.  Any ported
+YOLO family (v5, v8, v10) or EfficientDet serves the object side, UFLDv2
+or UFLD v1 the lane side; a v1 pair runs unfused, as in JAX
+(``app.py:115-119``).  Video is YUV4MPEG2 (``render/video.py``): the port
+has no codec.  Not ported: ``display=True`` (a window: the card's host
+has no window system).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from ..utils.types import LaneModelType, ObjectModelType
 
 from ..analytics import PerspectiveTransformation, SingleCamDistanceMeasure, TaskConditions
 from ..perception.efficientdet_detector import EfficientdetDetector
-from ..perception.lane_detector import UltrafastLaneDetectorV2
+from ..perception.lane_detector import UltrafastLaneDetector, UltrafastLaneDetectorV2
 from ..perception.object_detector import YoloDetector
 from ..render.video import Y4MReader, Y4MWriter
 from .fused import FusedADASStep
@@ -71,13 +73,9 @@ class ADASPipeline:
         lane_config = {**DEFAULT_LANE_CONFIG, **(lane_config or {})}
         object_config = {**DEFAULT_OBJECT_CONFIG, **(object_config or {})}
 
-        if "UFLDV2" not in lane_config["model_type"].name:
-            raise NotImplementedError(
-                f"{lane_config['model_type'].name}: UFLD v1 is not ported (ROADMAP.md §1)"
-            )
-        self.laneDetector = UltrafastLaneDetectorV2(
-            logger=self.logger, device=device, **lane_config
-        )
+        lane_cls = (UltrafastLaneDetectorV2 if "UFLDV2" in lane_config["model_type"].name
+                    else UltrafastLaneDetector)
+        self.laneDetector = lane_cls(logger=self.logger, device=device, **lane_config)
         self.transformView = PerspectiveTransformation(
             frame_size, logger=self.logger, device=device
         )
@@ -101,7 +99,8 @@ class ADASPipeline:
 
         # one device step + one fetch per frame when the pair allows it
         self.fused = None
-        if use_fused and isinstance(self.objectDetector, YoloDetector):
+        if use_fused and isinstance(self.objectDetector, YoloDetector) \
+                and isinstance(self.laneDetector, UltrafastLaneDetectorV2):
             self.fused = FusedADASStep(self.objectDetector, self.laneDetector)
 
     def process_frame(self, frame: np.ndarray, draw: bool = True) -> np.ndarray:

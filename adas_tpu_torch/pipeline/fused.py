@@ -38,7 +38,7 @@ from ..ops.preprocess import (
 )
 from ..ops.ufld_decode import ufld_v2_decode
 from ..render.draw import resize_linear
-from ..ops.yolo_decode import decode_predictions, detections_to_original, select_and_nms
+from ..ops.yolo_decode import detections_to_original, select_and_nms
 from ..perception.efficientdet_detector import scores_and_ids
 from ..perception.object_detector import input_torch_dtype
 
@@ -53,11 +53,15 @@ def letterbox_geometry(yolo, frame_hw: Sequence[int]) -> LetterboxGeometry:
 
 
 @torch.inference_mode()
-def fused_step(yolo, lane, x: torch.Tensor, frame_hw: Sequence[int], transport: str):
+def fused_step(yolo, lane, x: torch.Tensor, frame_hw: Sequence[int], transport: str,
+               nms_free: bool = False):
     """One device step over a batch of frames: ``x`` is (B, H*3/2, W) uint8
     I420 (``transport="i420"``) or (B, H, W, 3) uint8 BGR (``"bgr"``) on
     the device -> ((B, total) f32 packed detections + decoded lanes, pack
-    spec) (``fused.py:141-227``, ``multistream.py:248-362``).
+    spec) (``fused.py:141-227``, ``multistream.py:248-362``).  The YOLO
+    detections come from ``yolo.detections``: decode + NMS, or with
+    ``nms_free`` (a YOLOv10's) the one-to-one head's top-k
+    (``multistream.py:311-316``).
 
     Input dtypes as ``fused.py:101-110`` sets them: the YOLO net takes bf16
     under bf16 and int8; the lane net takes bf16 under bf16 and, on I420,
@@ -93,12 +97,12 @@ def fused_step(yolo, lane, x: torch.Tensor, frame_hw: Sequence[int], transport: 
     if is_effdet:
         boxes, probs = yolo.net(xo)
         scores, ids = scores_and_ids(probs)
+        dets = select_and_nms(
+            boxes, scores, ids, box_score=float(yolo.box_score),
+            iou_threshold=float(yolo.box_nms_iou), max_det=int(yolo.max_det),
+        )
     else:
-        boxes, scores, ids = decode_predictions(yolo.net(xo).float())
-    dets = select_and_nms(
-        boxes, scores, ids, box_score=float(yolo.box_score),
-        iou_threshold=float(yolo.box_nms_iou), max_det=int(yolo.max_det),
-    )
+        dets = yolo.detections(xo, nms_free)
     dets = detections_to_original(dets, geom)
     louts = {k: v.float() for k, v in lane.net(lx).items()}
     return pack((dets, ufld_v2_decode(louts)))
@@ -112,7 +116,9 @@ class FusedADASStep:
     returns before the device finishes); ``fetch(handle)`` copies the one
     packed result back, then populates both detectors' result state
     (``object_info`` / ``lane_info``) exactly as their own ``DetectFrame``
-    would."""
+    would.  A YOLOv10 runs its one-to-many head and NMS here whatever its
+    ``nms_free``, as the JAX step does (``fused.py:185-200`` takes no
+    NMS-free branch)."""
 
     def __init__(self, yolo, lane, host_downscale=None, transport: str = "bgr"):
         if transport not in ("bgr", "i420"):

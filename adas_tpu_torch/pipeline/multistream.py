@@ -3,8 +3,10 @@
 transport on one GPU and no mesh).
 
 Per tick: the host encodes each BGR frame to I420 and uploads the batch;
-one device step runs the YUV-direct preprocess, YOLOv8 + decode + NMS +
-letterbox inverse and UFLDv2 + lane decode for all streams at once (the
+one device step runs the YUV-direct preprocess, the YOLO net + decode + NMS
+(or a YOLOv10's one-to-one head and its top-k with ``nms_free``,
+``multistream.py:311-316``) + letterbox inverse and UFLDv2 + lane decode
+for all streams at once (the
 JAX step's ``vmap`` over streams is the batch dimension here) and packs
 the results into one tensor; the host fetches it in one copy and runs
 ByteTrack, distance and TaskConditions per stream.  All cross-frame state
@@ -86,7 +88,8 @@ class MultiStreamADAS:
         """(B, H*3/2, W) uint8 I420 on the device -> (B, total) f32 packed
         detections + decoded lanes (``multistream.py:248-362``), through
         the fused step of ``pipeline/fused.py``."""
-        flat, self._pack_spec = fused_step(self.yolo, self.lane, x, self.frame_hw, "i420")
+        flat, self._pack_spec = fused_step(self.yolo, self.lane, x, self.frame_hw, "i420",
+                                           nms_free=bool(getattr(self.yolo, "nms_free", False)))
         return flat
 
     # ---- host orchestration ----

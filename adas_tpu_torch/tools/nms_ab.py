@@ -86,15 +86,15 @@ def events_ms(fn, n: int) -> float:
 def build_paths():
     from ..perception.efficientdet_detector import EfficientdetDetector
     from ..perception.lane_detector import LaneModelType, UltrafastLaneDetectorV2
-    from ..perception.object_detector import YoloDetector
+    from ..perception.object_detector import ObjectModelType, YoloDetector
     from ..pipeline.multistream import MultiStreamADAS
 
     culane = LaneModelType.UFLDV2_CULANE
     rng = np.random.default_rng(0)
     paths = {}
     for cd in ("int8", "bf16"):
-        yolo = YoloDetector(scale="l", input_size=(640, 640), box_score=0.25, compute_dtype=cd,
-                            device="cuda", seed=0)
+        yolo = YoloDetector(model_type=ObjectModelType.YOLOV8, scale="l", input_size=(640, 640),
+                            box_score=0.25, compute_dtype=cd, device="cuda", seed=0)
         lane = UltrafastLaneDetectorV2(model_type=culane, compute_dtype=cd, device="cuda", seed=1)
         if cd == "int8":
             calib = list(rng.integers(0, 256, (2, *FRAME_HW, 3), dtype=np.uint8))

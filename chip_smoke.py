@@ -21,10 +21,11 @@ Phases, each of which raises (exit code 1) on failure:
    as device time (calls captured in a CUDA graph, one replay between
    CUDA events); the plain version as eager calls between CUDA events:
    * the stem at both serving shapes — YOLOv8 3x3/2 + SiLU on
-     8x3x640x640 and ResNet 7x7/2 + ReLU + max pool on 8x3x320x1600 — in
-     bf16 (atol = rtol = 1e-2; yardstick: cuDNN ``F.conv2d`` in bf16 with
-     the BN folded into its weight and bias) and in f32 with TF32 off
-     (atol 2e-4, rtol 1e-4);
+     8x3x640x640 and ResNet 7x7/2 + ReLU + max pool on 8x3x320x1600 — and
+     the 3x3 YOLO stem at the other scales' widths (16, 32, 48, 80
+     features, 8x3x640x640), in bf16 (atol = rtol = 1e-2) and in f32 with
+     TF32 off (atol 2e-4, rtol 1e-4); yardstick: cuDNN ``F.conv2d`` in the
+     input's type with the BN folded into its weight and bias;
    * the int8 conv at the TPU conv kernel's four shapes (3x3/s1 at
      8x160x160x64->64, 8x80x400x64->64, 8x80x80x128->128,
      8x40x40x256->256) plus the path's 3x3/s2 down1 (8x320x320x64->128)
@@ -33,9 +34,11 @@ Phases, each of which raises (exit code 1) on failure:
      ulp, or 1e-30); yardstick: ``torch._int_mm`` on the same implicit
      GEMM, its im2col operand made outside the timed window;
    * the fused block at its two serving shapes, 8x160x160x64 (SiLU, SiLU,
-     residual) and 8x80x400x64 (ReLU, -, residual, ReLU), equal to the bit
-     (0 LSB), beside the unfused pair the nets run without the fusion gate
-     (two int8 conv launches, the residual and the requantize, device
+     residual) and 8x80x400x64 (ReLU, -, residual, ReLU), and at YOLOv10s's
+     three (8x160x160x32 and 8x80x80x64 with the residual, 8x80x80x64
+     without, each the second half of a C2f's cv1 output), equal to the
+     bit (0 LSB), beside the unfused pair the nets run without the fusion
+     gate (two int8 conv launches, the residual and the requantize, device
      time); no one PyTorch call computes the block (``library_ms`` null);
    * the pairwise-IoU kernel in both modes at the serving shape (8
      streams x the 512 boxes of the NMS top-k), ``plus_one`` both ways,
@@ -52,16 +55,19 @@ Phases, each of which raises (exit code 1) on failure:
      and an empty kernel through the same timer (the floor of a launch
      in a graph replay);
 4. the full-width nets on a small input against the CPU:
-   * f32: the port's preprocess and the three nets (YOLOv8l, UFLDv2 with a
-     ResNet-18 trunk, EfficientDet-D0 at 128x128 behind the BGR-plane
-     preprocess) on the GPU against the same on the CPU (the plain
-     stem), rtol 1e-3 with an atol of 1e-3 of the output's largest
-     magnitude;
-   * int8: YOLOv8l at 320x320 and UFLDv2 (ResNet-18) at 160x640, so that
-     both nets' fused bodies pass the gate, packed and calibrated on the
-     CPU from two inputs, then moved to the GPU with their scales: the GPU
-     kernels against the CPU plain versions, relative L2 error per output
-     below 2e-2 for YOLOv8l and 3e-2 for UFLDv2.  The int8 kernels agree
+   * f32: the port's preprocess and the nets (YOLOv8l, YOLOv5s and
+     YOLOv10s (both heads) at 160x160, UFLDv2 with a ResNet-18 trunk,
+     EfficientDet-D0 at 128x128 behind the BGR-plane preprocess) on the
+     GPU against the same on the CPU (the plain stem), rtol 1e-3 with an
+     atol of 1e-3 of the output's largest magnitude;
+   * int8: YOLOv8l, YOLOv5s and YOLOv10s (both heads, calibrated through
+     ``both``) at 320x320 and UFLDv2 (ResNet-18) at 160x640, so that the
+     fused bodies pass the gate, packed and calibrated on the CPU from two
+     inputs, then moved to the GPU with their scales: the GPU kernels
+     against the CPU plain versions, relative L2 error per output below
+     2e-2 for the YOLO nets and 3e-2 for UFLDv2, and the GPU run's int8
+     conv and block launches exactly what the module trees and the fusion
+     gate give.  The int8 kernels agree
      with their plain versions to the bit at these sizes; the 7x7 stem
      kernel sums in another order than cuDNN's f32 conv, a bf16 output
      moves by one ulp here and there, and the random-weight int8 trunk
@@ -107,7 +113,10 @@ Phases, each of which raises (exit code 1) on failure:
    per-frame and per-stage times (p50, p95).  Then every kernel at the
    path's batch-1 shapes against its plain version, beside its bound and
    the library call (``[frame-kernel]`` lines; the int8 conv over every
-   distinct shape of the frame, ``[frame-int8-shapes]``);
+   distinct shape of the frame, ``[frame-int8-shapes]``), and the stem at
+   the other batch-1 sites of phases 12-15 in bf16 and f32: the 3x3 at
+   16/32/48/80 features on 1x3x640x640, the ResNet stem at UFLD v1's
+   1x3x288x800 and CurveLanes' 1x3x800x1600, and the serving two in f32;
 9. the same path in bf16 (``[frame-bf16]``): stem 2, IoU 1, walk 1 per
    frame;
 10. the demo's video path with the HUD (``[render-int8]``): ten seeded
@@ -123,16 +132,43 @@ Phases, each of which raises (exit code 1) on failure:
     process_frame p50/p95, the ``analytics_render`` stage with drawing and
     of it the panel, the text and the two ``add_weighted`` passes, and the
     Y4M reader's and writer's ms per frame, beside the card's name and
-    power limit.
+    power limit;
+11. config 5 of the JAX bench (``[main-v10-int8]``, ``bench.py:421-470``):
+    YOLOv10s-640 calibrated int8 served NMS-free (its one-to-one head and
+    top-k, ``box_score`` 0.25) + UFLDv2-CULane int8, both calibrated on the
+    card from two frames, 8 streams of 720x1280 on the I420 path; every
+    distinct int8 conv shape against its plain version
+    (``[v10-int8-shapes]``), then the ticks of phase 5 with per tick stem
+    2, block 6 (the fusion gate over the module tree), the other int8
+    convs of the trunk and the one-to-one head, IoU 0 and walk 0; finite
+    detections, at most ``max_det`` per stream;
+12. ``[frame-v10-bf16]``: phase 9 with YOLOv10s-640 (its one-to-many head
+    and NMS, as the fused step serves it) + UFLDv2-CurveLanes (800x1600),
+    both routes equal; stem 2, IoU 1, walk 1 per frame;
+13. ``[frame-v5-int8]``: YOLOv5s-640 calibrated int8 + UFLD v1-CULane
+    bf16 on the unfused route (a v1 pair has no fused route), per frame
+    stem 1 (v5's 6x6 stem is a plain conv), the v5 net's int8 convs, IoU
+    1, walk 1, p50/p95; then every distinct int8 conv shape of one
+    ``DetectFrame`` against its plain version (``[v5-int8-shapes]``);
+14. ``[demo-default]``: ``run_synthetic`` with ``ADASPipeline``'s defaults
+    (YOLOv8n f32, the f32 stem at 16 features, + UFLDv2-CULane f32, HUD
+    drawn) into a ``.y4m`` that must hold its 4 drawn 720p frames; finite,
+    non-empty detections; stem 2, IoU 1, walk 1 per frame;
+15. ``[families]``: every ported YOLO family at every scale (v5, v8, v10 at
+    n-x, and v10s NMS-free) and the UFLD v1 (TuSimple, CULane) and
+    UFLDv2-CurveLanes facades, built on the card by default, one
+    ``DetectFrame`` each with its exact launches.
 
 Then the card's name and power limit again, one JSON line describing
-the kernels — ``launches`` summed over the six paths, each counted
-from 0 just before it; ``max_abs_err``, ``ms``, ``plain_ms``,
+the kernels — ``launches`` summed over the eleven paths (the
+``[families]`` checks among them), each counted from 0 just before it; ``max_abs_err``, ``ms``, ``plain_ms``,
 ``library_ms`` (null where no PyTorch call computes the function) and the
 bound (``bound_ms``, ``bound_by``) from phase 3 (stem: bf16, summed over
-its two serving shapes; int8 conv: s8 output, the largest error in LSB,
+its two serving shapes, plus ``widths_ms``, each other width's bf16 time;
+int8 conv: s8 output, the largest error in LSB,
 summed over its six shapes; block: the same over its two shapes, plus
-``unfused_ms``, the unfused pair's time summed the same way; IoU: the
+``unfused_ms``, the unfused pair's time summed the same way, and
+``config5_ms``, its time summed over YOLOv10s's three shapes; IoU: the
 largest matrix error or count of differing mask bits over its shapes,
 the rest the served mask mode at (8, 512) with ``plus_one``, plus
 ``matrix_ms`` and ``matrix_bound_ms`` of the matrix mode; nms: the number
@@ -141,7 +177,11 @@ IoU 0.45, its bound counting this run's picks, plus ``scan_ms``, the
 rescoring scan on the same call; and from phase 8 the launches per frame
 and the kernel's batch-1 time, bound and library time, summed per frame
 as above: ``launches_per_frame``, ``batch1_ms``, ``batch1_bound_ms``,
-``batch1_library_ms``) — and last ``{"ok": true, "device": {...}}``.
+``batch1_library_ms``; stem: ``batch1_sites_ms``, each other batch-1
+site's time by dtype; int8 conv: ``config5_tick_{ms,library_ms,bound_ms}``
+and ``v5_frame_{ms,library_ms,bound_ms}``, the kernel, ``torch._int_mm``
+and the bound summed per tick of phase 11 and per frame of phase 13) —
+and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA GPU is visible.
 """
 from __future__ import annotations
@@ -156,7 +196,9 @@ KERNELS = ("stem", "int8_conv", "block", "iou", "nms")
 N_STREAMS, FRAME_HW = 8, (720, 1280)
 BLOCKS_PER_TICK = 5
 #: keys of the kernels line beyond the contract's
-EXTRA_KEYS = ("unfused_ms", "matrix_ms", "matrix_bound_ms", "scan_ms")
+EXTRA_KEYS = ("unfused_ms", "matrix_ms", "matrix_bound_ms", "scan_ms", "widths_ms",
+              "config5_ms", *(f"{path}_{k}" for path in ("config5_tick", "v5_frame")
+                              for k in ("ms", "library_ms", "bound_ms")))
 #: EfficientDet's box score on seeded weights (see phase 6)
 EFFDET_BOX_SCORE = 0.5
 #: one H100 SXM's dense peaks (operations/s by type) and memory rate
@@ -240,18 +282,19 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def stem_case(S, torch, gen, name, shape, k, act, pool, dtype, atol, rtol):
+def stem_case(S, torch, gen, name, shape, k, act, pool, dtype, atol, rtol, feat=64):
     """One stem site: the kernel against ``stem_reference`` (fails beyond
     ``atol``/``rtol``), its device time, the plain version's, its bound
-    and, in bf16, cuDNN's ``F.conv2d`` with the BN folded into its weight
-    and bias (the conv + BN in one call, full-resolution output); prints
-    a ``[kernel]`` line and returns (err, ms, plain_ms, library_ms, bound)."""
+    and cuDNN's ``F.conv2d`` in the input's type with the BN folded into
+    its weight and bias (the conv + BN in one call, full-resolution
+    output); prints a ``[kernel]`` line and returns (err, ms, plain_ms,
+    library_ms, bound)."""
     import torch.nn.functional as F
 
     x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    w = (torch.randn(64, 3, k, k, generator=gen, device="cuda") * 0.1).to(dtype)
-    gain = torch.randn(64, generator=gen, device="cuda")
-    bias = torch.randn(64, generator=gen, device="cuda")
+    w = (torch.randn(feat, 3, k, k, generator=gen, device="cuda") * 0.1).to(dtype)
+    gain = torch.randn(feat, generator=gen, device="cuda")
+    bias = torch.randn(feat, generator=gen, device="cuda")
     args = dict(act=act, pool=pool)
     got = S.fused_stem(x, w, gain, bias, **args)
     ref = S.stem_reference(x, w, gain, bias, **args)
@@ -263,19 +306,15 @@ def stem_case(S, torch, gen, name, shape, k, act, pool, dtype, atol, rtol):
     eager_ms = cuda_ms(lambda: S.fused_stem(x, w, gain, bias, **args), 20)
     plain_ms = cuda_ms(lambda: S.stem_reference(x, w, gain, bias, **args), 20)
     hc, wc = S.stem_out_hw(shape[2], shape[3], False)
-    b = bound(nbytes(x, w, gain, bias, got), 2 * shape[0] * 64 * hc * wc * 3 * k * k,
+    b = bound(nbytes(x, w, gain, bias, got), 2 * shape[0] * feat * hc * wc * 3 * k * k,
               "bf16" if dtype == torch.bfloat16 else "f32")
-    line = (f"[kernel] {name} {str(dtype)[6:]} {tuple(shape)} -> {tuple(got.shape)}: "
-            f"max_abs_err {err:.6g} (atol {atol}, rtol {rtol}) kernel {ms:.4f} ms "
-            f"(eager {eager_ms:.4f}), "
-            f"plain {plain_ms:.4f} ms, {fmt_bound(b, ms)}")
-    lib_ms = None
-    if dtype == torch.bfloat16:
-        wf = (w.float() * gain.view(-1, 1, 1, 1)).to(dtype)
-        bf = bias.to(dtype)
-        lib_ms = device_ms(lambda: F.conv2d(x, wf, bf, stride=2, padding=k // 2), 20)
-        line += f", cuDNN conv2d + folded BN {lib_ms:.4f} ms"
-    print(line, flush=True)
+    wf = (w.float() * gain.view(-1, 1, 1, 1)).to(dtype)
+    bf = bias.to(dtype)
+    lib_ms = device_ms(lambda: F.conv2d(x, wf, bf, stride=2, padding=k // 2), 20)
+    print(f"[kernel] {name} {str(dtype)[6:]} {tuple(shape)} -> {tuple(got.shape)}: "
+          f"max_abs_err {err:.6g} (atol {atol}, rtol {rtol}) kernel {ms:.4f} ms "
+          f"(eager {eager_ms:.4f}), plain {plain_ms:.4f} ms, {fmt_bound(b, ms)}, cuDNN conv2d "
+          f"+ folded BN {lib_ms:.4f} ms", flush=True)
     check(ok, f"{name} {dtype}: kernel disagrees with stem_reference (max abs err {err})")
     return err, ms, plain_ms, lib_ms, b
 
@@ -285,23 +324,43 @@ STEM_SITES = (
     ("yolo_stem_k3_silu", (1, 3, 640, 640), 3, "silu", False),
     ("resnet_stem_k7_relu_pool", (1, 3, 320, 1600), 7, "relu", True),
 )
+#: the other YOLO stem widths (v8/v10 n, s, m, x; the l stem is 64 wide)
+STEM_WIDTHS = (16, 32, 48, 80)
+#: the tolerances of each stem dtype (``tests/test_pallas_stem.py:80`` for f32)
+STEM_DTYPES = (("bfloat16", 1e-2, 1e-2), ("float32", 2e-4, 1e-4))
+#: the stem's other batch-1 sites of the single-frame paths (name, input
+#: shape, k, act, pool, features): the 3x3 at the other YOLO widths
+#: (v8n, v10s, m, x) and the ResNet stem at UFLD v1's and CurveLanes' inputs
+FRAME_STEM_SITES = (
+    *[(f"yolo_stem_k3_silu_f{f}", (1, 3, 640, 640), 3, "silu", False, f) for f in STEM_WIDTHS],
+    ("resnet_stem_k7_relu_pool_v1", (1, 3, 288, 800), 7, "relu", True, 64),
+    ("resnet_stem_k7_relu_pool_curvelanes", (1, 3, 800, 1600), 7, "relu", True, 64),
+)
 
 
 def kernel_phase(S, torch):
-    """Stem kernel vs stem_reference at the two serving shapes, in bf16
-    and f32 (see :func:`stem_case`)."""
+    """Stem kernel vs stem_reference at the two serving shapes, then the
+    3x3 YOLO stem at the other widths (8x3x640x640), each in bf16 and f32
+    (see :func:`stem_case`).  The kernels line's row: bf16, summed over
+    the two serving shapes; ``widths_ms``: each width's bf16 time."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = []
-    for dtype, atol, rtol in ((torch.bfloat16, 1e-2, 1e-2), (torch.float32, 2e-4, 1e-4)):
+    rows, widths = [], {}
+    for dname, atol, rtol in STEM_DTYPES:
+        dtype = getattr(torch, dname)
         for name, shape, k, act, pool in STEM_SITES:
             err, ms, plain_ms, lib_ms, b = stem_case(
                 S, torch, gen, name, (N_STREAMS, *shape[1:]), k, act, pool, dtype, atol, rtol)
             rows.append((dtype, err, ms, plain_ms, lib_ms, b))
+        for feat in STEM_WIDTHS:
+            ms = stem_case(S, torch, gen, f"yolo_stem_k3_silu_f{feat}", (N_STREAMS, 3, 640, 640),
+                           3, "silu", False, dtype, atol, rtol, feat)[1]
+            if dtype == torch.bfloat16:
+                widths[feat] = ms
     bf16 = [r for r in rows if r[0] == torch.bfloat16]
     return {
         "max_abs_err": max(r[1] for r in bf16), "ms": sum(r[2] for r in bf16),
         "plain_ms": sum(r[3] for r in bf16), "library_ms": sum(r[4] for r in bf16),
-        "bound": total_bound([r[5] for r in bf16]),
+        "bound": total_bound([r[5] for r in bf16]), "widths_ms": widths,
     }
 
 
@@ -376,18 +435,26 @@ BLOCK_SITES = (
     ("yolo_stage1", (1, 160, 160, 64), ("silu", "silu", None)),
     ("resnet_layer1", (1, 80, 400, 64), ("relu", None, "relu")),
 )
+#: its YOLOv10s sites (config 5): (name, input shape at batch 1, C2f
+#: part pitch, residual); the second half of cv1's output, as the C2f reads it
+V10_BLOCK_SITES = (
+    ("v10s_stage1", (1, 160, 160, 32), 64, True),
+    ("v10s_stage2", (1, 80, 80, 64), 128, True),
+    ("v10s_fpn3", (1, 80, 80, 64), 128, False),
+)
 
 
-def block_case(IC, B, torch, gen, name, shape, acts):
+def block_case(IC, B, torch, gen, name, shape, acts, pitch=None, residual=True):
     """One block site: the kernel against ``block_reference`` to the bit,
     its device time, the plain version's, the unfused pair's and its
-    bound; prints a ``[kernel]`` line and returns (LSB, ms, plain_ms,
-    unfused_ms, bound)."""
+    bound; the input a channel slice of a ``pitch``-wide tensor (a C2f
+    part) where ``pitch`` is given; prints a ``[kernel]`` line and returns
+    (LSB, ms, plain_ms, unfused_ms, bound)."""
     def s8(shape, lo=-127, hi=128):
         return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int8)
 
     c = shape[3]
-    xq = s8(shape, -100, 100)
+    xq = s8((*shape[:3], pitch or c), -100, 100)[..., (pitch or c) - c:]
     w1q, w2q = s8((c, 3, 3, c), -80, 80), s8((c, 3, 3, c), -80, 80)
     s1 = torch.rand(c, generator=gen, device="cuda") * 2e-4 + 1e-4
     s2 = torch.rand(c, generator=gen, device="cuda") * 2e-4 + 1e-4
@@ -395,7 +462,7 @@ def block_case(IC, B, torch, gen, name, shape, acts):
     b2 = torch.randn(c, generator=gen, device="cuda") * 0.2
     sx, sm, so = (torch.tensor(v, device="cuda") for v in (0.021, 0.034, 0.027))
     args = (xq, sx, w1q, s1, b1, sm, w2q, s2, b2, so)
-    kw = dict(act1=acts[0], act2=acts[1], act_post=acts[2], residual=True)
+    kw = dict(act1=acts[0], act2=acts[1], act_post=acts[2], residual=residual)
     got = B.fused_block(*args, **kw)
     want = B.block_reference(*args, **kw)
     torch.cuda.synchronize()
@@ -404,7 +471,8 @@ def block_case(IC, B, torch, gen, name, shape, acts):
     plain_ms = cuda_ms(lambda: B.block_reference(*args, **kw), 5)
     unfused_ms = device_ms(lambda: unfused_pair(IC, args, kw), 20)
     b = bound(nbytes(*args, got), 2 * 2 * xq[..., 0].numel() * 9 * c * c, "int8")
-    print(f"[kernel] block {name} {shape} {acts}: max diff {lsb} LSB on {share:.2e} of "
+    print(f"[kernel] block {name} {shape} pitch {pitch or c} {acts} residual {residual}: max "
+          f"diff {lsb} LSB on {share:.2e} of "
           f"elements; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused pair (two "
           f"int8_conv + residual + requantize) {unfused_ms:.4f} ms, {fmt_bound(b, ms)}",
           flush=True)
@@ -460,6 +528,10 @@ def int8_kernel_phase(IC, B, torch):
         block["unfused_ms"] += unfused_ms
         block["bounds"].append(b)
     block["bound"] = total_bound(block.pop("bounds"))
+    block["config5_ms"] = sum(
+        block_case(IC, B, torch, gen, name, (N_STREAMS, *shape[1:]), ("silu", "silu", None),
+                   pitch, residual)[1]
+        for name, shape, pitch, residual in V10_BLOCK_SITES)
     return {"int8_conv": conv, "block": block}
 
 
@@ -588,13 +660,29 @@ def nms_kernel_phase(I, S, torch):
     return rows
 
 
+def yolo_heads(net, x):
+    """A YOLO net's raw outputs by name: YOLOv10's two heads before the
+    one-to-one head's top-k (whose order of near ties may differ between
+    the devices), any other net's single output."""
+    import torch
+
+    if not hasattr(net, "head_o2o"):
+        return {"raw": net(x)}
+    feats = net.net(x)
+    return {"o2m": torch.cat(net.head_o2m(feats), 1),
+            "o2o_head": torch.cat(net.head_o2o(feats), 1)}
+
+
 def reference_phase(torch, np):
-    """The full-width nets and preprocess in f32 on the GPU vs the CPU."""
+    """The full-width nets and preprocess in f32 on the GPU vs the CPU:
+    YOLOv8l, YOLOv5s and YOLOv10s (both heads) at 160x160, a narrowed
+    UFLDv2 and EfficientDet-D0 (the depthwise convs and PSA's products in
+    cuDNN and cuBLAS with TF32 off)."""
     from adas_tpu_torch.models import ufld
     from adas_tpu_torch.models.efficientdet import EfficientDet, EfficientDetSpec
     from adas_tpu_torch.models.layers import consume_stem
     from adas_tpu_torch.models.ufld import LaneModelType, UFLDv2Net
-    from adas_tpu_torch.models.yolo import YoloSpec, YoloV8
+    from adas_tpu_torch.models.yolo import YoloSpec, YoloV8, build_yolo
     from adas_tpu_torch.ops.preprocess import (
         LetterboxGeometry,
         bgr_to_i420,
@@ -615,6 +703,9 @@ def reference_phase(torch, np):
     init_params(ynet, 3)  # on the CPU: one set of weights for both sides
     init_params(lnet, 4)
     init_params(enet, 5)
+    families = {f: build_yolo(YoloSpec("s", 80, (160, 160), family=f)) for f in ("v5", "v10")}
+    for seed, net in enumerate(families.values()):
+        init_params(net, 20 + seed)
     outs = {}
     for dev in ("cpu", "cuda"):
         ynet, lnet, enet = ynet.to(dev), lnet.to(dev), enet.to(dev)
@@ -636,6 +727,9 @@ def reference_phase(torch, np):
             res.update({f"lane_{k}": v for k, v in lnet.eval()(xl).items()})
             res.update(zip(("effdet_c3", "effdet_c4", "effdet_c5"), enet.eval().backbone(xe)))
             res.update(zip(("effdet_boxes", "effdet_probs"), enet(xe)))
+            for f, net in families.items():
+                heads = yolo_heads(net.to(dev).eval(), xy)
+                res.update({f"yolo_{f}_{k}": v for k, v in heads.items()})
         outs[dev] = {k: v.cpu().numpy() for k, v in res.items()}
     for k, want in outs["cpu"].items():
         got = outs["cuda"][k]
@@ -647,30 +741,39 @@ def reference_phase(torch, np):
 
 
 def int8_reference_phase(torch, np, IC, B):
-    """Full-width int8 nets, packed and calibrated on the CPU, then the GPU
-    kernels against the CPU plain versions on the same input."""
+    """Full-width int8 nets (YOLOv8l, YOLOv5s and YOLOv10s at 320x320, a
+    narrowed UFLDv2), packed and calibrated on the CPU (YOLOv10 through
+    ``both``), then the GPU kernels against the CPU plain versions on the
+    same input, with the GPU run's exact launches: the fused bodies the
+    gate passes and every other int8 conv of the trees once."""
     from adas_tpu_torch.models import ufld
     from adas_tpu_torch.models.quant import pack_int8_weights
     from adas_tpu_torch.models.ufld import LaneModelType, UFLDv2Net
-    from adas_tpu_torch.models.yolo import YoloSpec, YoloV8
+    from adas_tpu_torch.models.yolo import YoloSpec, YoloV8, build_yolo
     from adas_tpu_torch.perception.object_detector import calibrate
     from adas_tpu_torch.weights import init_params
 
     lspec = ufld.UFLDV2_SPECS[LaneModelType.UFLDV2_CULANE]
     lane_spec = ufld.UFLDv2Spec(160, 640, lspec.crop_ratio, 20, 72, 10, 16, mlp_mid=64)
     rng = np.random.default_rng(5)
-    xy = torch.from_numpy(rng.uniform(0, 1, (2, 3, 320, 320)).astype(np.float32))
+    hw = (320, 320)
+    xy = torch.from_numpy(rng.uniform(0, 1, (2, 3, *hw)).astype(np.float32))
     xl = torch.from_numpy(rng.standard_normal((2, 3, 160, 640)).astype(np.float32))
-    nets = {"yolo": (YoloV8(YoloSpec("l", 80, (320, 320)), int8=True), xy),
+    nets = {"yolo": (YoloV8(YoloSpec("l", 80, hw), int8=True), xy),
+            **{f"yolo_{f}": (build_yolo(YoloSpec("s", 80, hw, family=f), int8=True), xy)
+               for f in ("v5", "v10")},
             "lane": (UFLDv2Net(lane_spec, int8=True), xl)}
     t = time.perf_counter()
     for seed, (net, x) in enumerate(nets.values()):
         init_params(net, 10 + seed)
         net.eval().requires_grad_(False)
         pack_int8_weights(net)
-        calibrate(net, [x[:1], x[1:]])
-    print(f"[int8-reference] packed and calibrated YOLOv8l-320 + UFLDv2-160x640 on the CPU "
-          f"in {time.perf_counter() - t:.1f} s", flush=True)
+        calibrate(net, [x[:1], x[1:]], getattr(net, "both", None))
+    print(f"[int8-reference] packed and calibrated YOLOv8l-320, YOLOv5s-320, YOLOv10s-320 + "
+          f"UFLDv2-160x640 on the CPU in {time.perf_counter() - t:.1f} s", flush=True)
+    blocks = sum(yolo_fused_bodies(net, hw) for k, (net, _) in nets.items()
+                 if k.startswith("yolo")) + LANE_BLOCKS
+    per_conv = int8_convs(*(net for net, _ in nets.values())) - 2 * blocks
     outs = {}
     for dev in ("cpu", "cuda"):
         IC.reset_launches()
@@ -679,14 +782,15 @@ def int8_reference_phase(torch, np, IC, B):
         with torch.inference_mode():
             for name, (net, x) in nets.items():
                 net.to(dev)
-                y = net(x.to(dev, torch.bfloat16))
-                for k, v in (y.items() if isinstance(y, dict) else [("raw", y)]):
-                    res[f"{name}_{k}"] = v.float().cpu().numpy()
+                xin = x.to(dev, torch.bfloat16)
+                y = yolo_heads(net, xin) if name.startswith("yolo") else net(xin)
+                res.update({f"{name}_{k}": v.float().cpu().numpy() for k, v in y.items()})
         outs[dev] = res
         if dev == "cuda":
-            print(f"[int8-reference] GPU launches: int8_conv {IC.launches}, block {B.launches}")
-            check(IC.launches > 0 and B.launches == BLOCKS_PER_TICK,
-                  "int8 reference run did not go through the kernels")
+            print(f"[int8-reference] GPU launches: int8_conv {IC.launches}, block {B.launches} "
+                  f"(expected {per_conv}, {blocks})")
+            check(IC.launches == per_conv and B.launches == blocks,
+                  "int8 reference run did not go through the kernels as the module trees say")
     for k, want in outs["cpu"].items():
         got = outs["cuda"][k]
         check(got.shape == want.shape and np.all(np.isfinite(got)), f"{k}: bad GPU output")
@@ -763,11 +867,15 @@ def serve(tag, ms, mods, per_tick, ticks, n_sync, n_pipe, torch, np):
     check(flat.shape[0] == N_STREAMS and bool(torch.isfinite(flat).all()),
           "packed step output not finite")
     n_dets = [len(r["objects"]) for r in results[-1]]
-    check(all(k > 0 for k in n_dets), f"empty detections per stream: {n_dets}")
+    max_det = int(getattr(ms.yolo, "max_det", 100))
+    check(all(0 < k <= max_det for k in n_dets), f"detections per stream: {n_dets}")
+    # NMS keeps scores above box_score, the NMS-free cut at or above it
+    nms_free = bool(getattr(ms.yolo, "nms_free", False))
     for r in results[-1]:
         for o in r["objects"]:
-            check(np.isfinite([o.x, o.y, o.width, o.height, o.conf]).all()
-                  and ms.yolo.box_score < o.conf <= 1, "bad detection")
+            above = o.conf >= ms.yolo.box_score if nms_free else o.conf > ms.yolo.box_score
+            check(np.isfinite([o.x, o.y, o.width, o.height, o.conf]).all() and above
+                  and o.conf <= 1, "bad detection")
         check(len(r["lanes_status"]) == 4, "lane status")
     print(f"[{tag}] detections per stream (last tick): {n_dets}; lanes status "
           f"{[r['lanes_status'] for r in results[-1]][:2]}...")
@@ -781,13 +889,13 @@ def serve(tag, ms, mods, per_tick, ticks, n_sync, n_pipe, torch, np):
 
 def build_main(compute_dtype, torch):
     from adas_tpu_torch.perception.lane_detector import LaneModelType, UltrafastLaneDetectorV2
-    from adas_tpu_torch.perception.object_detector import YoloDetector
+    from adas_tpu_torch.perception.object_detector import ObjectModelType, YoloDetector
     from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
 
     t0 = time.perf_counter()
     yolo = YoloDetector(
-        scale="l", input_size=(640, 640), box_score=0.25, compute_dtype=compute_dtype,
-        device="cuda", seed=0,
+        model_type=ObjectModelType.YOLOV8, scale="l", input_size=(640, 640), box_score=0.25,
+        compute_dtype=compute_dtype, device="cuda", seed=0,
     )
     lane = UltrafastLaneDetectorV2(
         model_type=LaneModelType.UFLDV2_CULANE, compute_dtype=compute_dtype, device="cuda",
@@ -949,38 +1057,37 @@ def frame_digest(pipe):
     return objs, list(info.lanes_status), [[tuple(p) for p in pts] for pts in info.lanes_points]
 
 
-def build_frame_pipelines(cd, torch, np):
+def build_frame_pipelines(tag, name, object_config, lane_config, torch, np,
+                          routes=("fused", "unfused")):
     """``ADASPipeline`` on the card for each route (fused, the default, and
-    unfused): YOLOv8l-640 + UFLDv2-CULane from the same seeds, under int8
-    calibrated from the same two 720p frames.  Fails unless both routes'
-    nets hold the same weights and scales."""
+    unfused) from the same configs and seeds; an int8 facade calibrated
+    from the same two 720p frames.  Fails unless the routes' nets hold the
+    same weights and scales."""
     from adas_tpu_torch.pipeline.app import ADASPipeline
-    from adas_tpu_torch.utils.types import LaneModelType
 
     h, w = FRAME_HW
     calib = list(np.random.default_rng(7).integers(0, 256, (2, h, w, 3), dtype=np.uint8))
     pipes = {}
-    for route in ("fused", "unfused"):
+    for route in routes:
         t = time.perf_counter()
-        pipe = ADASPipeline(
-            frame_size=(w, h), use_fused=route == "fused", device="cuda",
-            object_config={"scale": "l", "input_size": (640, 640), "box_score": 0.25,
-                           "compute_dtype": cd, "seed": 0},
-            lane_config={"model_type": LaneModelType.UFLDV2_CULANE, "compute_dtype": cd,
-                         "seed": 1},
-        )
-        if cd == "int8":
-            pipe.objectDetector.calibrate_int8(calib)
-            pipe.laneDetector.calibrate_int8(calib)
+        pipe = ADASPipeline(frame_size=(w, h), use_fused=route == "fused", device="cuda",
+                            object_config=object_config, lane_config=lane_config)
+        check((pipe.fused is not None) == (route == "fused"), f"{tag}: {route} route not taken")
+        int8 = [f for f in (pipe.objectDetector, pipe.laneDetector)
+                if getattr(f, "compute_dtype", None) == "int8"]
+        for facade in int8:
+            facade.calibrate_int8(calib)
         torch.cuda.synchronize()
-        print(f"[frame-{cd}] built the {route} route's ADASPipeline (YOLOv8l-640 + "
-              f"UFLDv2-CULane{', calibrated from 2 frames' if cd == 'int8' else ''}) in "
+        print(f"[{tag}] built the {route} route's ADASPipeline ({name}"
+              f"{', int8 calibrated from 2 frames' if int8 else ''}) in "
               f"{time.perf_counter() - t:.2f} s", flush=True)
         pipes[route] = pipe
     for side in ("objectDetector", "laneDetector"):
-        a, b = (getattr(pipes[r], side).net.state_dict() for r in pipes)
-        check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
-              f"frame-{cd}: the two routes' {side} nets differ")
+        nets = [getattr(pipes[r], side).net.state_dict() for r in pipes]
+        for other in nets[1:]:
+            check(nets[0].keys() == other.keys()
+                  and all(torch.equal(nets[0][k], other[k]) for k in other),
+                  f"{tag}: the routes' {side} nets differ")
     return pipes
 
 
@@ -1103,6 +1210,15 @@ def frame_kernel_phase(mods, shapes, torch):
     gen = torch.Generator(device="cuda").manual_seed(4)
     stem = [stem_case(S, torch, gen, name, shape, k, act, pool, torch.bfloat16, 1e-2, 1e-2)
             for name, shape, k, act, pool in STEM_SITES]
+    # the stem's other batch-1 sites (the f32 pipelines run the serving two
+    # in f32 too): each dtype's time by site
+    sites_ms = {}
+    for dname, atol, rtol in STEM_DTYPES:
+        dtype = getattr(torch, dname)
+        others = [(*site, 64) for site in STEM_SITES] if dname == "float32" else []
+        for name, shape, k, act, pool, feat in [*others, *FRAME_STEM_SITES]:
+            sites_ms[f"{name} {dname}"] = stem_case(S, torch, gen, name, shape, k, act, pool,
+                                                    dtype, atol, rtol, feat)[1]
     conv = main_path_conv_phase(IC, shapes, torch, tag="frame-int8-shapes", per="frame")
     block = [block_case(IC, B, torch, gen, name, shape, acts) for name, shape, acts in BLOCK_SITES]
     boxes, scores = nms_inputs(gen, 1, 512, torch)
@@ -1116,7 +1232,7 @@ def frame_kernel_phase(mods, shapes, torch):
     picks = int((keep >= 0).sum())
     rows = {
         "stem": {"ms": sum(r[1] for r in stem), "library_ms": sum(r[3] for r in stem),
-                 "bound": total_bound([r[4] for r in stem])},
+                 "bound": total_bound([r[4] for r in stem]), "sites_ms": sites_ms},
         "int8_conv": {"ms": conv["ms"], "library_ms": conv["library_ms"],
                       "bound": (conv["bound_ms"], "bytes and operations by shape")},
         "block": {"ms": sum(r[1] for r in block), "library_ms": None,
@@ -1147,8 +1263,14 @@ def frame_phase(cd, mods, torch, np):
     pipelines by route)."""
     from adas_tpu_torch.models.quant import QConv2d
 
+    from adas_tpu_torch.utils.types import LaneModelType
+
     tag = f"frame-{cd}"
-    pipes = build_frame_pipelines(cd, torch, np)
+    pipes = build_frame_pipelines(
+        tag, "YOLOv8l-640 + UFLDv2-CULane",
+        {"scale": "l", "input_size": (640, 640), "box_score": 0.25, "compute_dtype": cd,
+         "seed": 0},
+        {"model_type": LaneModelType.UFLDV2_CULANE, "compute_dtype": cd, "seed": 1}, torch, np)
     rng = np.random.default_rng(8)
     frames = [rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8) for _ in range(N_FRAMES)]
     per_frame = {"stem": 2, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1}
@@ -1350,6 +1472,276 @@ def render_phase(pipe, mods, smi, torch, np):
         os.rmdir(tmp)
 
 
+def families_phase(mods, torch, np):
+    """``[families]``: every ported YOLO family at every scale (v5, v8, v10
+    at n, s, m, l, x; v10 also NMS-free) and the UFLD v1 (TuSimple,
+    CULane) and UFLDv2-CurveLanes lane facades, f32, built on the card by
+    default (no ``device`` named) from seeded weights, each through one
+    ``DetectFrame`` of a 720p frame after a warm-up.  Per frame: the stem
+    kernel once for v8 and v10 (at the scale's 16-80 features; v5's stem is
+    a plain conv) and once for every lane net, IoU and walk once for every
+    YOLO but the NMS-free one; detections finite and at most ``max_det``.
+    Returns the launch counts."""
+    from adas_tpu_torch.perception.lane_detector import (UltrafastLaneDetector,
+                                                         UltrafastLaneDetectorV2)
+    from adas_tpu_torch.perception.object_detector import YoloDetector
+    from adas_tpu_torch.utils.types import LaneModelType, ObjectModelType
+
+    frame = np.random.default_rng(9).integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+    total = {k: 0 for k in KERNELS}
+    cases = [(t, scale, False) for t in (ObjectModelType.YOLOV5, ObjectModelType.YOLOV8,
+                                         ObjectModelType.YOLOV10)
+             for scale in ("n", "s", "m", "l", "x")] + [(ObjectModelType.YOLOV10, "s", True)]
+    for model_type, scale, nms_free in cases:
+        det = YoloDetector(model_type=model_type, scale=scale, nms_free=nms_free, seed=0)
+        check(det.device.type == "cuda", f"{model_type.name}-{scale} built on {det.device}")
+        det.DetectFrame(frame)  # warm-up
+        reset(mods)
+        t = time.perf_counter()
+        det.DetectFrame(frame)
+        ms = (time.perf_counter() - t) * 1e3
+        run = counts(mods)
+        stem = 0 if model_type is ObjectModelType.YOLOV5 else 1
+        want = {"stem": stem, "int8_conv": 0, "block": 0, "iou": int(not nms_free),
+                "nms": int(not nms_free)}
+        objs = det.object_info
+        print(f"[families] {model_type.name}-{scale}{' NMS-free' if nms_free else ''} (stem "
+              f"{det.net.net.stem.conv.out_channels} features): DetectFrame {ms:.2f} ms, "
+              f"{len(objs)} detections, launches {run}", flush=True)
+        check(run == want, f"[families] {model_type.name}-{scale}: launches {run}, expected {want}")
+        check(len(objs) <= det.max_det and all(np.isfinite([o.x, o.y, o.width, o.height, o.conf])
+                                               .all() for o in objs), "bad detections")
+        total = {k: total[k] + run[k] for k in KERNELS}
+    for cls, lane_type, cd in ((UltrafastLaneDetector, LaneModelType.UFLD_TUSIMPLE, None),
+                               (UltrafastLaneDetector, LaneModelType.UFLD_CULANE, "bf16"),
+                               (UltrafastLaneDetectorV2, LaneModelType.UFLDV2_CURVELANES, None)):
+        lane = cls(model_type=lane_type, compute_dtype=cd, seed=1)
+        lane.DetectFrame(frame)
+        reset(mods)
+        t = time.perf_counter()
+        lane.DetectFrame(frame)
+        ms = (time.perf_counter() - t) * 1e3
+        run = counts(mods)
+        print(f"[families] {lane_type.name} {cd or 'f32'}: DetectFrame {ms:.2f} ms, lanes "
+              f"{lane.lane_info.lanes_status}, launches {run}", flush=True)
+        check(run == {"stem": 1, "int8_conv": 0, "block": 0, "iou": 0, "nms": 0}
+              and len(lane.lane_info.lanes_status) == 4, f"[families] {lane_type.name}")
+        total = {k: total[k] + run[k] for k in KERNELS}
+    return total
+
+
+#: the stride of each C2f of a YOLO neck and backbone (640 input: 160x160
+#: at stage1), which decides the fusion gate of its bottlenecks
+C2F_STRIDES = {"stage1": 4, "stage2": 8, "stage3": 16, "stage4": 32, "fpn4": 16, "fpn3": 8,
+               "pan4": 16, "pan5": 32}
+#: UFLDv2-CULane's fused bodies (ResNet layer1's two, 80x400x64)
+LANE_BLOCKS = 2
+
+
+def yolo_fused_bodies(net, hw) -> int:
+    """How many bottleneck bodies of a calibrated int8 YOLO net run as one
+    fused block at input ``hw``: each C2f's ``n`` where the gate passes at
+    its stride and width (C3 bodies are 1x1 -> 3x3 and never fuse)."""
+    from adas_tpu_torch.models.yolo import C2f
+    from adas_tpu_torch.ops.block import fuse_gate
+
+    return sum(blk.n * fuse_gate(hw[0] // C2F_STRIDES[name], hw[1] // C2F_STRIDES[name],
+                                 blk.hidden)
+               for name, blk in net.net.named_children() if isinstance(blk, C2f))
+
+
+def int8_convs(*modules) -> int:
+    """The int8 convs (``QConv2d``) the module trees hold."""
+    from adas_tpu_torch.models.quant import QConv2d
+
+    return sum(isinstance(m, QConv2d) for mod in modules for m in mod.modules())
+
+
+def v10_config5_phase(mods, torch, np):
+    """``[main-v10-int8]``: the JAX bench's config 5 (``bench.py:421-470``,
+    ``c5_v10s_int8_nmsfree_8streams``) on the port's I420 transport: 8
+    streams of 720x1280, YOLOv10s-640 calibrated int8 through its
+    one-to-one head with no NMS (``nms_free``, box_score 0.25) beside
+    UFLDv2-CULane int8, both calibrated on the card from 2 frames; no
+    host downscale.  Every distinct int8 conv shape against its plain
+    version first (``[v10-int8-shapes]``), then the ticks: per tick stem 2
+    (the 32-feature YOLO stem, the lane stem), the fused bodies the gate
+    passes, the module tree's other int8 convs (the trunk and the
+    one-to-one head: the one-to-many head does not run), IoU 0 and walk 0.
+    Returns (the launch counts, the int8 conv's per-tick sums)."""
+    from adas_tpu_torch.perception.lane_detector import LaneModelType, UltrafastLaneDetectorV2
+    from adas_tpu_torch.perception.object_detector import ObjectModelType, YoloDetector
+    from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
+
+    tag = "main-v10-int8"
+    t0 = time.perf_counter()
+    yolo = YoloDetector(model_type=ObjectModelType.YOLOV10, scale="s", input_size=(640, 640),
+                        box_score=0.25, compute_dtype="int8", nms_free=True, device="cuda", seed=0)
+    lane = UltrafastLaneDetectorV2(model_type=LaneModelType.UFLDV2_CULANE, compute_dtype="int8",
+                                   device="cuda", seed=1)
+    check(yolo.spec.channels[0] == 32 and yolo.spec.channels[4] == 512,
+          f"not YOLOv10s: {yolo.spec.channels}")
+    rng = np.random.default_rng(0)
+    calib = list(rng.integers(0, 256, (2, *FRAME_HW, 3), dtype=np.uint8))
+    yolo.calibrate_int8(calib)
+    lane.calibrate_int8(calib)
+    torch.cuda.synchronize()
+    blocks = yolo_fused_bodies(yolo.net, yolo.spec.input_size) + LANE_BLOCKS
+    per_conv = int8_convs(yolo.net.net, yolo.net.head_o2o, lane.net) - 2 * blocks
+    print(f"[{tag}] built and calibrated YOLOv10s-640 (int8, NMS-free) + UFLDv2-CULane (int8) "
+          f"in {time.perf_counter() - t0:.2f} s; module tree: {blocks} fused bodies, "
+          f"{per_conv} other int8 convs per tick", flush=True)
+    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW)
+    ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
+    try:
+        shapes = main_path_conv_shapes(lambda: ms._step(ms._prep_upload(ticks[0])),
+                                       mods["int8_conv"], torch)
+        check(sum(shapes.values()) == per_conv,
+              f"recorded {sum(shapes.values())} int8 convs in a step, expected {per_conv}")
+        conv = main_path_conv_phase(mods["int8_conv"], shapes, torch, tag="v10-int8-shapes")
+        run = serve(tag, ms, mods,
+                    {"stem": 2, "int8_conv": per_conv, "block": blocks, "iou": 0, "nms": 0},
+                    ticks, 3, 8, torch, np)
+        return run, conv
+    finally:
+        ms.close()
+
+
+def frame_pair_phase(tag, name, object_config, lane_config, routes, per_frame, mods, torch, np):
+    """A single-frame phase on another model pair: ``process_frame(draw=
+    False)`` on each route over the seeded 720p frames, exact per-frame
+    launch counts, and with two routes the fused route's results equal to
+    the unfused route's.  Returns (the launch counts of all routes, the
+    pipelines by route, the frames)."""
+    pipes = build_frame_pipelines(tag, name, object_config, lane_config, torch, np, routes)
+    rng = np.random.default_rng(8)
+    frames = [rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8) for _ in range(N_FRAMES)]
+    per = per_frame(pipes[routes[0]])
+    results = {route: frame_route(tag, route, pipe, frames, mods, per, torch, np)
+               for route, pipe in pipes.items()}
+    if len(routes) == 2:
+        same = [a == b for a, b in zip(results["fused"][0], results["unfused"][0])]
+        print(f"[{tag}] fused route equal to the unfused route (detections and lanes) on "
+              f"{sum(same)} of {len(same)} frames", flush=True)
+        check(all(same), f"{tag}: the fused route's results differ from the unfused route's")
+    return {k: sum(r[1][k] for r in results.values()) for k in KERNELS}, pipes, frames
+
+
+def v10_frame_phase(mods, torch, np):
+    """``[frame-v10-bf16]``: YOLOv10s-640 (the one-to-many head and NMS, as
+    the JAX fused step serves it) + UFLDv2-CurveLanes (800x1600), bf16, on
+    both routes: per frame stem 2, IoU 1, walk 1."""
+    from adas_tpu_torch.utils.types import LaneModelType, ObjectModelType
+
+    return frame_pair_phase(
+        "frame-v10-bf16", "YOLOv10s-640 + UFLDv2-CurveLanes",
+        {"model_type": ObjectModelType.YOLOV10, "scale": "s", "input_size": (640, 640),
+         "box_score": 0.25, "compute_dtype": "bf16", "seed": 0},
+        {"model_type": LaneModelType.UFLDV2_CURVELANES, "compute_dtype": "bf16", "seed": 1},
+        ("fused", "unfused"),
+        lambda pipe: {"stem": 2, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1},
+        mods, torch, np)[0]
+
+
+def v5_frame_phase(mods, torch, np):
+    """``[frame-v5-int8]``: YOLOv5s-640 calibrated int8 + UFLD v1-CULane
+    bf16 on the unfused route (a v1 pair has no fused route): per frame
+    stem 1 (v1's ResNet stem: v5's 6x6 stem is a plain conv), the v5 net's
+    int8 convs (its C3 bodies are 1x1 -> 3x3: no fused block), IoU 1, walk
+    1.  The seeded net scores most anchors ~0.25 (objectness x class,
+    each ~0.5), so ``box_score`` is 0.2 here.  Then, outside the counted
+    run, one ``DetectFrame`` records every int8 conv call by shape, and
+    each distinct shape is held against the plain version and timed
+    (``[v5-int8-shapes]``, summed per frame).  Returns (the launch counts,
+    the int8 conv's per-frame sums)."""
+    from adas_tpu_torch.utils.types import LaneModelType, ObjectModelType
+
+    run, pipes, frames = frame_pair_phase(
+        "frame-v5-int8", "YOLOv5s-640 + UFLD v1-CULane",
+        {"model_type": ObjectModelType.YOLOV5, "scale": "s", "input_size": (640, 640),
+         "box_score": 0.2, "compute_dtype": "int8", "seed": 0},
+        {"model_type": LaneModelType.UFLD_CULANE, "compute_dtype": "bf16", "seed": 1},
+        ("unfused",),
+        lambda pipe: {"stem": 1, "int8_conv": int8_convs(pipe.objectDetector.net), "block": 0,
+                      "iou": 1, "nms": 1},
+        mods, torch, np)
+    det = pipes["unfused"].objectDetector
+    shapes = main_path_conv_shapes(lambda: det.DetectFrame(frames[0]), mods["int8_conv"], torch)
+    check(sum(shapes.values()) == int8_convs(det.net),
+          f"recorded {sum(shapes.values())} int8 convs in a frame, expected {int8_convs(det.net)}")
+    return run, main_path_conv_phase(mods["int8_conv"], shapes, torch, tag="v5-int8-shapes",
+                                     per="frame")
+
+
+#: frames of the demo's synthetic run (``[demo-default]``)
+DEMO_FRAMES = 4
+
+
+def demo_phase(mods, smi, torch, np):
+    """``[demo-default]``: ``run_synthetic`` with ``ADASPipeline``'s defaults
+    (YOLOv8n f32, whose stem is the f32 kernel at 16 features, +
+    UFLDv2-CULane f32, the HUD drawn) on the card, to a temporary
+    ``.y4m``.  Fails unless every frame's detections are finite and
+    non-empty, the file holds ``DEMO_FRAMES`` frames of 720x1280 that
+    differ from the seeded inputs, and every frame launched stem 2, IoU 1
+    and walk 1 (the pipeline's construction launches nothing)."""
+    import os
+    import tempfile
+
+    from adas_tpu_torch.pipeline import app
+    from adas_tpu_torch.render.video import Y4MReader
+
+    tag = "demo-default"
+    h, w = FRAME_HW
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "demo.y4m")
+    serve_frame, frame_ms, n_dets = app.ADASPipeline.process_frame, [], []
+
+    def process_frame(pipe, frame, draw=True):
+        t0 = time.perf_counter()
+        shown = serve_frame(pipe, frame, draw)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        objs = pipe.objectDetector.object_info
+        check(all(np.isfinite([o.x, o.y, o.width, o.height, o.conf]).all()
+                  and pipe.objectDetector.box_score < o.conf <= 1 for o in objs),
+              f"{tag}: bad detection")
+        n_dets.append(len(objs))
+        return shown
+
+    try:
+        reset(mods)
+        app.ADASPipeline.process_frame = process_frame
+        t = time.perf_counter()
+        n = app.run_synthetic(out, frames=DEMO_FRAMES, device="cuda")
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t
+        run = counts(mods)
+        per_frame = {"stem": 2, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1}
+        for k, per in per_frame.items():
+            check(run[k] == per * DEMO_FRAMES, f"{tag}: {k} launches {run[k]} over "
+                                               f"{DEMO_FRAMES} frames, expected {per} per frame")
+        with Y4MReader(out) as vr:
+            drawn = list(vr)
+        rng = np.random.default_rng(0)
+        inputs = [rng.integers(0, 255, (h, w, 3), dtype=np.uint8) for _ in range(DEMO_FRAMES)]
+        check(n_dets and all(n_dets), f"{tag}: a frame without detections: {n_dets}")
+        check(n == DEMO_FRAMES and len(drawn) == DEMO_FRAMES
+              and all(f.shape == (h, w, 3) for f in drawn)
+              and all(not np.array_equal(a, b) for a, b in zip(inputs, drawn)),
+              f"{tag}: the .y4m holds {len(drawn)} drawn frames")
+        print(f"[{tag}] run_synthetic (YOLOv8n f32 + UFLDv2-CULane f32, HUD) wrote {n} frames of "
+              f"{w}x{h} in {total_s:.2f} s with the pipeline's construction; "
+              f"process_frame(draw=True) ms {[round(v, 3) for v in frame_ms]} (the first with "
+              f"the allocator's warm-up), median of the rest {np.median(frame_ms[1:]):.3f}; "
+              f"detections per frame {n_dets}; launches {run} (per frame {per_frame}); {smi}",
+              flush=True)
+        return run
+    finally:
+        app.ADASPipeline.process_frame = serve_frame
+        if os.path.exists(out):
+            os.remove(out)
+        os.rmdir(os.path.dirname(out))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1402,6 +1794,15 @@ def main() -> int:
     frame_run, frame_rows, int8_pipes = frame_phase("int8", mods, torch, np)
     runs += [frame_run, frame_phase("bf16", mods, torch, np)[0]]
     runs.append(render_phase(int8_pipes["fused"], mods, smi, torch, np))
+    del int8_pipes
+    config5_run, config5_conv = v10_config5_phase(mods, torch, np)
+    runs += [config5_run, v10_frame_phase(mods, torch, np)]
+    v5_run, v5_conv = v5_frame_phase(mods, torch, np)
+    runs += [v5_run, demo_phase(mods, smi, torch, np), families_phase(mods, torch, np)]
+    # the int8 conv summed over each new int8 path's distinct shapes
+    rows["int8_conv"].update({f"{path}_{k}": v for path, sums in
+                              (("config5_tick", config5_conv), ("v5_frame", v5_conv))
+                              for k, v in sums.items()})
     launches = {k: sum(run[k] for run in runs) for k in KERNELS}
 
     replaces = {
@@ -1433,6 +1834,7 @@ def main() -> int:
         "batch1_ms": frame_rows[k]["ms"],
         "batch1_bound_ms": frame_rows[k]["bound"][0],
         "batch1_library_ms": frame_rows[k]["library_ms"],
+        **({"batch1_sites_ms": frame_rows[k]["sites_ms"]} if "sites_ms" in frame_rows[k] else {}),
     } for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -33,7 +33,7 @@ from adas_tpu.utils.profiling import FPSCounter as JaxFPS
 from adas_tpu.utils.types import LaneModelType as JaxLaneModelType
 from adas_tpu.utils.types import ObjectModelType as JaxObjectModelType
 from adas_tpu_torch.perception.efficientdet_detector import EfficientdetDetector
-from adas_tpu_torch.perception.lane_detector import UltrafastLaneDetectorV2
+from adas_tpu_torch.perception.lane_detector import UltrafastLaneDetector, UltrafastLaneDetectorV2
 from adas_tpu_torch.perception.object_detector import YOLO_OPTIONS, YoloDetector
 from adas_tpu_torch.pipeline.app import ADASPipeline
 from adas_tpu_torch.tracking.base_track import BaseTrack
@@ -263,7 +263,9 @@ def test_facade_options_follow_set_defaults():
         assert YoloDetector(device="cpu", box_score=0.5).box_score == 0.5
     finally:
         YoloDetector.set_defaults(YOLO_OPTIONS)
-    with pytest.raises(TypeError, match="nms_free"):
+    with pytest.raises(TypeError, match="onnx_mode"):
+        YoloDetector(device="cpu", input_size=(64, 64), onnx_mode="graph")
+    with pytest.raises(ValueError, match="YOLOv10"):
         YoloDetector(device="cpu", input_size=(64, 64), nms_free=True)
     with pytest.raises(TypeError, match="compute_dtype"):
         EfficientdetDetector(device="cpu", input_size=128, compute_dtype="int8")
@@ -271,5 +273,11 @@ def test_facade_options_follow_set_defaults():
 
 
 def test_ufld_v1_is_not_ported():
+    """UFLD v1 is ported in f32 and bf16 (an ``ADASPipeline`` with a v1
+    lane model runs unfused, as in JAX); its dynamic-scale int8 is not."""
+    pipe = ADASPipeline(lane_config={"model_type": LaneModelType.UFLD_TUSIMPLE},
+                        object_config={"input_size": (64, 64)}, device="cpu")
+    assert isinstance(pipe.laneDetector, UltrafastLaneDetector) and pipe.fused is None
     with pytest.raises(NotImplementedError, match="UFLD v1"):
-        ADASPipeline(lane_config={"model_type": LaneModelType.UFLD_TUSIMPLE}, device="cpu")
+        UltrafastLaneDetector(model_type=LaneModelType.UFLD_CULANE, compute_dtype="int8",
+                              device="cpu")

@@ -38,7 +38,7 @@ from adas_tpu_torch.perception.efficientdet_detector import EfficientdetDetector
 from adas_tpu_torch.perception.lane_detector import UltrafastLaneDetectorV2
 from adas_tpu_torch.perception.object_detector import YoloDetector
 from adas_tpu_torch.pipeline.fused import FusedADASStep
-from adas_tpu_torch.utils.types import LaneModelType
+from adas_tpu_torch.utils.types import LaneModelType, ObjectModelType
 from test_torch_efficientdet import live_trunk, random_tree
 from test_torch_int8_slice import _matched, calibrated, npz_paths
 from test_torch_models import SPEC_ARGS, random_flax_weights
@@ -119,7 +119,7 @@ def yolo_pair(weights, **kw):
     """The JAX and the port's YOLOv8n-320 facades on the same weights."""
     args = dict(model_path=weights["yolo"], scale="n", input_size=YOLO_HW, box_score=BOX_SCORE, **kw)
     return (JaxYolo(model_type=JaxObjectModelType.YOLOV8, **args),
-            YoloDetector(device="cpu", **args))
+            YoloDetector(model_type=ObjectModelType.YOLOV8, device="cpu", **args))
 
 
 def lane_pair(weights, name="tusimple"):
@@ -303,8 +303,9 @@ def test_int8_detect_frame_close_to_jax(calibrated):
     JAX one (same label, IoU > 0.5, score within 0.05); detected lanes
     within 1."""
     jyolo, jlane, paths, _ = calibrated
-    yolo = YoloDetector(model_path=paths["yolo"], scale="n", input_size=INT8_YOLO_HW,
-                        box_score=0.25, compute_dtype="int8", device="cpu")
+    yolo = YoloDetector(model_path=paths["yolo"], model_type=ObjectModelType.YOLOV8, scale="n",
+                        input_size=INT8_YOLO_HW, box_score=0.25, compute_dtype="int8",
+                        device="cpu")
     lane = UltrafastLaneDetectorV2(model_path=paths["lane"], compute_dtype="int8", device="cpu")
     n = 0
     for f in frames(2, seed=7, hw=(180, 320)):

@@ -39,6 +39,7 @@ from adas_tpu.perception.object_detector import YoloDetector as JaxYolo
 from adas_tpu.pipeline.multistream import MultiStreamADAS as JaxMultiStream
 from adas_tpu.tools.params_io import save_params
 from adas_tpu.utils.types import ObjectModelType
+from adas_tpu_torch.utils.types import ObjectModelType as PortObjectModelType
 from adas_tpu_torch.models import ufld as port_ufld
 from adas_tpu_torch.ops.packing import unpack
 from adas_tpu_torch.perception.lane_detector import UltrafastLaneDetectorV2
@@ -91,8 +92,9 @@ def calibrated(npz_paths, tmp_path_factory):
 
 def test_slice_int8_close_to_jax(calibrated):
     jyolo, jlane, paths, _ = calibrated
-    yolo = YoloDetector(model_path=paths["yolo"], scale="n", input_size=YOLO_HW,
-                        box_score=0.25, compute_dtype="int8", device="cpu")
+    yolo = YoloDetector(model_path=paths["yolo"], model_type=PortObjectModelType.YOLOV8,
+                        scale="n", input_size=YOLO_HW, box_score=0.25, compute_dtype="int8",
+                        device="cpu")
     lane = UltrafastLaneDetectorV2(model_path=paths["lane"], compute_dtype="int8", device="cpu")
     jms = JaxMultiStream(jyolo, jlane, 2, frame_hw=FRAME_HW, transport="i420")
     ms = MultiStreamADAS(yolo, lane, 2, frame_hw=FRAME_HW)
@@ -122,8 +124,9 @@ def test_slice_int8_with_port_calibration(calibrated, npz_paths):
     """The port's own packer and calibrator (f32 weights in, BGR frames)
     serve a slice that detects, with every int8 buffer set."""
     _, _, _, frames = calibrated
-    yolo = YoloDetector(model_path=npz_paths["yolo"], scale="n", input_size=YOLO_HW,
-                        box_score=0.25, compute_dtype="int8", device="cpu")
+    yolo = YoloDetector(model_path=npz_paths["yolo"], model_type=PortObjectModelType.YOLOV8,
+                        scale="n", input_size=YOLO_HW, box_score=0.25, compute_dtype="int8",
+                        device="cpu")
     lane = UltrafastLaneDetectorV2(model_path=npz_paths["lane"], compute_dtype="int8", device="cpu")
     for facade in (yolo, lane):
         facade.calibrate_int8(frames)

@@ -29,6 +29,7 @@ from adas_tpu.perception.lane_detector import UltrafastLaneDetectorV2 as JaxLane
 from adas_tpu.perception.object_detector import YoloDetector as JaxYolo
 from adas_tpu.tools.params_io import flatten_variables, save_params, unflatten_variables
 from adas_tpu.utils.types import LaneModelType, ObjectModelType
+from adas_tpu_torch.utils.types import ObjectModelType as PortObjectModelType
 from adas_tpu_torch.models import quant as Q
 from adas_tpu_torch.models import ufld as port_ufld
 from adas_tpu_torch.perception.lane_detector import UltrafastLaneDetectorV2
@@ -67,8 +68,8 @@ def facades(npz):
         jyolo = JaxYolo(model_path=npz["yolo"], model_type=ObjectModelType.YOLOV8, scale="n",
                         input_size=HW, compute_dtype="int8")
         jlane = JaxLane(model_path=npz["lane"], model_type=CULANE, dtype="int8")
-        yolo = YoloDetector(model_path=npz["yolo"], scale="n", input_size=HW,
-                            compute_dtype="int8", device="cpu")
+        yolo = YoloDetector(model_path=npz["yolo"], model_type=PortObjectModelType.YOLOV8,
+                            scale="n", input_size=HW, compute_dtype="int8", device="cpu")
         lane = UltrafastLaneDetectorV2(model_path=npz["lane"], compute_dtype="int8", device="cpu")
         yield (jyolo, yolo), (jlane, lane)
 

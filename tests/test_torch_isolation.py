@@ -175,15 +175,16 @@ def test_demo_cli_runs_with_jax_package_and_cv2_blocked(tmp_path):
 
 def _facades():
     from adas_tpu_torch.perception.efficientdet_detector import EfficientdetDetector
-    from adas_tpu_torch.perception.lane_detector import UltrafastLaneDetectorV2
+    from adas_tpu_torch.perception.lane_detector import (UltrafastLaneDetector,
+                                                         UltrafastLaneDetectorV2)
     from adas_tpu_torch.perception.object_detector import YoloDetector
     from adas_tpu_torch.pipeline.app import ADASPipeline
 
     return {"yolo": YoloDetector, "lane": UltrafastLaneDetectorV2, "effdet": EfficientdetDetector,
-            "pipeline": ADASPipeline}
+            "pipeline": ADASPipeline, "lane_v1": UltrafastLaneDetector}
 
 
-@pytest.mark.parametrize("name", ["yolo", "lane", "effdet", "pipeline"])
+@pytest.mark.parametrize("name", ["yolo", "lane", "effdet", "pipeline", "lane_v1"])
 def test_facade_defaults_to_the_card(name):
     """With no device named, a facade (and the per-frame pipeline) builds
     on ``cuda``; without a card it raises rather than carry on on the
@@ -194,7 +195,8 @@ def test_facade_defaults_to_the_card(name):
         _facades()[name]()
 
 
-@pytest.mark.parametrize("name", ["yolo_preprocess", "ufld_v2_preprocess", "imagenet_preprocess"])
+@pytest.mark.parametrize("name", ["yolo_preprocess", "ufld_v2_preprocess", "imagenet_preprocess",
+                                  "ufld_v1_preprocess"])
 def test_preprocess_defaults_to_the_card(name):
     """The public preprocess helpers, like the facades, put their output on
     ``cuda`` unless the caller names the CPU."""

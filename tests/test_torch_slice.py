@@ -30,6 +30,7 @@ from adas_tpu.perception.object_detector import YoloDetector as JaxYolo
 from adas_tpu.pipeline.multistream import MultiStreamADAS as JaxMultiStream
 from adas_tpu.tools.params_io import save_params, unflatten_variables
 from adas_tpu.utils.types import LaneModelType, ObjectModelType
+from adas_tpu_torch.utils.types import ObjectModelType as PortObjectModelType
 from adas_tpu_torch.models import ufld as port_ufld
 from adas_tpu_torch.perception.lane_detector import UltrafastLaneDetectorV2
 from adas_tpu_torch.perception.object_detector import YoloDetector
@@ -107,7 +108,8 @@ def _run_both(weights, bf16):
     )
     cd = "bf16" if bf16 else None
     yolo = YoloDetector(
-        model_path=weights["yolo"], scale="n", input_size=YOLO_HW, box_score=0.25,
+        model_path=weights["yolo"], model_type=PortObjectModelType.YOLOV8, scale="n",
+        input_size=YOLO_HW, box_score=0.25,
         compute_dtype=cd, device="cpu",
     )
     lane = UltrafastLaneDetectorV2(model_path=weights["lane"], compute_dtype=cd, device="cpu")
@@ -192,7 +194,8 @@ def test_serve_pipelined_matches_sequential(monkeypatch):
     )
 
     def build():
-        yolo = YoloDetector(scale="n", input_size=(96, 96), box_score=0.25, device="cpu")
+        yolo = YoloDetector(model_type=PortObjectModelType.YOLOV8, scale="n",
+                            input_size=(96, 96), box_score=0.25, device="cpu")
         return MultiStreamADAS(yolo, UltrafastLaneDetectorV2(device="cpu"), 2, frame_hw=FRAME_HW)
 
     def digest(results):
@@ -235,22 +238,23 @@ BLOCK_JAX = textwrap.dedent(
 NO_JAX_SCRIPT = BLOCK_JAX + textwrap.dedent(
     """
     import numpy as np
-    from adas_tpu_torch.utils.types import LaneModelType
+    from adas_tpu_torch.utils.types import LaneModelType, ObjectModelType
     from adas_tpu_torch.models import ufld
     from adas_tpu_torch.perception.lane_detector import UltrafastLaneDetectorV2
     from adas_tpu_torch.perception.object_detector import YoloDetector
     from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
 
     ufld.UFLDV2_SPECS[LaneModelType.UFLDV2_CULANE] = ufld.UFLDv2Spec(**%r)
-    yolo = YoloDetector(scale="n", input_size=(96, 96), box_score=0.25, device="cpu")
+    yolo = YoloDetector(model_type=ObjectModelType.YOLOV8, scale="n", input_size=(96, 96),
+                        box_score=0.25, device="cpu")
     lane = UltrafastLaneDetectorV2(device="cpu")
     ms = MultiStreamADAS(yolo, lane, 2, frame_hw=(180, 320))
     frames = np.random.default_rng(0).integers(0, 256, (2, 180, 320, 3), dtype=np.uint8)
     out = ms.process_batch(frames)
     ms.close()
     # the calibrated int8 slice: the port's packer and calibrator, one tick
-    yolo8 = YoloDetector(scale="n", input_size=(96, 96), box_score=0.25, compute_dtype="int8",
-                         device="cpu")
+    yolo8 = YoloDetector(model_type=ObjectModelType.YOLOV8, scale="n", input_size=(96, 96),
+                         box_score=0.25, compute_dtype="int8", device="cpu")
     lane8 = UltrafastLaneDetectorV2(compute_dtype="int8", device="cpu")
     yolo8.calibrate_int8(list(frames))
     lane8.calibrate_int8(list(frames))

@@ -31,13 +31,13 @@ def _planes(x_nhwc, margins):
     return np.pad(xs, ((0, 0), (mt, mb), (0, 0), (ml, mr)))
 
 
-def _inputs(kk, hw, seed):
+def _inputs(kk, hw, seed, feat=64):
     rng = np.random.default_rng(seed)
     h, w = hw
     x = rng.standard_normal((2, h, w, 3)).astype(np.float32)
-    k = (rng.standard_normal((kk, kk, 3, 64)) * 0.1).astype(np.float32)
-    gain = rng.standard_normal(64).astype(np.float32)
-    bias = rng.standard_normal(64).astype(np.float32)
+    k = (rng.standard_normal((kk, kk, 3, feat)) * 0.1).astype(np.float32)
+    gain = rng.standard_normal(feat).astype(np.float32)
+    bias = rng.standard_normal(feat).astype(np.float32)
     return x, k, gain, bias
 
 
@@ -86,6 +86,18 @@ def test_stem_matches_jax_pallas_interpret():
     x, k, gain, bias = _inputs(3, (16, 256), seed=5)
     ref = _jax_stem(x, k, gain, bias, "silu", False)
     got = _port_stem(x, k, gain, bias, "silu", False)
+    np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("feat", [16, 32, 48, 80])
+def test_stem_widths_match_jax_pallas_interpret(feat):
+    """The YOLO 3x3 stem at the other widths the kernel is instantiated for
+    (the n/s/m/x scales' 16/32/48/80 features): the plain version against
+    the Pallas kernel in interpret mode."""
+    x, k, gain, bias = _inputs(3, (16, 128), seed=feat, feat=feat)
+    ref = _jax_stem(x, k, gain, bias, "silu", False)
+    got = _port_stem(x, k, gain, bias, "silu", False)
+    assert got.shape == ref.shape == (2, 8, 64, feat)
     np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-4)
 
 
