@@ -1,5 +1,5 @@
 """EfficientDet (D0-D7): EfficientNet trunk + BiFPN + anchor heads, NCHW
-(port of ``adas_tpu/models/efficientdet.py``, f32).
+(port of ``adas_tpu/models/efficientdet.py``), f32 or calibrated int8.
 
 The JAX graph mirrors zylo117's Yet-Another-EfficientDet-Pytorch, and so
 does this one, quirk for quirk:
@@ -27,6 +27,20 @@ Module and attribute names follow the flax tree (``backbone.block3.dw_conv``,
 modules by path.  Depthwise and pointwise convs are ``F.conv2d``: the JAX
 package has no Pallas kernel for them.  ``EfficientDet`` returns
 ``(boxes_xyxy (B, N, 4), sigmoid class probs (B, N, num_classes))``.
+
+``int8=True`` is JAX's ``quantized("int8")`` over the same graph
+(``_conv_same`` / ``_conv_bn_act``, ``efficientdet.py:59-122``): every
+int8-eligible conv (dense, more than 4 input channels) is a W8A8 conv on
+``csrc/int8_conv.cu`` (``layers.int8_conv_bn``), its BN (and conv bias)
+folded into the epilogue, emitting bf16, or f32 where no BN follows (the
+head's separable pointwise convs); every one of them is a 1x1 at stride
+1, whose TF-SAME padding is zero (checked at construction).  The
+depthwise convs and the 3-channel stem run in bf16 with a bf16-rounded
+BN; the squeeze-excite convs and the ``header`` projections (``quantize
+=False``, ``efficientdet.py:253-285``) stay f32.  The layout stays NCHW:
+an int8 conv reads its input through an NHWC view (its quantize writes
+the NHWC s8 copy) and returns an NCHW view of its NHWC output.  Nothing
+chains s8: each int8 conv quantizes its input at its calibrated scale.
 """
 from __future__ import annotations
 
@@ -39,6 +53,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .layers import activation, int8_conv_bn
+from .quant import Int8State, QConv2d, int8_conv_eligible
 
 # (width_mult, depth_mult, input_size, fpn_channels, fpn_layers, head_layers)
 # — the zylo117 compound table, rows d0..d7 (``efficientdet.py:34``)
@@ -104,9 +121,10 @@ def _pad_same(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0) -> 
     return F.pad(x, (left, right, top, bottom), value=value)
 
 
-class SameConv2d(nn.Conv2d):
+class SameConv2d(Int8State, nn.Conv2d):
     """``nn.Conv(padding="SAME")``: bottom/right-heavy padding when the
-    stride is 2, explicit before the (unpadded) conv."""
+    stride is 2, explicit before the (unpadded) conv.  :meth:`bf16` is the
+    int8 net's bf16 conv (the weights cast once)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1,
                  bias: bool = False):
@@ -114,6 +132,54 @@ class SameConv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(_pad_same(x, self.kernel_size[0], self.stride[0]))
+
+    def bf16(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.cached("bf16", lambda: (
+            self.weight.to(torch.bfloat16),
+            None if self.bias is None else self.bias.to(torch.bfloat16)))
+        return self._conv_forward(_pad_same(x.to(torch.bfloat16), self.kernel_size[0],
+                                            self.stride[0]), w, b)
+
+
+def _same_conv(cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1,
+               bias: bool = False, int8: bool = False) -> nn.Conv2d:
+    """The conv of ``_conv_same`` (``efficientdet.py:70``): a W8A8
+    :class:`QConv2d` where the int8 policy takes it, else a
+    :class:`SameConv2d`.  Every int8-eligible conv of the graph is a 1x1 at
+    stride 1, whose TF-SAME padding is zero; anything else raises."""
+    if not (int8 and int8_conv_eligible(groups, cin)):
+        return SameConv2d(cin, cout, kernel, stride, groups, bias)
+    if (kernel, stride) != (1, 1) or _same_pads(64, kernel, stride) != (0, 0):
+        raise ValueError(f"an int8 EfficientDet conv is a 1x1 at stride 1, got k{kernel} s{stride}")
+    return QConv2d(cin, cout, 1, 1, 0, bias=bias)
+
+
+def _conv_bn_act(conv: nn.Conv2d, bn, x: torch.Tensor, act, int8: bool) -> torch.Tensor:
+    """``_conv_bn_act`` / ``_conv_same`` (``efficientdet.py:70-122``) on an
+    NCHW input: a :class:`QConv2d` as a W8A8 conv with ``bn`` folded
+    (bf16 out; f32 when ``bn`` is None); in the int8 net the other convs
+    in bf16 with flax's bf16 BN (:func:`_bn_bf16`) and SiLU; in the float
+    net as written."""
+    if isinstance(conv, QConv2d):
+        return int8_conv_bn(conv, bn, x.permute(0, 2, 3, 1), act=act).permute(0, 3, 1, 2)
+    if int8:
+        y = conv.bf16(x)
+        if bn is not None:
+            y = _bn_bf16(bn, y)
+        # jax.nn.silu on bf16: x * 1 / (1 + exp(-x)), every step rounded
+        return y * (1 / (1 + torch.exp(-y))) if act == "silu" else activation(y, act)
+    y = conv(x)
+    return activation(y if bn is None else bn(y), act)
+
+
+def _bn_bf16(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
+    """flax's ``nn.BatchNorm(dtype=bfloat16)`` at inference on an NCHW bf16
+    ``y`` (``flax.linen.normalization._normalize``): ``(y - mean) *
+    (rsqrt(var + eps) * scale) + bias`` in f32, in that order, rounded
+    once to bf16."""
+    mean, var, w, b = (t.float().view(1, -1, 1, 1)
+                       for t in (bn.running_mean, bn.running_var, bn.weight, bn.bias))
+    return ((y.float() - mean) * (torch.rsqrt(var + bn.eps) * w) + b).to(torch.bfloat16)
 
 
 def _bn(c: int) -> nn.BatchNorm2d:
@@ -131,29 +197,33 @@ class MBConv(nn.Module):
     -> squeeze-excite -> 1x1 project + BN [+ residual] (``efficientdet.py:177``)."""
 
     def __init__(self, cin: int, features: int, expand: int, kernel: int, stride: int,
-                 se_ratio: float = 0.25):
+                 se_ratio: float = 0.25, int8: bool = False):
         super().__init__()
         mid = cin * expand
         if expand != 1:
-            self.expand_conv, self.bn0 = SameConv2d(cin, mid, 1), _bn(mid)
+            self.expand_conv, self.bn0 = _same_conv(cin, mid, 1, int8=int8), _bn(mid)
         self.dw_conv = SameConv2d(mid, mid, kernel, stride, groups=mid)
         self.bn1 = _bn(mid)
         squeezed = max(1, int(cin * se_ratio))
+        # squeeze-excite: plain nn.Conv in JAX, f32 in every precision
         self.se_reduce = nn.Conv2d(mid, squeezed, 1)
         self.se_expand = nn.Conv2d(squeezed, mid, 1)
-        self.project_conv, self.bn2 = SameConv2d(mid, features, 1), _bn(features)
+        self.project_conv, self.bn2 = _same_conv(mid, features, 1, int8=int8), _bn(features)
         self.expand = expand
         self.residual = stride == 1 and cin == features
+        self.int8 = int8
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x
         if self.expand != 1:
-            h = F.silu(self.bn0(self.expand_conv(h)))
-        h = F.silu(self.bn1(self.dw_conv(h)))
+            h = _conv_bn_act(self.expand_conv, self.bn0, h, "silu", self.int8)
+        h = _conv_bn_act(self.dw_conv, self.bn1, h, "silu", self.int8)
         s = h.mean(dim=(2, 3), keepdim=True)
+        if self.int8:
+            s = s.float()
         s = self.se_expand(F.silu(self.se_reduce(s)))
         h = h * torch.sigmoid(s)
-        h = self.bn2(self.project_conv(h))
+        h = _conv_bn_act(self.project_conv, self.bn2, h, None, self.int8)
         return h + x if self.residual else h
 
 
@@ -161,18 +231,19 @@ class EfficientNetFeatures(nn.Module):
     """EfficientNet trunk returning (C3, C4, C5) at strides 8/16/32
     (``efficientdet.py:223``); blocks are named flat ``block{i}``."""
 
-    def __init__(self, width: float = 1.0, depth: float = 1.0):
+    def __init__(self, width: float = 1.0, depth: float = 1.0, int8: bool = False):
         super().__init__()
         stem = _round_channels(32, width)
         self.stem_conv, self.stem_bn = SameConv2d(3, stem, 3, 2), _bn(stem)
         self.plan = mbconv_plan(width, depth)
         cin = stem
         for i, (expand, k, s, c) in enumerate(self.plan):
-            self.add_module(f"block{i}", MBConv(cin, c, expand, k, s))
+            self.add_module(f"block{i}", MBConv(cin, c, expand, k, s, int8=int8))
             cin = c
+        self.int8 = int8
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        h = F.silu(self.stem_bn(self.stem_conv(x)))
+        h = _conv_bn_act(self.stem_conv, self.stem_bn, x, "silu", self.int8)
         feats = []
         for i, (_, _, s, _) in enumerate(self.plan):
             # a map is tapped before each stride-2 block from stride 8 on
@@ -187,31 +258,35 @@ class EfficientNetFeatures(nn.Module):
 
 class SeparableConvBlock(nn.Module):
     """Depthwise 3x3 (no bias, SAME) + pointwise 1x1 (always biased) [+ BN]
-    (``efficientdet.py:253``)."""
+    (``efficientdet.py:253``).  ``quantize=False`` (the ``header``
+    projections) keeps the block f32 in the int8 net."""
 
-    def __init__(self, cin: int, features: int, use_bn: bool = True):
+    def __init__(self, cin: int, features: int, use_bn: bool = True, quantize: bool = True,
+                 int8: bool = False):
         super().__init__()
+        self.int8 = int8 and quantize
         self.dw = SameConv2d(cin, cin, 3, groups=cin)
-        self.pw = SameConv2d(cin, features, 1, bias=True)
+        self.pw = _same_conv(cin, features, 1, bias=True, int8=self.int8)
         if use_bn:
             self.bn = _bn(features)
         self.use_bn = use_bn
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.pw(self.dw(x))
-        return self.bn(h) if self.use_bn else h
+        h = _conv_bn_act(self.dw, None, x, None, self.int8)
+        return _conv_bn_act(self.pw, self.bn if self.use_bn else None, h, None, self.int8)
 
 
 class _DownChannel(nn.Module):
     """1x1 conv (biased) + BN lateral (``efficientdet.py:286``)."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, int8: bool = False):
         super().__init__()
-        self.conv = SameConv2d(cin, features, 1, bias=True)
+        self.conv = _same_conv(cin, features, 1, bias=True, int8=int8)
         self.bn = _bn(features)
+        self.int8 = int8
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(self.conv(x))
+        return _conv_bn_act(self.conv, self.bn, x, None, self.int8)
 
 
 def _up(x: torch.Tensor) -> torch.Tensor:
@@ -233,19 +308,19 @@ class BiFPNLayer(nn.Module):
     the laterals; later layers take the five 64-channel (P3..P7) maps."""
 
     def __init__(self, channels: int, first_time: bool = False, attention: bool = True,
-                 in_channels: Sequence[int] = ()):
+                 in_channels: Sequence[int] = (), int8: bool = False):
         super().__init__()
         ch = channels
         if first_time:
             c3, c4, c5 = in_channels
-            self.p3_down_channel = _DownChannel(c3, ch)
-            self.p4_down_channel = _DownChannel(c4, ch)
-            self.p5_down_channel = _DownChannel(c5, ch)
-            self.p5_to_p6 = _DownChannel(c5, ch)
-            self.p4_down_channel_2 = _DownChannel(c4, ch)
-            self.p5_down_channel_2 = _DownChannel(c5, ch)
+            self.p3_down_channel = _DownChannel(c3, ch, int8)
+            self.p4_down_channel = _DownChannel(c4, ch, int8)
+            self.p5_down_channel = _DownChannel(c5, ch, int8)
+            self.p5_to_p6 = _DownChannel(c5, ch, int8)
+            self.p4_down_channel_2 = _DownChannel(c4, ch, int8)
+            self.p5_down_channel_2 = _DownChannel(c5, ch, int8)
         for name in _SEPARABLE:
-            self.add_module(name, SeparableConvBlock(ch, ch))
+            self.add_module(name, SeparableConvBlock(ch, ch, int8=int8))
         if attention:
             for name, n in _FUSIONS:
                 self.register_parameter(name, nn.Parameter(torch.ones(n)))
@@ -296,11 +371,13 @@ class PredictionHead(nn.Module):
     ``bn_l{level}_c{conv}`` + SiLU, biased ``header`` projection
     (``efficientdet.py:398``)."""
 
-    def __init__(self, channels: int, layers: int, out_features: int, levels: int = 5):
+    def __init__(self, channels: int, layers: int, out_features: int, levels: int = 5,
+                 int8: bool = False):
         super().__init__()
         for i in range(layers):
-            self.add_module(f"conv{i}", SeparableConvBlock(channels, channels, use_bn=False))
-        self.header = SeparableConvBlock(channels, out_features, use_bn=False)
+            self.add_module(f"conv{i}", SeparableConvBlock(channels, channels, use_bn=False,
+                                                           int8=int8))
+        self.header = SeparableConvBlock(channels, out_features, use_bn=False, quantize=False)
         for li in range(levels):
             for ci in range(layers):
                 self.add_module(f"bn_l{li}_c{ci}", _bn(channels))
@@ -394,11 +471,11 @@ class EfficientDet(nn.Module):
     xyxy (B, N, 4), class probs (B, N, num_classes)), anchors decoded
     inside."""
 
-    def __init__(self, spec: EfficientDetSpec):
+    def __init__(self, spec: EfficientDetSpec, int8: bool = False):
         super().__init__()
         width, depth, _, fpn_ch, fpn_layers, head_layers = spec.config
         self.spec = spec
-        self.backbone = EfficientNetFeatures(width, depth)
+        self.backbone = EfficientNetFeatures(width, depth, int8=int8)
         plan = self.backbone.plan
         # C3, C4, C5 are the outputs of the blocks before the last two
         # stride-2 blocks and of the last block
@@ -407,11 +484,11 @@ class EfficientDet(nn.Module):
         for i in range(fpn_layers):
             self.add_module(f"bifpn{i}", BiFPNLayer(
                 fpn_ch, first_time=i == 0, attention=spec.compound < 6,
-                in_channels=taps if i == 0 else (),
+                in_channels=taps if i == 0 else (), int8=int8,
             ))
         self.fpn_layers = fpn_layers
-        self.regressor = PredictionHead(fpn_ch, head_layers, 9 * 4)
-        self.classifier = PredictionHead(fpn_ch, head_layers, 9 * spec.num_classes)
+        self.regressor = PredictionHead(fpn_ch, head_layers, 9 * 4, int8=int8)
+        self.classifier = PredictionHead(fpn_ch, head_layers, 9 * spec.num_classes, int8=int8)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         feats = self.backbone(x)

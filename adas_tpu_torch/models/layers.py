@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.int8_conv import int8_conv
+from ..ops.int8_conv import int8_conv, pad_channels
 from ..ops.stem import fused_stem
 from .quant import (
     Act,
@@ -63,15 +63,17 @@ def consume_stem(
 
 
 def int8_conv_bn(
-    conv: QConv2d, bn: nn.BatchNorm2d, x: Act, *, act: Optional[str],
+    conv: QConv2d, bn: Optional[nn.BatchNorm2d], x: Act, *, act: Optional[str],
     emit_q: bool = False, emit_scale: Optional[torch.Tensor] = None,
 ) -> Act:
     """``Int8Conv.__call__`` with a folded BN (``layers.py:356-419``) on an
     NHWC activation.  The input scale is the QTensor's, else the
     calibrated ``xmax``'s, else dynamic; the output is s8 at
     ``emit_scale`` (a concat group's) or at this conv's ``ymax`` when
-    ``emit_q``, else bf16.  Calibrating: dynamic input scales, bf16
-    output, ``xmax`` (and ``ymax`` when ``emit_q``) recorded."""
+    ``emit_q``, else bf16, or f32 for a conv with no BN to fold
+    (``bn=None``: EfficientDet's head, ``layers.py:505-510``).
+    Calibrating: dynamic input scales, no s8 output, ``xmax`` (and
+    ``ymax`` when ``emit_q``) recorded."""
     cal = conv.calibrating
     static = True
     if isinstance(x, QTensor):
@@ -91,22 +93,37 @@ def int8_conv_bn(
             conv.buffer_scale("ymax") if emit_q else None
         )
     scale, bias = conv_epilogue(conv, bn, xs, static)
-    y = int8_conv(xq, conv.qweight()[0], scale, bias, stride=conv.stride[0], act=act,
-                  out_scale=out_scale)
+    y = int8_conv(xq, conv.kernel_weight(), scale, bias, stride=conv.stride[0], act=act,
+                  out_scale=out_scale, out_f32=bn is None and out_scale is None,
+                  cout=conv.out_channels)
     if cal and emit_q:
         conv.record_max("ymax", [y])
     return y if out_scale is None else QTensor(y, out_scale)
 
 
-def conv_epilogue(conv: QConv2d, bn: nn.BatchNorm2d, xs: torch.Tensor, static: bool = True):
+def conv_epilogue(conv: QConv2d, bn: Optional[nn.BatchNorm2d], xs: torch.Tensor,
+                  static: bool = True):
     """The epilogue (scale, bias) of ``conv`` on an input at scale ``xs``:
-    ``wscale * xs * gain`` in that order (``layers.py:486-494``) and the
-    folded BN bias.  Cached per static input-scale object."""
-    gain, bias = conv.cached("fold", lambda: bn_fold(bn))
+    ``wscale * xs * gain`` in that order and the folded BN bias, a conv
+    bias folded in (``layers.py:486-494``); with no BN, ``wscale * xs`` and
+    the conv bias.  Both padded with zeros to the Cout of
+    ``conv.kernel_weight()`` (``ops/int8_conv.pad_channels``).  Cached per
+    static input-scale object."""
+    def fold():
+        if bn is None:
+            return None, None if conv.bias is None else conv.bias.float()
+        return bn_fold(bn, conv.bias)
+
+    gain, bias = conv.cached("fold", fold)
     wscale = conv.qweight()[1]
+
+    def make():
+        s = wscale * xs
+        return pad_channels(s if gain is None else s * gain), pad_channels(bias), xs
+
     if not static:
-        return wscale * xs * gain, bias
-    return conv.cached(("epilogue", id(xs)), lambda: (wscale * xs * gain, bias, xs))[:2]
+        return make()[:2]
+    return conv.cached(("epilogue", id(xs)), make)[:2]
 
 
 def make_conv(cin: int, features: int, kernel: int, stride: int, int8: bool,

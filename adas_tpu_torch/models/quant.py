@@ -16,7 +16,9 @@ registered buffers whose names follow the flax ``act_scales`` tree
 (``xmax``/``ymax`` on a conv, ``concat_xmax`` on a C2f/SPPF,
 ``neck_a_xmax``/``neck_b_xmax`` on the neck, ``out_ymax`` on a ResNet
 block).  Packed weights are buffers too (``wq`` s8 (Cout, kh, kw, Cin),
-``wscale`` f32 (Cout,)), under the flax ``wscales``/``params`` paths.
+``wscale`` f32 (Cout,)), under the flax ``wscales``/``params`` paths;
+the kernel's copy of ``wq``, padded to widths of multiples of 8, is
+derived from them (:meth:`QConv2d.kernel_weight`).
 
 Tensors derived from those buffers (scales ``max(x, 1e-12) / 127``, the
 folded BN affine, the per-conv epilogue scale vector) are computed once
@@ -33,12 +35,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.int8_conv import int_mm, requantize
+from ..ops.int8_conv import int_mm, pad_weight, requantize
 
-#: buffers an int8 module may hold; absent (None) until packing/calibration
-QUANT_BUFFERS = (
-    "wq", "wscale", "xmax", "ymax", "concat_xmax", "neck_a_xmax", "neck_b_xmax", "out_ymax",
-)
+class _QuantBufferNames:
+    """The names of the buffers an int8 module may hold (absent, None,
+    until packing/calibration): the packed weights ``wq``/``wscale`` and
+    every activation absmax, whose names end in ``xmax`` or ``ymax`` as
+    the flax ``act_scales`` leaves do (``xmax``, ``ymax``, ``concat_xmax``,
+    ``neck_a_xmax``, ``out_ymax``, YOLOv7's ``elan4_xmax`` ...)."""
+
+    def __contains__(self, name) -> bool:
+        return isinstance(name, str) and (name in ("wq", "wscale")
+                                          or name.endswith(("xmax", "ymax")))
+
+
+QUANT_BUFFERS = _QuantBufferNames()
 
 
 class QTensor(NamedTuple):
@@ -135,11 +146,15 @@ def quantize_weight(w: torch.Tensor):
     return wq, wscale
 
 
-def bn_fold(bn: nn.BatchNorm2d):
+def bn_fold(bn: nn.BatchNorm2d, conv_bias: Optional[torch.Tensor] = None):
     """``BNFoldParams`` (``layers.py:236``): gain = scale * rsqrt(var + eps),
-    bias' = bias - mean * gain, f32."""
+    bias' = bias - mean * gain, f32; a conv bias folds in as ``bias' +
+    gain * conv_bias`` (``int8_conv_apply``, ``layers.py:486-494``)."""
     gain = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
-    return gain, bn.bias.float() - bn.running_mean.float() * gain
+    bias = bn.bias.float() - bn.running_mean.float() * gain
+    if conv_bias is not None:
+        bias = bias + gain * conv_bias.float()
+    return gain, bias
 
 
 class Int8State:
@@ -211,6 +226,12 @@ class QConv2d(Int8State, nn.Conv2d):
         if self.wq is not None:
             return self.wq, self.wscale
         return self.cached("qweight", self._quantize)
+
+    def kernel_weight(self) -> torch.Tensor:
+        """``qweight``'s wq as the CUDA kernel takes it: zero channels
+        appended to multiples of 8 in Cout and Cin (``pad_weight``; wq
+        itself where they are), made once per packing."""
+        return self.cached("kernel_weight", lambda: pad_weight(self.qweight()[0]))
 
 
 class QLinear(Int8State, nn.Linear):
@@ -296,6 +317,15 @@ def max_pool_q(x: QTensor, window: int, stride: int, pad: int) -> QTensor:
     xb = x.data.permute(0, 3, 1, 2).to(torch.bfloat16)
     y = F.max_pool2d(xb, window, stride, pad)
     return QTensor(y.permute(0, 2, 3, 1).to(torch.int8).contiguous(), x.scale)
+
+
+def max_pool_nhwc(x: Act, window: int, stride: int, pad: int = 0) -> Act:
+    """Max pool of an NHWC activation: s8 for a QTensor (:func:`max_pool_q`),
+    else through an NCHW view, padding -inf (``layers.max_pool``,
+    ``layers.py:1078``)."""
+    if isinstance(x, QTensor):
+        return max_pool_q(x, window, stride, pad)
+    return F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, pad).permute(0, 2, 3, 1)
 
 
 def upsample2x_nhwc(x: Act) -> Act:

@@ -3,6 +3,9 @@ net, anchor-grid head, output (B, N, 5+nc)), YOLOv8 (C2f/SPPF CSP net,
 anchor-free DFL head, output (B, 4+nc, N) like the official ONNX export)
 and YOLOv10 (the v8 trunk with SCDown/PSA/C2fCIB, one-to-many and
 one-to-one heads; the one-to-one head + top-k is the NMS-free path).
+:func:`build_yolo` also builds the families of their own modules:
+YOLOv5-lite (``yolov5lite.py``), v6 (``yolov6.py``), v7 (``yolov7.py``)
+and v9 (``yolov9.py``), with JAX's scale fallbacks (``yolo.py:927-960``).
 
 Module names follow the flax tree (``net.stem``, ``net.stage1.m0.cv1``,
 ``head.box0_0``, ``head_o2o.clso0_0a`` ...), so ``weights.py`` maps a flax
@@ -22,8 +25,10 @@ predictors run in f32.  PSA's two attention products are
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Sequence, Tuple
 
 import torch
@@ -37,7 +42,7 @@ from .quant import (
     QTensor,
     as_float,
     channels,
-    max_pool_q,
+    max_pool_nhwc,
     qconcat,
     quantize_to,
     upsample2x_nhwc,
@@ -64,8 +69,10 @@ V5_ANCHORS = (
     ((30, 61), (62, 45), (59, 119)),
     ((116, 90), (156, 198), (373, 326)),
 )
-#: the ported families (``YoloSpec.family``)
-FAMILIES = ("v5", "v8", "v10")
+# "c" serves the GELAN-C (yolov9c) head: P3/P4/P5 widths 256/512/512
+_V8_SCALES["c"] = (1.0, 1.0, 512)
+#: the families (``YoloSpec.family``)
+FAMILIES = ("v5", "v5lite", "v6", "v7", "v8", "v9", "v10")
 #: (stage4, pan4, pan5) large-kernel (RepVGGDW) flags per v10 scale, the
 #: THU-MIG yolov10 yaml family (``yolo.py:461-473``)
 V10_LK = {
@@ -177,21 +184,52 @@ class Bottleneck(nn.Module):
         return QTensor(out, emit_scale)
 
 
-class _Group(Int8State, nn.Module):
-    """A block that owns an s8 concat group (``concat_xmax``) under int8."""
+def cat_(parts, int8: bool):
+    """The channel concat of the net's layout: s8 group concat (or bf16,
+    :func:`qconcat`) in the int8 net's NHWC, ``torch.cat`` on NCHW else."""
+    return qconcat(parts) if int8 else torch.cat(parts, dim=1)
 
-    def _init_group(self, int8: bool) -> None:
+
+def slice_(x, start: int, stop: int, int8: bool):
+    """Channels [start, stop) of an NHWC (int8 net) or NCHW activation."""
+    return channels(x, start, stop) if int8 else x[:, start:stop]
+
+
+def width(x, int8: bool) -> int:
+    return x.shape[-1] if int8 else x.shape[1]
+
+
+def up2_(x, int8: bool):
+    return upsample2x_nhwc(x) if int8 else resize_nearest_2x(x)
+
+
+def pool_(x, window: int, stride: int, pad: int, int8: bool):
+    """``layers.max_pool``: s8 for a QTensor (the int8 net), -inf padding."""
+    return max_pool_nhwc(x, window, stride, pad) if int8 else max_pool(x, window, stride, pad)
+
+
+class _Group(Int8State, nn.Module):
+    """A block that owns s8 concat groups under int8 (``concat_xmax``, or
+    the named groups of ``names``); outside int8 its concats are plain."""
+
+    def _init_group(self, int8: bool, *names: str) -> None:
         self.int8 = int8
         if int8:
-            self._init_int8_buffers("concat_xmax")
+            self._init_int8_buffers(*(names or ("concat_xmax",)))
 
-    def group_scale(self):
-        return None if self.calibrating else self.buffer_scale("concat_xmax")
+    def group_scale(self, name: str = "concat_xmax"):
+        """The group's calibrated s8 scale, or None (calibrating, not
+        calibrated, or not an int8 net: ``s8_group_scale``)."""
+        return None if self.calibrating or not self.int8 else self.buffer_scale(name)
 
-    def group_concat(self, parts):
-        cat = qconcat(parts)
-        if self.calibrating:
-            self.record_max("concat_xmax", [cat])
+    def group_record(self, xs, name: str = "concat_xmax") -> None:
+        """Calibration: the group's absmax over ``xs`` (``s8_group_record``)."""
+        if self.int8 and self.calibrating:
+            self.record_max(name, xs)
+
+    def group_concat(self, parts, name: str = "concat_xmax"):
+        cat = cat_(parts, self.int8)
+        self.group_record([cat], name)
         return cat
 
 
@@ -279,15 +317,10 @@ class SPPF(_Group):
             p3 = max_pool(p2, 5, 1, pad=2)
             return self.cv2(torch.cat([y, p1, p2, p3], dim=1))
         y = self.cv1(x, emit_scale=self.group_scale())
-        pool = max_pool_q if isinstance(y, QTensor) else _max_pool_nhwc
-        p1 = pool(y, 5, 1, 2)
-        p2 = pool(p1, 5, 1, 2)
-        p3 = pool(p2, 5, 1, 2)
+        p1 = max_pool_nhwc(y, 5, 1, 2)
+        p2 = max_pool_nhwc(p1, 5, 1, 2)
+        p3 = max_pool_nhwc(p2, 5, 1, 2)
         return self.cv2(self.group_concat([y, p1, p2, p3]), emit_q=emit_q, emit_scale=emit_scale)
-
-
-def _max_pool_nhwc(x: torch.Tensor, window: int, stride: int, pad: int) -> torch.Tensor:
-    return max_pool(x.permute(0, 3, 1, 2), window, stride, pad).permute(0, 2, 3, 1)
 
 
 class SCDown(nn.Module):
@@ -435,9 +468,8 @@ class YoloBackboneNeck(Int8State, nn.Module):
 
     def __init__(self, spec: YoloSpec, int8: bool = False):
         super().__init__()
-        if spec.family not in FAMILIES:
-            raise NotImplementedError(
-                f"YOLO family {spec.family!r} is not ported (ROADMAP.md §1)")
+        if spec.family not in ("v5", "v8", "v10"):
+            raise ValueError(f"the {spec.family} family has its own trunk (build_yolo)")
         ch, d = spec.channels, spec.depths
         self.family = fam = spec.family
         v10 = fam == "v10"
@@ -682,6 +714,10 @@ class YoloV8(nn.Module):
     """YOLOv8-contract detector: output (B, 4+nc, N) (``yolo.py:788``);
     NCHW input in every precision."""
 
+    #: the I420 step feeds this net the YUV-direct preprocess, whose planes
+    #: JAX's stem takes (``stem_s2d_ok``, ``yolo.py:795``)
+    stem_takes_planes = True
+
     def __init__(self, spec: YoloSpec, int8: bool = False):
         super().__init__()
         self.spec = spec
@@ -709,28 +745,46 @@ class YoloV5(nn.Module):
             self.add_module(f"head{li}", nn.Conv2d(cin, na * (5 + spec.num_classes), 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        nc, na = self.spec.num_classes, len(V5_ANCHORS[0])
         outs = []
         for li, f in enumerate(self.net(x)):
-            head = getattr(self, f"head{li}")
-            if self.int8:
-                b, h, w, _ = f.shape
-                p = _predict_f32(head, f)
-            else:
-                p = head(f)
-                b, _, h, w = p.shape
-                p = p.permute(0, 2, 3, 1)
-            p = torch.sigmoid(p.reshape(b, h, w, na, 5 + nc))
-            ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=p.device),
-                                    torch.arange(w, dtype=torch.float32, device=p.device),
-                                    indexing="ij")
-            grid = torch.stack([xs, ys], dim=-1)[None, :, :, None, :]
-            anchors = torch.tensor(V5_ANCHORS[li], dtype=torch.float32).to(p.device)
-            xy = (p[..., :2] * 2 - 0.5 + grid) * self.spec.strides[li]
-            wh = (p[..., 2:4] * 2) ** 2 * anchors
-            out = torch.cat([xy, wh, p[..., 4:].float()], dim=-1)
-            outs.append(out.reshape(b, h * w * na, 5 + nc))
+            p = predict_nhwc(getattr(self, f"head{li}"), f, self.int8)
+            outs.append(anchor_grid_decode(p, V5_ANCHORS[li], self.spec.strides[li]))
         return torch.cat(outs, dim=1)
+
+
+def predict_nhwc(conv: nn.Conv2d, f, int8: bool) -> torch.Tensor:
+    """A plain 1x1 predictor -> (B, H, W, out) NHWC: f32 on the int8 net's
+    NHWC features (flax promotes them to its f32 params), the net's dtype
+    on NCHW features else."""
+    if int8:
+        b, h, w, _ = f.shape
+        return _predict_f32(conv, f).reshape(b, h, w, -1)
+    return conv(f).permute(0, 2, 3, 1)
+
+
+@lru_cache(maxsize=32)
+def _anchors_on(anchors, device: str) -> torch.Tensor:
+    """One level's (na, 2) anchor sizes on ``device``, uploaded once: a
+    pageable host copy in the step would synchronize the stream."""
+    return torch.tensor(anchors, dtype=torch.float32).to(device)
+
+
+def anchor_grid_decode(p: torch.Tensor, anchors, stride: int) -> torch.Tensor:
+    """The anchor-grid decode the v5/v7 exports bake in (``yolo.py:841-855``,
+    ``yolov7.py:246-267``): (B, H, W, na*no) predictions -> sigmoid ->
+    (B, H*W*na, no) rows of (xy, wh in pixels, objectness, classes), in
+    row, column, anchor order."""
+    b, h, w, _ = p.shape
+    na = len(anchors)
+    p = torch.sigmoid(p.reshape(b, h, w, na, -1))
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=p.device),
+                            torch.arange(w, dtype=torch.float32, device=p.device), indexing="ij")
+    grid = torch.stack([xs, ys], dim=-1)[None, :, :, None, :]
+    anchors = _anchors_on(tuple(map(tuple, anchors)), str(p.device))
+    xy = (p[..., :2] * 2 - 0.5 + grid) * stride
+    wh = (p[..., 2:4] * 2) ** 2 * anchors
+    out = torch.cat([xy, wh, p[..., 4:].float()], dim=-1)
+    return out.reshape(b, h * w * na, -1)
 
 
 class YoloV10(nn.Module):
@@ -740,6 +794,9 @@ class YoloV10(nn.Module):
     k, 6) = (x1, y1, x2, y2, score, class) with no NMS, :meth:`both` the
     two (the calibration pass: it runs every conv).  Both heads take v10's
     depthwise cls branch."""
+
+    #: as YOLOv8's (``stem_s2d_ok``, ``yolo.py:866``)
+    stem_takes_planes = True
 
     def __init__(self, spec: YoloSpec, int8: bool = False, max_det: int = 300):
         super().__init__()
@@ -775,9 +832,29 @@ class YoloV10(nn.Module):
                           cid[..., None].float()], dim=-1)
 
 
+def resolve_spec(spec: YoloSpec) -> YoloSpec:
+    """JAX's scale fallbacks (``yolo.py:927-957``): YOLOv5-lite takes e/s/g
+    (else s), v6 n/s/m/l (else s), v9 its GELAN variant c (else c); v7
+    models one graph whatever the scale."""
+    from . import yolov5lite, yolov6, yolov9
+
+    known = {"v5lite": (yolov5lite.SCALES, "s"), "v6": (yolov6.SCALES, "s"),
+             "v9": (tuple(yolov9.GELAN_CONFIGS), "c")}
+    if spec.family in known and spec.scale not in known[spec.family][0]:
+        return dataclasses.replace(spec, scale=known[spec.family][1])
+    return spec
+
+
 def build_yolo(spec: YoloSpec, int8: bool = False) -> nn.Module:
-    """The net of ``spec.family`` (``build_yolo``, ``yolo.py:927``)."""
-    nets = {"v5": YoloV5, "v8": YoloV8, "v10": YoloV10}
+    """The net of ``spec.family`` (``build_yolo``, ``yolo.py:927``), its
+    scale resolved as JAX resolves it (:func:`resolve_spec`)."""
+    from .yolov5lite import YoloV5Lite
+    from .yolov6 import YoloV6
+    from .yolov7 import YoloV7
+    from .yolov9 import YoloV9
+
+    nets = {"v5": YoloV5, "v5lite": YoloV5Lite, "v6": YoloV6, "v7": YoloV7, "v8": YoloV8,
+            "v9": YoloV9, "v10": YoloV10}
     if spec.family not in nets:
-        raise NotImplementedError(f"YOLO family {spec.family!r} is not ported (ROADMAP.md §1)")
-    return nets[spec.family](spec, int8=int8)
+        raise ValueError(f"unknown yolo family {spec.family}")
+    return nets[spec.family](resolve_spec(spec), int8=int8)

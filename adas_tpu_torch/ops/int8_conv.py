@@ -12,7 +12,8 @@ shape class and :func:`_plan` the activation path; the weights' TMA map
 is encoded once per layer and cached, the activations' by address.
 
     y   = act(conv_s8(xq, wq) * scale + bias)      (s32 exact, f32 epilogue)
-    out = y as bf16, or clip(round(y / out_scale), -127, 127) as s8
+    out = y as bf16 (or f32 with ``out_f32``), or
+          clip(round(y / out_scale), -127, 127) as s8
 
 ``scale`` is the full per-channel epilogue scale (weight scale x input
 scale x folded BN gain, multiplied in that order by the caller) and
@@ -20,14 +21,22 @@ scale x folded BN gain, multiplied in that order by the caller) and
 
 Layouts: ``xq`` (N, H, W, C) s8, NHWC with the channels contiguous; it may
 be a channel slice of a wider tensor (the kernel reads it in place through
-its channel pitch).  ``wq`` (Cout, k, k, Cin) s8 contiguous, so K =
-k*k*Cin is contiguous per output channel.  The output is a new
-contiguous (N, Ho, Wo, Cout) tensor.  The CUDA kernel takes Cin, the
-channel pitch and Cout in multiples of 8 (every int8 conv of the served
-nets at the COCO class count); the plain version takes any widths.  When
-K = k*k*Cin is not a multiple of 16 (Cin % 16 == 8 at k = 3, or 1x1 at
-Cin % 16 == 8) the TMA cannot stride the packed weights, and the wrapper
-hands the kernel a zero-padded copy.
+its channel pitch).  ``wq`` (Cout, k, k, Cin) s8 with each output
+channel's K = k*k*Cin bytes contiguous (a row; rows may be spaced wider).
+The output is a new contiguous (N, Ho, Wo, Cout) tensor.  The CUDA
+kernel takes Cin, the channel pitch, the input's base address and Cout
+in multiples of 8, and rows spaced by multiples of 16 bytes (the TMA's
+stride); the plain version takes any widths.  The module tree gives it
+weights, scale and bias padded once, when packed (:func:`pad_weight`,
+:func:`pad_channels`, ``models/quant.QConv2d.kernel_weight``): zero
+channels up to multiples of 8, rows padded to 16 bytes; a conv whose
+own widths are not multiples of 8 (YOLOv5-lite-s's 58- and 116-wide
+ShuffleNet branches, read at an offset of 58 or 116 channels) names its
+``cout``.  Per call, the wrapper copies such an input into a new NHWC
+tensor of the padded Cin and the output's first ``cout`` channels out.
+The zero channels add nothing to the s32 sums, so the result is the
+plain version's to the bit.  Weights whose rows are not spaced by 16
+bytes get a padded copy per call.
 
 A CUDA tensor always launches the kernel (or raises); a CPU tensor takes
 the plain version :func:`int8_conv_reference`.  There is no compile probe
@@ -77,13 +86,17 @@ def int_mm(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     """Exact s8 x s8 -> s32 product ``a @ b_t.T`` (``a`` (M, K), ``b_t``
     (N, K), both s8).  On a GPU ``torch._int_mm`` takes only M > 16 and K,
     N multiples of 8: short ``a`` is padded to 32 rows (8 streams of a
-    dense layer), other shapes raise."""
+    dense layer), K and N with zeros to multiples of 8 (YOLOv5-lite's
+    58-wide convs), and the product sliced back."""
     if a.device.type == "cuda":
         m, k = a.shape
-        if k % 8 or b_t.shape[0] % 8:
-            raise ValueError(f"int8 matmul on the GPU needs K and N % 8 == 0, got {k}, {b_t.shape[0]}")
+        n = b_t.shape[0]
+        kp, np_ = -k % 8, -n % 8
+        if kp or np_:
+            a, b_t = F.pad(a, (0, kp)), F.pad(b_t, (0, kp, 0, np_))
         if m <= 16:
-            return torch._int_mm(F.pad(a, (0, 0, 0, 32 - m)), b_t.t())[:m]
+            a = F.pad(a, (0, 0, 0, 32 - m))
+        return torch._int_mm(a, b_t.t())[:m, :n]
     return torch._int_mm(a, b_t.t())
 
 
@@ -127,17 +140,19 @@ def epilogue(
     bias: Optional[torch.Tensor],
     act: Optional[str],
     out_scale: Optional[torch.Tensor],
+    out_f32: bool = False,
 ) -> torch.Tensor:
     """``layers.py:485-511`` on an s32 NHWC accumulator: ``acc * scale``
     then ``+ bias`` (two roundings), the activation, then s8 at
-    ``out_scale`` or bf16."""
+    ``out_scale``, else f32 with ``out_f32`` (a conv with no folded BN,
+    ``layers.py:505-510``) or bf16."""
     y = acc.float() * scale
     if bias is not None:
         y = y + bias
     y = activation(y, act)
     if out_scale is not None:
         return requantize(y, out_scale)
-    return y.to(torch.bfloat16)
+    return y if out_f32 else y.to(torch.bfloat16)
 
 
 def int8_conv_reference(
@@ -149,10 +164,42 @@ def int8_conv_reference(
     stride: int,
     act: Optional[str],
     out_scale: Optional[torch.Tensor] = None,
+    out_f32: bool = False,
+    cout: Optional[int] = None,
 ) -> torch.Tensor:
     """The plain PyTorch W8A8 conv: exact s32 accumulator
-    (:func:`int8_conv_accumulate`) and :func:`epilogue`."""
-    return epilogue(int8_conv_accumulate(xq, wq, stride), scale, bias, act, out_scale)
+    (:func:`int8_conv_accumulate`) and :func:`epilogue`, on the first
+    ``cout`` output and ``xq``'s input channels of padded operands."""
+    cout = wq.shape[0] if cout is None else cout
+    wq = wq[:cout, ..., :xq.shape[3]]
+    scale = scale[:cout]
+    bias = None if bias is None else bias[:cout]
+    return epilogue(int8_conv_accumulate(xq, wq, stride), scale, bias, act, out_scale, out_f32)
+
+
+def pad_weight(wq: torch.Tensor) -> torch.Tensor:
+    """``wq`` (Cout, k, k, Cin) as the CUDA kernel takes it: zero output
+    and input channels appended up to multiples of 8, and each output
+    channel's row of K = k*k*Cin bytes padded to a multiple of 16 (the TMA
+    strides rows by multiples of 16 bytes), returned as the (Cout, k, k,
+    Cin) view of those rows; ``wq`` itself where nothing needs padding."""
+    cout, k, _, cin = wq.shape
+    cout8, cin8 = cout + -cout % 8, cin + -cin % 8
+    kk = k * k * cin8
+    if (cout8, cin8) == (cout, cin) and kk % 16 == 0 and wq.is_contiguous():
+        return wq
+    rows = wq.new_zeros((cout8, kk + -kk % 16))
+    view = rows[:, :kk].view(cout8, k, k, cin8)
+    view[:cout, ..., :cin] = wq
+    return view
+
+
+def pad_channels(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A per-output-channel vector (scale, bias) with zeros appended up to
+    :func:`pad_weight`'s Cout; None stays None."""
+    if t is None or t.shape[0] % 8 == 0:
+        return t
+    return F.pad(t, (0, -t.shape[0] % 8))
 
 
 def channel_pitch(x: torch.Tensor) -> int:
@@ -169,15 +216,24 @@ def channel_pitch(x: torch.Tensor) -> int:
     return sw
 
 
-def _check(xq, wq, scale, bias, stride, act, out_scale):
+def _padded(c: int):
+    """The widths an operand of ``c`` channels may have: ``c``, or ``c``
+    rounded up to 8 (:func:`pad_weight`)."""
+    return (c, c + -c % 8)
+
+
+def _check(xq, wq, scale, bias, stride, act, out_scale, out_f32=False, cout=None):
     if xq.dtype != torch.int8 or xq.dim() != 4:
         raise ValueError(f"int8 conv input must be (N, H, W, C) s8, got {tuple(xq.shape)} {xq.dtype}")
-    cout, k, k2, cin = wq.shape
-    if wq.dtype != torch.int8 or k != k2 or k not in (1, 3) or cin != xq.shape[3]:
+    wcout, k, k2, cin = wq.shape
+    if wq.dtype != torch.int8 or k != k2 or k not in (1, 3) or cin not in _padded(xq.shape[3]):
         raise ValueError(
-            f"int8 conv weight must be (Cout, k, k, {xq.shape[3]}) s8 with k in (1, 3), "
-            f"got {tuple(wq.shape)} {wq.dtype}"
+            f"int8 conv weight must be (Cout, k, k, {xq.shape[3]}) s8 with k in (1, 3) "
+            f"(Cin may be padded to a multiple of 8), got {tuple(wq.shape)} {wq.dtype}"
         )
+    if cout is not None and wcout not in _padded(cout):
+        raise ValueError(f"int8 conv weight of {wcout} output channels for cout {cout}")
+    cout = wcout
     if stride not in (1, 2):
         raise ValueError(f"int8 conv stride must be 1 or 2, got {stride}")
     if act not in ACT_CODES:
@@ -187,6 +243,8 @@ def _check(xq, wq, scale, bias, stride, act, out_scale):
             raise ValueError(f"int8 conv {name} must be f32 ({cout},), got {t.dtype} {tuple(t.shape)}")
     if out_scale is not None and (out_scale.dtype != torch.float32 or out_scale.numel() != 1):
         raise ValueError("int8 conv out_scale must be one f32 value")
+    if out_scale is not None and out_f32:
+        raise ValueError("int8 conv output is s8 (out_scale) or f32 (out_f32), not both")
 
 
 #: (BM, BN) tiles the kernel is built for (``csrc/int8_conv.cu``
@@ -214,7 +272,7 @@ def tile_config(m: int, cout: int, num_sms: int):
 def _lib():
     lib = load_cuda_library("int8_conv")
     fn = lib.adas_int8_conv_forward
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     enc = lib.adas_int8_conv_encode_weights
     enc.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -226,9 +284,10 @@ def _lib():
 
 
 #: launch plans by (input shape, strides and base alignment, weight
-#: address and shape, stride); see :func:`_plan`.  A plan's weight TMA map
-#: holds only the weights' address and extents, so it stays valid for any
-#: weights at that address with that shape.
+#: address, shape and row spacing, stride); see :func:`_plan`.  A plan's
+#: weight TMA map holds only the weights' address, extents and row
+#: spacing, so it stays valid for any weights at that address with that
+#: shape; bounded as :data:`_INPUT_MAPS`.
 _PLANS: dict = {}
 
 
@@ -236,18 +295,15 @@ def _plan(xq: torch.Tensor, wq: torch.Tensor, stride: int):
     """What a CUDA launch on these operands needs: the activation path
     (``vec`` 0: the im2col TMA, for 1x1 convs and Cin % 128 == 0 with the
     pitch and base 16-byte aligned; else the cp.async gather, 16 or 8
-    bytes a copy), the tile, the weights' TMA map (a zero-padded weight
-    copy when K % 16 != 0, whose plan is not cached) and the output shape.
-    Raises on what the kernel does not take."""
+    bytes a copy), the tile, the weights' TMA map (of a zero-padded copy
+    when the rows are not spaced by a multiple of 16 bytes: that plan is
+    not cached) and the output shape.
+    ``xq`` and ``wq`` are operands the kernel takes as they are (widths,
+    pitch and base address multiples of 8)."""
     n, h, w, cin = xq.shape
     cout, k = wq.shape[0], wq.shape[1]
     pitch = channel_pitch(xq)
-    vec = next((v for v in (16, 8) if cin % v == 0 and pitch % v == 0 and xq.data_ptr() % v == 0), 0)
-    if vec == 0 or cout % 8:
-        raise ValueError(
-            f"the int8 conv kernel takes Cin, the channel pitch and the base address "
-            f"in multiples of 8 and Cout % 8 == 0, got Cin {cin} pitch {pitch} Cout {cout}"
-        )
+    vec = 16 if cin % 16 == 0 and pitch % 16 == 0 and xq.data_ptr() % 16 == 0 else 8
     if (k == 1 or cin % 128 == 0) and pitch % 16 == 0 and xq.data_ptr() % 16 == 0:
         vec = 0
     ho, wo = conv_out_hw(h, w, k, stride)
@@ -255,22 +311,24 @@ def _plan(xq: torch.Tensor, wq: torch.Tensor, stride: int):
     sms = num_sms(index)
     bm, bn = tile_config(n * ho * wo, cout, sms)
     kk = k * k * cin
-    w2d = wq.view(cout, kk)
-    padded = kk % 16 != 0
-    if padded:  # the TMA strides rows by multiples of 16 bytes
-        w2d = F.pad(w2d, (0, 16 - kk % 16))
+    w_copy, row = None, wq.stride(0)
+    if row % 16:  # the TMA strides rows by multiples of 16 bytes
+        w_copy = F.pad(wq.reshape(cout, kk), (0, -kk % 16))
+        row = w_copy.shape[1]
     wmap = ctypes.create_string_buffer(128)
     rc = _lib().adas_int8_conv_encode_weights(
-        w2d.data_ptr(), cout, kk, w2d.shape[1], bn, ctypes.addressof(wmap)
+        (wq if w_copy is None else w_copy).data_ptr(), cout, kk, row, bn, ctypes.addressof(wmap)
     )
     if rc != 0:
         raise RuntimeError(f"int8 conv weight TMA map encode failed: code {rc}")
     # the C entry's integer arguments before and after the activation code
-    plan = (w2d if padded else None, wmap, (n, h, w, cin, pitch, cout, k, stride),
-            (vec, bm, bn, sms), (n, ho, wo, cout))
-    if not padded:
+    plan = (w_copy, wmap, (n, h, w, cin, pitch, cout, k, stride), (vec, bm, bn, sms),
+            (n, ho, wo, cout))
+    if w_copy is None:
+        if len(_PLANS) >= 4096:  # bounded as _INPUT_MAPS
+            _PLANS.clear()
         _PLANS[(xq.shape, xq.stride(), xq.data_ptr() % 16, xq.device, wq.data_ptr(), wq.shape,
-                stride)] = plan
+                wq.stride(0), stride)] = plan
     return plan
 
 
@@ -297,6 +355,18 @@ def _input_map(xq: torch.Tensor, pitch: int, k: int, stride: int, bm: int):
     return xmap
 
 
+def _kernel_input(xq: torch.Tensor, cin: int) -> torch.Tensor:
+    """``xq`` as the kernel reads it: in place where its width is ``cin``
+    (the weights') and its pitch and base address are multiples of 8,
+    else copied into a new NHWC tensor of ``cin`` channels, zero past its
+    own."""
+    if xq.shape[3] == cin and channel_pitch(xq) % 8 == 0 and xq.data_ptr() % 8 == 0:
+        return xq
+    xp = xq.new_zeros((*xq.shape[:3], cin))
+    xp[..., :xq.shape[3]] = xq
+    return xp
+
+
 def int8_conv(
     xq: torch.Tensor,
     wq: torch.Tensor,
@@ -306,37 +376,52 @@ def int8_conv(
     stride: int,
     act: Optional[str],
     out_scale: Optional[torch.Tensor] = None,
+    out_f32: bool = False,
+    cout: Optional[int] = None,
 ) -> torch.Tensor:
     """W8A8 conv + fused epilogue — the CUDA kernel for a CUDA ``xq``,
     :func:`int8_conv_reference` for a CPU ``xq``.  Returns NHWC s8 when
-    ``out_scale`` is given, else NHWC bf16."""
+    ``out_scale`` is given, else NHWC f32 with ``out_f32``, else bf16, of
+    ``cout`` channels (by default all of ``wq``'s; fewer where the
+    weights, scale and bias carry padding: module docstring)."""
     global launches
-    _check(xq, wq, scale, bias, stride, act, out_scale)
+    _check(xq, wq, scale, bias, stride, act, out_scale, out_f32, cout)
     if xq.device.type == "cpu":
-        return int8_conv_reference(xq, wq, scale, bias, stride=stride, act=act, out_scale=out_scale)
+        return int8_conv_reference(xq, wq, scale, bias, stride=stride, act=act,
+                                   out_scale=out_scale, out_f32=out_f32, cout=cout)
     if xq.device.type != "cuda":
         raise ValueError(f"int8 conv runs on cuda or cpu, got {xq.device}")
     for t in (wq, scale, bias, out_scale):
         if t is not None and t.device != xq.device:
             raise ValueError(f"int8 conv operands on {t.device} and {xq.device}")
-    for name, t in (("weight", wq), ("scale", scale), ("bias", bias)):
+    wcout, k, _, wcin = wq.shape
+    if not wq[0].is_contiguous() or wq.stride(0) < k * k * wcin:
+        raise ValueError("int8 conv weight rows (one per output channel) must be contiguous")
+    for name, t in (("scale", scale), ("bias", bias)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"int8 conv {name} must be contiguous")
-    key = (xq.shape, xq.stride(), xq.data_ptr() % 16, xq.device, wq.data_ptr(), wq.shape, stride)
+    if wcout % 8 or wcin % 8:
+        raise ValueError(
+            f"the int8 conv kernel takes Cin and Cout in multiples of 8, got weights "
+            f"{tuple(wq.shape)}: pad them, the scale and the bias (pad_weight, pad_channels)"
+        )
+    xq = _kernel_input(xq, wcin)
+    key = (xq.shape, xq.stride(), xq.data_ptr() % 16, xq.device, wq.data_ptr(), wq.shape,
+           wq.stride(0), stride)
     plan = _PLANS.get(key)
     if plan is None:
         plan = _plan(xq, wq, stride)
-    w_keep, wmap, shape_args, tile_args, out_shape = plan  # w_keep: padded weights, kept alive
+    w_copy, wmap, shape_args, tile_args, out_shape = plan  # w_copy: padded rows, kept alive
     vec, bm = tile_args[:2]
     xmap = _input_map(xq, shape_args[4], shape_args[6], stride, bm) if vec == 0 else None
-    dtype = torch.bfloat16 if out_scale is None else torch.int8
+    dtype = torch.int8 if out_scale is not None else torch.float32 if out_f32 else torch.bfloat16
     out = torch.empty(out_shape, dtype=dtype, device=xq.device)
     args = (
         xq.data_ptr(), ctypes.addressof(wmap), None if xmap is None else ctypes.addressof(xmap),
         scale.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if out_scale is None else out_scale.data_ptr(), out.data_ptr(),
-        *shape_args, ACT_CODES[act], *tile_args,
+        *shape_args, ACT_CODES[act], int(out_f32), *tile_args,
     )
     if xq.device.index == torch.cuda.current_device():
         rc = _lib().adas_int8_conv_forward(*args, torch.cuda.current_stream().cuda_stream)
@@ -346,4 +431,6 @@ def int8_conv(
     if rc != 0:
         raise RuntimeError(f"int8 conv kernel launch failed: cudaError_t {rc}")
     launches += 1
+    if cout is not None and cout != wcout:
+        return out[..., :cout].contiguous()
     return out

@@ -413,6 +413,19 @@ def imagenet_preprocess(
     return imagenet_preprocess_planar(planes, geom)
 
 
+def yolo_preprocess_planar(bgr_chw: torch.Tensor, geom: LetterboxGeometry,
+                           dtype=torch.float32) -> torch.Tensor:
+    """(B, 3, H, W) BGR planes -> the YOLO input: letterboxed (pad 114/255),
+    RGB, / 255, NCHW (``preprocess.py:500``, the non-s2d branch): the I420
+    path of the YOLO nets without a planes stem."""
+    newh, neww = geom.new_shape
+    padh, padw = geom.pad
+    img = resize_bilinear_planar(bgr_chw.float(), newh, neww).flip(-3)
+    img = (img * (1.0 / 255.0)).to(dtype)
+    pads = (padw, geom.dst_w - neww - padw, padh, geom.dst_h - newh - padh)
+    return torch.nn.functional.pad(img, pads, value=PAD_VALUE / 255.0)
+
+
 def ufld_v2_preprocess_planar(
     bgr_chw: torch.Tensor,
     input_h: int,

@@ -4,7 +4,8 @@
 ``warp_perspective`` is the bilinear homography warp of the bird-view
 transform, in plain PyTorch on the image's device (the JAX one is a
 jitted XLA gather, not a Pallas kernel): the inverse homography in f32
-on the device, four clamped taps with a zero border, ``round``
+on the host with LAPACK's ``sgetrf`` + ``strsm`` (as XLA's CPU lowering
+of ``jnp.linalg.inv``), four clamped taps with a zero border, ``round``
 half-to-even for integer images.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from scipy.linalg import blas, lapack
 
 
 def get_perspective_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
@@ -39,13 +41,30 @@ def warp_perspective(img: torch.Tensor, matrix, out_hw: Tuple[int, int]) -> torc
     img[M^-1 (x, y)]`` (``warp.py:45``).
 
     ``matrix`` (3x3, numpy or tensor) maps source to destination (the cv2
-    convention); it is cast to f32 and inverted on the image's device
-    (``inv_ex``: no error check, so no synchronization), then
-    :func:`warp_inverse` samples.  Two f32 LU inverses (LAPACK's, cuSOLVER's,
-    XLA's) differ in the last bits, and the bird-view homography carries
-    that into its far source rows (``tests/test_torch_warp.py``)."""
-    m = torch.as_tensor(matrix).to(img.device, torch.float32)
-    return warp_inverse(img, torch.linalg.inv_ex(m)[0], out_hw)
+    convention); :func:`inverse_f32` inverts it on the host, the inverse
+    goes to the image's device (a 36-byte copy) and :func:`warp_inverse`
+    samples.  A matrix given as a CUDA tensor costs one 36-byte fetch,
+    which waits for the stream; ``PerspectiveTransformation`` keeps its
+    matrices in numpy, so the single-frame path adds no synchronization."""
+    m_inv = torch.from_numpy(inverse_f32(torch.as_tensor(matrix).cpu().numpy()))
+    return warp_inverse(img, m_inv.to(img.device), out_hw)
+
+
+def inverse_f32(matrix: np.ndarray) -> np.ndarray:
+    """The f32 inverse of a square matrix as the JAX package computes it on
+    the CPU: XLA lowers ``jnp.linalg.inv`` to LAPACK's ``sgetrf`` and two
+    ``strsm`` (unit lower, then upper factor) on the row-swapped identity,
+    and jaxlib takes that LAPACK from scipy.  The same calls give the same
+    bits (``tests/test_torch_warp.py``); another LU (torch's, cuSOLVER's)
+    differs in the last bits, which the bird view's far rows amplify into
+    whole levels."""
+    a = np.asarray(matrix, np.float32)
+    lu, piv, _ = lapack.sgetrf(a)
+    b = np.eye(a.shape[0], dtype=np.float32)
+    for i, p in enumerate(piv):
+        b[[i, p]] = b[[p, i]]
+    x = blas.strsm(1.0, lu, b, side=0, lower=1, diag=1)
+    return np.ascontiguousarray(blas.strsm(1.0, lu, x, side=0, lower=0, diag=0), np.float32)
 
 
 def warp_inverse(img: torch.Tensor, m_inv: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

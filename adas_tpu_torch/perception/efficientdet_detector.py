@@ -4,8 +4,12 @@ path).
 
 Weights come from a ``params_io`` ``.npz`` or, with no ``model_path``,
 from the port's seeded flax-style init, on the card unless the caller
-names the CPU; the net runs in f32.  Not ported: the ONNX engine path, the zylo117 ``.pth``
-import and int8 (the JAX facade's ``compute_dtype="int8"``).
+names the CPU.  ``compute_dtype`` is None (f32) or ``"int8"``
+(``efficientdet_detector.py:40-42``): the int8 graph of
+``models/efficientdet.py``, its W8A8 kernels packed at load and static
+activation scales from :meth:`EfficientdetDetector.calibrate_int8`
+(``:116-160``).  Not ported: the ONNX engine path and the zylo117 ``.pth``
+import.
 :meth:`DetectFrame` is the single-frame entry point: letterbox ->
 :func:`imagenet_preprocess` -> net (anchors decoded inside) -> class
 max/argmax -> ``select_and_nms`` (on the GPU: the IoU and scan kernels)
@@ -22,11 +26,11 @@ from ..utils.types import ObjectModelType
 from ..models.efficientdet import EfficientDet, EfficientDetSpec
 from ..ops.preprocess import LetterboxGeometry, imagenet_preprocess
 from ..ops.yolo_decode import detections_to_original, select_and_nms
-from .object_detector import ObjectDetectBase, build_net, resolve_device
+from .object_detector import ObjectDetectBase, build_net, calibrate, resolve_device
 
 #: the options of :class:`EfficientdetDetector` and their defaults
-#: (``efficientdet_detector.py:29-43``, less ``compute_dtype``: f32 only);
-#: ``input_size`` (a multiple of 128) overrides the paper's square input
+#: (``efficientdet_detector.py:29-43``); ``input_size`` (a multiple of 128)
+#: overrides the paper's square input
 EFFDET_OPTIONS = {
     "model_path": None,
     "model_type": ObjectModelType.EfficientDet,
@@ -36,6 +40,7 @@ EFFDET_OPTIONS = {
     "compound": 0,
     "max_det": 100,
     "input_size": None,
+    "compute_dtype": None,
 }
 
 
@@ -56,15 +61,33 @@ class EfficientdetDetector(ObjectDetectBase):
         super().__init__(EFFDET_OPTIONS, kwargs, logger)
         if self.model_type is not ObjectModelType.EfficientDet:
             raise ValueError(f"EfficientdetDetector can't use {self.model_type} type.")
+        if self.compute_dtype not in (None, "int8"):
+            raise ValueError(f"EfficientDet compute_dtype is None or 'int8', got "
+                             f"{self.compute_dtype!r}")
         self.device = resolve_device(device)
         self._initialize_class(self.classes_path)
         self.spec = EfficientDetSpec(
             compound=int(self.compound), num_classes=len(self.class_names),
             input_size_override=self.input_size,
         )
+        int8 = self.compute_dtype == "int8"
         self.net = build_net(
-            lambda: EfficientDet(self.spec), self.device, None, self.model_path, seed,
+            lambda: EfficientDet(self.spec, int8=int8), self.device, self.compute_dtype,
+            self.model_path, seed,
         )
+
+    def calibrate_int8(self, frames) -> None:
+        """Static activation scales from sample BGR frames
+        (``efficientdet_detector.py:138``): each frame letterboxed and
+        normalized by :func:`imagenet_preprocess`, as the JAX facade does."""
+        if self.compute_dtype != "int8":
+            raise ValueError("calibrate_int8 requires compute_dtype='int8'")
+        s = self.spec.input_size
+        calibrate(self.net, (
+            imagenet_preprocess(f, LetterboxGeometry(f.shape[0], f.shape[1], s, s),
+                                device=self.device)
+            for f in frames
+        ))
 
     @torch.inference_mode()
     def detect(self, frame_bgr: np.ndarray) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """YOLO detector facade (port of ``YoloDetector``,
-``adas_tpu/perception/object_detector.py:162``, for the YOLOv5, YOLOv8 and
-YOLOv10 families at every scale; v5-lite, v6, v7 and v9 raise
-``NotImplementedError``).
+``adas_tpu/perception/object_detector.py:162``, for every family the JAX
+facade builds natively: YOLOv5, v5-lite, v6, v7, v8, v9 and v10, at every
+scale and with JAX's scale fallbacks).
 
 Builds the torch net on the card (``device="cuda"``, the default; the
 CPU only when the caller names it): weights come from a
@@ -11,7 +11,9 @@ is None (f32), ``"bf16"`` (every floating leaf cast, as
 ``adas_tpu/tools/quantize.py:32-44`` does) or ``"int8"``: the int8 net,
 f32 params, its int8 kernels packed at load (``_pack_int8``,
 ``object_detector.py:291``) and static activation scales from
-:meth:`YoloDetector.calibrate_int8` (``object_detector.py:338``).
+:meth:`YoloDetector.calibrate_int8` (``object_detector.py:338``).  A
+YOLOv6 is served in RepVGG's deploy form, fused at load before the cast
+and the packing (``object_detector.py:266-273``).
 Options come as keywords over the class's ``_defaults``
 (``set_defaults``/``check_defaults``/``get_defaults``, as the JAX
 facades): JAX's, the default family YOLOv5 included, less the ONNX and
@@ -40,7 +42,8 @@ from ..render import draw as D
 from ..render.text import FONT_HERSHEY_TRIPLEX, get_text_size, put_text
 
 from ..models.quant import calibrating, pack_int8_weights
-from ..models.yolo import FAMILIES, YoloSpec, build_yolo
+from ..models.yolo import YoloSpec, build_yolo, resolve_spec
+from ..models.yolov6 import fuse_repvgg
 from ..ops.preprocess import LetterboxGeometry, frame_to_device, yolo_preprocess
 from ..ops.yolo_decode import decode_predictions, detections_to_original, select_and_nms
 from ..weights import init_params, load_flax_variables, load_npz
@@ -77,19 +80,26 @@ def input_torch_dtype(compute_dtype: Optional[str]) -> torch.dtype:
     return torch.float32 if compute_dtype is None else torch.bfloat16
 
 
-def build_net(make, device: torch.device, compute_dtype: Optional[str], model_path, seed: int):
+def build_net(make, device: torch.device, compute_dtype: Optional[str], model_path, seed: int,
+              fuse=None):
     """Construct ``make()`` on ``device``, fill it from ``model_path``
     (flax ``.npz``, possibly calibrated and packed) or the seeded init,
-    cast to the params' dtype, pack the int8 kernels of an int8 net,
-    freeze."""
+    apply ``fuse`` (YOLOv6's RepVGG deploy form; a tree already fused,
+    with ``::fused::`` leaves, is loaded into the fused structure), cast to
+    the params' dtype, pack the int8 kernels of an int8 net, freeze."""
     with device:
         net = make()
     if model_path is None:
         init_params(net, seed)
     elif str(model_path).endswith(".npz"):
-        load_flax_variables(net, load_npz(model_path))
+        flat = load_npz(model_path)
+        if fuse is not None and any("::fused::" in k for k in flat):
+            fuse(net)
+        load_flax_variables(net, flat)
     else:
         raise ValueError(f"unsupported weights {model_path} (expect a params_io .npz or None)")
+    if fuse is not None:
+        fuse(net)
     net = net.to(compute_torch_dtype(compute_dtype)).eval().requires_grad_(False)
     if compute_dtype == "int8":
         pack_int8_weights(net)
@@ -225,11 +235,14 @@ YOLO_OPTIONS = {
     "nms_free": False,
 }
 
-#: ``object_detector.py:36``: the YOLO family of each ported model type
-#: (v5-lite, v6, v7 and v9 wait, ``ROADMAP.md`` §1)
+#: ``object_detector.py:36``: the YOLO family of each model type
 _FAMILY_OF = {
     ObjectModelType.YOLOV5: "v5",
+    ObjectModelType.YOLOV5_LITE: "v5lite",
+    ObjectModelType.YOLOV6: "v6",
+    ObjectModelType.YOLOV7: "v7",
     ObjectModelType.YOLOV8: "v8",
+    ObjectModelType.YOLOV9: "v9",
     ObjectModelType.YOLOV10: "v10",
 }
 
@@ -246,22 +259,20 @@ class YoloDetector(ObjectDetectBase):
         super().__init__(YOLO_OPTIONS, kwargs, logger)
         family = _FAMILY_OF.get(self.model_type)
         if family is None:
-            raise NotImplementedError(
-                f"{getattr(self.model_type, 'name', self.model_type)}: the port builds the "
-                f"{', '.join(FAMILIES)} families only (ROADMAP.md §1)"
-            )
+            raise ValueError(f"YoloDetector can't use {self.model_type} type.")
         if self.nms_free and family != "v10":
             raise ValueError("nms_free serving requires a YOLOv10 model")
         self.device = resolve_device(device)
         self._initialize_class(self.classes_path)
-        self.spec = YoloSpec(
+        # the scale JAX serves (v9 -> c, v6 and v5-lite -> s when unknown)
+        self.spec = resolve_spec(YoloSpec(
             scale=self.scale, num_classes=len(self.class_names),
             input_size=tuple(self.input_size), family=family,
-        )
+        ))
         cd = self.compute_dtype
         self.net = build_net(
             lambda: build_yolo(self.spec, int8=cd == "int8"), self.device, cd, self.model_path,
-            seed,
+            seed, fuse=fuse_repvgg if family == "v6" else None,
         )
         self._steps = {}
         if self.logger:

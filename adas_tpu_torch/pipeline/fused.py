@@ -5,11 +5,14 @@ device step with one packed fetch, and async submit/fetch (port of
 :func:`fused_step` is the device step both pipelines run: this module's
 :class:`FusedADASStep` on one frame, ``MultiStreamADAS`` on a batch of
 streams.  Transports: ``"bgr"`` uploads the uint8 frame, ``"i420"``
-uploads its 4:2:0 planes (half the bytes) and preprocesses them
-YUV-direct (``yolo_preprocess_yuv`` / ``ufld_v2_preprocess_yuv``, the
-counterpart of the JAX planes path); an EfficientDet object side decodes
-the planes to rounded BGR once and feeds both nets from them
-(``fused.py:180-201``).  ``host_downscale`` resizes a larger frame on the
+uploads its 4:2:0 planes (half the bytes) and, as JAX does
+(``fused.py:143-217``), preprocesses them YUV-direct
+(``yolo_preprocess_yuv`` / ``ufld_v2_preprocess_yuv``, the counterpart of
+the JAX planes path) when the object net's stem takes planes (its
+``stem_takes_planes``, set by YOLOv8 and v10 as JAX's ``stem_s2d_ok``);
+any other object side (EfficientDet, YOLOv5,
+v5-lite, v6, v7, v9) decodes the planes to rounded BGR once and feeds both
+nets from them.  ``host_downscale`` resizes a larger frame on the
 host before the upload (``render/draw.resize_linear``, cv2's
 ``INTER_LINEAR`` to the bit) and scales the detections back.
 """
@@ -34,6 +37,7 @@ from ..ops.preprocess import (
     ufld_v2_preprocess_planar,
     ufld_v2_preprocess_yuv,
     yolo_preprocess,
+    yolo_preprocess_planar,
     yolo_preprocess_yuv,
 )
 from ..ops.ufld_decode import ufld_v2_decode
@@ -75,11 +79,14 @@ def fused_step(yolo, lane, x: torch.Tensor, frame_hw: Sequence[int], transport: 
         lane_dtype = input_torch_dtype(lane.compute_dtype)
     else:
         lane_dtype = torch.bfloat16 if lane.compute_dtype == "bf16" else torch.float32
-    if transport == "i420" and is_effdet:
+    if transport == "i420" and not getattr(yolo.net, "stem_takes_planes", False):
         # the full-resolution decode keeps cv2's round/clip; both nets
         # read its planes (multistream.py:271-275, 334-343)
         bgr = i420_to_bgr_planar(x, h, w)
-        xo = imagenet_preprocess_planar(bgr, geom)
+        if is_effdet:
+            xo = imagenet_preprocess_planar(bgr, geom)
+        else:
+            xo = yolo_preprocess_planar(bgr, geom, dtype=input_torch_dtype(yolo.compute_dtype))
         lx = ufld_v2_preprocess_planar(bgr, *lane_crop, dtype=lane_dtype)
     elif transport == "i420":
         xo = yolo_preprocess_yuv(x, h, w, geom, dtype=input_torch_dtype(yolo.compute_dtype))

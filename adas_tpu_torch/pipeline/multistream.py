@@ -12,13 +12,16 @@ the results into one tensor; the host fetches it in one copy and runs
 ByteTrack, distance and TaskConditions per stream.  All cross-frame state
 is host-side per stream.  Under int8 (both facades with
 ``compute_dtype="int8"``, calibrated) both nets take bf16 input from the
-YUV-direct preprocess (``multistream.py:190-205``).  The object side may
-instead be an ``EfficientdetDetector`` (``multistream.py:164-181,
-271-310``): then the step decodes the I420 batch into rounded BGR planes
-once, letterboxes them square and ImageNet-normalizes them for the net
-(boxes and class probabilities, anchors decoded inside), runs
-``select_and_nms`` on the class max/argmax, and feeds the lane net from
-the same planes.  Not ported: the bgr transport, the tunnel's
+YUV-direct preprocess (``multistream.py:190-205``).  The YUV-direct
+preprocess serves a YOLOv8 or v10, whose JAX stems take its planes; for
+the other YOLO families the step decodes the I420 batch into rounded BGR
+planes once and feeds both nets from them (``multistream.py:257-285``;
+the net's ``stem_takes_planes`` decides).  The object side may instead be an
+``EfficientdetDetector`` (``multistream.py:164-181, 271-310``): then the
+step decodes the planes as well, letterboxes them square and
+ImageNet-normalizes them for the net (boxes and class probabilities,
+anchors decoded inside), runs ``select_and_nms`` on the class
+max/argmax, and feeds the lane net from the same planes.  Not ported: the bgr transport, the tunnel's
 ``host_downscale`` ladder, the compute probe and the step artifacts.
 """
 from __future__ import annotations

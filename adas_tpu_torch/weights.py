@@ -10,13 +10,18 @@ so the mapping is by path plus a layout change per leaf:
 * conv ``kernel`` HWIO -> ``weight`` OIHW (a depthwise kernel (kh, kw,
   1, C) becomes (C, 1, kh, kw)); Dense ``kernel`` (in, out) -> Linear
   ``weight`` (out, in); ``bias`` -> ``bias``;
-* EfficientDet's BiFPN fusion weights (``params`` leaves ``p3_w1`` ..
-  ``p7_w2``) -> the parameter of the same name;
+* the raw ``params`` leaves of a module, EfficientDet's BiFPN fusion
+  weights (``p3_w1`` .. ``p7_w2``), YOLOv7's implicit ``ia{i}_implicit`` /
+  ``im{i}_implicit`` and YOLOv6's BottleRep ``alpha`` -> the parameter of
+  the same name, in the flax shape;
+* a ``ConvTranspose`` kernel with ``transpose_kernel`` (kh, kw, out, in)
+  -> ``ConvTranspose2d.weight`` (in, out, kh, kw): the same transpose as a
+  conv kernel's;
 * BatchNorm / LayerNorm ``scale`` -> ``weight``, ``bias`` -> ``bias``,
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
 * the int8 collections of a calibrated, packed tree: ``act_scales``
-  leaves (``xmax``, ``ymax``, ``concat_xmax``, ``neck_a_xmax``,
-  ``neck_b_xmax``, ``out_ymax``) and ``wscales`` ``wscale`` keep their
+  leaves (``xmax``, ``ymax``, ``concat_xmax``, the named groups
+  ``neck_a_xmax``, ``elan4_xmax`` ..., ``out_ymax``: ``quant.QUANT_BUFFERS``) and ``wscales`` ``wscale`` keep their
   names as buffers of the module at their path; a packed s8 ``kernel``
   (``tools/quantize.py:117``) becomes ``wq`` (HWIO -> OHWI, Dense (in,
   out) -> (out, in)) and, dequantized with its ``wscale``, the f32
@@ -26,8 +31,8 @@ The seeded init mirrors flax's initializers, so random-weight nets behave
 as the JAX ones do (real detection counts on random frames): conv and
 dense kernels are ``lecun_normal`` — a normal truncated to ±2 sigma with
 fan-in variance — biases zero, norms scale one and bias zero, BatchNorm
-statistics mean 0 and var 1; the BiFPN fusion weights keep the ones they
-are built with (flax ``initializers.ones``).
+statistics mean 0 and var 1; the raw parameters keep what they are built
+with (flax's ``ones`` / ``zeros`` initializers).
 """
 from __future__ import annotations
 
@@ -50,7 +55,7 @@ _LEAF_NAMES = {
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
-_FUSION_WEIGHT = re.compile(r"p[3-7]_w[12]")
+_RAW_PARAM = re.compile(r"p[3-7]_w[12]|i[am]\d+_implicit|alpha")
 
 
 def _t(arr: np.ndarray) -> torch.Tensor:
@@ -78,7 +83,7 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tens
             out[prefix + "weight"] = _t(arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T)
         elif (coll, leaf) in _LEAF_NAMES:
             out[prefix + _LEAF_NAMES[(coll, leaf)]] = _t(arr)
-        elif coll == "params" and _FUSION_WEIGHT.fullmatch(leaf):
+        elif coll == "params" and _RAW_PARAM.fullmatch(leaf):
             out[prefix + leaf] = _t(arr)
         elif coll in ("act_scales", "wscales") and leaf in QUANT_BUFFERS:
             out[prefix + leaf] = _t(arr.astype(np.float32))
@@ -147,6 +152,9 @@ def init_params(module: nn.Module, seed: int = 0) -> None:
         if isinstance(m, nn.Conv2d):
             fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
             _lecun_normal_(m.weight, fan_in, gen)
+        elif isinstance(m, nn.ConvTranspose2d):
+            # flax's fan-in of a transposed kernel (kh, kw, out, in) is axis -2's
+            _lecun_normal_(m.weight, m.out_channels * m.kernel_size[0] * m.kernel_size[1], gen)
         elif isinstance(m, nn.Linear):
             _lecun_normal_(m.weight, m.in_features, gen)
         elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):

@@ -154,14 +154,29 @@ Phases, each of which raises (exit code 1) on failure:
     (YOLOv8n f32, the f32 stem at 16 features, + UFLDv2-CULane f32, HUD
     drawn) into a ``.y4m`` that must hold its 4 drawn 720p frames; finite,
     non-empty detections; stem 2, IoU 1, walk 1 per frame;
-15. ``[families]``: every ported YOLO family at every scale (v5, v8, v10 at
-    n-x, and v10s NMS-free) and the UFLD v1 (TuSimple, CULane) and
-    UFLDv2-CurveLanes facades, built on the card by default, one
-    ``DetectFrame`` each with its exact launches.
+15. ``[main-v9c-int8]``: YOLOv9c-640 (GELAN-C) calibrated int8 +
+    UFLDv2-CULane int8, both calibrated on the card, 8 streams of 720p on
+    the I420 path: every distinct int8 conv shape of a tick against its
+    plain version and ``torch._int_mm`` (``[main-v9c-int8-shapes]``), then
+    the ticks of phase 5 with per tick stem 1 and block 2 (the lane
+    net's: GELAN has no Pallas stem or fused body in JAX either), the int8
+    conv calls of both nets, IoU 1 and walk 1;
+16. ``[main-effdet-int8]``: EfficientDet-D0-512 calibrated int8
+    (``box_score`` 0.3) + UFLDv2-CULane int8, the JAX bench's
+    ``c5_efficientdet_d0_int8_8streams`` without its host downscale, as
+    phase 15 (EfficientDet's head convs run once per level), then
+    ``DetectFrame`` on one 720p frame (``c5_efficientdet_d0_int8``) with
+    the net's int8 conv calls, IoU 1 and walk 1;
+17. ``[families]``: every YOLO family at every scale (v5, v8, v10 at n-x,
+    v10s NMS-free; v5-lite e/s/g, v6 n/s/m/l, v7, v9 c in f32 and, each
+    calibrated on the card from two frames, in int8) and the UFLD v1
+    (TuSimple, CULane) and UFLDv2-CurveLanes facades, built on the card
+    by default, one ``DetectFrame`` each with its exact launches (the
+    int8 ones: every int8 conv of the net once, no stem).
 
 Then the card's name and power limit again, one JSON line describing
-the kernels — ``launches`` summed over the eleven paths (the
-``[families]`` checks among them), each counted from 0 just before it; ``max_abs_err``, ``ms``, ``plain_ms``,
+the kernels — ``launches`` summed over the paths (the ``[families]``
+checks among them), each counted from 0 just before it; ``max_abs_err``, ``ms``, ``plain_ms``,
 ``library_ms`` (null where no PyTorch call computes the function) and the
 bound (``bound_ms``, ``bound_by``) from phase 3 (stem: bf16, summed over
 its two serving shapes, plus ``widths_ms``, each other width's bf16 time;
@@ -179,8 +194,9 @@ and the kernel's batch-1 time, bound and library time, summed per frame
 as above: ``launches_per_frame``, ``batch1_ms``, ``batch1_bound_ms``,
 ``batch1_library_ms``; stem: ``batch1_sites_ms``, each other batch-1
 site's time by dtype; int8 conv: ``config5_tick_{ms,library_ms,bound_ms}``
-and ``v5_frame_{ms,library_ms,bound_ms}``, the kernel, ``torch._int_mm``
-and the bound summed per tick of phase 11 and per frame of phase 13) —
+``v5_frame_{ms,library_ms,bound_ms}``, ``v9c_tick_*`` and
+``effdet_int8_tick_*``, the kernel, ``torch._int_mm`` and the bound summed
+per tick of phases 11, 15 and 16 and per frame of phase 13) —
 and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA GPU is visible.
 """
@@ -197,10 +213,13 @@ N_STREAMS, FRAME_HW = 8, (720, 1280)
 BLOCKS_PER_TICK = 5
 #: keys of the kernels line beyond the contract's
 EXTRA_KEYS = ("unfused_ms", "matrix_ms", "matrix_bound_ms", "scan_ms", "widths_ms",
-              "config5_ms", *(f"{path}_{k}" for path in ("config5_tick", "v5_frame")
+              "config5_ms", *(f"{path}_{k}" for path in ("config5_tick", "v5_frame", "v9c_tick",
+                                                         "effdet_int8_tick", "families_int8_frames")
                               for k in ("ms", "library_ms", "bound_ms")))
-#: EfficientDet's box score on seeded weights (see phase 6)
+#: EfficientDet's box score on seeded weights (see phase 6); the int8 path
+#: serves at 0.3 (phase 16)
 EFFDET_BOX_SCORE = 0.5
+EFFDET_INT8_BOX_SCORE = 0.3
 #: one H100 SXM's dense peaks (operations/s by type) and memory rate
 #: (bytes/s), NVIDIA's data sheet, at the full 700 W power limit: the
 #: bounds of the kernel lines; a card set below 700 W runs under them
@@ -386,7 +405,8 @@ def conv_operands(gen, shape, pitch, cout, k, torch, bias=True):
 def conv_against_plain(IC, torch, args, kw):
     """The kernel against int8_conv_reference on ``args``: s8 at most 1
     LSB on fewer than 0.5% of the elements, bf16 within one ulp (or
-    1e-30); returns (kernel output, error: LSB for s8, absolute for bf16)."""
+    1e-30), f32 (EfficientDet's head) within 2^-20 relative (or 1e-30);
+    returns (kernel output, error: LSB for s8, absolute else)."""
     got = IC.int8_conv(*args, **kw)
     want = IC.int8_conv_reference(*args, **kw)
     torch.cuda.synchronize()
@@ -397,22 +417,32 @@ def conv_against_plain(IC, torch, args, kw):
         return got, lsb
     g, w = got.float(), want.float()
     err = (g - w).abs().max().item()
-    check(bool(torch.all((g - w).abs() <= w.abs() * 2.0 ** -7 + 1e-30)),
-          f"int8 conv bf16 disagrees (max abs err {err})")
+    rel = 2.0 ** -20 if got.dtype == torch.float32 else 2.0 ** -7
+    check(bool(torch.all((g - w).abs() <= w.abs() * rel + 1e-30)),
+          f"int8 conv {got.dtype} disagrees (max abs err {err})")
     return got, err
 
 
 def conv_yardsticks(IC, torch, args, kw, got, stride):
     """Kernel time, ``torch._int_mm`` time on the same implicit GEMM (the
-    im2col operand made outside the timed window; it computes the s32
-    product, the whole conv for a 1x1) and the bound of the conv."""
+    im2col operand made outside the timed window, K and N zero-padded to
+    the multiples of 8 it takes; it computes the s32 product, the whole
+    conv for a 1x1) and the bound of the conv (at its own widths, padded
+    operands or not)."""
+    import torch.nn.functional as F
+
     xq, wq, scale, bias = args
-    k, cout = wq.shape[1], wq.shape[0]
+    k, cout = wq.shape[1], kw.get("cout") or wq.shape[0]
     ms = device_ms(lambda: IC.int8_conv(*args, **kw), 20)
+    # the conv's own widths: padded operands (``pad_weight``) sliced back
+    wq, scale = wq[:cout, ..., :xq.shape[3]], scale[:cout]
+    bias = None if bias is None else bias[:cout]
     cols = IC.im2col(xq, k, stride).contiguous()
     w2d = wq.reshape(cout, -1)
-    lib_ms = device_ms(lambda: torch._int_mm(cols, w2d.t()), 20)
     m, kk = cols.shape
+    cols_p = F.pad(cols, (0, -kk % 8)).contiguous()
+    w2d_p = F.pad(w2d, (0, -kk % 8, 0, -cout % 8)).contiguous()
+    lib_ms = device_ms(lambda: torch._int_mm(cols_p, w2d_p.t()), 20)
     b = bound(nbytes(xq, wq, scale, bias, kw.get("out_scale"), got), 2 * m * kk * cout, "int8")
     return ms, lib_ms, b
 
@@ -675,7 +705,8 @@ def yolo_heads(net, x):
 
 def reference_phase(torch, np):
     """The full-width nets and preprocess in f32 on the GPU vs the CPU:
-    YOLOv8l, YOLOv5s and YOLOv10s (both heads) at 160x160, a narrowed
+    YOLOv8l, YOLOv5s, YOLOv10s (both heads), YOLOv9c, YOLOv5-lite-s,
+    YOLOv6n (deploy form) and YOLOv7 at 160x160, a narrowed
     UFLDv2 and EfficientDet-D0 (the depthwise convs and PSA's products in
     cuDNN and cuBLAS with TF32 off)."""
     from adas_tpu_torch.models import ufld
@@ -683,6 +714,7 @@ def reference_phase(torch, np):
     from adas_tpu_torch.models.layers import consume_stem
     from adas_tpu_torch.models.ufld import LaneModelType, UFLDv2Net
     from adas_tpu_torch.models.yolo import YoloSpec, YoloV8, build_yolo
+    from adas_tpu_torch.models.yolov6 import fuse_repvgg
     from adas_tpu_torch.ops.preprocess import (
         LetterboxGeometry,
         bgr_to_i420,
@@ -703,9 +735,12 @@ def reference_phase(torch, np):
     init_params(ynet, 3)  # on the CPU: one set of weights for both sides
     init_params(lnet, 4)
     init_params(enet, 5)
-    families = {f: build_yolo(YoloSpec("s", 80, (160, 160), family=f)) for f in ("v5", "v10")}
+    families = {f: build_yolo(YoloSpec(scale, 80, (160, 160), family=f))
+                for f, scale in (("v5", "s"), ("v10", "s"), ("v9", "c"), ("v5lite", "s"),
+                                 ("v6", "n"), ("v7", "n"))}
     for seed, net in enumerate(families.values()):
         init_params(net, 20 + seed)
+    fuse_repvgg(families["v6"])  # the deploy form the facade serves
     outs = {}
     for dev in ("cpu", "cuda"):
         ynet, lnet, enet = ynet.to(dev), lnet.to(dev), enet.to(dev)
@@ -741,15 +776,21 @@ def reference_phase(torch, np):
 
 
 def int8_reference_phase(torch, np, IC, B):
-    """Full-width int8 nets (YOLOv8l, YOLOv5s and YOLOv10s at 320x320, a
-    narrowed UFLDv2), packed and calibrated on the CPU (YOLOv10 through
-    ``both``), then the GPU kernels against the CPU plain versions on the
-    same input, with the GPU run's exact launches: the fused bodies the
-    gate passes and every other int8 conv of the trees once."""
+    """Full-width int8 nets (YOLOv8l, YOLOv5s, YOLOv10s, YOLOv9c,
+    YOLOv5-lite-s, YOLOv6n in its fused deploy form and YOLOv7 at 320x320,
+    EfficientDet-D0 with its bf16 depthwise convs at 256x256) and a
+    narrowed UFLDv2,
+    packed and calibrated on the CPU (YOLOv10 through ``both``), then the
+    GPU kernels against the CPU plain versions on the same input, with the
+    GPU run's exact launches: the fused bodies the gate passes and every
+    other int8 conv call of the trees (EfficientDet's head convs once per
+    level)."""
     from adas_tpu_torch.models import ufld
+    from adas_tpu_torch.models.efficientdet import EfficientDet, EfficientDetSpec
     from adas_tpu_torch.models.quant import pack_int8_weights
     from adas_tpu_torch.models.ufld import LaneModelType, UFLDv2Net
     from adas_tpu_torch.models.yolo import YoloSpec, YoloV8, build_yolo
+    from adas_tpu_torch.models.yolov6 import fuse_repvgg
     from adas_tpu_torch.perception.object_detector import calibrate
     from adas_tpu_torch.weights import init_params
 
@@ -759,21 +800,30 @@ def int8_reference_phase(torch, np, IC, B):
     hw = (320, 320)
     xy = torch.from_numpy(rng.uniform(0, 1, (2, 3, *hw)).astype(np.float32))
     xl = torch.from_numpy(rng.standard_normal((2, 3, 160, 640)).astype(np.float32))
+    # EfficientDet's BiFPN takes sides that are multiples of its 128 stride
+    xe = torch.from_numpy(rng.standard_normal((2, 3, 256, 256)).astype(np.float32))
+    families = (("v5", "s"), ("v10", "s"), ("v9", "c"), ("v5lite", "s"), ("v6", "n"),
+                ("v7", "n"))
     nets = {"yolo": (YoloV8(YoloSpec("l", 80, hw), int8=True), xy),
-            **{f"yolo_{f}": (build_yolo(YoloSpec("s", 80, hw, family=f), int8=True), xy)
-               for f in ("v5", "v10")},
+            **{f"yolo_{f}": (build_yolo(YoloSpec(scale, 80, hw, family=f), int8=True), xy)
+               for f, scale in families},
+            "effdet": (EfficientDet(EfficientDetSpec(compound=0, num_classes=80,
+                                                     input_size_override=256), int8=True), xe),
             "lane": (UFLDv2Net(lane_spec, int8=True), xl)}
     t = time.perf_counter()
-    for seed, (net, x) in enumerate(nets.values()):
+    for seed, (name, (net, x)) in enumerate(nets.items()):
         init_params(net, 10 + seed)
+        if name == "yolo_v6":  # served in its deploy form, as the facade loads it
+            fuse_repvgg(net)
         net.eval().requires_grad_(False)
         pack_int8_weights(net)
         calibrate(net, [x[:1], x[1:]], getattr(net, "both", None))
-    print(f"[int8-reference] packed and calibrated YOLOv8l-320, YOLOv5s-320, YOLOv10s-320 + "
-          f"UFLDv2-160x640 on the CPU in {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"[int8-reference] packed and calibrated YOLOv8l, v5s, v10s, v9c, v5-lite-s, v6n, v7 "
+          f"at 320x320, EfficientDet-D0 at 256x256 + UFLDv2-160x640 on the CPU in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
     blocks = sum(yolo_fused_bodies(net, hw) for k, (net, _) in nets.items()
-                 if k.startswith("yolo")) + LANE_BLOCKS
-    per_conv = int8_convs(*(net for net, _ in nets.values())) - 2 * blocks
+                 if k in ("yolo", "yolo_v5", "yolo_v10")) + LANE_BLOCKS
+    per_conv = sum(int8_calls(net) for net, _ in nets.values()) - 2 * blocks
     outs = {}
     for dev in ("cpu", "cuda"):
         IC.reset_launches()
@@ -782,8 +832,15 @@ def int8_reference_phase(torch, np, IC, B):
         with torch.inference_mode():
             for name, (net, x) in nets.items():
                 net.to(dev)
-                xin = x.to(dev, torch.bfloat16)
-                y = yolo_heads(net, xin) if name.startswith("yolo") else net(xin)
+                # the serving inputs: bf16 into the YOLO and lane nets,
+                # EfficientDet's normalized f32 (``efficientdet_detector``)
+                xin = x.to(dev, torch.float32 if name == "effdet" else torch.bfloat16)
+                if name.startswith("yolo"):
+                    y = yolo_heads(net, xin)
+                elif name == "effdet":
+                    y = dict(zip(("boxes", "probs"), net(xin)))
+                else:
+                    y = net(xin)
                 res.update({f"{name}_{k}": v.float().cpu().numpy() for k, v in y.items()})
         outs[dev] = res
         if dev == "cuda":
@@ -795,7 +852,7 @@ def int8_reference_phase(torch, np, IC, B):
         got = outs["cuda"][k]
         check(got.shape == want.shape and np.all(np.isfinite(got)), f"{k}: bad GPU output")
         rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
-        bound = 2e-2 if k.startswith("yolo") else 3e-2
+        bound = 3e-2 if k.startswith("lane") else 2e-2
         print(f"[int8-reference] {k} {want.shape}: relative L2 error {rel:.3g} (bound {bound})",
               flush=True)
         check(rel < bound, f"int8 {k}: GPU kernels and CPU plain versions disagree ({rel})")
@@ -917,11 +974,13 @@ def main_path_conv_shapes(step, IC, torch):
 
     seen, run = {}, layers.int8_conv
 
-    def record(xq, wq, scale, bias, *, stride, act, out_scale=None):
-        key = (tuple(xq.shape), IC.channel_pitch(xq), wq.shape[0], wq.shape[1], stride, act,
-               out_scale is not None, bias is not None)
+    def record(xq, wq, scale, bias, *, stride, act, out_scale=None, out_f32=False, cout=None):
+        out = "s8" if out_scale is not None else "f32" if out_f32 else "bf16"
+        key = (tuple(xq.shape), IC.channel_pitch(xq), cout or wq.shape[0], wq.shape[1], stride,
+               act, out, bias is not None)
         seen[key] = seen.get(key, 0) + 1
-        return run(xq, wq, scale, bias, stride=stride, act=act, out_scale=out_scale)
+        return run(xq, wq, scale, bias, stride=stride, act=act, out_scale=out_scale,
+                   out_f32=out_f32, cout=cout)
 
     layers.int8_conv = record
     try:
@@ -942,19 +1001,22 @@ def main_path_conv_phase(IC, shapes, torch, tag="int8-shapes", per="tick"):
     gen = torch.Generator(device="cuda").manual_seed(3)
     tick = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     slower = []
-    for (shape, pitch, cout, k, stride, act, s8_out, has_bias), calls in sorted(
+    for (shape, pitch, cout, k, stride, act, out, has_bias), calls in sorted(
         shapes.items(), key=lambda kv: -kv[1] * kv[0][0][0] * kv[0][0][1] * kv[0][0][2] * kv[0][2]
     ):
-        args = conv_operands(gen, shape, pitch, cout, k, torch, bias=has_bias)
-        kw = dict(stride=stride, act=act,
-                  out_scale=torch.tensor(0.05, device="cuda") if s8_out else None)
+        xq, wq, scale, b = conv_operands(gen, shape, pitch, cout, k, torch, bias=has_bias)
+        # as the module tree gives them: widths padded to multiples of 8
+        # (``QConv2d.kernel_weight``, ``conv_epilogue``), the conv's own cout
+        args = (xq, IC.pad_weight(wq), IC.pad_channels(scale), IC.pad_channels(b))
+        kw = dict(stride=stride, act=act, out_f32=out == "f32", cout=cout,
+                  out_scale=torch.tensor(0.05, device="cuda") if out == "s8" else None)
         got, err = conv_against_plain(IC, torch, args, kw)
         ms, lib_ms, b = conv_yardsticks(IC, torch, args, kw, got, stride)
         n, h, w, cin = shape
         ho, wo = IC.conv_out_hw(h, w, k, stride)
         tile = IC.tile_config(n * ho * wo, cout, num_sms(torch.cuda.current_device()))
         print(f"[{tag}] {n}x{h}x{w}x{cin} (pitch {pitch}) -> {cout} k{k}/s{stride} {act} "
-              f"{'s8' if s8_out else 'bf16'} x{calls}/{per} tile {tile[0]}x{tile[1]}: "
+              f"{out} x{calls}/{per} tile {tile[0]}x{tile[1]}: "
               f"err {err:.3g}; kernel {ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, "
               f"{fmt_bound(b, ms)}", flush=True)
         tick["ms"] += calls * ms
@@ -1481,33 +1543,56 @@ def families_phase(mods, torch, np):
     kernel once for v8 and v10 (at the scale's 16-80 features; v5's stem is
     a plain conv) and once for every lane net, IoU and walk once for every
     YOLO but the NMS-free one; detections finite and at most ``max_det``.
-    Returns the launch counts."""
+    The int8 cases' warm-up frames record their int8 conv shapes
+    (:func:`main_path_conv_shapes`, one call per int8 conv of the tree).
+    Returns (the launch counts, the recorded shapes summed over the int8
+    cases)."""
     from adas_tpu_torch.perception.lane_detector import (UltrafastLaneDetector,
                                                          UltrafastLaneDetectorV2)
     from adas_tpu_torch.perception.object_detector import YoloDetector
     from adas_tpu_torch.utils.types import LaneModelType, ObjectModelType
 
+    T = ObjectModelType
     frame = np.random.default_rng(9).integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+    calib = list(np.random.default_rng(10).integers(0, 256, (2, *FRAME_HW, 3), dtype=np.uint8))
     total = {k: 0 for k in KERNELS}
-    cases = [(t, scale, False) for t in (ObjectModelType.YOLOV5, ObjectModelType.YOLOV8,
-                                         ObjectModelType.YOLOV10)
-             for scale in ("n", "s", "m", "l", "x")] + [(ObjectModelType.YOLOV10, "s", True)]
-    for model_type, scale, nms_free in cases:
-        det = YoloDetector(model_type=model_type, scale=scale, nms_free=nms_free, seed=0)
+    shapes = {}  # the int8 conv shapes of the int8 cases' frames, summed
+    cases = [(t, scale, False, None) for t in (T.YOLOV5, T.YOLOV8, T.YOLOV10)
+             for scale in ("n", "s", "m", "l", "x")] + [(T.YOLOV10, "s", True, None)]
+    # v5-lite, v6, v7, v9 (no Pallas stem in JAX: a plain first conv), f32 and
+    # calibrated int8: every int8 conv of the module tree once per frame
+    cases += [(t, scale, False, cd) for t, scales in
+              ((T.YOLOV5_LITE, "esg"), (T.YOLOV6, "nsml"), (T.YOLOV7, "n"), (T.YOLOV9, "c"))
+              for scale in scales for cd in (None, "int8")]
+    for model_type, scale, nms_free, cd in cases:
+        det = YoloDetector(model_type=model_type, scale=scale, nms_free=nms_free,
+                           compute_dtype=cd, seed=0)
         check(det.device.type == "cuda", f"{model_type.name}-{scale} built on {det.device}")
-        det.DetectFrame(frame)  # warm-up
+        if cd == "int8":
+            det.calibrate_int8(calib)
+            # the warm-up, recorded: every int8 conv shape of the frame
+            seen = main_path_conv_shapes(lambda: det.DetectFrame(frame), mods["int8_conv"],
+                                         torch)
+            check(sum(seen.values()) == int8_convs(det.net),
+                  f"[families] {model_type.name}-{scale}: recorded {sum(seen.values())} int8 "
+                  f"convs in a frame, expected {int8_convs(det.net)}")
+            for key, calls in seen.items():
+                shapes[key] = shapes.get(key, 0) + calls
+        else:
+            det.DetectFrame(frame)  # warm-up
         reset(mods)
         t = time.perf_counter()
         det.DetectFrame(frame)
         ms = (time.perf_counter() - t) * 1e3
         run = counts(mods)
-        stem = 0 if model_type is ObjectModelType.YOLOV5 else 1
-        want = {"stem": stem, "int8_conv": 0, "block": 0, "iou": int(not nms_free),
-                "nms": int(not nms_free)}
+        stem = int(det.spec.family in ("v8", "v10"))
+        want = {"stem": stem, "int8_conv": int8_convs(det.net) if cd == "int8" else 0,
+                "block": 0, "iou": int(not nms_free), "nms": int(not nms_free)}
         objs = det.object_info
-        print(f"[families] {model_type.name}-{scale}{' NMS-free' if nms_free else ''} (stem "
-              f"{det.net.net.stem.conv.out_channels} features): DetectFrame {ms:.2f} ms, "
-              f"{len(objs)} detections, launches {run}", flush=True)
+        first = det.net.net.stem.conv if det.spec.family in ("v5", "v8", "v10") else None
+        print(f"[families] {model_type.name}-{det.spec.scale}{' NMS-free' if nms_free else ''} "
+              f"{cd or 'f32'}{f' (stem {first.out_channels} features)' if first else ''}: "
+              f"DetectFrame {ms:.2f} ms, {len(objs)} detections, launches {run}", flush=True)
         check(run == want, f"[families] {model_type.name}-{scale}: launches {run}, expected {want}")
         check(len(objs) <= det.max_det and all(np.isfinite([o.x, o.y, o.width, o.height, o.conf])
                                                .all() for o in objs), "bad detections")
@@ -1527,7 +1612,7 @@ def families_phase(mods, torch, np):
         check(run == {"stem": 1, "int8_conv": 0, "block": 0, "iou": 0, "nms": 0}
               and len(lane.lane_info.lanes_status) == 4, f"[families] {lane_type.name}")
         total = {k: total[k] + run[k] for k in KERNELS}
-    return total
+    return total, shapes
 
 
 #: the stride of each C2f of a YOLO neck and backbone (640 input: 160x160
@@ -1605,6 +1690,106 @@ def v10_config5_phase(mods, torch, np):
         return run, conv
     finally:
         ms.close()
+
+
+def int8_calls(net) -> int:
+    """The int8 conv launches of one forward of a net: each int8 conv once,
+    EfficientDet's head convs once per level (the heads share them across
+    the five levels)."""
+    from adas_tpu_torch.models.efficientdet import EfficientDet
+
+    if isinstance(net, EfficientDet):
+        return int8_convs(net) + 4 * int8_convs(net.regressor, net.classifier)
+    return int8_convs(net)
+
+
+def int8_pair_phase(tag, obj, lane, mods, torch, np):
+    """A calibrated int8 object net beside UFLDv2-CULane int8 on the I420
+    path, 8 streams of 720x1280 (phases 16-17): both calibrated on the card
+    from 2 frames; every distinct int8 conv shape of a tick against its
+    plain version (``[<tag>-shapes]``); then the ticks of phase 5 with per
+    tick stem 1 and block 2 (the lane net's: the object nets have neither,
+    as in JAX), the int8 conv calls of both nets less the fused bodies'
+    (:func:`int8_calls`), IoU 1 and walk 1.  Returns (the launch counts, the int8 conv's
+    per-tick sums)."""
+    from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
+
+    rng = np.random.default_rng(0)
+    calib = list(rng.integers(0, 256, (2, *FRAME_HW, 3), dtype=np.uint8))
+    t0 = time.perf_counter()
+    obj.calibrate_int8(calib)
+    lane.calibrate_int8(calib)
+    torch.cuda.synchronize()
+    per_conv = int8_calls(obj.net) + int8_convs(lane.net) - 2 * LANE_BLOCKS
+    print(f"[{tag}] calibrated both nets on the card in {time.perf_counter() - t0:.2f} s; "
+          f"module trees: {int8_convs(obj.net)} ({int8_calls(obj.net)} calls) + "
+          f"{int8_convs(lane.net)} int8 convs, {LANE_BLOCKS} fused bodies -> {per_conv} int8 "
+          f"conv launches per tick", flush=True)
+    ms = MultiStreamADAS(obj, lane, N_STREAMS, FRAME_HW)
+    ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
+    try:
+        shapes = main_path_conv_shapes(lambda: ms._step(ms._prep_upload(ticks[0])),
+                                       mods["int8_conv"], torch)
+        check(sum(shapes.values()) == per_conv,
+              f"recorded {sum(shapes.values())} int8 convs in a step, expected {per_conv}")
+        conv = main_path_conv_phase(mods["int8_conv"], shapes, torch, tag=f"{tag}-shapes")
+        run = serve(tag, ms, mods, {"stem": 1, "int8_conv": per_conv, "block": LANE_BLOCKS,
+                                    "iou": 1, "nms": 1}, ticks, 3, 8, torch, np)
+        return run, conv
+    finally:
+        ms.close()
+
+
+def v9c_int8_phase(mods, torch, np):
+    """``[main-v9c-int8]``: YOLOv9c-640 (GELAN-C) calibrated int8 +
+    UFLDv2-CULane int8 (phase 16)."""
+    from adas_tpu_torch.perception.lane_detector import LaneModelType, UltrafastLaneDetectorV2
+    from adas_tpu_torch.perception.object_detector import ObjectModelType, YoloDetector
+
+    yolo = YoloDetector(model_type=ObjectModelType.YOLOV9, scale="c", input_size=(640, 640),
+                        box_score=0.25, compute_dtype="int8", device="cuda", seed=0)
+    lane = UltrafastLaneDetectorV2(model_type=LaneModelType.UFLDV2_CULANE, compute_dtype="int8",
+                                   device="cuda", seed=1)
+    check(yolo.spec.family == "v9" and yolo.spec.scale == "c", f"not YOLOv9c: {yolo.spec}")
+    return int8_pair_phase("main-v9c-int8", yolo, lane, mods, torch, np)
+
+
+def effdet_int8_phase(mods, torch, np):
+    """``[main-effdet-int8]``: EfficientDet-D0-512 calibrated int8
+    (``box_score`` 0.3) + UFLDv2-CULane int8, the JAX bench's
+    ``c5_efficientdet_d0_int8_8streams`` without its host downscale
+    (phase 17); then ``DetectFrame`` on one 720p frame
+    (``c5_efficientdet_d0_int8``): the net's int8 conv calls, IoU 1, walk
+    1, no stem.  Returns (the launch counts of both, the int8 conv's
+    per-tick sums)."""
+    from adas_tpu_torch.perception.efficientdet_detector import EfficientdetDetector
+    from adas_tpu_torch.perception.lane_detector import LaneModelType, UltrafastLaneDetectorV2
+
+    tag = "main-effdet-int8"
+    det = EfficientdetDetector(compound=0, box_score=EFFDET_INT8_BOX_SCORE, compute_dtype="int8",
+                               device="cuda", seed=0)
+    lane = UltrafastLaneDetectorV2(model_type=LaneModelType.UFLDV2_CULANE, compute_dtype="int8",
+                                   device="cuda", seed=1)
+    check(det.spec.input_size == 512 and det.spec.config[3:] == (64, 3, 3),
+          f"not EfficientDet-D0 at full width: {det.spec}")
+    run, conv = int8_pair_phase(tag, det, lane, mods, torch, np)
+    frame = np.random.default_rng(11).integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+    det.DetectFrame(frame)  # warm-up
+    torch.cuda.synchronize()
+    reset(mods)
+    t = time.perf_counter()
+    det.DetectFrame(frame)
+    ms = (time.perf_counter() - t) * 1e3
+    frame_run = counts(mods)
+    want = {"stem": 0, "int8_conv": int8_calls(det.net), "block": 0, "iou": 1, "nms": 1}
+    objs = det.object_info
+    print(f"[{tag}] DetectFrame (720p, c5_efficientdet_d0_int8): {ms:.2f} ms, {len(objs)} "
+          f"detections, launches {frame_run}", flush=True)
+    check(frame_run == want, f"[{tag}] DetectFrame launches {frame_run}, expected {want}")
+    check(0 < len(objs) <= det.max_det and all(
+        np.isfinite([o.x, o.y, o.width, o.height, o.conf]).all() for o in objs),
+        "bad EfficientDet int8 detections")
+    return {k: run[k] + frame_run[k] for k in KERNELS}, conv
 
 
 def frame_pair_phase(tag, name, object_config, lane_config, routes, per_frame, mods, torch, np):
@@ -1798,10 +1983,20 @@ def main() -> int:
     config5_run, config5_conv = v10_config5_phase(mods, torch, np)
     runs += [config5_run, v10_frame_phase(mods, torch, np)]
     v5_run, v5_conv = v5_frame_phase(mods, torch, np)
-    runs += [v5_run, demo_phase(mods, smi, torch, np), families_phase(mods, torch, np)]
+    runs += [v5_run, demo_phase(mods, smi, torch, np)]
+    v9c_run, v9c_conv = v9c_int8_phase(mods, torch, np)
+    effdet_run, effdet_conv = effdet_int8_phase(mods, torch, np)
+    families_run, families_shapes = families_phase(mods, torch, np)
+    runs += [v9c_run, effdet_run, families_run]
+    # every int8 conv shape of the [families] int8 frames against its plain
+    # version (v5-lite's padded widths at their 640 shapes included)
+    families_conv = main_path_conv_phase(IC, families_shapes, torch, tag="families-int8-shapes",
+                                         per="frame of each int8 family")
     # the int8 conv summed over each new int8 path's distinct shapes
     rows["int8_conv"].update({f"{path}_{k}": v for path, sums in
-                              (("config5_tick", config5_conv), ("v5_frame", v5_conv))
+                              (("config5_tick", config5_conv), ("v5_frame", v5_conv),
+                               ("v9c_tick", v9c_conv), ("effdet_int8_tick", effdet_conv),
+                               ("families_int8_frames", families_conv))
                               for k, v in sums.items()})
     launches = {k: sum(run[k] for run in runs) for k in KERNELS}
 

@@ -267,8 +267,9 @@ def test_facade_options_follow_set_defaults():
         YoloDetector(device="cpu", input_size=(64, 64), onnx_mode="graph")
     with pytest.raises(ValueError, match="YOLOv10"):
         YoloDetector(device="cpu", input_size=(64, 64), nms_free=True)
-    with pytest.raises(TypeError, match="compute_dtype"):
-        EfficientdetDetector(device="cpu", input_size=128, compute_dtype="int8")
+    with pytest.raises(TypeError, match="scale"):
+        EfficientdetDetector(device="cpu", input_size=128, scale="n")
+    assert EfficientdetDetector.get_defaults("compute_dtype") is None  # int8 is an option too
     assert UltrafastLaneDetectorV2.get_defaults("model_type") is LaneModelType.UFLDV2_CULANE
 
 

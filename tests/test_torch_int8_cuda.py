@@ -181,6 +181,96 @@ def test_conv_reads_a_channel_slice_in_place(gpu):
     _assert_s8_close(got, want)
 
 
+#: the int8 convs of YOLOv5-lite, v6, v9 and EfficientDet at small maps:
+#: (n, h, w, c_total, c0, cin, cout, k, stride) with the input a channel
+#: slice [c0, c0 + cin) of a c_total-wide tensor
+FAMILY_CONV_CASES = [
+    # YOLOv5-lite-s ShuffleNet units: 58/116-wide halves read at their
+    # offset (pitch 116 / 232), the stride-2 units' 1x1s from 32 and 116
+    (2, 20, 20, 116, 58, 58, 58, 1, 1),
+    (2, 10, 10, 232, 116, 116, 116, 1, 1),
+    (2, 20, 20, 32, 0, 32, 58, 1, 1),
+    (2, 10, 10, 116, 0, 116, 116, 1, 1),
+    (2, 9, 9, 58, 0, 58, 58, 1, 1),       # the 58-wide 1x1 after a depthwise conv
+    (2, 20, 20, 116, 0, 116, 58, 1, 1),
+    # YOLOv6n: the 16-wide stem output into ERBlock_2_0 (3x3/2), its 32s
+    (2, 32, 32, 16, 0, 16, 32, 3, 2),
+    (2, 16, 16, 32, 0, 32, 32, 3, 1),
+    # YOLOv9c ADown: 3x3/2 on half of the (H-1) x (W-1) average-pooled map
+    (1, 31, 31, 256, 0, 128, 128, 3, 2),
+    (1, 15, 15, 512, 0, 256, 256, 3, 2),
+    # EfficientDet-D0's 1x1s (expand, project, BiFPN laterals, separable pw)
+    (2, 16, 16, 96, 0, 96, 24, 1, 1),
+    (2, 16, 16, 24, 0, 24, 144, 1, 1),
+    (2, 8, 8, 240, 0, 240, 40, 1, 1),
+    (2, 4, 4, 1152, 0, 1152, 320, 1, 1),
+    (2, 8, 8, 40, 0, 40, 64, 1, 1),
+    (2, 16, 16, 64, 0, 64, 64, 1, 1),
+]
+
+
+@pytest.mark.parametrize("out", ["acc", "s8", "bf16", "f32"])
+@pytest.mark.parametrize("n,h,w,c_total,c0,cin,cout,k,stride", FAMILY_CONV_CASES)
+def test_conv_family_shapes_match_reference(gpu, n, h, w, c_total, c0, cin, cout, k, stride,
+                                            out):
+    """The new families' int8 conv shapes against the plain version, the
+    kernel given the operands as the module tree gives them (weights,
+    scale and bias padded to multiples of 8 once, ``pad_weight`` /
+    ``pad_channels``, and the conv's own ``cout``; the plain version
+    takes the same): the s32
+    accumulator to the bit (``acc``: unit scale, bf16 of an exact sum), s8
+    within 1 LSB on < 0.5%, bf16 within one ulp, f32 (EfficientDet's head:
+    no folded BN) to the bit without an activation and within 2^-20
+    relative with SiLU.  One launch each."""
+    y = _s8(gpu, (n, h, w, c_total), -8, 8) if out == "acc" else _s8(gpu, (n, h, w, c_total))
+    xq = y[..., c0:c0 + cin]
+    if out == "acc":
+        wq = _s8(gpu, (cout, k, k, cin), -8, 8)
+        one = IC.pad_channels(torch.ones(cout, device="cuda"))
+        got = IC.int8_conv(xq, IC.pad_weight(wq), one, None, stride=stride, act=None, cout=cout)
+        acc = IC.int8_conv_accumulate(xq.contiguous(), wq, stride)
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and torch.equal(got, acc.float().to(torch.bfloat16))
+        return
+    wq = _s8(gpu, (cout, k, k, cin))
+    scale = (torch.rand(cout, generator=gpu, device="cuda") * 0.5 + 0.75) * 5e-4 / (k * k * cin) ** 0.5
+    bias = torch.randn(cout, generator=gpu, device="cuda") * 0.5
+    os_ = torch.tensor(0.05, device="cuda") if out == "s8" else None
+    kw = dict(stride=stride, out_scale=os_, out_f32=out == "f32", cout=cout)
+    wp, sp, bp = IC.pad_weight(wq), IC.pad_channels(scale), IC.pad_channels(bias)
+    for act in (None, "silu"):
+        before = IC.launches
+        got = IC.int8_conv(xq, wp, sp, bp, act=act, **kw)
+        want = IC.int8_conv_reference(xq.contiguous(), wq, scale, bias, act=act, **kw)
+        torch.cuda.synchronize()
+        assert IC.launches == before + 1
+        if out == "s8":
+            _assert_s8_close(got, want)
+        elif out == "bf16":
+            _assert_bf16_close(got, want)
+        else:
+            assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+            if act is None:
+                assert torch.equal(got, want)
+            else:
+                assert torch.all((got - want).abs() <= want.abs() * 2.0 ** -20 + 1e-30)
+
+
+def test_padded_layer_keeps_one_plan(gpu, monkeypatch):
+    """A conv of widths that are not multiples of 8 (YOLOv5-lite-s's
+    58-wide 1x1 read at offset 58 of 116), given its weights padded once
+    as the module tree gives them, takes one launch plan whatever input
+    it sees: only the input is copied per call."""
+    monkeypatch.setattr(IC, "_PLANS", {})
+    wp = IC.pad_weight(_s8(gpu, (58, 1, 1, 58)))
+    sp = IC.pad_channels(torch.full((58,), 1e-3, device="cuda"))
+    for i in range(4):
+        y = _s8(gpu, (2, 20, 20, 116))
+        out = IC.int8_conv(y[..., 58:], wp, sp, None, stride=1, act=None, cout=58)
+        assert out.shape == (2, 20, 20, 58) and out.is_contiguous()
+        assert len(IC._PLANS) == 1, i
+
+
 SILU, RELU = ("silu", "silu", None), ("relu", None, "relu")
 
 BLOCK_CASES = [
@@ -289,10 +379,20 @@ def test_block_reads_a_channel_slice_in_place(gpu, n, h, w, biases):
 
 
 def test_kernels_reject_what_they_do_not_take(gpu):
+    """The int8 conv takes weights of Cin and Cout in multiples of 8 (other
+    widths come padded, ``pad_weight``: the tests above), k 1/3, stride 1/2
+    and one output type; the block takes 16/32/48/64 channels."""
     xq = _s8(gpu, (1, 8, 8, 12))
     one = torch.ones(16, device="cuda")
     with pytest.raises(ValueError, match="multiples of 8"):
         IC.int8_conv(xq, _s8(gpu, (16, 3, 3, 12)), one, None, stride=1, act=None)
+    with pytest.raises(ValueError, match="k in"):
+        IC.int8_conv(xq, _s8(gpu, (16, 5, 5, 12)), one, None, stride=1, act=None)
+    with pytest.raises(ValueError, match="stride"):
+        IC.int8_conv(xq, _s8(gpu, (16, 3, 3, 12)), one, None, stride=3, act=None)
+    with pytest.raises(ValueError, match="not both"):
+        IC.int8_conv(xq, _s8(gpu, (16, 3, 3, 12)), one, None, stride=1, act=None,
+                     out_scale=torch.tensor(1.0, device="cuda"), out_f32=True)
     x24 = _s8(gpu, (1, 8, 8, 24))
     s = torch.ones(24, device="cuda")
     t = torch.tensor(1.0, device="cuda")

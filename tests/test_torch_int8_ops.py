@@ -34,7 +34,12 @@ from adas_tpu.ops import pallas_block as PB
 from adas_tpu.ops.pallas_conv import int8_conv3x3
 from adas_tpu_torch.models import quant as Q
 from adas_tpu_torch.ops.block import block_reference, fused_block
-from adas_tpu_torch.ops.int8_conv import int8_conv, int8_conv_accumulate
+from adas_tpu_torch.ops.int8_conv import (
+    int8_conv,
+    int8_conv_accumulate,
+    pad_channels,
+    pad_weight,
+)
 from test_pallas_block import CASES, _mk, xla_block_ref
 
 JAX_ACTS = {None: None, "relu": jax.nn.relu, "silu": jax.nn.silu}
@@ -121,6 +126,48 @@ def test_accumulator_bit_identical(rng, k, stride):
         preferred_element_type=jnp.int32,
     )
     np.testing.assert_array_equal(acc.numpy(), np.asarray(want_acc))
+
+
+@pytest.mark.parametrize("k,stride", [(1, 1), (3, 2)])
+def test_padded_operands_give_the_conv_at_its_widths(rng, k, stride):
+    """The operands the module tree hands the kernel (weights, scale and
+    bias padded with zeros to multiples of 8, ``pad_weight`` /
+    ``pad_channels``, and the conv's own ``cout``) give the unpadded
+    conv's output to the bit, at a YOLOv5-lite-s width: 58 channels read
+    at offset 58 of 116, out to 58."""
+    xq = _t(rng.integers(-127, 128, (2, 9, 11, 116)).astype(np.int8))[..., 58:]
+    wq = _t(rng.integers(-127, 128, (58, k, k, 58)).astype(np.int8))
+    scale = _t(rng.uniform(1e-4, 2e-3, 58).astype(np.float32))
+    bias = _t(rng.normal(0, 0.5, 58).astype(np.float32))
+    wp = pad_weight(wq)
+    assert wp.shape == (64, k, k, 64) and not wp[58:].any() and not wp[..., 58:].any()
+    assert pad_weight(wp) is wp and pad_channels(pad_channels(scale)).shape == (64,)
+    for out_scale in (None, torch.tensor(np.float32(0.05))):
+        kw = dict(stride=stride, act="silu", out_scale=out_scale)
+        want = int8_conv(xq, wq, scale, bias, **kw)
+        got = int8_conv(xq, wp, pad_channels(scale), pad_channels(bias), cout=58, **kw)
+        assert got.shape == want.shape == (2, *want.shape[1:3], 58)
+        assert torch.equal(got, want)
+
+
+def test_qconv_kernel_weight_is_padded_once(rng):
+    """``QConv2d.kernel_weight``: the packed ``wq`` padded to multiples of
+    8 and to rows of 16 bytes (``pad_weight``), made once per packing (the
+    same tensor call after call), ``wq`` itself where nothing needs
+    padding."""
+    conv = Q.QConv2d(58, 29, 1, bias=False)
+    Q.pack_int8_weights(conv)
+    w = conv.kernel_weight()
+    assert w is conv.kernel_weight() and w.shape == (32, 1, 1, 64)
+    assert torch.equal(w[:29, ..., :58], conv.wq) and w.data_ptr() != conv.wq.data_ptr()
+    wide = Q.QConv2d(64, 32, 3, padding=1, bias=False)
+    Q.pack_int8_weights(wide)
+    assert wide.kernel_weight() is wide.wq
+    # K = 24 bytes a row: rows spaced to 32 bytes, the view keeps (16, 1, 1, 24)
+    rows = Q.QConv2d(24, 16, 1, bias=False)
+    Q.pack_int8_weights(rows)
+    w = rows.kernel_weight()
+    assert w.shape == (16, 1, 1, 24) and w.stride(0) == 32 and torch.equal(w, rows.wq)
 
 
 @pytest.mark.parametrize("act", [None, "relu", "silu"])

@@ -174,17 +174,26 @@ def test_demo_cli_runs_with_jax_package_and_cv2_blocked(tmp_path):
 
 
 def _facades():
+    from functools import partial
+
     from adas_tpu_torch.perception.efficientdet_detector import EfficientdetDetector
     from adas_tpu_torch.perception.lane_detector import (UltrafastLaneDetector,
                                                          UltrafastLaneDetectorV2)
     from adas_tpu_torch.perception.object_detector import YoloDetector
     from adas_tpu_torch.pipeline.app import ADASPipeline
+    from adas_tpu_torch.utils.types import ObjectModelType as T
 
     return {"yolo": YoloDetector, "lane": UltrafastLaneDetectorV2, "effdet": EfficientdetDetector,
-            "pipeline": ADASPipeline, "lane_v1": UltrafastLaneDetector}
+            "pipeline": ADASPipeline, "lane_v1": UltrafastLaneDetector,
+            "yolo_v9": partial(YoloDetector, model_type=T.YOLOV9, compute_dtype="int8"),
+            "yolo_v7": partial(YoloDetector, model_type=T.YOLOV7),
+            "yolo_v6": partial(YoloDetector, model_type=T.YOLOV6),
+            "yolo_v5lite": partial(YoloDetector, model_type=T.YOLOV5_LITE),
+            "effdet_int8": partial(EfficientdetDetector, compute_dtype="int8")}
 
 
-@pytest.mark.parametrize("name", ["yolo", "lane", "effdet", "pipeline", "lane_v1"])
+@pytest.mark.parametrize("name", ["yolo", "lane", "effdet", "pipeline", "lane_v1", "yolo_v9",
+                                  "yolo_v7", "yolo_v6", "yolo_v5lite", "effdet_int8"])
 def test_facade_defaults_to_the_card(name):
     """With no device named, a facade (and the per-frame pipeline) builds
     on ``cuda``; without a card it raises rather than carry on on the
@@ -205,3 +214,59 @@ def test_preprocess_defaults_to_the_card(name):
     from adas_tpu_torch.ops import preprocess
 
     assert inspect.signature(getattr(preprocess, name)).parameters["device"].default == "cuda"
+
+
+def test_port_imports_torch_numpy_scipy_only():
+    """Beyond the standard library and itself, the port imports torch,
+    numpy and scipy (scipy's LAPACK in ``ops/warp.py``, the tracker's
+    ``scipy.linalg``), nothing else."""
+    allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "scipy", "adas_tpu_torch"}
+    found = {root for path in port_sources() if path.startswith("adas_tpu_torch")
+             for root, _ in imported_roots(path)}
+    assert found - allowed == set(), found - allowed
+    assert "scipy" in found
+
+
+FAMILIES_SCRIPT = textwrap.dedent(
+    """
+    import sys
+
+    class _Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in %r:
+                raise ImportError(f"{name} is blocked in this process")
+            return None
+
+    sys.meta_path.insert(0, _Block())
+    import numpy as np
+    from adas_tpu_torch.perception.efficientdet_detector import EfficientdetDetector
+    from adas_tpu_torch.perception.object_detector import YoloDetector
+    from adas_tpu_torch.utils.types import ObjectModelType as T
+
+    frames = list(np.random.default_rng(0).integers(0, 256, (2, 90, 160, 3), dtype=np.uint8))
+    dets = [YoloDetector(model_type=T.YOLOV6, scale="n", input_size=(64, 64),
+                         compute_dtype="int8", device="cpu"),
+            YoloDetector(model_type=T.YOLOV5_LITE, scale="s", input_size=(64, 64),
+                         compute_dtype="int8", device="cpu"),
+            EfficientdetDetector(compound=0, input_size=128, compute_dtype="int8", device="cpu")]
+    for d in dets:
+        d.calibrate_int8(frames)
+        d.DetectFrame(frames[0])
+    assert not [m for m in sys.modules if m.split(".")[0] in %r]
+    print("families", len(dets))
+    """
+    % (BLOCKED, BLOCKED)
+)
+
+
+def test_new_families_run_with_jax_package_and_cv2_blocked():
+    """YOLOv6n (RepVGG fused at load), YOLOv5-lite-s (the padded 58-wide
+    convs' plain path) and EfficientDet-D0, calibrated in int8 and
+    detecting, in a process that cannot import ``jax``, ``adas_tpu`` or
+    ``cv2``."""
+    proc = subprocess.run(
+        [sys.executable, "-c", FAMILIES_SCRIPT], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("families 3")

@@ -28,6 +28,7 @@ from adas_tpu_torch.ops.preprocess import (
     imagenet_preprocess_planar,
     ufld_v2_preprocess_planar,
     ufld_v2_preprocess_yuv,
+    yolo_preprocess_planar,
     yolo_preprocess_yuv,
 )
 
@@ -148,6 +149,22 @@ def test_imagenet_planar_matches_jax(src_hw, size):
     want = np.asarray(J.imagenet_preprocess_planar(jnp.asarray(planes), jgeom))
     assert got.shape == (2, 3, size, size)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("src_hw,dst_hw", [((180, 320), (128, 128)), ((720, 1280), (640, 640))])
+def test_yolo_planar_matches_jax(src_hw, dst_hw):
+    """The I420 path of a YOLO net without a planes stem (v5, v5-lite, v6,
+    v7, v9): letterbox, RGB, / 255, from the decoded planes; NCHW here,
+    NHWC in JAX; the resize matmuls sum in another order; bf16 is the f32
+    result rounded."""
+    _, planes = _bgr_planes(*src_hw, seed=8)
+    geom, jgeom = LetterboxGeometry(*src_hw, *dst_hw), JaxGeometry(*src_hw, *dst_hw)
+    got = yolo_preprocess_planar(torch.from_numpy(planes), geom)
+    want = np.asarray(J.yolo_preprocess_planar(jnp.asarray(planes), jgeom))
+    assert got.shape == (2, 3, *dst_hw) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=1e-6)
+    bf16 = yolo_preprocess_planar(torch.from_numpy(planes), geom, dtype=torch.bfloat16)
+    assert torch.equal(bf16, got.to(torch.bfloat16))
 
 
 def test_ufld_planar_matches_jax():

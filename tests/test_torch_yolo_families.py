@@ -1,6 +1,7 @@
 """The port's YOLOv5 and YOLOv10 (``adas_tpu_torch/models/yolo.py``), the v5
-decode contract and the ``YoloDetector`` options against the JAX package,
-on the CPU.
+and v5-lite decode contracts and the ``YoloDetector`` options against the
+JAX package, on the CPU (the other families:
+``tests/test_torch_family_checks.py``).
 
 Nets at scale n (v10 also s and m: C2fCIB with and without the
 large-kernel RepVGGDW, PSA with one and more heads) on 64-96 px inputs in
@@ -225,14 +226,24 @@ def test_v5_decode_contract_matches_jax():
         np.testing.assert_array_equal(got[i, :, 5], want[:, 5])
         np.testing.assert_allclose(got[i], want, atol=1e-4)
         assert (want[:, 4] > 0).sum() > 5
-    with pytest.raises(NotImplementedError, match="YOLOV5_LITE"):
-        decode_predictions(torch.from_numpy(raw), ObjectModelType.YOLOV5_LITE, nc, (320, 320))
+    # v5-lite: the rows grid-decoded first (a 32x96 input: 3 anchors x 63 cells)
+    lite = np.random.default_rng(9).uniform(0, 1, (b, 3 * (48 + 12 + 3), 5 + nc))
+    lite = lite.astype(np.float32)
+    gb, gs, gi = decode_predictions(torch.from_numpy(lite), ObjectModelType.YOLOV5_LITE, nc,
+                                    (32, 96))
+    for i in range(b):
+        jb, js, ji = jax_decode(jnp.asarray(lite[i]), JaxObjectModelType.YOLOV5_LITE, nc, (32, 96))
+        np.testing.assert_allclose(gb[i].numpy(), np.asarray(jb), rtol=1e-6, atol=1e-4)
+        np.testing.assert_allclose(gs[i].numpy(), np.asarray(js), rtol=1e-6)
+        np.testing.assert_array_equal(gi[i].numpy(), np.asarray(ji))
 
 
 def test_yolo_options_match_jax():
     """The facade's options and defaults are JAX's by name and value, less
-    the ONNX engine's ``onnx_mode``; a family the port does not build
-    raises ``NotImplementedError`` naming the ROADMAP."""
+    the ONNX engine's ``onnx_mode``; every other family resolves an
+    unknown scale as JAX's ``build_yolo`` does (v5-lite s, v6 s, v9 c; v7
+    one graph), and the facade builds at that scale as JAX's does
+    (``object_detector.py:207-212``)."""
     want = {k: v for k, v in JaxYolo._defaults.items() if k != "onnx_mode"}
     got = {k: (v.name if k == "model_type" else v) for k, v in YOLO_OPTIONS.items()}
     want["model_type"] = want["model_type"].name
@@ -240,10 +251,14 @@ def test_yolo_options_match_jax():
     assert YoloDetector.check_defaults() is YOLO_OPTIONS
     det = YoloDetector(input_size=(64, 64), device="cpu")
     assert isinstance(det.net, yolo.YoloV5) and det.spec.family == "v5"
-    for t in (ObjectModelType.YOLOV5_LITE, ObjectModelType.YOLOV6, ObjectModelType.YOLOV7,
-              ObjectModelType.YOLOV9):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            YoloDetector(model_type=t, input_size=(64, 64), device="cpu")
+    for family, want in (("v5lite", "s"), ("v6", "s"), ("v7", "x"), ("v9", "c")):
+        jnet = jyolo.build_yolo(jyolo.YoloSpec(family, "x", 80, (64, 64)))
+        jax_scale = getattr(jnet, "variant", jnet.spec.scale)  # GELAN's variant
+        spec = yolo.resolve_spec(yolo.YoloSpec("x", 80, (64, 64), family=family))
+        assert spec.scale == jax_scale == want
+    det = YoloDetector(model_type=ObjectModelType.YOLOV6, scale="x", input_size=(64, 64),
+                       device="cpu")  # the facade resolves the scale it builds
+    assert det.spec.scale == "s" and type(det.net).__name__ == "YoloV6"
 
 
 @pytest.mark.parametrize("family,scale,stem", [
