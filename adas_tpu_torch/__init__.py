@@ -6,10 +6,12 @@ names so each module's counterpart is easy to find.  It imports
 reference the port's tests hold it against.
 
 What it serves today: the batched multi-stream step of
-``adas_tpu.pipeline.multistream.MultiStreamADAS`` over I420 transport, on
-``cuda`` or ``cpu``, with YOLOv8 (calibrated int8, bf16 or f32) or
-EfficientDet D0-D7 (f32) on the object side and UFLDv2 on the lane side;
-and the single-frame path, ``pipeline/app.ADASPipeline.process_frame``
+``adas_tpu.pipeline.multistream.MultiStreamADAS`` (JAX's constructor; bgr
+or I420 transport, an optional host downscale, the compute probe), on
+``cuda`` or ``cpu``, with every YOLO family or EfficientDet D0-D7 on the
+object side and UFLD v1/v2 (ResNet-18, 34 or 50) on the lane side, in
+int8 (calibrated, or a dynamic scale per stream), bf16 or f32; the UFLDv2
+configs (``utils/config.py``); and the single-frame path, ``pipeline/app.ADASPipeline.process_frame``
 over the facades' ``DetectFrame`` and ``pipeline/fused.FusedADASStep``,
 with the HUD drawn on the host by the cv2-free renderer (``render/``)
 and the demo's video I/O in YUV4MPEG2 (``run_video``, ``run_synthetic``,

@@ -47,17 +47,17 @@ def activation(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
 
 
 def consume_stem(
-    x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d, *, act: Optional[str],
-    pool: bool, dtype: Optional[torch.dtype] = None,
+    x: torch.Tensor, conv: nn.Conv2d, owner: Int8State, bn: nn.BatchNorm2d, *,
+    act: Optional[str], pool: bool, dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """The stem seam shared by :class:`ConvBN` (``stem=True``) and
     ``resnet.ResNetFeatures``, the counterpart of
-    ``layers.consume_planes_stem`` (``layers.py:804``): fold the BN to a
+    ``layers.consume_planes_stem`` (``layers.py:804``): the BN folded to a
     per-channel f32 ``gain``/``bias`` (``BNFoldParams``,
-    ``layers.py:236``) and run conv + affine + act (+ max pool) through
-    ``ops.stem.fused_stem``, in ``dtype`` (default: the weight's; an int8
-    net's stem runs in bf16)."""
-    gain, bias = bn_fold(bn)
+    ``layers.py:236``; :func:`bn_fold`, cached on ``owner``), then conv +
+    affine + act (+ max pool) through ``ops.stem.fused_stem``, in ``dtype``
+    (default: the weight's; an int8 net's stem runs in bf16)."""
+    gain, bias = owner.cached("stem_fold", lambda: bn_fold(bn))
     w = conv.weight if dtype is None else conv.weight.to(dtype)
     return fused_stem(x.to(w.dtype), w, gain, bias, act=act, pool=pool)
 
@@ -108,7 +108,9 @@ def conv_epilogue(conv: QConv2d, bn: Optional[nn.BatchNorm2d], xs: torch.Tensor,
     bias folded in (``layers.py:486-494``); with no BN, ``wscale * xs`` and
     the conv bias.  Both padded with zeros to the Cout of
     ``conv.kernel_weight()`` (``ops/int8_conv.pad_channels``).  Cached per
-    static input-scale object."""
+    static input-scale object.  A dynamic ``xs`` of one scale per batch
+    element, (B,), gives a (B, Cout) scale table: each row the f32 values
+    JAX's vmapped step computes for that stream."""
     def fold():
         if bn is None:
             return None, None if conv.bias is None else conv.bias.float()
@@ -118,7 +120,7 @@ def conv_epilogue(conv: QConv2d, bn: Optional[nn.BatchNorm2d], xs: torch.Tensor,
     wscale = conv.qweight()[1]
 
     def make():
-        s = wscale * xs
+        s = wscale * xs if xs.dim() == 0 else wscale * xs[:, None]
         return pad_channels(s if gain is None else s * gain), pad_channels(bias), xs
 
     if not static:
@@ -166,7 +168,7 @@ class ConvBN(Int8State, nn.Module):
 
     def forward(self, x: Act, emit_q: bool = False, emit_scale=None) -> Act:
         if self.stem:
-            return consume_stem(x, self.conv, self.bn, act=self.act, pool=False,
+            return consume_stem(x, self.conv, self, self.bn, act=self.act, pool=False,
                                 dtype=self.stem_dtype)
         if self.int8:
             return int8_conv_bn(self.conv, self.bn, x, act=self.act, emit_q=emit_q,

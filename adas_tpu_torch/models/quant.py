@@ -21,10 +21,10 @@ the kernel's copy of ``wq``, padded to widths of multiples of 8, is
 derived from them (:meth:`QConv2d.kernel_weight`).
 
 Tensors derived from those buffers (scales ``max(x, 1e-12) / 127``, the
-folded BN affine, the per-conv epilogue scale vector) are computed once
-and cached on the module; :func:`reset_int8_cache` drops the caches after
-the buffers change (packing, calibration, loading), and moving a module
-(``.to``) drops its own.
+folded BN affine of an int8 conv or a stem, the per-conv epilogue scale
+vector) are computed once and cached on the module; :func:`reset_int8_cache`
+drops the caches after the buffers change (packing, calibration, loading,
+the seeded init), and moving a module (``.to``) drops its own.
 """
 from __future__ import annotations
 
@@ -52,9 +52,16 @@ class _QuantBufferNames:
 QUANT_BUFFERS = _QuantBufferNames()
 
 
+def per_row(scale: torch.Tensor, ndim: int) -> torch.Tensor:
+    """``scale`` shaped to broadcast over an ``ndim``-d activation: a 0-d
+    per-tensor scale as it is, a (B,) per-batch-element scale (a dynamic
+    one, :func:`dynamic_scale`) as (B, 1, ...)."""
+    return scale.view(-1, *(1,) * (ndim - 1)) if scale.dim() == 1 else scale
+
+
 class QTensor(NamedTuple):
-    """An s8 NHWC activation and its per-tensor f32 scale
-    (``layers.py:81``)."""
+    """An s8 NHWC activation and its f32 scale (``layers.py:81``): one per
+    tensor, or one per batch element for a dynamic quantize."""
 
     data: torch.Tensor
     scale: torch.Tensor
@@ -65,7 +72,7 @@ class QTensor(NamedTuple):
 
     def dequant(self) -> torch.Tensor:
         """bf16 value view: ``(data * scale)`` in f32, cast once."""
-        return (self.data.float() * self.scale).to(torch.bfloat16)
+        return (self.data.float() * per_row(self.scale, self.data.dim())).to(torch.bfloat16)
 
     def channels(self, start: int, stop: int) -> "QTensor":
         """A channel slice, still s8 (the scale is slice-invariant); a view,
@@ -86,9 +93,18 @@ def as_float(x: Act) -> torch.Tensor:
     return x.dequant() if isinstance(x, QTensor) else x
 
 
+def div127(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127`` rounded once, on every device.  PyTorch's CUDA kernels
+    turn a division by a Python number into a product with its reciprocal,
+    which can be one ulp off the quotient the CPU (and JAX) computes; a
+    127 on the device (a fill, no copy from the host) keeps the true
+    division."""
+    return t / t.new_full((), 127.0)
+
+
 def scale_from_max(amax: torch.Tensor) -> torch.Tensor:
     """``max(amax, 1e-12) / 127`` in f32 (``layers.py:295``)."""
-    return torch.clamp_min(amax.float(), 1e-12) / 127.0
+    return div127(torch.clamp_min(amax.float(), 1e-12))
 
 
 def absmax(x: torch.Tensor) -> torch.Tensor:
@@ -96,18 +112,22 @@ def absmax(x: torch.Tensor) -> torch.Tensor:
 
 
 def dynamic_scale(x: torch.Tensor) -> torch.Tensor:
-    """The per-tensor dynamic scale of an uncalibrated quantize."""
-    return scale_from_max(absmax(x))
+    """The dynamic scale of an uncalibrated quantize, one per batch
+    element: (B,), from the absmax over every dimension but the first.
+    JAX vmaps its multi-stream step over streams, so each stream's
+    absmax is its own (``layers.py:461-463`` under ``vmap``); at batch 1
+    it is the per-tensor scale."""
+    return scale_from_max(x.float().abs().amax(dim=tuple(range(1, x.dim()))))
 
 
 def quantize_to(x: Act, scale: torch.Tensor) -> QTensor:
-    """s8 quantize at ``scale`` into a new contiguous NHWC tensor
-    (``layers.py:114``).  ``x`` is logically NHWC with any strides (a
-    permuted NCHW view is transposed by the final cast-copy, not by a pass
-    of its own)."""
+    """s8 quantize at ``scale`` (per tensor, or (B,) per batch element)
+    into a new contiguous NHWC tensor (``layers.py:114``).  ``x`` is
+    logically NHWC with any strides (a permuted NCHW view is transposed by
+    the final cast-copy, not by a pass of its own)."""
     x = as_float(x)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    q.copy_(requantize(x, scale))
+    q.copy_(requantize(x, per_row(scale, x.dim())))
     return QTensor(q, scale)
 
 
@@ -140,7 +160,7 @@ def quantize_weight(w: torch.Tensor):
     all in f32 -> bit-equal to the JAX packer."""
     w = w.float()
     amax = w.abs().amax(dim=tuple(range(1, w.dim())))
-    wscale = torch.clamp_min(amax, 1e-8) / 127.0
+    wscale = div127(torch.clamp_min(amax, 1e-8))
     shape = (-1,) + (1,) * (w.dim() - 1)
     wq = torch.round(w / wscale.view(shape)).clamp_(-127, 127).to(torch.int8)
     return wq, wscale
@@ -149,12 +169,19 @@ def quantize_weight(w: torch.Tensor):
 def bn_fold(bn: nn.BatchNorm2d, conv_bias: Optional[torch.Tensor] = None):
     """``BNFoldParams`` (``layers.py:236``): gain = scale * rsqrt(var + eps),
     bias' = bias - mean * gain, f32; a conv bias folds in as ``bias' +
-    gain * conv_bias`` (``int8_conv_apply``, ``layers.py:486-494``)."""
-    gain = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
-    bias = bn.bias.float() - bn.running_mean.float() * gain
+    gain * conv_bias`` (``int8_conv_apply``, ``layers.py:486-494``).
+    Folded on the host and moved to the BN's device, so that a net folds to
+    the same bits on every device: CUDA's ``rsqrt`` is not the CPU's in
+    the last bit, and one ulp of a gain flips s8 values that a deep int8
+    trunk spreads.  Its callers cache the fold on their module."""
+    def host(t):
+        return t.detach().float().cpu()
+
+    gain = host(bn.weight) * torch.rsqrt(host(bn.running_var) + bn.eps)
+    bias = host(bn.bias) - host(bn.running_mean) * gain
     if conv_bias is not None:
-        bias = bias + gain * conv_bias.float()
-    return gain, bias
+        bias = bias + gain * host(conv_bias)
+    return gain.to(bn.weight.device), bias.to(bn.weight.device)
 
 
 class Int8State:
@@ -254,8 +281,9 @@ class QLinear(Int8State, nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``Int8Dense.__call__``: quantize the input (calibrated static
-        scale, else dynamic; calibration records ``xmax``), s8 x s8 -> s32,
-        then ``acc * (wscale * xscale) + bias``."""
+        scale, else dynamic, one per batch element; calibration records
+        ``xmax``), s8 x s8 -> s32, then ``acc * (wscale * xscale) + bias``,
+        each batch element's rows at its own ``xscale``."""
         if self.calibrating:
             self.record_max("xmax", [x])
             xs = dynamic_scale(x)
@@ -264,8 +292,10 @@ class QLinear(Int8State, nn.Linear):
             if xs is None:
                 xs = dynamic_scale(x)
         wq, wscale = self.qweight()
-        xq = requantize(x, xs)
-        y = int_mm(xq.reshape(-1, xq.shape[-1]), wq).float() * (wscale * xs)
+        xq = requantize(x, per_row(xs, x.dim()))
+        acc = int_mm(xq.reshape(-1, xq.shape[-1]), wq).float()
+        # each batch element's rows of the product at its own scale
+        y = acc.view(x.shape[0], -1, acc.shape[-1]) * (wscale * per_row(xs, 3))
         if self.bias is not None:
             y = y + self.bias
         return y.reshape(*x.shape[:-1], -1)

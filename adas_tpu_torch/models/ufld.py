@@ -5,10 +5,13 @@ TuSimple and CurveLanes, v1 on TuSimple and CULane; no aux segmentation
 head, no test-time augmentation; the 20-token ``UFLDv2CurveLanesNet``,
 reached only through the engine registry, waits with the engines).
 
-``int8=True`` (v2): the int8 ResNet trunk (NHWC), the ``pool`` 1x1 conv in
-f32 on its bf16 output, and ``cls_fc1``/``cls_fc2`` as W8A8 dense layers
-(``Int8Dense`` through ``head_dense``, ``ufld.py:179-202``).  v1 serves
-f32 and bf16 (its int8 is dynamic-scale, unported)."""
+The trunk is ``spec.backbone`` (ResNet-18, 34 or 50); the ``pool`` conv
+takes its last stage's width (``stage_channels``, as flax infers it).
+``int8=True``: the int8 ResNet trunk (NHWC), the ``pool`` 1x1 conv in f32
+on its bf16 output, and ``cls_fc1``/``cls_fc2`` as W8A8 dense layers
+(``Int8Dense`` through ``head_dense``, ``ufld.py:179-202``); v2 serves it
+calibrated or not, v1 uncalibrated (dynamic scales, one per image:
+``adas_tpu/perception/lane_detector.py:379-388``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -22,7 +25,7 @@ from torch import nn
 from ..utils.types import LaneModelType
 
 from .quant import QLinear
-from .resnet import ResNetFeatures
+from .resnet import ResNetFeatures, stage_channels
 
 
 @dataclass(frozen=True)
@@ -87,6 +90,17 @@ UFLDV2_SPECS: Dict[LaneModelType, UFLDv2Spec] = {
 }
 
 
+def pooled_features(fea: torch.Tensor, pool: nn.Conv2d, int8: bool) -> torch.Tensor:
+    """The trunk's stride-32 map through the 1x1 ``pool`` conv, flattened
+    in the NCHW (c, h, w) element order the JAX nets reach by transposing
+    their NHWC map (``ufld.py:191-194``).  Under int8 the map is NHWC bf16
+    and the conv f32 (flax promotes to its f32 params)."""
+    if int8:
+        w = pool.weight.reshape(pool.out_channels, -1)
+        return F.linear(fea.float(), w, pool.bias).permute(0, 3, 1, 2).flatten(1)
+    return pool(fea).flatten(1)
+
+
 class UFLDv2Net(nn.Module):
     """ResNet trunk -> 1x1 conv to 8 channels -> flatten -> [LayerNorm] ->
     MLP -> loc_row/loc_col/exist_row/exist_col (``ufld.py:137``)."""
@@ -96,7 +110,7 @@ class UFLDv2Net(nn.Module):
         self.spec = spec
         self.int8 = int8
         self.backbone = ResNetFeatures(spec.backbone, int8=int8)
-        self.pool = nn.Conv2d(512, 8, 1)
+        self.pool = nn.Conv2d(stage_channels(spec.backbone)[-1], 8, 1)
         if spec.fc_norm:
             # flax nn.LayerNorm's epsilon
             self.cls_norm = nn.LayerNorm(spec.flat_features, eps=1e-6)
@@ -106,16 +120,7 @@ class UFLDv2Net(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         s = self.spec
-        _, _, fea = self.backbone(x)
-        if self.int8:
-            # NHWC bf16 trunk output -> f32 1x1 conv (flax promotes to its
-            # f32 params), then the NCHW element order of the flatten
-            w = self.pool.weight.reshape(self.pool.out_channels, -1)
-            fea = F.linear(fea.float(), w, self.pool.bias).permute(0, 3, 1, 2).flatten(1)
-        else:
-            # NCHW flatten: the (c, h, w) element order the JAX net reaches
-            # by transposing its NHWC map (ufld.py:191-194)
-            fea = self.pool(fea).flatten(1)
+        fea = pooled_features(self.backbone(x)[2], self.pool, self.int8)
         if s.fc_norm:
             fea = self.cls_norm(fea)
         out = self.cls_fc2(F.relu(self.cls_fc1(fea)))
@@ -165,17 +170,19 @@ class UFLDv1Net(nn.Module):
     """ResNet trunk -> 1x1 conv to 8 channels -> flatten (NCHW order) ->
     MLP -> (B, griding+1, rows, lanes) logits (``ufld.py:327``)."""
 
-    def __init__(self, spec: UFLDv1Spec):
+    def __init__(self, spec: UFLDv1Spec, int8: bool = False):
         super().__init__()
         self.spec = spec
-        self.backbone = ResNetFeatures(spec.backbone)
-        self.pool = nn.Conv2d(512, 8, 1)
-        self.cls_fc1 = nn.Linear(spec.flat_features, spec.mlp_mid)
-        self.cls_fc2 = nn.Linear(spec.mlp_mid,
-                                 (spec.griding_num + 1) * spec.cls_num_per_lane * spec.num_lanes)
+        self.int8 = int8
+        self.backbone = ResNetFeatures(spec.backbone, int8=int8)
+        self.pool = nn.Conv2d(stage_channels(spec.backbone)[-1], 8, 1)
+        dense = QLinear if int8 else nn.Linear
+        self.cls_fc1 = dense(spec.flat_features, spec.mlp_mid)
+        self.cls_fc2 = dense(spec.mlp_mid,
+                             (spec.griding_num + 1) * spec.cls_num_per_lane * spec.num_lanes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.spec
-        fea = self.pool(self.backbone(x)[2]).flatten(1)
+        fea = pooled_features(self.backbone(x)[2], self.pool, self.int8)
         out = self.cls_fc2(F.relu(self.cls_fc1(fea)))
         return out.reshape(-1, s.griding_num + 1, s.cls_num_per_lane, s.num_lanes)

@@ -17,7 +17,11 @@ is encoded once per layer and cached, the activations' by address.
 
 ``scale`` is the full per-channel epilogue scale (weight scale x input
 scale x folded BN gain, multiplied in that order by the caller) and
-``bias`` the folded BN bias.  k is 1 or 3, stride 1 or 2, padding k // 2.
+``bias`` the folded BN bias.  An uncalibrated int8 net quantizes each
+image at its own dynamic input scale (JAX vmaps its step over streams),
+so its ``scale`` is an (N, Cout) table, one row per image of the batch:
+``scale[n]`` applies to image n's outputs (the kernel's per-image mode,
+``rows_per_image`` = Ho * Wo).  k is 1 or 3, stride 1 or 2, padding k // 2.
 
 Layouts: ``xq`` (N, H, W, C) s8, NHWC with the channels contiguous; it may
 be a channel slice of a wider tensor (the kernel reads it in place through
@@ -143,9 +147,12 @@ def epilogue(
     out_f32: bool = False,
 ) -> torch.Tensor:
     """``layers.py:485-511`` on an s32 NHWC accumulator: ``acc * scale``
-    then ``+ bias`` (two roundings), the activation, then s8 at
-    ``out_scale``, else f32 with ``out_f32`` (a conv with no folded BN,
-    ``layers.py:505-510``) or bf16."""
+    (per channel, or an (N, Cout) table of a row per image) then ``+ bias``
+    (two roundings), the activation, then s8 at ``out_scale``, else f32
+    with ``out_f32`` (a conv with no folded BN, ``layers.py:505-510``) or
+    bf16."""
+    if scale.dim() == 2:
+        scale = scale[:, None, None, :]
     y = acc.float() * scale
     if bias is not None:
         y = y + bias
@@ -172,7 +179,7 @@ def int8_conv_reference(
     ``cout`` output and ``xq``'s input channels of padded operands."""
     cout = wq.shape[0] if cout is None else cout
     wq = wq[:cout, ..., :xq.shape[3]]
-    scale = scale[:cout]
+    scale = scale[..., :cout]
     bias = None if bias is None else bias[:cout]
     return epilogue(int8_conv_accumulate(xq, wq, stride), scale, bias, act, out_scale, out_f32)
 
@@ -195,11 +202,12 @@ def pad_weight(wq: torch.Tensor) -> torch.Tensor:
 
 
 def pad_channels(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """A per-output-channel vector (scale, bias) with zeros appended up to
-    :func:`pad_weight`'s Cout; None stays None."""
-    if t is None or t.shape[0] % 8 == 0:
+    """A per-output-channel vector (scale, bias), or a table of them (a
+    row per image), with zeros appended up to :func:`pad_weight`'s Cout;
+    None stays None."""
+    if t is None or t.shape[-1] % 8 == 0:
         return t
-    return F.pad(t, (0, -t.shape[0] % 8))
+    return F.pad(t, (0, -t.shape[-1] % 8))
 
 
 def channel_pitch(x: torch.Tensor) -> int:
@@ -238,9 +246,12 @@ def _check(xq, wq, scale, bias, stride, act, out_scale, out_f32=False, cout=None
         raise ValueError(f"int8 conv stride must be 1 or 2, got {stride}")
     if act not in ACT_CODES:
         raise ValueError(f"unsupported activation: {act}")
-    for name, t in (("scale", scale), ("bias", bias)):
-        if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != (cout,)):
-            raise ValueError(f"int8 conv {name} must be f32 ({cout},), got {t.dtype} {tuple(t.shape)}")
+    if scale.dtype != torch.float32 or tuple(scale.shape) not in ((cout,), (xq.shape[0], cout)):
+        raise ValueError(f"int8 conv scale must be f32 ({cout},) or ({xq.shape[0]}, {cout}) "
+                         f"(a row per image), got {scale.dtype} {tuple(scale.shape)}")
+    if bias is not None and (bias.dtype != torch.float32 or tuple(bias.shape) != (cout,)):
+        raise ValueError(f"int8 conv bias must be f32 ({cout},), got {bias.dtype} "
+                         f"{tuple(bias.shape)}")
     if out_scale is not None and (out_scale.dtype != torch.float32 or out_scale.numel() != 1):
         raise ValueError("int8 conv out_scale must be one f32 value")
     if out_scale is not None and out_f32:
@@ -272,7 +283,7 @@ def tile_config(m: int, cout: int, num_sms: int):
 def _lib():
     lib = load_cuda_library("int8_conv")
     fn = lib.adas_int8_conv_forward
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     enc = lib.adas_int8_conv_encode_weights
     enc.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -383,7 +394,9 @@ def int8_conv(
     :func:`int8_conv_reference` for a CPU ``xq``.  Returns NHWC s8 when
     ``out_scale`` is given, else NHWC f32 with ``out_f32``, else bf16, of
     ``cout`` channels (by default all of ``wq``'s; fewer where the
-    weights, scale and bias carry padding: module docstring)."""
+    weights, scale and bias carry padding: module docstring).  ``scale``
+    is per channel, or an (N, Cout) table of a row per image (the kernel's
+    per-image mode; a batch of one takes the per-channel mode)."""
     global launches
     _check(xq, wq, scale, bias, stride, act, out_scale, out_f32, cout)
     if xq.device.type == "cpu":
@@ -405,6 +418,8 @@ def int8_conv(
             f"the int8 conv kernel takes Cin and Cout in multiples of 8, got weights "
             f"{tuple(wq.shape)}: pad them, the scale and the bias (pad_weight, pad_channels)"
         )
+    if scale.dim() == 2 and scale.shape[0] == 1:
+        scale = scale[0]
     xq = _kernel_input(xq, wcin)
     key = (xq.shape, xq.stride(), xq.data_ptr() % 16, xq.device, wq.data_ptr(), wq.shape,
            wq.stride(0), stride)
@@ -416,12 +431,13 @@ def int8_conv(
     xmap = _input_map(xq, shape_args[4], shape_args[6], stride, bm) if vec == 0 else None
     dtype = torch.int8 if out_scale is not None else torch.float32 if out_f32 else torch.bfloat16
     out = torch.empty(out_shape, dtype=dtype, device=xq.device)
+    rows_per_image = out_shape[1] * out_shape[2] if scale.dim() == 2 else 0
     args = (
         xq.data_ptr(), ctypes.addressof(wmap), None if xmap is None else ctypes.addressof(xmap),
         scale.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if out_scale is None else out_scale.data_ptr(), out.data_ptr(),
-        *shape_args, ACT_CODES[act], int(out_f32), *tile_args,
+        *shape_args, ACT_CODES[act], int(out_f32), rows_per_image, *tile_args,
     )
     if xq.device.index == torch.cuda.current_device():
         rc = _lib().adas_int8_conv_forward(*args, torch.cuda.current_stream().cuda_stream)

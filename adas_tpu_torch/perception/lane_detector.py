@@ -14,13 +14,15 @@ The drawing (``DrawDetectedOnFrame``, ``DrawAreaOnFrame``,
 ``AutoDrawLanes``) uses the port's cv2-free renderer.  UFLD v1 serves f32
 and bf16 (:class:`UltrafastLaneDetector`: preprocess -> net ->
 ``ufld_v1_decode`` on the device, one fetch of the grid locations, the
-reference's point math on the host).  Not ported: v1's dynamic-scale
-int8, the ONNX and ``.adas`` engines (``ROADMAP.md`` §1).  The JAX
+reference's point math on the host) and int8, which JAX serves
+uncalibrated (dynamic scales, ``lane_detector.py:379-388``).  Not ported:
+the ONNX and ``.adas`` engines (``ROADMAP.md`` §1).  The JAX
 ``UltrafastLaneDetectorV2`` refuses ``UFLDV2_CURVELANES``
 (``lane_detector.py:125-128``); the port builds it from its spec row.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -95,9 +97,11 @@ class LaneDetectBase:
             self.DrawAreaOnFrame(image)
         return image
 
-    def _init_net(self, model_path, model_type, specs, compute_dtype, device, seed, make) -> None:
+    def _init_net(self, model_path, model_type, specs, compute_dtype, device, seed, make,
+                  backbone=None) -> None:
         """The facades' construction: ``model_path`` and ``model_type`` over
-        the class's ``_defaults``, the type checked against ``specs``, and
+        the class's ``_defaults``, the type checked against ``specs``, the
+        type's spec on a ``backbone`` trunk where one is given, and
         ``make(spec)`` built on ``device`` (``object_detector.build_net``)."""
         if model_path is not None:
             self.model_path = model_path
@@ -111,6 +115,8 @@ class LaneDetectBase:
         self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
         self.spec = specs[self.model_type]
+        if backbone is not None:
+            self.spec = dataclasses.replace(self.spec, backbone=str(backbone))
         self.net = build_net(lambda: make(self.spec), self.device, compute_dtype, self.model_path,
                              seed)
 
@@ -124,7 +130,9 @@ class UltrafastLaneDetectorV2(LaneDetectBase):
     """UFLDv2 lane detector on the port (``lane_detector.py:100``): the
     class's ``_defaults`` give ``model_path`` and ``model_type`` where the
     caller passes None; ``compute_dtype`` None (f32), ``"bf16"`` or
-    ``"int8"``."""
+    ``"int8"``; ``backbone`` the trunk's depth (``"18"``, ``"34"`` or
+    ``"50"``, a ``configs/ufldv2`` file's ``backbone``; None: the type's
+    ResNet-18), on the type's geometry."""
 
     _defaults = {"model_path": None, "model_type": LaneModelType.UFLDV2_CULANE}
 
@@ -136,10 +144,11 @@ class UltrafastLaneDetectorV2(LaneDetectBase):
         logger=None,
         device="cuda",
         seed: int = 0,
+        backbone: Optional[str] = None,
     ):
         super().__init__(logger)
         self._init_net(model_path, model_type, UFLDV2_SPECS, compute_dtype, device, seed,
-                       lambda spec: UFLDv2Net(spec, int8=compute_dtype == "int8"))
+                       lambda spec: UFLDv2Net(spec, int8=compute_dtype == "int8"), backbone)
         if self.logger:
             self.logger.info(
                 f"UfldDetectorV2 [{self.model_type.name}] input "
@@ -222,7 +231,9 @@ class UltrafastLaneDetectorV2(LaneDetectBase):
 class UltrafastLaneDetector(LaneDetectBase):
     """UFLD v1 lane detector on the port (``lane_detector.py:343``): the
     class's ``_defaults`` give ``model_path`` and ``model_type`` where the
-    caller passes None; ``compute_dtype`` None (f32) or ``"bf16"``."""
+    caller passes None; ``compute_dtype`` None (f32), ``"bf16"`` or
+    ``"int8"`` (the JAX facade's ``dtype="int8"``: packed weights, dynamic
+    input scales, f32 input)."""
 
     _defaults = {"model_path": None, "model_type": LaneModelType.UFLD_TUSIMPLE}
 
@@ -236,13 +247,8 @@ class UltrafastLaneDetector(LaneDetectBase):
         seed: int = 0,
     ):
         super().__init__(logger)
-        if compute_dtype not in (None, "bf16"):
-            raise NotImplementedError(
-                f"UFLD v1 compute_dtype {compute_dtype!r}: v1's int8 is dynamic-scale, "
-                "not ported (ROADMAP.md §1)"
-            )
         self._init_net(model_path, model_type, UFLDV1_SPECS, compute_dtype, device, seed,
-                       UFLDv1Net)
+                       lambda spec: UFLDv1Net(spec, int8=compute_dtype == "int8"))
         if self.logger:
             self.logger.info(
                 f"UfldDetector [{self.model_type.name}] input "

@@ -1,34 +1,44 @@
 """Multi-stream ADAS: N video feeds through ONE batched device step (port of
-``MultiStreamADAS``, ``adas_tpu/pipeline/multistream.py:105``, with I420
-transport on one GPU and no mesh).
+``MultiStreamADAS``, ``adas_tpu/pipeline/multistream.py:105``, on one GPU
+and no mesh).
 
-Per tick: the host encodes each BGR frame to I420 and uploads the batch;
-one device step runs the YUV-direct preprocess, the YOLO net + decode + NMS
-(or a YOLOv10's one-to-one head and its top-k with ``nms_free``,
+Per tick: the host prepares each BGR frame for its transport and uploads
+the batch: ``"bgr"`` (JAX's default) uploads the frames as they are,
+``"i420"`` encodes each to its 4:2:0 planes first (half the bytes); with
+``host_downscale`` (H, W) each frame is resized on the host first
+(``render/draw.resize_linear``, cv2's ``INTER_LINEAR``), whenever that
+size is not the frame's, and the device sees frames of that size
+(``dev_hw``).  One device step runs the preprocess, the YOLO net + decode
++ NMS (or a YOLOv10's one-to-one head and its top-k with ``nms_free``,
 ``multistream.py:311-316``) + letterbox inverse and UFLDv2 + lane decode
-for all streams at once (the
-JAX step's ``vmap`` over streams is the batch dimension here) and packs
-the results into one tensor; the host fetches it in one copy and runs
-ByteTrack, distance and TaskConditions per stream.  All cross-frame state
-is host-side per stream.  Under int8 (both facades with
-``compute_dtype="int8"``, calibrated) both nets take bf16 input from the
-YUV-direct preprocess (``multistream.py:190-205``).  The YUV-direct
-preprocess serves a YOLOv8 or v10, whose JAX stems take its planes; for
-the other YOLO families the step decodes the I420 batch into rounded BGR
-planes once and feeds both nets from them (``multistream.py:257-285``;
-the net's ``stem_takes_planes`` decides).  The object side may instead be an
-``EfficientdetDetector`` (``multistream.py:164-181, 271-310``): then the
-step decodes the planes as well, letterboxes them square and
-ImageNet-normalizes them for the net (boxes and class probabilities,
-anchors decoded inside), runs ``select_and_nms`` on the class
-max/argmax, and feeds the lane net from the same planes.  Not ported: the bgr transport, the tunnel's
-``host_downscale`` ladder, the compute probe and the step artifacts.
+for all streams at once (the JAX step's ``vmap`` over streams is the
+batch dimension here: an uncalibrated int8 net quantizes each stream at
+its own dynamic scale, ``models/quant.dynamic_scale``) and packs the
+results into one tensor; the host fetches it in one copy, scales the
+detections from ``dev_hw`` back to the frame, and runs ByteTrack,
+distance and TaskConditions per stream.  All cross-frame state is
+host-side per stream.  On I420 the YUV-direct preprocess serves a YOLOv8
+or v10, whose JAX stems take its planes; for the other YOLO families and
+EfficientDet the step decodes the I420 batch into rounded BGR planes once
+and feeds both nets from them (``multistream.py:257-285``; the net's
+``stem_takes_planes`` decides).  Under int8 (both facades with
+``compute_dtype="int8"``) the YOLO net takes bf16 input, the lane net bf16
+on I420 and f32 on BGR (``multistream.py:190-205``, ``:344-348``).  The
+object side may be an ``EfficientdetDetector`` (``multistream.py:164-181,
+271-310``): the step letterboxes its frames square and
+ImageNet-normalizes them, runs ``select_and_nms`` on the class
+max/argmax, and feeds the lane net from the same frames.
+:meth:`MultiStreamADAS.make_compute_probe` is the JAX bench's compute
+probe (chained steps on a device-resident batch).  Not ported: the mesh
+(one GPU) and the step artifacts (``export_fused`` / ``step_artifact``,
+``ROADMAP.md`` §1 item 4).
 """
 from __future__ import annotations
 
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,6 +49,7 @@ from ..utils.types import LaneInfo
 from ..analytics import PerspectiveTransformation, SingleCamDistanceMeasure, TaskConditions
 from ..ops.packing import unpack
 from ..ops.preprocess import bgr_to_i420
+from ..render.draw import resize_linear
 from .fused import fused_step, letterbox_geometry
 
 
@@ -55,7 +66,11 @@ class StreamState:
 
 class MultiStreamADAS:
     """Batch-of-streams pipeline on one device; ``yolo`` is the object
-    side, a ``YoloDetector`` or an ``EfficientdetDetector``."""
+    side, a ``YoloDetector`` or an ``EfficientdetDetector``.  The
+    parameters are JAX's, in its order and with its defaults: ``mesh``
+    must be None (one GPU), ``host_downscale`` (H, W) resizes each frame
+    on the host, ``transport`` is ``"bgr"`` or ``"i420"``, and
+    ``step_artifact`` (a serialized step) is not ported."""
 
     def __init__(
         self,
@@ -63,24 +78,37 @@ class MultiStreamADAS:
         lane,
         n_streams: int,
         frame_hw: Sequence[int],
-        transport: str = "i420",
+        mesh=None,
+        host_downscale: Optional[Sequence[int]] = None,
+        transport: str = "bgr",
+        step_artifact: Optional[str] = None,
     ):
-        if transport != "i420":
-            raise ValueError(f"the port serves the i420 transport only, got {transport!r}")
+        if mesh is not None:
+            raise ValueError("the port serves one GPU: mesh must be None")
+        if step_artifact is not None:
+            raise NotImplementedError(
+                "step artifacts (export_fused / step_artifact) are not ported yet: "
+                "ROADMAP.md §1 item 4"
+            )
+        if transport not in ("bgr", "i420"):
+            raise ValueError(f"transport must be 'bgr' or 'i420', got {transport!r}")
         if yolo.device != lane.device:
             raise ValueError(f"detectors on {yolo.device} and {lane.device}")
         self.yolo = yolo
         self.lane = lane
         self.n_streams = n_streams
         self.frame_hw = tuple(frame_hw)
+        self.host_downscale = tuple(host_downscale) if host_downscale else None
         self.transport = transport
+        self.dev_hw = self.host_downscale or self.frame_hw
         self.device = yolo.device
         h, w = self.frame_hw
-        self.geom = letterbox_geometry(yolo, self.frame_hw)
+        self.geom = letterbox_geometry(yolo, self.dev_hw)
         self.streams = [StreamState((w, h), yolo.colors_dict, self.device) for _ in range(n_streams)]
         # calcCurveAndOffset reads only the canvas shape
         self._canvas = np.zeros((h, w, 3), np.uint8)
         self._pack_spec = None
+        self._pool_lock = threading.Lock()
         self._prep_pool = None
         self._uploader = None
         self._fetcher = None
@@ -88,27 +116,43 @@ class MultiStreamADAS:
     # ---- device step ----
 
     def _step(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H*3/2, W) uint8 I420 on the device -> (B, total) f32 packed
-        detections + decoded lanes (``multistream.py:248-362``), through
-        the fused step of ``pipeline/fused.py``."""
-        flat, self._pack_spec = fused_step(self.yolo, self.lane, x, self.frame_hw, "i420",
+        """(B, H*3/2, W) uint8 I420 or (B, H, W, 3) uint8 BGR frames of
+        ``dev_hw`` on the device -> (B, total) f32 packed detections (in
+        ``dev_hw`` pixels) + decoded lanes (``multistream.py:248-362``),
+        through the fused step of ``pipeline/fused.py``."""
+        flat, self._pack_spec = fused_step(self.yolo, self.lane, x, self.dev_hw, self.transport,
                                            nms_free=bool(getattr(self.yolo, "nms_free", False)))
         return flat
 
     # ---- host orchestration ----
 
     def _host_prep(self, frames: np.ndarray) -> np.ndarray:
-        """BGR (N, H, W, 3) uint8 -> I420 (N, H*3/2, W), fanned out over a
-        small thread pool (numpy releases the GIL in the big array ops)."""
-        if self._prep_pool is None:
-            self._prep_pool = ThreadPoolExecutor(max_workers=4, thread_name_prefix="adas-prep")
-        return np.stack(list(self._prep_pool.map(bgr_to_i420, frames)))
+        """BGR (N, H, W, 3) uint8 -> the transport's batch
+        (``multistream.py:388-415``): each frame resized to
+        ``host_downscale`` when that is not the frame's size (as JAX does,
+        also when it enlarges), then I420-encoded on the ``"i420"``
+        transport; fanned out over a small thread pool (the resize and
+        numpy's big array ops release the GIL).  BGR frames that need
+        neither pass through."""
+        resize = self.host_downscale is not None and self.host_downscale != self.frame_hw
+
+        def prep_one(f):
+            if resize:
+                f = resize_linear(f, self.host_downscale[::-1])
+            return bgr_to_i420(f) if self.transport == "i420" else f
+
+        if self.transport != "i420" and not resize:
+            return frames
+        with self._pool_lock:  # several upload workers may get here first together
+            if self._prep_pool is None:
+                self._prep_pool = ThreadPoolExecutor(max_workers=4, thread_name_prefix="adas-prep")
+        return np.stack(list(self._prep_pool.map(prep_one, frames)))
 
     def _prep_upload(self, frames: np.ndarray) -> torch.Tensor:
         """Host prep + upload; returns the device-resident input batch."""
         if frames.shape[0] != self.n_streams:
             raise ValueError(f"expected {self.n_streams} frames, got {frames.shape[0]}")
-        return torch.from_numpy(self._host_prep(frames)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(self._host_prep(frames))).to(self.device)
 
     def prefetch(self, frames: np.ndarray):
         """Host prep + upload on a background thread; returns a Future
@@ -132,11 +176,17 @@ class MultiStreamADAS:
         return self._analytics(handle.cpu().numpy(), frames)
 
     def _analytics(self, flat: np.ndarray, frames: np.ndarray) -> List[dict]:
-        """Host analytics per stream (``multistream.py:470-545``)."""
+        """Host analytics per stream (``multistream.py:470-545``); the
+        detections are scaled from ``dev_hw`` to the frame's pixels."""
         h, w = self.frame_hw
+        sy, sx = h / self.dev_hw[0], w / self.dev_hw[1]
         results = []
         for i, stream in enumerate(self.streams):
             dets, lanes_i = unpack(flat[i], self._pack_spec)
+            if (sy, sx) != (1.0, 1.0):
+                dets = np.asarray(dets).copy()
+                dets[:, [0, 2]] *= sx
+                dets[:, [1, 3]] *= sy
             objs = self.yolo._dets_to_rectinfo(dets)
             # point the (stateless-compute) lane facade at THIS stream's
             # holder so geometry never bleeds across feeds
@@ -183,13 +233,59 @@ class MultiStreamADAS:
             )
         return results
 
+    def make_compute_probe(self, iters: int):
+        """The JAX bench's compute probe (``multistream.py:547-570``): a
+        callable ``probe(x)`` that runs the batched step ``iters`` times
+        chained on the device-resident uploaded batch ``x`` (what
+        :meth:`prefetch` returns) and returns a 0-d f32 tensor.  Step
+        ``i`` takes ``x + i`` (uint8 wraparound, as JAX adds the loop
+        index) and adds its packed output's sum into the carry, so no step
+        can be skipped or hoisted.
+
+        On a GPU the first call runs one eager step (the kernels' plans and
+        maps), then captures all ``iters`` steps in ONE CUDA graph on a
+        copy of ``x`` that the probe owns; every call (the first too)
+        copies ``x`` into that buffer and replays the graph once, so the
+        host's launches are not timed.  The kernels' launch counters count
+        the captured launches once, at capture, and no replay.  A capture
+        that fails raises (no eager fallback).  On the CPU the probe runs
+        the steps as a plain loop."""
+        def chained(x: torch.Tensor) -> torch.Tensor:
+            s = torch.zeros((), dtype=torch.float32, device=x.device)
+            for i in range(iters):
+                s = s + self._step(x + (i % 256)).sum()
+            return s
+
+        graph = {}
+
+        @torch.inference_mode()
+        def probe(x: torch.Tensor) -> torch.Tensor:
+            if x.device.type != "cuda":
+                return chained(x)
+            if not graph:
+                self._step(x)  # eager warm-up: plans, maps, the pack spec
+                static = x.clone()
+                side = torch.cuda.Stream(x.device)
+                side.wait_stream(torch.cuda.current_stream(x.device))
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.stream(side), torch.cuda.graph(g, stream=side):
+                    out = chained(static)
+                torch.cuda.current_stream(x.device).wait_stream(side)
+                graph.update(g=g, x=static, out=out)
+            graph["x"].copy_(x)
+            graph["g"].replay()
+            return graph["out"].clone()
+
+        return probe
+
     def process_batch(self, frames: np.ndarray) -> List[dict]:
         return self.fetch(self.submit(frames), frames)
 
-    def serve_pipelined(self, batches, depth: int = 3, on_result=None) -> int:
+    def serve_pipelined(self, batches, depth: int = 3, on_result=None,
+                        upload_workers: int = 1) -> int:
         """Three-stage software pipeline over a tick iterator
-        (``multistream.py:642``): stage 1 (upload thread) host prep +
-        upload, stage 2 (caller thread) launches the device step, stage 3
+        (``multistream.py:642-707``): stage 1 (upload thread(s)) host prep
+        + upload, stage 2 (caller thread) launches the device step, stage 3
         (fetch thread) copies the packed outputs back and runs the
         per-stream analytics, IN ORDER on one worker so tracker and
         condition state advance in tick order.
@@ -197,9 +293,15 @@ class MultiStreamADAS:
         ``batches``: iterable of (n_streams, H, W, 3) uint8 ticks.
         ``depth``: max un-fetched device batches.
         ``on_result(tick_index, signals)``: optional, called on the fetch
-        thread in order.  Returns the number of ticks."""
+        thread in order.  ``upload_workers``: more than 1 creates the
+        uploader pool with that many threads (when none exists yet, as
+        JAX does); the steps still launch in tick order.  Returns the
+        number of ticks."""
         if self._fetcher is None:
             self._fetcher = ThreadPoolExecutor(max_workers=1, thread_name_prefix="adas-fetch")
+        if upload_workers > 1 and self._uploader is None:
+            self._uploader = ThreadPoolExecutor(max_workers=int(upload_workers),
+                                                thread_name_prefix="adas-upload")
 
         def fetch_and_report(idx, handle, frames):
             out = self.fetch(handle, frames)

@@ -100,10 +100,10 @@ def build_paths():
             calib = list(rng.integers(0, 256, (2, *FRAME_HW, 3), dtype=np.uint8))
             yolo.calibrate_int8(calib)
             lane.calibrate_int8(calib)
-        paths[cd] = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW)
+        paths[cd] = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW, transport="i420")
     det = EfficientdetDetector(compound=0, box_score=0.5, device="cuda", seed=0)
     lane = UltrafastLaneDetectorV2(model_type=culane, compute_dtype="bf16", device="cuda", seed=1)
-    paths["effdet"] = MultiStreamADAS(det, lane, N_STREAMS, FRAME_HW)
+    paths["effdet"] = MultiStreamADAS(det, lane, N_STREAMS, FRAME_HW, transport="i420")
     frames = rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8)
     return paths, frames
 

@@ -145,7 +145,8 @@ def init_params(module: nn.Module, seed: int = 0) -> None:
     """Seeded flax-style init of every Conv2d / Linear / norm in
     ``module``, in module order, on the module's own device.  The numbers
     come from that device's generator: one seed gives other weights on the
-    CPU than on a GPU."""
+    CPU than on a GPU.  The tensors cached from the old weights are
+    dropped."""
     dev = next(module.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
     for m in module.modules():
@@ -164,3 +165,4 @@ def init_params(module: nn.Module, seed: int = 0) -> None:
             continue
         if m.bias is not None:
             m.bias.zero_()
+    reset_int8_cache(module)

@@ -68,11 +68,13 @@ Phases, each of which raises (exit code 1) on failure:
      2e-2 for the YOLO nets and 3e-2 for UFLDv2, and the GPU run's int8
      conv and block launches exactly what the module trees and the fusion
      gate give.  The int8 kernels agree
-     with their plain versions to the bit at these sizes; the 7x7 stem
-     kernel sums in another order than cuDNN's f32 conv, a bf16 output
-     moves by one ulp here and there, and the random-weight int8 trunk
-     carries that to ~2.4% at the lane outputs (the JAX-vs-port module
-     test sees the same from the two frameworks' stems);
+     with their plain versions to the bit at these sizes; the operands
+     between them do not (the 7x7 stem kernel sums in another order than
+     the CPU's conv, and the BN folds' ``rsqrt`` and other f32 ops round
+     differently on the card), a value one ulp apart moves s8 values, and
+     the random-weight int8 trunk carries that to ~1.7% at the lane
+     outputs (the JAX-vs-port module test sees the same from the two
+     frameworks' stems);
 5. the int8 main path: YOLOv8l-640 + UFLDv2-CULane, int8, seeded random
    weights, calibrated on the card with the port's calibrator from two
    720x1280 frames, 8 streams of 720x1280 frames over I420 transport.
@@ -87,7 +89,20 @@ Phases, each of which raises (exit code 1) on failure:
    fused bodies (int8 conv), and 1 each for the IoU kernel (mask mode)
    and the walk of the NMS (hard suppression); outputs must be finite and detections non-empty.  Prints
    per-tick times, a per-stage breakdown, the device step alone and peak
-   memory;
+   memory.  Then the JAX bench's two-point compute frames/s
+   (``[probe-v8l-int8]``, ``bench.py:252-278``): ``make_compute_probe`` at
+   30 and 60 chained steps, each captured in one CUDA graph (exactly
+   (1 + steps) x the per-tick launches at capture, none on replay; the
+   2-step probe equal to two eager steps), best of 3 replays each; and the
+   same nets on JAX's default transport, bgr (``[main-int8-bgr]``: the
+   frames uploaded as they are, no host encode), with the same launches;
+5a. ``[main-uncal-int8]``: phase 5's nets left uncalibrated, on bgr: every
+   int8 conv in its per-image mode (a row of the epilogue scale per
+   stream: the dynamic scales), each distinct shape of a tick against
+   its plain version and ``torch._int_mm``
+   (``[main-uncal-int8-shapes]``); stream 0's packed row equal to the bit
+   when streams 1-7 change; the ticks with per tick stem 2, block 0
+   (uncalibrated blocks do not fuse), 115 int8 conv, IoU 1, walk 1;
 6. the EfficientDet main path: EfficientDet-D0 at its paper size (512,
    B0 trunk, 64-channel BiFPN x 3, heads x 3, 80 classes, f32) +
    UFLDv2-CULane bf16, seeded random weights, the same 8 streams; per
@@ -141,7 +156,10 @@ Phases, each of which raises (exit code 1) on failure:
     (``[v10-int8-shapes]``), then the ticks of phase 5 with per tick stem
     2, block 6 (the fusion gate over the module tree), the other int8
     convs of the trunk and the one-to-one head, IoU 0 and walk 0; finite
-    detections, at most ``max_det`` per stream;
+    detections, at most ``max_det`` per stream; then the same ticks with
+    ``host_downscale=(360, 640)`` as the JAX bench configures config 5
+    (``[main-v10-int8-ds360]``) and the compute probe there
+    (``[probe-config5]``, the bench's pinned ``compute_fps_fixed`` geometry);
 12. ``[frame-v10-bf16]``: phase 9 with YOLOv10s-640 (its one-to-many head
     and NMS, as the fused step serves it) + UFLDv2-CurveLanes (800x1600),
     both routes equal; stem 2, IoU 1, walk 1 per frame;
@@ -163,8 +181,9 @@ Phases, each of which raises (exit code 1) on failure:
     conv calls of both nets, IoU 1 and walk 1;
 16. ``[main-effdet-int8]``: EfficientDet-D0-512 calibrated int8
     (``box_score`` 0.3) + UFLDv2-CULane int8, the JAX bench's
-    ``c5_efficientdet_d0_int8_8streams`` without its host downscale, as
-    phase 15 (EfficientDet's head convs run once per level), then
+    ``c5_efficientdet_d0_int8_8streams``, as phase 15 (EfficientDet's
+    head convs run once per level), at 720p and again with the bench's
+    ``host_downscale=(360, 640)`` (``[main-effdet-int8-ds360]``), then
     ``DetectFrame`` on one 720p frame (``c5_efficientdet_d0_int8``) with
     the net's int8 conv calls, IoU 1 and walk 1;
 17. ``[families]``: every YOLO family at every scale (v5, v8, v10 at n-x,
@@ -172,7 +191,20 @@ Phases, each of which raises (exit code 1) on failure:
     calibrated on the card from two frames, in int8) and the UFLD v1
     (TuSimple, CULane) and UFLDv2-CurveLanes facades, built on the card
     by default, one ``DetectFrame`` each with its exact launches (the
-    int8 ones: every int8 conv of the net once, no stem).
+    int8 ones: every int8 conv of the net once, no stem; UFLD v1-CULane
+    int8, uncalibrated as in JAX, with its stem);
+18. ``[lane-res34]``, ``[lane-res50]``: UFLDv2 on the ResNet-34 and
+    ResNet-50 trunks at 160x640, GPU against CPU in f32 and int8 (and
+    the int8 trunk on the GPU's stem output equal to the bit on the CPU;
+    :func:`lane_depth_phase`), with exact launches (int8: ResNet-34's
+    three fused ``layer1`` blocks);
+19. ``[lane-res34-served]``, ``[lane-res50-served]``: the same trunks in
+    their served configuration (``configs/ufldv2/culane_res34.py``:
+    320x1600, the published head) through ``UltrafastLaneDetectorV2`` and
+    ``MultiStreamADAS`` beside YOLOv8l at 8 streams of 720p, f32 and
+    calibrated int8 (:func:`lane_served_phase`): the lane net's int8 conv
+    shapes (``[lane-res34-shapes]``) and fused block shapes against their
+    plain versions, then the ticks with exact launches.
 
 Then the card's name and power limit again, one JSON line describing
 the kernels — ``launches`` summed over the paths (the ``[families]``
@@ -195,8 +227,12 @@ as above: ``launches_per_frame``, ``batch1_ms``, ``batch1_bound_ms``,
 ``batch1_library_ms``; stem: ``batch1_sites_ms``, each other batch-1
 site's time by dtype; int8 conv: ``config5_tick_{ms,library_ms,bound_ms}``
 ``v5_frame_{ms,library_ms,bound_ms}``, ``v9c_tick_*`` and
-``effdet_int8_tick_*``, the kernel, ``torch._int_mm`` and the bound summed
-per tick of phases 11, 15 and 16 and per frame of phase 13) —
+``effdet_int8_tick_*`` and ``uncal_int8_tick_*``, the kernel,
+``torch._int_mm`` and the bound summed per tick of phases 11, 15, 16 and
+5a and per frame of phase 13; ``lane_res34_tick_*`` and
+``lane_res50_tick_*``: the int8 conv's and the block's sums per int8 tick
+of phase 19 over the lane net's shapes (the block with its plain
+version's), and every kernel's ``..._launches`` per such tick) —
 and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA GPU is visible.
 """
@@ -214,8 +250,15 @@ BLOCKS_PER_TICK = 5
 #: keys of the kernels line beyond the contract's
 EXTRA_KEYS = ("unfused_ms", "matrix_ms", "matrix_bound_ms", "scan_ms", "widths_ms",
               "config5_ms", *(f"{path}_{k}" for path in ("config5_tick", "v5_frame", "v9c_tick",
-                                                         "effdet_int8_tick", "families_int8_frames")
-                              for k in ("ms", "library_ms", "bound_ms")))
+                                                         "effdet_int8_tick", "families_int8_frames",
+                                                         "uncal_int8_tick", "lane_res34_tick",
+                                                         "lane_res50_tick")
+                              for k in ("ms", "library_ms", "bound_ms", "plain_ms", "launches")))
+#: chained steps of the short compute probe (``bench.py``'s COMPUTE_ITERS);
+#: the long one runs twice as many
+COMPUTE_ITERS = 30
+#: the JAX bench's pinned transport geometry (``bench.py:288``, ``:301``)
+HOST_DOWNSCALE = (360, 640)
 #: EfficientDet's box score on seeded weights (see phase 6); the int8 path
 #: serves at 0.3 (phase 16)
 EFFDET_BOX_SCORE = 0.5
@@ -435,7 +478,7 @@ def conv_yardsticks(IC, torch, args, kw, got, stride):
     k, cout = wq.shape[1], kw.get("cout") or wq.shape[0]
     ms = device_ms(lambda: IC.int8_conv(*args, **kw), 20)
     # the conv's own widths: padded operands (``pad_weight``) sliced back
-    wq, scale = wq[:cout, ..., :xq.shape[3]], scale[:cout]
+    wq, scale = wq[:cout, ..., :xq.shape[3]], scale[..., :cout]
     bias = None if bias is None else bias[:cout]
     cols = IC.im2col(xq, k, stride).contiguous()
     w2d = wq.reshape(cout, -1)
@@ -755,7 +798,8 @@ def reference_phase(torch, np):
                 "yolo_in": xy, "lane_in": xl, "effdet_in": xe,
                 "yolo_stem": ynet.net.stem(xy),
                 "lane_stem": consume_stem(
-                    xl, lnet.backbone.conv1, lnet.backbone.bn1, act="relu", pool=True
+                    xl, lnet.backbone.conv1, lnet.backbone, lnet.backbone.bn1, act="relu",
+                    pool=True
                 ),
                 "yolo_raw": ynet.eval()(xy),
             }
@@ -944,7 +988,7 @@ def serve(tag, ms, mods, per_tick, ticks, n_sync, n_pipe, torch, np):
     return run
 
 
-def build_main(compute_dtype, torch):
+def build_main(compute_dtype, torch, tag=None):
     from adas_tpu_torch.perception.lane_detector import LaneModelType, UltrafastLaneDetectorV2
     from adas_tpu_torch.perception.object_detector import ObjectModelType, YoloDetector
     from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
@@ -959,15 +1003,16 @@ def build_main(compute_dtype, torch):
         seed=1,
     )
     torch.cuda.synchronize()
-    print(f"[main-{compute_dtype}] built YOLOv8l-640 + UFLDv2-CULane in "
+    print(f"[{tag or 'main-' + compute_dtype}] built YOLOv8l-640 + UFLDv2-CULane in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     return yolo, lane, MultiStreamADAS
 
 
 def main_path_conv_shapes(step, IC, torch):
     """Every int8 conv call of ``step()`` (one int8 step), by shape:
-    {(input shape, channel pitch, Cout, k, stride, act, s8 output, bias):
-    calls per step}, recorded at the module tree's one call site
+    {(input shape, channel pitch, Cout, k, stride, act, s8 output, bias,
+    per-image scale table): calls per step}, recorded at the module tree's
+    one call site
     (``models/layers.py``'s ``int8_conv``) on a step outside the counted
     run."""
     from adas_tpu_torch.models import layers
@@ -976,8 +1021,10 @@ def main_path_conv_shapes(step, IC, torch):
 
     def record(xq, wq, scale, bias, *, stride, act, out_scale=None, out_f32=False, cout=None):
         out = "s8" if out_scale is not None else "f32" if out_f32 else "bf16"
+        # an uncalibrated net's dynamic scales: a row of the table per image
+        per_image = scale.dim() == 2 and scale.shape[0] > 1
         key = (tuple(xq.shape), IC.channel_pitch(xq), cout or wq.shape[0], wq.shape[1], stride,
-               act, out, bias is not None)
+               act, out, bias is not None, per_image)
         seen[key] = seen.get(key, 0) + 1
         return run(xq, wq, scale, bias, stride=stride, act=act, out_scale=out_scale,
                    out_f32=out_f32, cout=cout)
@@ -1001,10 +1048,12 @@ def main_path_conv_phase(IC, shapes, torch, tag="int8-shapes", per="tick"):
     gen = torch.Generator(device="cuda").manual_seed(3)
     tick = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     slower = []
-    for (shape, pitch, cout, k, stride, act, out, has_bias), calls in sorted(
+    for (shape, pitch, cout, k, stride, act, out, has_bias, per_image), calls in sorted(
         shapes.items(), key=lambda kv: -kv[1] * kv[0][0][0] * kv[0][0][1] * kv[0][0][2] * kv[0][2]
     ):
         xq, wq, scale, b = conv_operands(gen, shape, pitch, cout, k, torch, bias=has_bias)
+        if per_image:  # images at dynamic input scales up to ~12x apart
+            scale = scale * (torch.rand(shape[0], generator=gen, device="cuda") * 3 + 0.25)[:, None]
         # as the module tree gives them: widths padded to multiples of 8
         # (``QConv2d.kernel_weight``, ``conv_epilogue``), the conv's own cout
         args = (xq, IC.pad_weight(wq), IC.pad_channels(scale), IC.pad_channels(b))
@@ -1016,7 +1065,7 @@ def main_path_conv_phase(IC, shapes, torch, tag="int8-shapes", per="tick"):
         ho, wo = IC.conv_out_hw(h, w, k, stride)
         tile = IC.tile_config(n * ho * wo, cout, num_sms(torch.cuda.current_device()))
         print(f"[{tag}] {n}x{h}x{w}x{cin} (pitch {pitch}) -> {cout} k{k}/s{stride} {act} "
-              f"{out} x{calls}/{per} tile {tile[0]}x{tile[1]}: "
+              f"{out}{' per-image' if per_image else ''} x{calls}/{per} tile {tile[0]}x{tile[1]}: "
               f"err {err:.3g}; kernel {ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, "
               f"{fmt_bound(b, ms)}", flush=True)
         tick["ms"] += calls * ms
@@ -1031,8 +1080,60 @@ def main_path_conv_phase(IC, shapes, torch, tag="int8-shapes", per="tick"):
     return tick
 
 
+def probe_phase(tag, ms, frames, per_tick, mods, torch):
+    """``[probe-*]``: the JAX bench's two-point compute frames/s
+    (``bench.py:252-278``) through ``make_compute_probe``: probes of
+    ``COMPUTE_ITERS`` and twice as many chained steps on one uploaded
+    tick, each captured in one CUDA graph on its first call (after one
+    eager step), then timed as the best of 3 calls, each ending in the
+    host fetch of its result; frames/s = iters x streams / (t_2N - t_N).
+    Every kernel must be launched exactly (1 + iters) x its per-tick count
+    by the first call (the eager step and the capture) and not once by
+    the replays; the 2-step probe's value must equal two eager steps'.
+    Returns the probe's numbers."""
+    x = ms._prep_upload(frames)
+    two = ms.make_compute_probe(2)(x)
+    eager = ms._step(x).sum() + ms._step(x + 1).sum()
+    torch.cuda.synchronize()
+    rel = abs(float(two) - float(eager)) / max(abs(float(eager)), 1e-30)
+    check(bool(torch.isfinite(two)) and rel < 1e-5,
+          f"[{tag}] 2-step probe {float(two)} vs eager steps {float(eager)}")
+    out = {}
+    for iters in (COMPUTE_ITERS, 2 * COMPUTE_ITERS):
+        probe = ms.make_compute_probe(iters)
+        reset(mods)
+        t = time.perf_counter()
+        float(probe(x))
+        capture_s = time.perf_counter() - t
+        captured = counts(mods)
+        for k, per in per_tick.items():
+            check(captured[k] == (1 + iters) * per,
+                  f"[{tag}] {k}: {captured[k]} launches capturing {iters} steps, expected "
+                  f"{(1 + iters) * per}")
+        best = float("inf")
+        for _ in range(3):
+            t = time.perf_counter()
+            float(probe(x))
+            best = min(best, time.perf_counter() - t)
+        check(counts(mods) == captured, f"[{tag}] a replay went through a kernel's wrapper")
+        out[iters] = best
+        print(f"[{tag}] {iters} chained steps: first call (eager step + capture + replay) "
+              f"{capture_s * 1e3:.1f} ms, best of 3 replays {best * 1e3:.3f} ms", flush=True)
+        del probe
+    t1, t2 = out[COMPUTE_ITERS], out[2 * COMPUTE_ITERS]
+    fps = COMPUTE_ITERS * N_STREAMS / max(t2 - t1, 1e-6)
+    print(f"[{tag}] compute frames/s (two-point, {COMPUTE_ITERS} and {2 * COMPUTE_ITERS} steps "
+          f"of {N_STREAMS} streams): {fps:.2f}; {(t2 - t1) * 1e3 / COMPUTE_ITERS:.3f} ms per "
+          f"step; 2-step probe vs eager: relative {rel:.3g}", flush=True)
+    return {"fps": fps, "t_n_ms": t1 * 1e3, "t_2n_ms": t2 * 1e3}
+
+
 def int8_main_phase(mods, torch, np):
-    """The calibrated int8 serving path at full width."""
+    """The calibrated int8 serving path at full width on I420
+    (``[main-int8]``), its compute probe (``[probe-v8l-int8]``), then the
+    same calibrated nets on JAX's default transport, bgr
+    (``[main-int8-bgr]``: the frames uploaded as they are, no host
+    encode)."""
     from adas_tpu_torch.models.quant import QConv2d
 
     yolo, lane, MultiStreamADAS = build_main("int8", torch)
@@ -1049,7 +1150,8 @@ def int8_main_phase(mods, torch, np):
     per_conv = sum(n_conv.values()) - 2 * BLOCKS_PER_TICK
     print(f"[main-int8] module tree: {n_conv['yolo']} + {n_conv['lane']} int8 convs, "
           f"{BLOCKS_PER_TICK} fused two-conv bodies -> {per_conv} int8 conv launches per tick")
-    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW)
+    per_tick = {"stem": 2, "int8_conv": per_conv, "block": BLOCKS_PER_TICK, "iou": 1, "nms": 1}
+    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW, transport="i420")
     ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
     try:
         shapes = main_path_conv_shapes(lambda: ms._step(ms._prep_upload(ticks[0])),
@@ -1057,10 +1159,57 @@ def int8_main_phase(mods, torch, np):
         check(sum(shapes.values()) == per_conv,
               f"recorded {sum(shapes.values())} int8 convs in a step, expected {per_conv}")
         main_path_conv_phase(mods["int8_conv"], shapes, torch)
-        return serve("main-int8", ms, mods,
-                     {"stem": 2, "int8_conv": per_conv, "block": BLOCKS_PER_TICK,
-                      "iou": 1, "nms": 1},
-                     ticks, 3, 8, torch, np)
+        run = serve("main-int8", ms, mods, per_tick, ticks, 3, 8, torch, np)
+        probe_phase("probe-v8l-int8", ms, ticks[0], per_tick, mods, torch)
+    finally:
+        ms.close()
+    bgr = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW)
+    check(bgr.transport == "bgr", f"the default transport is {bgr.transport}")
+    try:
+        run_bgr = serve("main-int8-bgr", bgr, mods, per_tick, ticks, 3, 8, torch, np)
+    finally:
+        bgr.close()
+    return run, run_bgr
+
+
+def uncal_int8_phase(mods, torch, np):
+    """``[main-uncal-int8]``: phase 5's nets (the same seeds) left
+    uncalibrated, on the bgr transport: every int8 conv quantizes each
+    stream at its own dynamic scale, so the int8 conv runs its per-image
+    mode (a row of the epilogue scale per image) and no block fuses.
+    Every distinct int8 conv shape of a tick against its plain version
+    and ``torch._int_mm`` (``[main-uncal-int8-shapes]``); stream 0's packed
+    row equal to the bit whatever stream 1..7's frames are; then the ticks
+    of phase 5 with per tick stem 2, block 0, every int8 conv of both
+    trees, IoU 1 and walk 1.  Returns (the launch counts, the int8 conv's
+    per-tick sums)."""
+    tag = "main-uncal-int8"
+    yolo, lane, MultiStreamADAS = build_main("int8", torch, tag=tag)
+    check(all(m.xmax is None for f in (yolo, lane) for m in f.net.modules()
+              if hasattr(m, "xmax")), "the uncalibrated nets hold activation scales")
+    per_conv = int8_convs(yolo.net, lane.net)
+    rng = np.random.default_rng(0)
+    ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
+    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW)
+    try:
+        shapes = main_path_conv_shapes(lambda: ms._step(ms._prep_upload(ticks[0])),
+                                       mods["int8_conv"], torch)
+        check(sum(shapes.values()) == per_conv and all(key[-1] for key in shapes),
+              f"recorded {sum(shapes.values())} int8 convs in a step, expected {per_conv}, "
+              f"every one with a per-image scale table")
+        conv = main_path_conv_phase(mods["int8_conv"], shapes, torch, tag=f"{tag}-shapes")
+        other = ticks[0].copy()
+        other[1:] = 255 - other[1:] // 4
+        a = ms._step(ms._prep_upload(ticks[0]))
+        b = ms._step(ms._prep_upload(other))
+        torch.cuda.synchronize()
+        check(torch.equal(a[0], b[0]) and not torch.equal(a[1], b[1]),
+              f"[{tag}] stream 0's output depends on the other streams' frames")
+        print(f"[{tag}] stream 0's packed row equal to the bit with streams 1-7 changed "
+              f"(streams 1-7 changed: {not torch.equal(a[1:], b[1:])})", flush=True)
+        run = serve(tag, ms, mods, {"stem": 2, "int8_conv": per_conv, "block": 0, "iou": 1,
+                                    "nms": 1}, ticks, 3, 8, torch, np)
+        return run, conv
     finally:
         ms.close()
 
@@ -1069,7 +1218,7 @@ def bf16_main_phase(mods, torch, np):
     """The bf16 serving path at full width (fewer ticks)."""
     yolo, lane, MultiStreamADAS = build_main("bf16", torch)
     rng = np.random.default_rng(0)
-    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW)
+    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW, transport="i420")
     ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
     try:
         return serve("main-bf16", ms, mods,
@@ -1096,7 +1245,7 @@ def effdet_main_phase(mods, torch, np):
     print(f"[main-effdet] built EfficientDet-D0-512 (f32) + UFLDv2-CULane (bf16) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     rng = np.random.default_rng(2)
-    ms = MultiStreamADAS(det, lane, N_STREAMS, FRAME_HW)
+    ms = MultiStreamADAS(det, lane, N_STREAMS, FRAME_HW, transport="i420")
     ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
     try:
         return serve("main-effdet", ms, mods,
@@ -1238,7 +1387,7 @@ def i420_vs_multistream(tag, pipe, frames, np):
     yolo, lane = pipe.objectDetector, pipe.laneDetector
     FusedADASStep(yolo, lane, transport="i420").run(frames[0])
     single = list(yolo.object_info)
-    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW)
+    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW, transport="i420")
     try:
         tick = np.stack([frames[i % len(frames)] for i in range(N_STREAMS)])
         batched = ms.process_batch(tick)[0]["objects"]
@@ -1599,9 +1748,16 @@ def families_phase(mods, torch, np):
         total = {k: total[k] + run[k] for k in KERNELS}
     for cls, lane_type, cd in ((UltrafastLaneDetector, LaneModelType.UFLD_TUSIMPLE, None),
                                (UltrafastLaneDetector, LaneModelType.UFLD_CULANE, "bf16"),
+                               (UltrafastLaneDetector, LaneModelType.UFLD_CULANE, "int8"),
                                (UltrafastLaneDetectorV2, LaneModelType.UFLDV2_CURVELANES, None)):
         lane = cls(model_type=lane_type, compute_dtype=cd, seed=1)
-        lane.DetectFrame(frame)
+        if cd == "int8":  # UFLD v1's int8 is uncalibrated (dynamic scales), as in JAX
+            seen = main_path_conv_shapes(lambda: lane.DetectFrame(frame), mods["int8_conv"],
+                                         torch)
+            for key, calls in seen.items():
+                shapes[key] = shapes.get(key, 0) + calls
+        else:
+            lane.DetectFrame(frame)
         reset(mods)
         t = time.perf_counter()
         lane.DetectFrame(frame)
@@ -1609,10 +1765,228 @@ def families_phase(mods, torch, np):
         run = counts(mods)
         print(f"[families] {lane_type.name} {cd or 'f32'}: DetectFrame {ms:.2f} ms, lanes "
               f"{lane.lane_info.lanes_status}, launches {run}", flush=True)
-        check(run == {"stem": 1, "int8_conv": 0, "block": 0, "iou": 0, "nms": 0}
-              and len(lane.lane_info.lanes_status) == 4, f"[families] {lane_type.name}")
+        n_int8 = int8_convs(lane.net) if cd == "int8" else 0
+        check(run == {"stem": 1, "int8_conv": n_int8, "block": 0, "iou": 0, "nms": 0}
+              and len(lane.lane_info.lanes_status) == 4, f"[families] {lane_type.name} {cd}")
         total = {k: total[k] + run[k] for k in KERNELS}
     return total, shapes
+
+
+#: ResNet-34's fused ``layer1`` blocks per batch (40x160x64 at a 160x640
+#: input and 80x400x64 at the served 320x1600 pass the gate); ResNet-50's
+#: Bottlenecks never fuse
+LANE_RES_BLOCKS = {"34": 3, "50": 0}
+#: int8 UFLDv2, GPU kernels against CPU plain versions on the same packed
+#: and calibrated net: relative L2 bound of each output (ResNet-18's, phase 4)
+LANE_INT8_BOUND = 3e-2
+
+
+def lane_depth_phase(depth, mods, torch, np):
+    """``[lane-res34]`` / ``[lane-res50]``: UFLDv2 on a ResNet-34 or
+    ResNet-50 trunk (CULane's crop, a 160x640 input, a 64-wide MLP:
+    ``int8_reference_phase``'s narrowed head), GPU against CPU on the same
+    seeded weights and two inputs.  f32: the 7x7 stem kernel and cuDNN with
+    TF32 off, rtol 1e-3 with an atol of 1e-3 of the largest magnitude.
+    int8, packed and calibrated on the CPU: every output within
+    ``LANE_INT8_BOUND`` relative L2 of the CPU's (the stem kernel's bf16
+    output is one ulp off its plain version on a few values, and a deep
+    random int8 trunk spreads each s8 value that moves); and given the
+    GPU's stem output, the CPU's trunk must give the GPU's three stage
+    outputs to the bit (the int8 conv and the block equal their plain
+    versions, the BN folds are the host's).  Exact launches on the GPU:
+    stem 1, and in int8 the fused ``layer1`` blocks (3 for ResNet-34,
+    none for ResNet-50's Bottlenecks) and every other int8 conv of the
+    tree.  Returns the GPU runs' launch counts."""
+    from adas_tpu_torch.models import resnet, ufld
+    from adas_tpu_torch.models.quant import pack_int8_weights
+    from adas_tpu_torch.ops.block import fuse_gate
+    from adas_tpu_torch.perception.object_detector import calibrate
+    from adas_tpu_torch.weights import init_params
+
+    tag = f"lane-res{depth}"
+    culane = ufld.UFLDV2_SPECS[ufld.LaneModelType.UFLDV2_CULANE]
+    spec = ufld.UFLDv2Spec(input_height=160, input_width=640, crop_ratio=culane.crop_ratio,
+                           num_cell_row=20, num_row=72, num_cell_col=10, num_col=16, mlp_mid=64,
+                           backbone=depth)
+    check(fuse_gate(40, 160, 64), "ResNet layer1 at 160x640 does not pass the fusion gate")
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((2, 3, 160, 640))
+                         .astype(np.float32))
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))  # noqa: E731
+    total = {k: 0 for k in KERNELS}
+    for int8 in (False, True):
+        net = ufld.UFLDv2Net(spec, int8=int8)
+        init_params(net, 40 + int(depth))  # the same weights in both precisions
+        net.eval().requires_grad_(False)
+        blocks = LANE_RES_BLOCKS[depth] if int8 else 0
+        want_run = {"stem": 1, "int8_conv": int8_convs(net) - 2 * blocks if int8 else 0,
+                    "block": blocks, "iou": 0, "nms": 0}
+        t = time.perf_counter()
+        if int8:
+            pack_int8_weights(net)
+            calibrate(net, [x[:1], x[1:]])
+        xin = x.to(torch.bfloat16 if int8 else torch.float32)
+        outs, trunk = {}, {}
+        net.backbone.register_forward_hook(lambda m, i, o: trunk.update(
+            {str(o[0].device.type): tuple(f.float().cpu() for f in o)}))
+        stem_run, stems = resnet.consume_stem, []
+        with torch.inference_mode():
+            outs["cpu"] = net(xin)
+            net.to("cuda")
+            reset(mods)
+            resnet.consume_stem = lambda *a, **k: stems.append(stem_run(*a, **k)) or stems[-1]
+            try:
+                outs["cuda"] = net(xin.to("cuda"))
+            finally:
+                resnet.consume_stem = stem_run
+            run = counts(mods)
+            if int8:  # the CPU trunk on the GPU's stem output
+                net.to("cpu")
+                gpu_trunk = trunk["cuda"]
+                resnet.consume_stem = lambda *a, **k: stems[0].cpu()
+                try:
+                    net(xin)
+                finally:
+                    resnet.consume_stem = stem_run
+        outs = {dev: {k: v.float().cpu().numpy() for k, v in y.items()} for dev, y in outs.items()}
+        name = "int8" if int8 else "f32"
+        n_blocks = sum(isinstance(m, (resnet.BasicBlock, resnet.Bottleneck))
+                       for m in net.modules())
+        print(f"[{tag}] {name}: {n_blocks} blocks, built{' and calibrated' if int8 else ''} and "
+              f"run on both devices in {time.perf_counter() - t:.1f} s; GPU launches {run} "
+              f"(expected {want_run})", flush=True)
+        check(run == want_run, f"[{tag}] {name}: launches {run}, expected {want_run}")
+        for k, want in outs["cpu"].items():
+            got = outs["cuda"][k]
+            check(got.shape == want.shape and np.all(np.isfinite(got)), f"[{tag}] {k}: bad output")
+            if int8:
+                err = rel(got, want)
+                print(f"[{tag}] int8 {k} {want.shape}: GPU vs CPU relative L2 {err:.3g} (bound "
+                      f"{LANE_INT8_BOUND}); against the f32 net GPU {rel(got, f32_out[k]):.3g}, "
+                      f"CPU {rel(want, f32_out[k]):.3g}", flush=True)
+                check(err < LANE_INT8_BOUND, f"[{tag}] int8 {k}: GPU and CPU disagree ({err})")
+            else:
+                scale = float(np.abs(want).max())
+                print(f"[{tag}] f32 {k} {want.shape}: max_abs_err "
+                      f"{float(np.abs(got - want).max()):.3g} (scale {scale:.3g})", flush=True)
+                np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3 * scale)
+        if int8:
+            same = [torch.equal(a, b) for a, b in zip(gpu_trunk, trunk["cpu"])]
+            print(f"[{tag}] int8 trunk on the GPU's stem output: stage outputs "
+                  f"{[tuple(f.shape) for f in gpu_trunk]} equal to the bit on the CPU: {same}",
+                  flush=True)
+            check(all(same), f"[{tag}] int8 trunk: GPU and CPU stage outputs differ")
+        f32_out = outs["cpu"]
+        total = {k: total[k] + run[k] for k in KERNELS}
+        del net
+    return total
+
+
+def lane_served_phase(mods, torch, np):
+    """``[lane-res34-served]`` / ``[lane-res50-served]``: each deeper trunk
+    in its served configuration: UFLDv2-CULane at the config's 320x1600
+    and published head (``configs/ufldv2/culane_res34.py`` read by
+    ``Config.fromfile``; ResNet-50 on the same geometry, which no config
+    file names), built by ``UltrafastLaneDetectorV2(backbone=...)`` beside
+    YOLOv8l-640 in ``MultiStreamADAS`` at 8 streams of 720p on its default
+    transport (bgr), in f32 and then calibrated int8 (both nets calibrated
+    on the card from 2 frames).  int8: every distinct int8 conv shape of
+    the lane net against its plain version and ``torch._int_mm``
+    (``[lane-res34-shapes]``), each fused block shape against
+    ``block_reference`` to the bit; then the ticks with exact launches:
+    per tick stem 2, the fused bodies (YOLOv8l's and ResNet-34's 3
+    ``layer1`` blocks), every other int8 conv of both trees, IoU 1 and
+    walk 1.  Returns (the launch counts, {path: {kernel: per-tick sums}},
+    {path: int8 launches per tick})."""
+    import os
+
+    from adas_tpu_torch.models import resnet
+    from adas_tpu_torch.perception.lane_detector import LaneModelType, UltrafastLaneDetectorV2
+    from adas_tpu_torch.perception.object_detector import ObjectModelType, YoloDetector
+    from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
+    from adas_tpu_torch.utils.config import CONFIG_DIR, Config
+
+    cfg = Config.fromfile(os.path.join(CONFIG_DIR, "culane_res34.py"))
+    check(cfg.backbone == "34", f"culane_res34.py names backbone {cfg.backbone}")
+    IC, B = mods["int8_conv"], mods["block"]
+    rng = np.random.default_rng(0)
+    calib = list(rng.integers(0, 256, (2, *FRAME_HW, 3), dtype=np.uint8))
+    ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    total = {k: 0 for k in KERNELS}
+    sums, per_ticks = {}, {}
+    for cd in (None, "int8"):
+        yolo = YoloDetector(model_type=ObjectModelType.YOLOV8, scale="l", input_size=(640, 640),
+                            box_score=0.25, compute_dtype=cd, device="cuda", seed=0)
+        if cd:
+            yolo.calibrate_int8(calib)
+        for depth in ("34", "50"):
+            tag = f"lane-res{depth}-served"
+            t = time.perf_counter()
+            lane = UltrafastLaneDetectorV2(model_type=LaneModelType.UFLDV2_CULANE,
+                                           compute_dtype=cd, device="cuda", seed=1,
+                                           backbone=cfg.backbone if depth == "34" else depth)
+            s = lane.spec
+            check((s.input_height, s.input_width, s.crop_ratio, s.num_cell_row, s.num_row,
+                   s.num_cell_col, s.num_col, s.fc_norm, s.backbone, s.mlp_mid)
+                  == (cfg.train_height, cfg.train_width, cfg.crop_ratio, cfg.num_cell_row,
+                      cfg.num_row, cfg.num_cell_col, cfg.num_col, cfg.fc_norm, depth, 2048),
+                  f"[{tag}] the facade's spec {s} is not the config's")
+            if cd:
+                lane.calibrate_int8(calib)
+            torch.cuda.synchronize()
+            lane_blocks = LANE_RES_BLOCKS[depth] if cd else 0
+            blocks = lane_blocks + (yolo_fused_bodies(yolo.net, yolo.spec.input_size) if cd else 0)
+            lane_conv = int8_convs(lane.net) - 2 * lane_blocks if cd else 0
+            per_tick = {"stem": 2, "block": blocks, "iou": 1, "nms": 1,
+                        "int8_conv": int8_convs(yolo.net, lane.net) - 2 * blocks if cd else 0}
+            n_blocks = sum(isinstance(m, (resnet.BasicBlock, resnet.Bottleneck))
+                           for m in lane.net.modules())
+            print(f"[{tag}] {cd or 'f32'}: YOLOv8l-640 + UFLDv2-CULane on ResNet-{depth} "
+                  f"({n_blocks} blocks, {s.input_height}x{s.input_width}, MLP {s.mlp_mid}) "
+                  f"built{' and calibrated' if cd else ''} in {time.perf_counter() - t:.2f} s; "
+                  f"per tick {per_tick}", flush=True)
+            ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW)
+            try:
+                if cd:
+                    path = f"lane_res{depth}_tick"
+                    # the lane net's int8 convs and fused blocks on the tick's
+                    # input shape (the bgr route feeds it f32)
+                    x = torch.randn((N_STREAMS, 3, s.input_height, s.input_width), device="cuda")
+                    seen, run_block = {}, resnet.fused_block
+
+                    def record_block(xq, *a, **kw):
+                        seen[tuple(xq.shape)] = seen.get(tuple(xq.shape), 0) + 1
+                        return run_block(xq, *a, **kw)
+
+                    resnet.fused_block = record_block
+                    try:
+                        with torch.inference_mode():
+                            shapes = main_path_conv_shapes(lambda: lane.net(x), IC, torch)
+                    finally:
+                        resnet.fused_block = run_block
+                    check(sum(shapes.values()) == lane_conv
+                          and sum(seen.values()) == lane_blocks,
+                          f"[{tag}] recorded {sum(shapes.values())} int8 convs and "
+                          f"{sum(seen.values())} blocks in the lane net, expected {lane_conv}, "
+                          f"{lane_blocks}")
+                    conv = main_path_conv_phase(IC, shapes, torch, tag=f"lane-res{depth}-shapes")
+                    blk = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+                    for shape, calls in seen.items():
+                        _, bms, plain_ms, _, b = block_case(
+                            IC, B, torch, gen, f"lane-res{depth} layer1 x{calls}/tick", shape,
+                            ("relu", None, "relu"))
+                        blk = {"ms": blk["ms"] + calls * bms,
+                               "plain_ms": blk["plain_ms"] + calls * plain_ms,
+                               "bound_ms": blk["bound_ms"] + calls * b[0]}
+                    sums[path] = {"int8_conv": conv, "block": blk}
+                    per_ticks[path] = per_tick
+                run = serve(f"{tag}-{cd or 'f32'}", ms, mods, per_tick, ticks, 2, 4, torch, np)
+            finally:
+                ms.close()
+            total = {k: total[k] + run[k] for k in KERNELS}
+            del lane, ms
+        del yolo
+    return total, sums, per_ticks
 
 
 #: the stride of each C2f of a YOLO neck and backbone (640 input: 160x160
@@ -1647,13 +2021,15 @@ def v10_config5_phase(mods, torch, np):
     ``c5_v10s_int8_nmsfree_8streams``) on the port's I420 transport: 8
     streams of 720x1280, YOLOv10s-640 calibrated int8 through its
     one-to-one head with no NMS (``nms_free``, box_score 0.25) beside
-    UFLDv2-CULane int8, both calibrated on the card from 2 frames; no
-    host downscale.  Every distinct int8 conv shape against its plain
+    UFLDv2-CULane int8, both calibrated on the card from 2 frames; at 720p
+    first.  Every distinct int8 conv shape against its plain
     version first (``[v10-int8-shapes]``), then the ticks: per tick stem 2
     (the 32-feature YOLO stem, the lane stem), the fused bodies the gate
     passes, the module tree's other int8 convs (the trunk and the
-    one-to-one head: the one-to-many head does not run), IoU 0 and walk 0.
-    Returns (the launch counts, the int8 conv's per-tick sums)."""
+    one-to-one head: the one-to-many head does not run), IoU 0 and walk 0;
+    then the ticks with the bench's ``host_downscale`` and the compute
+    probe there (:func:`downscaled_serve`).  Returns (the launch counts,
+    the int8 conv's per-tick sums)."""
     from adas_tpu_torch.perception.lane_detector import LaneModelType, UltrafastLaneDetectorV2
     from adas_tpu_torch.perception.object_detector import ObjectModelType, YoloDetector
     from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
@@ -1676,7 +2052,7 @@ def v10_config5_phase(mods, torch, np):
     print(f"[{tag}] built and calibrated YOLOv10s-640 (int8, NMS-free) + UFLDv2-CULane (int8) "
           f"in {time.perf_counter() - t0:.2f} s; module tree: {blocks} fused bodies, "
           f"{per_conv} other int8 convs per tick", flush=True)
-    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW)
+    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW, transport="i420")
     ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
     try:
         shapes = main_path_conv_shapes(lambda: ms._step(ms._prep_upload(ticks[0])),
@@ -1684,10 +2060,36 @@ def v10_config5_phase(mods, torch, np):
         check(sum(shapes.values()) == per_conv,
               f"recorded {sum(shapes.values())} int8 convs in a step, expected {per_conv}")
         conv = main_path_conv_phase(mods["int8_conv"], shapes, torch, tag="v10-int8-shapes")
-        run = serve(tag, ms, mods,
-                    {"stem": 2, "int8_conv": per_conv, "block": blocks, "iou": 0, "nms": 0},
-                    ticks, 3, 8, torch, np)
-        return run, conv
+        per_tick = {"stem": 2, "int8_conv": per_conv, "block": blocks, "iou": 0, "nms": 0}
+        run = serve(tag, ms, mods, per_tick, ticks, 3, 8, torch, np)
+    finally:
+        ms.close()
+    run_ds, probe = downscaled_serve(tag, yolo, lane, per_tick, ticks, mods, torch, np,
+                                     probe_tag="probe-config5")
+    return {k: run[k] + run_ds[k] for k in KERNELS}, conv
+
+
+def downscaled_serve(tag, obj, lane, per_tick, ticks, mods, torch, np, probe_tag=None):
+    """The ticks of a path again with ``host_downscale=(360, 640)`` on
+    I420, as the JAX bench configures config 5 and
+    ``c5_efficientdet_d0_int8_8streams`` (``bench.py:461``, ``:483``; its
+    pinned ``compute_fps_fixed`` geometry, ``:288``): each 720p frame
+    resized on the host (``render/draw.resize_linear``) before the encode,
+    the detections scaled back to 720p; the same launches per tick.  With
+    ``probe_tag`` the compute probe at that geometry too.  Returns (the
+    launch counts, the probe's numbers or None)."""
+    from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
+
+    ms = MultiStreamADAS(obj, lane, N_STREAMS, FRAME_HW, host_downscale=HOST_DOWNSCALE,
+                         transport="i420")
+    check(ms.dev_hw == HOST_DOWNSCALE and ms._host_prep(ticks[0]).shape
+          == (N_STREAMS, HOST_DOWNSCALE[0] * 3 // 2, HOST_DOWNSCALE[1]), "downscaled transport")
+    try:
+        run = serve(f"{tag}-ds360", ms, mods, per_tick, ticks, 3, 8, torch, np)
+        probe = None
+        if probe_tag is not None:
+            probe = probe_phase(probe_tag, ms, ticks[0], per_tick, mods, torch)
+        return run, probe
     finally:
         ms.close()
 
@@ -1703,15 +2105,16 @@ def int8_calls(net) -> int:
     return int8_convs(net)
 
 
-def int8_pair_phase(tag, obj, lane, mods, torch, np):
+def int8_pair_phase(tag, obj, lane, mods, torch, np, downscale=False):
     """A calibrated int8 object net beside UFLDv2-CULane int8 on the I420
     path, 8 streams of 720x1280 (phases 16-17): both calibrated on the card
     from 2 frames; every distinct int8 conv shape of a tick against its
     plain version (``[<tag>-shapes]``); then the ticks of phase 5 with per
     tick stem 1 and block 2 (the lane net's: the object nets have neither,
     as in JAX), the int8 conv calls of both nets less the fused bodies'
-    (:func:`int8_calls`), IoU 1 and walk 1.  Returns (the launch counts, the int8 conv's
-    per-tick sums)."""
+    (:func:`int8_calls`), IoU 1 and walk 1; with ``downscale`` the ticks
+    again at ``host_downscale=(360, 640)`` (:func:`downscaled_serve`).
+    Returns (the launch counts, the int8 conv's per-tick sums)."""
     from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
 
     rng = np.random.default_rng(0)
@@ -1725,7 +2128,7 @@ def int8_pair_phase(tag, obj, lane, mods, torch, np):
           f"module trees: {int8_convs(obj.net)} ({int8_calls(obj.net)} calls) + "
           f"{int8_convs(lane.net)} int8 convs, {LANE_BLOCKS} fused bodies -> {per_conv} int8 "
           f"conv launches per tick", flush=True)
-    ms = MultiStreamADAS(obj, lane, N_STREAMS, FRAME_HW)
+    ms = MultiStreamADAS(obj, lane, N_STREAMS, FRAME_HW, transport="i420")
     ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
     try:
         shapes = main_path_conv_shapes(lambda: ms._step(ms._prep_upload(ticks[0])),
@@ -1733,11 +2136,14 @@ def int8_pair_phase(tag, obj, lane, mods, torch, np):
         check(sum(shapes.values()) == per_conv,
               f"recorded {sum(shapes.values())} int8 convs in a step, expected {per_conv}")
         conv = main_path_conv_phase(mods["int8_conv"], shapes, torch, tag=f"{tag}-shapes")
-        run = serve(tag, ms, mods, {"stem": 1, "int8_conv": per_conv, "block": LANE_BLOCKS,
-                                    "iou": 1, "nms": 1}, ticks, 3, 8, torch, np)
-        return run, conv
+        per_tick = {"stem": 1, "int8_conv": per_conv, "block": LANE_BLOCKS, "iou": 1, "nms": 1}
+        run = serve(tag, ms, mods, per_tick, ticks, 3, 8, torch, np)
     finally:
         ms.close()
+    if downscale:
+        run_ds, _ = downscaled_serve(tag, obj, lane, per_tick, ticks, mods, torch, np)
+        run = {k: run[k] + run_ds[k] for k in KERNELS}
+    return run, conv
 
 
 def v9c_int8_phase(mods, torch, np):
@@ -1757,8 +2163,8 @@ def v9c_int8_phase(mods, torch, np):
 def effdet_int8_phase(mods, torch, np):
     """``[main-effdet-int8]``: EfficientDet-D0-512 calibrated int8
     (``box_score`` 0.3) + UFLDv2-CULane int8, the JAX bench's
-    ``c5_efficientdet_d0_int8_8streams`` without its host downscale
-    (phase 17); then ``DetectFrame`` on one 720p frame
+    ``c5_efficientdet_d0_int8_8streams`` (phase 16), at 720p and with its
+    ``host_downscale``; then ``DetectFrame`` on one 720p frame
     (``c5_efficientdet_d0_int8``): the net's int8 conv calls, IoU 1, walk
     1, no stem.  Returns (the launch counts of both, the int8 conv's
     per-tick sums)."""
@@ -1772,7 +2178,7 @@ def effdet_int8_phase(mods, torch, np):
                                    device="cuda", seed=1)
     check(det.spec.input_size == 512 and det.spec.config[3:] == (64, 3, 3),
           f"not EfficientDet-D0 at full width: {det.spec}")
-    run, conv = int8_pair_phase(tag, det, lane, mods, torch, np)
+    run, conv = int8_pair_phase(tag, det, lane, mods, torch, np, downscale=True)
     frame = np.random.default_rng(11).integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
     det.DetectFrame(frame)  # warm-up
     torch.cuda.synchronize()
@@ -1971,8 +2377,10 @@ def main() -> int:
     reference_phase(torch, np)
     int8_reference_phase(torch, np, IC, B)
     mods = {"stem": S, "int8_conv": IC, "block": B, "iou": I, "nms": NMS}
-    runs = [
-        int8_main_phase(mods, torch, np),
+    runs = [*int8_main_phase(mods, torch, np)]
+    uncal_run, uncal_conv = uncal_int8_phase(mods, torch, np)
+    runs += [
+        uncal_run,
         effdet_main_phase(mods, torch, np),
         bf16_main_phase(mods, torch, np),
     ]
@@ -1987,7 +2395,10 @@ def main() -> int:
     v9c_run, v9c_conv = v9c_int8_phase(mods, torch, np)
     effdet_run, effdet_conv = effdet_int8_phase(mods, torch, np)
     families_run, families_shapes = families_phase(mods, torch, np)
-    runs += [v9c_run, effdet_run, families_run]
+    runs += [v9c_run, effdet_run, families_run,
+             lane_depth_phase("34", mods, torch, np), lane_depth_phase("50", mods, torch, np)]
+    served_run, served_sums, served_per_tick = lane_served_phase(mods, torch, np)
+    runs.append(served_run)
     # every int8 conv shape of the [families] int8 frames against its plain
     # version (v5-lite's padded widths at their 640 shapes included)
     families_conv = main_path_conv_phase(IC, families_shapes, torch, tag="families-int8-shapes",
@@ -1995,9 +2406,17 @@ def main() -> int:
     # the int8 conv summed over each new int8 path's distinct shapes
     rows["int8_conv"].update({f"{path}_{k}": v for path, sums in
                               (("config5_tick", config5_conv), ("v5_frame", v5_conv),
+                               ("uncal_int8_tick", uncal_conv),
                                ("v9c_tick", v9c_conv), ("effdet_int8_tick", effdet_conv),
                                ("families_int8_frames", families_conv))
                               for k, v in sums.items()})
+    # the served ResNet-34/50 lane ticks: the int8 conv and block sums per
+    # tick over the lane net's shapes, and every kernel's launches per tick
+    for path, by_kernel in served_sums.items():
+        for k, tick in by_kernel.items():
+            rows[k].update({f"{path}_{key}": v for key, v in tick.items()})
+        for k in KERNELS:
+            rows[k][f"{path}_launches"] = served_per_tick[path][k]
     launches = {k: sum(run[k] for run in runs) for k in KERNELS}
 
     replaces = {

@@ -274,11 +274,16 @@ def test_facade_options_follow_set_defaults():
 
 
 def test_ufld_v1_is_not_ported():
-    """UFLD v1 is ported in f32 and bf16 (an ``ADASPipeline`` with a v1
-    lane model runs unfused, as in JAX); its dynamic-scale int8 is not."""
+    """An ``ADASPipeline`` with a UFLD v1 lane model runs unfused, as in
+    JAX (v1 has no fused route).  Its dynamic-scale int8, which once
+    raised here, is ported now: the facade packs an int8 net (held to JAX
+    in ``test_torch_multistream_int8.py``)."""
+    from adas_tpu_torch.models.quant import QConv2d, QLinear
+
     pipe = ADASPipeline(lane_config={"model_type": LaneModelType.UFLD_TUSIMPLE},
                         object_config={"input_size": (64, 64)}, device="cpu")
     assert isinstance(pipe.laneDetector, UltrafastLaneDetector) and pipe.fused is None
-    with pytest.raises(NotImplementedError, match="UFLD v1"):
-        UltrafastLaneDetector(model_type=LaneModelType.UFLD_CULANE, compute_dtype="int8",
-                              device="cpu")
+    v1 = UltrafastLaneDetector(model_type=LaneModelType.UFLD_CULANE, compute_dtype="int8",
+                               device="cpu")
+    assert all(m.wq is not None for m in v1.net.modules() if isinstance(m, (QConv2d, QLinear)))
+    assert any(isinstance(m, QLinear) for m in v1.net.modules())

@@ -107,7 +107,7 @@ def _port_pipeline(weights):
     det = EfficientdetDetector(model_path=weights["effdet"], compound=0, input_size=SIZE,
                                box_score=BOX_SCORE, device="cpu")
     lane = UltrafastLaneDetectorV2(model_path=weights["lane"], device="cpu")
-    return det, MultiStreamADAS(det, lane, 2, frame_hw=FRAME_HW)
+    return det, MultiStreamADAS(det, lane, 2, frame_hw=FRAME_HW, transport="i420")
 
 
 def test_effdet_slice_matches_jax(weights):
@@ -299,7 +299,8 @@ from adas_tpu_torch.tools import nms_ab  # noqa: F401  the A/B tool imports no j
 
 ufld.UFLDV2_SPECS[LaneModelType.UFLDV2_CULANE] = ufld.UFLDv2Spec(**%r)
 det = EfficientdetDetector(compound=0, input_size=128, box_score=0.05, device="cpu")
-ms = MultiStreamADAS(det, UltrafastLaneDetectorV2(device="cpu"), 2, frame_hw=(180, 320))
+ms = MultiStreamADAS(det, UltrafastLaneDetectorV2(device="cpu"), 2, frame_hw=(180, 320),
+                     transport="i420")
 frames = np.random.default_rng(0).integers(0, 256, (2, 180, 320, 3), dtype=np.uint8)
 out = ms.process_batch(frames)
 ms.close()

@@ -16,7 +16,11 @@ at most 1 LSB on fewer than 0.5% of the elements (the kernel and the plain
 version evaluate exp in silu with different instructions, which can move a
 value across a .5 boundary); bf16 outputs within one bf16 ulp (2^-7
 relative) or 1e-30 absolute (a far-negative SiLU underflows to -0 on one
-side and to ~1e-37 on the other).
+side and to ~1e-37 on the other); f32 outputs within 2^-20 relative with
+SiLU and to the bit without.  The int8 conv's per-image mode (a row of the
+epilogue scale per image, an uncalibrated net's dynamic scales) is held to
+the same bounds, and each of its images to the per-channel mode on that
+image alone, to the bit.
 """
 import pytest
 import torch
@@ -256,6 +260,88 @@ def test_conv_family_shapes_match_reference(gpu, n, h, w, c_total, c0, cin, cout
                 assert torch.all((got - want).abs() <= want.abs() * 2.0 ** -20 + 1e-30)
 
 
+#: per-image scale tables: (n, h, w, cin, cout, k, stride, cout of the
+#: module, None = cout), each image's output rows ending inside an M tile
+PER_IMAGE_CASES = [
+    (3, 7, 9, 64, 128, 3, 1, None),    # 63 rows an image: every tile straddles
+    (4, 10, 10, 256, 80, 1, 1, None),  # 100 rows an image, 1x1 through the im2col TMA
+    (3, 17, 23, 128, 64, 3, 2, None),  # stride 2, 108 rows an image
+    (2, 20, 20, 32, 58, 1, 1, 58),     # padded operands (58 -> 64 channels)
+    (8, 10, 50, 512, 256, 3, 1, None),  # the lane trunk's 10x50 map at batch 8
+]
+
+
+def _per_image_operands(gpu, n, cout, k, cin, cout_mod):
+    """A (n, Cout) scale table as ``conv_epilogue`` builds it for n images
+    at their own dynamic input scales (``wscale * xs[:, None] * gain``),
+    padded as the module tree pads it; and the bias."""
+    c = cout_mod or cout
+    wscale = (torch.rand(c, generator=gpu, device="cuda") * 0.5 + 0.75) * 5e-4 / (k * k * cin) ** 0.5
+    xs = torch.rand(n, generator=gpu, device="cuda") * 3 + 0.25  # images ~12x apart
+    gain = torch.rand(c, generator=gpu, device="cuda") + 0.5
+    table = wscale * xs[:, None] * gain
+    bias = torch.randn(c, generator=gpu, device="cuda") * 0.5
+    return table, bias
+
+
+@pytest.mark.parametrize("tile", IC.TILES)
+@pytest.mark.parametrize("n,h,w,cin,cout,k,stride,cout_mod", PER_IMAGE_CASES)
+def test_conv_per_image_scale_matches_reference(gpu, monkeypatch, tile, n, h, w, cin, cout, k,
+                                                stride, cout_mod):
+    """The per-image mode (an uncalibrated net's dynamic scales, one row
+    per image) under every tile, forced, against the plain version: s8
+    within 1 LSB on < 0.5%, bf16 within one ulp, f32 within 2^-20
+    relative (SiLU) and to the bit without an activation.  One launch
+    each."""
+    monkeypatch.setattr(IC, "tile_config", lambda m, c, sms: tile)
+    monkeypatch.setattr(IC, "_PLANS", {})
+    c = cout_mod or cout
+    xq = _s8(gpu, (n, h, w, cin))
+    wq = _s8(gpu, (c, k, k, cin))
+    table, bias = _per_image_operands(gpu, n, cout, k, cin, cout_mod)
+    wp, tp, bp = IC.pad_weight(wq), IC.pad_channels(table), IC.pad_channels(bias)
+    for out in ("s8", "bf16", "f32"):
+        os_ = torch.tensor(0.05, device="cuda") if out == "s8" else None
+        kw = dict(stride=stride, out_scale=os_, out_f32=out == "f32", cout=cout_mod)
+        for act in ("silu", None):
+            before = IC.launches
+            got = IC.int8_conv(xq, wp, tp, bp, act=act, **kw)
+            want = IC.int8_conv_reference(xq, wq, table, bias, act=act, **kw)
+            torch.cuda.synchronize()
+            assert IC.launches == before + 1 and got.shape == want.shape
+            if out == "s8":
+                _assert_s8_close(got, want)
+            elif out == "bf16":
+                _assert_bf16_close(got, want)
+            elif act is None:
+                assert torch.equal(got, want)
+            else:
+                assert torch.all((got - want).abs() <= want.abs() * 2.0 ** -20 + 1e-30)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,k,stride,cout_mod", PER_IMAGE_CASES)
+def test_conv_per_image_rows_are_the_per_channel_launches(gpu, n, h, w, cin, cout, k, stride,
+                                                          cout_mod):
+    """Image i of a per-image launch equals, to the bit, a per-channel
+    launch of image i alone at row i of the table; and a table whose rows
+    are all one vector gives the per-channel launch's output to the bit."""
+    c = cout_mod or cout
+    xq = _s8(gpu, (n, h, w, cin))
+    wp = IC.pad_weight(_s8(gpu, (c, k, k, cin)))
+    table, bias = _per_image_operands(gpu, n, cout, k, cin, cout_mod)
+    tp, bp = IC.pad_channels(table), IC.pad_channels(bias)
+    os_ = torch.tensor(0.05, device="cuda")
+    for kw in (dict(out_scale=os_), dict(), dict(out_f32=True)):
+        kw.update(stride=stride, act="silu", cout=cout_mod)
+        got = IC.int8_conv(xq, wp, tp, bp, **kw)
+        for i in range(n):
+            one = IC.int8_conv(xq[i:i + 1].clone(), wp, tp[i].contiguous(), bp, **kw)
+            assert torch.equal(got[i:i + 1], one), (kw, i)
+        same = IC.int8_conv(xq, wp, tp[:1].expand(n, -1).contiguous(), bp, **kw)
+        assert torch.equal(same, IC.int8_conv(xq, wp, tp[0].contiguous(), bp, **kw))
+    torch.cuda.synchronize()
+
+
 def test_padded_layer_keeps_one_plan(gpu, monkeypatch):
     """A conv of widths that are not multiples of 8 (YOLOv5-lite-s's
     58-wide 1x1 read at offset 58 of 116), given its weights padded once
@@ -393,6 +479,9 @@ def test_kernels_reject_what_they_do_not_take(gpu):
     with pytest.raises(ValueError, match="not both"):
         IC.int8_conv(xq, _s8(gpu, (16, 3, 3, 12)), one, None, stride=1, act=None,
                      out_scale=torch.tensor(1.0, device="cuda"), out_f32=True)
+    with pytest.raises(ValueError, match="a row per image"):  # 2 rows for 1 image
+        IC.int8_conv(_s8(gpu, (1, 8, 8, 16)), _s8(gpu, (16, 3, 3, 16)),
+                     torch.ones(2, 16, device="cuda"), None, stride=1, act=None)
     x24 = _s8(gpu, (1, 8, 8, 24))
     s = torch.ones(24, device="cuda")
     t = torch.tensor(1.0, device="cuda")

@@ -268,7 +268,8 @@ def test_int8_dense_matches_layers(rng):
     bias = rng.standard_normal(24).astype(np.float32)
     dense = L.Int8Dense(24)
     variables = {"params": {"kernel": jnp.asarray(kern), "bias": jnp.asarray(bias)}}
-    want = dense.apply(variables, jnp.asarray(x))  # dynamic per-tensor scale
+    # a dynamic scale per row: the port's batch is JAX's vmapped streams
+    want = jax.vmap(lambda xi: dense.apply(variables, xi[None])[0])(jnp.asarray(x))
     port = Q.QLinear(40, 24)
     with torch.no_grad():
         port.weight.copy_(_t(kern.T))

@@ -25,8 +25,10 @@ most in this run); at least half of the port's detections have a JAX
 detection with the same label at IoU > 0.5 and a score within 0.05 (8 of
 14 at the least); the decoded anchors of the packed device output agree
 on validity for at least 95% of the row and column anchors (96.9% at the
-least); the number of detected lanes within 1.  Also: the port's own
-calibrator on the same frames gives a slice that detects.
+least); the number of detected lanes within 1.  The same bounds hold the
+calibrated nets on both packages' default transport, bgr (the frames
+uploaded as they are, no I420 encode).  Also: the port's own calibrator
+on the same frames gives a slice that detects.
 """
 import numpy as np
 import pytest
@@ -90,14 +92,17 @@ def calibrated(npz_paths, tmp_path_factory):
         yield jyolo, jlane, paths, frames
 
 
-def test_slice_int8_close_to_jax(calibrated):
-    jyolo, jlane, paths, _ = calibrated
+def _port_int8_pair(paths):
     yolo = YoloDetector(model_path=paths["yolo"], model_type=PortObjectModelType.YOLOV8,
                         scale="n", input_size=YOLO_HW, box_score=0.25, compute_dtype="int8",
                         device="cpu")
     lane = UltrafastLaneDetectorV2(model_path=paths["lane"], compute_dtype="int8", device="cpu")
-    jms = JaxMultiStream(jyolo, jlane, 2, frame_hw=FRAME_HW, transport="i420")
-    ms = MultiStreamADAS(yolo, lane, 2, frame_hw=FRAME_HW)
+    return yolo, lane
+
+
+def _assert_int8_ticks_close(jms, ms):
+    """Two ticks of both packages' ``MultiStreamADAS`` held to the module's
+    stated bounds."""
     n_dets = 0
     for frames in _ticks(2):
         jhandle, handle = jms.submit(frames), ms.submit(frames)
@@ -120,18 +125,31 @@ def test_slice_int8_close_to_jax(calibrated):
     assert n_dets > 0
 
 
+def test_slice_int8_close_to_jax(calibrated):
+    jyolo, jlane, paths, _ = calibrated
+    yolo, lane = _port_int8_pair(paths)
+    _assert_int8_ticks_close(JaxMultiStream(jyolo, jlane, 2, frame_hw=FRAME_HW, transport="i420"),
+                             MultiStreamADAS(yolo, lane, 2, frame_hw=FRAME_HW, transport="i420"))
+
+
+def test_bgr_int8_close_to_jax(calibrated):
+    """The same calibrated nets on both packages' default transport, bgr
+    (the frames uploaded as they are), at the same bounds."""
+    jyolo, jlane, paths, _ = calibrated
+    yolo, lane = _port_int8_pair(paths)
+    _assert_int8_ticks_close(JaxMultiStream(jyolo, jlane, 2, frame_hw=FRAME_HW),
+                             MultiStreamADAS(yolo, lane, 2, frame_hw=FRAME_HW))
+
+
 def test_slice_int8_with_port_calibration(calibrated, npz_paths):
     """The port's own packer and calibrator (f32 weights in, BGR frames)
     serve a slice that detects, with every int8 buffer set."""
     _, _, _, frames = calibrated
-    yolo = YoloDetector(model_path=npz_paths["yolo"], model_type=PortObjectModelType.YOLOV8,
-                        scale="n", input_size=YOLO_HW, box_score=0.25, compute_dtype="int8",
-                        device="cpu")
-    lane = UltrafastLaneDetectorV2(model_path=npz_paths["lane"], compute_dtype="int8", device="cpu")
+    yolo, lane = _port_int8_pair(npz_paths)
     for facade in (yolo, lane):
         facade.calibrate_int8(frames)
         assert all(m.xmax is not None for m in facade.net.modules() if hasattr(m, "xmax"))
-    ms = MultiStreamADAS(yolo, lane, 2, frame_hw=FRAME_HW)
+    ms = MultiStreamADAS(yolo, lane, 2, frame_hw=FRAME_HW, transport="i420")
     out = ms.process_batch(_ticks(1)[0])
     ms.close()
     assert sum(len(r["objects"]) for r in out) > 0

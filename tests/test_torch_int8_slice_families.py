@@ -101,7 +101,7 @@ def test_int8_slice_matches_jax(kind, npz_paths, tmp_path, monkeypatch):
     obj = make_obj(paths["obj"])
     lane = UltrafastLaneDetectorV2(model_path=paths["lane"], compute_dtype="int8", device="cpu")
     jms = JaxMultiStream(jobj, jlane, 2, frame_hw=FRAME_HW, transport="i420")
-    ms = MultiStreamADAS(obj, lane, 2, frame_hw=FRAME_HW)
+    ms = MultiStreamADAS(obj, lane, 2, frame_hw=FRAME_HW, transport="i420")
     n_dets = 0
     for tick in _ticks(1):
         for want, got in zip(jms.process_batch(tick), ms.process_batch(tick)):

@@ -270,3 +270,50 @@ def test_new_families_run_with_jax_package_and_cv2_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("families 3")
+
+
+CONFIG_SCRIPT = textwrap.dedent(
+    """
+    import builtins, io, os, sys
+
+    class _Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in %r:
+                raise ImportError(f"{name} is blocked in this process")
+            return None
+
+    sys.meta_path.insert(0, _Block())
+    from adas_tpu_torch.utils.config import CONFIG_DIR, Config
+
+    opened, real_open = [], builtins.open
+
+    def spy(file, *args, **kwargs):
+        opened.append(os.path.realpath(file))
+        return real_open(file, *args, **kwargs)
+
+    builtins.open = io.open = spy
+    names = sorted(n for n in os.listdir(CONFIG_DIR) if n.endswith(".py"))
+    cfgs = [Config.fromfile(os.path.join(CONFIG_DIR, n)) for n in names]
+    builtins.open = io.open = real_open
+    jax_package = os.path.realpath("adas_tpu") + os.sep
+    assert opened and not [p for p in opened if p.startswith(jax_package)], opened
+    assert all(p.startswith(os.path.realpath(CONFIG_DIR) + os.sep) for p in opened), opened
+    assert sorted(c.backbone for c in cfgs if "backbone" in c) == ["18"] * 3 + ["34"] * 3
+    assert not [m for m in sys.modules if m.split(".")[0] in %r]
+    print("configs", len(cfgs))
+    """
+    % (BLOCKED, BLOCKED)
+)
+
+
+def test_configs_load_from_the_port_alone():
+    """``adas_tpu_torch/utils/config.py`` reads each of the port's seven
+    UFLDv2 configs (and the bases they name) from ``adas_tpu_torch/configs``
+    only, in a process that cannot import ``jax``, ``adas_tpu`` or
+    ``cv2``: no path under ``adas_tpu/`` is opened."""
+    proc = subprocess.run(
+        [sys.executable, "-c", CONFIG_SCRIPT], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("configs 7")

@@ -114,7 +114,7 @@ def _run_both(weights, bf16):
     )
     lane = UltrafastLaneDetectorV2(model_path=weights["lane"], compute_dtype=cd, device="cpu")
     jms = JaxMultiStream(jyolo, jlane, 2, frame_hw=FRAME_HW, transport="i420")
-    ms = MultiStreamADAS(yolo, lane, 2, frame_hw=FRAME_HW)
+    ms = MultiStreamADAS(yolo, lane, 2, frame_hw=FRAME_HW, transport="i420")
     ticks = _ticks(2)
     out = [(jms.process_batch(f), ms.process_batch(f)) for f in ticks]
     ms.close()
@@ -196,7 +196,8 @@ def test_serve_pipelined_matches_sequential(monkeypatch):
     def build():
         yolo = YoloDetector(model_type=PortObjectModelType.YOLOV8, scale="n",
                             input_size=(96, 96), box_score=0.25, device="cpu")
-        return MultiStreamADAS(yolo, UltrafastLaneDetectorV2(device="cpu"), 2, frame_hw=FRAME_HW)
+        return MultiStreamADAS(yolo, UltrafastLaneDetectorV2(device="cpu"), 2, frame_hw=FRAME_HW,
+                               transport="i420")
 
     def digest(results):
         return [
@@ -248,7 +249,7 @@ NO_JAX_SCRIPT = BLOCK_JAX + textwrap.dedent(
     yolo = YoloDetector(model_type=ObjectModelType.YOLOV8, scale="n", input_size=(96, 96),
                         box_score=0.25, device="cpu")
     lane = UltrafastLaneDetectorV2(device="cpu")
-    ms = MultiStreamADAS(yolo, lane, 2, frame_hw=(180, 320))
+    ms = MultiStreamADAS(yolo, lane, 2, frame_hw=(180, 320), transport="i420")
     frames = np.random.default_rng(0).integers(0, 256, (2, 180, 320, 3), dtype=np.uint8)
     out = ms.process_batch(frames)
     ms.close()
@@ -258,7 +259,7 @@ NO_JAX_SCRIPT = BLOCK_JAX + textwrap.dedent(
     lane8 = UltrafastLaneDetectorV2(compute_dtype="int8", device="cpu")
     yolo8.calibrate_int8(list(frames))
     lane8.calibrate_int8(list(frames))
-    ms8 = MultiStreamADAS(yolo8, lane8, 2, frame_hw=(180, 320))
+    ms8 = MultiStreamADAS(yolo8, lane8, 2, frame_hw=(180, 320), transport="i420")
     out8 = ms8.process_batch(frames)
     ms8.close()
     assert len(out) == len(out8) == 2 and not any(
