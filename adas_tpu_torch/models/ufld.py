@@ -1,9 +1,10 @@
 """Ultra-Fast-Lane-Detection v1 and v2 (port of ``UFLDv2Spec``,
 ``UFLDV2_SPECS``, ``UFLDv2Net``, ``UFLDv1Spec``, ``UFLDV1_SPECS`` and
 ``UFLDv1Net`` from ``adas_tpu/models/ufld.py:32-354``: v2 on CULane,
-TuSimple and CurveLanes, v1 on TuSimple and CULane; no aux segmentation
-head, no test-time augmentation; the 20-token ``UFLDv2CurveLanesNet``,
-reached only through the engine registry, waits with the engines).
+TuSimple and CurveLanes, v1 on TuSimple and CULane, and the 20-token
+``UFLDv2CurveLanesNet`` (``ufld.py:224``, f32; reached through
+``engine/registry.py`` only, as in JAX); no aux segmentation head, no
+test-time augmentation).
 
 The trunk is ``spec.backbone`` (ResNet-18, 34 or 50); the ``pool`` conv
 takes its last stage's width (``stage_channels``, as flax infers it).
@@ -131,6 +132,52 @@ class UFLDv2Net(nn.Module):
             "loc_col": out[:, d1: d1 + d2].reshape(b, s.num_cell_col, s.num_col, s.num_lanes),
             "exist_row": out[:, d1 + d2: d1 + d2 + d3].reshape(b, 2, s.num_row, s.num_lanes),
             "exist_col": out[:, d1 + d2 + d3:].reshape(b, 2, s.num_col, s.num_lanes),
+        }
+
+
+class UFLDv2CurveLanesNet(nn.Module):
+    """UFLDv2's CurveLanes head (``ufld.py:224``, the reference's
+    model_curvelanes.py): ``cls_distribute`` (two 3x3 convs) makes 20
+    lane-token maps; each token's map joins the 8-channel ``pool`` map, so
+    each of the 20 rows is a 9 x (H/32) x (W/32) feature (torch's
+    channel-major order) through the shared LayerNorm -> ``cls_fc1``; row
+    tokens 0-9 feed ``cls_row``, column tokens 10-19 ``cls_col``.  The
+    loc/exist outputs of :class:`UFLDv2Net` with 10 lanes each, plus the
+    summed ``lane_token_row``/``lane_token_col`` maps.  f32 only."""
+
+    def __init__(self, spec: UFLDv2Spec):
+        super().__init__()
+        self.spec = spec
+        c = stage_channels(spec.backbone)[-1]
+        self.backbone = ResNetFeatures(spec.backbone)
+        self.cls_distribute0 = nn.Conv2d(c, 128, 3, padding=1)
+        self.cls_distribute2 = nn.Conv2d(128, 20, 3, padding=1)
+        self.pool = nn.Conv2d(c, 8, 1)
+        flat = spec.flat_features // 8 * 9
+        self.cls_norm = nn.LayerNorm(flat, eps=1e-6)  # flax nn.LayerNorm's epsilon
+        self.cls_fc1 = nn.Linear(flat, spec.mlp_mid)
+        self.cls_row = nn.Linear(spec.mlp_mid, spec.num_cell_row * spec.num_row + 2 * spec.num_row)
+        self.cls_col = nn.Linear(spec.mlp_mid, spec.num_cell_col * spec.num_col + 2 * spec.num_col)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        s = self.spec
+        fea = self.backbone(x)[2]
+        tok = self.cls_distribute2(F.relu(self.cls_distribute0(fea)))  # (B, 20, h, w)
+        pooled = self.pool(fea)  # (B, 8, h, w)
+        b, _, hh, ww = pooled.shape
+        fea9 = torch.cat([pooled[:, None].expand(b, 20, 8, hh, ww), tok[:, :, None]], dim=2)
+        h1 = F.relu(self.cls_fc1(self.cls_norm(fea9.reshape(b * 20, 9 * hh * ww))))
+        out = h1.reshape(b, 20, s.mlp_mid)
+        d1, d3 = s.num_cell_row * s.num_row, s.num_cell_col * s.num_col
+        out_row = self.cls_row(out[:, :10]).transpose(1, 2)
+        out_col = self.cls_col(out[:, 10:]).transpose(1, 2)
+        return {
+            "loc_row": out_row[:, :d1].reshape(b, s.num_cell_row, s.num_row, 10),
+            "loc_col": out_col[:, :d3].reshape(b, s.num_cell_col, s.num_col, 10),
+            "exist_row": out_row[:, d1:].reshape(b, 2, s.num_row, 10),
+            "exist_col": out_col[:, d3:].reshape(b, 2, s.num_col, 10),
+            "lane_token_row": tok[:, :10].sum(dim=1),
+            "lane_token_col": tok[:, 10:].sum(dim=1),
         }
 
 

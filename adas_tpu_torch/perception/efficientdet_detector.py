@@ -2,14 +2,17 @@
 ``adas_tpu/perception/efficientdet_detector.py:26``, the native-graph
 path).
 
-Weights come from a ``params_io`` ``.npz`` or, with no ``model_path``,
-from the port's seeded flax-style init, on the card unless the caller
-names the CPU.  ``compute_dtype`` is None (f32) or ``"int8"``
+Weights come from a zylo117 ``.pth``/``.pt`` release
+(``tools/efficientdet_import``; the head's class count is the
+checkpoint's, 90 for the released weights: ``efficientdet_detector.py:55-77``),
+a ``params_io`` ``.npz`` or an ``_int8.npz`` store, or, with no
+``model_path``, from the port's seeded flax-style init, on the card
+unless the caller names the CPU.  ``compute_dtype`` is None (f32) or ``"int8"``
 (``efficientdet_detector.py:40-42``): the int8 graph of
 ``models/efficientdet.py``, its W8A8 kernels packed at load and static
 activation scales from :meth:`EfficientdetDetector.calibrate_int8`
-(``:116-160``).  Not ported: the ONNX engine path and the zylo117 ``.pth``
-import.
+(``:116-160``).  An ``.onnx`` model_path, which JAX executes with its
+ONNX graph engine, raises ``NotImplementedError`` (ROADMAP item 4).
 :meth:`DetectFrame` is the single-frame entry point: letterbox ->
 :func:`imagenet_preprocess` -> net (anchors decoded inside) -> class
 max/argmax -> ``select_and_nms`` (on the GPU: the IoU and scan kernels)
@@ -26,7 +29,8 @@ from ..utils.types import ObjectModelType
 from ..models.efficientdet import EfficientDet, EfficientDetSpec
 from ..ops.preprocess import LetterboxGeometry, imagenet_preprocess
 from ..ops.yolo_decode import detections_to_original, select_and_nms
-from .object_detector import ObjectDetectBase, build_net, calibrate, resolve_device
+from .object_detector import (ObjectDetectBase, build_net, calibrate, engine_not_ported,
+                              resolve_device)
 
 #: the options of :class:`EfficientdetDetector` and their defaults
 #: (``efficientdet_detector.py:29-43``); ``input_size`` (a multiple of 128)
@@ -66,14 +70,25 @@ class EfficientdetDetector(ObjectDetectBase):
                              f"{self.compute_dtype!r}")
         self.device = resolve_device(device)
         self._initialize_class(self.classes_path)
+        if str(self.model_path).endswith(".onnx"):
+            raise engine_not_ported(f"{self.model_path} (EfficientDet's ONNX export)")
+        num_classes, importers = len(self.class_names), {}
+        if str(self.model_path).endswith((".pth", ".pt")):
+            from ..tools.efficientdet_import import efficientdet_variables
+            from ..tools.torch_import import load_state_dict
+
+            state = load_state_dict(self.model_path)
+            # the graph takes the checkpoint's class count (9 anchors a cell)
+            num_classes = state["classifier.header.pointwise_conv.conv.bias"].size // 9
+            importers[(".pth", ".pt")] = lambda _: efficientdet_variables(state, self.spec)
         self.spec = EfficientDetSpec(
-            compound=int(self.compound), num_classes=len(self.class_names),
+            compound=int(self.compound), num_classes=num_classes,
             input_size_override=self.input_size,
         )
         int8 = self.compute_dtype == "int8"
         self.net = build_net(
             lambda: EfficientDet(self.spec, int8=int8), self.device, self.compute_dtype,
-            self.model_path, seed,
+            self.model_path, seed, importers=importers,
         )
 
     def calibrate_int8(self, frames) -> None:

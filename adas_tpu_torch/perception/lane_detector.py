@@ -36,7 +36,7 @@ from ..models.ufld import UFLDV1_SPECS, UFLDV2_SPECS, UFLDv1Net, UFLDv2Net
 from ..ops.packing import pack, unpack
 from ..ops.preprocess import frame_to_device, ufld_v1_preprocess, ufld_v2_preprocess
 from ..ops.ufld_decode import ufld_v1_decode, ufld_v2_decode
-from .object_detector import build_net, calibrate, resolve_device
+from .object_detector import build_net, calibrate, engine_not_ported, resolve_device
 
 
 class LaneDetectBase:
@@ -98,11 +98,12 @@ class LaneDetectBase:
         return image
 
     def _init_net(self, model_path, model_type, specs, compute_dtype, device, seed, make,
-                  backbone=None) -> None:
+                  backbone=None, version=2) -> None:
         """The facades' construction: ``model_path`` and ``model_type`` over
         the class's ``_defaults``, the type checked against ``specs``, the
         type's spec on a ``backbone`` trunk where one is given, and
-        ``make(spec)`` built on ``device`` (``object_detector.build_net``)."""
+        ``make(spec)`` built on ``device`` (``object_detector.build_net``)
+        with UFLD ``version``'s importers."""
         if model_path is not None:
             self.model_path = model_path
         if model_type is not None:
@@ -117,8 +118,24 @@ class LaneDetectBase:
         self.spec = specs[self.model_type]
         if backbone is not None:
             self.spec = dataclasses.replace(self.spec, backbone=str(backbone))
-        self.net = build_net(lambda: make(self.spec), self.device, compute_dtype, self.model_path,
-                             seed)
+        if str(self.model_path).endswith(".adas"):
+            raise engine_not_ported(f"{self.model_path} (a compiled artifact)")
+        # JAX executes an .onnx graph whose names do not map (lane_detector.py:162-173)
+        self.net = build_net(lambda: make(self.spec), self.device, compute_dtype,
+                             self.model_path, seed, importers=self._importers(version),
+                             onnx_fallback=True)
+
+    def _importers(self, version: int):
+        """``.pth``/``.pt`` and ``.onnx`` through ``ufld_variables``
+        (``lane_detector.py:513-533``)."""
+        from ..tools.onnx_import import read_onnx_initializers
+        from ..tools.torch_import import load_state_dict, ufld_variables
+
+        fc_norm = getattr(self.spec, "fc_norm", True)
+        return {
+            (".pth", ".pt"): lambda p: ufld_variables(load_state_dict(p), version, fc_norm),
+            (".onnx",): lambda p: ufld_variables(read_onnx_initializers(p), version, fc_norm),
+        }
 
     def _finalize(self, img_height: int) -> None:
         """``lane_detector.py:95``."""
@@ -248,7 +265,7 @@ class UltrafastLaneDetector(LaneDetectBase):
     ):
         super().__init__(logger)
         self._init_net(model_path, model_type, UFLDV1_SPECS, compute_dtype, device, seed,
-                       lambda spec: UFLDv1Net(spec, int8=compute_dtype == "int8"))
+                       lambda spec: UFLDv1Net(spec, int8=compute_dtype == "int8"), version=1)
         if self.logger:
             self.logger.info(
                 f"UfldDetector [{self.model_type.name}] input "

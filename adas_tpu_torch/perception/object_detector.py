@@ -4,9 +4,15 @@ facade builds natively: YOLOv5, v5-lite, v6, v7, v8, v9 and v10, at every
 scale and with JAX's scale fallbacks).
 
 Builds the torch net on the card (``device="cuda"``, the default; the
-CPU only when the caller names it): weights come from a
-``params_io`` ``.npz`` (the JAX package's portable checkpoint) or, with no
-``model_path``, from the port's seeded flax-style init.  ``compute_dtype``
+CPU only when the caller names it): weights come, by JAX's suffix
+dispatch (``object_detector.py:303-335``), from an ``_int8.npz`` store
+(``tools/quantize.load_int8``), a ``params_io`` ``.npz`` (the JAX
+package's portable checkpoint), a torch ``.pth``/``.pt`` checkpoint or
+the initializers of an ``.onnx`` export (``tools/yolo_import``), or,
+with no ``model_path``, from the port's seeded flax-style init.  Where
+JAX runs a graph executor instead (``onnx_mode="graph"``, ``"auto"`` with
+initializers that do not map, a ``.adas`` artifact), the port raises
+``NotImplementedError``: those engines come with ROADMAP item 4.  ``compute_dtype``
 is None (f32), ``"bf16"`` (every floating leaf cast, as
 ``adas_tpu/tools/quantize.py:32-44`` does) or ``"int8"``: the int8 net,
 f32 params, its int8 kernels packed at load (``_pack_int8``,
@@ -16,8 +22,7 @@ YOLOv6 is served in RepVGG's deploy form, fused at load before the cast
 and the packing (``object_detector.py:266-273``).
 Options come as keywords over the class's ``_defaults``
 (``set_defaults``/``check_defaults``/``get_defaults``, as the JAX
-facades): JAX's, the default family YOLOv5 included, less the ONNX and
-``.adas`` engine ones.
+facades): JAX's, the default family YOLOv5 included.
 
 :meth:`YoloDetector.DetectFrame` is the single-frame entry point: one
 step per source frame shape (letterbox -> net -> decode -> NMS, on the
@@ -31,7 +36,7 @@ from __future__ import annotations
 
 import os
 import random
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -46,6 +51,7 @@ from ..models.yolo import YoloSpec, build_yolo, resolve_spec
 from ..models.yolov6 import fuse_repvgg
 from ..ops.preprocess import LetterboxGeometry, frame_to_device, yolo_preprocess
 from ..ops.yolo_decode import decode_predictions, detections_to_original, select_and_nms
+from ..tools.params_io import flatten_variables
 from ..weights import init_params, load_flax_variables, load_npz
 
 DEFAULT_CLASSES = os.path.join(
@@ -80,24 +86,60 @@ def input_torch_dtype(compute_dtype: Optional[str]) -> torch.dtype:
     return torch.float32 if compute_dtype is None else torch.bfloat16
 
 
+def engine_not_ported(what: str) -> NotImplementedError:
+    """The error where the JAX package hands a model to its graph executor
+    or its compiled artifacts, which the port has not yet."""
+    return NotImplementedError(
+        f"{what}: the JAX package executes this through its ONNX graph engine or a .adas "
+        "artifact, which the port has not yet (ROADMAP item 4)"
+    )
+
+
+def read_weights(model_path, importers: Dict[tuple, Callable[[str], dict]]) -> Dict[str, np.ndarray]:
+    """The flat flax dict of ``model_path`` by JAX's suffix dispatch: an
+    ``_int8.npz`` store dequantized (``tools/quantize.load_int8``), a
+    ``params_io`` ``.npz``, else the facade's ``importers`` ({suffixes:
+    path -> flax tree}: a ``.pth``/``.pt`` checkpoint, an ``.onnx``
+    export's initializers)."""
+    from ..tools.quantize import load_int8
+
+    path = str(model_path)
+    if path.endswith("_int8.npz"):
+        return flatten_variables(load_int8(path))
+    if path.endswith(".npz"):
+        return load_npz(path)
+    for suffixes, importer in importers.items():
+        if path.endswith(suffixes):
+            return flatten_variables(importer(path))
+    raise ValueError(f"Unsupported weights: {model_path} (expect .npz/.pth/.onnx or None)")
+
+
 def build_net(make, device: torch.device, compute_dtype: Optional[str], model_path, seed: int,
-              fuse=None):
+              fuse=None, importers=None, onnx_fallback=False):
     """Construct ``make()`` on ``device``, fill it from ``model_path``
-    (flax ``.npz``, possibly calibrated and packed) or the seeded init,
-    apply ``fuse`` (YOLOv6's RepVGG deploy form; a tree already fused,
-    with ``::fused::`` leaves, is loaded into the fused structure), cast to
-    the params' dtype, pack the int8 kernels of an int8 net, freeze."""
+    (:func:`read_weights`: a flax tree, possibly calibrated and packed) or
+    the seeded init, apply ``fuse`` (YOLOv6's RepVGG deploy form; a tree
+    already fused, with ``::fused::`` leaves, is loaded into the fused
+    structure), cast to the params' dtype, pack the int8 kernels of an int8
+    net, freeze.  With ``onnx_fallback`` (where JAX would execute an
+    ``.onnx`` graph whose initializers do not map) such an ``.onnx`` raises
+    :func:`engine_not_ported`."""
     with device:
         net = make()
     if model_path is None:
         init_params(net, seed)
-    elif str(model_path).endswith(".npz"):
-        flat = load_npz(model_path)
-        if fuse is not None and any("::fused::" in k for k in flat):
-            fuse(net)
-        load_flax_variables(net, flat)
     else:
-        raise ValueError(f"unsupported weights {model_path} (expect a params_io .npz or None)")
+        try:
+            flat = read_weights(model_path, importers or {})
+            if fuse is not None and any("::fused::" in k for k in flat):
+                fuse(net)
+            load_flax_variables(net, flat)
+        except (KeyError, NotImplementedError) as err:
+            if not (onnx_fallback and str(model_path).endswith(".onnx")):
+                raise
+            raise engine_not_ported(
+                f"the initializers of {model_path} do not map onto the native graph ({err})"
+            ) from err
     if fuse is not None:
         fuse(net)
     net = net.to(compute_torch_dtype(compute_dtype)).eval().requires_grad_(False)
@@ -220,7 +262,7 @@ class ObjectDetectBase:
 
 
 #: the options of :class:`YoloDetector` and their defaults
-#: (``object_detector.py:167-193``, less the ONNX engine's ``onnx_mode``)
+#: (``object_detector.py:167-193``)
 YOLO_OPTIONS = {
     "model_path": None,
     "model_type": ObjectModelType.YOLOV5,
@@ -233,6 +275,10 @@ YOLO_OPTIONS = {
     "compute_dtype": None,
     # v10 only: serve the one-to-one head (top-k, no NMS)
     "nms_free": False,
+    # .onnx: "ingest" maps the initializers onto the native graph; JAX's
+    # "auto" falls back to its ONNX graph engine where they do not map and
+    # "graph" always runs it: the port raises there (ROADMAP item 4)
+    "onnx_mode": "auto",
 }
 
 #: ``object_detector.py:36``: the YOLO family of each model type
@@ -250,8 +296,10 @@ _FAMILY_OF = {
 class YoloDetector(ObjectDetectBase):
     """YOLO detector on the port (``object_detector.py:162``); options as
     :data:`YOLO_OPTIONS`, on ``device`` from the seeded init (``seed``)
-    unless ``model_path`` names weights.  ``nms_free`` on a model that is
-    not YOLOv10 raises here (JAX raises at the first step)."""
+    unless ``model_path`` names weights (:func:`read_weights`, with
+    ``tools/yolo_import.yolo_variables`` for ``.pth``/``.pt`` and
+    ``.onnx``).  ``nms_free`` on a model that is not YOLOv10 raises here
+    (JAX raises at the first step)."""
 
     _defaults = YOLO_OPTIONS
 
@@ -269,10 +317,17 @@ class YoloDetector(ObjectDetectBase):
             scale=self.scale, num_classes=len(self.class_names),
             input_size=tuple(self.input_size), family=family,
         ))
+        if str(self.model_path).endswith(".adas"):
+            raise engine_not_ported(f"{self.model_path} (a compiled artifact)")
+        if str(self.model_path).endswith(".onnx") and self.onnx_mode == "graph":
+            raise engine_not_ported(f"{self.model_path} with onnx_mode='graph'")
         cd = self.compute_dtype
+        # onnx_mode="auto": JAX executes the graph where the names do not
+        # map (object_detector.py:226-241)
         self.net = build_net(
             lambda: build_yolo(self.spec, int8=cd == "int8"), self.device, cd, self.model_path,
-            seed, fuse=fuse_repvgg if family == "v6" else None,
+            seed, fuse=fuse_repvgg if family == "v6" else None, importers=self._importers(),
+            onnx_fallback=self.onnx_mode == "auto",
         )
         self._steps = {}
         if self.logger:
@@ -280,6 +335,16 @@ class YoloDetector(ObjectDetectBase):
                 f"YoloDetector [{self.model_type.name}-{self.spec.scale}] input "
                 f"{self.spec.input_size} torch {self.device}"
             )
+
+    def _importers(self):
+        """The ``.pth``/``.pt`` and ``.onnx`` readers of :func:`read_weights`
+        (``object_detector.py:318-331``)."""
+        from ..tools.onnx_import import read_onnx_initializers
+        from ..tools.torch_import import load_state_dict
+        from ..tools.yolo_import import yolo_variables
+
+        return {(".pth", ".pt"): lambda p: yolo_variables(load_state_dict(p), self.spec),
+                (".onnx",): lambda p: yolo_variables(read_onnx_initializers(p), self.spec)}
 
     def calibrate_int8(self, frames) -> None:
         """Static activation scales from sample BGR frames

@@ -27,6 +27,12 @@ so the mapping is by path plus a layout change per leaf:
   out) -> (out, in)) and, dequantized with its ``wscale``, the f32
   ``weight``.
 
+:func:`flax_variables` is the inverse: a module's state as the flat dict
+:func:`load_flax_variables` takes (``params``, ``batch_stats`` and the
+int8 collections), which ``tools/params_io.save_params`` writes as a
+``.npz`` the JAX package's ``load_params`` reads.  A tree loaded and
+written back comes out equal to the bit.
+
 The seeded init mirrors flax's initializers, so random-weight nets behave
 as the JAX ones do (real detection counts on random frames): conv and
 dense kernels are ``lecun_normal`` — a normal truncated to ±2 sigma with
@@ -45,6 +51,8 @@ import torch
 from torch import nn
 
 from .models.quant import QUANT_BUFFERS, reset_int8_cache
+from .tools.params_io import flatten_variables, load_params
+from .tools.quantize import BF16_BITS
 
 _SEP = "::"
 # std of a unit normal truncated to [-2, 2] (flax variance_scaling)
@@ -59,6 +67,8 @@ _RAW_PARAM = re.compile(r"p[3-7]_w[12]|i[am]\d+_implicit|alpha")
 
 
 def _t(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype == BF16_BITS:  # a bfloat16 leaf's raw bits
+        return torch.from_numpy(np.array(arr, order="C").view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(np.array(arr, order="C"))
 
 
@@ -131,8 +141,62 @@ def load_flax_variables(module: nn.Module, flat: Mapping[str, np.ndarray]) -> No
 
 def load_npz(path: str) -> Dict[str, np.ndarray]:
     """A ``params_io.save_params`` archive as the flat dict."""
-    with np.load(path) as archive:
-        return {k: archive[k] for k in archive.files}
+    return flatten_variables(load_params(path))
+
+
+_KERNEL_MODULES = (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)
+_STAT_NAMES = {"running_mean": "mean", "running_var": "var"}
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:  # numpy has none: the raw bits, as _t reads them
+        return t.view(torch.int16).numpy().view(BF16_BITS).copy()
+    return t.numpy().copy()
+
+
+def flax_variables(module: nn.Module) -> Dict[str, np.ndarray]:
+    """``module``'s state as the flat ``::``-keyed flax dict that
+    :func:`load_flax_variables` takes: the inverse of
+    :func:`state_dict_from_flax`.  A conv or dense ``weight`` becomes its
+    ``kernel`` (OIHW -> HWIO, (out, in) -> (in, out)); where the module
+    holds packed weights, its ``kernel`` is ``wq`` (s8, as JAX's packer
+    stores it) with ``wscales`` ``wscale``, and the f32 ``weight`` derived
+    from them is left out; norms give ``scale``/``bias`` and
+    ``batch_stats``; the activation absmaxes go under ``act_scales``.  A
+    bf16 leaf comes out as its raw bits (``|V2``), as a JAX bf16 array
+    lands in an ``.npz``."""
+    owners = dict(module.named_modules())
+    out = {}
+    for key, value in module.state_dict().items():
+        prefix, _, name = key.rpartition(".")
+        if name == "num_batches_tracked":
+            continue
+        owner = owners[prefix]
+        path = prefix.split(".") if prefix else []
+        arr = _np(value)
+
+        def put(coll, leaf, v=arr):
+            out[_SEP.join([coll, *path, leaf])] = v
+
+        if name == "weight" and isinstance(owner, _KERNEL_MODULES):
+            if getattr(owner, "wq", None) is None:
+                put("params", "kernel", arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T)
+        elif name == "wq":
+            put("params", "kernel", arr.transpose(1, 2, 3, 0) if arr.ndim == 4 else arr.T)
+        elif name == "wscale":
+            put("wscales", "wscale")
+        elif name in QUANT_BUFFERS:
+            put("act_scales", name)
+        elif name in ("weight", "bias"):
+            put("params", "scale" if name == "weight" else "bias")
+        elif name in _STAT_NAMES:
+            put("batch_stats", _STAT_NAMES[name])
+        elif _RAW_PARAM.fullmatch(name):
+            put("params", name)
+        else:
+            raise KeyError(f"{key}: no counterpart in the flax tree")
+    return out
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:

@@ -204,7 +204,27 @@ Phases, each of which raises (exit code 1) on failure:
     ``MultiStreamADAS`` beside YOLOv8l at 8 streams of 720p, f32 and
     calibrated int8 (:func:`lane_served_phase`): the lane net's int8 conv
     shapes (``[lane-res34-shapes]``) and fused block shapes against their
-    plain versions, then the ticks with exact launches.
+    plain versions, then the ticks with exact launches;
+20. the weights a user brings (``[import-*]``), written as checkpoints
+    under the released key names to a temporary directory (seeded trees
+    through the importers' inverse mappings; ``torch.save`` for ``.pth``,
+    the port's writer for ``.onnx``): ``[import-main-int8]``, YOLOv8l-640
+    and UFLDv2-CULane from ``.pth`` through the facades, calibrated on the
+    card, written back with ``save_params(path, flax_variables(net))`` and
+    loaded into a second pair: equal trees, and one 8-stream 720p I420
+    tick of each with exactly stem 2, int8 conv 105, block 5, IoU 1 and
+    walk 1 and the same packed output, to the bit, with the load-and-build
+    and first-tick times; ``[import-onnx]``, the lane net from an ``.onnx``
+    of its initializers: the same tree and tick; ``[import-families]``,
+    one f32 ``DetectFrame`` per YOLO family at its smallest scale from
+    ``.pth`` (v5-lite-g in RepVGG's training form, v6 fused at load, v10),
+    UFLD v1 and EfficientDet-D0 with a 90-way zylo117 head, each equal to
+    the ``.npz`` the ``torch_import`` CLI makes of it, and one forward of
+    ``UFLDv2CurveLanesNet`` through the registry, finite and equal to its
+    ``.npz`` route; ``[import-int8npz]``, ``quantize --mode int8
+    --calibrate YOLOV8`` on a YOLOv8n ``.npz`` and the facade serving the
+    ``_int8.npz`` with the store's scales and the int8 conv and block
+    launches of the same net calibrated by the facade.
 
 Then the card's name and power limit again, one JSON line describing
 the kernels — ``launches`` summed over the paths (the ``[families]``
@@ -232,7 +252,9 @@ site's time by dtype; int8 conv: ``config5_tick_{ms,library_ms,bound_ms}``
 5a and per frame of phase 13; ``lane_res34_tick_*`` and
 ``lane_res50_tick_*``: the int8 conv's and the block's sums per int8 tick
 of phase 19 over the lane net's shapes (the block with its plain
-version's), and every kernel's ``..._launches`` per such tick) —
+version's), and every kernel's ``..._launches`` per such tick;
+``import_main_int8_launches``: every kernel's launches in phase 20's
+counted tick) —
 and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA GPU is visible.
 """
@@ -253,7 +275,8 @@ EXTRA_KEYS = ("unfused_ms", "matrix_ms", "matrix_bound_ms", "scan_ms", "widths_m
                                                          "effdet_int8_tick", "families_int8_frames",
                                                          "uncal_int8_tick", "lane_res34_tick",
                                                          "lane_res50_tick")
-                              for k in ("ms", "library_ms", "bound_ms", "plain_ms", "launches")))
+                              for k in ("ms", "library_ms", "bound_ms", "plain_ms", "launches")),
+              "import_main_int8_launches")
 #: chained steps of the short compute probe (``bench.py``'s COMPUTE_ITERS);
 #: the long one runs twice as many
 COMPUTE_ITERS = 30
@@ -2333,6 +2356,402 @@ def demo_phase(mods, smi, torch, np):
         os.rmdir(os.path.dirname(out))
 
 
+def flax_tree(make, seed, torch):
+    """The flat flax tree of ``make()``'s module under the port's seeded
+    flax-style init, drawn on the card (``weights.init_params``)."""
+    from adas_tpu_torch.weights import flax_variables, init_params
+
+    with torch.device("cuda"):
+        net = make()
+    init_params(net, seed)
+    return flax_variables(net)
+
+
+def save_pth(path, state, torch, np):
+    """``state`` (numpy, torch layouts) as a ``torch.save``d ``.pth``."""
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in state.items()}, path)
+    return path
+
+
+def same_tree(a, b, np) -> bool:
+    """Two flat flax trees with the same keys, dtypes and bits."""
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and np.array_equal(a[k], b[k])
+        for k in a)
+
+
+def repvgg_train_form(state, seed, np):
+    """A deploy-form YOLOv5-lite-g state dict (``.fused.*`` blocks) as
+    RepVGG's training form, seeded: a 3x3 conv + BN, a 1x1 conv + BN and,
+    where the block keeps its width, an identity BN per block (what a
+    released training checkpoint holds; ``fuse_repvgg_state`` folds it)."""
+    rng = np.random.default_rng(seed)
+    out = {k: v for k, v in state.items() if ".fused." not in k}
+    for key in [k for k in state if k.endswith(".fused.weight")]:
+        p = key[: -len(".fused.weight")]
+        o, i = state[key].shape[:2]
+        for branch, k in (("rbr_dense", 3), ("rbr_1x1", 1)):
+            fan_in = i * k * k
+            out[f"{p}.{branch}.conv.weight"] = (rng.standard_normal((o, i, k, k)) /
+                                               np.sqrt(fan_in)).astype(np.float32)
+        for bn in ["rbr_dense.bn", "rbr_1x1.bn"] + (["rbr_identity"] if o == i else []):
+            out[f"{p}.{bn}.weight"] = rng.uniform(0.5, 1.0, o).astype(np.float32)
+            out[f"{p}.{bn}.bias"] = (0.1 * rng.standard_normal(o)).astype(np.float32)
+            out[f"{p}.{bn}.running_mean"] = (0.1 * rng.standard_normal(o)).astype(np.float32)
+            out[f"{p}.{bn}.running_var"] = rng.uniform(0.5, 1.5, o).astype(np.float32)
+    return out
+
+
+def import_main_int8_phase(tmp, mods, smi, torch, np):
+    """``[import-main-int8]``: the int8 main path on weights a user brings:
+    YOLOv8l-640 and UFLDv2-CULane (ResNet-18) written as ``.pth``
+    checkpoints under the released names (seeded trees through the
+    importers' inverse mappings), loaded by the facades (the importers,
+    then the packing), calibrated on the card from two 720p frames, then
+    written back (``save_params(path, flax_variables(net))``, the
+    ``act_scales`` kept) and loaded into a second pair.  The two pairs'
+    trees equal to the bit; one ``MultiStreamADAS`` tick of each (8
+    streams of 720x1280, I420) with the int8 tick's launches (stem 2, int8
+    conv 105, block 5, IoU 1, walk 1) and the same packed output, to the
+    bit.  Returns (the counted tick's launches, the pair, the lane's state
+    dict, the calibration frames, the tick)."""
+    from adas_tpu_torch.models.ufld import UFLDV2_SPECS, UFLDv2Net
+    from adas_tpu_torch.models.yolo import YoloSpec, build_yolo
+    from adas_tpu_torch.perception.lane_detector import LaneModelType, UltrafastLaneDetectorV2
+    from adas_tpu_torch.perception.object_detector import ObjectModelType, YoloDetector
+    from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
+    from adas_tpu_torch.tools.params_io import save_params
+    from adas_tpu_torch.tools.torch_import import ufld_state_dict
+    from adas_tpu_torch.tools.yolo_import import yolo_state_dict
+    from adas_tpu_torch.weights import flax_variables
+
+    tag, culane = "import-main-int8", LaneModelType.UFLDV2_CULANE
+    spec = YoloSpec("l", 80, (640, 640), family="v8")
+    t = time.perf_counter()
+    lane_state = ufld_state_dict(flax_tree(lambda: UFLDv2Net(UFLDV2_SPECS[culane]), 1, torch))
+    pth = {"yolo": save_pth(f"{tmp}/yolov8l.pth", yolo_state_dict(
+               flax_tree(lambda: build_yolo(spec), 0, torch), spec), torch, np),
+           "lane": save_pth(f"{tmp}/ufldv2_culane_res18.pth", lane_state, torch, np)}
+    print(f"[{tag}] wrote the YOLOv8l and UFLDv2-CULane .pth checkpoints in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+
+    def pair(paths):
+        yolo = YoloDetector(model_path=paths["yolo"], model_type=ObjectModelType.YOLOV8,
+                            scale="l", input_size=(640, 640), box_score=0.25,
+                            compute_dtype="int8", device="cuda")
+        lane = UltrafastLaneDetectorV2(model_path=paths["lane"], model_type=culane,
+                                       compute_dtype="int8", device="cuda")
+        return {"yolo": yolo, "lane": lane}
+
+    t = time.perf_counter()
+    nets = pair(pth)
+    torch.cuda.synchronize()
+    print(f"[{tag}] .pth load and build of both nets (import, int8 packing): "
+          f"{time.perf_counter() - t:.2f} s on {smi}", flush=True)
+    rng = np.random.default_rng(0)
+    calib = list(rng.integers(0, 256, (2, *FRAME_HW, 3), dtype=np.uint8))
+    for f in nets.values():
+        f.calibrate_int8(calib)
+    trees = {k: flax_variables(f.net) for k, f in nets.items()}
+    check(all(any(k.startswith("act_scales::") for k in tree) for tree in trees.values()),
+          f"[{tag}] the written trees lack act_scales")
+    t = time.perf_counter()
+    npz = {k: f"{tmp}/{k}_calibrated.npz" for k in trees}
+    for k, tree in trees.items():
+        save_params(npz[k], tree)
+    print(f"[{tag}] wrote both calibrated trees (save_params) in {time.perf_counter() - t:.2f} s",
+          flush=True)
+    again = pair(npz)
+    for k, f in again.items():
+        check(same_tree(flax_variables(f.net), trees[k], np),
+              f"[{tag}] {k}: the .npz route's tree differs from the calibrated net's")
+    per_conv = int8_convs(nets["yolo"].net, nets["lane"].net) - 2 * BLOCKS_PER_TICK
+    per_tick = {"stem": 2, "int8_conv": per_conv, "block": BLOCKS_PER_TICK, "iou": 1, "nms": 1}
+    check(per_conv == 105, f"[{tag}] {per_conv} int8 conv launches per tick, expected 105")
+    ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(2)]
+    outs, run = [], None
+    for route, p in (("pth", nets), ("npz", again)):
+        ms = MultiStreamADAS(p["yolo"], p["lane"], N_STREAMS, FRAME_HW, transport="i420")
+        try:
+            t = time.perf_counter()
+            ms.process_batch(ticks[0])
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t) * 1e3
+            reset(mods)
+            results = ms.process_batch(ticks[1])
+            torch.cuda.synchronize()
+            got = counts(mods)
+            check(got == per_tick, f"[{tag}] {route}: launches {got}, expected {per_tick}")
+            run = run or got
+            outs.append(ms._step(ms._prep_upload(ticks[1])).cpu())
+        finally:
+            ms.close()
+        n_dets = [len(r["objects"]) for r in results]
+        check(all(0 < n <= 100 for n in n_dets), f"[{tag}] {route}: detections {n_dets}")
+        print(f"[{tag}] {route}: first tick {first_ms:.1f} ms on {smi}; launches per tick {got}; "
+              f"detections per stream {n_dets}", flush=True)
+    check(bool(torch.isfinite(outs[0]).all()) and torch.equal(outs[0], outs[1]),
+          f"[{tag}] the .npz route's packed tick differs from the .pth route's")
+    print(f"[{tag}] the .npz route equals the .pth route: trees and the packed tick "
+          f"{tuple(outs[0].shape)}, to the bit", flush=True)
+    return run, nets, lane_state, calib, ticks[1], outs[0]
+
+
+def import_onnx_phase(tmp, nets, lane_state, calib, tick, want, mods, torch, np):
+    """``[import-onnx]``: UFLDv2-CULane from an ``.onnx`` of the same
+    initializers (the port's writer, ``read_onnx_initializers`` in the
+    facade), calibrated on the same frames: its tree equals the ``.pth``
+    lane's and the tick beside the same YOLOv8l equals the ``.pth`` pair's,
+    to the bit.  Returns the tick's launches."""
+    from adas_tpu_torch.perception.lane_detector import LaneModelType, UltrafastLaneDetectorV2
+    from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
+    from adas_tpu_torch.tools.onnx_writer import save_model, simple_model
+    from adas_tpu_torch.weights import flax_variables
+
+    path = f"{tmp}/ufldv2_culane_res18.onnx"
+    t = time.perf_counter()
+    save_model(path, simple_model([], [], [], initializers=lane_state))
+    t1 = time.perf_counter()
+    lane = UltrafastLaneDetectorV2(model_path=path, model_type=LaneModelType.UFLDV2_CULANE,
+                                   compute_dtype="int8", device="cuda")
+    torch.cuda.synchronize()
+    print(f"[import-onnx] wrote the .onnx of initializers in {t1 - t:.2f} s, loaded and built it "
+          f"in {time.perf_counter() - t1:.2f} s", flush=True)
+    lane.calibrate_int8(calib)
+    check(same_tree(flax_variables(lane.net), flax_variables(nets["lane"].net), np),
+          "[import-onnx] the .onnx lane's tree differs from the .pth lane's")
+    ms = MultiStreamADAS(nets["yolo"], lane, N_STREAMS, FRAME_HW, transport="i420")
+    try:
+        ms.process_batch(tick)
+        torch.cuda.synchronize()
+        reset(mods)
+        ms.process_batch(tick)
+        torch.cuda.synchronize()
+        run = counts(mods)
+        got = ms._step(ms._prep_upload(tick)).cpu()
+    finally:
+        ms.close()
+    check(torch.equal(got, want), "[import-onnx] the tick differs from the .pth pair's")
+    print(f"[import-onnx] UFLDv2-CULane from .onnx: tree and tick equal to the .pth route's, "
+          f"launches {run}", flush=True)
+    return run
+
+
+def import_families_phase(tmp, mods, torch, np):
+    """``[import-families]``: one ``DetectFrame`` (720p, f32, after a
+    warm-up) per YOLO family at its smallest scale from a ``.pth`` under
+    the family's released names (v5-lite at g in RepVGG's training form:
+    ``fuse_repvgg_state`` at ingest; v6 fused at load; v10 both heads),
+    UFLD v1-TuSimple from a ``.pth`` and EfficientDet-D0 from a zylo117
+    ``.pth`` with a 90-way head (the facade takes the width from the
+    checkpoint); each equal, to the bit, to the same facade on the ``.npz``
+    the port's ``torch_import`` CLI (EfficientDet: ``efficientdet_variables``
+    + ``save_params``) makes of the checkpoint.  Then one forward of
+    ``UFLDv2CurveLanesNet`` (800x1600) built through the registry and
+    filled by ``ufld_curvelanes_variables``, finite and equal to the
+    ``.npz`` route.  Returns the counted frames' launches."""
+    from adas_tpu_torch.engine import registry
+    from adas_tpu_torch.models.efficientdet import EfficientDet, EfficientDetSpec
+    from adas_tpu_torch.models.ufld import UFLDV1_SPECS, UFLDv1Net
+    from adas_tpu_torch.models.yolo import YoloSpec, build_yolo, resolve_spec
+    from adas_tpu_torch.perception.efficientdet_detector import EfficientdetDetector
+    from adas_tpu_torch.perception.lane_detector import LaneModelType, UltrafastLaneDetector
+    from adas_tpu_torch.perception.object_detector import _FAMILY_OF, YoloDetector
+    from adas_tpu_torch.tools import torch_import
+    from adas_tpu_torch.tools.efficientdet_import import (efficientdet_state_dict,
+                                                          efficientdet_variables)
+    from adas_tpu_torch.tools.params_io import flatten_variables, save_params
+    from adas_tpu_torch.tools.torch_import import (load_state_dict, ufld_curvelanes_variables,
+                                                   ufld_state_dict)
+    from adas_tpu_torch.tools.yolo_import import yolo_state_dict
+    from adas_tpu_torch.utils.types import ObjectModelType as T
+    from adas_tpu_torch.weights import load_flax_variables, load_npz
+
+    frame = np.random.default_rng(12).integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+    total = {k: 0 for k in KERNELS}
+
+    def cli(pth, arch, *extra):
+        npz = pth[: -len(".pth")] + ".npz"
+        torch_import.main(["-i", pth, "-o", npz, "--arch", arch, *extra])
+        return npz
+
+    def detect(det):
+        nonlocal total
+        det.DetectFrame(frame)  # warm-up
+        reset(mods)
+        det.DetectFrame(frame)
+        run = counts(mods)
+        total = {k: total[k] + run[k] for k in KERNELS}
+        return run
+
+    def rows(det):
+        return [(o.label, o.conf, o.tolist()) for o in det.object_info]
+
+    for model_type, scale in ((T.YOLOV5, "n"), (T.YOLOV5_LITE, "g"), (T.YOLOV6, "n"),
+                              (T.YOLOV7, "l"), (T.YOLOV8, "n"), (T.YOLOV9, "c"), (T.YOLOV10, "n")):
+        t = time.perf_counter()
+        family = _FAMILY_OF[model_type]
+        spec = resolve_spec(YoloSpec(scale, 80, (640, 640), family=family))
+        state = yolo_state_dict(flax_tree(lambda: build_yolo(spec), 0, torch), spec)
+        if family == "v5lite":
+            state = repvgg_train_form(state, 13, np)
+        pth = save_pth(f"{tmp}/yolo{family}{scale}.pth", state, torch, np)
+        npz = cli(pth, f"yolo{family}", "--scale", scale)
+        dets = [YoloDetector(model_path=path, model_type=model_type, scale=scale,
+                             box_score=0.25, device="cuda") for path in (pth, npz)]
+        run = detect(dets[0])
+        dets[1].DetectFrame(frame)
+        objs = dets[0].object_info
+        check(rows(dets[0]) == rows(dets[1]), f"[import-families] {model_type.name}-{scale}: "
+              "the .pth facade's detections differ from the .npz route's")
+        check(run["iou"] == 1 and run["nms"] == 1 and len(objs) <= 100 and all(
+              np.isfinite([o.x, o.y, o.width, o.height, o.conf]).all() for o in objs),
+              f"[import-families] {model_type.name}-{scale}: launches {run}")
+        print(f"[import-families] {model_type.name}-{dets[0].spec.scale} from .pth: "
+              f"{len(objs)} detections, equal to the .npz route; launches {run} "
+              f"({time.perf_counter() - t:.1f} s with the checkpoints)", flush=True)
+
+    spec = UFLDV1_SPECS[LaneModelType.UFLD_TUSIMPLE]
+    pth = save_pth(f"{tmp}/ufld_tusimple.pth", ufld_state_dict(
+        flax_tree(lambda: UFLDv1Net(spec), 1, torch), version=1), torch, np)
+    lanes = [UltrafastLaneDetector(model_path=path, model_type=LaneModelType.UFLD_TUSIMPLE,
+                                   device="cuda") for path in (pth, cli(pth, "ufldv1"))]
+    run = detect(lanes[0])
+    lanes[1].DetectFrame(frame)
+    info = [(lane.lane_info.lanes_status, [np.asarray(p).tolist() for p in
+                                           lane.lane_info.lanes_points]) for lane in lanes]
+    check(info[0] == info[1] and run["stem"] == 1,
+          f"[import-families] UFLD v1-TuSimple: .pth and .npz routes differ ({run})")
+    print(f"[import-families] UFLD_TUSIMPLE from .pth: lanes {info[0][0]}, equal to the .npz "
+          f"route; launches {run}", flush=True)
+
+    spec = EfficientDetSpec(compound=0, num_classes=90)
+    pth = save_pth(f"{tmp}/efficientdet-d0.pth", efficientdet_state_dict(
+        flax_tree(lambda: EfficientDet(spec), 2, torch), spec), torch, np)
+    npz = f"{tmp}/efficientdet-d0.npz"
+    save_params(npz, efficientdet_variables(load_state_dict(pth), spec))
+    labels = f"{tmp}/coco90.txt"
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(90)))
+    dets = [EfficientdetDetector(model_path=pth, box_score=EFFDET_BOX_SCORE, device="cuda"),
+            EfficientdetDetector(model_path=npz, classes_path=labels, box_score=EFFDET_BOX_SCORE,
+                                 device="cuda")]
+    check(dets[0].spec.num_classes == 90, f"EfficientDet head {dets[0].spec.num_classes}-way")
+    run = detect(dets[0])
+    dets[1].DetectFrame(frame)
+    # the .pth facade names its classes from the 80 COCO labels, the .npz
+    # one from 90: the rows compare without the label
+    check([r[1:] for r in rows(dets[0])] == [r[1:] for r in rows(dets[1])],
+          "[import-families] EfficientDet-D0: .pth and .npz routes differ")
+    print(f"[import-families] EfficientDet-D0 (90 classes) from .pth: "
+          f"{len(dets[0].object_info)} detections, equal to the .npz route; launches {run}",
+          flush=True)
+
+    state = ufld_state_dict(flax_tree(lambda: registry.build("UFLDV2_CURVELANES").net, 3, torch),
+                            curvelanes=True)
+    pth = save_pth(f"{tmp}/ufldv2_curvelanes.pth", state, torch, np)
+    npz = f"{tmp}/ufldv2_curvelanes.npz"
+    save_params(npz, ufld_curvelanes_variables(state))
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal((1, 3, 800, 1600))
+                         .astype(np.float32)).cuda()
+    outs = []
+    for flat in (flatten_variables(ufld_curvelanes_variables(load_state_dict(pth))),
+                 load_npz(npz)):
+        with torch.device("cuda"):
+            entry = registry.build("UFLDV2_CURVELANES")
+        load_flax_variables(entry.net, flat)
+        with torch.inference_mode():
+            outs.append({k: v.cpu() for k, v in entry.net.eval()(x).items()})
+    check(entry.input_shape_nchw == (1, 3, 800, 1600)
+          and all(bool(torch.isfinite(v).all()) for v in outs[0].values())
+          and all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0]),
+          "[import-families] UFLDv2CurveLanesNet: not finite or the routes differ")
+    print(f"[import-families] UFLDv2CurveLanesNet through the registry from .pth: "
+          f"{ {k: tuple(v.shape) for k, v in outs[0].items()} }, finite, equal to the .npz route",
+          flush=True)
+    return total
+
+
+def import_int8npz_phase(tmp, mods, torch, np):
+    """``[import-int8npz]``: ``quantize --mode int8 --calibrate YOLOV8`` on a
+    seeded YOLOv8n ``.npz`` (8 N(0,1) frames at 640 on the card), then the
+    facade serves the ``_int8.npz`` in int8: calibrated (its scales the
+    store's), one ``DetectFrame`` with the int8 conv and block launches of
+    the same net calibrated by the facade.  Returns that frame's
+    launches."""
+    from adas_tpu_torch.models.yolo import YoloSpec, build_yolo
+    from adas_tpu_torch.perception.object_detector import YoloDetector
+    from adas_tpu_torch.tools import quantize
+    from adas_tpu_torch.tools.params_io import flatten_variables, save_params
+    from adas_tpu_torch.utils.types import ObjectModelType
+    from adas_tpu_torch.weights import flax_variables
+
+    spec = YoloSpec("n", 80, (640, 640), family="v8")
+    npz = f"{tmp}/yolov8n.npz"
+    save_params(npz, flax_tree(lambda: build_yolo(spec), 0, torch))
+    t = time.perf_counter()
+    quantize.main(["-i", npz, "--mode", "int8", "--calibrate", "YOLOV8", "--scale", "n",
+                   "--device", "cuda"])
+    print(f"[import-int8npz] quantize --mode int8 --calibrate YOLOV8: "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    store = {k: v for k, v in flatten_variables(quantize.load_int8(f"{tmp}/yolov8n_int8.npz"))
+             .items() if k.startswith("act_scales::")}
+    args = dict(model_type=ObjectModelType.YOLOV8, scale="n", compute_dtype="int8",
+                device="cuda")
+    det = YoloDetector(model_path=f"{tmp}/yolov8n_int8.npz", **args)
+    ref = YoloDetector(model_path=npz, **args)
+    ref.calibrate_int8(list(np.random.default_rng(15).integers(0, 256, (2, *FRAME_HW, 3),
+                                                               dtype=np.uint8)))
+    served = {k: v for k, v in flax_variables(det.net).items() if k.startswith("act_scales::")}
+    check(served and sorted(served) == sorted(store)
+          and all(np.array_equal(served[k], store[k]) for k in store)
+          and sorted(served) == sorted(k for k in flax_variables(ref.net)
+                                       if k.startswith("act_scales::")),
+          "[import-int8npz] the facade does not serve the store's static scales")
+    frame = np.random.default_rng(16).integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+    runs = []
+    for d in (det, ref):
+        d.DetectFrame(frame)
+        reset(mods)
+        d.DetectFrame(frame)
+        runs.append(counts(mods))
+    check(runs[0] == runs[1] and runs[0]["int8_conv"] > 0,
+          f"[import-int8npz] launches {runs[0]}, the facade-calibrated net's {runs[1]}")
+    objs = det.object_info
+    check(len(objs) <= 100 and all(np.isfinite([o.x, o.y, o.width, o.height, o.conf]).all()
+                                   for o in objs), "[import-int8npz] bad detections")
+    print(f"[import-int8npz] YOLOv8n from the _int8.npz: {len(served)} static scales, "
+          f"{len(objs)} detections, launches {runs[0]} (as the facade-calibrated net's)",
+          flush=True)
+    return runs[0]
+
+
+def import_phases(mods, smi, torch, np):
+    """The ``[import-*]`` phases in one temporary directory; returns their
+    launch counts (each counted from 0) and the main path's per tick."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_import_")
+    t = time.perf_counter()
+    try:
+        main_run, nets, lane_state, calib, tick, want = import_main_int8_phase(
+            tmp, mods, smi, torch, np)
+        runs = [main_run, import_onnx_phase(tmp, nets, lane_state, calib, tick, want, mods,
+                                            torch, np)]
+        del nets, lane_state
+        t1 = time.perf_counter()
+        runs.append(import_families_phase(tmp, mods, torch, np))
+        t2 = time.perf_counter()
+        runs.append(import_int8npz_phase(tmp, mods, torch, np))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[import] phase seconds: main-int8 + onnx {t1 - t:.1f}, families {t2 - t1:.1f}, "
+          f"int8npz {time.perf_counter() - t2:.1f}", flush=True)
+    return runs, main_run
+
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2399,6 +2818,8 @@ def main() -> int:
              lane_depth_phase("34", mods, torch, np), lane_depth_phase("50", mods, torch, np)]
     served_run, served_sums, served_per_tick = lane_served_phase(mods, torch, np)
     runs.append(served_run)
+    import_runs, import_per_tick = import_phases(mods, smi, torch, np)
+    runs += import_runs
     # every int8 conv shape of the [families] int8 frames against its plain
     # version (v5-lite's padded widths at their 640 shapes included)
     families_conv = main_path_conv_phase(IC, families_shapes, torch, tag="families-int8-shapes",
@@ -2417,6 +2838,8 @@ def main() -> int:
             rows[k].update({f"{path}_{key}": v for key, v in tick.items()})
         for k in KERNELS:
             rows[k][f"{path}_launches"] = served_per_tick[path][k]
+    for k in KERNELS:
+        rows[k]["import_main_int8_launches"] = import_per_tick[k]
     launches = {k: sum(run[k] for run in runs) for k in KERNELS}
 
     replaces = {

@@ -263,8 +263,10 @@ def test_facade_options_follow_set_defaults():
         assert YoloDetector(device="cpu", box_score=0.5).box_score == 0.5
     finally:
         YoloDetector.set_defaults(YOLO_OPTIONS)
-    with pytest.raises(TypeError, match="onnx_mode"):
-        YoloDetector(device="cpu", input_size=(64, 64), onnx_mode="graph")
+    with pytest.raises(TypeError, match="engine"):
+        YoloDetector(device="cpu", input_size=(64, 64), engine="graph")
+    # JAX's onnx_mode is an option (it acts on an .onnx model_path only)
+    assert YoloDetector(device="cpu", input_size=(64, 64), onnx_mode="graph").onnx_mode == "graph"
     with pytest.raises(ValueError, match="YOLOv10"):
         YoloDetector(device="cpu", input_size=(64, 64), nms_free=True)
     with pytest.raises(TypeError, match="scale"):

@@ -24,13 +24,14 @@ import torch
 from adas_tpu.models import efficientdet as J
 from adas_tpu.models.layers import quantized
 from adas_tpu.perception.efficientdet_detector import EfficientdetDetector as JaxEffdet
-from adas_tpu.tools.params_io import flatten_variables, save_params, unflatten_variables
+from adas_tpu.tools.params_io import flatten_variables, unflatten_variables
 from adas_tpu_torch.models import efficientdet as P
 from adas_tpu_torch.models.quant import QConv2d
 from adas_tpu_torch.perception.efficientdet_detector import EfficientdetDetector
 from adas_tpu_torch.weights import load_flax_variables
 from test_torch_efficientdet import random_tree
 from test_torch_int8_weights import _int8_buffers, _jax_leaves
+from test_torch_models import save_npz
 
 S = 128
 
@@ -48,7 +49,7 @@ def test_effdet_int8_matches_jax(tmp_path):
 
     jnet = J.EfficientDet(J.EfficientDetSpec(0, 80, input_size_override=S))
     path = str(tmp_path / "effdet.npz")
-    save_params(path, unflatten_variables(random_tree(jnet, (jnp.zeros((1, S, S, 3)),), 4)))
+    save_npz(path, unflatten_variables(random_tree(jnet, (jnp.zeros((1, S, S, 3)),), 4)))
     jax_side = JaxEffdet(model_path=path, compound=0, input_size=S, compute_dtype="int8")
     port = EfficientdetDetector(model_path=path, compound=0, input_size=S, compute_dtype="int8",
                                 device="cpu")

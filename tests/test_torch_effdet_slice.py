@@ -41,7 +41,7 @@ from adas_tpu.ops import preprocess as jax_preprocess
 from adas_tpu.perception.efficientdet_detector import EfficientdetDetector as JaxEffdet
 from adas_tpu.perception.lane_detector import UltrafastLaneDetectorV2 as JaxLane
 from adas_tpu.pipeline.multistream import MultiStreamADAS as JaxMultiStream
-from adas_tpu.tools.params_io import save_params, unflatten_variables
+from adas_tpu.tools.params_io import unflatten_variables
 from adas_tpu.utils.types import LaneModelType
 from adas_tpu_torch.models import ufld as port_ufld
 from adas_tpu_torch.ops.preprocess import bgr_to_i420, i420_to_bgr_planar
@@ -49,7 +49,7 @@ from adas_tpu_torch.perception.efficientdet_detector import EfficientdetDetector
 from adas_tpu_torch.perception.lane_detector import UltrafastLaneDetectorV2
 from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
 from test_torch_efficientdet import live_trunk, random_tree
-from test_torch_models import SPEC_ARGS, random_flax_weights
+from test_torch_models import SPEC_ARGS, random_flax_weights, save_npz
 from test_torch_slice import BLOCK_JAX, _dets, _ticks, run_without_jax, signal
 
 FRAME_HW = (180, 320)
@@ -81,8 +81,8 @@ def npz_paths(tmp_path_factory):
         (1, SPEC_ARGS["input_height"], SPEC_ARGS["input_width"], 3), seed=4,
     )
     paths = {"effdet": str(tmp / "effdet.npz"), "lane": str(tmp / "lane.npz")}
-    save_params(paths["effdet"], unflatten_variables(flat))
-    save_params(paths["lane"], unflatten_variables(lane))
+    save_npz(paths["effdet"], unflatten_variables(flat))
+    save_npz(paths["lane"], unflatten_variables(lane))
     return paths
 
 

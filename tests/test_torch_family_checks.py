@@ -38,7 +38,7 @@ from adas_tpu.models.layers import QTensor as JaxQTensor
 from adas_tpu.models.layers import quantized
 from adas_tpu.models.yolov6 import fuse_repvgg_variables
 from adas_tpu.perception.object_detector import YoloDetector as JaxYolo
-from adas_tpu.tools.params_io import flatten_variables, save_params, unflatten_variables
+from adas_tpu.tools.params_io import flatten_variables, unflatten_variables
 from adas_tpu.utils.types import ObjectModelType as JaxObjectModelType
 from adas_tpu_torch.models import yolo
 from adas_tpu_torch.models.yolov6 import fuse_repvgg
@@ -47,6 +47,7 @@ from adas_tpu_torch.utils.types import ObjectModelType
 from adas_tpu_torch.weights import load_flax_variables
 from test_torch_frame import rows
 from test_torch_int8_weights import _int8_buffers, _jax_leaves
+from test_torch_models import save_npz
 from test_torch_yolo_families import _close, _nchw, _rel, _tree, flax_weights
 
 #: family -> its model type's name (both packages' enums)
@@ -141,7 +142,7 @@ def detect_pairs(family, scale, tmp_path, hw=(128, 128)):
     once), and two frames to compare them on."""
     jnet, _ = nets(family, scale, hw)
     path = str(tmp_path / f"{family}.npz")
-    save_params(path, unflatten_variables(tree_for(jnet, family, hw, 5)))
+    save_npz(path, unflatten_variables(tree_for(jnet, family, hw, 5)))
     frames = np.random.default_rng(1).integers(0, 256, (2, 180, 320, 3), dtype=np.uint8)
     probe = facade_pair(family, scale, path, hw, box_score=0.0, jax_side=False)[1]
     probe.DetectFrame(frames[0])
@@ -193,7 +194,7 @@ def check_fused_step(family, scale, tmp_path, monkeypatch, transport):
                         port_ufld.UFLDv2Spec(**SPEC_ARGS))
     lane_path = str(tmp_path / "lane.npz")
     shape = (1, SPEC_ARGS["input_height"], SPEC_ARGS["input_width"], 3)
-    save_params(lane_path, unflatten_variables(
+    save_npz(lane_path, unflatten_variables(
         random_flax_weights(UFLDv2Net(UFLDv2Spec(**SPEC_ARGS)), shape, seed=23)))
     jlane = JaxLane(model_path=lane_path, model_type=JaxLaneModelType.UFLDV2_CULANE)
     lane = UltrafastLaneDetectorV2(model_path=lane_path, device="cpu")
@@ -255,7 +256,7 @@ def check_int8(family, scale, tmp_path, hw=(64, 64), rtol=2e-2, jax_serves=True)
 
     jnet, _ = nets(family, scale, hw)
     path = str(tmp_path / f"{family}_w.npz")  # not *_int8.npz: JAX reads that as packed
-    save_params(path, unflatten_variables(tree_for(jnet, family, hw, 9)))
+    save_npz(path, unflatten_variables(tree_for(jnet, family, hw, 9)))
     jax_side, port = facade_pair(family, scale, path, hw, compute_dtype="int8")
     wscales = _jax_leaves(jax_side.variables, "wscales")
     params = _jax_leaves(jax_side.variables, "params")

@@ -30,7 +30,7 @@ from adas_tpu.perception.efficientdet_detector import EfficientdetDetector as Ja
 from adas_tpu.perception.lane_detector import UltrafastLaneDetectorV2 as JaxLane
 from adas_tpu.perception.object_detector import YoloDetector as JaxYolo
 from adas_tpu.pipeline.fused import FusedADASStep as JaxFused
-from adas_tpu.tools.params_io import save_params, unflatten_variables
+from adas_tpu.tools.params_io import unflatten_variables
 from adas_tpu.utils.types import LaneModelType as JaxLaneModelType
 from adas_tpu.utils.types import ObjectModelType as JaxObjectModelType
 from adas_tpu_torch.models import ufld as port_ufld
@@ -41,7 +41,7 @@ from adas_tpu_torch.pipeline.fused import FusedADASStep
 from adas_tpu_torch.utils.types import LaneModelType, ObjectModelType
 from test_torch_efficientdet import live_trunk, random_tree
 from test_torch_int8_slice import _matched, calibrated, npz_paths
-from test_torch_models import SPEC_ARGS, random_flax_weights
+from test_torch_models import SPEC_ARGS, random_flax_weights, save_npz
 from test_torch_slice import YOLO_HW as INT8_YOLO_HW
 
 __all__ = ["calibrated", "npz_paths"]  # the int8 slice's weights and calibration
@@ -94,7 +94,7 @@ def frame_weights(tmp_path_factory):
     paths = {}
     for name, flat in flats.items():
         paths[name] = str(tmp / f"{name}.npz")
-        save_params(paths[name], unflatten_variables(flat))
+        save_npz(paths[name], unflatten_variables(flat))
     return paths
 
 

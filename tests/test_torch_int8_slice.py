@@ -39,7 +39,6 @@ from adas_tpu.models.ufld import UFLDv2Spec as JaxUFLDv2Spec
 from adas_tpu.perception.lane_detector import UltrafastLaneDetectorV2 as JaxLane
 from adas_tpu.perception.object_detector import YoloDetector as JaxYolo
 from adas_tpu.pipeline.multistream import MultiStreamADAS as JaxMultiStream
-from adas_tpu.tools.params_io import save_params
 from adas_tpu.utils.types import ObjectModelType
 from adas_tpu_torch.utils.types import ObjectModelType as PortObjectModelType
 from adas_tpu_torch.models import ufld as port_ufld
@@ -47,7 +46,7 @@ from adas_tpu_torch.ops.packing import unpack
 from adas_tpu_torch.perception.lane_detector import UltrafastLaneDetectorV2
 from adas_tpu_torch.perception.object_detector import YoloDetector
 from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
-from test_torch_models import SPEC_ARGS
+from test_torch_models import SPEC_ARGS, save_npz
 from test_torch_slice import CULANE, FRAME_HW, YOLO_HW, _dets, _ticks, npz_paths
 
 __all__ = ["npz_paths"]  # the weight-file fixture, shared with the bf16 slice test
@@ -87,8 +86,8 @@ def calibrated(npz_paths, tmp_path_factory):
         paths = {}
         for name, facade in (("yolo", jyolo), ("lane", jlane)):
             facade.calibrate_int8(frames)
-            paths[name] = str(tmp / f"{name}_int8.npz")
-            save_params(paths[name], facade.variables)
+            paths[name] = str(tmp / f"{name}_packed.npz")  # not *_int8.npz: the weight-only int8 store
+            save_npz(paths[name], facade.variables)
         yield jyolo, jlane, paths, frames
 
 

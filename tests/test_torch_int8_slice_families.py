@@ -30,7 +30,7 @@ from adas_tpu.perception.efficientdet_detector import EfficientdetDetector as Ja
 from adas_tpu.perception.lane_detector import UltrafastLaneDetectorV2 as JaxLane
 from adas_tpu.perception.object_detector import YoloDetector as JaxYolo
 from adas_tpu.pipeline.multistream import MultiStreamADAS as JaxMultiStream
-from adas_tpu.tools.params_io import save_params, unflatten_variables
+from adas_tpu.tools.params_io import unflatten_variables
 from adas_tpu.utils.types import ObjectModelType
 from adas_tpu_torch.models import ufld as port_ufld
 from adas_tpu_torch.perception.efficientdet_detector import EfficientdetDetector
@@ -40,7 +40,7 @@ from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
 from adas_tpu_torch.utils.types import ObjectModelType as PortObjectModelType
 from test_torch_efficientdet import random_tree
 from test_torch_int8_slice import _matched
-from test_torch_models import SPEC_ARGS
+from test_torch_models import SPEC_ARGS, save_npz
 from test_torch_slice import CULANE, FRAME_HW, _dets, _ticks, npz_paths
 from test_torch_yolo_families import flax_weights
 
@@ -68,7 +68,7 @@ def _object_npz(kind, tmp):
         flat["params::classifier::header::pw::kernel"] *= 5.0
         flat["params::classifier::header::pw::bias"][:] = -2.0
     path = str(tmp / f"{kind}.npz")
-    save_params(path, unflatten_variables(flat))
+    save_npz(path, unflatten_variables(flat))
     return path
 
 
@@ -96,8 +96,8 @@ def test_int8_slice_matches_jax(kind, npz_paths, tmp_path, monkeypatch):
     paths = {}
     for name, facade in (("obj", jobj), ("lane", jlane)):
         facade.calibrate_int8(frames)
-        paths[name] = str(tmp_path / f"{name}_int8.npz")
-        save_params(paths[name], facade.variables)
+        paths[name] = str(tmp_path / f"{name}_packed.npz")  # not *_int8.npz: the weight-only int8 store
+        save_npz(paths[name], facade.variables)
     obj = make_obj(paths["obj"])
     lane = UltrafastLaneDetectorV2(model_path=paths["lane"], compute_dtype="int8", device="cpu")
     jms = JaxMultiStream(jobj, jlane, 2, frame_hw=FRAME_HW, transport="i420")

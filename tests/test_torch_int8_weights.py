@@ -8,6 +8,8 @@ the JAX package, on one random YOLOv8n (160x160) and one small UFLDv2
   tracing), with bit-equal s8 kernels and equal weight scales.
 * Carrying: a calibrated, packed JAX tree loads into the port with no
   missing or extra key, and every int8 leaf lands in its buffer.
+* Writing back: ``weights.flax_variables`` of a port net loaded from
+  JAX's calibrated, packed tree is that tree, to the bit.
 * Calibrator: ``calibrate_int8`` of the port's facades against the JAX
   facades' on the same two BGR frames and the same weights: the same set
   of scale keys, every leaf within rtol 2e-2 but one.  The two stems round
@@ -27,15 +29,15 @@ from adas_tpu.models.yolo import YoloSpec as JaxYoloSpec
 from adas_tpu.models.yolo import YoloV8 as JaxYoloV8
 from adas_tpu.perception.lane_detector import UltrafastLaneDetectorV2 as JaxLane
 from adas_tpu.perception.object_detector import YoloDetector as JaxYolo
-from adas_tpu.tools.params_io import flatten_variables, save_params, unflatten_variables
+from adas_tpu.tools.params_io import flatten_variables, unflatten_variables
 from adas_tpu.utils.types import LaneModelType, ObjectModelType
 from adas_tpu_torch.utils.types import ObjectModelType as PortObjectModelType
 from adas_tpu_torch.models import quant as Q
 from adas_tpu_torch.models import ufld as port_ufld
 from adas_tpu_torch.perception.lane_detector import UltrafastLaneDetectorV2
 from adas_tpu_torch.perception.object_detector import YoloDetector
-from adas_tpu_torch.weights import load_flax_variables
-from test_torch_models import SPEC_ARGS, random_flax_weights
+from adas_tpu_torch.weights import flax_variables, load_flax_variables
+from test_torch_models import SPEC_ARGS, random_flax_weights, save_npz
 
 HW = (160, 160)
 CULANE = LaneModelType.UFLDV2_CULANE
@@ -50,7 +52,7 @@ def npz(tmp_path_factory):
         ("lane", JaxUFLDv2Net(JaxUFLDv2Spec(**SPEC_ARGS)), (1, 64, 160, 3)),
     ):
         paths[name] = str(tmp / f"{name}.npz")
-        save_params(paths[name], unflatten_variables(random_flax_weights(net, shape, 11)))
+        save_npz(paths[name], unflatten_variables(random_flax_weights(net, shape, 11)))
     return paths
 
 
@@ -154,3 +156,21 @@ def test_calibrated_packed_tree_loads_whole(facades):
             k: np.asarray(v, np.float32) for k, v in
             flatten_variables({"params": jax_side.variables["params"]}).items()})
         assert not _int8_buffers(net)
+
+
+def test_flax_variables_gives_back_the_jax_tree(facades):
+    """The calibrated, packed JAX trees (of the calibrations above) through
+    a fresh port net and back: every leaf of every collection (s8 kernels,
+    wscales, act_scales, params, batch_stats) equal, dtype and shape
+    included."""
+    for jax_side, port in facades:
+        want = flatten_variables(jax_side.variables)
+        assert any(k.startswith("act_scales::") for k in want)
+        net = type(port.net)(port.net.spec, int8=True)
+        load_flax_variables(net, want)
+        got = flax_variables(net)
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            v = np.asarray(v)
+            assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+            np.testing.assert_array_equal(got[k], v, err_msg=k)

@@ -18,6 +18,9 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "adas_tpu_torch")
 BLOCKED = ("adas_tpu", "jax", "jaxlib", "flax", "cv2")
+#: the child processes' environment: one torch thread, as the test
+#: processes have (``test_torch_models.py``)
+ONE_THREAD = {**os.environ, "OMP_NUM_THREADS": "1"}
 
 
 def port_sources():
@@ -70,7 +73,7 @@ IMPORT_ALL = textwrap.dedent(
 
 def test_every_module_imports_with_jax_package_blocked():
     proc = subprocess.run(
-        [sys.executable, "-c", IMPORT_ALL], cwd=REPO, capture_output=True, text=True, timeout=120,
+        [sys.executable, "-c", IMPORT_ALL], cwd=REPO, env=ONE_THREAD, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 50  # every module was walked
@@ -131,7 +134,7 @@ def test_single_frame_path_runs_with_jax_package_and_cv2_blocked(tmp_path):
     ``cv2``."""
     proc = subprocess.run(
         [sys.executable, "-c", FRAME_SCRIPT, str(tmp_path / "synthetic.y4m")], cwd=REPO,
-        capture_output=True, text=True, timeout=300,
+        env=ONE_THREAD, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("frames")
@@ -164,7 +167,7 @@ def test_demo_cli_runs_with_jax_package_and_cv2_blocked(tmp_path):
     out = str(tmp_path / "out.y4m")
     proc = subprocess.run(
         [sys.executable, "-c", CLI_SCRIPT, "--synthetic", "--frames", "2", "--device", "cpu",
-         "-o", out], cwd=REPO, capture_output=True, text=True, timeout=300,
+         "-o", out], cwd=REPO, env=ONE_THREAD, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert f"wrote 2 frames to {out}" in proc.stdout
@@ -265,7 +268,7 @@ def test_new_families_run_with_jax_package_and_cv2_blocked():
     detecting, in a process that cannot import ``jax``, ``adas_tpu`` or
     ``cv2``."""
     proc = subprocess.run(
-        [sys.executable, "-c", FAMILIES_SCRIPT], cwd=REPO, capture_output=True, text=True,
+        [sys.executable, "-c", FAMILIES_SCRIPT], cwd=REPO, env=ONE_THREAD, capture_output=True, text=True,
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -312,8 +315,43 @@ def test_configs_load_from_the_port_alone():
     only, in a process that cannot import ``jax``, ``adas_tpu`` or
     ``cv2``: no path under ``adas_tpu/`` is opened."""
     proc = subprocess.run(
-        [sys.executable, "-c", CONFIG_SCRIPT], cwd=REPO, capture_output=True, text=True,
+        [sys.executable, "-c", CONFIG_SCRIPT], cwd=REPO, env=ONE_THREAD, capture_output=True, text=True,
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("configs 7")
+
+
+IMPORTERS_SCRIPT = textwrap.dedent(
+    """
+    import sys
+
+    class _Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in %r:
+                raise ImportError(f"{name} is blocked in this process")
+            return None
+
+    sys.meta_path.insert(0, _Block())
+    from adas_tpu_torch.engine import registry
+    from adas_tpu_torch.tools import (efficientdet_import, onnx_import, onnx_writer, params_io,
+                                      quantize, torch_import, yolo_import)
+
+    assert len(registry.available()) == 13
+    assert not [m for m in sys.modules if m.split(".")[0] in %r]
+    print("importers", len(registry.available()))
+    """
+    % (BLOCKED, BLOCKED)
+)
+
+
+def test_importers_and_registry_import_with_jax_package_blocked():
+    """The checkpoint importers, the ONNX reader and writer, the store
+    tools and the model registry import in a process that cannot import
+    ``jax``, ``adas_tpu`` or ``cv2``."""
+    proc = subprocess.run(
+        [sys.executable, "-c", IMPORTERS_SCRIPT], cwd=REPO, env=ONE_THREAD, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "importers 13"

@@ -43,7 +43,7 @@ from adas_tpu.models import yolo as jyolo
 from adas_tpu.ops.preprocess import ufld_v1_preprocess as jax_v1_preprocess
 from adas_tpu.ops.ufld_decode import ufld_v1_decode as jax_v1_decode
 from adas_tpu.pipeline.app import ADASPipeline as JaxPipeline
-from adas_tpu.tools.params_io import save_params, unflatten_variables
+from adas_tpu.tools.params_io import unflatten_variables
 from adas_tpu.tracking.base_track import BaseTrack as JaxBaseTrack
 from adas_tpu.utils.logger import Logger as JaxLogger
 from adas_tpu.utils.types import LaneModelType as JaxLaneModelType
@@ -60,6 +60,7 @@ from adas_tpu_torch.weights import load_flax_variables
 from test_torch_app import QUIET, assert_same_distances, measured, state
 from test_torch_frame import BOX_SCORE, FRAME_HW, YOLO_HW, frames
 from test_torch_yolo_families import flax_weights
+from test_torch_models import save_npz
 
 V1 = {"tusimple": (JaxLaneModelType.UFLD_TUSIMPLE, LaneModelType.UFLD_TUSIMPLE),
       "culane": (JaxLaneModelType.UFLD_CULANE, LaneModelType.UFLD_CULANE)}
@@ -167,7 +168,7 @@ def pair_weights(tmp_path_factory):
     paths = {}
     for name, flat in flats.items():
         paths[name] = str(tmp / f"{name}.npz")
-        save_params(paths[name], unflatten_variables(flat))
+        save_npz(paths[name], unflatten_variables(flat))
     return paths
 
 

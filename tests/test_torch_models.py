@@ -21,10 +21,25 @@ from adas_tpu.models.ufld import UFLDv2Net as JaxUFLDv2Net
 from adas_tpu.models.ufld import UFLDv2Spec as JaxUFLDv2Spec
 from adas_tpu.models.yolo import YoloSpec as JaxYoloSpec
 from adas_tpu.models.yolo import YoloV8 as JaxYoloV8
-from adas_tpu.tools.params_io import unflatten_variables
+from adas_tpu.tools.params_io import flatten_variables, unflatten_variables
 from adas_tpu_torch.models.ufld import UFLDv2Net, UFLDv2Spec
 from adas_tpu_torch.models.yolo import YoloSpec, YoloV8
 from adas_tpu_torch.weights import init_params, load_flax_variables, state_dict_from_flax
+
+def save_npz(path, variables):
+    """``params_io.save_params`` without the compression: the same flat
+    ``::`` keys, which both packages' loaders read (``np.load``).  The
+    tests' random trees do not compress, and zlib took ~25 s on one full
+    UFLDv2 head."""
+    np.savez(path, **flatten_variables(variables))
+
+
+# One intra-op thread per test process: the suite runs in several
+# pytest-xdist workers, each of which imports this module while it
+# collects, and torch's default (an OpenMP thread per core in every
+# worker) oversubscribes the cores several times over; the waiting
+# threads then cost more than the parallel kernels gain.
+torch.set_num_threads(1)
 
 SPEC_ARGS = dict(
     input_height=64, input_width=160, crop_ratio=0.6, num_cell_row=20,

@@ -44,7 +44,7 @@ from adas_tpu.perception.lane_detector import UltrafastLaneDetector as JaxV1
 from adas_tpu.perception.lane_detector import UltrafastLaneDetectorV2 as JaxLane
 from adas_tpu.perception.object_detector import YoloDetector as JaxYolo
 from adas_tpu.pipeline.multistream import MultiStreamADAS as JaxMultiStream
-from adas_tpu.tools.params_io import save_params, unflatten_variables
+from adas_tpu.tools.params_io import unflatten_variables
 from adas_tpu.utils.types import LaneModelType as JaxLaneModelType
 from adas_tpu.utils.types import ObjectModelType
 from adas_tpu_torch.models import ufld as port_ufld
@@ -57,7 +57,7 @@ from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
 from adas_tpu_torch.utils.types import LaneModelType
 from adas_tpu_torch.utils.types import ObjectModelType as PortObjectModelType
 from test_torch_int8_slice import _matched
-from test_torch_models import SPEC_ARGS
+from test_torch_models import SPEC_ARGS, save_npz
 from test_torch_slice import CULANE, FRAME_HW, YOLO_HW, _dets, _ticks, npz_paths, weights
 from test_torch_yolo_families import flax_weights
 
@@ -83,8 +83,8 @@ def packed(npz_paths, tmp_path_factory):
         jlane = JaxLane(model_path=npz_paths["lane"], model_type=CULANE, dtype="int8")
         paths = {}
         for name, facade in (("yolo", jyolo), ("lane", jlane)):
-            paths[name] = str(tmp / f"{name}_int8.npz")
-            save_params(paths[name], facade.variables)
+            paths[name] = str(tmp / f"{name}_packed.npz")  # not *_int8.npz: the weight-only int8 store
+            save_npz(paths[name], facade.variables)
         yolo = YoloDetector(model_path=paths["yolo"], model_type=PortObjectModelType.YOLOV8,
                             scale="n", input_size=YOLO_HW, box_score=0.25, compute_dtype="int8",
                             device="cpu")
@@ -189,7 +189,7 @@ def test_ufld_v1_int8_detect_frame_matches_jax(tmp_path, monkeypatch):
     monkeypatch.setitem(port_ufld.UFLDV1_SPECS, key, dataclasses.replace(
         port_ufld.UFLDV1_SPECS[key], input_height=64, input_width=160, mlp_mid=64))
     path = str(tmp_path / "v1.npz")
-    save_params(path, unflatten_variables(flax_weights(jufld.UFLDv1Net(jspec), (1, 64, 160, 3),
+    save_npz(path, unflatten_variables(flax_weights(jufld.UFLDv1Net(jspec), (1, 64, 160, 3),
                                                        seed=2)))
     jv1 = JaxV1(model_path=path, model_type=jkey, dtype="int8")
     v1 = UltrafastLaneDetector(model_path=path, model_type=key, compute_dtype="int8",

@@ -28,14 +28,14 @@ from adas_tpu.models.yolo import YoloV8 as JaxYoloV8
 from adas_tpu.perception.lane_detector import UltrafastLaneDetectorV2 as JaxLane
 from adas_tpu.perception.object_detector import YoloDetector as JaxYolo
 from adas_tpu.pipeline.multistream import MultiStreamADAS as JaxMultiStream
-from adas_tpu.tools.params_io import save_params, unflatten_variables
+from adas_tpu.tools.params_io import unflatten_variables
 from adas_tpu.utils.types import LaneModelType, ObjectModelType
 from adas_tpu_torch.utils.types import ObjectModelType as PortObjectModelType
 from adas_tpu_torch.models import ufld as port_ufld
 from adas_tpu_torch.perception.lane_detector import UltrafastLaneDetectorV2
 from adas_tpu_torch.perception.object_detector import YoloDetector
 from adas_tpu_torch.pipeline.multistream import MultiStreamADAS
-from test_torch_models import SPEC_ARGS, random_flax_weights
+from test_torch_models import SPEC_ARGS, random_flax_weights, save_npz
 
 FRAME_HW = (180, 320)
 YOLO_HW = (160, 160)
@@ -67,7 +67,7 @@ def npz_paths(tmp_path_factory):
                 elif "::cls" in k and k.endswith("_2::bias"):
                     flat[k][:] = -5.0
         paths[name] = str(tmp / f"{name}.npz")
-        save_params(paths[name], unflatten_variables(flat))
+        save_npz(paths[name], unflatten_variables(flat))
     return paths
 
 
@@ -275,8 +275,9 @@ def run_without_jax(script: str) -> str:
     """Run ``script`` (starting with :data:`BLOCK_JAX`) in a fresh Python
     process from the repository root; returns its standard output."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    proc = subprocess.run(
-        [sys.executable, "-c", script], cwd=repo, capture_output=True, text=True, timeout=120,
+    proc = subprocess.run(  # one torch thread, as the test process has
+        [sys.executable, "-c", script], cwd=repo, env={**os.environ, "OMP_NUM_THREADS": "1"},
+        capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     return proc.stdout

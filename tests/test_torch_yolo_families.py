@@ -40,6 +40,7 @@ from adas_tpu_torch.ops.yolo_decode import decode_predictions, select_and_nms
 from adas_tpu_torch.perception.object_detector import YOLO_OPTIONS, YoloDetector
 from adas_tpu_torch.utils.types import ObjectModelType
 from adas_tpu_torch.weights import load_flax_variables
+from test_torch_models import save_npz
 
 
 def flax_weights(net, input_shape, seed, **init):
@@ -239,12 +240,12 @@ def test_v5_decode_contract_matches_jax():
 
 
 def test_yolo_options_match_jax():
-    """The facade's options and defaults are JAX's by name and value, less
-    the ONNX engine's ``onnx_mode``; every other family resolves an
+    """The facade's options and defaults are JAX's by name and value,
+    ``onnx_mode`` included; every other family resolves an
     unknown scale as JAX's ``build_yolo`` does (v5-lite s, v6 s, v9 c; v7
     one graph), and the facade builds at that scale as JAX's does
     (``object_detector.py:207-212``)."""
-    want = {k: v for k, v in JaxYolo._defaults.items() if k != "onnx_mode"}
+    want = dict(JaxYolo._defaults)
     got = {k: (v.name if k == "model_type" else v) for k, v in YOLO_OPTIONS.items()}
     want["model_type"] = want["model_type"].name
     assert got == want
@@ -298,13 +299,13 @@ def test_int8_packer_calibrator_and_bridge_match_jax(family, tmp_path):
     same scale keys (the concat groups of C3 and C2fCIB included), each
     within rtol 2e-2 of JAX's; and JAX's calibrated, packed tree loads
     whole into a new port net, every int8 leaf in its buffer."""
-    from adas_tpu.tools.params_io import save_params
+    
     from test_torch_int8_weights import _int8_buffers, _jax_leaves
 
     hw = (128, 128)
     jnet, call, _ = _pair(family, "n", hw)
     path = str(tmp_path / f"{family}.npz")
-    save_params(path, unflatten_variables(flax_weights(jnet, (1, *hw, 3), seed=9, **call)))
+    save_npz(path, unflatten_variables(flax_weights(jnet, (1, *hw, 3), seed=9, **call)))
     jax_type, port_type = (getattr(t, f"YOLO{family.upper()}")
                            for t in (JaxObjectModelType, ObjectModelType))
     jax_side = JaxYolo(model_path=path, model_type=jax_type, input_size=hw, compute_dtype="int8")
