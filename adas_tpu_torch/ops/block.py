@@ -5,9 +5,9 @@ Port of ``adas_tpu/ops/pallas_block.py``: the TPU kernels ``_block_kernel``
 (entry ``fused_block``, padded planar I/O) and ``_block_kernel_nhwc``
 (entry ``fused_block_nhwc``) compute one function, which here is the one
 Hopper kernel ``csrc/block.cu`` (CUDA C++ for ``sm_90a``, bound through
-ctypes: wgmma from shared memory, the input halo by TMA, a persistent
-grid).  The planar domain (``PlanarQ``, ``to_planar``/``from_planar``)
-was a TPU lane-layout device and is not ported: consecutive fused blocks
+ctypes and registered as the operator ``adas_tpu_torch::fused_block``:
+wgmma from shared memory, the input halo by TMA, a persistent grid).  The
+planar domain (``PlanarQ``, ``to_planar``/``from_planar``) was a TPU lane-layout device and is not ported: consecutive fused blocks
 chain NHWC s8 tensors.  The kernel's source note says what bounds it on
 the card, what its design does and how it tiles the output; the input's
 TMA map is encoded once per address and shape and cached.
@@ -43,6 +43,7 @@ from typing import Optional
 import torch
 
 from .cuda_build import load_cuda_library, num_sms
+from .library import define
 from .int8_conv import (
     ACT_CODES,
     activation,
@@ -161,6 +162,61 @@ def _input_map(xq: torch.Tensor, pitch: int):
     return xmap
 
 
+def _out(xq: torch.Tensor) -> torch.Tensor:
+    return torch.empty(xq.shape, dtype=torch.int8, device=xq.device)
+
+
+def _block_cuda(xq, x_scale, w1q, scale1, bias1, mid_scale, w2q, scale2, bias2, out_scale, act1,
+                act2, act_post, residual):
+    """The operator's CUDA implementation: the kernel's launch."""
+    global launches
+    for t in (x_scale, w1q, scale1, bias1, mid_scale, w2q, scale2, bias2, out_scale):
+        if t is not None and t.device != xq.device:
+            raise ValueError(f"fused block operands on {t.device} and {xq.device}")
+    for t in (w1q, scale1, bias1, w2q, scale2, bias2):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("fused block weights and epilogue vectors must be contiguous")
+    n, h, w, c = xq.shape
+    pitch = channel_pitch(xq)
+    if not (c in KERNEL_WIDTHS and w1q.shape[0] == c and w2q.shape[0] == c
+            and pitch % 16 == 0 and xq.data_ptr() % 16 == 0
+            and w1q.data_ptr() % 16 == 0 and w2q.data_ptr() % 16 == 0):
+        raise ValueError(
+            f"the block kernel takes Cin = Cmid = Cout in {KERNEL_WIDTHS}, 16-byte aligned "
+            f"input and weights and a pitch % 16 == 0, got {c} -> {w1q.shape[0]} -> "
+            f"{w2q.shape[0]}, pitch {pitch}"
+        )
+    xmap = _input_map(xq, pitch)
+    out = _out(xq)
+    index = xq.device.index if xq.device.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(xq.device):
+        rc = _lib().adas_block_forward(
+            ctypes.addressof(xmap), w1q.data_ptr(), scale1.data_ptr(),
+            None if bias1 is None else bias1.data_ptr(), mid_scale.data_ptr(),
+            w2q.data_ptr(), scale2.data_ptr(),
+            None if bias2 is None else bias2.data_ptr(), x_scale.data_ptr(),
+            out_scale.data_ptr(), out.data_ptr(), n, h, w, c,
+            ACT_CODES[act1], ACT_CODES[act2], ACT_CODES[act_post], int(residual),
+            num_sms(index), torch.cuda.current_stream(xq.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused block kernel launch failed: cudaError_t {rc}")
+    launches += 1
+    return out
+
+
+_OP = define(
+    "fused_block(Tensor xq, Tensor x_scale, Tensor w1q, Tensor scale1, Tensor? bias1, "
+    "Tensor mid_scale, Tensor w2q, Tensor scale2, Tensor? bias2, Tensor out_scale, str? act1, "
+    "str? act2, str? act_post, bool residual) -> Tensor",
+    cpu=lambda xq, x_scale, w1q, scale1, bias1, mid_scale, w2q, scale2, bias2, out_scale, act1,
+    act2, act_post, residual: block_reference(
+        xq, x_scale, w1q, scale1, bias1, mid_scale, w2q, scale2, bias2, out_scale, act1=act1,
+        act2=act2, act_post=act_post, residual=residual),
+    cuda=_block_cuda,
+    fake=lambda xq, *_: _out(xq))
+
+
 def fused_block(
     xq: torch.Tensor,
     x_scale: torch.Tensor,
@@ -181,45 +237,9 @@ def fused_block(
     """One fused two-conv block, s8 NHWC in -> s8 NHWC out at
     ``out_scale`` — the CUDA kernel for a CUDA ``xq``,
     :func:`block_reference` for a CPU ``xq``."""
-    global launches
-    args = (xq, x_scale, w1q, scale1, bias1, mid_scale, w2q, scale2, bias2, out_scale)
-    acts = dict(act1=act1, act2=act2, act_post=act_post, residual=residual)
     _check(xq, w1q, scale1, bias1, w2q, scale2, bias2, (x_scale, mid_scale, out_scale),
            (act1, act2, act_post), residual)
-    if xq.device.type == "cpu":
-        return block_reference(*args, **acts)
-    if xq.device.type != "cuda":
+    if xq.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused block runs on cuda or cpu, got {xq.device}")
-    for t in args[1:]:
-        if t is not None and t.device != xq.device:
-            raise ValueError(f"fused block operands on {t.device} and {xq.device}")
-    for t in (w1q, scale1, bias1, w2q, scale2, bias2):
-        if t is not None and not t.is_contiguous():
-            raise ValueError("fused block weights and epilogue vectors must be contiguous")
-    n, h, w, c = xq.shape
-    pitch = channel_pitch(xq)
-    if not (c in KERNEL_WIDTHS and w1q.shape[0] == c and w2q.shape[0] == c
-            and pitch % 16 == 0 and xq.data_ptr() % 16 == 0
-            and w1q.data_ptr() % 16 == 0 and w2q.data_ptr() % 16 == 0):
-        raise ValueError(
-            f"the block kernel takes Cin = Cmid = Cout in {KERNEL_WIDTHS}, 16-byte aligned "
-            f"input and weights and a pitch % 16 == 0, got {c} -> {w1q.shape[0]} -> "
-            f"{w2q.shape[0]}, pitch {pitch}"
-        )
-    xmap = _input_map(xq, pitch)
-    out = torch.empty((n, h, w, c), dtype=torch.int8, device=xq.device)
-    index = xq.device.index if xq.device.index is not None else torch.cuda.current_device()
-    with torch.cuda.device(xq.device):
-        rc = _lib().adas_block_forward(
-            ctypes.addressof(xmap), w1q.data_ptr(), scale1.data_ptr(),
-            None if bias1 is None else bias1.data_ptr(), mid_scale.data_ptr(),
-            w2q.data_ptr(), scale2.data_ptr(),
-            None if bias2 is None else bias2.data_ptr(), x_scale.data_ptr(),
-            out_scale.data_ptr(), out.data_ptr(), n, h, w, c,
-            ACT_CODES[act1], ACT_CODES[act2], ACT_CODES[act_post], int(residual),
-            num_sms(index), torch.cuda.current_stream(xq.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused block kernel launch failed: cudaError_t {rc}")
-    launches += 1
-    return out
+    return _OP(xq, x_scale, w1q, scale1, bias1, mid_scale, w2q, scale2, bias2, out_scale, act1,
+               act2, act_post, bool(residual))

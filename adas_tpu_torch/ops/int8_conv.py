@@ -4,7 +4,8 @@ Port of ``adas_tpu/ops/pallas_conv.py`` (the TPU kernel ``_conv_kernel``,
 entry ``int8_conv3x3``) grown to every int8 conv of the serving path —
 on the TPU the others were XLA convs inside
 ``adas_tpu/models/layers.py::int8_conv_apply``.  The kernel is
-``csrc/int8_conv.cu`` (CUDA C++ for ``sm_90a``, bound through ctypes: wgmma
+``csrc/int8_conv.cu`` (CUDA C++ for ``sm_90a``, bound through ctypes and
+registered as the operator ``adas_tpu_torch::int8_conv``: wgmma
 fed by TMA, the activations by the TMA's im2col mode or a cp.async
 gather, a persistent grid); its source note says what bounds it on the
 card and what its design does.  :func:`tile_config` picks the tile per
@@ -57,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from .cuda_build import load_cuda_library, num_sms
+from .library import define
 
 #: launches of the CUDA kernel since the last :func:`reset_launches`; the
 #: plain CPU path does not count
@@ -378,32 +380,21 @@ def _kernel_input(xq: torch.Tensor, cin: int) -> torch.Tensor:
     return xp
 
 
-def int8_conv(
-    xq: torch.Tensor,
-    wq: torch.Tensor,
-    scale: torch.Tensor,
-    bias: Optional[torch.Tensor],
-    *,
-    stride: int,
-    act: Optional[str],
-    out_scale: Optional[torch.Tensor] = None,
-    out_f32: bool = False,
-    cout: Optional[int] = None,
-) -> torch.Tensor:
-    """W8A8 conv + fused epilogue — the CUDA kernel for a CUDA ``xq``,
-    :func:`int8_conv_reference` for a CPU ``xq``.  Returns NHWC s8 when
-    ``out_scale`` is given, else NHWC f32 with ``out_f32``, else bf16, of
-    ``cout`` channels (by default all of ``wq``'s; fewer where the
-    weights, scale and bias carry padding: module docstring).  ``scale``
-    is per channel, or an (N, Cout) table of a row per image (the kernel's
-    per-image mode; a batch of one takes the per-channel mode)."""
+def _out(xq: torch.Tensor, wq: torch.Tensor, stride: int, out_scale, out_f32: bool,
+         cout: Optional[int]) -> torch.Tensor:
+    """The new (N, Ho, Wo, cout) output tensor."""
+    n, h, w, _ = xq.shape
+    ho, wo = conv_out_hw(h, w, wq.shape[1], stride)
+    dtype = torch.int8 if out_scale is not None else torch.float32 if out_f32 else torch.bfloat16
+    return torch.empty((n, ho, wo, wq.shape[0] if cout is None else cout), dtype=dtype,
+                       device=xq.device)
+
+
+def _int8_conv_cuda(xq, wq, scale, bias, stride, act, out_scale, out_f32, cout):
+    """The operator's CUDA implementation: the kernel's launch.  The launch
+    plans, TMA maps and the SM count stay in here: an exported graph holds
+    none of them."""
     global launches
-    _check(xq, wq, scale, bias, stride, act, out_scale, out_f32, cout)
-    if xq.device.type == "cpu":
-        return int8_conv_reference(xq, wq, scale, bias, stride=stride, act=act,
-                                   out_scale=out_scale, out_f32=out_f32, cout=cout)
-    if xq.device.type != "cuda":
-        raise ValueError(f"int8 conv runs on cuda or cpu, got {xq.device}")
     for t in (wq, scale, bias, out_scale):
         if t is not None and t.device != xq.device:
             raise ValueError(f"int8 conv operands on {t.device} and {xq.device}")
@@ -429,8 +420,7 @@ def int8_conv(
     w_copy, wmap, shape_args, tile_args, out_shape = plan  # w_copy: padded rows, kept alive
     vec, bm = tile_args[:2]
     xmap = _input_map(xq, shape_args[4], shape_args[6], stride, bm) if vec == 0 else None
-    dtype = torch.int8 if out_scale is not None else torch.float32 if out_f32 else torch.bfloat16
-    out = torch.empty(out_shape, dtype=dtype, device=xq.device)
+    out = _out(xq, wq, stride, out_scale, out_f32, None)
     rows_per_image = out_shape[1] * out_shape[2] if scale.dim() == 2 else 0
     args = (
         xq.data_ptr(), ctypes.addressof(wmap), None if xmap is None else ctypes.addressof(xmap),
@@ -450,3 +440,40 @@ def int8_conv(
     if cout is not None and cout != wcout:
         return out[..., :cout].contiguous()
     return out
+
+
+_OP = define(
+    "int8_conv(Tensor xq, Tensor wq, Tensor scale, Tensor? bias, int stride, str? act, "
+    "Tensor? out_scale, bool out_f32, int? cout) -> Tensor",
+    cpu=lambda xq, wq, scale, bias, stride, act, out_scale, out_f32, cout: int8_conv_reference(
+        xq, wq, scale, bias, stride=stride, act=act, out_scale=out_scale, out_f32=out_f32,
+        cout=cout),
+    cuda=_int8_conv_cuda,
+    fake=lambda xq, wq, scale, bias, stride, act, out_scale, out_f32, cout: _out(
+        xq, wq, stride, out_scale, out_f32, cout))
+
+
+def int8_conv(
+    xq: torch.Tensor,
+    wq: torch.Tensor,
+    scale: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    *,
+    stride: int,
+    act: Optional[str],
+    out_scale: Optional[torch.Tensor] = None,
+    out_f32: bool = False,
+    cout: Optional[int] = None,
+) -> torch.Tensor:
+    """W8A8 conv + fused epilogue — the CUDA kernel for a CUDA ``xq``,
+    :func:`int8_conv_reference` for a CPU ``xq``.  Returns NHWC s8 when
+    ``out_scale`` is given, else NHWC f32 with ``out_f32``, else bf16, of
+    ``cout`` channels (by default all of ``wq``'s; fewer where the
+    weights, scale and bias carry padding: module docstring).  ``scale``
+    is per channel, or an (N, Cout) table of a row per image (the kernel's
+    per-image mode; a batch of one takes the per-channel mode)."""
+    _check(xq, wq, scale, bias, stride, act, out_scale, out_f32, cout)
+    if xq.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"int8 conv runs on cuda or cpu, got {xq.device}")
+    return _OP(xq, wq, scale, bias, int(stride), act, out_scale, bool(out_f32),
+               None if cout is None else int(cout))

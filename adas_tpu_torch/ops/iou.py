@@ -2,8 +2,9 @@
 ``adas_tpu/ops/pallas_iou.py``).
 
 The TPU kernel there (``_iou_kernel``, entered through ``iou_matrix``)
-becomes the Hopper kernel ``csrc/iou.cu``, built with nvcc for ``sm_90a``
-and bound through ctypes; its source note says what bounds it on the card
+becomes the Hopper kernel ``csrc/iou.cu``, built with nvcc for ``sm_90a``,
+bound through ctypes and registered as the operators
+``adas_tpu_torch::iou_matrix`` / ``adas_tpu_torch::iou_mask``; its source note says what bounds it on the card
 and what its design does about it.  One kernel body serves two modes:
 
 * :func:`iou_matrix`, the (B, N, N) f32 matrix, which the rescoring scan
@@ -29,6 +30,7 @@ import torch
 
 from .boxes import pairwise_iou
 from .cuda_build import load_cuda_library
+from .library import define
 
 #: launches of the CUDA kernel, both modes, since the last
 #: :func:`reset_launches`; the plain CPU path does not count
@@ -89,21 +91,25 @@ def _lib():
     return lib
 
 
-def _check(boxes: torch.Tensor, name: str) -> bool:
-    """Validates (B, N, 4) boxes; True when they take the kernel."""
+def _check(boxes: torch.Tensor, name: str) -> None:
+    """Validates (B, N, 4) boxes."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"{name} takes (B, N, 4) boxes, got {tuple(boxes.shape)}")
-    if boxes.device.type == "cpu":
-        return False
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, got {boxes.device}")
+
+
+def _check_cuda(boxes: torch.Tensor) -> None:
+    """What the CUDA kernel takes: contiguous f32 boxes."""
     if boxes.dtype != torch.float32 or not boxes.is_contiguous():
         raise ValueError(f"the IoU kernel takes contiguous f32 boxes, got {boxes.dtype}")
-    return True
 
 
 def _launch(entry, boxes: torch.Tensor, out: torch.Tensor, plus_one: bool, *threshold):
     global launches
+    _check_cuda(boxes)
+    if out.numel() == 0:
+        return out
     bsz, n, _ = boxes.shape
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
@@ -114,17 +120,40 @@ def _launch(entry, boxes: torch.Tensor, out: torch.Tensor, plus_one: bool, *thre
     return out
 
 
+def _matrix_out(boxes: torch.Tensor) -> torch.Tensor:
+    bsz, n, _ = boxes.shape
+    return torch.empty((bsz, n, n), dtype=torch.float32, device=boxes.device)
+
+
+def _mask_out(boxes: torch.Tensor) -> torch.Tensor:
+    bsz, n, _ = boxes.shape
+    return torch.empty((bsz, n, mask_words(n)), dtype=torch.int32, device=boxes.device)
+
+
+def _matrix_cuda(boxes, plus_one):
+    return _launch(_lib().adas_iou_matrix, boxes, _matrix_out(boxes), plus_one)
+
+
+def _mask_cuda(boxes, iou_threshold, plus_one):
+    return _launch(_lib().adas_iou_mask, boxes, _mask_out(boxes), plus_one, iou_threshold)
+
+
+# The kernel's two entries as operators (``ops/library.py``); the CPU
+# implementations look the plain versions up at each call.
+_MATRIX_OP = define("iou_matrix(Tensor boxes, bool plus_one) -> Tensor",
+                    cpu=lambda *args: iou_matrix_reference(*args), cuda=_matrix_cuda,
+                    fake=lambda boxes, plus_one: _matrix_out(boxes))
+_MASK_OP = define("iou_mask(Tensor boxes, float iou_threshold, bool plus_one) -> Tensor",
+                  cpu=lambda *args: iou_mask_reference(*args), cuda=_mask_cuda,
+                  fake=lambda boxes, iou_threshold, plus_one: _mask_out(boxes))
+
+
 def iou_matrix(boxes: torch.Tensor, plus_one: bool = False) -> torch.Tensor:
     """(B, N, 4) xyxy boxes -> (B, N, N) f32 IoU: the CUDA kernel for a
     CUDA tensor (f32, contiguous), :func:`iou_matrix_reference` for a CPU
     tensor."""
-    if not _check(boxes, "iou_matrix"):
-        return iou_matrix_reference(boxes, plus_one)
-    bsz, n, _ = boxes.shape
-    out = torch.empty((bsz, n, n), dtype=torch.float32, device=boxes.device)
-    if out.numel() == 0:
-        return out
-    return _launch(_lib().adas_iou_matrix, boxes, out, plus_one)
+    _check(boxes, "iou_matrix")
+    return _MATRIX_OP(boxes, bool(plus_one))
 
 
 def iou_mask(boxes: torch.Tensor, iou_threshold: float, plus_one: bool = False) -> torch.Tensor:
@@ -132,10 +161,5 @@ def iou_mask(boxes: torch.Tensor, iou_threshold: float, plus_one: bool = False) 
     IoU > ``iou_threshold`` (see :func:`iou_mask_reference`): the CUDA
     kernel for a CUDA tensor (f32, contiguous), the plain version for a
     CPU tensor."""
-    if not _check(boxes, "iou_mask"):
-        return iou_mask_reference(boxes, iou_threshold, plus_one)
-    bsz, n, _ = boxes.shape
-    out = torch.empty((bsz, n, mask_words(n)), dtype=torch.int32, device=boxes.device)
-    if out.numel() == 0:
-        return out
-    return _launch(_lib().adas_iou_mask, boxes, out, plus_one, iou_threshold)
+    _check(boxes, "iou_mask")
+    return _MASK_OP(boxes, float(iou_threshold), bool(plus_one))

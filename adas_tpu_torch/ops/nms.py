@@ -18,7 +18,8 @@ Both kernels run one block per stream.  A CPU tensor takes the plain
 versions: ``iou_mask_reference`` + :func:`nms_walk_reference`, or
 ``pairwise_iou`` + :func:`nms_scan_reference`, the same loops in PyTorch.
 A CUDA tensor never reaches a plain version: it launches the kernels or
-raises.  ``csrc/nms.cu``'s source note says why the walk picks what the
+raises.  Each kernel is a registered operator (``adas_tpu_torch::nms_scan``,
+``adas_tpu_torch::nms_walk``), so an exported graph keeps it as one node.  ``csrc/nms.cu``'s source note says why the walk picks what the
 scan picks.
 
 Semantics kept from the reference (see the docstring of
@@ -40,6 +41,7 @@ import torch
 
 from .boxes import iou_row
 from .cuda_build import load_cuda_library
+from .library import define
 from .iou import iou_mask, iou_matrix, mask_words, unpack_bits
 
 NEG_INF = -1e30
@@ -186,6 +188,9 @@ def _check(per_box, trailing, scores, max_out, method):
         raise ValueError(f"method must be 0 (hard), 1 (linear) or 2 (gaussian), got {method}")
     if max_out <= 0:
         raise ValueError(f"max_out must be positive, got {max_out}")
+    for t in (per_box, scores):
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"nms runs on cuda or cpu, got {t.device}")
 
 
 def _check_walk(mask, scores, max_out, score_threshold):
@@ -198,13 +203,11 @@ def _check_walk(mask, scores, max_out, score_threshold):
                          "use nms_scan")
 
 
-def _takes_kernel(kernel: str, pairwise: torch.Tensor, scores: torch.Tensor) -> bool:
-    """False for CPU operands (the plain version); True for operands the
-    ``kernel`` ("scan": f32 IoU matrix, "walk": int32 mask) takes on one
-    CUDA device; raises on anything else."""
-    if scores.device.type == "cpu" and pairwise.device.type == "cpu":
-        return False
-    if scores.device.type != "cuda" or pairwise.device != scores.device:
+def _check_cuda(kernel: str, pairwise: torch.Tensor, scores: torch.Tensor) -> None:
+    """What the ``kernel`` ("scan": f32 IoU matrix, "walk": int32 mask)
+    takes: contiguous operands on one CUDA device, at most
+    :data:`MAX_CANDIDATES` candidates."""
+    if pairwise.device != scores.device:
         raise ValueError(f"nms_{kernel} runs on one cuda device or the cpu, got "
                          f"{pairwise.device} and {scores.device}")
     operand = ("iou", torch.float32, "f32") if kernel == "scan" else ("mask", torch.int32, "int32")
@@ -216,13 +219,17 @@ def _takes_kernel(kernel: str, pairwise: torch.Tensor, scores: torch.Tensor) -> 
     if scores.shape[1] > MAX_CANDIDATES:
         raise ValueError(f"the {kernel} kernel takes at most {MAX_CANDIDATES} candidates, "
                          f"got {scores.shape[1]}")
-    return True
+
+
+def _picks(scores: torch.Tensor, max_out: int) -> torch.Tensor:
+    return torch.empty((scores.shape[0], max_out), dtype=torch.int64, device=scores.device)
 
 
 def _launch(entry, kernel, pairwise, scores, max_out, *args) -> torch.Tensor:
     global launches
+    _check_cuda(kernel, pairwise, scores)
     bsz, n = scores.shape
-    out = torch.empty((bsz, max_out), dtype=torch.int64, device=scores.device)
+    out = _picks(scores, max_out)
     with torch.cuda.device(scores.device):
         stream = torch.cuda.current_stream(scores.device).cuda_stream
         rc = entry(pairwise.data_ptr(), scores.data_ptr(), out.data_ptr(), bsz, n, max_out,
@@ -231,6 +238,29 @@ def _launch(entry, kernel, pairwise, scores, max_out, *args) -> torch.Tensor:
         raise RuntimeError(f"nms {kernel} kernel launch failed: cudaError_t {rc}")
     launches += 1
     return out
+
+
+def _scan_cuda(iou, scores, iou_threshold, max_out, method, sigma, score_threshold):
+    return _launch(_lib().adas_nms_scan, "scan", iou, scores, max_out, method, iou_threshold,
+                   sigma, score_threshold)
+
+
+def _walk_cuda(mask, scores, max_out, score_threshold):
+    return _launch(_lib().adas_nms_walk, "walk", mask, scores, max_out, score_threshold)
+
+
+# The two kernels as operators (``ops/library.py``); the CPU
+# implementations look the plain versions up at each call, the fake ones
+# give the (B, max_out) picks.
+_SCAN_OP = define(
+    "nms_scan(Tensor iou, Tensor scores, float iou_threshold, int max_out, int method, "
+    "float sigma, float score_threshold) -> Tensor",
+    cpu=lambda *args: nms_scan_reference(*args), cuda=_scan_cuda,
+    fake=lambda iou, scores, iou_threshold, max_out, *_: _picks(scores, max_out))
+_WALK_OP = define(
+    "nms_walk(Tensor mask, Tensor scores, int max_out, float score_threshold) -> Tensor",
+    cpu=lambda *args: nms_walk_reference(*args), cuda=_walk_cuda,
+    fake=lambda mask, scores, max_out, score_threshold: _picks(scores, max_out))
 
 
 def nms_scan(
@@ -246,11 +276,8 @@ def nms_scan(
     for CUDA tensors (contiguous f32, N <= 1024), :func:`nms_scan_reference`
     for CPU tensors."""
     _check(iou, (scores.shape[-1],), scores, max_out, method)
-    if not _takes_kernel("scan", iou, scores):
-        return nms_scan_reference(iou, scores, iou_threshold, max_out, method, sigma,
-                                  score_threshold)
-    return _launch(_lib().adas_nms_scan, "scan", iou, scores, max_out, method, iou_threshold,
-                   sigma, score_threshold)
+    return _SCAN_OP(iou, scores, float(iou_threshold), int(max_out), int(method), float(sigma),
+                    float(score_threshold))
 
 
 def nms_walk(
@@ -262,9 +289,7 @@ def nms_walk(
     tensors.  Picks what :func:`nms_scan` picks with ``method=0`` on the
     matrix the mask was made from."""
     _check_walk(mask, scores, max_out, score_threshold)
-    if not _takes_kernel("walk", mask, scores):
-        return nms_walk_reference(mask, scores, max_out, score_threshold)
-    return _launch(_lib().adas_nms_walk, "walk", mask, scores, max_out, score_threshold)
+    return _WALK_OP(mask, scores, int(max_out), float(score_threshold))
 
 
 def select_loop(

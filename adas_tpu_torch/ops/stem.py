@@ -2,9 +2,9 @@
 
 Port of ``adas_tpu/ops/pallas_stem.py``.  The TPU kernel there
 (``_stem_kernel``, entered through ``fused_stem``) becomes the Hopper
-kernel ``csrc/stem.cu``, built with nvcc for ``sm_90a`` and bound through
-ctypes.  It serves the stems of the ported nets: the YOLOv8/v10 3x3/2 stem
-(SiLU) at the 16/32/48/64/80 features of the n/s/m/l/x scales, and the
+kernel ``csrc/stem.cu``, built with nvcc for ``sm_90a``, bound through
+ctypes and registered as the operator ``adas_tpu_torch::fused_stem``.
+It serves the stems of the ported nets: the YOLOv8/v10 3x3/2 stem (SiLU) at the 16/32/48/64/80 features of the n/s/m/l/x scales, and the
 ResNet 7x7/2 stem at 64 (ReLU, then the max pool, whose full-resolution
 input never reaches device memory).  The kernel's source note says what
 bounds it on the card and what its design does about it.
@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from .cuda_build import load_cuda_library, num_sms
+from .library import define
 
 #: launches of the CUDA kernel since the last :func:`reset_launches`; the
 #: plain CPU path does not count
@@ -153,6 +154,41 @@ def _entry():
     return fn
 
 
+def _out(x: torch.Tensor, weight: torch.Tensor, pool: bool) -> torch.Tensor:
+    n, _, h, w = x.shape
+    return torch.empty((n, weight.shape[0], *stem_out_hw(h, w, pool)), dtype=x.dtype,
+                       device=x.device)
+
+
+def _stem_cuda(x, weight, gain, bias, act, pool):
+    """The operator's CUDA implementation: the kernel's launch."""
+    global launches
+    _check_cuda(x, weight, gain, bias, pool)
+    n, _, h, w = x.shape
+    out = _out(x, weight, pool)
+    entry = _entry()
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = entry(
+            x.data_ptr(), weight.data_ptr(), gain.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), n, h, w, weight.shape[-1], int(pool), weight.shape[0],
+            _ACT_CODES[act], _DTYPE_CODES[x.dtype], num_sms(index), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"stem kernel launch failed: cudaError_t {rc}")
+    launches += 1
+    return out
+
+
+_OP = define(
+    "fused_stem(Tensor x, Tensor weight, Tensor gain, Tensor bias, str? act, bool pool) -> Tensor",
+    cpu=lambda x, weight, gain, bias, act, pool: stem_reference(x, weight, gain, bias, act=act,
+                                                                pool=pool),
+    cuda=_stem_cuda,
+    fake=lambda x, weight, gain, bias, act, pool: _out(x, weight, pool))
+
+
 def fused_stem(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -164,27 +200,7 @@ def fused_stem(
 ) -> torch.Tensor:
     """``act(conv_s2(x) * gain + bias)`` (+ max pool) — the CUDA kernel for
     a CUDA ``x``, :func:`stem_reference` for a CPU ``x``."""
-    global launches
     _check(x, weight, gain, bias, act)
-    if x.device.type == "cpu":
-        return stem_reference(x, weight, gain, bias, act=act, pool=pool)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stem runs on cuda or cpu, got {x.device}")
-    _check_cuda(x, weight, gain, bias, pool)
-    n, _, h, w = x.shape
-    feat = weight.shape[0]
-    ho, wo = stem_out_hw(h, w, pool)
-    out = torch.empty((n, feat, ho, wo), dtype=x.dtype, device=x.device)
-    entry = _entry()
-    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = entry(
-            x.data_ptr(), weight.data_ptr(), gain.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), n, h, w, weight.shape[-1], int(pool), feat,
-            _ACT_CODES[act], _DTYPE_CODES[x.dtype], num_sms(index), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"stem kernel launch failed: cudaError_t {rc}")
-    launches += 1
-    return out
+    return _OP(x, weight, gain, bias, act, bool(pool))

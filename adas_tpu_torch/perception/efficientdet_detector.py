@@ -11,9 +11,12 @@ unless the caller names the CPU.  ``compute_dtype`` is None (f32) or ``"int8"``
 (``efficientdet_detector.py:40-42``): the int8 graph of
 ``models/efficientdet.py``, its W8A8 kernels packed at load and static
 activation scales from :meth:`EfficientdetDetector.calibrate_int8`
-(``:116-160``).  An ``.onnx`` model_path, which JAX executes with its
-ONNX graph engine, raises ``NotImplementedError`` (ROADMAP item 4).
-:meth:`DetectFrame` is the single-frame entry point: letterbox ->
+(``:116-160``).  An ``.onnx`` model_path is the reference's
+postprocessed export (boxes, class ids, scores): it runs on the ONNX graph
+engine (``engine/onnx_engine.OnnxGraphEngine``, ``:55-58``), as does an
+injected ``engine``: letterbox, BGR ImageNet normalization, the graph,
+the letterbox inverse and the score filter (``:210-247``).
+:meth:`DetectFrame` is the single-frame entry point of the native net: letterbox ->
 :func:`imagenet_preprocess` -> net (anchors decoded inside) -> class
 max/argmax -> ``select_and_nms`` (on the GPU: the IoU and scan kernels)
 -> letterbox inverse -> ``RectInfo`` rows.  The multi-stream pipeline
@@ -24,12 +27,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.types import ObjectModelType
+from ..utils.types import ObjectModelType, RectInfo
 
+from ..engine.torch_engine import to_numpy
 from ..models.efficientdet import EfficientDet, EfficientDetSpec
-from ..ops.preprocess import LetterboxGeometry, imagenet_preprocess
+from ..ops.preprocess import LetterboxGeometry, imagenet_preprocess, letterbox
 from ..ops.yolo_decode import detections_to_original, select_and_nms
-from .object_detector import (ObjectDetectBase, build_net, calibrate, engine_not_ported,
+from .object_detector import (ObjectDetectBase, build_net, calibrate, check_engine, open_engine,
                               resolve_device)
 
 #: the options of :class:`EfficientdetDetector` and their defaults
@@ -48,6 +52,12 @@ EFFDET_OPTIONS = {
 }
 
 
+#: the ImageNet statistics in BGR order, for the BGR-trained zylo117 export
+#: (``efficientdet_detector.py:222-226``)
+BGR_MEAN = (0.406, 0.456, 0.485)
+BGR_STD = (0.225, 0.224, 0.229)
+
+
 def scores_and_ids(probs: torch.Tensor):
     """(B, N, C) class probabilities -> per-anchor (max score, first class
     attaining it), as ``jnp.max`` / ``jnp.argmax``."""
@@ -61,7 +71,7 @@ class EfficientdetDetector(ObjectDetectBase):
 
     _defaults = EFFDET_OPTIONS
 
-    def __init__(self, logger=None, device="cuda", seed: int = 0, **kwargs):
+    def __init__(self, logger=None, engine=None, device="cuda", seed: int = 0, **kwargs):
         super().__init__(EFFDET_OPTIONS, kwargs, logger)
         if self.model_type is not ObjectModelType.EfficientDet:
             raise ValueError(f"EfficientdetDetector can't use {self.model_type} type.")
@@ -70,8 +80,14 @@ class EfficientdetDetector(ObjectDetectBase):
                              f"{self.compute_dtype!r}")
         self.device = resolve_device(device)
         self._initialize_class(self.classes_path)
-        if str(self.model_path).endswith(".onnx"):
-            raise engine_not_ported(f"{self.model_path} (EfficientDet's ONNX export)")
+        check_engine(engine)
+        if engine is None and str(self.model_path).endswith(".onnx"):
+            engine = open_engine(self.model_path, self.device, onnx_graph=True)
+        self.engine = engine
+        if engine is not None:
+            self.set_input_details(engine)
+            self.set_output_details(engine)
+            return
         num_classes, importers = len(self.class_names), {}
         if str(self.model_path).endswith((".pth", ".pt")):
             from ..tools.efficientdet_import import efficientdet_variables
@@ -97,6 +113,8 @@ class EfficientdetDetector(ObjectDetectBase):
         normalized by :func:`imagenet_preprocess`, as the JAX facade does."""
         if self.compute_dtype != "int8":
             raise ValueError("calibrate_int8 requires compute_dtype='int8'")
+        if self.engine is not None:
+            raise ValueError("calibration needs the native-graph path")
         s = self.spec.input_size
         calibrate(self.net, (
             imagenet_preprocess(f, LetterboxGeometry(f.shape[0], f.shape[1], s, s),
@@ -120,4 +138,36 @@ class EfficientdetDetector(ObjectDetectBase):
 
     def DetectFrame(self, srcimg: np.ndarray) -> None:
         """Detect on one BGR frame; the result is :attr:`object_info`."""
+        if self.engine is not None:
+            self._detect_via_engine(srcimg)
+            return
         self._object_info = self._dets_to_rectinfo(self.detect(srcimg)[0].cpu().numpy())
+
+    @torch.inference_mode()
+    def _detect_via_engine(self, srcimg: np.ndarray) -> None:
+        """The postprocessed export (``efficientdet_detector.py:210-247``):
+        letterbox, ImageNet-normalize in BGR order (zylo117's models are
+        BGR-trained), run the graph, map its already-selected boxes back to
+        the source (on the host, in f64) and keep those at or above
+        ``box_score``."""
+        h, w = self.input_shapes[-2:]
+        geom = LetterboxGeometry(srcimg.shape[0], srcimg.shape[1], h, w)
+        img = letterbox(torch.from_numpy(np.ascontiguousarray(srcimg))[None].to(self.device),
+                        geom)
+        mean = torch.tensor(BGR_MEAN, dtype=torch.float32, device=self.device) * 255.0
+        std = torch.tensor(BGR_STD, dtype=torch.float32, device=self.device) * 255.0
+        x = ((img - mean) / std).permute(0, 3, 1, 2)
+        boxes, ids, confs = (to_numpy(o) for o in self.engine.device_inference(x)[:3])
+        boxes = boxes.reshape(-1, 4).astype(np.float64)
+        ratioh, ratiow = geom.scale_ratio
+        padh, padw = geom.pad
+        boxes[:, [0, 2]] = (boxes[:, [0, 2]] - padw) * ratiow
+        boxes[:, [1, 3]] = (boxes[:, [1, 3]] - padh) * ratioh
+        results = []
+        for (x1, y1, x2, y2), cid, conf in zip(boxes, ids.reshape(-1).astype(int),
+                                               confs.reshape(-1)):
+            if conf < float(self.box_score):
+                continue
+            label = self.class_names[cid] if 0 <= cid < len(self.class_names) else "unknown"
+            results.append(RectInfo(x1, y1, x2 - x1, y2 - y1, conf=float(conf), label=label))
+        self._object_info = results

@@ -15,8 +15,13 @@ The drawing (``DrawDetectedOnFrame``, ``DrawAreaOnFrame``,
 and bf16 (:class:`UltrafastLaneDetector`: preprocess -> net ->
 ``ufld_v1_decode`` on the device, one fetch of the grid locations, the
 reference's point math on the host) and int8, which JAX serves
-uncalibrated (dynamic scales, ``lane_detector.py:379-388``).  Not ported:
-the ONNX and ``.adas`` engines (``ROADMAP.md`` §1).  The JAX
+uncalibrated (dynamic scales, ``lane_detector.py:379-388``).  As in JAX,
+a ``.adas`` model_path serves through ``engine/artifact.CompiledEngine``
+(a fused one: one upload, one program, one fetch), an ``.onnx`` whose
+initializers do not map through ``engine/onnx_engine.OnnxGraphEngine``,
+and ``engine=`` injects any ``EngineBase`` (preprocess, engine, then the
+decode on the device); ``export_fused`` writes the fused step as a
+``.adas`` file (``lane_detector.py:237-300``, ``:428-460``).  The JAX
 ``UltrafastLaneDetectorV2`` refuses ``UFLDV2_CURVELANES``
 (``lane_detector.py:125-128``); the port builds it from its spec row.
 """
@@ -36,7 +41,8 @@ from ..models.ufld import UFLDV1_SPECS, UFLDV2_SPECS, UFLDv1Net, UFLDv2Net
 from ..ops.packing import pack, unpack
 from ..ops.preprocess import frame_to_device, ufld_v1_preprocess, ufld_v2_preprocess
 from ..ops.ufld_decode import ufld_v1_decode, ufld_v2_decode
-from .object_detector import build_net, calibrate, engine_not_ported, resolve_device
+from .object_detector import (build_net_or_graph, calibrate, check_engine, open_engine,
+                              resolve_device)
 
 
 class LaneDetectBase:
@@ -98,12 +104,14 @@ class LaneDetectBase:
         return image
 
     def _init_net(self, model_path, model_type, specs, compute_dtype, device, seed, make,
-                  backbone=None, version=2) -> None:
+                  engine=None, backbone=None, version=2, n_outputs=4) -> None:
         """The facades' construction: ``model_path`` and ``model_type`` over
         the class's ``_defaults``, the type checked against ``specs``, the
-        type's spec on a ``backbone`` trunk where one is given, and
-        ``make(spec)`` built on ``device`` (``object_detector.build_net``)
-        with UFLD ``version``'s importers."""
+        type's spec on a ``backbone`` trunk where one is given, then the
+        engine (``engine``, a ``.adas`` file, or an ``.onnx`` whose
+        initializers do not map; a net's engine must give ``n_outputs``
+        tensors) or ``make(spec)`` built on ``device``
+        (``object_detector.build_net``) with UFLD ``version``'s importers."""
         if model_path is not None:
             self.model_path = model_path
         if model_type is not None:
@@ -118,12 +126,22 @@ class LaneDetectBase:
         self.spec = specs[self.model_type]
         if backbone is not None:
             self.spec = dataclasses.replace(self.spec, backbone=str(backbone))
-        if str(self.model_path).endswith(".adas"):
-            raise engine_not_ported(f"{self.model_path} (a compiled artifact)")
-        # JAX executes an .onnx graph whose names do not map (lane_detector.py:162-173)
-        self.net = build_net(lambda: make(self.spec), self.device, compute_dtype,
-                             self.model_path, seed, importers=self._importers(version),
-                             onnx_fallback=True)
+        check_engine(engine)
+        if engine is None:
+            engine = open_engine(self.model_path, self.device, onnx_graph=False)
+        if engine is None:
+            # JAX executes an .onnx graph whose names do not map (lane_detector.py:162-173)
+            self.net, engine = build_net_or_graph(
+                lambda: make(self.spec), self.device, compute_dtype, self.model_path, seed,
+                importers=self._importers(version), onnx_fallback=True, logger=self.logger)
+        self.engine = engine
+        if engine is not None and not getattr(engine, "fused", False):
+            outs, _ = engine.get_engine_output_shape()
+            if len(outs) != n_outputs:
+                raise ValueError(
+                    "UFLDv2 engine must emit 4 tensors (loc_row/loc_col/exist_row/exist_col), "
+                    f"got {len(outs)}" if version == 2 else
+                    f"UFLD v1 engine must emit 1 tensor, got {len(outs)}")
 
     def _importers(self, version: int):
         """``.pth``/``.pt`` and ``.onnx`` through ``ufld_variables``
@@ -157,15 +175,17 @@ class UltrafastLaneDetectorV2(LaneDetectBase):
         self,
         model_path: Optional[str] = None,
         model_type: Optional[LaneModelType] = None,
-        compute_dtype: Optional[str] = None,
         logger=None,
+        compute_dtype: Optional[str] = None,
+        engine=None,
         device="cuda",
         seed: int = 0,
         backbone: Optional[str] = None,
     ):
         super().__init__(logger)
         self._init_net(model_path, model_type, UFLDV2_SPECS, compute_dtype, device, seed,
-                       lambda spec: UFLDv2Net(spec, int8=compute_dtype == "int8"), backbone)
+                       lambda spec: UFLDv2Net(spec, int8=compute_dtype == "int8"), engine,
+                       backbone)
         if self.logger:
             self.logger.info(
                 f"UfldDetectorV2 [{self.model_type.name}] input "
@@ -178,6 +198,8 @@ class UltrafastLaneDetectorV2(LaneDetectBase):
         :func:`ufld_v2_preprocess` in f32 (the JAX int8 net's dtype)."""
         if self.compute_dtype != "int8":
             raise ValueError("calibrate_int8 requires compute_dtype='int8'")
+        if self.engine is not None:
+            raise ValueError("calibration needs the native-graph path")
         s = self.spec
         calibrate(self.net, (
             ufld_v2_preprocess(f, s.input_height, s.input_width, s.crop_ratio, device=self.device)
@@ -198,15 +220,59 @@ class UltrafastLaneDetectorV2(LaneDetectBase):
         outputs = {k: v.float() for k, v in self.net(x).items()}
         return pack(ufld_v2_decode(outputs))
 
+    def export_fused(self, out_path: str, frame_hw, platforms=None) -> dict:
+        """Write the fused step (uint8 frame -> the decoded lanes packed in
+        one vector) as a ``.adas`` file (``lane_detector.py:237``), with
+        the pack layout in its metadata; ``frame_hw`` one (h, w) or a list
+        of them.  Returns the metadata written."""
+        from ..engine.artifact import build_fused_artifact_multi, pack_spec_meta
+        from ..utils.misc import _norm_frame_hws
+
+        if self.engine is not None:
+            raise ValueError("export_fused needs the native-graph path")
+        hws = _norm_frame_hws(frame_hw)
+        frame = torch.zeros((*hws[0], 3), dtype=torch.uint8, device=self.device)
+        structure, shapes = self._step(frame)[1]
+        # JAX packs the batch-1 decode: each leaf (1, R, L) or (1, C, L)
+        spec = (structure, [((1, *shape), dtype) for shape, dtype in shapes])
+        return build_fused_artifact_multi(
+            lambda hw: lambda x: self._step(x)[0][0], hws, out_path,
+            platforms=[self.device.type] if platforms is None else platforms,
+            device=self.device,
+            meta={"kind": "ufldv2", "model": self.model_type.name, **pack_spec_meta(spec)},
+        )
+
     def DetectFrame(self, image: np.ndarray, adjust_lanes: bool = False) -> None:
         """Detect lanes on one BGR uint8 frame; the result is
         :attr:`lane_info` (``lane_detector.py:269``)."""
         h, w = image.shape[:2]
-        flat, spec = self._step(frame_to_device(image, self.device))
-        decoded = unpack(flat.cpu().numpy()[0], spec)
+        if self.engine is not None and getattr(self.engine, "fused", False):
+            from ..engine.artifact import check_fused_frame, unpack_from_meta
+
+            flat = self.engine.run_device(check_fused_frame(self.engine, image))
+            decoded = {k: v[0] for k, v in unpack_from_meta(
+                flat.cpu().numpy(), self.engine.meta["pack"]).items()}
+        elif self.engine is not None:
+            decoded = self._detect_via_engine(image)
+        else:
+            flat, spec = self._step(frame_to_device(image, self.device))
+            decoded = unpack(flat.cpu().numpy()[0], spec)
         self.adjust_lanes = adjust_lanes
         self._assemble(decoded, w, h)
         self._finalize(h)
+
+    @torch.inference_mode()
+    def _detect_via_engine(self, image: np.ndarray) -> dict:
+        """An engine's net (``lane_detector.py:287``): the preprocess on the
+        device, the engine on the NCHW blob, the decode on the device."""
+        s = self.spec
+        x = ufld_v2_preprocess(image, s.input_height, s.input_width, s.crop_ratio,
+                               device=self.device)
+        outs = self.engine.device_inference(x)
+        names = ("loc_row", "loc_col", "exist_row", "exist_col")
+        decoded = ufld_v2_decode({k: v.to(self.device, torch.float32)
+                                  for k, v in zip(names, outs)})
+        return {k: v[0].cpu().numpy() for k, v in decoded.items()}
 
     def _assemble(self, decoded: dict, img_w: int, img_h: int) -> None:
         """Host-side point-list assembly for one frame (``decoded`` leaves
@@ -258,14 +324,16 @@ class UltrafastLaneDetector(LaneDetectBase):
         self,
         model_path: Optional[str] = None,
         model_type: Optional[LaneModelType] = None,
-        compute_dtype: Optional[str] = None,
         logger=None,
+        compute_dtype: Optional[str] = None,
+        engine=None,
         device="cuda",
         seed: int = 0,
     ):
         super().__init__(logger)
         self._init_net(model_path, model_type, UFLDV1_SPECS, compute_dtype, device, seed,
-                       lambda spec: UFLDv1Net(spec, int8=compute_dtype == "int8"), version=1)
+                       lambda spec: UFLDv1Net(spec, int8=compute_dtype == "int8"), engine,
+                       version=1, n_outputs=1)
         if self.logger:
             self.logger.info(
                 f"UfldDetector [{self.model_type.name}] input "
@@ -282,11 +350,36 @@ class UltrafastLaneDetector(LaneDetectBase):
                                device=self.device)
         return ufld_v1_decode(self.net(x).float())
 
+    def export_fused(self, out_path: str, frame_hw, platforms=None) -> dict:
+        """Write the fused v1 step (uint8 frame -> the decoded (1, rows,
+        lanes) grid) as a ``.adas`` file (``lane_detector.py:428``)."""
+        from ..engine.artifact import build_fused_artifact_multi
+        from ..utils.misc import _norm_frame_hws
+
+        if self.engine is not None:
+            raise ValueError("export_fused needs the native-graph path")
+        return build_fused_artifact_multi(
+            lambda hw: self._step, _norm_frame_hws(frame_hw), out_path,
+            platforms=[self.device.type] if platforms is None else platforms,
+            device=self.device,
+            meta={"kind": "ufldv1", "model": self.model_type.name},
+        )
+
     def DetectFrame(self, image: np.ndarray, adjust_lanes: bool = False) -> None:
         """Detect lanes on one BGR uint8 frame; the result is
         :attr:`lane_info` (``lane_detector.py:453``)."""
         h, w = image.shape[:2]
-        loc = self._step(frame_to_device(image, self.device)).cpu().numpy()[0]
+        if self.engine is not None and getattr(self.engine, "fused", False):
+            from ..engine.artifact import check_fused_frame
+
+            loc = self.engine.run_device(check_fused_frame(self.engine, image)).cpu().numpy()[0]
+        elif self.engine is not None:
+            s = self.spec
+            x = ufld_v1_preprocess(image, s.input_height, s.input_width, device=self.device)
+            logits = self.engine.device_inference(x)[0]
+            loc = ufld_v1_decode(logits.to(self.device, torch.float32)).cpu().numpy()[0]
+        else:
+            loc = self._step(frame_to_device(image, self.device)).cpu().numpy()[0]
         self.adjust_lanes = adjust_lanes
         self._assemble(loc, w, h)
         self._finalize(h)

@@ -10,9 +10,11 @@ dispatch (``object_detector.py:303-335``), from an ``_int8.npz`` store
 package's portable checkpoint), a torch ``.pth``/``.pt`` checkpoint or
 the initializers of an ``.onnx`` export (``tools/yolo_import``), or,
 with no ``model_path``, from the port's seeded flax-style init.  Where
-JAX runs a graph executor instead (``onnx_mode="graph"``, ``"auto"`` with
-initializers that do not map, a ``.adas`` artifact), the port raises
-``NotImplementedError``: those engines come with ROADMAP item 4.  ``compute_dtype``
+JAX hands the model to an executor, so does the port: a ``.adas`` file
+serves through ``engine/artifact.CompiledEngine``, an ``.onnx`` graph
+through ``engine/onnx_engine.OnnxGraphEngine`` (``onnx_mode="graph"``, or
+``"auto"`` with initializers that do not map), and ``engine=`` injects
+any ``EngineBase`` (``object_detector.py:194-247``).  ``compute_dtype``
 is None (f32), ``"bf16"`` (every floating leaf cast, as
 ``adas_tpu/tools/quantize.py:32-44`` does) or ``"int8"``: the int8 net,
 f32 params, its int8 kernels packed at load (``_pack_int8``,
@@ -28,8 +30,12 @@ facades): JAX's, the default family YOLOv5 included.
 step per source frame shape (letterbox -> net -> decode -> NMS, on the
 GPU the IoU and walk kernels -> letterbox inverse; with ``nms_free`` a
 YOLOv10's one-to-one head and its top-k instead of decode and NMS) and one
-fetch of the (max_det, 6) rows.  The fused steps call
-:meth:`YoloDetector.detections` on their preprocessed batch and turn the
+fetch of the (max_det, 6) rows; a fused ``.adas`` engine is one upload, one
+program and one fetch; any other engine runs the preprocess, the engine,
+then the decode and ``select_and_nms`` on the device
+(``object_detector.py:455-493``).  :meth:`YoloDetector.export_fused`
+writes the fused step of one or several source shapes as a ``.adas``
+file.  The fused steps call :meth:`YoloDetector.detections` on their preprocessed batch and turn the
 rows into ``RectInfo`` through :meth:`YoloDetector._dets_to_rectinfo`.
 """
 from __future__ import annotations
@@ -86,15 +92,6 @@ def input_torch_dtype(compute_dtype: Optional[str]) -> torch.dtype:
     return torch.float32 if compute_dtype is None else torch.bfloat16
 
 
-def engine_not_ported(what: str) -> NotImplementedError:
-    """The error where the JAX package hands a model to its graph executor
-    or its compiled artifacts, which the port has not yet."""
-    return NotImplementedError(
-        f"{what}: the JAX package executes this through its ONNX graph engine or a .adas "
-        "artifact, which the port has not yet (ROADMAP item 4)"
-    )
-
-
 def read_weights(model_path, importers: Dict[tuple, Callable[[str], dict]]) -> Dict[str, np.ndarray]:
     """The flat flax dict of ``model_path`` by JAX's suffix dispatch: an
     ``_int8.npz`` store dequantized (``tools/quantize.load_int8``), a
@@ -114,32 +111,63 @@ def read_weights(model_path, importers: Dict[tuple, Callable[[str], dict]]) -> D
     raise ValueError(f"Unsupported weights: {model_path} (expect .npz/.pth/.onnx or None)")
 
 
+def check_engine(engine) -> None:
+    """An injected ``engine`` must be an ``engine.base.EngineBase``."""
+    from ..engine.base import EngineBase
+
+    if engine is not None and not isinstance(engine, EngineBase):
+        raise TypeError(f"engine must be an EngineBase, got {type(engine).__name__}")
+
+
+def open_engine(model_path, device: torch.device, onnx_graph: bool):
+    """The engine JAX's suffix dispatch picks before any native build
+    (``object_detector.py:203-211``): a ``.adas`` file's
+    ``CompiledEngine``, an ``.onnx`` graph's ``OnnxGraphEngine`` where
+    ``onnx_graph``; else None."""
+    path = str(model_path)
+    if path.endswith(".adas"):
+        from ..engine.artifact import CompiledEngine
+
+        return CompiledEngine(path, device=device)
+    if path.endswith(".onnx") and onnx_graph:
+        from ..engine.onnx_engine import OnnxGraphEngine
+
+        return OnnxGraphEngine(path, device=device)
+    return None
+
+
+def build_net_or_graph(make, device: torch.device, compute_dtype: Optional[str], model_path,
+                       seed: int, fuse=None, importers=None, onnx_fallback=False, logger=None):
+    """(:func:`build_net`, None), or with ``onnx_fallback`` for an ``.onnx``
+    whose initializers do not map onto the native graph (None, its
+    ``OnnxGraphEngine``), as JAX falls back (``object_detector.py:226-241``)."""
+    try:
+        return build_net(make, device, compute_dtype, model_path, seed, fuse, importers), None
+    except (KeyError, NotImplementedError) as err:
+        if not (onnx_fallback and str(model_path).endswith(".onnx")):
+            raise
+        if logger:
+            logger.war(f"native weight ingest failed ({err}); executing the ONNX graph instead")
+        return None, open_engine(model_path, device, onnx_graph=True)
+
+
 def build_net(make, device: torch.device, compute_dtype: Optional[str], model_path, seed: int,
-              fuse=None, importers=None, onnx_fallback=False):
+              fuse=None, importers=None):
     """Construct ``make()`` on ``device``, fill it from ``model_path``
     (:func:`read_weights`: a flax tree, possibly calibrated and packed) or
     the seeded init, apply ``fuse`` (YOLOv6's RepVGG deploy form; a tree
     already fused, with ``::fused::`` leaves, is loaded into the fused
     structure), cast to the params' dtype, pack the int8 kernels of an int8
-    net, freeze.  With ``onnx_fallback`` (where JAX would execute an
-    ``.onnx`` graph whose initializers do not map) such an ``.onnx`` raises
-    :func:`engine_not_ported`."""
+    net, freeze."""
     with device:
         net = make()
     if model_path is None:
         init_params(net, seed)
     else:
-        try:
-            flat = read_weights(model_path, importers or {})
-            if fuse is not None and any("::fused::" in k for k in flat):
-                fuse(net)
-            load_flax_variables(net, flat)
-        except (KeyError, NotImplementedError) as err:
-            if not (onnx_fallback and str(model_path).endswith(".onnx")):
-                raise
-            raise engine_not_ported(
-                f"the initializers of {model_path} do not map onto the native graph ({err})"
-            ) from err
+        flat = read_weights(model_path, importers or {})
+        if fuse is not None and any("::fused::" in k for k in flat):
+            fuse(net)
+        load_flax_variables(net, flat)
     if fuse is not None:
         fuse(net)
     net = net.to(compute_torch_dtype(compute_dtype)).eval().requires_grad_(False)
@@ -195,6 +223,23 @@ class ObjectDetectBase:
             raise TypeError(f"{type(self).__name__} does not take {unknown}")
         self.__dict__.update(config)
         self.logger = logger
+
+    def set_input_details(self, engine) -> None:
+        """Record an engine's input shape (NCHW), channel count and dtype
+        (``object_detector.py:75``)."""
+        self.input_shapes = tuple(engine.get_engine_input_shape())
+        self.input_types = engine.engine_dtype
+        self.channel_count = self.input_shapes[1]
+        if self.logger:
+            self.logger.info(f"-> Input Shape : {self.input_shapes}")
+
+    def set_output_details(self, engine) -> None:
+        """Record an engine's output shapes and names
+        (``object_detector.py:86``)."""
+        self.output_shapes, self.output_names = engine.get_engine_output_shape()
+        if self.logger:
+            self.logger.info(f"-> Output Shape : {self.output_shapes} Names : "
+                             f"{self.output_names}")
 
     def _initialize_class(self, classes_path: Optional[str]) -> None:
         classes_path = os.path.expanduser(classes_path or DEFAULT_CLASSES)
@@ -275,9 +320,9 @@ YOLO_OPTIONS = {
     "compute_dtype": None,
     # v10 only: serve the one-to-one head (top-k, no NMS)
     "nms_free": False,
-    # .onnx: "ingest" maps the initializers onto the native graph; JAX's
-    # "auto" falls back to its ONNX graph engine where they do not map and
-    # "graph" always runs it: the port raises there (ROADMAP item 4)
+    # .onnx: "ingest" maps the initializers onto the native graph, "auto"
+    # falls back to the ONNX graph engine where they do not map, "graph"
+    # always runs the graph
     "onnx_mode": "auto",
 }
 
@@ -298,12 +343,14 @@ class YoloDetector(ObjectDetectBase):
     :data:`YOLO_OPTIONS`, on ``device`` from the seeded init (``seed``)
     unless ``model_path`` names weights (:func:`read_weights`, with
     ``tools/yolo_import.yolo_variables`` for ``.pth``/``.pt`` and
-    ``.onnx``).  ``nms_free`` on a model that is not YOLOv10 raises here
-    (JAX raises at the first step)."""
+    ``.onnx``) or an engine's file (:func:`open_engine`); ``engine`` (an
+    ``EngineBase``) replaces the native net, the decode staying on the
+    device.  ``nms_free`` on a model that is not YOLOv10 raises here (JAX
+    raises at the first step)."""
 
     _defaults = YOLO_OPTIONS
 
-    def __init__(self, logger=None, device="cuda", seed: int = 0, **kwargs):
+    def __init__(self, logger=None, engine=None, device="cuda", seed: int = 0, **kwargs):
         super().__init__(YOLO_OPTIONS, kwargs, logger)
         family = _FAMILY_OF.get(self.model_type)
         if family is None:
@@ -317,18 +364,24 @@ class YoloDetector(ObjectDetectBase):
             scale=self.scale, num_classes=len(self.class_names),
             input_size=tuple(self.input_size), family=family,
         ))
-        if str(self.model_path).endswith(".adas"):
-            raise engine_not_ported(f"{self.model_path} (a compiled artifact)")
-        if str(self.model_path).endswith(".onnx") and self.onnx_mode == "graph":
-            raise engine_not_ported(f"{self.model_path} with onnx_mode='graph'")
-        cd = self.compute_dtype
-        # onnx_mode="auto": JAX executes the graph where the names do not
-        # map (object_detector.py:226-241)
-        self.net = build_net(
-            lambda: build_yolo(self.spec, int8=cd == "int8"), self.device, cd, self.model_path,
-            seed, fuse=fuse_repvgg if family == "v6" else None, importers=self._importers(),
-            onnx_fallback=self.onnx_mode == "auto",
-        )
+        check_engine(engine)
+        if engine is None:
+            engine = open_engine(self.model_path, self.device, self.onnx_mode == "graph")
+        if engine is None:
+            cd = self.compute_dtype
+            self.net, engine = build_net_or_graph(
+                lambda: build_yolo(self.spec, int8=cd == "int8"), self.device, cd,
+                self.model_path, seed, fuse=fuse_repvgg if family == "v6" else None,
+                importers=self._importers(), onnx_fallback=self.onnx_mode == "auto",
+                logger=self.logger,
+            )
+        self.engine = engine
+        if engine is not None:
+            self.set_input_details(engine)
+            self.set_output_details(engine)
+            h, w = engine.get_engine_input_shape()[2:]
+            self.spec = YoloSpec(scale=self.spec.scale, num_classes=self.spec.num_classes,
+                                 input_size=(int(h), int(w)), family=family)
         self._steps = {}
         if self.logger:
             self.logger.info(
@@ -352,6 +405,8 @@ class YoloDetector(ObjectDetectBase):
         :func:`yolo_preprocess` in f32, as the JAX facade does."""
         if self.compute_dtype != "int8":
             raise ValueError("calibrate_int8 requires compute_dtype='int8'")
+        if self.engine is not None:
+            raise ValueError("calibration needs the native-graph path")
         h, w = self.spec.input_size
         calibrate(self.net, (
             yolo_preprocess(f, LetterboxGeometry(f.shape[0], f.shape[1], h, w), device=self.device)
@@ -392,11 +447,63 @@ class YoloDetector(ObjectDetectBase):
 
         return step
 
+    def export_fused(self, out_path: str, frame_hw, platforms=None) -> dict:
+        """Write the fused step (uint8 frame -> (max_det, 6) detections in
+        source coordinates) as a ``.adas`` file (``object_detector.py:420``):
+        one upload, one program and one fetch a frame.  ``frame_hw`` is one
+        (h, w) or a list of them (one program per source shape, picked by
+        the frame's shape at run time); ``platforms`` is this facade's
+        device type (the default).  Returns the metadata written."""
+        from ..engine.artifact import build_fused_artifact_multi
+        from ..utils.misc import _norm_frame_hws
+
+        if self.engine is not None:
+            raise ValueError("export_fused needs the native-graph path")
+        return build_fused_artifact_multi(
+            self._build_step, _norm_frame_hws(frame_hw), out_path,
+            platforms=[self.device.type] if platforms is None else platforms,
+            device=self.device,
+            meta={
+                "kind": "yolo",
+                "model": self.model_type.name,
+                "scale": self.spec.scale,
+                "net_input_size": list(self.spec.input_size),
+            },
+        )
+
     def DetectFrame(self, srcimg: np.ndarray) -> None:
         """Detect on one BGR uint8 frame; the result is :attr:`object_info`
         (``object_detector.py:455``)."""
+        if self.engine is not None:
+            if getattr(self.engine, "fused", False):
+                from ..engine.artifact import check_fused_frame
+
+                dets = self.engine.run_device(check_fused_frame(self.engine, srcimg))
+                self._object_info = self._dets_to_rectinfo(dets.cpu().numpy())
+            else:
+                self._detect_via_engine(srcimg)
+            return
         src_shape = srcimg.shape[:2]
         if src_shape not in self._steps:
             self._steps[src_shape] = self._build_step(src_shape)
         dets = self._steps[src_shape](frame_to_device(srcimg, self.device))
         self._object_info = self._dets_to_rectinfo(dets.cpu().numpy())
+
+    @torch.inference_mode()
+    def _detect_via_engine(self, srcimg: np.ndarray) -> None:
+        """An engine's net (``object_detector.py:474-493``): the letterbox
+        on the device, the engine on the NCHW blob, then the decode and
+        ``select_and_nms`` on the device (on the GPU the IoU and walk
+        kernels) and the letterbox inverse."""
+        h, w = self.spec.input_size
+        geom = LetterboxGeometry(srcimg.shape[0], srcimg.shape[1], h, w)
+        x = yolo_preprocess(srcimg, geom, device=self.device)
+        raw = self.engine.device_inference(x)[0].to(self.device, torch.float32)
+        if raw.dim() == 2:
+            raw = raw[None]
+        boxes, scores, ids = decode_predictions(
+            raw[:1], self.model_type, self.spec.num_classes, self.spec.input_size)
+        dets = select_and_nms(boxes, scores, ids, box_score=float(self.box_score),
+                              iou_threshold=float(self.box_nms_iou), max_det=int(self.max_det))
+        self._object_info = self._dets_to_rectinfo(
+            detections_to_original(dets, geom)[0].cpu().numpy())

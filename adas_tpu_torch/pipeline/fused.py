@@ -62,7 +62,7 @@ def fused_step(yolo, lane, x: torch.Tensor, frame_hw: Sequence[int], transport: 
     """One device step over a batch of frames: ``x`` is (B, H*3/2, W) uint8
     I420 (``transport="i420"``) or (B, H, W, 3) uint8 BGR (``"bgr"``) on
     the device -> ((B, total) f32 packed detections + decoded lanes, pack
-    spec) (``fused.py:141-227``, ``multistream.py:248-362``).  The YOLO
+    spec; per stream the (max_det, 6) rows and the lanes (1, R, L)) (``fused.py:141-227``, ``multistream.py:248-362``).  The YOLO
     detections come from ``yolo.detections``: decode + NMS, or with
     ``nms_free`` (a YOLOv10's) the one-to-one head's top-k
     (``multistream.py:311-316``).
@@ -112,7 +112,9 @@ def fused_step(yolo, lane, x: torch.Tensor, frame_hw: Sequence[int], transport: 
         dets = yolo.detections(xo, nms_free)
     dets = detections_to_original(dets, geom)
     louts = {k: v.float() for k, v in lane.net(lx).items()}
-    return pack((dets, ufld_v2_decode(louts)))
+    # each stream's lanes as (1, R, L), as JAX's per-frame step packs them
+    lanes = {k: v[:, None] for k, v in ufld_v2_decode(louts).items()}
+    return pack((dets, lanes))
 
 
 class FusedADASStep:
@@ -165,7 +167,7 @@ class FusedADASStep:
             dets[:, [0, 2]] *= w / src_shape[1]
             dets[:, [1, 3]] *= h / src_shape[0]
         self.yolo._object_info = self.yolo._dets_to_rectinfo(dets)
-        self.lane._assemble(decoded, w, h)
+        self.lane._assemble({k: v[0] for k, v in decoded.items()}, w, h)
         self.lane._finalize(h)
 
     def run(self, frame: np.ndarray) -> None:

@@ -29,9 +29,13 @@ object side may be an ``EfficientdetDetector`` (``multistream.py:164-181,
 ImageNet-normalizes them, runs ``select_and_nms`` on the class
 max/argmax, and feeds the lane net from the same frames.
 :meth:`MultiStreamADAS.make_compute_probe` is the JAX bench's compute
-probe (chained steps on a device-resident batch).  Not ported: the mesh
-(one GPU) and the step artifacts (``export_fused`` / ``step_artifact``,
-``ROADMAP.md`` §1 item 4).
+probe (chained steps on a device-resident batch).
+:meth:`MultiStreamADAS.export_fused` writes the whole device step (both
+nets' weights, the preprocess, the decode and the NMS) as one ``.adas``
+file (``multistream.py:582-616``), and ``step_artifact=`` serves a
+pipeline from such a file: the facades then give only the host-side
+helpers (class names, colours, the lane point assembly).  Not ported: the
+mesh (one GPU).
 """
 from __future__ import annotations
 
@@ -70,7 +74,9 @@ class MultiStreamADAS:
     parameters are JAX's, in its order and with its defaults: ``mesh``
     must be None (one GPU), ``host_downscale`` (H, W) resizes each frame
     on the host, ``transport`` is ``"bgr"`` or ``"i420"``, and
-    ``step_artifact`` (a serialized step) is not ported."""
+    ``step_artifact`` names a ``.adas`` file of :meth:`export_fused` to
+    serve the device step from (its streams, ``dev_hw`` and transport
+    must be this pipeline's; every weight comes from the file)."""
 
     def __init__(
         self,
@@ -85,11 +91,6 @@ class MultiStreamADAS:
     ):
         if mesh is not None:
             raise ValueError("the port serves one GPU: mesh must be None")
-        if step_artifact is not None:
-            raise NotImplementedError(
-                "step artifacts (export_fused / step_artifact) are not ported yet: "
-                "ROADMAP.md §1 item 4"
-            )
         if transport not in ("bgr", "i420"):
             raise ValueError(f"transport must be 'bgr' or 'i420', got {transport!r}")
         if yolo.device != lane.device:
@@ -112,6 +113,9 @@ class MultiStreamADAS:
         self._prep_pool = None
         self._uploader = None
         self._fetcher = None
+        self._step_engine = None
+        if step_artifact is not None:
+            self._load_step_artifact(step_artifact)
 
     # ---- device step ----
 
@@ -119,10 +123,71 @@ class MultiStreamADAS:
         """(B, H*3/2, W) uint8 I420 or (B, H, W, 3) uint8 BGR frames of
         ``dev_hw`` on the device -> (B, total) f32 packed detections (in
         ``dev_hw`` pixels) + decoded lanes (``multistream.py:248-362``),
-        through the fused step of ``pipeline/fused.py``."""
+        through the fused step of ``pipeline/fused.py``, or the artifact's
+        program of that step."""
+        if self._step_engine is not None:
+            return self._step_engine.run_device(x)
         flat, self._pack_spec = fused_step(self.yolo, self.lane, x, self.dev_hw, self.transport,
                                            nms_free=bool(getattr(self.yolo, "nms_free", False)))
         return flat
+
+    def _transport_input_shape(self):
+        """The device input's shape of one tick after the host prep."""
+        h, w = self.dev_hw
+        if self.transport == "i420":
+            return (self.n_streams, h * 3 // 2, w)
+        return (self.n_streams, h, w, 3)
+
+    def export_fused(self, out_path: str, platforms=None) -> dict:
+        """Write the whole pipeline's device work as one ``.adas`` file
+        (``multistream.py:582-616``): the uint8 transport batch of all N
+        streams in, the packed detections and lanes out, with both nets'
+        weights, the preprocess, the decode and the NMS in one exported
+        program (``engine/artifact.build_step_artifact``).  ``platforms``
+        is this pipeline's device type (the default).  Serve it with
+        ``MultiStreamADAS(..., step_artifact=out_path)``.  Returns the
+        metadata written."""
+        from ..engine.artifact import build_step_artifact, pack_tree_meta
+
+        if self._step_engine is not None:
+            raise ValueError("export_fused needs the native step; this pipeline serves a "
+                             "step_artifact")
+        shape = self._transport_input_shape()
+        # one step records the pack spec (the export runs another)
+        self._step(torch.zeros(shape, dtype=torch.uint8, device=self.device))
+        return build_step_artifact(
+            self._step, (shape, torch.uint8), out_path,
+            platforms=[self.device.type] if platforms is None else platforms,
+            device=self.device,
+            meta={
+                "kind": "multistream",
+                "n_streams": self.n_streams,
+                "frame_hw": list(self.frame_hw),
+                "dev_hw": list(self.dev_hw),
+                "transport": self.transport,
+                **pack_tree_meta(self._pack_spec),
+            },
+        )
+
+    def _load_step_artifact(self, path: str) -> None:
+        """Serve the device step from a pipeline ``.adas`` file of
+        :meth:`export_fused` (``multistream.py:618-641``), after checking
+        the serving configuration against the baked one (read before the
+        program is loaded)."""
+        from ..engine.artifact import CompiledEngine, pack_spec_from_meta, read_meta
+
+        m = read_meta(path)
+        if m.get("kind") != "multistream":
+            raise ValueError(f"{path} is not a multistream artifact")
+        baked = (m["n_streams"], tuple(m["dev_hw"]), m["transport"])
+        here = (self.n_streams, tuple(self.dev_hw), self.transport)
+        if baked != here:
+            raise ValueError(
+                f"artifact was built for (streams, dev_hw, transport)={baked}, "
+                f"pipeline configured {here}"
+            )
+        self._pack_spec = pack_spec_from_meta(m)
+        self._step_engine = CompiledEngine(path, device=self.device)
 
     # ---- host orchestration ----
 
@@ -191,7 +256,7 @@ class MultiStreamADAS:
             # point the (stateless-compute) lane facade at THIS stream's
             # holder so geometry never bleeds across feeds
             self.lane.lane_info = stream.lane_info
-            self.lane._assemble(lanes_i, w, h)
+            self.lane._assemble({k: v[0] for k, v in lanes_i.items()}, w, h)
             self.lane._finalize(h)
             lane_info = stream.lane_info
 
@@ -249,7 +314,13 @@ class MultiStreamADAS:
         host's launches are not timed.  The kernels' launch counters count
         the captured launches once, at capture, and no replay.  A capture
         that fails raises (no eager fallback).  On the CPU the probe runs
-        the steps as a plain loop."""
+        the steps as a plain loop.  A pipeline served from a
+        ``step_artifact`` has no native step to chain: it raises, as JAX's
+        does."""
+        if self._step_engine is not None:
+            raise RuntimeError("compute probe needs the native graph; this pipeline serves a "
+                               "pre-serialized step_artifact")
+
         def chained(x: torch.Tensor) -> torch.Tensor:
             s = torch.zeros((), dtype=torch.float32, device=x.device)
             for i in range(iters):

@@ -225,6 +225,26 @@ Phases, each of which raises (exit code 1) on failure:
     --calibrate YOLOV8`` on a YOLOv8n ``.npz`` and the facade serving the
     ``_int8.npz`` with the store's scales and the int8 conv and block
     launches of the same net calibrated by the facade.
+21. the engines (``[artifact-*]``, ``[onnx-graph]``, in a temporary
+    directory): ``[artifact-main-int8]``, phase 5's calibrated int8 pair
+    (the same seeds and calibration frames) exported as one 8-stream I420
+    pipeline ``.adas`` (``MultiStreamADAS.export_fused``: a
+    ``torch.export`` program whose kernel calls are the registered
+    ``adas_tpu_torch::*`` operators), then loaded with
+    ``MultiStreamADAS(..., step_artifact=path)`` in a fresh Python process
+    (this script with ``--serve-artifact``) that imports nothing of JAX or
+    cv2: exactly stem 2, int8 conv 105, block 5, IoU 1 and walk 1 per
+    served tick and the packed ticks equal to the native ones to the bit,
+    with the export time, file size, load time and the native and served
+    ``process_batch`` and device-step times; ``[artifact-frame]``, the
+    int8 YOLOv8l facade's fused step at 720p and 1080p in one
+    multi-geometry file and the int8 UFLDv2-CULane facade's at 720p,
+    served through ``DetectFrame`` with the native launches and outputs
+    per frame, to the bit; ``[onnx-graph]``, a hand-built YOLO-format
+    graph and EfficientDet's postprocessed graph (``tools/onnx_writer``)
+    through ``onnx_mode="graph"`` on the card: IoU 1 and walk 1 per YOLO
+    frame, raw outputs within 1e-4 (relative) of the CPU's, and the CPU's
+    detections (boxes within 1e-2 px, scores within 1e-5).
 
 Then the card's name and power limit again, one JSON line describing
 the kernels — ``launches`` summed over the paths (the ``[families]``
@@ -254,13 +274,14 @@ site's time by dtype; int8 conv: ``config5_tick_{ms,library_ms,bound_ms}``
 of phase 19 over the lane net's shapes (the block with its plain
 version's), and every kernel's ``..._launches`` per such tick;
 ``import_main_int8_launches``: every kernel's launches in phase 20's
-counted tick) —
+counted tick; phase 21's launches are in ``launches``) —
 and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA GPU is visible.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2751,8 +2772,410 @@ def import_phases(mods, smi, torch, np):
     return runs, main_run
 
 
+# ---- the engines: .adas artifacts and the ONNX graph executor ----
+
+#: the modules a fresh process serving an artifact must not hold
+FOREIGN = ("jax", "jaxlib", "flax", "adas_tpu", "cv2", "onnx")
+
+
+def build_int8_pair(torch, np, tag):
+    """The first item's pair, calibrated as ``[main-int8]`` calibrates it
+    (the same seeds and frames, so the same scales)."""
+    yolo, lane, MultiStreamADAS = build_main("int8", torch, tag)
+    calib = np.random.default_rng(0).integers(0, 256, (2, *FRAME_HW, 3), dtype=np.uint8)
+    yolo.calibrate_int8(list(calib))
+    lane.calibrate_int8(list(calib))
+    return yolo, lane, MultiStreamADAS
+
+
+def bits(a):
+    """An f32 array's bits, to compare two of them to the bit."""
+    return a.view(a.dtype.str.replace("f", "u"))
+
+
+def serve_artifact_child(arg: str) -> int:
+    """``chip_smoke.py --serve-artifact <json>``: the fresh process of
+    ``[artifact-main-int8]``.  It imports ``adas_tpu_torch`` and nothing of
+    JAX, builds the facades (their weights unused: the artifact carries
+    every weight), loads the pipeline from the ``.adas`` file with
+    ``step_artifact=``, serves ticks with exact launches and prints one
+    JSON line of its measurements."""
+    import numpy as np
+    import torch
+
+    from adas_tpu_torch.ops import block, int8_conv, iou, nms, stem
+
+    a = json.loads(arg)
+    mods = {"stem": stem, "int8_conv": int8_conv, "block": block, "iou": iou, "nms": nms}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t = time.perf_counter()
+    yolo, lane, MultiStreamADAS = build_main("int8", torch, "artifact-main-int8 child")
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW, transport="i420",
+                         step_artifact=a["path"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    with np.load(a["ticks"]) as z:
+        ticks, want = list(z["frames"]), z["flat"]
+    t = time.perf_counter()
+    ms.process_batch(ticks[0])
+    first_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    reset(mods)
+    tick_ms = []
+    for i in range(a["n_ticks"]):
+        t = time.perf_counter()
+        ms.process_batch(ticks[1 + i % 3])
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+    run = counts(mods)
+    equal = [bool(np.array_equal(bits(ms._step(ms._prep_upload(f)).cpu().numpy()), bits(w)))
+             for f, w in zip(ticks, want)]
+    x = ms._prep_upload(ticks[1])
+    step_ms = cuda_ms(lambda: ms._step(x), 10)
+    ms.close()
+    foreign = sorted({m.split(".")[0] for m in sys.modules} & set(FOREIGN))
+    print(json.dumps({"build_s": build_s, "load_s": load_s, "first_ms": first_ms,
+                      "tick_ms": tick_ms, "step_ms": step_ms, "launches": run, "equal": equal,
+                      "foreign": foreign}), flush=True)
+    return 0
+
+
+def program_audit(path, torch):
+    """The exported programs of a ``.adas`` file on the card, node by node.
+    Returns (call nodes, ``int8_conv`` nodes, copy nodes, what puts a
+    tensor on the host): a node whose output lies off the card, a scalar
+    read back (``item``), a lifted weight or constant off the card.  A
+    host BN fold or any other device-to-host round trip left in the graph
+    shows there; bits equal to the native step's cannot show it, since the
+    native step folds on the host too."""
+    import io
+    import operator
+    import zipfile
+
+    with zipfile.ZipFile(path) as zf:
+        programs = [torch.export.load(io.BytesIO(bytearray(zf.read(n))))
+                    for n in zf.namelist() if n.endswith(".pt2")]
+    nodes = int8 = copies = 0
+    host = []
+    for program in programs:
+        for n in program.graph.nodes:
+            if n.op != "call_function" or n.target is operator.getitem:
+                continue  # a getitem's output is its producer's, checked there
+            name = str(n.target)
+            nodes += 1
+            int8 += name == "adas_tpu_torch.int8_conv.default"
+            copies += any(k in name for k in ("copy", "aten.to.", "aten.cpu", "aten.cuda"))
+            vals = n.meta.get("val")
+            vals = vals if isinstance(vals, (list, tuple)) else [vals]
+            off = [str(v.device) for v in vals
+                   if isinstance(v, torch.Tensor) and v.device.type != "cuda"]
+            if "_local_scalar_dense" in name or "item" in name or off:
+                host.append(f"{name} {off}")
+        host += [k for k, t in {**program.state_dict, **program.constants}.items()
+                 if isinstance(t, torch.Tensor) and t.device.type != "cuda"]
+    return nodes, int8, copies, host
+
+
+def artifact_main_phase(tmp, yolo, lane, MultiStreamADAS, mods, torch, np):
+    """``[artifact-main-int8]``: the calibrated int8 pair's 8-stream I420
+    pipeline exported as one ``.adas`` (``MultiStreamADAS.export_fused``),
+    then loaded and served in a fresh process (``--serve-artifact``):
+    launches per tick as the native step's, the packed ticks equal to the
+    native ones to the bit; the export, size and load beside the native
+    and the served ``process_batch`` and device-step times.  Returns the
+    served run's launches."""
+    tag = "artifact-main-int8"
+    per_tick = {"stem": 2, "int8_conv": 105, "block": BLOCKS_PER_TICK, "iou": 1, "nms": 1}
+    rng = np.random.default_rng(11)
+    ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
+    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW, transport="i420")
+    path = os.path.join(tmp, "pipeline.adas")
+    try:
+        t = time.perf_counter()
+        meta = ms.export_fused(path)
+        export_s = time.perf_counter() - t
+        ms.process_batch(ticks[0])
+        torch.cuda.synchronize()
+        reset(mods)
+        native_ms = []
+        for i in range(6):
+            t = time.perf_counter()
+            ms.process_batch(ticks[1 + i % 3])
+            native_ms.append((time.perf_counter() - t) * 1e3)
+        native_run = counts(mods)
+        check(all(native_run[k] == 6 * v for k, v in per_tick.items()),
+              f"{tag}: native launches {native_run} over 6 ticks, expected {per_tick} per tick")
+        flat = np.stack([ms._step(ms._prep_upload(f)).cpu().numpy() for f in ticks])
+        x = ms._prep_upload(ticks[1])
+        native_step_ms = cuda_ms(lambda: ms._step(x), 10)
+    finally:
+        ms.close()
+    check(meta["platforms"] == ["cuda"] and meta["kind"] == "multistream"
+          and meta["frame_shape"] == [N_STREAMS, FRAME_HW[0] * 3 // 2, FRAME_HW[1]],
+          f"{tag}: meta {({k: meta[k] for k in ('platforms', 'kind', 'frame_shape')})}")
+    size = os.path.getsize(path)
+    print(f"[{tag}] exported the 8-stream I420 pipeline in {export_s:.2f} s: "
+          f"{size / 2**20:.1f} MiB, output {meta['output_shapes']}", flush=True)
+    nodes, int8, copies, host = program_audit(path, torch)
+    check(not host, f"{tag}: the program puts tensors on the host: {host[:20]}")
+    check(int8 == per_tick["int8_conv"],
+          f"{tag}: {int8} int8_conv nodes in the program, expected {per_tick['int8_conv']}")
+    print(f"[{tag}] the program: {nodes} call nodes, {int8} int8_conv nodes, {copies} to/copy "
+          f"nodes, none of them to the host; no scalar read back, every weight and constant "
+          f"on the card", flush=True)
+    np.savez(os.path.join(tmp, "ticks.npz"), frames=np.stack(ticks), flat=flat)
+    arg = json.dumps({"path": path, "ticks": os.path.join(tmp, "ticks.npz"), "n_ticks": 6})
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-artifact", arg],
+                          capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t
+    check(proc.returncode == 0, f"{tag}: the serving process failed:\n{proc.stdout[-4000:]}\n"
+                                f"{proc.stderr[-4000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(not got["foreign"], f"{tag}: the serving process imported {got['foreign']}")
+    check(all(got["launches"][k] == 6 * v for k, v in per_tick.items()),
+          f"{tag}: served launches {got['launches']} over 6 ticks, expected {per_tick} per tick")
+    check(all(got["equal"]), f"{tag}: served ticks equal to the native ones: {got['equal']}")
+    print(f"[{tag}] a fresh process ({child_s:.1f} s, imports only adas_tpu_torch): facades "
+          f"built in {got['build_s']:.2f} s, artifact loaded in {got['load_s']:.2f} s, first "
+          f"tick {got['first_ms']:.1f} ms; launches over 6 ticks {got['launches']} (per tick "
+          f"{per_tick}); {len(got['equal'])} packed ticks equal to the native ones to the bit")
+    print(f"[{tag}] process_batch ms per tick, native {[round(v, 3) for v in native_ms]} "
+          f"(median {np.median(native_ms):.3f}) / served {[round(v, 3) for v in got['tick_ms']]} "
+          f"(median {np.median(got['tick_ms']):.3f}); device step back-to-back (CUDA events) "
+          f"native {native_step_ms:.3f} / served {got['step_ms']:.3f} ms", flush=True)
+    return got["launches"]
+
+
+def detect_counts(det, frame, mods, torch):
+    reset(mods)
+    det.DetectFrame(frame)
+    torch.cuda.synchronize()
+    return counts(mods)
+
+
+def artifact_frame_phase(tmp, yolo, lane, mods, torch, np):
+    """``[artifact-frame]``: the calibrated int8 YOLOv8l facade's fused step
+    at 720p and 1080p in one multi-geometry ``.adas`` and the UFLDv2-CULane
+    int8 facade's at 720p (``export_fused``), served through
+    ``DetectFrame``: per frame the native launches and the native
+    detections and lanes, to the bit.  Returns the served frames'
+    launches."""
+    from adas_tpu_torch.perception.lane_detector import LaneModelType, UltrafastLaneDetectorV2
+    from adas_tpu_torch.perception.object_detector import ObjectModelType, YoloDetector
+
+    tag = "artifact-frame"
+    geoms = [(720, 1280), (1080, 1920)]
+    ypath, lpath = os.path.join(tmp, "yolo.adas"), os.path.join(tmp, "lane.adas")
+    t = time.perf_counter()
+    yolo.export_fused(ypath, geoms)
+    t1 = time.perf_counter()
+    lane.export_fused(lpath, geoms[0])
+    t2 = time.perf_counter()
+    served_yolo = YoloDetector(model_type=ObjectModelType.YOLOV8, scale="l",
+                               input_size=(640, 640), box_score=0.25, model_path=ypath,
+                               device="cuda")
+    served_lane = UltrafastLaneDetectorV2(model_path=lpath, model_type=LaneModelType.UFLDV2_CULANE,
+                                          device="cuda")
+    t3 = time.perf_counter()
+    print(f"[{tag}] exported YOLOv8l int8 at {geoms} in {t1 - t:.2f} s "
+          f"({os.path.getsize(ypath) / 2**20:.1f} MiB) and UFLDv2-CULane int8 at 720p in "
+          f"{t2 - t1:.2f} s ({os.path.getsize(lpath) / 2**20:.1f} MiB); loaded both in "
+          f"{t3 - t2:.2f} s", flush=True)
+    rng = np.random.default_rng(12)
+    total = {k: 0 for k in KERNELS}
+    for hw in geoms:
+        frame = rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+        for native, served, what in ((yolo, served_yolo, "YOLOv8l"),
+                                     (lane, served_lane, "UFLDv2")):
+            if served is served_lane and hw != geoms[0]:
+                continue
+            detect_counts(native, frame, mods, torch)  # warm-up: plans, maps
+            detect_counts(served, frame, mods, torch)
+            want = detect_counts(native, frame, mods, torch)
+            got = detect_counts(served, frame, mods, torch)
+            total = {k: total[k] + got[k] for k in KERNELS}
+            check(got == want, f"{tag}: {what} {hw} launches served {got}, native {want}")
+            if served is served_yolo:
+                a = [(o.label, o.conf, o.tolist()) for o in native.object_info]
+                b = [(o.label, o.conf, o.tolist()) for o in served.object_info]
+                check(a == b and len(a) > 0, f"{tag}: {what} {hw}: {len(b)} served detections, "
+                                             f"{len(a)} native, equal {a == b}")
+                res = f"{len(a)} detections"
+            else:
+                a = ([list(p) for p in native.lane_info.lanes_points],
+                     native.lane_info.lanes_status)
+                b = ([list(p) for p in served.lane_info.lanes_points],
+                     served.lane_info.lanes_status)
+                check(a == b, f"{tag}: {what} lanes served {b[1]}, native {a[1]}")
+                res = f"lanes {b[1]}"
+            ms = {}
+            for name, det in (("native", native), ("served", served)):
+                times = []
+                for _ in range(5):
+                    t = time.perf_counter()
+                    det.DetectFrame(frame)
+                    times.append((time.perf_counter() - t) * 1e3)
+                ms[name] = float(np.median(times))
+            print(f"[{tag}] {what} {hw[0]}p DetectFrame: launches {got} as native, {res} equal "
+                  f"to the native ones; ms median of 5 native {ms['native']:.3f} / served "
+                  f"{ms['served']:.3f}", flush=True)
+    return total
+
+
+def yolo_graph(W, rng, np):
+    """A hand-built YOLOv8-format graph (NCHW 1x3x640x640 in, (1, 84, 6400)
+    out): three 3x3/2 convs with SiLU (``Sigmoid`` x ``Mul``), a 1x1 head to
+    84 channels, ``Reshape``, ``Sigmoid``, then the boxes scaled to pixels
+    around each cell's centre (a constant grid); the class logits are the
+    head's class rows (the input's, through every conv) plus a constant of
+    spread logits, which keeps the candidates apart in score."""
+    def w(*shape):
+        return (rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))).astype(np.float32)
+
+    head = w(84, 64, 1, 1)
+    head[4:] *= 4.0
+    inits = {"w1": w(16, 3, 3, 3), "b1": np.zeros(16, np.float32),
+             "w2": w(32, 16, 3, 3), "b2": np.zeros(32, np.float32),
+             "w3": w(64, 32, 3, 3), "b3": np.zeros(64, np.float32),
+             "wh": head, "bh": np.zeros(84, np.float32),
+             "tgt": np.array([1, 84, 6400], np.int64),
+             "logits": np.concatenate([np.zeros((1, 4, 6400), np.float32),
+                                       rng.uniform(-9, 1.5, (1, 80, 6400)).astype(np.float32)], 1),
+             "scale": np.array([16, 16, 64, 64] + [1] * 80, np.float32).reshape(1, 84, 1),
+             "grid": np.zeros((1, 84, 6400), np.float32)}
+    cells = (np.arange(80, dtype=np.float32) + 0.5) * 8 - 8
+    inits["grid"][0, 0] = np.tile(cells, 80)
+    inits["grid"][0, 1] = np.repeat(cells, 80)
+    nodes = []
+    x = "images"
+    for i in (1, 2, 3):
+        nodes += [W.make_node("Conv", [x, f"w{i}", f"b{i}"], [f"c{i}"], kernel_shape=[3, 3],
+                              strides=[2, 2], pads=[1, 1, 1, 1]),
+                  W.make_node("Sigmoid", [f"c{i}"], [f"s{i}"]),
+                  W.make_node("Mul", [f"c{i}", f"s{i}"], [f"a{i}"])]
+        x = f"a{i}"
+    nodes += [W.make_node("Conv", [x, "wh", "bh"], ["h"], kernel_shape=[1, 1]),
+              W.make_node("Reshape", ["h", "tgt"], ["r"]),
+              W.make_node("Add", ["r", "logits"], ["z"]),
+              W.make_node("Sigmoid", ["z"], ["p"]),
+              W.make_node("Mul", ["p", "scale"], ["q"]),
+              W.make_node("Add", ["q", "grid"], ["output0"])]
+    return W.simple_model(nodes, [("images", np.float32, (1, 3, 640, 640))],
+                          [("output0", np.float32, (1, 84, 6400))], initializers=inits)
+
+
+def effdet_graph(W, rng, np):
+    """EfficientDet's postprocessed export contract: (boxes, class ids,
+    scores) of already-selected detections (here planted, plus the input's
+    mean times zero, so the graph reads its input)."""
+    boxes = np.sort(rng.uniform(0, 512, (12, 2, 2)), axis=1).reshape(12, 4)  # x1 y1 x2 y2
+    nodes = [W.make_node("ReduceMean", ["input"], ["m"], keepdims=0),
+             W.make_node("Mul", ["m", "zero"], ["z"]),
+             W.make_node("Add", ["b0", "z"], ["boxes"]),
+             W.make_node("Identity", ["i0"], ["ids"]),
+             W.make_node("Add", ["c0", "z"], ["confs"])]
+    inits = {"zero": np.float32(0.0), "b0": boxes.astype(np.float32),
+             "i0": rng.integers(0, 80, 12).astype(np.int64),
+             "c0": rng.uniform(0, 1, 12).astype(np.float32)}
+    return W.simple_model(nodes, [("input", np.float32, (1, 3, 512, 512))],
+                          [("boxes", np.float32, (12, 4)), ("ids", np.int64, (12,)),
+                           ("confs", np.float32, (12,))], initializers=inits)
+
+
+def onnx_graph_phase(tmp, mods, torch, np):
+    """``[onnx-graph]``: a hand-built YOLO-format graph and EfficientDet's
+    postprocessed graph (written with ``tools/onnx_writer``) through the
+    facades with ``onnx_mode="graph"`` on the card: per YOLO frame IoU 1 and
+    walk 1 (the decode's ``select_and_nms``) and nothing else; the graph's
+    raw outputs against the same graph on the CPU, each row group on its own
+    scale: the box rows (pixels) within 1e-4 of their largest, the score
+    rows (sigmoids) within 1e-5, and the same detections as the CPU's facades (labels, boxes
+    within 1e-2 px, scores within 1e-5; EfficientDet's exactly).  Returns
+    the card's launches."""
+    from adas_tpu_torch.perception.efficientdet_detector import EfficientdetDetector
+    from adas_tpu_torch.perception.object_detector import ObjectModelType, YoloDetector
+    from adas_tpu_torch.tools import onnx_writer as W
+
+    tag = "onnx-graph"
+    rng = np.random.default_rng(13)
+    ypath, epath = os.path.join(tmp, "yolo_graph.onnx"), os.path.join(tmp, "effdet.onnx")
+    W.save_model(ypath, yolo_graph(W, rng, np))
+    W.save_model(epath, effdet_graph(W, rng, np))
+    kw = dict(model_path=ypath, model_type=ObjectModelType.YOLOV8, onnx_mode="graph",
+              box_score=0.25)
+    gpu, cpu = YoloDetector(device="cuda", **kw), YoloDetector(device="cpu", **kw)
+    egpu = EfficientdetDetector(model_path=epath, box_score=0.3, device="cuda")
+    ecpu = EfficientdetDetector(model_path=epath, box_score=0.3, device="cpu")
+    total = {k: 0 for k in KERNELS}
+    per_frame = {"stem": 0, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1}
+    x = rng.uniform(0, 1, (1, 3, 640, 640)).astype(np.float32)
+    raw_gpu, raw_cpu = gpu.engine.engine_inference(x)[0], cpu.engine.engine_inference(x)[0]
+    box_diff = float(np.abs(raw_gpu[:, :4] - raw_cpu[:, :4]).max())
+    box_max = float(np.abs(raw_cpu[:, :4]).max())
+    score_diff = float(np.abs(raw_gpu[:, 4:] - raw_cpu[:, 4:]).max())
+    check(box_diff <= 1e-4 * box_max and score_diff <= 1e-5,
+          f"{tag}: raw outputs cuda vs cpu: box rows max diff {box_diff} (largest {box_max}), "
+          f"score rows {score_diff}")
+    n = 0
+    for i in range(3):
+        frame = rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+        run = detect_counts(gpu, frame, mods, torch)
+        if i:
+            check(run == per_frame, f"{tag}: YOLO graph launches per frame {run}")
+            total = {k: total[k] + run[k] for k in KERNELS}
+        cpu.DetectFrame(frame)
+        a, b = cpu.object_info, gpu.object_info
+        same = [p.label for p in a] == [q.label for q in b] and len(b) > 0
+        box = max((abs(u - v) for p, q in zip(a, b) for u, v in
+                   zip((p.x, p.y, p.width, p.height), (q.x, q.y, q.width, q.height))), default=0.0)
+        conf = max((abs(p.conf - q.conf) for p, q in zip(a, b)), default=0.0)
+        check(same and box <= 1e-2 and conf <= 1e-5,
+              f"{tag}: YOLO graph detections cuda {len(b)} / cpu {len(a)}, labels equal "
+              f"{same}, boxes max diff {box}, scores max diff {conf}")
+        n += len(b)
+        egpu.DetectFrame(frame)
+        ecpu.DetectFrame(frame)
+        a = [(o.label, o.tolist(), o.conf) for o in ecpu.object_info]
+        b = [(o.label, o.tolist(), o.conf) for o in egpu.object_info]
+        check(a == b and len(b) > 0, f"{tag}: EfficientDet graph detections {b} / {a}")
+    ms = cuda_ms(lambda: gpu.engine.run_device(torch.from_numpy(x).cuda()), 10)
+    print(f"[{tag}] YOLO-format graph on the card: box rows within {box_diff:.3g} of the CPU's "
+          f"(largest {box_max:.1f}), score rows within {score_diff:.3g}; {n} detections over 3 720p frames equal "
+          f"to the CPU's; launches over the last 2 frames {total} (per frame {per_frame}); the "
+          f"graph back-to-back {ms:.3f} ms; EfficientDet's postprocessed graph: "
+          f"{len(egpu.object_info)} detections equal to the CPU's", flush=True)
+    return total
+
+
+def artifact_phases(mods, torch, np):
+    """``[artifact-main-int8]``, ``[artifact-frame]`` and ``[onnx-graph]`` in
+    one temporary directory; returns their launch counts."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_artifact_")
+    t = time.perf_counter()
+    try:
+        yolo, lane, MultiStreamADAS = build_int8_pair(torch, np, "artifact-main-int8")
+        runs = [artifact_main_phase(tmp, yolo, lane, MultiStreamADAS, mods, torch, np)]
+        t1 = time.perf_counter()
+        runs.append(artifact_frame_phase(tmp, yolo, lane, mods, torch, np))
+        del yolo, lane
+        t2 = time.perf_counter()
+        runs.append(onnx_graph_phase(tmp, mods, torch, np))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[artifact] phase seconds: main-int8 {t1 - t:.1f}, frame {t2 - t1:.1f}, "
+          f"onnx-graph {time.perf_counter() - t2:.1f}", flush=True)
+    return runs
+
 
 def main() -> int:
+    if sys.argv[1:2] == ["--serve-artifact"]:
+        return serve_artifact_child(sys.argv[2])
     import numpy as np
     import torch
 
@@ -2820,6 +3243,7 @@ def main() -> int:
     runs.append(served_run)
     import_runs, import_per_tick = import_phases(mods, smi, torch, np)
     runs += import_runs
+    runs += artifact_phases(mods, torch, np)
     # every int8 conv shape of the [families] int8 frames against its plain
     # version (v5-lite's padded widths at their 640 shapes included)
     families_conv = main_path_conv_phase(IC, families_shapes, torch, tag="families-int8-shapes",

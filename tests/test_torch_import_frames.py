@@ -138,26 +138,40 @@ def test_efficientdet_pth_detect_frame_matches_jax(checkpoints):
 
 def test_engine_routes_raise(checkpoints, tmp_path):
     """Where JAX hands the model to its ONNX graph engine or a compiled
-    artifact, the port raises ``NotImplementedError`` naming ROADMAP item
-    4; ``onnx_mode="ingest"`` raises JAX's ``KeyError`` where the
-    initializers do not map."""
+    artifact, so does the port, and each engine refuses these files as
+    JAX's does, with the same exception type: an initializer-only
+    ``.onnx`` has no graph input (``onnx_mode="graph"``, or ``"auto"``
+    where the initializers do not map), a missing ``.adas`` is not found;
+    ``onnx_mode="ingest"`` raises JAX's ``KeyError`` where the initializers
+    do not map."""
     bad = str(tmp_path / "graph.onnx")
     save_model(bad, simple_model([], [], [], initializers={"layer0.w": np.ones(3, np.float32)}))
+    adas = str(tmp_path / "model.adas")
     yolo = dict(model_type=ObjectModelType.YOLOV8, device="cpu")
-    for path, kw in ((checkpoints["yolo_onnx"], {"onnx_mode": "graph"}), (bad, {}),
-                     (str(tmp_path / "model.adas"), {})):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-            YoloDetector(**yolo, **yolo_args(path, **kw))
+    jyolo = dict(model_type=JaxObjectModelType.YOLOV8)
+
+    def same_refusal(make_port, make_jax):
+        with pytest.raises(Exception) as want:
+            make_jax()
+        with pytest.raises(type(want.value)):
+            make_port()
+        return want.type
+
+    for path, kw in ((checkpoints["yolo_onnx"], {"onnx_mode": "graph"}), (bad, {}), (adas, {})):
+        got = same_refusal(lambda: YoloDetector(**yolo, **yolo_args(path, **kw)),
+                           lambda: JaxYolo(**jyolo, **yolo_args(path, **kw)))
+        assert got is (FileNotFoundError if path == adas else ValueError)
     with pytest.raises(KeyError) as got:
         YoloDetector(**yolo, **yolo_args(bad, onnx_mode="ingest"))
     with pytest.raises(KeyError) as want:
         jax_yolo_variables({"layer0.w": np.ones(3, np.float32)},
                            JaxYoloSpec("v8", "n", 80, YOLO_HW))
     assert str(got.value) == str(want.value)
-    for path in (bad, str(tmp_path / "model.adas")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-            UltrafastLaneDetectorV2(model_path=path, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        EfficientdetDetector(model_path=bad, device="cpu")
+    for path in (bad, adas):
+        same_refusal(lambda: UltrafastLaneDetectorV2(model_path=path, device="cpu"),
+                     lambda: JaxLane(model_path=path,
+                                     model_type=JaxLaneModelType.UFLDV2_CULANE))
+    same_refusal(lambda: EfficientdetDetector(model_path=bad, device="cpu"),
+                 lambda: JaxEffdet(model_path=bad))
     with pytest.raises(ValueError, match="Unsupported weights"):
         EfficientdetDetector(model_path=str(tmp_path / "model.adas"), device="cpu")

@@ -67,7 +67,7 @@ def test_signature_matches_jax():
 
 def test_defaults_serve_bgr(monkeypatch):
     """``MultiStreamADAS(yolo, lane, n, hw)`` uploads the BGR frames as
-    they are; a mesh and a step artifact raise."""
+    they are; a mesh and a step artifact that does not exist raise."""
     monkeypatch.setitem(port_ufld.UFLDV2_SPECS, port_ufld.LaneModelType.UFLDV2_CULANE,
                         port_ufld.UFLDv2Spec(**SPEC_ARGS))
     yolo = YoloDetector(model_type=PortObjectModelType.YOLOV8, scale="n", input_size=(64, 64),
@@ -82,7 +82,7 @@ def test_defaults_serve_bgr(monkeypatch):
     ms.close()
     with pytest.raises(ValueError, match="mesh"):
         MultiStreamADAS(yolo, lane, 2, FRAME_HW, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(FileNotFoundError):
         MultiStreamADAS(yolo, lane, 2, FRAME_HW, step_artifact="step.adas")
     with pytest.raises(ValueError, match="transport"):
         MultiStreamADAS(yolo, lane, 2, FRAME_HW, transport="nv12")
