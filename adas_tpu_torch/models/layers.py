@@ -34,6 +34,29 @@ from .quant import (
 )
 
 BN_EPS = 1e-5
+#: flax ``nn.BatchNorm``'s ``momentum``: ``ra = 0.9 * ra + 0.1 * batch``
+BN_MOMENTUM = 0.9
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training mode is flax's ``nn.BatchNorm(
+    use_running_average=False, momentum=0.9)`` (the trainer's,
+    ``parallel/train.py``): the batch mean and the biased variance
+    ``E[x^2] - E[x]^2`` (flax's ``use_fast_variance``, clipped at 0)
+    normalize, and both running statistics take the same biased values
+    (``nn.BatchNorm2d`` puts the unbiased variance into ``running_var``).
+    Eval mode is ``nn.BatchNorm2d``'s, on the running statistics."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
 def activation(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:

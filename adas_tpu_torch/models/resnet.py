@@ -8,7 +8,11 @@ Bottleneck)/``downsample_conv``/``downsample_bn``), so the weight bridge
 (``weights.py``) maps every depth by path.
 The stem — conv1 7x7/2 + bn1 + relu + maxpool 3x3/2 — runs as ONE fused
 stem kernel (``resnet.py:346-360``), so its full-resolution activation
-never reaches device memory.
+never reaches device memory.  In training mode (``module.train()``, JAX's
+``train=True``) the stem is the plain conv -> BN on the batch statistics
+-> ReLU -> max pool instead (``resnet.py:361-379``: JAX serves its Pallas
+stem only when not training), and every BN (:class:`layers.BatchNorm2d`)
+follows flax's training statistics; an int8 trunk does not train.
 
 ``int8=True`` builds the int8 trunk: the stem stays bf16, every other conv
 is a W8A8 conv with its BN folded (``_conv_bn`` under
@@ -28,12 +32,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.block import fuse_gate, fused_block
-from .layers import BN_EPS, consume_stem, conv_epilogue, int8_conv_bn, make_conv
+from .layers import BN_EPS, BatchNorm2d, consume_stem, conv_epilogue, int8_conv_bn, make_conv
 from .quant import Int8State, QTensor, as_float, quantize_to
 
 
 def _conv_bn(cin: int, features: int, kernel: int, stride: int, int8: bool = False):
-    return make_conv(cin, features, kernel, stride, int8), nn.BatchNorm2d(features, eps=BN_EPS)
+    return make_conv(cin, features, kernel, stride, int8), BatchNorm2d(features, eps=BN_EPS)
 
 
 class BasicBlock(Int8State, nn.Module):
@@ -161,7 +165,7 @@ class ResNetFeatures(Int8State, nn.Module):
         super().__init__()
         self.int8 = int8
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(64, eps=BN_EPS)
         self.blocks = []
         block, stages = _CONFIGS[depth]
         cin = 64
@@ -174,8 +178,18 @@ class ResNetFeatures(Int8State, nn.Module):
                 self.blocks.append((stage_idx, name))
                 cin = stage_channels(depth)[stage_idx]
 
+    def train(self, mode: bool = True):
+        # the kernel stem's BN fold is cached from the statistics and
+        # weights that training moves: fold again after any mode switch
+        self.clear_int8_cache()
+        return super().train(mode)
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        if self.int8:
+        if self.training:
+            if self.int8:
+                raise ValueError("an int8 trunk serves only: train the f32 net")
+            x = F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        elif self.int8:
             # the bf16 stem; its NCHW output enters the int8 domain as an
             # NHWC view (the first quantize writes it NHWC)
             x = consume_stem(x, self.conv1, self, self.bn1, act="relu", pool=True,

@@ -3,8 +3,9 @@
 ``UFLDv1Net`` from ``adas_tpu/models/ufld.py:32-354``: v2 on CULane,
 TuSimple and CurveLanes, v1 on TuSimple and CULane, and the 20-token
 ``UFLDv2CurveLanesNet`` (``ufld.py:224``, f32; reached through
-``engine/registry.py`` only, as in JAX); no aux segmentation head, no
-test-time augmentation).
+``engine/registry.py`` only, as in JAX); the training-only aux
+segmentation head ``SegHead`` (``use_aux``) and the 5-way shifted-feature
+test-time augmentation (``forward(x, tta=True)``)).
 
 The trunk is ``spec.backbone`` (ResNet-18, 34 or 50); the ``pool`` conv
 takes its last stage's width (``stage_channels``, as flax infers it).
@@ -25,6 +26,7 @@ from torch import nn
 
 from ..utils.types import LaneModelType
 
+from .layers import BN_EPS, BatchNorm2d
 from .quant import QLinear
 from .resnet import ResNetFeatures, stage_channels
 
@@ -91,26 +93,95 @@ UFLDV2_SPECS: Dict[LaneModelType, UFLDv2Spec] = {
 }
 
 
-def pooled_features(fea: torch.Tensor, pool: nn.Conv2d, int8: bool) -> torch.Tensor:
-    """The trunk's stride-32 map through the 1x1 ``pool`` conv, flattened
-    in the NCHW (c, h, w) element order the JAX nets reach by transposing
-    their NHWC map (``ufld.py:191-194``).  Under int8 the map is NHWC bf16
-    and the conv f32 (flax promotes to its f32 params)."""
+def pooled_map(fea: torch.Tensor, pool: nn.Conv2d, int8: bool) -> torch.Tensor:
+    """The trunk's stride-32 map through the 1x1 ``pool`` conv, NCHW: the
+    (c, h, w) element order the JAX nets reach by transposing their NHWC
+    map before they flatten it (``ufld.py:191-194``).  Under int8 the map
+    is NHWC bf16 and the conv f32 (flax promotes to its f32 params)."""
     if int8:
         w = pool.weight.reshape(pool.out_channels, -1)
-        return F.linear(fea.float(), w, pool.bias).permute(0, 3, 1, 2).flatten(1)
-    return pool(fea).flatten(1)
+        return F.linear(fea.float(), w, pool.bias).permute(0, 3, 1, 2)
+    return pool(fea)
+
+
+def tta_shifts(fea: torch.Tensor) -> torch.Tensor:
+    """The 5-way test-time augmentation of an NCHW map (``ufld.py:182-190``,
+    the reference's model_culane.py:65-96): the map, then shifted left,
+    right, up and down, the vacated border column or row filled with the
+    mean along that axis; stacked on the batch dim (5B)."""
+    w_mean = fea.mean(dim=3, keepdim=True)
+    h_mean = fea.mean(dim=2, keepdim=True)
+    left = torch.cat([fea[..., 1:], w_mean], dim=3)
+    right = torch.cat([w_mean, fea[..., :-1]], dim=3)
+    up = torch.cat([fea[:, :, 1:], h_mean], dim=2)
+    down = torch.cat([h_mean, fea[:, :, :-1]], dim=2)
+    return torch.cat([fea, left, right, up, down], dim=0)
+
+
+class SegHead(nn.Module):
+    """UFLDv2's training-only aux segmentation head (``ufld.py:91-134``,
+    the reference's seg_model.py:16-55): conv3x3 + BN + ReLU stacks over
+    the stride-8, 16 and 32 maps (4, 3 and 2 of 128 features), the last two
+    upsampled bilinearly x2 and x4 to stride 8 (``jax.image.resize``'s
+    half-pixel bilinear, which is ``F.interpolate``'s with
+    ``align_corners=False`` when enlarging), concatenated, four dilated
+    stacks (256, 128, 128, 128 features; dilation 2, 2, 2, 4) and the 1x1
+    ``comb4`` with a bias to ``num_lanes + 1`` logits, NCHW.  Module names
+    are the flax tree's (``aux2_0_conv``, ``aux2_0_bn``, ...)."""
+
+    def __init__(self, num_lanes: int, channels: Tuple[int, int, int]):
+        super().__init__()
+        for tap, cin, n in (("aux2", channels[0], 4), ("aux3", channels[1], 3),
+                            ("aux4", channels[2], 2)):
+            for i in range(n):
+                self._cbr(f"{tap}_{i}", cin, 128, 1)
+                cin = 128
+        cin = 3 * 128
+        for i, (features, dilation) in enumerate(((256, 2), (128, 2), (128, 2), (128, 4))):
+            self._cbr(f"comb{i}", cin, features, dilation)
+            cin = features
+        self.comb4 = nn.Conv2d(cin, num_lanes + 1, 1)
+
+    def _cbr(self, name: str, cin: int, features: int, dilation: int) -> None:
+        self.add_module(name + "_conv", nn.Conv2d(cin, features, 3, padding=dilation,
+                                                  dilation=dilation, bias=False))
+        self.add_module(name + "_bn", BatchNorm2d(features, eps=BN_EPS))
+
+    def _stack(self, x: torch.Tensor, prefix: str, n: int) -> torch.Tensor:
+        for i in range(n):
+            name = f"{prefix}{i}"
+            x = F.relu(getattr(self, name + "_bn")(getattr(self, name + "_conv")(x)))
+        return x
+
+    def forward(self, x2: torch.Tensor, x3: torch.Tensor, fea: torch.Tensor) -> torch.Tensor:
+        h2 = self._stack(x2, "aux2_", 4)
+        h3 = F.interpolate(self._stack(x3, "aux3_", 3), scale_factor=2, mode="bilinear",
+                           align_corners=False)
+        h4 = F.interpolate(self._stack(fea, "aux4_", 2), scale_factor=4, mode="bilinear",
+                           align_corners=False)
+        seg = self._stack(torch.cat([h2, h3, h4], dim=1), "comb", 4)
+        return self.comb4(seg)
 
 
 class UFLDv2Net(nn.Module):
     """ResNet trunk -> 1x1 conv to 8 channels -> flatten -> [LayerNorm] ->
-    MLP -> loc_row/loc_col/exist_row/exist_col (``ufld.py:137``)."""
+    MLP -> loc_row/loc_col/exist_row/exist_col (``ufld.py:137``).
+    ``use_aux`` adds :class:`SegHead` on the trunk's three maps, whose
+    logits come out as ``seg_out`` (B, lanes + 1, H/8, W/8); it trains
+    (``parallel/train.py``) and is not an int8 net's.  ``forward(x,
+    tta=True)`` runs :func:`tta_shifts` on the pooled map: every head
+    output then has 5B rows (``seg_out`` keeps B)."""
 
-    def __init__(self, spec: UFLDv2Spec, int8: bool = False):
+    def __init__(self, spec: UFLDv2Spec, int8: bool = False, use_aux: bool = False):
         super().__init__()
+        if int8 and use_aux:
+            raise ValueError("the aux head trains with the f32 net; an int8 net serves")
         self.spec = spec
         self.int8 = int8
+        self.use_aux = use_aux
         self.backbone = ResNetFeatures(spec.backbone, int8=int8)
+        if use_aux:
+            self.seg_head = SegHead(spec.num_lanes, stage_channels(spec.backbone)[1:])
         self.pool = nn.Conv2d(stage_channels(spec.backbone)[-1], 8, 1)
         if spec.fc_norm:
             # flax nn.LayerNorm's epsilon
@@ -119,20 +190,28 @@ class UFLDv2Net(nn.Module):
         self.cls_fc1 = dense(spec.flat_features, spec.mlp_mid)
         self.cls_fc2 = dense(spec.mlp_mid, sum(spec.dims))
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, tta: bool = False) -> Dict[str, torch.Tensor]:
         s = self.spec
-        fea = pooled_features(self.backbone(x)[2], self.pool, self.int8)
+        x2, x3, fea = self.backbone(x)
+        seg_out = self.seg_head(x2, x3, fea) if self.use_aux else None
+        fea = pooled_map(fea, self.pool, self.int8)
+        if tta:
+            fea = tta_shifts(fea)
+        fea = fea.flatten(1)
         if s.fc_norm:
             fea = self.cls_norm(fea)
         out = self.cls_fc2(F.relu(self.cls_fc1(fea)))
         b = out.shape[0]
         d1, d2, d3, _ = s.dims
-        return {
+        result = {
             "loc_row": out[:, :d1].reshape(b, s.num_cell_row, s.num_row, s.num_lanes),
             "loc_col": out[:, d1: d1 + d2].reshape(b, s.num_cell_col, s.num_col, s.num_lanes),
             "exist_row": out[:, d1 + d2: d1 + d2 + d3].reshape(b, 2, s.num_row, s.num_lanes),
             "exist_col": out[:, d1 + d2 + d3:].reshape(b, 2, s.num_col, s.num_lanes),
         }
+        if seg_out is not None:
+            result["seg_out"] = seg_out
+        return result
 
 
 class UFLDv2CurveLanesNet(nn.Module):
@@ -230,6 +309,6 @@ class UFLDv1Net(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.spec
-        fea = pooled_features(self.backbone(x)[2], self.pool, self.int8)
+        fea = pooled_map(self.backbone(x)[2], self.pool, self.int8).flatten(1)
         out = self.cls_fc2(F.relu(self.cls_fc1(fea)))
         return out.reshape(-1, s.griding_num + 1, s.cls_num_per_lane, s.num_lanes)

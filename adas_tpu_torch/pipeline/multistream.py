@@ -34,8 +34,11 @@ probe (chained steps on a device-resident batch).
 nets' weights, the preprocess, the decode and the NMS) as one ``.adas``
 file (``multistream.py:582-616``), and ``step_artifact=`` serves a
 pipeline from such a file: the facades then give only the host-side
-helpers (class names, colours, the lane point assembly).  Not ported: the
-mesh (one GPU).
+helpers (class names, colours, the lane point assembly).  A YOLO facade
+that an ONNX graph serves (``model_path="x.onnx"`` through
+``engine/onnx_engine.OnnxGraphEngine``) takes part in the same step: the
+executor's device prefix stands in for the net (``_ExecutorNet``,
+``multistream.py:61-102``).  Not ported: the mesh (one GPU).
 """
 from __future__ import annotations
 
@@ -66,6 +69,49 @@ class StreamState:
         self.conditions = TaskConditions()
         self.perspective = PerspectiveTransformation(frame_size, device=device)
         self.lane_info = LaneInfo()
+
+
+class _ExecutorNet:
+    """An ONNX graph executor (``engine/onnx_engine.OnnxGraphEngine``)
+    presented as the YOLO net of the fused step (``multistream.py:61-102``):
+    the preprocessed NCHW batch goes in as it is (cast to the graph's input
+    type), the graph's first output comes out, on the device, with no host
+    copy; a graph exported at batch 1 (``tools/onnx_export`` writes its
+    Reshape and Expand shapes with the traced batch) runs once per
+    stream.  The graph's device prefix must be the whole graph: a host tail
+    (NonMaxSuppression/NonZero) cannot run inside the step.  It takes no
+    I420 planes (JAX's ``stem_s2d_ok = False``): an I420 tick feeds it the
+    decoded BGR planes."""
+
+    stem_takes_planes = False
+
+    def __init__(self, engine):
+        from ..engine.onnx_engine import OnnxGraphEngine
+        from ..engine.torch_engine import torch_dtype
+
+        if not isinstance(engine, OnnxGraphEngine):
+            raise TypeError(
+                "fused serving of an engine-backed detector requires an "
+                f"OnnxGraphEngine, got {type(engine).__name__}"
+            )
+        if engine._tail:
+            raise ValueError(
+                "ONNX graph has a dynamic host tail (NonMaxSuppression/NonZero) — it cannot "
+                "serve inside the fused device step; re-export without the embedded NMS"
+            )
+        self.engine = engine
+        self.dtype = torch_dtype(engine.engine_dtype)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        n = self.engine.get_engine_input_shape()[0]
+        if x.shape[0] == n:
+            return self.engine.run_device(x)[0]
+        if n != 1:
+            raise ValueError(f"a graph of batch {n} serves batches of {n} or, one frame at a "
+                             f"time, of any size; got {x.shape[0]}")
+        # a batch-1 export (the reference's contract) runs once per stream
+        return torch.cat([self.engine.run_device(x[i:i + 1])[0] for i in range(x.shape[0])])
 
 
 class MultiStreamADAS:
@@ -103,6 +149,11 @@ class MultiStreamADAS:
         self.transport = transport
         self.dev_hw = self.host_downscale or self.frame_hw
         self.device = yolo.device
+        if step_artifact is None and getattr(yolo, "engine", None) is not None \
+                and getattr(yolo, "net", None) is None:
+            # an engine-served facade: its ONNX graph is the step's net
+            # (JAX sets ``yolo.net`` the same way, ``multistream.py:161-174``)
+            yolo.net = _ExecutorNet(yolo.engine)
         h, w = self.frame_hw
         self.geom = letterbox_geometry(yolo, self.dev_hw)
         self.streams = [StreamState((w, h), yolo.colors_dict, self.device) for _ in range(n_streams)]

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -129,13 +129,17 @@ def load_int8(path: str, dtype=np.float32) -> dict:
 
 
 def calibrate_store(variables: dict, model: str, scale: str = "n", frames: int = 8,
-                    device="cuda") -> dict:
+                    device="cuda", calib_dir: Optional[str] = None) -> dict:
     """``variables`` with the static ``act_scales`` of the registry's
     ``model`` (its int8 net at ``scale``, at the entry's input shape),
-    calibrated on ``frames`` seeded N(0,1) frames (``default_rng(0)``, the
-    JAX CLI's numbers) on ``device`` with the port's ``calibrating()``: a
-    running absmax per int8 input, started from the store's own scales
-    where it has them (JAX's union max)."""
+    calibrated on ``device`` with the port's ``calibrating()``: a running
+    absmax per int8 input, started from the store's own scales where it
+    has them (JAX's union max).  The frames: with ``calib_dir``, its first
+    ``frames`` image files in sorted order (``.jpg/.jpeg/.png/.bmp``, read
+    by ``render/image.imread``), each letterboxed to the entry's input
+    through ``yolo_preprocess`` in f32, as JAX's CLI feeds them
+    (``quantize.py:256-286``); else ``frames`` seeded N(0,1) frames
+    (``default_rng(0)``, the JAX CLI's numbers)."""
     import torch
 
     from ..engine.registry import build
@@ -146,16 +150,40 @@ def calibrate_store(variables: dict, model: str, scale: str = "n", frames: int =
         entry = build(model, scale=scale, int8=True)
     net = entry.net
     _, _, h, w = entry.input_shape_nchw
+    if calib_dir is not None:
+        samples = list(calib_dir_frames(calib_dir, frames, (h, w), device))
+    else:
+        rng = np.random.default_rng(0)
+        samples = [torch.from_numpy(rng.standard_normal((1, h, w, 3)).astype(np.float32))
+                   .permute(0, 3, 1, 2).contiguous().to(device) for _ in range(frames)]
     flat = flatten_variables(variables)
     load_flax_variables(net, flat)
     net.eval().requires_grad_(False)
-    rng = np.random.default_rng(0)
     with torch.inference_mode(), calibrating(net):
-        for _ in range(frames):
-            x = rng.standard_normal((1, h, w, 3)).astype(np.float32)
-            net(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(device))
+        for x in samples:
+            net(x)
     flat.update({k: v for k, v in flax_variables(net).items() if k.startswith("act_scales::")})
     return unflatten_variables(flat)
+
+
+def calib_dir_frames(calib_dir: str, frames: int, hw, device="cuda"):
+    """The calibration batches of ``--calib-dir`` (``quantize.py:256-286``):
+    the first ``frames`` files with an image suffix, sorted, each read as
+    BGR and letterboxed to ``hw`` by ``yolo_preprocess`` (NCHW f32)."""
+    from ..ops.preprocess import LetterboxGeometry, yolo_preprocess
+    from ..render.image import IMAGE_SUFFIXES, imread
+
+    files = sorted(f for f in os.listdir(calib_dir)
+                   if f.lower().endswith(IMAGE_SUFFIXES))[:frames]
+    if not files:
+        raise SystemExit(f"--calib-dir {calib_dir}: no image files")
+    h, w = hw
+    for f in files:
+        img = imread(os.path.join(calib_dir, f))
+        if img is None:
+            raise ValueError(f"--calib-dir: cannot read {f}")
+        yield yolo_preprocess(img, LetterboxGeometry(img.shape[0], img.shape[1], h, w),
+                              device=device)
 
 
 def main(argv=None) -> None:
@@ -176,8 +204,9 @@ def main(argv=None) -> None:
     )
     ap.add_argument(
         "--calib-dir", default=None, metavar="DIR",
-        help="directory of real image files to calibrate on (needs an "
-        "image decoder, which the port has not yet: raises)",
+        help="directory of real image files (.jpg/.png/.bmp) to "
+        "calibrate on — preprocessed through the model's own input "
+        "path, like TRT's Calibrator batch stream",
     )
     ap.add_argument("--calib-frames", type=int, default=8)
     ap.add_argument("--scale", default="n", help="model scale for --calibrate")
@@ -189,19 +218,15 @@ def main(argv=None) -> None:
     out = args.output or f"{stem}_{args.mode}.npz"
     if args.mode == "int8":
         if args.calibrate:
-            if args.calib_dir:
-                raise NotImplementedError(
-                    "--calib-dir needs an image decoder, which the port has "
-                    "not yet: an image codec comes with ROADMAP item 4"
+            if not args.calib_dir:
+                print(
+                    "WARNING: calibrating on synthetic N(0,1) frames — "
+                    "the baked act_scales are placeholders; pass "
+                    "--calib-dir with real frames (or use the facade "
+                    "calibrate_int8 API) for production scales",
                 )
-            print(
-                "WARNING: calibrating on synthetic N(0,1) frames — "
-                "the baked act_scales are placeholders; pass "
-                "--calib-dir with real frames (or use the facade "
-                "calibrate_int8 API) for production scales",
-            )
             variables = calibrate_store(variables, args.calibrate, args.scale,
-                                        args.calib_frames, args.device)
+                                        args.calib_frames, args.device, args.calib_dir)
         save_int8(out, variables)
     else:
         save_params(out, cast_params(variables, args.mode))

@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -205,14 +205,15 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
 
 
 @torch.no_grad()
-def init_params(module: nn.Module, seed: int = 0) -> None:
+def init_params(module: nn.Module, seed: int = 0, generator: Optional[torch.Generator] = None) -> None:
     """Seeded flax-style init of every Conv2d / Linear / norm in
-    ``module``, in module order, on the module's own device.  The numbers
-    come from that device's generator: one seed gives other weights on the
-    CPU than on a GPU.  The tensors cached from the old weights are
-    dropped."""
+    ``module``, in module order, on the module's own device, from
+    ``generator`` (one on that device) or else a generator seeded with
+    ``seed``.  The numbers come from that device's generator: one seed
+    gives other weights on the CPU than on a GPU.  The tensors cached from
+    the old weights are dropped."""
     dev = next(module.parameters()).device
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(seed)
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
             fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]

@@ -12,8 +12,9 @@ package, on the CPU.
 * ``quantize --mode int8 --calibrate YOLOV8`` bakes an ``act_scales``
   leaf for every int8 conv and dense layer of the port's YOLOv8n (one
   N(0,1) frame here; the CLI's default is 8), the YOLO facade serves that
-  ``_int8.npz`` calibrated, and ``--calib-dir`` raises until the port
-  has an image decoder.
+  ``_int8.npz`` calibrated, and ``--calib-dir`` of a directory without an
+  image file stops as JAX's does (its calibration on real files:
+  ``test_torch_lane_demo.py``).
 """
 import json
 import os
@@ -149,7 +150,8 @@ def test_torch_import_cli_matches_jax(cli):
 
 def test_quantize_cli_casts_and_int8_match_jax(cli):
     """``--mode bf16`` writes JAX's bytes; ``--mode int8`` (no calibration)
-    writes the store JAX's ``save_int8`` writes; ``--calib-dir`` raises."""
+    writes the store JAX's ``save_int8`` writes; ``--calib-dir`` of a
+    directory with no image file stops with JAX's message."""
     tmp, npz, _ = cli
     tree = jax_params_io.load_params(npz)
     for mode in ("bf16", "int8"):
@@ -164,9 +166,9 @@ def test_quantize_cli_casts_and_int8_match_jax(cli):
         with np.load(out) as a, np.load(ref) as b:
             assert sorted(a.files) == sorted(b.files)
             assert all(a[k].tobytes() == b[k].tobytes() for k in b.files)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
+    with pytest.raises(SystemExit, match="no image files"):
         quantize.main(["-i", npz, "--mode", "int8", "--calibrate", "YOLOV8",
-                       "--calib-dir", str(tmp)])
+                       "--calib-dir", str(tmp), "--device", "cpu"])
 
 
 def test_quantize_calibrate_bakes_every_int8_conv(cli):

@@ -1,9 +1,11 @@
 """The port stands alone: no module of ``adas_tpu_torch`` (and not
 ``chip_smoke.py``) imports ``jax``, anything of the JAX package
-``adas_tpu``, ``cv2`` (the GPU host has none) or ``onnx``, its single-frame path (with
-the HUD) and its demo CLI run in a process where none of them can be
-imported, and its facades and pipeline run on the card unless the caller
-names the CPU."""
+``adas_tpu``, ``cv2`` or ``PIL`` (the GPU host has neither), ``optax``,
+``orbax`` or ``onnx``, its single-frame path (with the HUD), its demo
+CLI, the image codec, the lane demo, the ONNX exporter and the trainer
+run in a process where none of them can be imported, and its facades,
+pipeline and new entry points run on the card unless the caller names
+the CPU."""
 from __future__ import annotations
 
 import ast
@@ -17,7 +19,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "adas_tpu_torch")
-BLOCKED = ("adas_tpu", "jax", "jaxlib", "flax", "cv2")
+BLOCKED = ("adas_tpu", "jax", "jaxlib", "flax", "cv2", "PIL", "optax", "orbax")
 #: what the sources may not import either: the ``onnx`` package (the port
 #: parses and writes ONNX itself).  Not blocked in the child processes:
 #: torch probes for it (``importlib.util.find_spec``) when it first
@@ -360,3 +362,99 @@ def test_importers_and_registry_import_with_jax_package_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip() == "importers 13"
+
+
+NEW_MODULES_SCRIPT = textwrap.dedent(
+    """
+    import glob, os, sys
+
+    class _Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in %r:
+                raise ImportError(f"{name} is blocked in this process")
+            return None
+
+    sys.meta_path.insert(0, _Block())
+    import numpy as np
+    import torch
+    from adas_tpu_torch.engine.onnx_engine import OnnxGraphEngine
+    from adas_tpu_torch.models import ufld
+    from adas_tpu_torch.parallel import (make_ufld_train_state, make_ufld_train_step,
+                                         restore_train_state, save_train_state)
+    from adas_tpu_torch.pipeline import lane_demo, transport_parity
+    from adas_tpu_torch.render import image
+    from adas_tpu_torch.tools.onnx_export import export_module_to_onnx
+    from adas_tpu_torch.utils.types import LaneModelType
+
+    tmp = sys.argv[1]
+    data = os.path.join("tests", "data", "images")
+    n = 0
+    for path in sorted(glob.glob(os.path.join(data, "*.npy"))):
+        src = [p for p in glob.glob(path[:-4] + ".*") if not p.endswith(".npy")][0]
+        assert np.array_equal(image.imread(src), np.load(path)), src
+        n += 1
+    spec = ufld.UFLDv2Spec(64, 160, 0.6, 20, 72, 10, 16, mlp_mid=64)
+    ufld.UFLDV2_SPECS[LaneModelType.UFLDV2_CULANE] = spec
+    out = lane_demo.run_lane_image(os.path.join(data, "frame_720p.png"),
+                                   os.path.join(tmp, "lanes.png"), device="cpu")
+    assert out.shape == (720, 1280, 3) and image.imread(os.path.join(tmp, "lanes.png")).shape == out.shape
+    view = transport_parity.transport_view(out, (360, 640))
+    assert view.shape == (360, 640, 3)
+    net, opt, state = make_ufld_train_state(spec, use_aux=True, device="cpu")
+    step = make_ufld_train_step(net, opt)
+    rng = np.random.default_rng(0)
+    batch = {"images": torch.randn(2, 3, 64, 160),
+             "row_targets": torch.from_numpy(rng.integers(0, 20, (2, 72, 4))),
+             "col_targets": torch.from_numpy(rng.integers(0, 10, (2, 16, 4))),
+             "row_exist": torch.from_numpy(rng.integers(0, 2, (2, 72, 4))),
+             "col_exist": torch.from_numpy(rng.integers(0, 2, (2, 16, 4))),
+             "seg_targets": torch.from_numpy(rng.integers(0, 5, (2, 8, 20)))}
+    step(state, batch)
+    restore_train_state(save_train_state(tmp, state, 1), state)
+    net.eval()
+    path = os.path.join(tmp, "lane.onnx")
+    x = torch.randn(1, 3, 64, 160)
+    export_module_to_onnx(net, x, path, ["images"])
+    got = OnnxGraphEngine(path, device="cpu").engine_inference(x.numpy())
+    with torch.no_grad():
+        assert np.allclose(got[0], net(x)["loc_row"].numpy(), rtol=2e-4, atol=2e-4)
+    assert not [m for m in sys.modules if m.split(".")[0] in %r]
+    print("decoded", n)
+    """
+    % (BLOCKED, NOT_IMPORTED)
+)
+
+
+def test_new_modules_run_with_jax_package_cv2_and_pil_blocked(tmp_path):
+    """The codec on every committed fixture, ``run_lane_image`` on a 720p
+    PNG, ``transport_view``, a training step with the aux head and a
+    checkpoint round trip, and an ONNX export served by the graph
+    executor, in a process that cannot import ``jax``, ``adas_tpu``,
+    ``cv2``, ``PIL``, ``optax``, ``orbax`` or ``onnx``."""
+    proc = subprocess.run(
+        [sys.executable, "-c", NEW_MODULES_SCRIPT, str(tmp_path)], cwd=REPO, env=ONE_THREAD,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) >= 60
+
+
+@pytest.mark.parametrize("name", [
+    "parallel.train:make_ufld_train_state", "pipeline.lane_demo:run_lane_image",
+    "pipeline.lane_demo:run_lane_video", "tools.onnx_export:_build_export",
+    "tools.quantize:calibrate_store", "tools.quantize:calib_dir_frames",
+])
+def test_new_entry_points_default_to_the_card(name):
+    """Each new entry point takes ``device`` with the default ``cuda``; the
+    trainer raises without a card rather than train on the CPU."""
+    import importlib
+    import inspect
+
+    module, fn = name.split(":")
+    f = getattr(importlib.import_module(f"adas_tpu_torch.{module}"), fn)
+    assert inspect.signature(f).parameters["device"].default == "cuda"
+    if fn == "make_ufld_train_state" and not torch.cuda.is_available():
+        from adas_tpu_torch.models.ufld import UFLDv2Spec
+
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            f(UFLDv2Spec(64, 160, 0.6, 20, 72, 10, 16, mlp_mid=64))
