@@ -13,7 +13,9 @@ modules by path.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +40,27 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
 
 
+#: the batch-statistics sum of this thread's BatchNorm2d layers in
+#: training mode (:func:`batch_stats_across`)
+_STATS_SUM = threading.local()
+
+
+@contextlib.contextmanager
+def batch_stats_across(fn: Callable):
+    """Within the block, every :class:`BatchNorm2d` in training mode on this
+    thread takes its batch statistics over a batch that other threads hold
+    parts of: ``fn(sums, count)`` gets this part's per-channel (2, C)
+    ``[sum x, sum x^2]`` and element count per channel and returns the
+    whole batch's (the sharded trainer's sum across the data rows,
+    ``parallel/train.py``)."""
+    prev = getattr(_STATS_SUM, "fn", None)
+    _STATS_SUM.fn = fn
+    try:
+        yield
+    finally:
+        _STATS_SUM.fn = prev
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose training mode is flax's ``nn.BatchNorm(
     use_running_average=False, momentum=0.9)`` (the trainer's,
@@ -45,13 +68,23 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``E[x^2] - E[x]^2`` (flax's ``use_fast_variance``, clipped at 0)
     normalize, and both running statistics take the same biased values
     (``nn.BatchNorm2d`` puts the unbiased variance into ``running_var``).
+    Under :func:`batch_stats_across` the mean and variance are those of
+    the whole batch, from the summed ``sum x``, ``sum x^2`` and counts (as
+    GSPMD takes flax's batch mean over a sharded batch axis).
     Eval mode is ``nn.BatchNorm2d``'s, on the running statistics."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        across = getattr(_STATS_SUM, "fn", None)
+        if across is None:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        else:
+            sums, count = across(torch.stack([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))]),
+                                 x.numel() // x.shape[1])
+            mean = sums[0] / count
+            var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)

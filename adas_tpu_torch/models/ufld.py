@@ -118,6 +118,16 @@ def tta_shifts(fea: torch.Tensor) -> torch.Tensor:
     return torch.cat([fea, left, right, up, down], dim=0)
 
 
+def head_mlp(net: nn.Module, fea: torch.Tensor) -> torch.Tensor:
+    """The head's MLP, ``cls_fc2(relu(cls_fc1(fea)))``, or the module that
+    ``net`` holds as ``mlp`` in place of the pair (a placement that splits
+    the pair over devices sets one)."""
+    mlp = net._modules.get("mlp")
+    if mlp is not None:
+        return mlp(fea)
+    return net.cls_fc2(F.relu(net.cls_fc1(fea)))
+
+
 class SegHead(nn.Module):
     """UFLDv2's training-only aux segmentation head (``ufld.py:91-134``,
     the reference's seg_model.py:16-55): conv3x3 + BN + ReLU stacks over
@@ -200,7 +210,7 @@ class UFLDv2Net(nn.Module):
         fea = fea.flatten(1)
         if s.fc_norm:
             fea = self.cls_norm(fea)
-        out = self.cls_fc2(F.relu(self.cls_fc1(fea)))
+        out = head_mlp(self, fea)
         b = out.shape[0]
         d1, d2, d3, _ = s.dims
         result = {
@@ -310,5 +320,5 @@ class UFLDv1Net(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.spec
         fea = pooled_map(self.backbone(x)[2], self.pool, self.int8).flatten(1)
-        out = self.cls_fc2(F.relu(self.cls_fc1(fea)))
+        out = head_mlp(self, fea)
         return out.reshape(-1, s.griding_num + 1, s.cls_num_per_lane, s.num_lanes)

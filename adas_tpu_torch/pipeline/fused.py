@@ -70,6 +70,13 @@ def fused_step(yolo, lane, x: torch.Tensor, frame_hw: Sequence[int], transport: 
     Input dtypes as ``fused.py:101-110`` sets them: the YOLO net takes bf16
     under bf16 and int8; the lane net takes bf16 under bf16 and, on I420,
     under int8 too (f32 under int8 from BGR, as the JAX step feeds it)."""
+    xo, lx = fused_inputs(yolo, lane, x, frame_hw, transport)
+    return fused_outputs(yolo, lane, xo, lx, frame_hw, nms_free)
+
+
+def fused_inputs(yolo, lane, x: torch.Tensor, frame_hw: Sequence[int], transport: str):
+    """The first half of :func:`fused_step`: the transport batch -> the
+    object net's and the lane net's input batches."""
     h, w = frame_hw
     lspec = lane.spec
     geom = letterbox_geometry(yolo, frame_hw)
@@ -101,7 +108,15 @@ def fused_step(yolo, lane, x: torch.Tensor, frame_hw: Sequence[int], transport: 
         lx = ufld_v2_preprocess(x, *lane_crop, dtype=lane_dtype, device=x.device)
     else:
         raise ValueError(f"transport must be 'bgr' or 'i420', got {transport!r}")
-    if is_effdet:
+    return xo, lx
+
+
+def fused_outputs(yolo, lane, xo: torch.Tensor, lx: torch.Tensor, frame_hw: Sequence[int],
+                  nms_free: bool = False):
+    """The second half of :func:`fused_step`: both nets on their input
+    batches, the decode and the NMS -> (packed flat outputs, pack spec)."""
+    geom = letterbox_geometry(yolo, frame_hw)
+    if yolo.model_type is ObjectModelType.EfficientDet:
         boxes, probs = yolo.net(xo)
         scores, ids = scores_and_ids(probs)
         dets = select_and_nms(

@@ -1,6 +1,6 @@
 """Multi-stream ADAS: N video feeds through ONE batched device step (port of
-``MultiStreamADAS``, ``adas_tpu/pipeline/multistream.py:105``, on one GPU
-and no mesh).
+``MultiStreamADAS``, ``adas_tpu/pipeline/multistream.py:105``), on one
+device or data-parallel over a (data, model) mesh of devices.
 
 Per tick: the host prepares each BGR frame for its transport and uploads
 the batch: ``"bgr"`` (JAX's default) uploads the frames as they are,
@@ -38,10 +38,26 @@ helpers (class names, colours, the lane point assembly).  A YOLO facade
 that an ONNX graph serves (``model_path="x.onnx"`` through
 ``engine/onnx_engine.OnnxGraphEngine``) takes part in the same step: the
 executor's device prefix stands in for the net (``_ExecutorNet``,
-``multistream.py:61-102``).  Not ported: the mesh (one GPU).
+``multistream.py:61-102``).
+
+On a ``mesh`` (``parallel/mesh.py``) the streams are split over its
+``data`` rows (``multistream.py:367-381``): each row holds a replica of
+both nets on its first device (the parameters are replicated over
+``model``, as JAX's ``repl`` replicates them; the row's other devices
+would compute the same streams, so the port leaves them out, as JAX's
+fetch dedupes them), the host prep uploads each row's frames to its
+device, the rows' steps, each with every kernel of the single-device
+step, are issued in turn under their devices (``parallel/mesh.in_turn``),
+and the fetch copies each row's packed output back in stream order.
+Each stream's image goes through the same operations as on one device.
+Served eagerly, a mesh is slower than one card: each row's issue costs
+the host about what the whole unsharded step's does (``parallel/mesh.py``
+gives the measured ticks); the compute probe's CUDA graph per row is the
+one path on which the cards run at once.
 """
 from __future__ import annotations
 
+import copy
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -56,6 +72,8 @@ from ..utils.types import LaneInfo
 from ..analytics import PerspectiveTransformation, SingleCamDistanceMeasure, TaskConditions
 from ..ops.packing import unpack
 from ..ops.preprocess import bgr_to_i420
+from ..parallel.mesh import Mesh, device_scope, in_turn, sum_to
+from ..parallel.sharding import batch_part, replicate
 from ..render.draw import resize_linear
 from .fused import fused_step, letterbox_geometry
 
@@ -115,14 +133,18 @@ class _ExecutorNet:
 
 
 class MultiStreamADAS:
-    """Batch-of-streams pipeline on one device; ``yolo`` is the object
-    side, a ``YoloDetector`` or an ``EfficientdetDetector``.  The
-    parameters are JAX's, in its order and with its defaults: ``mesh``
-    must be None (one GPU), ``host_downscale`` (H, W) resizes each frame
-    on the host, ``transport`` is ``"bgr"`` or ``"i420"``, and
-    ``step_artifact`` names a ``.adas`` file of :meth:`export_fused` to
-    serve the device step from (its streams, ``dev_hw`` and transport
-    must be this pipeline's; every weight comes from the file)."""
+    """Batch-of-streams pipeline on one device or over a (data, model)
+    mesh; ``yolo`` is the object side, a ``YoloDetector`` or an
+    ``EfficientdetDetector``.  The parameters are JAX's, in its order and
+    with its defaults: ``mesh`` (a ``parallel.Mesh``, ``make_mesh``) splits
+    the streams over its data rows, which must divide ``n_streams``
+    (module doc); ``host_downscale`` (H, W) resizes each frame on the
+    host, ``transport`` is ``"bgr"`` or ``"i420"``, and ``step_artifact``
+    names a ``.adas`` file of :meth:`export_fused` to serve the device
+    step from (its streams, ``dev_hw`` and transport must be this
+    pipeline's; every weight comes from the file; on a mesh it serves the
+    whole batch on the mesh's first device, as JAX's single-device
+    artifact does)."""
 
     def __init__(
         self,
@@ -135,8 +157,12 @@ class MultiStreamADAS:
         transport: str = "bgr",
         step_artifact: Optional[str] = None,
     ):
-        if mesh is not None:
-            raise ValueError("the port serves one GPU: mesh must be None")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise ValueError(f"mesh must be an adas_tpu_torch.parallel.Mesh (make_mesh), got "
+                             f"{type(mesh).__name__}")
+        if mesh is not None and n_streams % mesh.axis_size("data"):
+            raise ValueError(f"{n_streams} streams do not split evenly over the mesh's "
+                             f"{mesh.axis_size('data')} data rows")
         if transport not in ("bgr", "i420"):
             raise ValueError(f"transport must be 'bgr' or 'i420', got {transport!r}")
         if yolo.device != lane.device:
@@ -148,7 +174,8 @@ class MultiStreamADAS:
         self.host_downscale = tuple(host_downscale) if host_downscale else None
         self.transport = transport
         self.dev_hw = self.host_downscale or self.frame_hw
-        self.device = yolo.device
+        self.mesh = mesh
+        self.device = yolo.device if mesh is None else mesh.devices[0, 0]
         if step_artifact is None and getattr(yolo, "engine", None) is not None \
                 and getattr(yolo, "net", None) is None:
             # an engine-served facade: its ONNX graph is the step's net
@@ -165,20 +192,35 @@ class MultiStreamADAS:
         self._uploader = None
         self._fetcher = None
         self._step_engine = None
+        # the nets each data row serves, and on a mesh the rows' devices
+        self._views = [(yolo, lane)]
+        self._rows = None
         if step_artifact is not None:
             self._load_step_artifact(step_artifact)
+        elif mesh is not None:
+            self._rows = mesh.row_devices()
+            self._views = [(_row_view(yolo, d), _row_view(lane, d)) for d in self._rows]
 
     # ---- device step ----
 
-    def _step(self, x: torch.Tensor) -> torch.Tensor:
+    def _step(self, x):
         """(B, H*3/2, W) uint8 I420 or (B, H, W, 3) uint8 BGR frames of
         ``dev_hw`` on the device -> (B, total) f32 packed detections (in
         ``dev_hw`` pixels) + decoded lanes (``multistream.py:248-362``),
         through the fused step of ``pipeline/fused.py``, or the artifact's
-        program of that step."""
+        program of that step.  On a mesh ``x`` is the list of the rows'
+        parts, each on its row's device, and so is the result."""
         if self._step_engine is not None:
             return self._step_engine.run_device(x)
-        flat, self._pack_spec = fused_step(self.yolo, self.lane, x, self.dev_hw, self.transport,
+        if self._rows is not None:
+            return in_turn(self._rows, self._row_step, x)
+        return self._row_step(0, x)
+
+    def _row_step(self, r: int, x: torch.Tensor) -> torch.Tensor:
+        """Data row ``r``'s step on its part of the batch, through its
+        nets (the facades' own without a mesh, else the row's replicas)."""
+        yolo, lane = self._views[r]
+        flat, self._pack_spec = fused_step(yolo, lane, x, self.dev_hw, self.transport,
                                            nms_free=bool(getattr(self.yolo, "nms_free", False)))
         return flat
 
@@ -200,14 +242,20 @@ class MultiStreamADAS:
         metadata written."""
         from ..engine.artifact import build_step_artifact, pack_tree_meta
 
+        if self.mesh is not None and self.mesh.size > 1:
+            raise ValueError(
+                "multi-device steps serialize device assignments; export from a single-device "
+                "pipeline (the artifact is the per-chip deploy unit)"
+            )
         if self._step_engine is not None:
             raise ValueError("export_fused needs the native step; this pipeline serves a "
                              "step_artifact")
         shape = self._transport_input_shape()
-        # one step records the pack spec (the export runs another)
-        self._step(torch.zeros(shape, dtype=torch.uint8, device=self.device))
+        # one step records the pack spec (the export runs another); on a
+        # one-device mesh the step is its one row's
+        self._row_step(0, torch.zeros(shape, dtype=torch.uint8, device=self.device))
         return build_step_artifact(
-            self._step, (shape, torch.uint8), out_path,
+            lambda x: self._row_step(0, x), (shape, torch.uint8), out_path,
             platforms=[self.device.type] if platforms is None else platforms,
             device=self.device,
             meta={
@@ -264,11 +312,17 @@ class MultiStreamADAS:
                 self._prep_pool = ThreadPoolExecutor(max_workers=4, thread_name_prefix="adas-prep")
         return np.stack(list(self._prep_pool.map(prep_one, frames)))
 
-    def _prep_upload(self, frames: np.ndarray) -> torch.Tensor:
-        """Host prep + upload; returns the device-resident input batch."""
+    def _prep_upload(self, frames: np.ndarray):
+        """Host prep + upload; returns the device-resident input batch, on a
+        mesh the list of the rows' parts, each uploaded to its row's
+        device (``multistream.py:421-425``)."""
         if frames.shape[0] != self.n_streams:
             raise ValueError(f"expected {self.n_streams} frames, got {frames.shape[0]}")
-        return torch.from_numpy(np.ascontiguousarray(self._host_prep(frames))).to(self.device)
+        host = np.ascontiguousarray(self._host_prep(frames))
+        if self._rows is None:
+            return torch.from_numpy(host).to(self.device)
+        return [torch.from_numpy(batch_part(self.mesh, host, r)).to(d)
+                for r, d in enumerate(self._rows)]
 
     def prefetch(self, frames: np.ndarray):
         """Host prep + upload on a background thread; returns a Future
@@ -277,19 +331,25 @@ class MultiStreamADAS:
             self._uploader = ThreadPoolExecutor(max_workers=1, thread_name_prefix="adas-upload")
         return self._uploader.submit(self._prep_upload, frames)
 
-    def submit_device(self, x: torch.Tensor) -> torch.Tensor:
+    def submit_device(self, x):
         """Launch the device step on an uploaded batch (asynchronous on a
-        GPU: the returned tensor is ready when :meth:`fetch` copies it)."""
+        GPU: the returned tensor, or on a mesh the rows' tensors, is ready
+        when :meth:`fetch` copies it)."""
         return self._step(x)
 
-    def submit(self, frames: np.ndarray) -> torch.Tensor:
+    def submit(self, frames: np.ndarray):
         """frames: (n_streams, H, W, 3) uint8 BGR."""
         return self._step(self._prep_upload(frames))
 
-    def fetch(self, handle: torch.Tensor, frames: np.ndarray) -> List[dict]:
-        """One device->host copy of the packed outputs, then per-stream
+    def fetch(self, handle, frames: np.ndarray) -> List[dict]:
+        """One device->host copy of the packed outputs (on a mesh one per
+        row, in stream order: ``multistream.py:456-468``), then per-stream
         host analytics; returns the signal dicts."""
-        return self._analytics(handle.cpu().numpy(), frames)
+        if isinstance(handle, list):
+            flat = np.concatenate([h.cpu().numpy() for h in handle])
+        else:
+            flat = handle.cpu().numpy()
+        return self._analytics(flat, frames)
 
     def _analytics(self, flat: np.ndarray, frames: np.ndarray) -> List[dict]:
         """Host analytics per stream (``multistream.py:470-545``); the
@@ -367,36 +427,48 @@ class MultiStreamADAS:
         that fails raises (no eager fallback).  On the CPU the probe runs
         the steps as a plain loop.  A pipeline served from a
         ``step_artifact`` has no native step to chain: it raises, as JAX's
-        does."""
+        does.
+
+        On a mesh ``x`` is the rows' parts (what :meth:`prefetch` returns):
+        each row's chain is captured in a CUDA graph of its own, on its
+        device, and every call replays them all; the result is the sum of
+        the rows' carries."""
         if self._step_engine is not None:
             raise RuntimeError("compute probe needs the native graph; this pipeline serves a "
                                "pre-serialized step_artifact")
-
-        def chained(x: torch.Tensor) -> torch.Tensor:
+        def chained(r: int, x: torch.Tensor) -> torch.Tensor:
             s = torch.zeros((), dtype=torch.float32, device=x.device)
             for i in range(iters):
-                s = s + self._step(x + (i % 256)).sum()
+                s = s + self._row_step(r, x + (i % 256)).sum()
             return s
 
-        graph = {}
+        graphs = []
+
+        def capture(r: int, x: torch.Tensor) -> dict:
+            self._row_step(r, x)  # eager warm-up: plans, maps, the pack spec
+            static = x.clone()
+            side = torch.cuda.Stream(x.device)
+            side.wait_stream(torch.cuda.current_stream(x.device))
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side), torch.cuda.graph(g, stream=side):
+                out = chained(r, static)
+            torch.cuda.current_stream(x.device).wait_stream(side)
+            return {"g": g, "x": static, "out": out}
 
         @torch.inference_mode()
-        def probe(x: torch.Tensor) -> torch.Tensor:
-            if x.device.type != "cuda":
-                return chained(x)
-            if not graph:
-                self._step(x)  # eager warm-up: plans, maps, the pack spec
-                static = x.clone()
-                side = torch.cuda.Stream(x.device)
-                side.wait_stream(torch.cuda.current_stream(x.device))
-                g = torch.cuda.CUDAGraph()
-                with torch.cuda.stream(side), torch.cuda.graph(g, stream=side):
-                    out = chained(static)
-                torch.cuda.current_stream(x.device).wait_stream(side)
-                graph.update(g=g, x=static, out=out)
-            graph["x"].copy_(x)
-            graph["g"].replay()
-            return graph["out"].clone()
+        def probe(x) -> torch.Tensor:
+            parts = x if isinstance(x, list) else [x]
+            if parts[0].device.type != "cuda":
+                return sum_to([chained(r, p) for r, p in enumerate(parts)], parts[0].device)
+            if not graphs:
+                for r, p in enumerate(parts):
+                    with device_scope(p.device):
+                        graphs.append(capture(r, p))
+            for p, graph in zip(parts, graphs):
+                with device_scope(p.device):
+                    graph["x"].copy_(p)
+                    graph["g"].replay()
+            return sum_to([graph["out"] for graph in graphs], parts[0].device).clone()
 
         return probe
 
@@ -456,3 +528,22 @@ class MultiStreamADAS:
             if pool is not None:
                 pool.shutdown(wait=True)
         self._prep_pool = self._uploader = self._fetcher = None
+
+
+def _row_view(facade, device: torch.device):
+    """A facade as ``fused_step`` sees it, for one data row: a shallow copy
+    whose net is a replica on ``device`` (an ONNX graph executor a new
+    executor of the same graph there)."""
+    view = copy.copy(facade)
+    net = facade.net
+    if isinstance(net, _ExecutorNet):
+        from ..engine.onnx_engine import OnnxGraphEngine
+
+        engine = OnnxGraphEngine(net.engine._model, batch_size=net.engine.get_engine_input_shape()[0],
+                                 device=device)
+        view.engine = engine
+        view.net = _ExecutorNet(engine)
+    else:
+        view.net = replicate(net, device)
+    view.device = device
+    return view

@@ -269,6 +269,33 @@ Phases, each of which raises (exit code 1) on failure:
     TF32 convolutions exceed, their gaps printed beside; a save/restore
     exact; then one eval forward through the stem kernel), step ms,
     images/s and peak memory, and the step with TF32 convolutions.
+23. the mesh (``[mesh-*]``; one process drives every device, as JAX
+    does): over every card (``make_mesh()``) where there are several,
+    else over meshes that repeat ``cuda:0`` (data 2, model 1 for
+    serving; data 2, model 2 for the head split and training), printed
+    as such.  ``[mesh-int8]``: phase 5's calibrated int8 pair over the
+    mesh beside the unsharded pipeline on the same nets: each row's
+    streams equal to the bit to the unsharded step on those streams;
+    each row's nets on its part of the unsharded tick's preprocessed
+    inputs equal to the tick to the bit, lanes included; the end-to-end
+    I420 tick (whose preprocess rounds otherwise at a row's batch) by
+    matched detections, counts and lane flags; each row's step alone
+    exactly stem 2, int8 conv 105, block 5, IoU 1 and walk 1,
+    ``process_batch`` and ``serve_pipelined`` ticks with rows x those per
+    tick and every stream's tracker advanced once per tick, the device
+    step of each row and of the tick (the rows issued in turn), and the
+    compute probe (one CUDA graph per row, the launches of phase 5's
+    probe); ``[mesh-bf16]``: the same in bf16 (stem 2, IoU 1, walk 1 per
+    row), where cuDNN picks its algorithms by the batch: the stem, IoU
+    and walk kernels are held against their plain versions at the row
+    batch instead of the bit check; ``[mesh-sharded-step]``: ``make_sharded_stream_step`` of
+    the UFLDv2-CULane f32 forward with its head split over ``model``,
+    within 1e-5 relative L2 of the unsharded forward per output, the stem
+    once per row; ``[mesh-train]``: phase 22's trainer (320x1600, aux,
+    batch 8) sharded against the unsharded one on the card from the same
+    init: first loss within rel 2e-5, the first update within 2e-2
+    relative L2, every replica's running statistics equal, no kernel
+    launches, step ms of both, a checkpoint round trip.
 
 Then the card's name and power limit again, one JSON line describing
 the kernels — ``launches`` summed over the paths (the ``[families]``
@@ -298,7 +325,7 @@ site's time by dtype; int8 conv: ``config5_tick_{ms,library_ms,bound_ms}``
 of phase 19 over the lane net's shapes (the block with its plain
 version's), and every kernel's ``..._launches`` per such tick;
 ``import_main_int8_launches``: every kernel's launches in phase 20's
-counted tick; phases 21 and 22's launches are in ``launches``) —
+counted tick; phases 21, 22 and 23's launches are in ``launches``) —
 and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA GPU is visible.
 """
@@ -410,6 +437,26 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def wall_ms(fn, iters: int) -> float:
+    """Mean host-clock time of ``fn()`` over ``iters`` calls after warm-up,
+    from a synchronization of every card to one after the last call (work
+    that spans cards)."""
+    import torch
+
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    for _ in range(3):
+        fn()
+    sync()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t) * 1e3 / iters
 
 
 def stem_case(S, torch, gen, name, shape, k, act, pool, dtype, atol, rtol, feat=64):
@@ -1161,11 +1208,14 @@ def probe_phase(tag, ms, frames, per_tick, mods, torch):
     Returns the probe's numbers."""
     x = ms._prep_upload(frames)
     two = ms.make_compute_probe(2)(x)
-    eager = ms._step(x).sum() + ms._step(x + 1).sum()
+    # on a mesh the upload and the step are lists of the rows' parts
+    x1 = [p + 1 for p in x] if isinstance(x, list) else x + 1
+    eager = sum(float(o.sum()) for step in (ms._step(x), ms._step(x1))
+                for o in (step if isinstance(step, list) else [step]))
     torch.cuda.synchronize()
-    rel = abs(float(two) - float(eager)) / max(abs(float(eager)), 1e-30)
+    rel = abs(float(two) - eager) / max(abs(eager), 1e-30)
     check(bool(torch.isfinite(two)) and rel < 1e-5,
-          f"[{tag}] 2-step probe {float(two)} vs eager steps {float(eager)}")
+          f"[{tag}] 2-step probe {float(two)} vs eager steps {eager}")
     out = {}
     for iters in (COMPUTE_ITERS, 2 * COMPUTE_ITERS):
         probe = ms.make_compute_probe(iters)
@@ -3741,6 +3791,431 @@ def onnx_phases(mods, smi, torch, np):
     return run
 
 
+MESH_TRAIN_STEPS = 6
+#: the first step's parameter update (the gradient, times the learning
+#: rate) of the sharded trainer against the unsharded one on the card,
+#: relative L2 over every parameter: the GPU-vs-CPU gradient bound of
+#: ``[train-ufldv2]`` (the BatchNorm backward's cancellation moves a few
+#: leaves by more than rounding)
+MESH_UPDATE_RTOL = TRAIN_GRAD_RTOL
+#: the sharded UFLDv2 forward against the unsharded one, relative L2 per
+#: output (f32, TF32 off: the split head sums ``cls_fc2`` in two halves)
+MESH_STEP_RTOL = 1e-5
+#: what rounds otherwise at a row's batch than at the whole tick's (found
+#: on the card: the int8 nets themselves are batch-invariant to the bit)
+BATCH_ROUNDING = ("the I420 preprocess's f32 resize matmuls (ops/preprocess.py:221-222: "
+                  "cuBLAS picks its GEMM by the batch) put a few bf16 inputs one ulp off, "
+                  "and in bf16 cuDNN's convolutions of the lane trunk too")
+#: the mesh's end-to-end I420 tick against the 8-stream tick, per stream
+#: (their inputs differ by BATCH_ROUNDING): the least share of detections
+#: matched, the most detections by which the counts may differ, and the
+#: least share of lane anchors whose validity flags agree (measured on one
+#: H100: 0.947, 0, 0.9853 at worst)
+MESH_MATCH_MIN = 0.9
+MESH_COUNT_SLACK = 2
+MESH_LANE_FLAGS_MIN = 0.97
+
+
+def chip_meshes(torch):
+    """The meshes of the mesh phases: over every card (``make_mesh()``)
+    where there are several, else meshes that repeat ``cuda:0``: (2, 1)
+    for the serving phases and (2, 2) for the head split and training."""
+    from adas_tpu_torch.parallel import Mesh, make_mesh
+
+    if torch.cuda.device_count() > 1:
+        mesh = make_mesh()
+        return mesh, mesh
+    return Mesh([["cuda:0"], ["cuda:0"]]), Mesh([["cuda:0", "cuda:0"], ["cuda:0", "cuda:0"]])
+
+
+def mesh_note(mesh) -> str:
+    rows = [[str(d) for d in r] for r in mesh.devices]
+    return (f"mesh {dict(mesh.shape)} {rows}"
+            + (" (the devices repeat: one card)" if mesh.repeats else ""))
+
+
+def unpacked_dets(flat, spec, np):
+    from adas_tpu_torch.ops.packing import unpack
+
+    return [np.asarray(unpack(row, spec)[0]) for row in flat]
+
+
+def matched_share(got, want, np) -> float:
+    """The share of ``got``'s detections (rows x1 y1 x2 y2 score label,
+    score > 0) that have one in ``want`` with the same label, IoU > 0.5
+    and a score within 0.05: the int8 slice's yardstick
+    (``tests/test_torch_int8_slice.py``)."""
+    g, w = got[got[:, 4] > 0], want[want[:, 4] > 0]
+    if not len(g):
+        return 1.0 if not len(w) else 0.0
+    hits = 0
+    for d in g:
+        lt, rb = np.maximum(d[:2], w[:, :2]), np.minimum(d[2:4], w[:, 2:4])
+        inter = np.prod(np.clip(rb - lt, 0, None), axis=1)
+        area = (w[:, 2] - w[:, 0]) * (w[:, 3] - w[:, 1])
+        iou = inter / ((d[2] - d[0]) * (d[3] - d[1]) + area - inter)
+        hits += bool(np.any((iou > 0.5) & (w[:, 5] == d[5]) & (np.abs(w[:, 4] - d[4]) < 0.05)))
+    return hits / len(g)
+
+
+def mesh_serve_phase(tag, compute_dtype, mesh, mods, smi, torch, np, per_row, n_sync, n_pipe,
+                     probe=False):
+    """``[mesh-int8]`` / ``[mesh-bf16]``: phase 5's (or 7's) pipeline,
+    YOLOv8l-640 + UFLDv2-CULane from the same seeds (int8 calibrated on the
+    card from the same two frames), 8 I420 streams of 720p, over ``mesh``
+    beside the unsharded pipeline on the same nets.  Each row's streams
+    equal to the bit to the unsharded step on those streams; the rows'
+    kernels at their batch held by :func:`mesh_rows_against_tick`; the
+    end-to-end tick against the 8-stream tick by matched detections
+    (``MESH_MATCH_MIN``, ``MESH_COUNT_SLACK``), the lanes' agreement
+    printed; each row's step alone with exactly ``per_row`` launches; then
+    ``process_batch`` and ``serve_pipelined`` ticks with exactly rows x
+    ``per_row`` per tick; the device step of each row (CUDA events on its
+    device) and the whole tick's step beside the unsharded step; with
+    ``probe`` the compute probe (one CUDA graph per row).  Returns the
+    counts of the run."""
+    yolo, lane, MultiStreamADAS = build_main(compute_dtype, torch, tag=tag)
+    rng = np.random.default_rng(0)
+    if compute_dtype == "int8":
+        calib = rng.integers(0, 256, (2, *FRAME_HW, 3), dtype=np.uint8)
+        yolo.calibrate_int8(list(calib))
+        lane.calibrate_int8(list(calib))
+    ticks = [rng.integers(0, 256, (N_STREAMS, *FRAME_HW, 3), dtype=np.uint8) for _ in range(4)]
+    rows = mesh.axis_size("data")
+    print(f"[{tag}] {mesh_note(mesh)}: {rows} data rows of {N_STREAMS // rows} streams, one "
+          f"replica of both nets per row", flush=True)
+    ms0 = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW, transport="i420")
+    ms = MultiStreamADAS(yolo, lane, N_STREAMS, FRAME_HW, mesh=mesh, transport="i420")
+    try:
+        t = time.perf_counter()
+        x = ms._prep_upload(ticks[0])
+        got = ms._step(x)
+        torch.cuda.synchronize()
+        print(f"[{tag}] first mesh tick (replicas' plans and maps) "
+              f"{(time.perf_counter() - t) * 1e3:.1f} ms", flush=True)
+        x0 = ms0._prep_upload(ticks[0])
+        want = ms0._step(x0)
+        got = torch.cat([g.to(want.device) for g in got])
+        k = N_STREAMS // rows
+        # the unsharded pipeline on each row's streams: the same batch a row runs
+        per_rows = torch.cat([ms0._step(x0[r * k:(r + 1) * k]) for r in range(rows)])
+        check(bool(torch.equal(got, per_rows)),
+              f"[{tag}] a row's streams differ from the unsharded step on the same streams")
+        mesh_rows_against_tick(tag, compute_dtype, ms, ms0, x0, want, mods, torch)
+        # the end-to-end I420 tick: the rows' own preprocess rounds otherwise
+        g_dets = unpacked_dets(got.cpu().numpy(), ms._pack_spec, np)
+        w_dets = unpacked_dets(want.cpu().numpy(), ms0._pack_spec, np)
+        shares = [matched_share(a, b, np) for a, b in zip(g_dets, w_dets)]
+        counts_ = [(int((a[:, 4] > 0).sum()), int((b[:, 4] > 0).sum()))
+                   for a, b in zip(g_dets, w_dets)]
+        g_lanes = unpacked_lanes(got.cpu().numpy(), ms._pack_spec, np)
+        w_lanes = unpacked_lanes(want.cpu().numpy(), ms0._pack_spec, np)
+        lanes = [lane_agreement(a, b, np) for a, b in zip(g_lanes, w_lanes)]
+        print(f"[{tag}] the end-to-end I420 tick against the 8-stream tick: streams equal to "
+              f"the bit {[bool(torch.equal(got[i], want[i])) for i in range(N_STREAMS)]} (max "
+              f"|diff| {float((got - want).abs().max()):.3g}: {BATCH_ROUNDING}); matched shares "
+              f"{[round(v, 3) for v in shares]} (least {MESH_MATCH_MIN}); detections (mesh, "
+              f"unsharded) {counts_} (apart by {MESH_COUNT_SLACK} at most); lanes (share of "
+              f"validity flags equal, least {MESH_LANE_FLAGS_MIN}; most |diff| of a point valid "
+              f"on both) {[(round(a, 4), float(f'{b:.3g}')) for a, b in lanes]}", flush=True)
+        check(all(v >= MESH_MATCH_MIN for v in shares)
+              and all(abs(a - b) <= MESH_COUNT_SLACK for a, b in counts_)
+              and all(a >= MESH_LANE_FLAGS_MIN for a, _ in lanes),
+              f"[{tag}] the mesh tick misses the unsharded tick's detections or lanes")
+        x = ms._prep_upload(ticks[1])
+        for r in range(rows):
+            reset(mods)
+            with torch.cuda.device(x[r].device):
+                ms._row_step(r, x[r])
+            torch.cuda.synchronize()
+            got_r = counts(mods)
+            check(got_r == per_row, f"[{tag}] row {r}: launches {got_r}, expected {per_row}")
+        print(f"[{tag}] launches of each row's step alone: {per_row} (exact, {rows} rows)",
+              flush=True)
+        per_tick = {k: rows * v for k, v in per_row.items()}
+        ms.process_batch(ticks[0])
+        torch.cuda.synchronize()
+        reset(mods)
+        tick_ms, results = [], []
+        for i in range(n_sync):
+            t = time.perf_counter()
+            results.append(ms.process_batch(ticks[1 + i % 3]))
+            tick_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        n = ms.serve_pipelined((ticks[i % 4] for i in range(n_pipe)), depth=3)
+        pipe_s = time.perf_counter() - t
+        run = counts(mods)
+        check(n == n_pipe, f"[{tag}] serve_pipelined tick count")
+        for k, per in per_tick.items():
+            check(run[k] == per * (n_sync + n_pipe),
+                  f"[{tag}] {k} launches {run[k]} after {n_sync + n_pipe} ticks, expected {per} "
+                  f"per tick")
+        n_dets = [len(r["objects"]) for r in results[-1]]
+        check(all(0 < k <= int(yolo.max_det) for k in n_dets)
+              and all(np.isfinite([o.x, o.y, o.width, o.height, o.conf]).all()
+                      for r in results[-1] for o in r["objects"]),
+              f"[{tag}] detections per stream: {n_dets}")
+        check([st.tracker.frame_id for st in ms.streams] == [n_sync + n_pipe + 1] * N_STREAMS,
+              f"[{tag}] the streams' trackers did not advance once per tick")
+        print(f"[{tag}] launches over {n_sync + n_pipe} ticks: {run} (per tick {per_tick}); "
+              f"detections per stream (last tick) {n_dets}", flush=True)
+        x = ms._prep_upload(ticks[1])
+        row_ms = []
+        for r in range(rows):
+            with torch.cuda.device(x[r].device):
+                row_ms.append(cuda_ms(lambda: ms._row_step(r, x[r]), 10))
+        x0 = ms0._prep_upload(ticks[1])
+        steps = {"mesh, rows in turn": lambda: ms._step(x), "unsharded": lambda: ms0._step(x0)}
+        step_ms = {name: wall_ms(fn, 10) for name, fn in steps.items()}
+        print(f"[{tag}] process_batch per tick ms {[round(v, 3) for v in tick_ms]} -> "
+              f"{N_STREAMS * 1e3 / np.median(tick_ms):.2f} frames/s; serve_pipelined "
+              f"{pipe_s * 1e3 / n_pipe:.3f} ms/tick; device step per row (alone, CUDA events) "
+              f"{[round(v, 3) for v in row_ms]} ms of {N_STREAMS // rows} streams; the step of "
+              f"a tick (host clock, every card synced): "
+              f"{ {k: round(v, 3) for k, v in step_ms.items()} } ({smi})", flush=True)
+        if probe:
+            probe_phase(f"{tag}-probe", ms, ticks[0], per_tick, mods, torch)
+        return run
+    finally:
+        ms.close()
+        ms0.close()
+
+
+def unpacked_lanes(flat, spec, np):
+    from adas_tpu_torch.ops.packing import unpack
+
+    return [{k: np.asarray(v) for k, v in unpack(row, spec)[1].items()} for row in flat]
+
+
+def lane_agreement(got, want, np):
+    """(the share of lane anchors whose validity flags agree, the largest
+    |difference| of a normalized lane coordinate valid on both sides)."""
+    flags = equal = 0
+    worst = 0.0
+    for pos, valid in (("row_x", "row_valid"), ("col_y", "col_valid")):
+        a, b = got[valid] > 0.5, want[valid] > 0.5
+        flags += a.size
+        equal += int((a == b).sum())
+        both = a & b
+        if both.any():
+            worst = max(worst, float(np.abs(got[pos] - want[pos])[both].max()))
+    return equal / flags, worst
+
+
+def mesh_rows_against_tick(tag, compute_dtype, ms, ms0, x0, want, mods, torch):
+    """The rows' kernels at the row batch, against the 8-stream tick that
+    the earlier phases hold against the plain versions.  Each row's
+    replicas run the second half of the step (``pipeline/fused.py``: both
+    nets, the decode, the NMS) on its part of the 8-stream tick's own
+    preprocessed inputs.  The int8 nets take the same integer kernels at
+    any batch: every stream's packed output, detections and lanes, must
+    equal the tick's to the bit.  In bf16 cuDNN's convolutions of the
+    trunks pick their algorithms by the batch, so the kernels that path
+    launches (the two stem sites, the IoU mask, the walk) are held against
+    their plain versions at the row batch instead, and the outputs'
+    agreement is printed."""
+    from adas_tpu_torch.parallel.sharding import batch_part
+    from adas_tpu_torch.pipeline.fused import fused_inputs, fused_outputs
+
+    yolo, lane = ms0.yolo, ms0.lane
+    nms_free = bool(getattr(yolo, "nms_free", False))
+    with torch.inference_mode():
+        xo, lx = fused_inputs(yolo, lane, x0, ms0.dev_hw, ms0.transport)
+        whole = fused_outputs(yolo, lane, xo, lx, ms0.dev_hw, nms_free)[0]
+        check(bool(torch.equal(whole, want)), f"[{tag}] the step's two halves differ from the step")
+        parts = []
+        for r, dev in enumerate(ms._rows):
+            ry, rl = ms._views[r]
+            with torch.cuda.device(dev):
+                parts.append(fused_outputs(ry, rl, batch_part(ms.mesh, xo, r).to(dev),
+                                           batch_part(ms.mesh, lx, r).to(dev), ms.dev_hw,
+                                           nms_free)[0].to(want.device))
+    got = torch.cat(parts)
+    same = [bool(torch.equal(got[i], want[i])) for i in range(got.shape[0])]
+    k = got.shape[0] // len(parts)
+    print(f"[{tag}] the rows' nets on their parts of the 8-stream tick's preprocessed inputs "
+          f"({k} streams a row) against the tick: streams equal to the bit {same} (max |diff| "
+          f"{float((got - want).abs().max()):.3g})", flush=True)
+    if compute_dtype == "int8":
+        check(all(same), f"[{tag}] a row's int8 kernels at {k} streams differ from the 8-stream "
+                         f"tick's on the same inputs")
+        return
+    S, I, NMS = mods["stem"], mods["iou"], mods["nms"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dname, atol, rtol = STEM_DTYPES[0]
+    for name, shape, kk, act, pool in STEM_SITES:
+        stem_case(S, torch, gen, f"{name} (a row's batch)", (k, *shape[1:]), kk, act, pool,
+                  getattr(torch, dname), atol, rtol)
+    boxes, scores = nms_inputs(gen, k, 512, torch)
+    mask = I.iou_mask(boxes, 0.45, plus_one=True)
+    bits = int(I.unpack_bits(mask ^ I.iou_mask_reference(boxes, 0.45, plus_one=True),
+                             512).sum().item())
+    keep = NMS.nms_walk(mask, scores, 300, 0.001)
+    n_diff = int((keep != NMS.nms_walk_reference(mask, scores, 300, 0.001)).sum().item())
+    print(f"[{tag}] at a row's batch ({k}, 512): iou mask {bits} bits differ, walk {n_diff} "
+          f"indices differ (0 each)", flush=True)
+    check(bits == 0 and n_diff == 0, f"[{tag}] iou mask / walk at ({k}, 512) disagree with "
+                                     f"their plain versions")
+
+
+def mesh_sharded_step_phase(mesh, mods, smi, torch, np):
+    """``[mesh-sharded-step]``: ``make_sharded_stream_step`` of the
+    UFLDv2-CULane f32 forward (320x1600, the published head: ``cls_fc2``
+    2048 x 91,224) over ``mesh`` with the head split over ``model``, on 8
+    images, against the unsharded forward (relative L2 per output within
+    ``MESH_STEP_RTOL``); the stem kernel once per row.  Returns the counts."""
+    from adas_tpu_torch.parallel import make_sharded_stream_step
+    from adas_tpu_torch.perception.lane_detector import LaneModelType, UltrafastLaneDetectorV2
+
+    tag = "mesh-sharded-step"
+    lane = UltrafastLaneDetectorV2(model_type=LaneModelType.UFLDV2_CULANE, device="cuda", seed=1)
+    net = lane.net.eval()
+    rows = mesh.axis_size("data")
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=(N_STREAMS, 3, 320, 1600))
+                         .astype(np.float32)).cuda()
+    with torch.no_grad():
+        want = net(x)
+    step = make_sharded_stream_step(lambda n, f: n(f), net, mesh)
+    head = step.replicas.replicas[0].mlp
+    step(x)
+    torch.cuda.synchronize()
+    reset(mods)
+    out = step(x)
+    torch.cuda.synchronize()
+    run = counts(mods)
+    check(run == {"stem": rows, "int8_conv": 0, "block": 0, "iou": 0, "nms": 0},
+          f"[{tag}] launches {run}, expected the stem once per row")
+    rel = {k: float((torch.cat([o[k].to(v.device) for o in out]) - v).norm() / v.norm())
+           for k, v in want.items()}
+    check(all(v < MESH_STEP_RTOL for v in rel.values()),
+          f"[{tag}] the sharded forward vs the unsharded: relative L2 {rel}")
+    ms_sharded = wall_ms(lambda: step(x), 5)
+    with torch.no_grad():
+        ms_plain = wall_ms(lambda: net(x), 5)
+    print(f"[{tag}] UFLDv2-CULane f32 on {mesh_note(mesh)}: cls_fc1 shards "
+          f"{tuple(head.fc1[0].weight.shape)}, cls_fc2 shards {tuple(head.fc2[0].weight.shape)}; "
+          f"relative L2 to the unsharded forward "
+          f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} } (bound {MESH_STEP_RTOL}); "
+          f"launches {run}; sharded step {ms_sharded:.3f} ms, unsharded forward {ms_plain:.3f} "
+          f"ms ({smi})", flush=True)
+    return run
+
+
+def mesh_train_phase(mesh, mods, smi, torch, np):
+    """``[mesh-train]``: phase 22's UFLDv2-CULane res18 + aux head at
+    320x1600, batch 8, f32 (TF32 off), on ``mesh`` (the head split over
+    ``model``), against the unsharded trainer on the card from the same
+    init and batch: the first loss within rel 2e-5 (JAX's bound between
+    meshes, ``tests/test_parallel.py:83``), the first update (every
+    parameter, relative L2) within ``MESH_UPDATE_RTOL``, every replica's
+    running statistics equal to the bit; no kernel launches; step ms
+    beside the unsharded step's; a checkpoint round trip on the mesh.
+    Returns the counts."""
+    import shutil
+    import tempfile
+
+    from adas_tpu_torch.models.ufld import UFLDv2Spec
+    from adas_tpu_torch.parallel import (make_ufld_train_state, make_ufld_train_step,
+                                         restore_train_state, save_train_state)
+    from adas_tpu_torch.utils.config import CONFIG_DIR, Config
+
+    tag = "mesh-train"
+    cfg = Config.fromfile(os.path.join(CONFIG_DIR, "culane_res18.py"))
+    spec = UFLDv2Spec(input_height=cfg.train_height, input_width=cfg.train_width,
+                      crop_ratio=cfg.crop_ratio, num_cell_row=cfg.num_cell_row,
+                      num_row=cfg.num_row, num_cell_col=cfg.num_cell_col, num_col=cfg.num_col,
+                      fc_norm=cfg.fc_norm, backbone=cfg.backbone)
+    kw = dict(learning_rate=cfg.learning_rate, momentum=cfg.momentum, use_aux=True)
+    net, opt, state = make_ufld_train_state(
+        spec, None, torch.Generator("cuda").manual_seed(11), device="cuda", **kw)
+    snet, sopt, sstate = make_ufld_train_state(
+        spec, mesh, torch.Generator(mesh.devices[0, 0]).manual_seed(11), **kw)
+    step = make_ufld_train_step(net, opt)
+    sstep = make_ufld_train_step(snet, sopt, mesh, sstate)
+    batch = {k: v.cuda() for k, v in ufld_batch(spec, TRAIN_BATCH, 24, torch, np).items()}
+    names = [k for k, _ in net.named_parameters()]
+    w0 = torch.cat([v.flatten() for v in snet.gather(names).values()])
+    check(bool(torch.equal(w0, torch.cat([p.detach().flatten() for p in net.parameters()]))),
+          f"[{tag}] the sharded init differs from the unsharded one")
+    reset(mods)
+    loss = float(step(state, batch)[1])
+    sloss = float(sstep(sstate, batch)[1])
+    torch.cuda.synchronize()
+    launched = counts(mods)
+    rel = abs(sloss - loss) / abs(loss)
+    upd = torch.cat([p.detach().flatten() for p in net.parameters()]) - w0
+    supd = torch.cat([v.flatten() for v in snet.gather(names).values()]) - w0
+    urel = float((supd - upd).norm() / upd.norm())
+    first = snet.replicas[0].state_dict()
+    stats_equal = all(torch.equal(v, first[k].to(v.device)) for rep in snet.replicas[1:]
+                      for k, v in rep.state_dict().items() if "running" in k)
+    print(f"[{tag}] {mesh_note(mesh)}: first loss {sloss:.7f} vs the unsharded {loss:.7f} (rel "
+          f"{rel:.3g}, bound 2e-5); first update rel L2 {urel:.3g} (bound {MESH_UPDATE_RTOL}); "
+          f"replicas' running statistics equal: {stats_equal}", flush=True)
+    check(rel < 2e-5 and urel < MESH_UPDATE_RTOL and stats_equal,
+          f"[{tag}] the sharded step vs the unsharded: loss rel {rel}, update rel {urel}, "
+          f"statistics equal {stats_equal}")
+    check(all(v == 0 for v in launched.values()), f"[{tag}] kernel launches in training {launched}")
+    times = {}
+    for name, fn, st in (("sharded", sstep, sstate), ("unsharded", step, state)):
+        ms_ = []
+        for _ in range(MESH_TRAIN_STEPS):
+            t = time.perf_counter()
+            float(fn(st, batch)[1])
+            ms_.append((time.perf_counter() - t) * 1e3)
+        times[name] = (float(np.median(ms_[2:])), ms_)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
+    try:
+        target = save_train_state(tmp, sstate, step=1 + MESH_TRAIN_STEPS)
+        _, _, fresh = make_ufld_train_state(spec, mesh, **kw)
+        restore_train_state(target, fresh)
+        a, b = snet.gather(), fresh["net"].gather()
+        check(all(torch.equal(a[k], b[k]) for k in a), f"[{tag}] checkpoint round trip")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # where a sharded step's time goes: a replica's forward and backward
+    # on its part of the batch against the unsharded net's on all of it
+    # (last: these passes move the replicas' running statistics apart)
+    from adas_tpu_torch.parallel import ufld_loss
+
+    rows = mesh.axis_size("data")
+    half = {k: v[:TRAIN_BATCH // rows] for k, v in batch.items()}
+    fb = {}
+    for name, model, b in (("replica on its part", snet.replicas[0], half),
+                           ("unsharded on the part", net, half),
+                           ("unsharded on the batch", net, batch)):
+        fb[name] = wall_ms(lambda: ufld_loss(model(b["images"]), b).backward(), 3)
+    print(f"[{tag}] step ms median: sharded {times['sharded'][0]:.2f} (all "
+          f"{[round(v, 1) for v in times['sharded'][1]]}), unsharded {times['unsharded'][0]:.2f} "
+          f"(the same net and batch on one card; [train-ufldv2]'s step above); "
+          f"{TRAIN_BATCH * 1e3 / times['sharded'][0]:.1f} images/s sharded; forward and "
+          f"backward ms: { {k: round(v, 2) for k, v in fb.items()} }; checkpoint round "
+          f"trip exact; no kernel launches ({smi})", flush=True)
+    return launched
+
+
+def mesh_phases(mods, smi, torch, np):
+    """The mesh phases (23): ``[mesh-int8]``, ``[mesh-bf16]``,
+    ``[mesh-sharded-step]``, ``[mesh-train]``; returns their counts."""
+    serve_mesh, split_mesh = chip_meshes(torch)
+    print(f"[mesh] {torch.cuda.device_count()} card(s): serving on {mesh_note(serve_mesh)}; "
+          f"head split and training on {mesh_note(split_mesh)}", flush=True)
+    t = time.perf_counter()
+    int8_row = {"stem": 2, "int8_conv": 105, "block": BLOCKS_PER_TICK, "iou": 1, "nms": 1}
+    runs = [mesh_serve_phase("mesh-int8", "int8", serve_mesh, mods, smi, torch, np, int8_row,
+                             3, 6, probe=True)]
+    torch.cuda.empty_cache()
+    runs.append(mesh_serve_phase("mesh-bf16", "bf16", serve_mesh, mods, smi, torch, np,
+                                 {"stem": 2, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1},
+                                 2, 3))
+    torch.cuda.empty_cache()
+    runs.append(mesh_sharded_step_phase(split_mesh, mods, smi, torch, np))
+    torch.cuda.empty_cache()
+    runs.append(mesh_train_phase(split_mesh, mods, smi, torch, np))
+    print(f"[mesh] the mesh phases in {time.perf_counter() - t:.1f} s", flush=True)
+    return runs
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--serve-artifact"]:
         return serve_artifact_child(sys.argv[2])
@@ -3819,6 +4294,7 @@ def main() -> int:
     runs.append(train_phase(mods, smi, torch, np))
     print(f"[new-phases] onnx, transport parity, codec and training in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
+    runs += mesh_phases(mods, smi, torch, np)
     # every int8 conv shape of the [families] int8 frames against its plain
     # version (v5-lite's padded widths at their 640 shapes included)
     families_conv = main_path_conv_phase(IC, families_shapes, torch, tag="families-int8-shapes",

@@ -36,9 +36,14 @@ from test_torch_slice import CULANE, FRAME_HW, YOLO_HW, _dets, _ticks, npz_paths
 __all__ = ["npz_paths", "weights"]  # fixtures shared with the slice tests
 
 
+#: named on both sides: ``tests/test_yolo.py`` sets JAX's ``YoloDetector``
+#: class defaults to ``max_det`` 20 for the rest of its test process
+MAX_DET = 100
+
+
 def _port_pair(paths):
     yolo = YoloDetector(model_path=paths["yolo"], model_type=PortObjectModelType.YOLOV8,
-                        scale="n", input_size=YOLO_HW, box_score=0.25,
+                        scale="n", input_size=YOLO_HW, box_score=0.25, max_det=MAX_DET,
                         device="cpu")
     lane = UltrafastLaneDetectorV2(model_path=paths["lane"], device="cpu")
     return yolo, lane
@@ -46,7 +51,7 @@ def _port_pair(paths):
 
 def _jax_pair(paths):
     jyolo = JaxYolo(model_path=paths["yolo"], model_type=ObjectModelType.YOLOV8, scale="n",
-                    input_size=YOLO_HW, box_score=0.25)
+                    input_size=YOLO_HW, box_score=0.25, max_det=MAX_DET)
     return jyolo, JaxLane(model_path=paths["lane"], model_type=CULANE)
 
 
