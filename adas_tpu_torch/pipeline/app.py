@@ -11,9 +11,10 @@ host (the HUD with the port's cv2-free renderer, ``render/``); the
 bird-view warp of the frame runs on the device every frame.  Any ported
 YOLO family (v5, v8, v10) or EfficientDet serves the object side, UFLDv2
 or UFLD v1 the lane side; a v1 pair runs unfused, as in JAX
-(``app.py:115-119``).  Video is YUV4MPEG2 (``render/video.py``): the port
-has no codec.  Not ported: ``display=True`` (a window: the card's host
-has no window system).
+(``app.py:115-119``).  Video is MP4 with MPEG-4 Part 2 (``mp4v``), as the
+JAX package's cv2 writes it, or YUV4MPEG2 (``render/video.py``).  Not
+ported: ``display=True`` (a window: the card's host has no window
+system).
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from ..analytics import PerspectiveTransformation, SingleCamDistanceMeasure, Tas
 from ..perception.efficientdet_detector import EfficientdetDetector
 from ..perception.lane_detector import UltrafastLaneDetector, UltrafastLaneDetectorV2
 from ..perception.object_detector import YoloDetector
-from ..render.video import Y4MReader, Y4MWriter
+from ..render.video import open_reader, open_writer, output_fps
 from .fused import FusedADASStep
 from .panel import ControlPanel
 
@@ -198,7 +199,7 @@ class ADASPipeline:
 def _no_display() -> None:
     raise NotImplementedError(
         "display=True opens a window, and the card's host has no window system: write the "
-        "annotated frames to a .y4m instead (ROADMAP.md §1)"
+        "annotated frames to a video file instead (-o out.mp4)"
     )
 
 
@@ -211,20 +212,22 @@ def run_video(
     max_frames: Optional[int] = None,
     device="cuda",
 ) -> int:
-    """Process a ``.y4m`` video end to end on ``device``, writing the
-    annotated frames to ``output_path`` (a ``.y4m``) at the input's rate;
+    """Process a video (``.mp4`` or ``.y4m``) end to end on ``device``,
+    writing the annotated frames to ``output_path``: an ``.mp4`` at 30 fps,
+    as the JAX package writes it, or a ``.y4m`` at the input's rate;
     returns the number of frames processed."""
     if display:
         _no_display()
     n = 0
-    with Y4MReader(video_path) as reader:
+    with open_reader(video_path) as reader:
         pipeline = ADASPipeline(
             frame_size=(reader.width, reader.height),
             lane_config=lane_config,
             object_config=object_config,
             device=device,
         )
-        vout = (Y4MWriter(output_path, reader.width, reader.height, reader.fps)
+        vout = (open_writer(output_path, reader.width, reader.height,
+                            output_fps(output_path, reader.fps))
                 if output_path else None)
         try:
             for frame in reader:
@@ -243,11 +246,11 @@ def run_video(
 def run_synthetic(output_path: str, frames: int = 16, frame_hw=(720, 1280), device="cuda") -> int:
     """Headless run on seeded noise frames (``default_rng(0)``, as the JAX
     package's): the full pipeline and HUD on ``device``, the annotated
-    frames written to ``output_path`` (a ``.y4m``) at 30 fps."""
+    frames written to ``output_path`` (an ``.mp4`` or a ``.y4m``) at 30 fps."""
     h, w = frame_hw
     pipeline = ADASPipeline(frame_size=(w, h), device=device)
     rng = np.random.default_rng(0)
-    with Y4MWriter(output_path, w, h, 30.0) as vout:
+    with open_writer(output_path, w, h, 30.0) as vout:
         for _ in range(frames):
             frame = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
             vout.write(pipeline.process_frame(frame))
@@ -256,8 +259,9 @@ def run_synthetic(output_path: str, frames: int = 16, frame_hw=(720, 1280), devi
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="ADAS demo pipeline (PyTorch port)")
-    ap.add_argument("-i", "--input", default=None, help="input video (.y4m)")
-    ap.add_argument("-o", "--output", default=None, help="output video (.y4m)")
+    ap.add_argument("-i", "--input", default=None, help="input video (.mp4 or .y4m)")
+    ap.add_argument("-o", "--output", default=None,
+                    help="output video (.mp4 or .y4m; default <input>_out.mp4)")
     ap.add_argument("--display", action="store_true")
     ap.add_argument("--max-frames", type=int, default=None)
     ap.add_argument("--synthetic", action="store_true",
@@ -268,13 +272,13 @@ def main(argv=None) -> None:
     if args.display:
         _no_display()
     if args.synthetic:
-        out = args.output or "synthetic_out.y4m"
+        out = args.output or "synthetic_out.mp4"
         n = run_synthetic(out, frames=args.frames, device=args.device)
         print(f"wrote {n} frames to {out}")
         return
     if not args.input:
         ap.error("-i/--input is required unless --synthetic")
-    out = args.output or args.input[:-4] + "_out.y4m"
+    out = args.output or args.input[:-4] + "_out.mp4"
     frames = run_video(args.input, out, max_frames=args.max_frames, device=args.device)
     print(f"wrote {frames} frames to {out}")
 

@@ -4,15 +4,15 @@ image or a video and draw the points and the ego-lane area through the
 facade's ``AutoDrawLanes``.
 
 Images are read and written by ``render/image.py`` (PNG, BMP, JPEG in;
-PNG, BMP out) and video is YUV4MPEG2 (``render/video.py``), as the port's
-``pipeline/app.py`` serves it: ``ffmpeg -i in.mp4 -pix_fmt yuv420p in.y4m``
-makes one.  ``display=True`` is not planned: the card's host has no
-window system.
+PNG, BMP out) and video by ``render/video.py`` (MP4 with MPEG-4 Part 2,
+``mp4v``, as the JAX package's cv2 writes it, or YUV4MPEG2), as the
+port's ``pipeline/app.py`` serves it.  ``display=True`` is not planned:
+the card's host has no window system.
 
 CLI::
 
     python -m adas_tpu_torch.pipeline.lane_demo -i road.png -o out.png [--device cuda]
-    python -m adas_tpu_torch.pipeline.lane_demo -i drive.y4m -o out.y4m [--max-frames N]
+    python -m adas_tpu_torch.pipeline.lane_demo -i drive.mp4 -o out.mp4 [--max-frames N]
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import numpy as np
 
 from ..perception.lane_detector import UltrafastLaneDetector, UltrafastLaneDetectorV2
 from ..render.image import IMAGE_SUFFIXES, imread, imwrite
-from ..render.video import Y4MReader, Y4MWriter
+from ..render.video import open_reader, open_writer, output_fps
 from ..utils.types import LaneModelType
 from .app import _no_display
 
@@ -67,18 +67,21 @@ def run_lane_video(
     max_frames: Optional[int] = None,
     device="cuda",
 ) -> int:
-    """Lane-only loop over a ``.y4m``, the annotated frames written to
-    ``output_path`` (a ``.y4m``) at the input's rate; returns the processed
-    frame count (``lane_demo.py:47``).  The reference skips a frame whose
-    detection raises, for cv2's unreadable frames; every frame of a
-    ``.y4m`` is a well-formed array, so here an error is a fault (a
-    kernel's build or launch included) and propagates."""
+    """Lane-only loop over a video (``.mp4`` or ``.y4m``), the annotated
+    frames written to ``output_path``: an ``.mp4`` at 30 fps, as the
+    reference writes it, or a ``.y4m`` at the input's rate; returns the
+    processed frame count (``lane_demo.py:47``).  The reference skips a
+    frame whose detection raises, for cv2's unreadable frames; the port's
+    readers give well-formed arrays or raise ``ValueError`` for a corrupt
+    file, so here an error is a fault (a kernel's build or launch
+    included) and propagates."""
     if display:
         _no_display()
     n = 0
-    with Y4MReader(video_path) as reader:
+    with open_reader(video_path) as reader:
         detector = make_lane_detector(_config(config, device))
-        vout = (Y4MWriter(output_path, reader.width, reader.height, reader.fps)
+        vout = (open_writer(output_path, reader.width, reader.height,
+                            output_fps(output_path, reader.fps))
                 if output_path else None)
         try:
             for frame in reader:
@@ -98,7 +101,8 @@ def main(argv=None) -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="Standalone lane detection")
-    ap.add_argument("-i", "--input", required=True, help="image (.png/.bmp/.jpg) or .y4m video")
+    ap.add_argument("-i", "--input", required=True,
+                    help="image (.png/.bmp/.jpg) or video (.mp4/.y4m)")
     ap.add_argument("-o", "--output", default=None)
     ap.add_argument("--display", action="store_true")
     ap.add_argument("--max-frames", type=int, default=None)

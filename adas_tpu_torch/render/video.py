@@ -1,18 +1,26 @@
-"""Video I/O without cv2: YUV4MPEG2 (``.y4m``) 4:2:0 streams.
+"""Video I/O without cv2: MP4 (``.mp4``, ``.m4v``, ``.mov``) with MPEG-4
+Part 2 video (``mp4v``), and YUV4MPEG2 (``.y4m``) 4:2:0 streams.
 
-The JAX package reads and writes mp4 through ``cv2.VideoCapture`` /
-``cv2.VideoWriter``; the card's host has neither cv2 nor a codec, and a
-Y4M file is raw I420 frames behind a text header, which any encoder
-reads and writes (``ffmpeg -i in.mp4 -pix_fmt yuv420p in.y4m``, and
-``ffmpeg -i out.y4m out.mp4`` back).
+The JAX package reads and writes video through ``cv2.VideoCapture`` /
+``cv2.VideoWriter`` (fourcc ``mp4v``); the card's host has neither cv2
+nor a codec.  ``open_reader(path)`` and ``open_writer(path, width, height,
+fps)`` pick the format by the suffix:
 
-The writer encodes each BGR frame with ``ops/preprocess.bgr_to_i420``
-(``cv2.cvtColor(COLOR_BGR2YUV_I420)`` to the bit) under a ``C420jpeg``
-header; the reader decodes with ``native/draw.i420_to_bgr``
-(``cv2.cvtColor(COLOR_YUV2BGR_I420)`` to the bit) and takes the ``C420``,
-``C420jpeg``, ``C420mpeg2`` and ``C420paldv`` chroma tags (all decoded
-alike, nearest chroma upsampling as cv2's) or none, and the ``F`` rate.
-Frame sides must be even.
+- MP4: ``render/mp4.py`` (the container) and ``render/mpeg4.py`` (the
+  ``mp4v`` decoder and encoder, ``native/mpeg4.cpp``).  ``MP4Reader``
+  takes the ``mp4v`` streams cv2 and the port write (I- and P-VOPs);
+  H.264 and other codecs raise a ``ValueError`` that names them.
+  ``MP4Writer`` writes an I-VOP every 12 frames (cv2's interval) and
+  P-VOPs between at a fixed quantiser; cv2 reads its files.
+- Y4M: raw I420 frames behind a text header.  ``Y4MReader`` takes the
+  ``C420``, ``C420jpeg``, ``C420mpeg2`` and ``C420paldv`` chroma tags
+  (all decoded alike, nearest chroma upsampling as cv2's) or none, and
+  the ``F`` rate.
+
+Both writers encode each BGR frame with ``ops/preprocess.bgr_to_i420``
+(``cv2.cvtColor(COLOR_BGR2YUV_I420)`` to the bit), both readers decode
+with ``native/draw.i420_to_bgr`` (``cv2.cvtColor(COLOR_YUV2BGR_I420)`` to
+the bit).  Frame sides must be even.
 """
 from __future__ import annotations
 
@@ -24,26 +32,171 @@ import numpy as np
 
 from ..native.draw import i420_to_bgr
 from ..ops.preprocess import bgr_to_i420
+from . import mp4, mpeg4
 
 MAGIC = b"YUV4MPEG2"
 CHROMA_420 = ("420", "420jpeg", "420mpeg2", "420paldv")
+Y4M_SUFFIXES = (".y4m",)
+MP4_SUFFIXES = (".mp4", ".m4v", ".mov")
+#: the rate of an MP4 output, as the JAX package's cv2.VideoWriter writes it
+MP4_FPS = 30.0
 
 
-def _check_path(path: str) -> None:
-    if os.path.splitext(path)[1].lower() != ".y4m":
+def _suffix(path: str) -> str:
+    return os.path.splitext(path)[1].lower()
+
+
+def _check_path(path: str, suffixes) -> None:
+    if _suffix(path) not in suffixes:
         raise ValueError(
-            f"{path}: the port reads and writes YUV4MPEG2 (.y4m) video only, having no codec; "
-            f"convert with e.g. `ffmpeg -i {path} -pix_fmt yuv420p input.y4m` "
-            f"(and an output back with `ffmpeg -i output.y4m output.mp4`)"
-        )
+            f"{path}: the port reads and writes MP4 ({', '.join(MP4_SUFFIXES)}, MPEG-4 Part 2 "
+            f"video) and YUV4MPEG2 ({', '.join(Y4M_SUFFIXES)}) video; this class takes "
+            f"{', '.join(suffixes)} (open_reader / open_writer pick by the suffix)")
 
 
-class Y4MReader:
+def output_fps(path: str, input_fps: float) -> float:
+    """The rate the demo writes ``path`` at: 30.0 for an MP4, as the JAX
+    package's writer; a ``.y4m`` (the port's own format) keeps the input's."""
+    return MP4_FPS if _suffix(path) in MP4_SUFFIXES else input_fps
+
+
+def open_reader(path: str):
+    """An ``MP4Reader`` or ``Y4MReader`` by the suffix; any other raises."""
+    if _suffix(path) in MP4_SUFFIXES:
+        return MP4Reader(path)
+    _check_path(path, Y4M_SUFFIXES + MP4_SUFFIXES)
+    return Y4MReader(path)
+
+
+def open_writer(path: str, width: int, height: int, fps: float = 30.0):
+    """An ``MP4Writer`` or ``Y4MWriter`` by the suffix; any other raises."""
+    if _suffix(path) in MP4_SUFFIXES:
+        return MP4Writer(path, width, height, fps)
+    _check_path(path, Y4M_SUFFIXES + MP4_SUFFIXES)
+    return Y4MWriter(path, width, height, fps)
+
+
+class _Frames:
+    """What the readers share: ``read`` in BGR, iteration, the context."""
+
+    width: int
+    height: int
+
+    def read_i420(self) -> Optional[np.ndarray]:
+        raise NotImplementedError
+
+    def read(self) -> Optional[np.ndarray]:
+        """The next frame as (H, W, 3) BGR uint8, or None at the end."""
+        yuv = self.read_i420()
+        return None if yuv is None else i420_to_bgr(yuv, self.height, self.width)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        while (frame := self.read()) is not None:
+            yield frame
+
+    def i420_frames(self) -> Iterator[np.ndarray]:
+        """The remaining frames' (H*3/2, W) I420 planes."""
+        while (planes := self.read_i420()) is not None:
+            yield planes
+
+    def close(self) -> None:
+        raise NotImplementedError
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class MP4Reader(_Frames):
+    """Frames of the first video track of an MP4 (``mp4v``) as BGR uint8
+    arrays, in order; ``width``, ``height`` and ``fps`` from the track."""
+
+    def __init__(self, path: str):
+        _check_path(path, MP4_SUFFIXES)
+        self._demux = mp4.Demuxer(path)
+        try:
+            track = self._demux.track
+            self._decoder = mpeg4.Decoder(track.dsi)
+            self.width, self.height = self._decoder.width, self._decoder.height
+            if self.width % 2 or self.height % 2:
+                raise ValueError(f"{path}: 4:2:0 frames need even sides, got "
+                                 f"{self.width}x{self.height}")
+            self.fps = track.fps
+        except Exception:
+            self._demux.close()
+            raise
+        self._next = 0
+
+    def __len__(self) -> int:
+        return len(self._demux)
+
+    def read_i420(self) -> Optional[np.ndarray]:
+        """The next frame's (H*3/2, W) I420 planes, or None at the end."""
+        while self._next < len(self._demux):
+            sample = self._demux.read(self._next)
+            self._next += 1
+            planes = self._decoder.decode(sample)
+            if planes is not None:  # a VOP that is not coded gives no frame, as in FFmpeg
+                return planes.reshape(self.height * 3 // 2, self.width)
+        return None
+
+    def stats(self) -> dict:
+        """The decoder's counts of the stream's tools (``render/mpeg4.STATS``)."""
+        return self._decoder.stats()
+
+    def close(self) -> None:
+        self._demux.close()
+        self._decoder.close()
+
+
+class MP4Writer:
+    """Writes BGR uint8 frames of one size to an MP4 of MPEG-4 Part 2
+    video (``mp4v``, the fourcc of the JAX package's writer) at ``fps``.
+    ``write`` and ``write_i420`` return the frame's reconstructed I420
+    planes: what a reader of the file decodes, to the bit."""
+
+    def __init__(self, path: str, width: int, height: int, fps: float = 30.0):
+        _check_path(path, MP4_SUFFIXES)
+        if width % 2 or height % 2:
+            raise ValueError(f"4:2:0 needs even sides, got {width}x{height}")
+        self.width, self.height = width, height
+        timescale, delta = mp4.rate(fps)
+        self._encoder = mpeg4.Encoder(width, height, timescale, delta)
+        self._mux = mp4.Muxer(path, width, height, self._encoder.header(), timescale, delta)
+
+    def write(self, frame: np.ndarray) -> np.ndarray:
+        if frame.shape != (self.height, self.width, 3):
+            raise ValueError(f"expected a ({self.height}, {self.width}, 3) frame, got "
+                             f"{frame.shape}")
+        return self.write_i420(bgr_to_i420(frame))
+
+    def write_i420(self, yuv: np.ndarray) -> np.ndarray:
+        if yuv.shape != (self.height * 3 // 2, self.width):
+            raise ValueError(f"expected ({self.height * 3 // 2}, {self.width}) I420 planes, got "
+                             f"{yuv.shape}")
+        vop, key, recon = self._encoder.encode(yuv)
+        self._mux.add(vop, key)
+        return recon.reshape(yuv.shape)
+
+    def close(self) -> None:
+        self._mux.close()
+        self._encoder.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class Y4MReader(_Frames):
     """Frames of a 4:2:0 ``.y4m`` file as BGR uint8 arrays, in order;
     ``width``, ``height`` and ``fps`` from the header."""
 
     def __init__(self, path: str):
-        _check_path(path)
+        _check_path(path, Y4M_SUFFIXES)
         self._f = open(path, "rb")
         try:
             header = self._f.readline()
@@ -76,30 +229,15 @@ class Y4MReader:
             raise ValueError(f"truncated frame: {len(data)} of {self.frame_bytes} bytes")
         return np.frombuffer(data, np.uint8).reshape(self.height * 3 // 2, self.width)
 
-    def read(self) -> Optional[np.ndarray]:
-        """The next frame as (H, W, 3) BGR uint8, or None at the end."""
-        yuv = self.read_i420()
-        return None if yuv is None else i420_to_bgr(yuv, self.height, self.width)
-
-    def __iter__(self) -> Iterator[np.ndarray]:
-        while (frame := self.read()) is not None:
-            yield frame
-
     def close(self) -> None:
         self._f.close()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.close()
 
 
 class Y4MWriter:
     """Writes BGR uint8 frames of one size to a 4:2:0 ``.y4m`` file."""
 
     def __init__(self, path: str, width: int, height: int, fps: float = 30.0):
-        _check_path(path)
+        _check_path(path, Y4M_SUFFIXES)
         if width % 2 or height % 2:
             raise ValueError(f"4:2:0 needs even sides, got {width}x{height}")
         self.width, self.height = width, height

@@ -262,6 +262,13 @@ Phases, each of which raises (exit code 1) on failure:
     image fixtures decoded equal to their cv2 decodes, the ms of a 720p
     decode, ``run_lane_image`` on a 720p PNG, ``run_lane_video`` over a
     3-frame ``.y4m`` and ``quantize --calib-dir`` on the card;
+    ``[video]``, the committed ``mp4v`` fixtures (``tests/data/video``)
+    decoded to cv2's Y planes to the bit and within the chroma drift
+    bound, ``run_synthetic`` at 720x1280 for 24 frames with the default
+    nets to an ``.mp4`` read back equal to the writer's reconstruction at
+    30 fps, ``run_video`` (4 frames) and ``run_lane_video`` (3) over it to
+    ``.mp4``, the encode and decode ms per frame, the MiB and the launches
+    per frame (stem 2, IoU 1, walk 1; the lane demo stem 1);
     ``[train-ufldv2]``, UFLDv2-CULane res18 with the aux head at
     320x1600, batch 8, 20 SGD steps in f32 (no kernel launches; the loss
     falls; the first step's loss, outputs and gradient within rel 1e-6,
@@ -3772,6 +3779,166 @@ def codec_phase(mods, smi, torch, np):
     return {k: lanes_run[k] + calib_run[k] for k in KERNELS}
 
 
+#: ``[video]``: frames of ``run_synthetic`` (two GOPs of the writer), of
+#: ``run_video`` over its output and of ``run_lane_video``
+VIDEO_FRAMES, VIDEO_RERUN_FRAMES, VIDEO_LANE_FRAMES = 24, 4, 3
+
+
+def video_phase(mods, smi, torch, np):
+    """``[video]``: the MP4 / ``mp4v`` codec on this host
+    (``render/{mp4,mpeg4,video}.py``, ``native/mpeg4.cpp`` built by g++).
+    Every committed fixture (``tests/data/video``) decodes to cv2's Y
+    planes to the bit (their sha256, and the ``.npy`` where committed),
+    and the chroma of ``cv2_fast_100x58.mp4`` keeps the tests' drift bound
+    against cv2's committed BGR decode (the p99 gap of every P-VOP within
+    1 level of its GOP's I-VOP).  Then ``run_synthetic`` at 720x1280 for
+    ``VIDEO_FRAMES`` frames with the default nets on the card to an
+    ``.mp4``: read back, every frame equals the writer's reconstruction,
+    30 fps; ``run_video`` over that file and ``run_lane_video``, both to
+    ``.mp4``.  Prints the encode and decode ms per 720p frame (host), the
+    file's MiB per second of video and the launches per frame (stem 2,
+    IoU 1, walk 1 for the pipeline; stem 1 for the lane demo).  Returns
+    the launches."""
+    import glob
+    import hashlib
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    from adas_tpu_torch.native.draw import i420_to_bgr
+    from adas_tpu_torch.pipeline import app, lane_demo
+    from adas_tpu_torch.render import mpeg4, video
+
+    tag = "video"
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "video")
+    with open(os.path.join(data, "sha256.json")) as f:
+        digests = json.load(f)
+    t = time.perf_counter()
+    mpeg4._native()  # builds _build/libmpeg4.so
+    build_s = time.perf_counter() - t
+    n_frames = 0
+    for name, want in digests.items():
+        path = os.path.join(data, name)
+        planes, types = [], []
+        with video.MP4Reader(path) as r:
+            check((r.width, r.height, r.fps) == (want["width"], want["height"], 30.0),
+                  f"{tag}: {name} is {r.width}x{r.height} at {r.fps}")
+            for p in r.i420_frames():
+                planes.append(p)
+                types.append(r._decoder.last_type)
+        ys = [p[:want["height"]] for p in planes]
+        check([hashlib.sha256(y.tobytes()).hexdigest() for y in ys] == want["y_sha256"],
+              f"{tag}: {name}'s Y planes differ from cv2's decode")
+        npy = path[:-4] + "_y.npy"
+        if os.path.exists(npy):
+            check(np.array_equal(np.stack(ys), np.load(npy)), f"{tag}: {name} against {npy}")
+        bgr = path[:-4] + "_bgr.npy"
+        if os.path.exists(bgr):
+            gaps = [float(np.percentile(np.abs(i420_to_bgr(p, want["height"], want["width"])
+                                               .astype(int) - ref), 99))
+                    for p, ref in zip(planes, np.load(bgr))]
+            start = None
+            for k, (kind, gap) in enumerate(zip(types, gaps)):
+                start = gap if kind == "I" else start
+                check(gap <= start + 1, f"{tag}: {name} chroma drift at frame {k}: {gaps}")
+        n_frames += len(ys)
+    check(n_frames >= 80, f"{tag}: {n_frames} fixture frames")
+    print(f"[{tag}] native/mpeg4.cpp built in {build_s:.2f} s; {len(digests)} fixtures, "
+          f"{n_frames} frames, Y equal to cv2's decodes; cv2_fast_100x58 chroma p99 gaps "
+          f"{sorted(set(gaps))} (bound: its GOP's I-VOP + 1)", flush=True)
+
+    h, w = FRAME_HW
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_video_")
+    recon, encode_ms = [], []
+
+    class RecordingWriter(video.MP4Writer):
+        """``run_synthetic``'s writer (an MP4 path: ``open_writer``'s
+        arguments), keeping each frame's reconstruction and encode time."""
+
+        def write_i420(self, yuv):
+            t0 = time.perf_counter()
+            out = super().write_i420(yuv)
+            encode_ms.append((time.perf_counter() - t0) * 1e3)
+            recon.append(out)
+            return out
+
+    try:
+        synthetic = os.path.join(tmp, "synthetic_out.mp4")
+        reset(mods)
+        t = time.perf_counter()
+        with mock.patch.object(app, "open_writer", RecordingWriter):
+            n = app.run_synthetic(synthetic, frames=VIDEO_FRAMES, device="cuda")
+        torch.cuda.synchronize()
+        synthetic_s = time.perf_counter() - t
+        synthetic_run = counts(mods)
+        per_frame = {"stem": 2, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1}
+        for k, per in per_frame.items():
+            check(synthetic_run[k] == per * VIDEO_FRAMES,
+                  f"{tag}: run_synthetic {k} launches {synthetic_run[k]} over {VIDEO_FRAMES} "
+                  f"frames, expected {per} per frame")
+        decode_ms = []
+        with video.MP4Reader(synthetic) as r:
+            check((r.width, r.height, r.fps, len(r)) == (w, h, 30.0, VIDEO_FRAMES),
+                  f"{tag}: {synthetic} is {r.width}x{r.height} at {r.fps}, {len(r)} frames")
+            got = []
+            while True:
+                t0 = time.perf_counter()
+                p = r.read_i420()
+                if p is None:
+                    break
+                decode_ms.append((time.perf_counter() - t0) * 1e3)
+                got.append(p)
+            stats = r.stats()
+        check(n == len(got) == len(recon) == VIDEO_FRAMES and
+              all(np.array_equal(a, b) for a, b in zip(got, recon)),
+              f"{tag}: the .mp4's frames differ from the writer's reconstruction")
+        mib = os.path.getsize(synthetic) / 2 ** 20
+        again = os.path.join(tmp, "again.mp4")
+        reset(mods)
+        t = time.perf_counter()
+        n_video = app.run_video(synthetic, again, max_frames=VIDEO_RERUN_FRAMES, device="cuda")
+        torch.cuda.synchronize()
+        video_s = time.perf_counter() - t
+        video_run = counts(mods)
+        for k, per in per_frame.items():
+            check(video_run[k] == per * VIDEO_RERUN_FRAMES,
+                  f"{tag}: run_video {k} launches {video_run[k]}, expected {per} per frame")
+        lanes = os.path.join(tmp, "lanes.mp4")
+        reset(mods)
+        t = time.perf_counter()
+        n_lanes = lane_demo.run_lane_video(synthetic, lanes, max_frames=VIDEO_LANE_FRAMES)
+        torch.cuda.synchronize()
+        lanes_s = time.perf_counter() - t
+        lanes_run = counts(mods)
+        check(lanes_run["stem"] == VIDEO_LANE_FRAMES and
+              sum(lanes_run.values()) == VIDEO_LANE_FRAMES,
+              f"{tag}: run_lane_video launches {lanes_run}")
+        for path, frames in ((again, VIDEO_RERUN_FRAMES), (lanes, VIDEO_LANE_FRAMES)):
+            with video.MP4Reader(path) as r:
+                drawn = list(r)
+                check(r.fps == 30.0 and len(drawn) == frames and
+                      all(f.shape == (h, w, 3) for f in drawn),
+                      f"{tag}: {path} holds {len(drawn)} frames at {r.fps}")
+        check(n_video == VIDEO_RERUN_FRAMES and n_lanes == VIDEO_LANE_FRAMES,
+              f"{tag}: {n_video} and {n_lanes} frames processed")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    p_ms = [v for i, v in enumerate(encode_ms) if i % mpeg4.GOP]
+    i_ms = [v for i, v in enumerate(encode_ms) if not i % mpeg4.GOP]
+    print(f"[{tag}] run_synthetic (YOLOv8n f32 + UFLDv2-CULane f32, HUD) to an .mp4: "
+          f"{VIDEO_FRAMES} frames of {w}x{h} in {synthetic_s:.2f} s, read back equal to the "
+          f"writer's reconstruction at 30 fps; encode ms per 720p frame (host, vop_quant "
+          f"{mpeg4.QUANT}): I-VOP median {np.median(i_ms):.2f}, P-VOP median "
+          f"{np.median(p_ms):.2f} (max {max(p_ms):.2f}); decode ms per frame median "
+          f"{np.median(decode_ms):.2f} (max {max(decode_ms):.2f}); file {mib:.3f} MiB = "
+          f"{mib * 30 / VIDEO_FRAMES:.3f} MiB per second of video; decoder counts {stats}; "
+          f"launches {synthetic_run} (per frame {per_frame}); run_video over it: "
+          f"{VIDEO_RERUN_FRAMES} frames in {video_s:.2f} s, launches {video_run}; "
+          f"run_lane_video: {VIDEO_LANE_FRAMES} frames in {lanes_s:.2f} s, launches "
+          f"{lanes_run} ({smi})", flush=True)
+    return {k: synthetic_run[k] + video_run[k] + lanes_run[k] for k in KERNELS}
+
+
 def onnx_phases(mods, smi, torch, np):
     """``[onnx-export]`` and ``[onnx-multistream]`` in one temporary
     directory; returns the launch counts."""
@@ -4291,8 +4458,9 @@ def main() -> int:
     runs.append(onnx_phases(mods, smi, torch, np))
     runs.append(transport_parity_phase(mods, smi, torch, np))
     runs.append(codec_phase(mods, smi, torch, np))
+    runs.append(video_phase(mods, smi, torch, np))
     runs.append(train_phase(mods, smi, torch, np))
-    print(f"[new-phases] onnx, transport parity, codec and training in "
+    print(f"[new-phases] onnx, transport parity, codec, video and training in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     runs += mesh_phases(mods, smi, torch, np)
     # every int8 conv shape of the [families] int8 frames against its plain

@@ -1,0 +1,126 @@
+"""Writes the video codec's fixtures beside this file: small ``mp4v``
+``.mp4`` files and cv2's decodes of them.  Needs cv2 (built with FFmpeg);
+run from the repository root:
+
+    python tests/data/video/make_fixtures.py
+
+By ``cv2.VideoWriter(path, fourcc "mp4v", 30.0, size)`` from seeded
+frames:
+
+- ``cv2_smooth_176x144.mp4``: smooth content panning 3 px a frame over a
+  static band (not_coded macroblocks), with a noise patch that appears in
+  a few P-VOPs (intra macroblocks in P-VOPs);
+- ``cv2_fast_100x58.mp4``: a size that is not a multiple of 16, content
+  moving 21 px a frame (f_code 2, vectors out of the picture);
+- ``cv2_noise_64x48.mp4``: seeded noise.
+
+By the port's own encoder (``render/video.MP4Writer``), since cv2's writer
+never turns AC prediction on: ``port_smooth_176x144.mp4``.
+
+Beside them, for every file, cv2's decode: the Y planes
+(``cv2.VideoCapture`` with ``CAP_PROP_CONVERT_RGB`` 0 returns the decoded
+luma plane) as ``<name>_y.npy`` for the two small files and as a sha256
+per frame in ``sha256.json`` for all; and ``cv2_fast_100x58_bgr.npy``,
+cv2's BGR frames of that file (the chroma bound's reference where cv2 is
+absent).
+"""
+import hashlib
+import json
+import os
+import sys
+
+import cv2
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(HERE))))
+
+from adas_tpu_torch.render.video import MP4Writer  # noqa: E402
+
+
+def smooth(n, h, w, speed, seed, static_rows=0, patch=()):
+    """Seeded smooth frames panning ``speed`` px a frame; the last
+    ``static_rows`` rows never change; a noise patch in the frames of
+    ``patch``."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    grain = rng.normal(0, 2, (n, h, w, 3))
+    still = None
+    frames = []
+    for t in range(n):
+        xs = x + speed * t
+        b = 128 + 60 * np.sin(xs / 13.0) * np.cos(y / 17.0) + 40 * np.sin((xs + y) / 29.0)
+        g = 128 + 70 * np.cos(xs / 23.0) + 30 * np.sin(y / 7.0)
+        r = 128 + 80 * np.sin((xs - 2 * y) / 31.0)
+        img = np.clip(np.stack([b, g, r], -1) + grain[t], 0, 255).astype(np.uint8)
+        if static_rows:
+            if still is None:
+                still = img[h - static_rows:].copy()
+            img[h - static_rows:] = still
+        if t in patch:
+            img[8:40, 16:64] = rng.integers(0, 256, (32, 48, 3), dtype=np.uint8)
+        frames.append(img)
+    return frames
+
+
+def cv2_write(path, frames):
+    h, w = frames[0].shape[:2]
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30.0, (w, h))
+    assert vw.isOpened()
+    for f in frames:
+        vw.write(f)
+    vw.release()
+
+
+def cv2_decode(path, convert_rgb):
+    cap = cv2.VideoCapture(path)
+    cap.set(cv2.CAP_PROP_CONVERT_RGB, 1 if convert_rgb else 0)
+    frames = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        frames.append(f.copy())
+    cap.release()
+    return np.stack(frames)
+
+
+FIXTURES = {
+    "cv2_smooth_176x144": lambda: smooth(30, 144, 176, 3, 1, static_rows=48, patch=(5, 6, 17)),
+    "cv2_fast_100x58": lambda: smooth(24, 58, 100, 21, 2),
+    "cv2_noise_64x48": lambda: list(np.random.default_rng(3).integers(0, 256, (4, 48, 64, 3),
+                                                                       dtype=np.uint8)),
+    "port_smooth_176x144": lambda: smooth(24, 144, 176, 5, 4, static_rows=32, patch=(14,)),
+}
+#: the files whose Y planes are committed as .npy (the others by sha256 only)
+NPY = ("cv2_fast_100x58", "cv2_noise_64x48")
+
+
+def main():
+    digests = {}
+    for name, make in FIXTURES.items():
+        path = os.path.join(HERE, name + ".mp4")
+        frames = make()
+        if name.startswith("cv2_"):
+            cv2_write(path, frames)
+        else:
+            h, w = frames[0].shape[:2]
+            with MP4Writer(path, w, h, 30.0) as vw:
+                for f in frames:
+                    vw.write(f)
+        ys = cv2_decode(path, False)
+        assert len(ys) == len(frames), (name, len(ys))
+        digests[name + ".mp4"] = {
+            "frames": len(ys), "height": int(ys.shape[1]), "width": int(ys.shape[2]),
+            "y_sha256": [hashlib.sha256(y.tobytes()).hexdigest() for y in ys]}
+        if name in NPY:
+            np.save(os.path.join(HERE, name + "_y.npy"), ys)
+    np.save(os.path.join(HERE, "cv2_fast_100x58_bgr.npy"),
+            cv2_decode(os.path.join(HERE, "cv2_fast_100x58.mp4"), True))
+    with open(os.path.join(HERE, "sha256.json"), "w") as f:
+        json.dump(digests, f, indent=1)
+        f.write("\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -439,9 +439,68 @@ def test_new_modules_run_with_jax_package_cv2_and_pil_blocked(tmp_path):
     assert int(proc.stdout.split()[-1]) >= 60
 
 
+VIDEO_SCRIPT = textwrap.dedent(
+    """
+    import glob, hashlib, json, os, sys
+
+    class _Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in %r:
+                raise ImportError(f"{name} is blocked in this process")
+            return None
+
+    sys.meta_path.insert(0, _Block())
+    import numpy as np
+    from adas_tpu_torch.models import ufld
+    from adas_tpu_torch.perception.object_detector import YOLO_OPTIONS, YoloDetector
+    from adas_tpu_torch.pipeline import app, lane_demo
+    from adas_tpu_torch.render.video import MP4Reader, open_reader
+    from adas_tpu_torch.utils.types import LaneModelType
+
+    tmp = sys.argv[1]
+    data = os.path.join("tests", "data", "video")
+    with open(os.path.join(data, "sha256.json")) as f:
+        digests = json.load(f)
+    n = 0
+    for name, want in digests.items():
+        with MP4Reader(os.path.join(data, name)) as r:
+            ys = [p[:r.height] for p in r.i420_frames()]
+        assert [hashlib.sha256(y.tobytes()).hexdigest() for y in ys] == want["y_sha256"], name
+        n += len(ys)
+    ufld.UFLDV2_SPECS[LaneModelType.UFLDV2_CULANE] = ufld.UFLDv2Spec(
+        64, 160, 0.6, 20, 72, 10, 16, mlp_mid=64)
+    YoloDetector.set_defaults({**YOLO_OPTIONS, "input_size": (96, 96)})
+    out = os.path.join(tmp, "synthetic.mp4")
+    assert app.run_synthetic(out, frames=2, frame_hw=(96, 160), device="cpu") == 2
+    assert app.run_video(out, os.path.join(tmp, "again.mp4"), device="cpu") == 2
+    assert lane_demo.run_lane_video(out, os.path.join(tmp, "lanes.mp4"), device="cpu") == 2
+    for name in ("synthetic.mp4", "again.mp4", "lanes.mp4"):
+        with open_reader(os.path.join(tmp, name)) as r:
+            assert r.fps == 30.0 and len(list(r)) == 2
+    assert not [m for m in sys.modules if m.split(".")[0] in %r]
+    print("frames", n)
+    """
+    % (BLOCKED, NOT_IMPORTED)
+)
+
+
+def test_video_io_runs_with_jax_package_and_cv2_blocked(tmp_path):
+    """The MP4 reader on every committed video fixture (cv2's Y planes by
+    their sha256), ``run_synthetic``, ``run_video`` and ``run_lane_video``
+    to ``.mp4``, in a process that cannot import ``jax``, ``adas_tpu``,
+    ``cv2``, ``PIL``, ``optax``, ``orbax`` or ``onnx``."""
+    proc = subprocess.run(
+        [sys.executable, "-c", VIDEO_SCRIPT, str(tmp_path)], cwd=REPO, env=ONE_THREAD,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) >= 80
+
+
 @pytest.mark.parametrize("name", [
     "parallel.train:make_ufld_train_state", "pipeline.lane_demo:run_lane_image",
     "pipeline.lane_demo:run_lane_video", "tools.onnx_export:_build_export",
+    "pipeline.app:run_video", "pipeline.app:run_synthetic",
     "tools.quantize:calibrate_store", "tools.quantize:calib_dir_frames",
 ])
 def test_new_entry_points_default_to_the_card(name):

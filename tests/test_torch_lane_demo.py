@@ -10,7 +10,10 @@ the JAX package's, both on the port's cv2-free image codec
   the file the port writes reads back through cv2 as the returned array.
 * ``run_lane_video``: a 3-frame ``.y4m`` through the port; each written
   frame is the facade's ``AutoDrawLanes`` of the decoded input frame
-  through the I420 of the file, to the bit.
+  through the I420 of the file, to the bit.  The same from an ``.mp4`` to
+  an ``.mp4`` (and through the CLI): each frame read back is the writer's
+  reconstruction of the drawn frame, at 30 fps as the JAX package writes
+  it.
 * ``quantize --mode int8 --calibrate YOLOV8 --calib-dir``: JAX's file
   selection (sorted, the image suffixes, the first ``--calib-frames``)
   and letterbox on a directory of a PNG, a BMP, a JPEG and a text file;
@@ -35,7 +38,7 @@ from adas_tpu_torch.native.draw import i420_to_bgr
 from adas_tpu_torch.ops.preprocess import bgr_to_i420
 from adas_tpu_torch.pipeline import lane_demo
 from adas_tpu_torch.render.image import imread, imwrite
-from adas_tpu_torch.render.video import Y4MReader, Y4MWriter
+from adas_tpu_torch.render.video import MP4Reader, MP4Writer, Y4MReader, Y4MWriter
 from adas_tpu_torch.tools import quantize
 from adas_tpu_torch.utils.types import LaneModelType
 from test_torch_models import random_flax_weights
@@ -89,6 +92,32 @@ def test_run_lane_video_draws_every_frame(weights, tmp_path):
             np.testing.assert_array_equal(got, i420_to_bgr(bgr_to_i420(want), h, w))
     with pytest.raises(NotImplementedError, match="window"):
         lane_demo.run_lane_video(src, display=True, device="cpu")
+
+
+def test_run_lane_video_reads_and_writes_mp4(weights, tmp_path):
+    src, out = str(tmp_path / "in.mp4"), str(tmp_path / "out.mp4")
+    h, w = FRAME_HW
+    with MP4Writer(src, w, h, 25.0) as vw:
+        for i in range(4):
+            vw.write(_frame(40 + i))
+    config = {"model_path": weights["lane"], "model_type": LaneModelType.UFLDV2_CULANE}
+    assert lane_demo.run_lane_video(src, out, config=config, max_frames=3, device="cpu") == 3
+    detector = lane_demo.make_lane_detector(dict(config, device="cpu"))
+    with MP4Reader(src) as frames:
+        assert frames.fps == 25.0
+        drawn = [bgr_to_i420(detector.AutoDrawLanes(frames.read())) for _ in range(3)]
+    with MP4Writer(str(tmp_path / "again.mp4"), w, h) as vw:
+        want = [vw.write_i420(p) for p in drawn]
+    with MP4Reader(out) as written:
+        assert written.fps == 30.0
+        got = list(written.i420_frames())
+    assert len(got) == 3
+    for g, wnt in zip(got, want):
+        np.testing.assert_array_equal(g, wnt)
+    cli_out = str(tmp_path / "cli.mp4")
+    lane_demo.main(["-i", src, "-o", cli_out, "--max-frames", "2", "--device", "cpu"])
+    with MP4Reader(cli_out) as r:
+        assert r.fps == 30.0 and len(list(r)) == 2
 
 
 @pytest.mark.parametrize("error", [RuntimeError, ValueError])

@@ -1,0 +1,224 @@
+"""The port's MP4 container (``adas_tpu_torch/render/mp4.py``) on the CPU.
+
+The writer's layout (``moov`` after ``mdat``, as cv2's writer puts it)
+and rebuilt variants of the same samples: ``moov`` first, ``co64`` chunk
+offsets, several chunks per ``stsc`` run, one chunk for every sample, and
+an audio track before the video's.  The demuxer gives the same samples
+from each, and cv2 reads each file's frames as the port does.  An
+``avc1`` / ``hvc1`` sample entry, an esds of another object type,
+fragmented MP4 and truncated files raise ``ValueError`` by name.
+"""
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+import pytest
+
+cv2 = pytest.importorskip("cv2")
+
+from adas_tpu_torch.render import mp4  # noqa: E402
+from adas_tpu_torch.render.video import (MP4Reader, MP4Writer, open_reader,  # noqa: E402
+                                         open_writer)
+from test_torch_mpeg4 import _cv2_frames, smooth  # noqa: E402
+
+H, W, N = 48, 64, 30
+
+
+@pytest.fixture(scope="module")
+def written(tmp_path_factory):
+    """An MP4 of 30 frames by the writer: its path, samples, DecoderSpecificInfo
+    and the writer's reconstructions."""
+    path = str(tmp_path_factory.mktemp("mp4") / "w.mp4")
+    with MP4Writer(path, W, H, 30.0) as vw:
+        recon = [vw.write(f) for f in smooth(N, H, W, 4, seed=9)]
+    d = mp4.Demuxer(path)
+    samples = [d.read(i) for i in range(len(d))]
+    dsi = d.track.dsi
+    d.close()
+    return path, samples, dsi, recon
+
+
+def _rebuild(path, samples, dsi, moov_first=False, co64=False, per_chunk=12, audio=False):
+    """The samples in one mdat, laid out in chunks of ``per_chunk``."""
+    keys = [i + 1 for i in range(len(samples)) if i % 12 == 0]
+
+    def moov(base):
+        offsets, pos = [], base
+        for i, s in enumerate(samples):
+            if i % per_chunk == 0:
+                offsets.append(pos)
+            pos += len(s)
+        m = mp4.build_moov(W, H, dsi, 30, 1, [len(s) for s in samples], keys, offsets,
+                           per_chunk)
+        if co64:  # the same offsets in 64 bits
+            m = _rewrite(m, b"stco", _co64)
+        if audio:  # the audio trak goes before the video's
+            m = _audio_first(m, _audio_trak())
+        return m
+
+    mdat_body = b"".join(samples)
+    if moov_first:
+        size = len(moov(0))
+        data = mp4.FTYP + moov(len(mp4.FTYP) + size + 8) + mp4.box(b"mdat", mdat_body)
+    else:
+        data = mp4.FTYP + mp4.box(b"mdat", mdat_body)
+        data += moov(len(mp4.FTYP) + 8)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+_CONTAINERS = {b"moov", b"trak", b"mdia", b"minf", b"stbl"}
+
+
+def _rewrite(data: bytes, kind: bytes, new) -> bytes:
+    """``data`` with every ``kind`` box in the sample table's containers
+    replaced by ``new(payload)``; other boxes kept byte for byte."""
+    out, pos = b"", 0
+    for k, s, e in mp4.iter_boxes(data):
+        if k == kind:
+            out += new(data[s:e])
+        elif k in _CONTAINERS:
+            out += mp4.box(k, _rewrite(data[s:e], kind, new))
+        else:
+            out += data[pos:e]
+        pos = e
+    return out
+
+
+def _co64(stco: bytes) -> bytes:
+    n = struct.unpack_from(">I", stco, 4)[0]
+    offsets = struct.unpack_from(f">{n}I", stco, 8)
+    return mp4.full_box(b"co64", 0, 0, struct.pack(f">I{n}Q", n, *offsets))
+
+
+def _audio_trak():
+    mdhd = mp4.full_box(b"mdhd", 0, 0, struct.pack(">IIII", 0, 0, 44100, 0), bytes(4))
+    hdlr = mp4.full_box(b"hdlr", 0, 0, struct.pack(">I4s", 0, b"soun"), bytes(12), b"Sound\0")
+    return mp4.box(b"trak", mp4.full_box(b"tkhd", 0, 3, bytes(80)),
+                   mp4.box(b"mdia", mdhd, hdlr, mp4.box(b"minf")))
+
+
+def _audio_first(moov, trak):
+    kids = [moov[s - 8:e] for _, s, e in mp4.iter_boxes(moov, 8)]
+    mvhd, video = kids[0], kids[1]
+    return mp4.box(b"moov", mvhd, trak, video)
+
+
+def _frames(path):
+    with MP4Reader(path) as r:
+        return list(r.i420_frames()), r.fps
+
+
+@pytest.mark.parametrize("layout", [
+    {}, {"moov_first": True}, {"co64": True}, {"moov_first": True, "co64": True},
+    {"per_chunk": 5}, {"per_chunk": 1}, {"per_chunk": 30}, {"audio": True},
+], ids=["moov-last", "moov-first", "co64", "moov-first-co64", "chunks-of-5", "chunk-per-sample",
+        "one-chunk", "audio-track-first"])
+def test_layouts_give_the_same_frames(written, tmp_path, layout):
+    path, samples, dsi, recon = written
+    out = str(tmp_path / "v.mp4")
+    _rebuild(out, samples, dsi, **layout)
+    data = open(out, "rb").read()
+    moov = next(data[s:e] for k, s, e in mp4.iter_boxes(data) if k == b"moov")
+    assert (b"co64" in moov, b"stco" in moov) == ((True, False) if layout.get("co64")
+                                                  else (False, True))
+    d = mp4.Demuxer(out)
+    assert [d.read(i) for i in range(len(d))] == samples
+    d.close()
+    got, fps = _frames(out)
+    assert fps == 30.0 and len(got) == N
+    for g, r in zip(got, recon):
+        np.testing.assert_array_equal(g, r)
+    live, cv2_fps = _cv2_frames(out, convert_rgb=False)
+    assert cv2_fps == 30.0 and len(live) == N
+    for g, y in zip(got, live):
+        np.testing.assert_array_equal(g[:H], y)
+
+
+def test_writer_layout(written):
+    """ftyp, mdat (64-bit size), moov; the sample table as written."""
+    path, samples, _, _ = written
+    data = open(path, "rb").read()
+    kinds = [k for k, _, _ in mp4.iter_boxes(data)]
+    assert kinds == [b"ftyp", b"mdat", b"moov"]
+    d = mp4.Demuxer(path)
+    assert (d.track.width, d.track.height, d.track.timescale, d.track.duration) == (W, H, 30, N)
+    d.close()
+    moov = next(data[s:e] for k, s, e in mp4.iter_boxes(data) if k == b"moov")
+    for box in (b"mvhd", b"tkhd", b"mdhd", b"hdlr", b"vmhd", b"dref", b"stsd", b"esds", b"stts",
+                b"stss", b"stsc", b"stsz", b"stco"):
+        assert box in moov, box
+    assert b"co64" not in moov
+
+
+def test_rate():
+    assert mp4.rate(30.0) == (30, 1)
+    assert mp4.rate(30000 / 1001) == (30000, 1001)
+    assert mp4.rate(12.5) == (25, 2)
+    with pytest.raises(ValueError):
+        mp4.rate(0)
+
+
+def _with_entry(data: bytes, fourcc: bytes) -> bytes:
+    i = data.index(b"mp4v")
+    return data[:i] + fourcc + data[i + 4:]
+
+
+@pytest.mark.parametrize("fourcc,name", [(b"avc1", "H.264"), (b"hvc1", "H.265"),
+                                         (b"av01", "AV1"), (b"xyz1", "'xyz1'")])
+def test_other_codecs_raise_by_name(written, tmp_path, fourcc, name):
+    data = _with_entry(open(written[0], "rb").read(), fourcc)
+    path = tmp_path / "v.mp4"
+    path.write_bytes(data)
+    with pytest.raises(ValueError, match=name):
+        MP4Reader(str(path))
+
+
+def test_other_object_types_and_fragments_raise(written, tmp_path):
+    data = open(written[0], "rb").read()
+    esds = data.index(b"esds")
+    config = data.index(b"\x04", esds + 8)  # the DecoderConfigDescriptor's tag
+    bad = bytearray(data)
+    bad[config + 2] = 0x6A  # its objectTypeIndication, after a 1-byte size
+    path = tmp_path / "v.mp4"
+    path.write_bytes(bytes(bad))
+    with pytest.raises(ValueError, match="MPEG-1"):
+        MP4Reader(str(path))
+    path.write_bytes(mp4.FTYP + mp4.box(b"moof", bytes(8)) + data[len(mp4.FTYP):])
+    with pytest.raises(ValueError, match="fragmented"):
+        MP4Reader(str(path))
+    path.write_bytes(data[:len(data) - 40])  # the moov cut short
+    with pytest.raises(ValueError, match="MP4"):
+        MP4Reader(str(path))
+    path.write_bytes(mp4.FTYP + mp4.box(b"mdat", bytes(16)))
+    with pytest.raises(ValueError, match="moov"):
+        MP4Reader(str(path))
+
+
+def test_fixed_sample_size_past_the_file_raises(written, tmp_path):
+    """A fixed-size ``stsz`` whose count runs the samples past the file
+    raises before any table of that count is built."""
+    data = open(written[0], "rb").read()
+    path = tmp_path / "v.mp4"
+    for fixed, count in ((1, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF), (len(data), 2)):
+        path.write_bytes(_rewrite(data, b"stsz", lambda _: mp4.full_box(
+            b"stsz", 0, 0, struct.pack(">II", fixed, count))))
+        with pytest.raises(ValueError, match="stsz"):
+            MP4Reader(str(path))
+
+
+def test_suffixes_pick_the_format(written, tmp_path):
+    with open_reader(written[0]) as r:
+        assert isinstance(r, MP4Reader)
+    for suffix in (".m4v", ".mov", ".MP4"):
+        out = str(tmp_path / f"v{suffix}")
+        with open_writer(out, W, H, 30.0) as vw:
+            vw.write(np.zeros((H, W, 3), np.uint8))
+        with open_reader(out) as r:
+            assert len(list(r)) == 1
+    for bad in ("v.avi", "v.mkv", "v"):
+        with pytest.raises(ValueError, match=r"\.mp4.*\.y4m"):
+            open_reader(str(tmp_path / bad))
+        with pytest.raises(ValueError, match=r"\.mp4.*\.y4m"):
+            open_writer(str(tmp_path / bad), W, H)
