@@ -9,11 +9,13 @@ import subprocess
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 
 
-def build_library(src: str, name: str) -> str:
-    """Compile ``src`` into ``_build/lib<name>.so`` if it is stale; returns
-    the library's path."""
+def build_library(src: str, name: str, deps=()) -> str:
+    """Compile ``src`` into ``_build/lib<name>.so`` if it is older than
+    ``src`` or any of ``deps`` (the sources it includes); returns the
+    library's path."""
     out = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if not os.path.isfile(out) or os.path.getmtime(out) < os.path.getmtime(src):
+    newest = max(os.path.getmtime(f) for f in (src, *deps))
+    if not os.path.isfile(out) or os.path.getmtime(out) < newest:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = out + f".{os.getpid()}.tmp"
         proc = subprocess.run(

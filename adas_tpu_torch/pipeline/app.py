@@ -12,7 +12,8 @@ bird-view warp of the frame runs on the device every frame.  Any ported
 YOLO family (v5, v8, v10) or EfficientDet serves the object side, UFLDv2
 or UFLD v1 the lane side; a v1 pair runs unfused, as in JAX
 (``app.py:115-119``).  Video is MP4 with MPEG-4 Part 2 (``mp4v``), as the
-JAX package's cv2 writes it, or YUV4MPEG2 (``render/video.py``).  Not
+JAX package's cv2 writes it, or YUV4MPEG2; H.264 (MP4 or raw) is read too,
+as a dash-cam records it (``render/video.py``).  Not
 ported: ``display=True`` (a window: the card's host has no window
 system).
 """
@@ -212,7 +213,8 @@ def run_video(
     max_frames: Optional[int] = None,
     device="cuda",
 ) -> int:
-    """Process a video (``.mp4`` or ``.y4m``) end to end on ``device``,
+    """Process a video (``.mp4`` with ``mp4v`` or H.264, a raw ``.h264``, or
+    ``.y4m``) end to end on ``device``,
     writing the annotated frames to ``output_path``: an ``.mp4`` at 30 fps,
     as the JAX package writes it, or a ``.y4m`` at the input's rate;
     returns the number of frames processed."""
@@ -259,7 +261,8 @@ def run_synthetic(output_path: str, frames: int = 16, frame_hw=(720, 1280), devi
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="ADAS demo pipeline (PyTorch port)")
-    ap.add_argument("-i", "--input", default=None, help="input video (.mp4 or .y4m)")
+    ap.add_argument("-i", "--input", default=None,
+                    help="input video (.mp4 with mp4v or H.264, .h264, or .y4m)")
     ap.add_argument("-o", "--output", default=None,
                     help="output video (.mp4 or .y4m; default <input>_out.mp4)")
     ap.add_argument("--display", action="store_true")

@@ -5,8 +5,8 @@ facade's ``AutoDrawLanes``.
 
 Images are read and written by ``render/image.py`` (PNG, BMP, JPEG in;
 PNG, BMP out) and video by ``render/video.py`` (MP4 with MPEG-4 Part 2,
-``mp4v``, as the JAX package's cv2 writes it, or YUV4MPEG2), as the
-port's ``pipeline/app.py`` serves it.  ``display=True`` is not planned:
+``mp4v``, as the JAX package's cv2 writes it, or YUV4MPEG2; H.264 in MP4
+or raw read too), as the port's ``pipeline/app.py`` serves it.  ``display=True`` is not planned:
 the card's host has no window system.
 
 CLI::
@@ -67,7 +67,8 @@ def run_lane_video(
     max_frames: Optional[int] = None,
     device="cuda",
 ) -> int:
-    """Lane-only loop over a video (``.mp4`` or ``.y4m``), the annotated
+    """Lane-only loop over a video (``.mp4`` with ``mp4v`` or H.264, a raw
+    ``.h264``, or ``.y4m``), the annotated
     frames written to ``output_path``: an ``.mp4`` at 30 fps, as the
     reference writes it, or a ``.y4m`` at the input's rate; returns the
     processed frame count (``lane_demo.py:47``).  The reference skips a
@@ -102,7 +103,7 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description="Standalone lane detection")
     ap.add_argument("-i", "--input", required=True,
-                    help="image (.png/.bmp/.jpg) or video (.mp4/.y4m)")
+                    help="image (.png/.bmp/.jpg) or video (.mp4/.h264/.y4m)")
     ap.add_argument("-o", "--output", default=None)
     ap.add_argument("--display", action="store_true")
     ap.add_argument("--max-frames", type=int, default=None)

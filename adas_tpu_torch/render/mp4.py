@@ -4,14 +4,16 @@ track.
 
 ``Demuxer(path)`` walks the box tree, with ``moov`` before or after
 ``mdat``, and takes the first track whose handler is ``vide`` (an audio or
-other track is ignored).  From it: the ``mp4v`` sample entry and its
-``esds`` DecoderSpecificInfo (the MPEG-4 Visual VOS/VO/VOL headers,
-objectTypeIndication 0x20), the samples' offsets and sizes from ``stsz``,
-``stsc`` and ``stco``/``co64``, and the rate from ``mdhd``'s timescale over
-``stts``.  Another sample entry (``avc1``, ``hvc1``, ...) or object type,
-and fragmented MP4 (``moof``), raise a ``ValueError`` that names the codec
-or the feature; so does a box that runs past its parent or a sample past
-the file.
+other track is ignored).  From it: the sample entry, either ``mp4v`` with
+its ``esds`` DecoderSpecificInfo (the MPEG-4 Visual VOS/VO/VOL headers,
+objectTypeIndication 0x20) or H.264's ``avc1`` / ``avc3`` with its
+``avcC`` record (``avc3`` may carry its parameter sets in band), the
+samples' offsets and sizes from ``stsz``, ``stsc`` and ``stco``/``co64``,
+and the rate from ``mdhd``'s timescale over ``stts``.  ``Track.codec``
+says which.  Another sample entry (``hvc1``, ``av01``, ...) or object
+type, and fragmented MP4 (``moof``), raise a ``ValueError`` that names the
+codec or the feature; so does a box that runs past its parent or a sample
+past the file.
 
 ``Muxer(path, width, height, dsi, timescale, delta)`` writes ``ftyp``,
 then ``mdat`` as the samples come, then on ``close`` the ``moov`` (``mvhd``,
@@ -26,9 +28,11 @@ import struct
 from fractions import Fraction
 from typing import BinaryIO, List, Optional, Sequence, Tuple
 
+#: the H.264 sample entries the demuxer reads (their ``avcC`` record)
+AVC_ENTRIES = {b"avc1": "H.264 (avc1)", b"avc3": "H.264 (avc3)"}
 #: sample entries the demuxer names when it refuses them
 CODEC_NAMES = {
-    b"avc1": "H.264 (avc1)", b"avc3": "H.264 (avc3)", b"hvc1": "H.265 (hvc1)",
+    b"hvc1": "H.265 (hvc1)",
     b"hev1": "H.265 (hev1)", b"av01": "AV1 (av01)", b"vp08": "VP8 (vp08)",
     b"vp09": "VP9 (vp09)", b"mjpa": "Motion JPEG (mjpa)", b"jpeg": "Motion JPEG (jpeg)",
     b"s263": "H.263 (s263)", b"encv": "encrypted video (encv)",
@@ -127,12 +131,16 @@ def parse_esds(data: bytes, start: int, end: int) -> bytes:
 
 
 class Track:
-    """The demuxed video track: size, rate, decoder config and samples."""
+    """The demuxed video track: size, rate, decoder config and samples.
+    ``codec`` is ``"mp4v"`` (``dsi`` the MPEG-4 Visual headers) or
+    ``"avc1"`` / ``"avc3"`` (``dsi`` the ``avcC`` record)."""
 
-    def __init__(self, width, height, fps, dsi, offsets, sizes, timescale, duration):
+    def __init__(self, width, height, fps, dsi, offsets, sizes, timescale, duration,
+                 codec="mp4v"):
         self.width, self.height, self.fps, self.dsi = width, height, fps, dsi
         self.offsets, self.sizes = offsets, sizes
         self.timescale, self.duration = timescale, duration
+        self.codec = codec
 
 
 def _sample_table(data: bytes, s: int, e: int, file_size: int):
@@ -203,20 +211,27 @@ def _video_track(data: bytes, trak: Tuple[int, int], file_size: int) -> Optional
     if entry + 8 > stsd[1]:
         raise ValueError("truncated stsd")
     size, fourcc = struct.unpack_from(">I4s", data, entry)
-    if fourcc != b"mp4v":
+    if fourcc != b"mp4v" and fourcc not in AVC_ENTRIES:
         name = CODEC_NAMES.get(fourcc, f"codec {fourcc.decode('latin-1')!r}")
         raise ValueError(f"{name} video in an MP4 is not supported: the port reads MPEG-4 Part 2 "
-                         f"(mp4v), as cv2.VideoWriter writes it")
+                         f"(mp4v), as cv2.VideoWriter writes it, and H.264 (avc1, avc3)")
     if size < 86 or entry + size > stsd[1]:
-        raise ValueError("corrupt MP4: short mp4v sample entry")
+        raise ValueError(f"corrupt MP4: short {fourcc.decode('latin-1')} sample entry")
     width, height = struct.unpack_from(">HH", data, entry + 32)
-    esds = _need(data, entry + 86, entry + size, b"esds")
-    dsi = parse_esds(data, *esds)
+    if fourcc == b"mp4v":
+        dsi = parse_esds(data, *_need(data, entry + 86, entry + size, b"esds"))
+    else:
+        avcc = _find(data, entry + 86, entry + size, b"avcC")
+        if avcc is None:
+            raise ValueError(f"corrupt MP4: an {AVC_ENTRIES[fourcc]} sample entry without an "
+                             f"avcC box")
+        dsi = data[avcc[0]:avcc[1]]
     offsets, sizes, duration = _sample_table(data, *stbl, file_size)
     if not timescale:
         raise ValueError("corrupt MP4: mdhd timescale of 0")
     fps = float(Fraction(timescale * len(sizes), duration)) if duration and sizes else 0.0
-    return Track(width, height, fps, dsi, offsets, sizes, timescale, duration)
+    return Track(width, height, fps, dsi, offsets, sizes, timescale, duration,
+                 fourcc.decode("latin-1"))
 
 
 class Demuxer:
@@ -316,13 +331,21 @@ def esds_box(dsi: bytes, bitrate: int = 0) -> bytes:
 _MATRIX = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
 
 
+def visual_sample_entry(fourcc: bytes, width: int, height: int, *children: bytes) -> bytes:
+    """A VisualSampleEntry box (``mp4v``, ``avc1``, ...) with its child boxes."""
+    return box(fourcc, bytes(6), struct.pack(">H", 1), bytes(16),
+               struct.pack(">HHIII", width, height, 0x480000, 0x480000, 0),
+               struct.pack(">H", 1), bytes(32), struct.pack(">Hh", 0x18, -1), *children)
+
+
 def build_moov(width: int, height: int, dsi: bytes, timescale: int, delta: int,
                sizes: Sequence[int], keys: Sequence[int], chunk_offsets: Sequence[int],
-               samples_per_chunk: int) -> bytes:
+               samples_per_chunk: int, entry: Optional[bytes] = None) -> bytes:
     """The ``moov`` of one ``mp4v`` track: samples of ``sizes`` laid out in
     chunks of ``samples_per_chunk`` at ``chunk_offsets`` (the last chunk
     may be short), ``keys`` the 1-based key samples; ``co64`` once an
-    offset passes 4 GiB, else ``stco``."""
+    offset passes 4 GiB, else ``stco``.  ``entry``, when given, is the
+    sample entry box in place of ``mp4v`` + ``esds(dsi)``."""
     n = len(sizes)
     duration = n * delta
     movie_ms = duration * 1000 // timescale
@@ -337,9 +360,8 @@ def build_moov(width: int, height: int, dsi: bytes, timescale: int, delta: int,
     hdlr = full_box(b"hdlr", 0, 0, struct.pack(">I4s", 0, b"vide"), bytes(12), b"VideoHandler\0")
     vmhd = full_box(b"vmhd", 0, 1, bytes(8))
     dinf = box(b"dinf", full_box(b"dref", 0, 0, struct.pack(">I", 1), full_box(b"url ", 0, 1)))
-    entry = box(b"mp4v", bytes(6), struct.pack(">H", 1), bytes(16),
-                struct.pack(">HHIII", width, height, 0x480000, 0x480000, 0),
-                struct.pack(">H", 1), bytes(32), struct.pack(">Hh", 0x18, -1), esds_box(dsi))
+    if entry is None:
+        entry = visual_sample_entry(b"mp4v", width, height, esds_box(dsi))
     stsd = full_box(b"stsd", 0, 0, struct.pack(">I", 1), entry)
     stts = full_box(b"stts", 0, 0, struct.pack(">III", 1, n, delta) if n else struct.pack(">I", 0))
     stss = full_box(b"stss", 0, 0, struct.pack(f">I{len(keys)}I", len(keys), *keys))
@@ -419,4 +441,5 @@ def rate(fps: float) -> Tuple[int, int]:
 
 
 __all__ = ["Demuxer", "Muxer", "Track", "build_moov", "box", "full_box", "esds_box",
-           "parse_esds", "iter_boxes", "rate", "FTYP", "CODEC_NAMES"]
+           "parse_esds", "iter_boxes", "rate", "visual_sample_entry", "FTYP", "CODEC_NAMES",
+           "AVC_ENTRIES"]

@@ -1,17 +1,24 @@
 """Video I/O without cv2: MP4 (``.mp4``, ``.m4v``, ``.mov``) with MPEG-4
-Part 2 video (``mp4v``), and YUV4MPEG2 (``.y4m``) 4:2:0 streams.
+Part 2 (``mp4v``) or H.264 (``avc1``, ``avc3``) video, raw H.264 Annex B
+streams (``.h264``, ``.264``), and YUV4MPEG2 (``.y4m``) 4:2:0 streams.
 
 The JAX package reads and writes video through ``cv2.VideoCapture`` /
 ``cv2.VideoWriter`` (fourcc ``mp4v``); the card's host has neither cv2
 nor a codec.  ``open_reader(path)`` and ``open_writer(path, width, height,
 fps)`` pick the format by the suffix:
 
-- MP4: ``render/mp4.py`` (the container) and ``render/mpeg4.py`` (the
-  ``mp4v`` decoder and encoder, ``native/mpeg4.cpp``).  ``MP4Reader``
-  takes the ``mp4v`` streams cv2 and the port write (I- and P-VOPs);
-  H.264 and other codecs raise a ``ValueError`` that names them.
-  ``MP4Writer`` writes an I-VOP every 12 frames (cv2's interval) and
-  P-VOPs between at a fixed quantiser; cv2 reads its files.
+- MP4: ``render/mp4.py`` (the container), ``render/mpeg4.py`` (the
+  ``mp4v`` decoder and encoder, ``native/mpeg4.cpp``) and
+  ``render/h264.py`` (the H.264 decoder, ``native/h264.cpp``).
+  ``MP4Reader`` takes the ``mp4v`` streams cv2 and the port write (I- and
+  P-VOPs) and the I/P H.264 of dash-cams and phones, giving the frames
+  cv2 gives in cv2's order; other codecs, and H.264 tools the decoder
+  refuses, raise a ``ValueError`` that names them.  ``MP4Writer`` writes
+  an I-VOP every 12 frames (cv2's interval) and P-VOPs between at a fixed
+  quantiser; cv2 reads its files.
+- H.264 Annex B: ``AnnexBReader``, read only, split into access units at
+  each picture's first slice; the rate of the SPS's VUI timing, else 25
+  (FFmpeg's for a raw stream).
 - Y4M: raw I420 frames behind a text header.  ``Y4MReader`` takes the
   ``C420``, ``C420jpeg``, ``C420mpeg2`` and ``C420paldv`` chroma tags
   (all decoded alike, nearest chroma upsampling as cv2's) or none, and
@@ -25,19 +32,25 @@ the bit).  Frame sides must be even.
 from __future__ import annotations
 
 import os
+from collections import deque
 from fractions import Fraction
-from typing import Iterator, Optional
+from typing import Deque, Iterator, List, Optional
 
 import numpy as np
 
 from ..native.draw import i420_to_bgr
 from ..ops.preprocess import bgr_to_i420
-from . import mp4, mpeg4
+from . import h264, mp4, mpeg4
 
 MAGIC = b"YUV4MPEG2"
 CHROMA_420 = ("420", "420jpeg", "420mpeg2", "420paldv")
 Y4M_SUFFIXES = (".y4m",)
 MP4_SUFFIXES = (".mp4", ".m4v", ".mov")
+H264_SUFFIXES = (".h264", ".264")
+#: the rate of a raw H.264 stream without VUI timing (FFmpeg's default)
+H264_FPS = 25.0
+#: bytes an Annex B reader takes from the file at a time
+CHUNK = 1 << 20
 #: the rate of an MP4 output, as the JAX package's cv2.VideoWriter writes it
 MP4_FPS = 30.0
 
@@ -50,8 +63,9 @@ def _check_path(path: str, suffixes) -> None:
     if _suffix(path) not in suffixes:
         raise ValueError(
             f"{path}: the port reads and writes MP4 ({', '.join(MP4_SUFFIXES)}, MPEG-4 Part 2 "
-            f"video) and YUV4MPEG2 ({', '.join(Y4M_SUFFIXES)}) video; this class takes "
-            f"{', '.join(suffixes)} (open_reader / open_writer pick by the suffix)")
+            f"video; H.264 read too) and YUV4MPEG2 ({', '.join(Y4M_SUFFIXES)}) video and reads "
+            f"raw H.264 ({', '.join(H264_SUFFIXES)}); this class takes {', '.join(suffixes)} "
+            f"(open_reader / open_writer pick by the suffix)")
 
 
 def output_fps(path: str, input_fps: float) -> float:
@@ -61,9 +75,12 @@ def output_fps(path: str, input_fps: float) -> float:
 
 
 def open_reader(path: str):
-    """An ``MP4Reader`` or ``Y4MReader`` by the suffix; any other raises."""
+    """An ``MP4Reader``, ``AnnexBReader`` or ``Y4MReader`` by the suffix;
+    any other raises."""
     if _suffix(path) in MP4_SUFFIXES:
         return MP4Reader(path)
+    if _suffix(path) in H264_SUFFIXES:
+        return AnnexBReader(path)
     _check_path(path, Y4M_SUFFIXES + MP4_SUFFIXES)
     return Y4MReader(path)
 
@@ -109,46 +126,171 @@ class _Frames:
         self.close()
 
 
-class MP4Reader(_Frames):
-    """Frames of the first video track of an MP4 (``mp4v``) as BGR uint8
-    arrays, in order; ``width``, ``height`` and ``fps`` from the track."""
+class _Queued(_Frames):
+    """Readers whose decoder takes access units and lets out frames,
+    several or none a unit and the rest at the end (H.264 reorders): a
+    queue of the frames let out, each checked against the stream's size."""
+
+    _pending: Deque[np.ndarray]
+    _flushed: bool
+
+    def _next_access_unit(self) -> Optional[bytes]:
+        raise NotImplementedError
+
+    def _decode(self, au: bytes) -> List[np.ndarray]:
+        raise NotImplementedError
+
+    def _flush(self) -> List[np.ndarray]:
+        raise NotImplementedError
+
+    def _queue(self, frames: List[np.ndarray]) -> None:
+        for f in frames:
+            if f.shape != (self.height * 3 // 2, self.width):
+                raise ValueError(f"a frame of {f.shape[1]}x{f.shape[0] * 2 // 3} in a stream of "
+                                 f"{self.width}x{self.height}: a change of size is not supported")
+            self._pending.append(f)
+
+    def _h264_start(self, path: str) -> None:
+        """The size of the first SPS: access units are decoded (their
+        frames kept) until one is active."""
+        frames: List[np.ndarray] = []
+        while not self._decoder.width:
+            au = self._next_access_unit()
+            if au is None:
+                raise ValueError(f"{path}: an H.264 stream without a sequence parameter set")
+            frames += self._decoder.decode(au)
+        self.width, self.height = self._decoder.width, self._decoder.height
+        self._queue(frames)
+
+    def read_i420(self) -> Optional[np.ndarray]:
+        """The next frame's (H*3/2, W) I420 planes, or None at the end."""
+        while not self._pending and not self._flushed:
+            au = self._next_access_unit()
+            if au is None:
+                self._flushed = True
+                self._queue(self._flush())
+            else:
+                self._queue(self._decode(au))
+        return self._pending.popleft() if self._pending else None
+
+    def stats(self) -> dict:
+        """The decoder's counts of the stream's tools (``render/mpeg4.STATS``
+        or ``render/h264.STATS``)."""
+        return self._decoder.stats()
+
+
+class MP4Reader(_Queued):
+    """Frames of the first video track of an MP4 (``mp4v``, ``avc1`` or
+    ``avc3``) as BGR uint8 arrays, in display order; ``width``, ``height``
+    and ``fps`` from the track (an H.264 track's size from its SPS)."""
 
     def __init__(self, path: str):
         _check_path(path, MP4_SUFFIXES)
         self._demux = mp4.Demuxer(path)
+        self._decoder = None
+        self._next = 0
+        self._pending, self._flushed = deque(), False
         try:
             track = self._demux.track
-            self._decoder = mpeg4.Decoder(track.dsi)
-            self.width, self.height = self._decoder.width, self._decoder.height
+            self.codec, self.fps = track.codec, track.fps
+            if track.codec == "mp4v":
+                self._decoder = mpeg4.Decoder(track.dsi)
+                self.width, self.height = self._decoder.width, self._decoder.height
+            else:
+                self._decoder = h264.Decoder(track.dsi)
+                self._h264_start(path)
             if self.width % 2 or self.height % 2:
                 raise ValueError(f"{path}: 4:2:0 frames need even sides, got "
                                  f"{self.width}x{self.height}")
-            self.fps = track.fps
         except Exception:
-            self._demux.close()
+            self.close()
             raise
-        self._next = 0
 
     def __len__(self) -> int:
         return len(self._demux)
 
-    def read_i420(self) -> Optional[np.ndarray]:
-        """The next frame's (H*3/2, W) I420 planes, or None at the end."""
-        while self._next < len(self._demux):
-            sample = self._demux.read(self._next)
-            self._next += 1
-            planes = self._decoder.decode(sample)
-            if planes is not None:  # a VOP that is not coded gives no frame, as in FFmpeg
-                return planes.reshape(self.height * 3 // 2, self.width)
-        return None
+    def _next_access_unit(self) -> Optional[bytes]:
+        if self._next >= len(self._demux):
+            return None
+        self._next += 1
+        return self._demux.read(self._next - 1)
 
-    def stats(self) -> dict:
-        """The decoder's counts of the stream's tools (``render/mpeg4.STATS``)."""
-        return self._decoder.stats()
+    def _decode(self, sample: bytes) -> List[np.ndarray]:
+        if self.codec != "mp4v":
+            return self._decoder.decode(sample)
+        planes = self._decoder.decode(sample)
+        # a VOP that is not coded gives no frame, as in FFmpeg
+        return [] if planes is None else [planes.reshape(self.height * 3 // 2, self.width)]
+
+    def _flush(self) -> List[np.ndarray]:
+        return [] if self.codec == "mp4v" else self._decoder.flush()
 
     def close(self) -> None:
         self._demux.close()
-        self._decoder.close()
+        if self._decoder is not None:
+            self._decoder.close()
+
+
+class AnnexBReader(_Queued):
+    """Frames of a raw H.264 Annex B stream (``.h264``, ``.264``) as BGR
+    uint8 arrays, in display order; ``width`` and ``height`` from its SPS,
+    ``fps`` from the SPS's VUI timing or ``H264_FPS``."""
+
+    def __init__(self, path: str):
+        _check_path(path, H264_SUFFIXES)
+        self._f = open(path, "rb")
+        self._buf, self._pos = b"", 0
+        self._eof = False
+        self._aus = h264.access_units(iter(self._nal, None))
+        self._decoder = None
+        self._pending, self._flushed = deque(), False
+        try:
+            self._decoder = h264.Decoder(None)
+            self._h264_start(path)
+            if self.width % 2 or self.height % 2:
+                raise ValueError(f"{path}: 4:2:0 frames need even sides, got "
+                                 f"{self.width}x{self.height}")
+            self.fps = self._decoder.fps or H264_FPS
+        except Exception:
+            self.close()
+            raise
+
+    def _nal(self) -> Optional[bytes]:
+        """The next NAL unit: complete once the next start code (or the
+        end of the file) is read; None at the end."""
+        while True:
+            start = self._buf.find(b"\x00\x00\x01", self._pos)
+            if start >= 0:
+                end = self._buf.find(b"\x00\x00\x01", start + 3)
+                if end >= 0 or self._eof:
+                    stop = end if end >= 0 else len(self._buf)
+                    nal = self._buf[start + 3:stop].rstrip(b"\x00")
+                    self._pos = stop
+                    if nal:
+                        return nal
+                    continue
+            elif self._eof:
+                return None
+            # keep the unfinished NAL unit (or two bytes of a split start code)
+            keep = start if start >= 0 else max(self._pos, len(self._buf) - 2)
+            chunk = self._f.read(CHUNK)
+            self._eof = not chunk
+            self._buf, self._pos = self._buf[keep:] + chunk, 0
+
+    def _next_access_unit(self) -> Optional[bytes]:
+        au = next(self._aus, None)
+        return None if au is None else h264.annexb(au)
+
+    def _decode(self, au: bytes) -> List[np.ndarray]:
+        return self._decoder.decode(au)
+
+    def _flush(self) -> List[np.ndarray]:
+        return self._decoder.flush()
+
+    def close(self) -> None:
+        self._f.close()
+        if self._decoder is not None:
+            self._decoder.close()
 
 
 class MP4Writer:

@@ -268,7 +268,12 @@ Phases, each of which raises (exit code 1) on failure:
     nets to an ``.mp4`` read back equal to the writer's reconstruction at
     30 fps, ``run_video`` (4 frames) and ``run_lane_video`` (3) over it to
     ``.mp4``, the encode and decode ms per frame, the MiB and the launches
-    per frame (stem 2, IoU 1, walk 1; the lane demo stem 1);
+    per frame (stem 2, IoU 1, walk 1; the lane demo stem 1); then H.264
+    input: the committed H.264 fixtures (``tests/data/video/h264``)
+    decoded to cv2's Y digests, the 720p content clip (24 frames, CABAC)
+    rebuilt by the stream writer and decoded to its digests with the ms per
+    IDR and P picture, and ``run_video`` over it as an ``avc1`` ``.mp4``
+    with the defaults (stem 2, IoU 1, walk 1 per frame, 24 frames);
     ``[train-ufldv2]``, UFLDv2-CULane res18 with the aux head at
     320x1600, batch 8, 20 SGD steps in f32 (no kernel launches; the loss
     falls; the first step's loss, outputs and gradient within rel 1e-6,
@@ -3936,7 +3941,102 @@ def video_phase(mods, smi, torch, np):
           f"{VIDEO_RERUN_FRAMES} frames in {video_s:.2f} s, launches {video_run}; "
           f"run_lane_video: {VIDEO_LANE_FRAMES} frames in {lanes_s:.2f} s, launches "
           f"{lanes_run} ({smi})", flush=True)
-    return {k: synthetic_run[k] + video_run[k] + lanes_run[k] for k in KERNELS}
+    h264_run = video_h264(mods, smi, torch, np)
+    return {k: synthetic_run[k] + video_run[k] + lanes_run[k] + h264_run[k] for k in KERNELS}
+
+
+def video_h264(mods, smi, torch, np):
+    """``[video]``, H.264 input (``render/h264.py``, ``native/h264.cpp``
+    built by g++): the committed H.264 fixtures (``tests/data/video/h264``:
+    CAVLC and CABAC, Annex B, ``avc1`` and ``avc3``) decode to cv2's Y
+    digests; the 720p content clip (``tests/data/video/h264_writer.py``'s
+    ``content_720p``: an I_PCM IDR of ``tests/data/images/frame_720p.png``,
+    then 23 CABAC P pictures of a quarter-sample pan, deblocking on) is
+    rebuilt by the stream writer and decodes to cv2's digests, timed per
+    access unit; then ``run_video`` over it as an ``avc1`` ``.mp4`` with
+    ``ADASPipeline``'s defaults to an ``.mp4``: stem 2, IoU 1 and walk 1 per
+    frame, every frame written.  Prints the g++ build times and the decode
+    ms per 720p IDR and P picture (host).  Returns the launches."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from adas_tpu_torch.pipeline import app
+    from adas_tpu_torch.render import h264, video
+
+    tag = "video"
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "video")
+    sys.path.insert(0, data)
+    import h264_writer
+
+    with open(os.path.join(data, "h264", "sha256.json")) as f:
+        digests = json.load(f)
+    t = time.perf_counter()
+    h264._native()  # builds _build/libh264.so
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    h264_writer._native()  # builds _build/libh264_writer.so (the decoder's source included)
+    writer_build_s = time.perf_counter() - t
+    n_frames = 0
+    for name, want in digests.items():
+        if name == "content_720p":
+            continue
+        with video.open_reader(os.path.join(data, "h264", name)) as r:
+            check((r.width, r.height) == (want["width"], want["height"]),
+                  f"{tag}: {name} is {r.width}x{r.height}")
+            ys = [p[:r.height] for p in r.i420_frames()]
+            stats = r.stats()
+        check([hashlib.sha256(y.tobytes()).hexdigest() for y in ys] == want["y_sha256"],
+              f"{tag}: {name}'s Y planes differ from cv2's decode")
+        n_frames += len(ys)
+    t = time.perf_counter()
+    stream = h264_writer.content_720p()
+    write_s = time.perf_counter() - t
+    want = digests["content_720p"]
+    decoder = h264.Decoder(None)
+    frames, ms = [], []
+    for au in h264.access_units(h264.nal_units(stream)):
+        t0 = time.perf_counter()
+        frames += decoder.decode(h264.annexb(au))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    frames += decoder.flush()
+    clip_stats = decoder.stats()
+    decoder.close()
+    check([hashlib.sha256(p[:720].tobytes()).hexdigest() for p in frames] == want["y_sha256"],
+          f"{tag}: the 720p content clip's Y planes differ from cv2's decode")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_h264_")
+    try:
+        clip = os.path.join(tmp, "clip.mp4")
+        h264_writer.to_mp4(stream, clip, b"avc1")
+        out = os.path.join(tmp, "clip_out.mp4")
+        reset(mods)
+        t = time.perf_counter()
+        n = app.run_video(clip, out, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        run = counts(mods)
+        per_frame = {"stem": 2, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1}
+        for k, per in per_frame.items():
+            check(run[k] == per * want["frames"],
+                  f"{tag}: run_video over H.264 {k} launches {run[k]}, expected {per} per frame")
+        with video.MP4Reader(out) as r:
+            drawn = list(r)
+        check(n == len(drawn) == want["frames"] and all(f.shape == (720, 1280, 3) for f in drawn),
+              f"{tag}: run_video over H.264 wrote {len(drawn)} of {n} frames")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    p_ms = ms[1:]
+    print(f"[{tag}] H.264: native/h264.cpp built in {build_s:.2f} s, the stream writer in "
+          f"{writer_build_s:.2f} s; {len(digests) - 1} fixtures, {n_frames} frames, Y equal to "
+          f"cv2's decodes (the last's non-zero counts "
+          f"{ {k: v for k, v in stats.items() if v} }); the 720p content clip ({want['frames']} "
+          f"frames, CABAC, pan {want['pan']} quarter samples) rebuilt in {write_s:.2f} s and "
+          f"decoded to cv2's digests: decode ms per 720p picture (host) IDR (I_PCM) {ms[0]:.2f}, "
+          f"P median {np.median(p_ms):.2f} (max {max(p_ms):.2f}); non-zero counts "
+          f"{ {k: v for k, v in clip_stats.items() if v} }; run_video "
+          f"over it as avc1 .mp4 (ADASPipeline defaults) to .mp4: {n} frames in {run_s:.2f} s, "
+          f"launches {run} (per frame {per_frame}) ({smi})", flush=True)
+    return run
 
 
 def onnx_phases(mods, smi, torch, np):

@@ -17,6 +17,17 @@ frames:
 By the port's own encoder (``render/video.MP4Writer``), since cv2's writer
 never turns AC prediction on: ``port_smooth_176x144.mp4``.
 
+In ``h264/`` (``python tests/data/video/make_fixtures.py h264`` writes
+only these), H.264 streams of the stream writer ``h264_writer.py`` (cv2
+cannot encode H.264 here): exerciser streams of random legal syntax in
+CAVLC (``cavlc_100x58.h264``, Annex B) and CABAC (``cabac_176x144.mp4``,
+``avc1``; ``cabac_avc3_64x48.mp4``, ``avc3``), with cv2's Y sha256 per
+frame in ``h264/sha256.json``; and there too the digests of cv2's decode
+of the content clip ``h264_writer.content_720p()`` (an I_PCM IDR of
+``tests/data/images/frame_720p.png``, then P pictures of a quarter-sample
+pan), which is not committed: the writer is deterministic, so a host
+without cv2 rebuilds it and checks its decode against the digests.
+
 Beside them, for every file, cv2's decode: the Y planes
 (``cv2.VideoCapture`` with ``CAP_PROP_CONVERT_RGB`` 0 returns the decoded
 luma plane) as ``<name>_y.npy`` for the two small files and as a sha256
@@ -96,7 +107,52 @@ FIXTURES = {
 NPY = ("cv2_fast_100x58", "cv2_noise_64x48")
 
 
+H264_DIR = os.path.join(HERE, "h264")
+#: the H.264 exerciser fixtures: file name -> (writer options, MP4 sample entry or None)
+H264_FIXTURES = {
+    "cavlc_100x58.h264": (dict(seed=11, cabac=0, frames=8, width=100, height=58, refs=3,
+                               ref_mods=1, mmco=1, long_term=1, slices=3, deblock=2, nonref=1,
+                               pcm=5, weighted=1, scaling=1), None),
+    "cabac_176x144.mp4": (dict(seed=12, cabac=1, frames=8, width=176, height=144, refs=2,
+                               weighted=1, scaling=2, slices=2, deblock=2, mmco=2), b"avc1"),
+    "cabac_avc3_64x48.mp4": (dict(seed=13, cabac=1, frames=6, width=64, height=48, poc_type=2,
+                                  nonref=1, cip=1, intra_in_p=30), b"avc3"),
+}
+def h264_main():
+    sys.path.insert(0, HERE)
+    import h264_writer
+
+    os.makedirs(H264_DIR, exist_ok=True)
+    digests = {}
+    for name, (options, fourcc) in H264_FIXTURES.items():
+        path = os.path.join(H264_DIR, name)
+        stream = h264_writer.exercise(**options)
+        if fourcc is None:
+            with open(path, "wb") as f:
+                f.write(stream)
+        else:
+            h264_writer.to_mp4(stream, path, fourcc)
+        ys = cv2_decode(path, False)
+        digests[name] = {
+            "frames": len(ys), "height": int(ys.shape[1]), "width": int(ys.shape[2]),
+            "y_sha256": [hashlib.sha256(y.tobytes()).hexdigest() for y in ys]}
+    tmp = os.path.join(H264_DIR, "content_720p.h264")
+    with open(tmp, "wb") as f:
+        f.write(h264_writer.content_720p())
+    ys = cv2_decode(tmp, False)
+    os.remove(tmp)
+    assert len(ys) == h264_writer.CONTENT_720P["frames"]
+    digests["content_720p"] = {**h264_writer.CONTENT_720P, "height": 720, "width": 1280,
+                               "y_sha256": [hashlib.sha256(y.tobytes()).hexdigest() for y in ys]}
+    with open(os.path.join(H264_DIR, "sha256.json"), "w") as f:
+        json.dump(digests, f, indent=1)
+        f.write("\n")
+
+
 def main():
+    if sys.argv[1:] == ["h264"]:
+        h264_main()
+        return
     digests = {}
     for name, make in FIXTURES.items():
         path = os.path.join(HERE, name + ".mp4")

@@ -88,8 +88,14 @@ def reduced_culane():
         yield
 
 
+#: named on both sides: ``tests/test_yolo.py`` leaves JAX's ``YoloDetector``
+#: class defaults at ``max_det`` 20 for the rest of its xdist worker
+MAX_DET, NMS_IOU = 100, 0.45
+
+
 def yolo_args(path, **kw):
-    return dict(model_path=path, scale="n", input_size=YOLO_HW, box_score=BOX_SCORE, **kw)
+    return dict(model_path=path, scale="n", input_size=YOLO_HW, box_score=BOX_SCORE,
+                max_det=MAX_DET, box_nms_iou=NMS_IOU, **kw)
 
 
 def test_yolo_pth_detect_frame_matches_jax(checkpoints):

@@ -477,6 +477,19 @@ VIDEO_SCRIPT = textwrap.dedent(
     for name in ("synthetic.mp4", "again.mp4", "lanes.mp4"):
         with open_reader(os.path.join(tmp, name)) as r:
             assert r.fps == 30.0 and len(list(r)) == 2
+    # an H.264 input: an I_PCM IDR and two P pictures of a pan, in an avc1 MP4
+    sys.path.insert(0, data)
+    import h264_writer
+    clip = os.path.join(tmp, "h264.mp4")
+    frame = np.random.default_rng(5).integers(0, 256, (144, 160), dtype=np.uint8)
+    h264_writer.to_mp4(h264_writer.content(frame, n_p=2, pan=(5, 3)), clip)
+    assert app.run_video(clip, os.path.join(tmp, "h264_out.mp4"), device="cpu") == 3
+    assert lane_demo.run_lane_video(clip, os.path.join(tmp, "h264_lanes.mp4"), device="cpu") == 3
+    app.main(["-i", clip, "-o", os.path.join(tmp, "h264_cli.mp4"), "--device", "cpu"])
+    lane_demo.main(["-i", clip, "-o", os.path.join(tmp, "h264_cli_lanes.mp4"), "--device", "cpu"])
+    for name in ("h264_out.mp4", "h264_lanes.mp4", "h264_cli.mp4", "h264_cli_lanes.mp4"):
+        with open_reader(os.path.join(tmp, name)) as r:
+            assert (r.width, r.height) == (160, 96) and len(list(r)) == 3
     assert not [m for m in sys.modules if m.split(".")[0] in %r]
     print("frames", n)
     """
@@ -487,7 +500,8 @@ VIDEO_SCRIPT = textwrap.dedent(
 def test_video_io_runs_with_jax_package_and_cv2_blocked(tmp_path):
     """The MP4 reader on every committed video fixture (cv2's Y planes by
     their sha256), ``run_synthetic``, ``run_video`` and ``run_lane_video``
-    to ``.mp4``, in a process that cannot import ``jax``, ``adas_tpu``,
+    to ``.mp4``, and ``run_video``, ``run_lane_video`` and both CLIs over an
+    H.264 ``.mp4``, in a process that cannot import ``jax``, ``adas_tpu``,
     ``cv2``, ``PIL``, ``optax``, ``orbax`` or ``onnx``."""
     proc = subprocess.run(
         [sys.executable, "-c", VIDEO_SCRIPT, str(tmp_path)], cwd=REPO, env=ONE_THREAD,

@@ -4,9 +4,10 @@ The writer's layout (``moov`` after ``mdat``, as cv2's writer puts it)
 and rebuilt variants of the same samples: ``moov`` first, ``co64`` chunk
 offsets, several chunks per ``stsc`` run, one chunk for every sample, and
 an audio track before the video's.  The demuxer gives the same samples
-from each, and cv2 reads each file's frames as the port does.  An
-``avc1`` / ``hvc1`` sample entry, an esds of another object type,
-fragmented MP4 and truncated files raise ``ValueError`` by name.
+from each, and cv2 reads each file's frames as the port does.  H.264
+tracks (``avc1``, ``avc3``) demux with their ``avcC`` record; an ``avc1``
+entry without one, an ``hvc1`` sample entry, an esds of another object
+type, fragmented MP4 and truncated files raise ``ValueError`` by name.
 """
 from __future__ import annotations
 
@@ -222,3 +223,40 @@ def test_suffixes_pick_the_format(written, tmp_path):
             open_reader(str(tmp_path / bad))
         with pytest.raises(ValueError, match=r"\.mp4.*\.y4m"):
             open_writer(str(tmp_path / bad), W, H)
+
+
+@pytest.mark.parametrize("fourcc", [b"avc1", b"avc3"])
+def test_h264_tracks_demux_with_their_avcc(tmp_path, fourcc):
+    """An H.264 track: ``Track.codec`` names it, ``dsi`` is its ``avcC``
+    record (``avc3``: no parameter sets there, they come in band), the
+    samples are the length-prefixed access units, and cv2 reads as many
+    frames as the port."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "video"))
+    import h264_writer as hw
+
+    from adas_tpu_torch.render import h264
+
+    stream = hw.exercise(seed=3, frames=4, width=W, height=H)
+    path = str(tmp_path / "h.mp4")
+    assert hw.to_mp4(stream, path, fourcc) == 4
+    d = mp4.Demuxer(path)
+    track, samples = d.track, [d.read(i) for i in range(len(d))]
+    d.close()
+    assert track.codec == fourcc.decode() and track.fps == 30.0
+    length_size, nals = h264.parse_avcc(track.dsi)
+    assert length_size == 4 and [n[0] & 0x1F for n in nals] == ([] if fourcc == b"avc3" else [7, 8])
+    kinds = [samples[0][4] & 0x1F]
+    assert kinds == ([7] if fourcc == b"avc3" else [5])
+    with MP4Reader(path) as r:
+        assert (r.width, r.height) == (W, H) and len(list(r)) == 4
+    assert len(_cv2_frames(path, False)[0]) == 4
+
+
+def test_h264_entry_without_avcc_raises(written, tmp_path):
+    path = tmp_path / "v.mp4"
+    path.write_bytes(_with_entry(open(written[0], "rb").read(), b"avc1"))
+    with pytest.raises(ValueError, match=r"H\.264 \(avc1\) sample entry without an avcC"):
+        MP4Reader(str(path))

@@ -1,6 +1,6 @@
-"""The port's video I/O (``render/video.py``: YUV4MPEG2, and MP4 with
-MPEG-4 Part 2 video) and its demo entry points (``pipeline/app.run_video``,
-``run_synthetic``, ``main``) on the CPU.
+"""The port's video I/O (``render/video.py``: YUV4MPEG2, MP4 with MPEG-4
+Part 2 or H.264 video, raw H.264) and its demo entry points
+(``pipeline/app.run_video``, ``run_synthetic``, ``main``) on the CPU.
 
 The Y4M writer's planes equal ``cv2.cvtColor(COLOR_BGR2YUV_I420)`` and
 the reader's BGR ``cv2.cvtColor(COLOR_YUV2BGR_I420)``; a write-read round
@@ -265,3 +265,54 @@ def test_main_writes_jax_default_names(tmp_path, small_nets, monkeypatch):
     assert calls == [("synthetic_out.mp4", 2, "cpu")]
     with pytest.raises(NotImplementedError, match="video file"):
         app.main(["--display", "-i", str(src)])
+
+
+@pytest.mark.parametrize("src_suffix", [".mp4", ".h264"])
+def test_run_video_reads_h264(tmp_path, small_nets, src_suffix):
+    """``run_video`` over an H.264 clip (an I_PCM IDR, then P pictures of a
+    quarter-sample pan) writes one drawn frame for every frame cv2 reads,
+    drawn over the port's decode, which is cv2's to the bit in Y."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "video"))
+    import h264_writer as hw
+
+    hw_ = (96, 160)
+    stream = hw.content(bgr_to_i420(_smooth(1, hw_, seed=7)[0]), n_p=3, pan=(6, -3))
+    src, out = str(tmp_path / f"clip{src_suffix}"), str(tmp_path / "clip_out.y4m")
+    if src_suffix == ".mp4":
+        hw.to_mp4(stream, src, fps=12.0)
+    else:
+        with open(src, "wb") as f:
+            f.write(stream)
+    ys = _cv2_frames_y(src)
+    assert app.run_video(src, out, device="cpu") == len(ys) == 4
+    from adas_tpu_torch.render.video import open_reader
+
+    with open_reader(src) as r:
+        assert r.fps == (12.0 if src_suffix == ".mp4" else 25.0)
+        decoded = list(r.i420_frames())
+    for d, y in zip(decoded, ys):
+        np.testing.assert_array_equal(d[:hw_[0]], y)
+    from adas_tpu_torch.native.draw import i420_to_bgr
+
+    want = _loop(small_nets, hw_, [i420_to_bgr(d, *hw_) for d in decoded])
+    with Y4MReader(out) as r:
+        got = list(r.i420_frames())
+    assert len(got) == 4
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def _cv2_frames_y(path):
+    cap = cv2.VideoCapture(path)
+    cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+    out = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        out.append(f.copy())
+    cap.release()
+    return out
