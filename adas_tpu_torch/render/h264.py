@@ -1,10 +1,10 @@
 """ctypes binding of ``native/h264.cpp``: the H.264 decoder of the demo's
-video input (``render/video.py``), for I and P pictures of progressive
+video input (``render/video.py``), for I, P and B pictures of progressive
 8-bit 4:2:0 streams (Constrained Baseline, Main and High profiles; CAVLC
 and CABAC).
 
-``Decoder(avcc)`` takes an MP4 track's ``avcC`` record (its SPS and PPS
-and the NAL length size), or None for an Annex B byte stream.
+``Decoder(avcc, delay)`` takes an MP4 track's ``avcC`` record (its SPS and
+PPS and the NAL length size), or None for an Annex B byte stream.
 ``decode(access_unit)`` feeds one sample (length-prefixed NAL units) or a
 piece of an Annex B stream and gives the list of frames now ready for
 output, in display order: each a (height * 3 / 2, width) uint8 array of
@@ -12,7 +12,15 @@ I420 planes, cropped.  ``flush()`` at the end gives the rest.  ``stats()``
 counts the tools the stream used (``STATS``).  ``width``, ``height`` and
 ``fps`` are those of the active SPS (0 before one is active).
 
-B, SP and SI slices, field pictures and MBAFF, chroma formats other than
+Output follows FFmpeg's, which cv2 runs: frames leave in POC order behind
+a reorder delay that starts at ``delay`` (``probe_delay``: what FFmpeg's
+stream probe reaches from the container's delay), is at least the VUI's
+``max_num_reorder_frames``, and without the VUI's bitstream restriction
+grows as pictures arrive out of order; a picture that arrives after a
+later one was output is dropped (``stats()["dropped_pictures"]``), as
+FFmpeg drops it.
+
+SP and SI slices, field pictures and MBAFF, chroma formats other than
 4:2:0, bit depths above 8, slice groups, redundant pictures, data
 partitioning, transform bypass, gaps in frame_num, corrupt or truncated
 data and pictures of more than ``MAX_PIXELS`` raise a ``ValueError``
@@ -46,7 +54,12 @@ STATS = ("i_slices", "p_slices", "idr_pictures", "pictures", "cavlc_slices", "ca
          "ref_list_modifications", "mmcos", "mmco5", "long_term_marks", "mbs_ref_idx_above_0",
          "scaling_matrix_pictures", "constrained_intra_pictures", "deblocking_off_slices",
          "deblocking_slice_edge_off_slices", "non_reference_pictures", "poc_type_0",
-         "poc_type_1", "poc_type_2", "cropped_pictures")
+         "poc_type_1", "poc_type_2", "cropped_pictures", "b_slices", "b_direct_16x16", "b16x16",
+         "b16x8", "b8x16", "b8x8", "bskip", "b_direct_8x8", "b_sub_partitions_below_8x8",
+         "bi_predicted_mbs", "spatial_direct_slices", "temporal_direct_slices",
+         "implicit_weight_slices", "explicit_bipred_slices", "ref_list1_modifications",
+         "b_mbs_from_long_term", "reference_b_pictures", "direct_4x4_mbs", "dropped_pictures",
+         "reorder_delay")
 
 
 def _native():
@@ -61,6 +74,7 @@ def _native():
                     "h264_decoder_new": ([], p), "h264_decoder_free": ([p], None),
                     "h264_decoder_error": ([p], ctypes.c_char_p),
                     "h264_decode": ([p, p, l, i], i), "h264_flush": ([p], i),
+                    "h264_set_delay": ([p, i], None), "h264_last_poc": ([p], i),
                     "h264_size": ([p, ip, ip], None), "h264_fps": ([p], ctypes.c_double),
                     "h264_next_frame": ([p, p, l, ip, ip], i),
                     "h264_next_frame_bytes": ([p], l), "h264_stats": ([p, p, i], i),
@@ -100,13 +114,15 @@ def parse_avcc(avcc: bytes) -> Tuple[int, List[bytes]]:
 
 class Decoder:
     """An H.264 stream's decoder: length-prefixed samples after an avcC
-    record, or an Annex B byte stream (``avcc`` None)."""
+    record, or an Annex B byte stream (``avcc`` None).  ``delay`` is the
+    reorder delay output starts from (``probe_delay``)."""
 
-    def __init__(self, avcc: Optional[bytes] = None):
+    def __init__(self, avcc: Optional[bytes] = None, delay: int = 0):
         lib = _native()
         self._lib, self._d = lib, lib.h264_decoder_new()
         if not self._d:
             raise MemoryError("h264 decoder")
+        lib.h264_set_delay(self._d, int(delay))
         self._length_size = 0
         self._ready: List[np.ndarray] = []
         if avcc is not None:
@@ -164,6 +180,11 @@ class Decoder:
         return w.value, h.value
 
     @property
+    def last_poc(self) -> int:
+        """The picture order count of the last picture begun."""
+        return int(self._lib.h264_last_poc(self._d))
+
+    @property
     def fps(self) -> float:
         """The frame rate of the SPS's VUI timing, 0.0 without one."""
         return float(self._lib.h264_fps(self._d))
@@ -180,6 +201,34 @@ class Decoder:
 
     def __del__(self):
         self.close()
+
+
+def _probe_frames(delay: int) -> int:
+    """Frames FFmpeg's stream probe decodes before it takes a reorder delay
+    as found (libavformat's ``has_decode_delay_been_guessed``)."""
+    return 7 if delay < 3 else 18 if delay < 4 else 20
+
+
+def probe_delay(access_units: Iterable[bytes], avcc: Optional[bytes] = None,
+                delay: int = 0) -> int:
+    """The reorder delay cv2's decoder starts from: what FFmpeg's stream
+    probe (``avformat_find_stream_info``) reaches decoding the first access
+    units from ``delay`` (the container's: 0 for a raw stream, the depth of
+    an MP4's ``ctts``) until 7 frames are out (18 at a delay of 3, 20
+    above).  An error
+    ends the probe; the decode proper raises it."""
+    d = Decoder(avcc, delay)
+    try:
+        out = 0
+        for au in access_units:
+            out += len(d.decode(au))
+            if out >= _probe_frames(d.stats()["reorder_delay"]):
+                break
+    except ValueError:
+        pass
+    found = d.stats()["reorder_delay"]
+    d.close()
+    return found
 
 
 # ------------------------------------------------------------------ Annex B
@@ -221,4 +270,5 @@ def annexb(nals: List[bytes]) -> bytes:
     return b"".join(b"\x00\x00\x00\x01" + n for n in nals)
 
 
-__all__ = ["Decoder", "STATS", "MAX_PIXELS", "parse_avcc", "nal_units", "access_units", "annexb"]
+__all__ = ["Decoder", "STATS", "MAX_PIXELS", "parse_avcc", "nal_units", "access_units", "annexb",
+           "probe_delay"]

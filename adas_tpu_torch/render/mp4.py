@@ -9,8 +9,13 @@ its ``esds`` DecoderSpecificInfo (the MPEG-4 Visual VOS/VO/VOL headers,
 objectTypeIndication 0x20) or H.264's ``avc1`` / ``avc3`` with its
 ``avcC`` record (``avc3`` may carry its parameter sets in band), the
 samples' offsets and sizes from ``stsz``, ``stsc`` and ``stco``/``co64``,
-and the rate from ``mdhd``'s timescale over ``stts``.  ``Track.codec``
-says which.  Another sample entry (``hvc1``, ``av01``, ...) or object
+the rate from ``mdhd``'s timescale over ``stts``, and for streams that
+reorder (H.264 B pictures) the composition offsets of ``ctts`` (versions
+0 and 1) and the edit list of ``edts``/``elst``.  ``Track.codec`` says
+which; ``Track.video_delay`` is the reorder depth FFmpeg's mov demuxer
+reads from ``ctts`` (``mov_guess_video_delay``).  An edit list that cuts
+frames raises, as does one that is not a single edit (after an empty
+one).  Another sample entry (``hvc1``, ``av01``, ...) or object
 type, and fragmented MP4 (``moof``), raise a ``ValueError`` that names the
 codec or the feature; so does a box that runs past its parent or a sample
 past the file.
@@ -20,7 +25,10 @@ then ``mdat`` as the samples come, then on ``close`` the ``moov`` (``mvhd``,
 ``tkhd``, ``mdhd``, ``hdlr vide``, ``vmhd``, ``dref``, ``stsd`` with
 ``mp4v`` + ``esds``, ``stts``, ``stss`` of the key samples, ``stsc``,
 ``stsz``, and ``stco``, or ``co64`` when an offset passes 4 GiB): the
-layout ``cv2.VideoWriter`` writes for an ``.mp4`` path.
+layout ``cv2.VideoWriter`` writes for an ``.mp4`` path.  ``build_moov``
+writes ``ctts`` and an ``elst`` that starts at the first frame's
+composition time when given composition offsets, as FFmpeg's muxer does
+for B pictures.
 """
 from __future__ import annotations
 
@@ -136,11 +144,67 @@ class Track:
     ``"avc1"`` / ``"avc3"`` (``dsi`` the ``avcC`` record)."""
 
     def __init__(self, width, height, fps, dsi, offsets, sizes, timescale, duration,
-                 codec="mp4v"):
+                 codec="mp4v", cts=None, video_delay=0):
         self.width, self.height, self.fps, self.dsi = width, height, fps, dsi
         self.offsets, self.sizes = offsets, sizes
         self.timescale, self.duration = timescale, duration
         self.codec = codec
+        #: each sample's composition offset (``ctts``), None without one
+        self.cts = cts
+        self.video_delay = video_delay
+
+
+#: the pts FFmpeg's mov demuxer keeps to guess the reorder delay
+MAX_REORDER_DELAY = 16
+
+
+def guess_video_delay(pts: Sequence[int]) -> int:
+    """The reorder depth of samples' presentation times in decoding order,
+    as FFmpeg's mov demuxer reads it (``mov_guess_video_delay``): the most
+    of the 16 largest earlier times that exceed a sample's."""
+    kept = [float("-inf")] * MAX_REORDER_DELAY
+    delay = 0
+    for p in pts:
+        delay = max(delay, sum(k > p for k in kept))
+        kept = sorted(kept + [p])[1:]
+    return delay
+
+
+def _ctts(data: bytes, s: int, e: int, count: int) -> Optional[List[int]]:
+    found = _find(data, s, e, b"ctts")
+    if found is None:
+        return None
+    version, n = data[found[0]], _u32(data, found[0] + 4)
+    if found[0] + 8 + 8 * n > found[1]:
+        raise ValueError("truncated ctts")
+    cts: List[int] = []
+    for i in range(n):
+        run, off = struct.unpack_from(">I" + ("i" if version else "I"), data, found[0] + 8 + 8 * i)
+        cts += [off] * run
+    if len(cts) != count:
+        raise ValueError(f"corrupt MP4: ctts gives {len(cts)} samples, stsz {count}")
+    return cts
+
+
+def _check_edits(data: bytes, trak: Tuple[int, int], pts: List[int], timescale: int) -> None:
+    """An edit list is read when it shows every frame: empty edits, then
+    one edit from at most the first composition time.  (FFmpeg's muxer
+    writes one from the first frame's.)"""
+    edts = _find(data, *trak, b"edts")
+    elst = None if edts is None else _find(data, *edts, b"elst")
+    if elst is None:
+        return
+    version, n = data[elst[0]], _u32(data, elst[0] + 4)
+    size = 20 if version == 1 else 12
+    if elst[0] + 8 + size * n > elst[1]:
+        raise ValueError("truncated elst")
+    edits = [struct.unpack_from(">Qq" if version == 1 else ">Ii", data, elst[0] + 8 + size * i)
+             for i in range(n)]
+    media = [t for _, t in edits if t != -1]
+    first = min(pts) if pts else 0
+    if len(media) > 1 or (media and media[0] > first):
+        raise ValueError("MP4 edit lists that cut or repeat frames are not supported (elst "
+                         f"media times {media}, the first frame at {first} of {timescale})")
 
 
 def _sample_table(data: bytes, s: int, e: int, file_size: int):
@@ -192,9 +256,10 @@ def _sample_table(data: bytes, s: int, e: int, file_size: int):
     n_stts = _u32(data, stts[0] + 4)
     if stts[0] + 8 + 8 * n_stts > stts[1]:
         raise ValueError("truncated stts")
-    duration = sum(c * d for c, d in (struct.unpack_from(">II", data, stts[0] + 8 + 8 * i)
-                                      for i in range(n_stts)))
-    return offsets, sizes, duration
+    runs = [struct.unpack_from(">II", data, stts[0] + 8 + 8 * i) for i in range(n_stts)]
+    duration = sum(c * d for c, d in runs)
+    deltas = [d for c, d in runs for _ in range(c)]
+    return offsets, sizes, duration, deltas
 
 
 def _video_track(data: bytes, trak: Tuple[int, int], file_size: int) -> Optional[Track]:
@@ -226,12 +291,19 @@ def _video_track(data: bytes, trak: Tuple[int, int], file_size: int) -> Optional
             raise ValueError(f"corrupt MP4: an {AVC_ENTRIES[fourcc]} sample entry without an "
                              f"avcC box")
         dsi = data[avcc[0]:avcc[1]]
-    offsets, sizes, duration = _sample_table(data, *stbl, file_size)
+    offsets, sizes, duration, deltas = _sample_table(data, *stbl, file_size)
     if not timescale:
         raise ValueError("corrupt MP4: mdhd timescale of 0")
     fps = float(Fraction(timescale * len(sizes), duration)) if duration and sizes else 0.0
+    cts = _ctts(data, *stbl, len(sizes))
+    dts = [0] * len(sizes)
+    for i in range(1, len(sizes)):
+        dts[i] = dts[i - 1] + deltas[i - 1]
+    pts = dts if cts is None else [t + c for t, c in zip(dts, cts)]
+    _check_edits(data, trak, pts, timescale)
+    delay = guess_video_delay(pts) if cts is not None and fourcc in AVC_ENTRIES else 0
     return Track(width, height, fps, dsi, offsets, sizes, timescale, duration,
-                 fourcc.decode("latin-1"))
+                 fourcc.decode("latin-1"), cts, delay)
 
 
 class Demuxer:
@@ -340,12 +412,15 @@ def visual_sample_entry(fourcc: bytes, width: int, height: int, *children: bytes
 
 def build_moov(width: int, height: int, dsi: bytes, timescale: int, delta: int,
                sizes: Sequence[int], keys: Sequence[int], chunk_offsets: Sequence[int],
-               samples_per_chunk: int, entry: Optional[bytes] = None) -> bytes:
+               samples_per_chunk: int, entry: Optional[bytes] = None,
+               cts: Optional[Sequence[int]] = None) -> bytes:
     """The ``moov`` of one ``mp4v`` track: samples of ``sizes`` laid out in
     chunks of ``samples_per_chunk`` at ``chunk_offsets`` (the last chunk
     may be short), ``keys`` the 1-based key samples; ``co64`` once an
     offset passes 4 GiB, else ``stco``.  ``entry``, when given, is the
-    sample entry box in place of ``mp4v`` + ``esds(dsi)``."""
+    sample entry box in place of ``mp4v`` + ``esds(dsi)``.  ``cts``, when
+    given, are the samples' composition offsets (``ctts`` version 0), and
+    an ``edts``/``elst`` starts the presentation at the first sample's."""
     n = len(sizes)
     duration = n * delta
     movie_ms = duration * 1000 // timescale
@@ -376,8 +451,20 @@ def build_moov(width: int, height: int, dsi: bytes, timescale: int, delta: int,
         stco = full_box(b"co64", 0, 0, struct.pack(f">I{n_chunks}Q", n_chunks, *chunk_offsets))
     else:
         stco = full_box(b"stco", 0, 0, struct.pack(f">I{n_chunks}I", n_chunks, *chunk_offsets))
-    stbl = box(b"stbl", stsd, stts, stss, stsc, stsz, stco)
-    trak = box(b"trak", tkhd, box(b"mdia", mdhd, hdlr, box(b"minf", vmhd, dinf, stbl)))
+    ctts, edts = b"", b""
+    if cts is not None:
+        runs: List[List[int]] = []
+        for c in cts:
+            if runs and runs[-1][1] == c:
+                runs[-1][0] += 1
+            else:
+                runs.append([1, c])
+        ctts = full_box(b"ctts", 0, 0, struct.pack(">I", len(runs)),
+                        *(struct.pack(">II", r, c) for r, c in runs))
+        edts = box(b"edts", full_box(b"elst", 0, 0, struct.pack(">IIiHH", 1, movie_ms,
+                                                                  cts[0] if n else 0, 1, 0)))
+    stbl = box(b"stbl", stsd, stts, ctts, stss, stsc, stsz, stco)
+    trak = box(b"trak", tkhd, edts, box(b"mdia", mdhd, hdlr, box(b"minf", vmhd, dinf, stbl)))
     return box(b"moov", mvhd, trak)
 
 
@@ -441,5 +528,5 @@ def rate(fps: float) -> Tuple[int, int]:
 
 
 __all__ = ["Demuxer", "Muxer", "Track", "build_moov", "box", "full_box", "esds_box",
-           "parse_esds", "iter_boxes", "rate", "visual_sample_entry", "FTYP", "CODEC_NAMES",
-           "AVC_ENTRIES"]
+           "parse_esds", "iter_boxes", "rate", "visual_sample_entry", "guess_video_delay", "FTYP",
+           "CODEC_NAMES", "AVC_ENTRIES", "MAX_REORDER_DELAY"]

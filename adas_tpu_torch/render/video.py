@@ -11,14 +11,21 @@ fps)`` pick the format by the suffix:
   ``mp4v`` decoder and encoder, ``native/mpeg4.cpp``) and
   ``render/h264.py`` (the H.264 decoder, ``native/h264.cpp``).
   ``MP4Reader`` takes the ``mp4v`` streams cv2 and the port write (I- and
-  P-VOPs) and the I/P H.264 of dash-cams and phones, giving the frames
-  cv2 gives in cv2's order; other codecs, and H.264 tools the decoder
-  refuses, raise a ``ValueError`` that names them.  ``MP4Writer`` writes
+  P-VOPs) and the I/P/B H.264 of dash-cams, phones and FFmpeg's muxer
+  (``ctts``, ``edts``/``elst``), giving the frames cv2 gives in cv2's
+  order and count; other codecs, and H.264 tools the decoder refuses,
+  raise a ``ValueError`` that names them.  ``MP4Writer`` writes
   an I-VOP every 12 frames (cv2's interval) and P-VOPs between at a fixed
   quantiser; cv2 reads its files.
 - H.264 Annex B: ``AnnexBReader``, read only, split into access units at
   each picture's first slice; the rate of the SPS's VUI timing, else 25
   (FFmpeg's for a raw stream).
+
+Both H.264 readers first decode the stream's opening access units as
+FFmpeg's stream probe does (``render/h264.probe_delay``, from the delay an
+MP4's ``ctts`` shows), so that the decode proper starts from cv2's reorder
+delay: FFmpeg drops a B picture that comes after a later one was output,
+and which pictures that is depends on the delay.
 - Y4M: raw I420 frames behind a text header.  ``Y4MReader`` takes the
   ``C420``, ``C420jpeg``, ``C420mpeg2`` and ``C420paldv`` chroma tags
   (all decoded alike, nearest chroma upsampling as cv2's) or none, and
@@ -197,7 +204,9 @@ class MP4Reader(_Queued):
                 self._decoder = mpeg4.Decoder(track.dsi)
                 self.width, self.height = self._decoder.width, self._decoder.height
             else:
-                self._decoder = h264.Decoder(track.dsi)
+                samples = (self._demux.read(i) for i in range(len(self._demux)))
+                delay = h264.probe_delay(samples, track.dsi, track.video_delay)
+                self._decoder = h264.Decoder(track.dsi, delay)
                 self._h264_start(path)
             if self.width % 2 or self.height % 2:
                 raise ValueError(f"{path}: 4:2:0 frames need even sides, got "
@@ -207,6 +216,10 @@ class MP4Reader(_Queued):
             raise
 
     def __len__(self) -> int:
+        """The track's samples.  An H.264 stream gives as many frames
+        unless its reorder delay grows past the one the probe found; then
+        FFmpeg, and the reader with it, drop the pictures that come too
+        late (``stats()["dropped_pictures"]``)."""
         return len(self._demux)
 
     def _next_access_unit(self) -> Optional[bytes]:
@@ -231,6 +244,35 @@ class MP4Reader(_Queued):
             self._decoder.close()
 
 
+def _file_nals(f) -> Iterator[bytes]:
+    """The NAL units of an Annex B file, read ``CHUNK`` bytes at a time:
+    each complete once the next start code (or the end of the file) is
+    read."""
+    buf, pos, eof = b"", 0, False
+    while True:
+        start = buf.find(b"\x00\x00\x01", pos)
+        if start >= 0:
+            end = buf.find(b"\x00\x00\x01", start + 3)
+            if end >= 0 or eof:
+                stop = end if end >= 0 else len(buf)
+                nal = buf[start + 3:stop].rstrip(b"\x00")
+                pos = stop
+                if nal:
+                    yield nal
+                continue
+        elif eof:
+            return
+        # keep the unfinished NAL unit (or two bytes of a split start code)
+        keep = start if start >= 0 else max(pos, len(buf) - 2)
+        chunk = f.read(CHUNK)
+        eof = not chunk
+        buf, pos = buf[keep:] + chunk, 0
+
+
+def _file_access_units(f) -> Iterator[bytes]:
+    return (h264.annexb(au) for au in h264.access_units(_file_nals(f)))
+
+
 class AnnexBReader(_Queued):
     """Frames of a raw H.264 Annex B stream (``.h264``, ``.264``) as BGR
     uint8 arrays, in display order; ``width`` and ``height`` from its SPS,
@@ -239,13 +281,13 @@ class AnnexBReader(_Queued):
     def __init__(self, path: str):
         _check_path(path, H264_SUFFIXES)
         self._f = open(path, "rb")
-        self._buf, self._pos = b"", 0
-        self._eof = False
-        self._aus = h264.access_units(iter(self._nal, None))
+        self._aus = _file_access_units(self._f)
         self._decoder = None
         self._pending, self._flushed = deque(), False
         try:
-            self._decoder = h264.Decoder(None)
+            with open(path, "rb") as probe:
+                delay = h264.probe_delay(_file_access_units(probe))
+            self._decoder = h264.Decoder(None, delay)
             self._h264_start(path)
             if self.width % 2 or self.height % 2:
                 raise ValueError(f"{path}: 4:2:0 frames need even sides, got "
@@ -255,31 +297,8 @@ class AnnexBReader(_Queued):
             self.close()
             raise
 
-    def _nal(self) -> Optional[bytes]:
-        """The next NAL unit: complete once the next start code (or the
-        end of the file) is read; None at the end."""
-        while True:
-            start = self._buf.find(b"\x00\x00\x01", self._pos)
-            if start >= 0:
-                end = self._buf.find(b"\x00\x00\x01", start + 3)
-                if end >= 0 or self._eof:
-                    stop = end if end >= 0 else len(self._buf)
-                    nal = self._buf[start + 3:stop].rstrip(b"\x00")
-                    self._pos = stop
-                    if nal:
-                        return nal
-                    continue
-            elif self._eof:
-                return None
-            # keep the unfinished NAL unit (or two bytes of a split start code)
-            keep = start if start >= 0 else max(self._pos, len(self._buf) - 2)
-            chunk = self._f.read(CHUNK)
-            self._eof = not chunk
-            self._buf, self._pos = self._buf[keep:] + chunk, 0
-
     def _next_access_unit(self) -> Optional[bytes]:
-        au = next(self._aus, None)
-        return None if au is None else h264.annexb(au)
+        return next(self._aus, None)
 
     def _decode(self, au: bytes) -> List[np.ndarray]:
         return self._decoder.decode(au)

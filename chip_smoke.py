@@ -3955,8 +3955,11 @@ def video_h264(mods, smi, torch, np):
     rebuilt by the stream writer and decodes to cv2's digests, timed per
     access unit; then ``run_video`` over it as an ``avc1`` ``.mp4`` with
     ``ADASPipeline``'s defaults to an ``.mp4``: stem 2, IoU 1 and walk 1 per
-    frame, every frame written.  Prints the g++ build times and the decode
-    ms per 720p IDR and P picture (host).  Returns the launches."""
+    frame, every frame written.  The same for the 720p B clip
+    (``content_720p_b``: the pan as IBBBP with a B pyramid, CABAC,
+    deblocking on, spatial and temporal direct), its ``.mp4`` with ``ctts``
+    and ``elst``.  Prints the g++ build times and the decode ms per 720p
+    IDR, P and B picture (host).  Returns the launches of both runs."""
     import hashlib
     import shutil
     import tempfile
@@ -3979,7 +3982,7 @@ def video_h264(mods, smi, torch, np):
     writer_build_s = time.perf_counter() - t
     n_frames = 0
     for name, want in digests.items():
-        if name == "content_720p":
+        if name.startswith("content_720p"):  # the clips the writer rebuilds
             continue
         with video.open_reader(os.path.join(data, "h264", name)) as r:
             check((r.width, r.height) == (want["width"], want["height"]),
@@ -4025,9 +4028,10 @@ def video_h264(mods, smi, torch, np):
               f"{tag}: run_video over H.264 wrote {len(drawn)} of {n} frames")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    b_run = video_h264_b(mods, smi, torch, np, digests["content_720p_b"])
     p_ms = ms[1:]
     print(f"[{tag}] H.264: native/h264.cpp built in {build_s:.2f} s, the stream writer in "
-          f"{writer_build_s:.2f} s; {len(digests) - 1} fixtures, {n_frames} frames, Y equal to "
+          f"{writer_build_s:.2f} s; {len(digests) - 2} fixtures, {n_frames} frames, Y equal to "
           f"cv2's decodes (the last's non-zero counts "
           f"{ {k: v for k, v in stats.items() if v} }); the 720p content clip ({want['frames']} "
           f"frames, CABAC, pan {want['pan']} quarter samples) rebuilt in {write_s:.2f} s and "
@@ -4036,6 +4040,91 @@ def video_h264(mods, smi, torch, np):
           f"{ {k: v for k, v in clip_stats.items() if v} }; run_video "
           f"over it as avc1 .mp4 (ADASPipeline defaults) to .mp4: {n} frames in {run_s:.2f} s, "
           f"launches {run} (per frame {per_frame}) ({smi})", flush=True)
+    return {k: run[k] + b_run[k] for k in KERNELS}
+
+
+def video_h264_b(mods, smi, torch, np, want):
+    """``[video]``'s 720p B clip (``h264_writer.content_720p_b``): rebuilt
+    by the writer, decoded from FFmpeg's probed reorder delay to cv2's
+    digests and count, each access unit timed by its picture's kind (IDR,
+    P, B); then ``run_video`` over it as an ``avc1`` ``.mp4`` (``ctts``,
+    ``elst``) with ``ADASPipeline``'s defaults: stem 2, IoU 1 and walk 1 per
+    frame, every frame written.  Returns the launches."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import h264_writer
+
+    from adas_tpu_torch.pipeline import app
+    from adas_tpu_torch.render import h264, mp4, video
+
+    tag = "video"
+    t = time.perf_counter()
+    stream = h264_writer.content_720p_b()
+    write_s = time.perf_counter() - t
+    aus = [h264.annexb(au) for au in h264.access_units(h264.nal_units(stream))]
+    t = time.perf_counter()
+    delay = h264.probe_delay(aus)
+    probe_s = time.perf_counter() - t
+    decoder = h264.Decoder(None, delay)
+    frames, ms = [], {"IDR": [], "P": [], "B": []}
+    before = decoder.stats()
+    for au in aus:
+        t0 = time.perf_counter()
+        frames += decoder.decode(au)
+        dt = (time.perf_counter() - t0) * 1e3
+        after = decoder.stats()
+        kind = ("IDR" if after["idr_pictures"] > before["idr_pictures"]
+                else "B" if after["b_slices"] > before["b_slices"] else "P")
+        ms[kind].append(dt)
+        before = after
+    frames += decoder.flush()
+    stats = decoder.stats()
+    decoder.close()
+    check(len(frames) == want["frames"] and stats["dropped_pictures"] == 0,
+          f"{tag}: the 720p B clip gave {len(frames)} frames, cv2 {want['frames']}")
+    check([hashlib.sha256(p[:720].tobytes()).hexdigest() for p in frames] == want["y_sha256"],
+          f"{tag}: the 720p B clip's Y planes differ from cv2's decode")
+    check(stats["b_slices"] > 0 and stats["reference_b_pictures"] > 0
+          and stats["spatial_direct_slices"] > 0 and stats["temporal_direct_slices"] > 0,
+          f"{tag}: the 720p B clip lacks a B tool: {stats}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_h264b_")
+    try:
+        clip = os.path.join(tmp, "clip_b.mp4")
+        h264_writer.to_mp4(stream, clip, b"avc1")
+        demux = mp4.Demuxer(clip)
+        track = demux.track
+        demux.close()
+        check(track.cts is not None and track.video_delay == 2,
+              f"{tag}: the B clip's MP4 has no ctts of depth 2")
+        out = os.path.join(tmp, "clip_b_out.mp4")
+        reset(mods)
+        t = time.perf_counter()
+        n = app.run_video(clip, out, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        run = counts(mods)
+        per_frame = {"stem": 2, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1}
+        for k, per in per_frame.items():
+            check(run[k] == per * want["frames"],
+                  f"{tag}: run_video over the H.264 B clip {k} launches {run[k]}, expected "
+                  f"{per} per frame")
+        with video.MP4Reader(out) as r:
+            drawn = list(r)
+        check(n == len(drawn) == want["frames"] and all(f.shape == (720, 1280, 3) for f in drawn),
+              f"{tag}: run_video over the H.264 B clip wrote {len(drawn)} of {n} frames")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = {k: (f"median {np.median(v):.2f} (max {max(v):.2f}, {len(v)} pictures)" if v else "none")
+               for k, v in ms.items()}
+    print(f"[{tag}] H.264 B pictures: the 720p B clip ({want['frames']} frames, IBBBP with a "
+          f"reference B, CABAC, pan {want['pan']} quarter samples) rebuilt in {write_s:.2f} s, "
+          f"probed in {probe_s:.2f} s (reorder delay {delay}), decoded to cv2's digests and "
+          f"count: decode ms per 720p picture (host) IDR {summary['IDR']}, P {summary['P']}, "
+          f"B {summary['B']}; non-zero counts { {k: v for k, v in stats.items() if v} }; "
+          f"run_video over it as avc1 .mp4 with ctts (ADASPipeline defaults) to .mp4: {n} "
+          f"frames in {run_s:.2f} s, launches {run} (per frame {per_frame}) ({smi})", flush=True)
     return run
 
 

@@ -1,4 +1,4 @@
-// A writer of legal H.264 I/P streams from a seed, for the tests of the
+// A writer of legal H.264 I/P/B streams from a seed, for the tests of the
 // port's decoder (adas_tpu_torch/native/h264.cpp).  It includes the
 // decoder's source for its syntax layer (parameter sets, slice headers,
 // macroblocks and residuals are written by the same functions that read
@@ -12,8 +12,14 @@
 //   transform sizes, slices, cabac_init_idc, MMCOs and long-term
 //   references, weighted prediction, scaling lists, deblocking controls,
 //   POC types), CAVLC or CABAC, with options that turn tools on and off;
+//   with B pictures (O_BFRAMES), groups of B pictures before each P
+//   picture, a pyramid of reference B pictures, spatial or temporal
+//   direct, implicit or explicit bi-prediction weights, B mb types and
+//   sub-types, list 1 modifications and the VUI's reorder depth;
 // - content: I_PCM pictures of given frames, then P pictures of
-//   P_L0_16x16 / P_Skip with a quarter-pel pan and no residual.
+//   P_L0_16x16 / P_Skip with a quarter-pel pan and no residual; or with B
+//   pictures, the pan coded as IBBBP... with B_Bi_16x16, B_Direct_16x16
+//   and B_Skip.
 #include "../../../adas_tpu_torch/native/h264.cpp"
 
 namespace h264w {
@@ -37,7 +43,8 @@ enum Opt {
   O_WIDTH, O_HEIGHT, O_FRAMES, O_SEED, O_CABAC, O_PROFILE, O_T8X8, O_SCALING, O_WEIGHTED,
   O_SLICES, O_REFS, O_REF_MODS, O_MMCO, O_LONG_TERM, O_POC_TYPE, O_DEBLOCK, O_CIP, O_NONREF,
   O_PCM, O_INTRA_IN_P, O_QP_MIN, O_QP_MAX, O_IDR_EVERY, O_VUI, O_BIG_LEVELS, O_SKIP,
-  O_MB_TYPES, O_LOG2_POC_LSB, O_COUNT
+  O_MB_TYPES, O_LOG2_POC_LSB, O_BFRAMES, O_PYRAMID, O_DIRECT, O_BIPRED, O_B_TYPES,
+  O_DIRECT_4x4, O_COUNT
 };
 
 struct Writer {
@@ -158,6 +165,24 @@ struct Writer {
         random_list(pps.lists[i], i < 6 ? 16 : 64);
       }
       pps.second_chroma_qp_offset = rng.range(-4, 4);
+    }
+    if (o[O_BFRAMES]) {  // B pictures: the plan, and what it needs of the SPS and PPS
+      plan_b(o[O_FRAMES], o[O_BFRAMES], o[O_PYRAMID], o[O_IDR_EVERY], true);
+      if (sps.profile_idc == 66) {  // Baseline has no B slices: Main
+        sps.profile_idc = 77;
+        sps.constraints = 0x40;
+      }
+      sps.poc_type = 0;
+      if (!o[O_LOG2_POC_LSB]) sps.log2_max_poc_lsb = 8;
+      sps.max_num_ref_frames = std::max(o[O_REFS], 2 + (o[O_PYRAMID] ? 1 : 0));
+      sps.direct_8x8 = !o[O_DIRECT_4x4];
+      if (o[O_DIRECT_4x4]) sps.level_idc = 21;  // levels 3 and up require direct_8x8_inference_flag
+      if (sps.vui_present) {
+        sps.max_num_reorder_frames = reorder;
+        sps.max_dec_frame_buffering = std::max(sps.max_num_ref_frames, reorder);
+      }
+      pps.weighted_bipred_idc = o[O_BIPRED];
+      pps.num_ref_idx_default[1] = rng.range(1, sps.max_num_ref_frames);
     }
     write_sps();
     write_pps();
@@ -359,68 +384,130 @@ struct Writer {
       }
     }
     if (p) m.mb_type += 5;
+    if (s.type == SLICE_B) m.mb_type += 23;
     if (m.type != MB_IPCM) {
       m.chroma_mode = chroma_mode(s);
       if (m.type != MB_I16x16) m.cbp = rng.range(0, 47) < 40 ? kCbpIntra[rng.range(0, 47)] : 0;
     }
   }
 
-  void inter_mb(SliceState& s, MbSyn& m, int valid_refs, int (*target)[4][2]) {
+  // a random motion vector target: mostly small, sometimes across the picture
+  void random_mv(int* t) {
+    if (rng.chance(5)) {
+      t[0] = rng.range(-4 * (mb_w * 16 + 40), 4 * (mb_w * 16 + 40));
+      t[1] = rng.range(-std::min(2000, 4 * (mb_h * 16 + 40)), std::min(2000, 4 * (mb_h * 16 + 40)));
+    } else {
+      t[0] = rng.range(-40, 40);
+      t[1] = rng.range(-40, 40);
+    }
+  }
+
+  static void set_ref(MbState& cur, int list, Part pt, int ref) {
+    for (int y = pt.y; y < pt.y + pt.h; y += 2)
+      for (int x = pt.x; x < pt.x + pt.w; x += 2) cur.ref[list][(y >> 1) * 2 + (x >> 1)] = (int8_t)ref;
+  }
+
+  void inter_mb(SliceState& s, MbSyn& m, int valid_refs, int (*target)[4][4][2]) {
     bool cabac = s.cabac;
     int choice = rng.range(0, 4);
-    if (choice == 4 && (cabac || s.num_ref < 2)) choice = 3;
+    if (choice == 4 && (cabac || s.num_ref[0] < 2)) choice = 3;
     static const int kTypes[5] = {MB_P16x16, MB_P16x8, MB_P8x16, MB_P8x8, MB_P8x8REF0};
     m.type = kTypes[choice];
     if (o[O_MB_TYPES] == 1) m.type = MB_P16x16;
     m.mb_type = m.type - MB_P16x16;
-    auto mv = [&](int* t) {
-      if (rng.chance(5)) {
-        t[0] = rng.range(-4 * (mb_w * 16 + 40), 4 * (mb_w * 16 + 40));
-        t[1] = rng.range(-std::min(2000, 4 * (mb_h * 16 + 40)), std::min(2000, 4 * (mb_h * 16 + 40)));
-      } else {
-        t[0] = rng.range(-40, 40);
-        t[1] = rng.range(-40, 40);
-      }
-    };
     auto ref = [&]() { return rng.chance(60) ? 0 : rng.range(0, valid_refs - 1); };
     MbState& cur = s.m();
     cur.type = (int8_t)m.type;
-    if (m.type == MB_P8x8 || m.type == MB_P8x8REF0) {
+    if (is_8x8(m.type)) {
       for (int b8 = 0; b8 < 4; b8++) {
-        m.sub[b8] = rng.chance(40) ? 0 : rng.range(1, 3);
-        m.ref[b8] = m.type == MB_P8x8REF0 ? 0 : ref();
-        cur.ref[b8] = (int8_t)m.ref[b8];
-        for (int k = 0; k < 4; k++) mv(target[b8][k]);
+        m.sub[b8] = m.sshape[b8] = rng.chance(40) ? 0 : rng.range(1, 3);
+        m.ref[0][b8] = m.type == MB_P8x8REF0 ? 0 : ref();
+        cur.ref[0][b8] = (int8_t)m.ref[0][b8];
+        for (int k = 0; k < 4; k++) random_mv(target[0][b8][k]);
       }
     } else {
-      int n = m.type == MB_P16x16 ? 1 : 2;
-      for (int p = 0; p < n; p++) {
-        m.ref[p] = ref();
-        Part pt = mb_part(m.type, p);
-        for (int y = pt.y; y < pt.y + pt.h; y += 2)
-          for (int x = pt.x; x < pt.x + pt.w; x += 2) cur.ref[(y >> 1) * 2 + (x >> 1)] = (int8_t)m.ref[p];
-        mv(target[p][0]);
+      for (int p = 0; p < num_mb_parts(m.type); p++) {
+        m.ref[0][p] = ref();
+        set_ref(cur, 0, mb_part(m.type, p), m.ref[0][p]);
+        random_mv(target[0][p][0]);
       }
     }
     m.cbp = rng.range(0, 47) < 36 ? kCbpInter[rng.range(0, 47)] : 0;
     bool small = false;
-    if (m.type == MB_P8x8 || m.type == MB_P8x8REF0)
-      for (int b = 0; b < 4; b++) small |= m.sub[b] != 0;
+    if (is_8x8(m.type))
+      for (int b = 0; b < 4; b++) small |= m.sshape[b] != 0;
+    m.t8x8 = pps.transform_8x8_mode && (m.cbp & 15) && !small && rng.chance(50);
+  }
+
+  // An inter macroblock of a B slice: B_Direct_16x16, 16x16 / 16x8 / 8x16
+  // with L0, L1 or Bi partitions, or B_8x8 with any sub-types (direct
+  // among them); O_B_TYPES narrows the choice.
+  void b_mb(SliceState& s, MbSyn& m, const int* valid, int (*target)[4][4][2]) {
+    MbState& cur = s.m();
+    int kind = rng.range(0, 9);  // 0 direct, 1-3 16x16, 4-6 16x8 / 8x16, 7-9 B_8x8
+    if (o[O_B_TYPES] == 1) kind = 7;
+    if (o[O_B_TYPES] == 2) kind = 0;
+    if (o[O_B_TYPES] == 3) kind = rng.range(1, 6);
+    auto ref = [&](int l) { return rng.chance(60) ? 0 : rng.range(0, valid[l] - 1); };
+    if (kind == 0) {
+      m.type = MB_BDIRECT16;
+      m.mb_type = 0;
+      cur.direct = 15;
+    } else if (kind <= 6) {
+      int pr[2] = {rng.range(1, 3), rng.range(1, 3)};
+      if (kind <= 3) {
+        m.mb_type = pr[1] = pr[0];
+      } else {
+        int odd = rng.chance(50);  // 8x16
+        for (int v = 4; v <= 21; v++)
+          if (kBPred[v][0] == pr[0] && kBPred[v][1] == pr[1] && (v & 1) == odd) m.mb_type = v;
+      }
+      m.type = b_type(m.mb_type, m.pred);
+      for (int p = 0; p < num_mb_parts(m.type); p++)
+        for (int l = 0; l < 2; l++) {
+          if (!(m.pred[p] & (1 << l))) continue;
+          m.ref[l][p] = ref(l);
+          set_ref(cur, l, mb_part(m.type, p), m.ref[l][p]);
+          random_mv(target[l][p][0]);
+        }
+    } else {
+      m.type = MB_B8x8;
+      m.mb_type = 22;
+      for (int b8 = 0; b8 < 4; b8++) {
+        int sv = rng.chance(25) ? 0 : rng.range(1, 12);
+        m.sub[b8] = sv;
+        m.sshape[b8] = kBSubShape[sv];
+        m.spred[b8] = kBSubPred[sv];
+        if (!sv) cur.direct |= (uint8_t)(1 << b8);
+        for (int l = 0; l < 2; l++) {
+          if (!(m.spred[b8] & (1 << l))) continue;
+          m.ref[l][b8] = ref(l);
+          cur.ref[l][b8] = (int8_t)m.ref[l][b8];
+          for (int k = 0; k < 4; k++) random_mv(target[l][b8][k]);
+        }
+      }
+    }
+    cur.type = (int8_t)m.type;
+    m.cbp = rng.range(0, 47) < 36 ? kCbpInter[rng.range(0, 47)] : 0;
+    bool small = m.type == MB_BDIRECT16 && !sps.direct_8x8;
+    if (is_8x8(m.type))
+      for (int b = 0; b < 4; b++) small |= m.spred[b] ? m.sshape[b] != 0 : !sps.direct_8x8;
     m.t8x8 = pps.transform_8x8_mode && (m.cbp & 15) && !small && rng.chance(50);
   }
 
   // ---------------------------------------------------------------- pictures
 
   struct Plan {
-    std::vector<uint8_t> skip;  // per macroblock of the slice
-    int first, last;            // macroblock range
+    std::vector<uint8_t> skip;      // per macroblock of the slice
+    std::vector<uint8_t> direct16;  // content B slices: B_Direct_16x16 in place of B_Skip
+    int first, last;                // macroblock range
   };
 
   // What a slice's macroblocks are; the policy fills each coded one.
   struct SliceCb {
     Writer* w;
     Plan* plan;
-    int valid_refs;
+    const int* valid;
     bool content;
     MbSyn m;
     int skip_run(int addr) {
@@ -433,18 +520,18 @@ struct Writer {
     void skip(SliceState& s) { skip_mv(s); }
     void coded(WriteEngine& e, SliceState& s) {
       m = MbSyn();
-      std::memset(m.sub, 0, sizeof m.sub);
-      std::memset(m.ref, 0, sizeof m.ref);
-      std::memset(m.mvd, 0, sizeof m.mvd);
+      m.clear_motion();
       std::memset(m.modes, 0, sizeof m.modes);
       m.clear_coeffs();
-      int target[4][4][2] = {};
+      int target[2][4][4][2] = {};
       if (content) {
-        w->content_mb(s, m, target);
+        w->content_mb(s, m, target, plan->direct16[s.cur - plan->first]);
       } else if (s.type == SLICE_I || w->rng.chance(w->o[O_INTRA_IN_P])) {
         w->intra_mb(s, m);
+      } else if (s.type == SLICE_B) {
+        w->b_mb(s, m, valid, target);
       } else {
-        w->inter_mb(s, m, valid_refs, target);
+        w->inter_mb(s, m, valid[0], target);
       }
       if (!is_intra(m.type)) derive_mvs(s, m, target);
       // the QP delta: keep QP inside [QP_MIN, QP_MAX]
@@ -460,7 +547,14 @@ struct Writer {
     }
   };
 
-  void content_mb(SliceState& s, MbSyn& m, int (*target)[4][2]) {
+  // the pan's vector from the current picture to list l's reference `ref`
+  void pan_target(const SliceState& s, int l, int ref, int* t) const {
+    int d = (s.cur_poc - s.list[l][ref]->poc) / 2;
+    t[0] = pan_x * d;
+    t[1] = pan_y * d;
+  }
+
+  void content_mb(SliceState& s, MbSyn& m, int (*target)[4][4][2], bool direct16) {
     if (s.type == SLICE_I) {
       m.type = MB_IPCM;
       m.mb_type = 25;
@@ -476,26 +570,51 @@ struct Writer {
       }
       return;
     }
-    m.type = MB_P16x16;
-    m.mb_type = 0;
-    m.ref[0] = 0;
-    s.m().type = MB_P16x16;
-    std::memset(s.m().ref, 0, 4);
-    target[0][0][0] = pan_x;
-    target[0][0][1] = pan_y;
     m.cbp = 0;
+    if (s.type == SLICE_B && direct16) {
+      m.type = MB_BDIRECT16;
+      m.mb_type = 0;
+      s.m().type = MB_BDIRECT16;
+      s.m().direct = 15;
+      return;
+    }
+    bool b = s.type == SLICE_B;
+    m.type = b ? MB_B16x16 : MB_P16x16;
+    m.mb_type = b ? 3 : 0;  // B_Bi_16x16, P_L0_16x16
+    m.pred[0] = b ? PRED_BI : PRED_L0;
+    s.m().type = (int8_t)m.type;
+    for (int l = 0; l < 1 + b; l++) {
+      m.ref[l][0] = 0;
+      std::memset(s.m().ref[l], 0, 4);
+      pan_target(s, l, 0, target[l][0][0]);
+    }
   }
 
-  // the P_Skip vector this macroblock would get
-  bool skip_matches(SliceState& s, int tx, int ty) {
+  // whether the skip prediction (P_Skip's vector, or B_Skip's direct
+  // motion) of this macroblock is the pan's
+  bool skip_matches(SliceState& s) {
     MbState saved = s.m();
     skip_mv(s);
-    bool same = s.m().mv[0][0] == tx && s.m().mv[0][1] == ty;
+    const MbState& c = s.m();
+    bool same = true;
+    for (int l = 0; l < 2; l++)
+      for (int i = 0; i < 16; i++) {
+        int r = c.ref[l][b8_of(i)];
+        if (r < 0) continue;
+        int t[2];
+        pan_target(s, l, r, t);
+        same &= c.mv[l][i][0] == t[0] && c.mv[l][i][1] == t[1];
+        if (s.type == SLICE_P) same &= r == 0;
+      }
     s.m() = saved;
     return same;
   }
 
   void picture(bool content, int n_pcm) {
+    if (!plan.empty()) {
+      picture_b(content);
+      return;
+    }
     int max_fn = 1 << sps.log2_max_frame_num;
     bool first = frame_index == 0;
     bool idr = first || (o[O_IDR_EVERY] && frame_index % o[O_IDR_EVERY] == 0);
@@ -524,6 +643,7 @@ struct Writer {
       h.poc_lsb = ((poc % max_lsb) + max_lsb) % max_lsb;
       last_poc = poc;
     }
+    cur_poc = last_poc;
     // marking
     if (ref_idc && idr)
       h.long_term_reference = o[O_LONG_TERM] && rng.chance(50);
@@ -556,6 +676,248 @@ struct Writer {
     frame_index++;
   }
   int last_poc = 0;
+  int cur_poc = 0;  // the POC of the picture being written
+
+  // ---------------------------------------------------------------- B pictures
+
+  // A picture of the plan, in decoding order: its POC, first slice type,
+  // and whether it is a reference or an IDR picture; `disp` its display
+  // position in the stream.
+  struct Coded {
+    int poc, type;
+    bool ref, idr;
+    int disp;
+  };
+  std::vector<Coded> plan;  // B pictures: the whole stream, in decoding order
+  int reorder = 0;          // the plan's reorder depth (VUI max_num_reorder_frames)
+
+  // B pictures [lo, hi] of a group: a pyramid codes the middle one first as
+  // a reference, then each half; else all as non-reference pictures in order.
+  void plan_bs(const std::vector<int>& poc, int base, int lo, int hi, bool pyramid) {
+    if (lo > hi) return;
+    if (pyramid && hi > lo) {
+      int mid = (lo + hi) / 2;
+      plan.push_back({poc[mid], SLICE_B, true, false, base + mid});
+      plan_bs(poc, base, lo, mid - 1, pyramid);
+      plan_bs(poc, base, mid + 1, hi, pyramid);
+      return;
+    }
+    for (int k = lo; k <= hi; k++) plan.push_back({poc[k], SLICE_B, false, false, base + k});
+  }
+
+  // The decoding order of `frames` pictures: an IDR picture every
+  // `idr_every` (0: the first only), then groups of `nb` B pictures before
+  // each P picture (the last group shorter), POC steps of 2 or 4.
+  void plan_b(int frames, int nb, bool pyramid, int idr_every, bool random_steps) {
+    plan.clear();
+    for (int disp = 0; disp < frames;) {
+      int len = idr_every ? std::min(idr_every, frames - disp) : frames - disp;
+      std::vector<int> poc(len);
+      for (int k = 0, p = 0; k < len; k++, p += random_steps ? 2 * rng.range(1, 2) : 2) poc[k] = p;
+      plan.push_back({0, SLICE_I, true, true, disp});
+      for (int i = 1; i < len;) {
+        int anchor = i + std::min(nb, len - 1 - i);
+        plan.push_back({poc[anchor], SLICE_P, true, false, disp + anchor});
+        plan_bs(poc, disp, i, anchor - 1, pyramid);
+        i = anchor + 1;
+      }
+      disp += len;
+    }
+    reorder = 0;
+    for (size_t j = 0; j < plan.size(); j++) {
+      int later = 0;
+      for (size_t k = 0; k < j; k++) later += plan[k].disp > plan[j].disp;
+      reorder = std::max(reorder, later);
+    }
+  }
+
+  // The short- and long-term reference pictures other than the current
+  // one, by FrameNumWrap (relative to frame_num) and LongTermFrameIdx: the
+  // random choices never depend on the order of the decoder's buffers.
+  void references(int frame_num, std::vector<Picture*>& st, std::vector<Picture*>& lt) {
+    int max_fn = 1 << sps.log2_max_frame_num;
+    auto wrap = [&](const Picture* p) { return p->frame_num > frame_num ? p->frame_num - max_fn : p->frame_num; };
+    for (auto& pic : dec.dpb) {
+      if (pic.get() == dec.cur) continue;
+      if (pic->short_ref) st.push_back(pic.get());
+      if (pic->long_ref) lt.push_back(pic.get());
+    }
+    std::sort(st.begin(), st.end(), [&](const Picture* a, const Picture* b) { return wrap(a) < wrap(b); });
+    std::sort(lt.begin(), lt.end(), [](const Picture* a, const Picture* b) { return a->lt_idx < b->lt_idx; });
+  }
+
+  // The reference-list fields of a P or B slice header, drawn at random:
+  // num_ref_idx overrides, ref_pic_list_modification, the weights, and
+  // for B the direct mode.  `avail` references are in the DPB.
+  void draw_lists(SliceHeader& h, bool content, int avail) {
+    bool b = h.slice_type == SLICE_B;
+    if (b) h.direct_spatial = content ? frame_index % 2 : o[O_DIRECT] == 2 ? rng.chance(50) : !o[O_DIRECT];
+    for (int l = 0; l < 2; l++) h.num_ref_active[l] = l <= b ? pps.num_ref_idx_default[l] : 0;
+    h.num_ref_override = 0;
+    if (!content && rng.chance(50)) {
+      h.num_ref_override = 1;
+      for (int l = 0; l <= b; l++) h.num_ref_active[l] = rng.range(1, std::min(16, avail + 1));
+    } else if (content && !plan.empty()) {  // B content: room for temporal direct's references
+      h.num_ref_override = 1;
+      for (int l = 0; l <= b; l++) h.num_ref_active[l] = std::min(3, avail);
+    }
+    for (int l = 0; l < 2; l++) {
+      h.ref_mod_flag[l] = 0;
+      h.ref_mods[l].clear();
+      if (l > b || content || !o[O_REF_MODS] || !rng.chance(50)) continue;
+      h.ref_mod_flag[l] = 1;
+      int n = rng.range(1, h.num_ref_active[l]);
+      int max_fn = 1 << sps.log2_max_frame_num;
+      int pred = h.frame_num;
+      std::vector<Picture*> st, lt;
+      references(h.frame_num, st, lt);
+      for (int i = 0; i < n; i++) {
+        if (!lt.empty() && (st.empty() || rng.chance(30))) {
+          h.ref_mods[l].push_back({2, lt[rng.range(0, (int)lt.size() - 1)]->lt_idx});
+          continue;
+        }
+        Picture* pic = st[rng.range(0, (int)st.size() - 1)];
+        int num = pic->frame_num > h.frame_num ? pic->frame_num - max_fn : pic->frame_num;
+        // picNumNoWrap relative to the prediction
+        int no_wrap = num < 0 ? num + max_fn : num;
+        int d = no_wrap - pred;
+        int idc;
+        if (d < 0) {
+          idc = 0;
+          d = -d;
+        } else if (d > 0) {
+          idc = 1;
+        } else {
+          idc = rng.chance(50) ? 0 : 1;
+          d = max_fn;
+        }
+        if (d > max_fn) fail("H.264 writer: modification distance");
+        h.ref_mods[l].push_back({idc, d - 1});
+        pred = no_wrap;
+      }
+    }
+    if (pps.weighted_pred && !b) {
+      h.luma_log2_denom = rng.range(0, 7);
+      h.chroma_log2_denom = rng.range(0, 7);
+      for (int i = 0; i < h.num_ref_active[0]; i++) {
+        h.luma_flag[0][i] = rng.chance(60);
+        h.luma_w[0][i] = rng.range(-(1 << h.luma_log2_denom), 3 << h.luma_log2_denom);
+        h.luma_w[0][i] = clip3(-128, 127, h.luma_w[0][i]);
+        h.luma_o[0][i] = rng.range(-30, 30);
+        h.chroma_flag[0][i] = rng.chance(60);
+        for (int j = 0; j < 2; j++) {
+          h.chroma_w[0][i][j] = clip3(-128, 127, rng.range(-(1 << h.chroma_log2_denom), 3 << h.chroma_log2_denom));
+          h.chroma_o[0][i][j] = rng.range(-30, 30);
+        }
+      }
+    }
+    if (pps.weighted_bipred_idc == 1 && b) {
+      // weights in [-64, 63]: any pair's sum stays in the range a
+      // bi-predicted block allows; denominators up to 6, so that a
+      // pair of default weights does too
+      h.luma_log2_denom = rng.range(0, 6);
+      h.chroma_log2_denom = rng.range(0, 6);
+      for (int l = 0; l < 2; l++)
+        for (int i = 0; i < h.num_ref_active[l]; i++) {
+          h.luma_flag[l][i] = rng.chance(60);
+          h.luma_w[l][i] = h.luma_flag[l][i] ? rng.range(-64, 63) : 1 << h.luma_log2_denom;
+          h.luma_o[l][i] = h.luma_flag[l][i] ? rng.range(-30, 30) : 0;
+          h.chroma_flag[l][i] = rng.chance(60);
+          for (int j = 0; j < 2; j++) {
+            h.chroma_w[l][i][j] = h.chroma_flag[l][i] ? rng.range(-64, 63) : 1 << h.chroma_log2_denom;
+            h.chroma_o[l][i][j] = h.chroma_flag[l][i] ? rng.range(-30, 30) : 0;
+          }
+        }
+    }
+  }
+
+  // Whether temporal direct prediction is legal and read alike by the
+  // decoder and FFmpeg: every picture the co-located picture's blocks
+  // reference is in RefPicList0 (FFmpeg, which finds it by frame_num, must
+  // find the same entry first), and every scaled vector is in range.
+  bool temporal_ok(Picture* const* l0, int n0, const Picture* col, int cur_poc) {
+    if (!col) return false;
+    for (const MbState& m : col->mbs) {
+      if (is_intra(m.type)) continue;
+      for (int b8 = 0; b8 < 4; b8++) {
+        int lc = m.ref[0][b8] >= 0 ? 0 : 1;
+        int id = m.refpic[lc][b8], idx = -1;
+        for (int i = 0; i < n0 && idx < 0; i++)
+          if (l0[i] && l0[i]->id == id) idx = i;
+        if (idx < 0) return false;
+        for (int i = 0; i < idx; i++)
+          if (l0[i] && l0[i]->frame_num == l0[idx]->frame_num) return false;
+        const Picture* p0 = l0[idx];
+        if (p0->long_ref || col->poc == p0->poc) continue;
+        int dsf = dist_scale(cur_poc, p0->poc, col->poc);
+        for (int k = 0; k < 16; k++) {
+          if (b8_of(k) != b8) continue;
+          for (int c = 0; c < 2; c++) {
+            int v = (dsf * m.mv[lc][k][c] + 128) >> 8, v1 = v - m.mv[lc][k][c];
+            int lim = c ? 2047 : 8191;
+            if (v < -lim - 1 || v > lim || v1 < -lim - 1 || v1 > lim) return false;
+          }
+        }
+      }
+    }
+    return true;
+  }
+
+  // A picture of the plan (B pictures on): the reference-list fields are
+  // drawn once for every slice of the picture, since FFmpeg maps a
+  // co-located picture's references through its last slice's lists.
+  void picture_b(bool content) {
+    const Coded& c = plan[frame_index];
+    int max_fn = 1 << sps.log2_max_frame_num;
+    SliceHeader h;
+    h.nal_ref_idc = !c.ref ? 0 : content ? 3 : rng.range(1, 3);
+    h.nal_type = c.idr ? 5 : 1;
+    h.idr = c.idr;
+    h.pps_id = pps.id;
+    h.frame_num = c.idr ? 0 : (dec.prev_ref_frame_num + 1) % max_fn;
+    h.idr_pic_id = frame_index & 1;
+    h.poc_lsb = c.poc % (1 << sps.log2_max_poc_lsb);
+    cur_poc = c.poc;
+    if (h.nal_ref_idc && c.idr)
+      h.long_term_reference = o[O_LONG_TERM] && rng.chance(50);
+    else if (h.nal_ref_idc)
+      choose_marking(h, content);
+    if (c.type != SLICE_I) {
+      h.slice_type = c.type;
+      int avail = 0;
+      for (auto& pic : dec.dpb) avail += pic->is_ref();
+      draw_lists(h, content, avail);
+      if (c.type == SLICE_B && !h.direct_spatial) {
+        Picture* l[2][33];
+        int n[2];
+        for (int k = 0; k < 2; k++) dec.build_list(h, k, c.poc, l[k], n[k]);
+        if (!temporal_ok(l[0], n[0], l[1][0], c.poc)) h.direct_spatial = 1;
+      }
+    }
+    int total = mb_w * mb_h;
+    int n_slices = content ? 1 : rng.range(1, std::max(1, std::min(o[O_SLICES], total)));
+    std::vector<int> starts = {0};
+    for (int i = 1; i < n_slices; i++) starts.push_back(rng.range(1, total - 1));
+    std::sort(starts.begin(), starts.end());
+    starts.erase(std::unique(starts.begin(), starts.end()), starts.end());
+    mbs.assign(total, MbState());
+    for (auto& m : mbs) m.reset(-1);
+    // P pictures may mix I and P slices after a first P slice (FFmpeg
+    // keeps a picture's lists, for temporal direct, from its first slice
+    // when it decodes in threads); B pictures are B slices only
+    bool mixed = c.type == SLICE_P && !content && rng.chance(20);
+    int same = !mixed && !content && rng.chance(50) ? 5 : 0;
+    for (size_t si = 0; si < starts.size(); si++) {
+      int first_mb = starts[si], last_mb = si + 1 < starts.size() ? starts[si + 1] - 1 : total - 1;
+      SliceHeader sh = h;
+      sh.first_mb = first_mb;
+      int type = mixed && rng.chance(30) && si ? SLICE_I : c.type;
+      sh.slice_type = type;
+      sh.raw_slice_type = type + same;
+      slice(sh, (int)si, first_mb, last_mb, content);
+    }
+    frame_index++;
+  }
 
   // Whether the decoder would accept this marking after the current
   // picture (frame_num of h): marking runs on the follower's DPB, restored.
@@ -594,10 +956,7 @@ struct Writer {
   void random_mmcos(SliceHeader& h) {
     int max_fn = 1 << sps.log2_max_frame_num;
     std::vector<Picture*> st, lt;
-    for (auto& p : dec.dpb) {
-      if (p->short_ref) st.push_back(p.get());
-      if (p->long_ref) lt.push_back(p.get());
-    }
+    references(h.frame_num, st, lt);
     auto wrap = [&](Picture* p) { return p->frame_num > h.frame_num ? p->frame_num - max_fn : p->frame_num; };
     int max_lt = dec.max_lt_idx;
     bool lt_ok = o[O_LONG_TERM];
@@ -608,7 +967,7 @@ struct Writer {
       int op = kOps[rng.range(0, 7)];
       if (o[O_MMCO] == 2 && i == 0 && rng.chance(50)) op = 5;  // mmco 2: MMCO 5 often
       if (lt_ok && max_lt < 0 && i == 0 && rng.chance(50)) op = 4;  // then room for long-term ones
-      if (op == 5 && i) continue;
+      if (op == 5 && (i || !plan.empty())) continue;  // (B pictures: no MMCO 5)
       if ((op == 4 || op == 6) && once[op]) continue;
       once[op] = true;
       Mmco m{op, 0, 0};
@@ -636,8 +995,8 @@ struct Writer {
   }
 
   // dec_ref_pic_marking of a non-IDR reference picture: a random MMCO
-  // list or the sliding window, whichever the decoder accepts; MMCO 5 if
-  // neither does.
+  // list or the sliding window, whichever the decoder accepts; else MMCO 5
+  // (with B pictures: every reference dropped by MMCO 1 and 2).
   void choose_marking(SliceHeader& h, bool content) {
     for (int attempt = 0; attempt < 40; attempt++) {
       h.mmcos.clear();
@@ -648,13 +1007,27 @@ struct Writer {
     }
     h.adaptive = 1;
     h.mmcos = {{5, 0, 0}};
+    if (plan.empty()) return;
+    h.mmcos.clear();
+    int max_fn = 1 << sps.log2_max_frame_num;
+    for (auto& p : dec.dpb) {
+      if (p->short_ref) {
+        int wrap = p->frame_num > h.frame_num ? p->frame_num - max_fn : p->frame_num;
+        h.mmcos.push_back({1, h.frame_num - wrap - 1, 0});
+      } else if (p->long_ref) {
+        h.mmcos.push_back({2, p->lt_idx, 0});
+      }
+    }
+    if (!marking_ok(h)) fail("H.264 writer: no legal marking");
   }
 
   void slice(SliceHeader& h, int slice_num, int first_mb, int last_mb, bool content) {
-    bool p = h.slice_type == SLICE_P;
+    bool p = h.slice_type == SLICE_P, b = h.slice_type == SLICE_B;
     // reference list choices
-    int valid = 0;
-    if (p) {
+    int valid[2] = {0, 0};
+    Picture* list[2][33] = {};
+    int n[2] = {0, 0};
+    if (p || b) {
       int nshort = 0, nlong = 0;
       for (auto& pic : dec.dpb) {
         if (pic.get() == dec.cur) continue;
@@ -662,70 +1035,12 @@ struct Writer {
         nlong += pic->long_ref;
       }
       int avail = nshort + nlong;
-      if (!avail) fail("H.264 writer: a P slice with no reference");
-      h.num_ref_active = pps.num_ref_idx_default[0];
-      h.num_ref_override = 0;
-      if (!content && rng.chance(50)) {
-        h.num_ref_override = 1;
-        h.num_ref_active = rng.range(1, std::min(16, avail + 1));
-      }
-      h.ref_mod_flag = 0;
-      h.ref_mods.clear();
-      if (!content && o[O_REF_MODS] && rng.chance(50)) {
-        h.ref_mod_flag = 1;
-        int n = rng.range(1, h.num_ref_active);
-        int max_fn = 1 << sps.log2_max_frame_num;
-        int pred = h.frame_num;
-        std::vector<Picture*> st, lt;
-        for (auto& pic : dec.dpb) {
-          if (pic.get() == dec.cur) continue;
-          if (pic->short_ref) st.push_back(pic.get());
-          if (pic->long_ref) lt.push_back(pic.get());
-        }
-        for (int i = 0; i < n; i++) {
-          if (!lt.empty() && (st.empty() || rng.chance(30))) {
-            h.ref_mods.push_back({2, lt[rng.range(0, (int)lt.size() - 1)]->lt_idx});
-            continue;
-          }
-          Picture* pic = st[rng.range(0, (int)st.size() - 1)];
-          int num = pic->frame_num > h.frame_num ? pic->frame_num - max_fn : pic->frame_num;
-          // picNumNoWrap relative to the prediction
-          int no_wrap = num < 0 ? num + max_fn : num;
-          int d = no_wrap - pred;
-          int idc;
-          if (d < 0) {
-            idc = 0;
-            d = -d;
-          } else if (d > 0) {
-            idc = 1;
-          } else {
-            idc = rng.chance(50) ? 0 : 1;
-            d = max_fn;
-          }
-          if (d > max_fn) fail("H.264 writer: modification distance");
-          h.ref_mods.push_back({idc, d - 1});
-          pred = no_wrap;
-        }
-      }
-      Picture* list[33];
-      int n = 0;
-      dec.build_list(h, list, n);
-      while (valid < n && list[valid]) valid++;
-      if (!valid) fail("H.264 writer: no valid reference");
-      if (pps.weighted_pred) {
-        h.luma_log2_denom = rng.range(0, 7);
-        h.chroma_log2_denom = rng.range(0, 7);
-        for (int i = 0; i < h.num_ref_active; i++) {
-          h.luma_flag[i] = rng.chance(60);
-          h.luma_w[i] = rng.range(-(1 << h.luma_log2_denom), 3 << h.luma_log2_denom);
-          h.luma_w[i] = clip3(-128, 127, h.luma_w[i]);
-          h.luma_o[i] = rng.range(-30, 30);
-          h.chroma_flag[i] = rng.chance(60);
-          for (int j = 0; j < 2; j++) {
-            h.chroma_w[i][j] = clip3(-128, 127, rng.range(-(1 << h.chroma_log2_denom), 3 << h.chroma_log2_denom));
-            h.chroma_o[i][j] = rng.range(-30, 30);
-          }
-        }
+      if (!avail) fail("H.264 writer: a P or B slice with no reference");
+      if (plan.empty()) draw_lists(h, content, avail);
+      for (int l = 0; l <= b; l++) {
+        dec.build_list(h, l, cur_poc, list[l], n[l]);
+        while (valid[l] < n[l] && list[l][valid[l]]) valid[l]++;
+        if (!valid[l]) fail("H.264 writer: no valid reference");
       }
       h.cabac_init_idc = content ? 0 : rng.range(0, 2);
     }
@@ -757,20 +1072,25 @@ struct Writer {
     s.mb_h = mb_h;
     s.mbs = mbs.data();
     s.qp = qp;
-    s.num_ref = h.num_ref_active;
-    for (int i = 0; i < 32; i++) s.refpic_id[i] = i;
+    s.cur_poc = cur_poc;
+    s.direct_spatial = h.direct_spatial;
+    for (int l = 0; l < 2; l++) {
+      s.num_ref[l] = n[l];
+      s.list[l] = list[l];
+    }
     Plan plan;
     plan.first = first_mb;
     plan.last = last_mb;
     plan.skip.assign(last_mb - first_mb + 1, 0);
-    if (p && !content) {
+    plan.direct16.assign(last_mb - first_mb + 1, 0);
+    if ((p || b) && !content) {
       int rate = o[O_SKIP];
       for (auto& k : plan.skip) k = rng.chance(rate);
     }
     SliceCb cb{this, &plan, valid, content, MbSyn()};
-    if (p && content) {
-      // P_Skip where its vector is the pan's: decided in order, as the
-      // skip vector depends on the macroblocks before
+    if ((p || b) && content) {
+      // skipped where the skip prediction is the pan: decided in order, as
+      // it depends on the macroblocks before
       content_slice(e, s, cb, plan);
     } else {
       slice_data(e, s, cb);
@@ -783,20 +1103,26 @@ struct Writer {
     emit(h.nal_ref_idc, h.nal_type, bw);
   }
 
-  // slice_data of a content P slice: every macroblock is P_Skip when the
-  // skip vector is the pan, else P_L0_16x16 with the pan's vector
+  // slice_data of a content P or B slice: every macroblock is P_Skip /
+  // B_Skip when the skip prediction is the pan (one B macroblock in four
+  // B_Direct_16x16 instead), else P_L0_16x16 / B_Bi_16x16 with the pan's
+  // vectors
   void content_slice(WriteEngine& e, SliceState& s, SliceCb& cb, Plan& plan) {
     // decide the plan with a dry run of the vectors
     std::vector<MbState> saved = mbs;
     for (int addr = plan.first; addr <= plan.last; addr++) {
       s.begin_mb(addr);
-      if (skip_matches(s, pan_x, pan_y)) {
-        plan.skip[addr - plan.first] = 1;
+      if (skip_matches(s)) {
+        if (s.type == SLICE_B && addr % 4 == 0)
+          plan.direct16[addr - plan.first] = 1;
+        else
+          plan.skip[addr - plan.first] = 1;
         skip_mv(s);
       } else {
         MbSyn m;
-        int target[4][4][2] = {};
-        content_mb(s, m, target);
+        m.clear_motion();
+        int target[2][4][4][2] = {};
+        content_mb(s, m, target, false);
         derive_mvs(s, m, target);
       }
     }
@@ -842,9 +1168,11 @@ int h264w_exercise(Writer* w, const int* opts, int n) {
 
 // Content: `n_pcm` I_PCM pictures of the packed I420 `frames` (width x
 // height, even), then `n_p` P pictures panning (pan_x, pan_y) quarter
-// samples a picture.  Returns 0, or -1.
+// samples a picture; with `bframes` > 0 (one I_PCM picture), `n_p`
+// pictures in groups of `bframes` B pictures (a pyramid) before each P
+// picture.  Returns 0, or -1.
 int h264w_content(Writer* w, const uint8_t* frames, int n_pcm, int width, int height, int n_p,
-                  int pan_x, int pan_y, int cabac) {
+                  int pan_x, int pan_y, int cabac, int bframes) {
   try {
     using namespace h264w;
     std::memset(w->o, 0, sizeof w->o);
@@ -876,15 +1204,20 @@ int h264w_content(Writer* w, const uint8_t* frames, int n_pcm, int width, int he
     }
     w->pan_x = pan_x;
     w->pan_y = pan_y;
+    if (bframes) {
+      if (n_pcm != 1) h264::fail("H.264 writer: B content starts with one I_PCM picture");
+      w->o[O_BFRAMES] = bframes;
+      w->plan_b(1 + n_p, bframes, true, 0, false);
+    }
     h264::Sps& sps = w->sps;
     sps = h264::Sps();
-    sps.profile_idc = cabac ? 77 : 66;
-    sps.constraints = cabac ? 0x40 : 0xC0;
+    sps.profile_idc = cabac || bframes ? 77 : 66;  // Main for B slices
+    sps.constraints = cabac || bframes ? 0x40 : 0xC0;
     sps.level_idc = W * H > 414720 ? 40 : 31;
     sps.log2_max_frame_num = 8;
     sps.poc_type = 0;
     sps.log2_max_poc_lsb = 8;
-    sps.max_num_ref_frames = 1;
+    sps.max_num_ref_frames = bframes ? 3 : 1;
     sps.width_mbs = w->mb_w;
     sps.height_mbs = w->mb_h;
     sps.cropping = W != width || H != height;

@@ -1,14 +1,16 @@
-"""ctypes binding of ``h264_writer.cpp``: legal H.264 I/P streams from a
+"""ctypes binding of ``h264_writer.cpp``: legal H.264 I/P/B streams from a
 seed, for the tests of the port's decoder (``adas_tpu_torch/render/h264.py``).
 Built with the port's ``build_library`` into ``adas_tpu_torch/_build/``.
 
-``exercise(**options)`` -> an Annex B stream of random legal syntax;
-``content(frames, n_p, pan)`` -> I_PCM pictures of the given I420 frames,
-then ``n_p`` P pictures panning ``pan`` quarter samples a picture;
-``content_720p()`` -> the 720p content clip of the fixtures
-(``h264/sha256.json`` holds cv2's Y digests of its decode);
+``exercise(**options)`` -> an Annex B stream of random legal syntax (B
+pictures with ``bframes``);
+``content(frames, n_p, pan, bframes=0)`` -> I_PCM pictures of the given
+I420 frames, then ``n_p`` P (or B and P) pictures panning ``pan`` quarter
+samples a picture;
+``content_720p()`` / ``content_720p_b()`` -> the 720p content clips of
+the fixtures (``h264/sha256.json`` holds cv2's Y digests of their decode);
 ``to_mp4(stream, path, fourcc)`` -> the stream as an ``avc1`` / ``avc3``
-MP4.  Needs no cv2.
+MP4 (``ctts`` and ``elst`` for B pictures).  Needs no cv2.
 """
 import ctypes
 import os
@@ -29,7 +31,8 @@ OPTIONS = {
     "t8x8": 1, "scaling": 0, "weighted": 0, "slices": 1, "refs": 1, "ref_mods": 0, "mmco": 0,
     "long_term": 0, "poc_type": 0, "deblock": 0, "cip": 0, "nonref": 0, "pcm": 2,
     "intra_in_p": 10, "qp_min": 16, "qp_max": 36, "idr_every": 0, "vui": 0, "big_levels": 0,
-    "skip": 20, "mb_types": 0, "log2_poc_lsb": 0,
+    "skip": 20, "mb_types": 0, "log2_poc_lsb": 0, "bframes": 0, "pyramid": 0, "direct": 2,
+    "bipred": 0, "b_types": 0, "direct_4x4": 0,
 }
 
 
@@ -45,7 +48,7 @@ def _native():
                         ("h264w_new", [], p), ("h264w_free", [p], None),
                         ("h264w_error", [p], ctypes.c_char_p),
                         ("h264w_exercise", [p, p, i], i),
-                        ("h264w_content", [p, p, i, i, i, i, i, i, i], i),
+                        ("h264w_content", [p, p, i, i, i, i, i, i, i, i], i),
                         ("h264w_size", [p], l), ("h264w_copy", [p, p], None)):
                     f = getattr(lib, name)
                     f.argtypes, f.restype = args, res
@@ -76,16 +79,21 @@ def exercise(**options) -> bytes:
     return _run(lambda lib, w: lib.h264w_exercise(w, opts.ctypes.data, len(opts)))
 
 
-def content(frames, n_p: int = 0, pan=(0, 0), cabac: bool = True) -> bytes:
+def content(frames, n_p: int = 0, pan=(0, 0), cabac: bool = True, bframes: int = 0) -> bytes:
     """I_PCM pictures of ``frames`` ((N, H*3/2, W) I420 planes, or one
     frame), then ``n_p`` P pictures of P_L0_16x16 / P_Skip panning ``pan``
-    = (x, y) quarter samples a picture, no residual; deblocking on."""
+    = (x, y) quarter samples a picture, no residual; deblocking on.  With
+    ``bframes`` (one frame), the ``n_p`` pictures come as groups of
+    ``bframes`` B pictures (a pyramid of reference B pictures; B_Bi_16x16,
+    B_Direct_16x16 and B_Skip, spatial and temporal direct in turn) before
+    each P picture."""
     frames = np.ascontiguousarray(frames, np.uint8)
     if frames.ndim == 2:
         frames = frames[None]
     n, h3, w = frames.shape
     return _run(lambda lib, wr: lib.h264w_content(wr, frames.ctypes.data, n, w, h3 * 2 // 3, n_p,
-                                                  int(pan[0]), int(pan[1]), int(cabac)))
+                                                  int(pan[0]), int(pan[1]), int(cabac),
+                                                  int(bframes)))
 
 
 #: the 720p content clip: frames (an IDR, then P pictures) and the pan in
@@ -93,16 +101,32 @@ def content(frames, n_p: int = 0, pan=(0, 0), cabac: bool = True) -> bytes:
 CONTENT_720P = {"frames": 24, "pan": (5, 2), "cabac": True}
 
 
+#: the 720p B clip: the same pan in groups of three B pictures (a pyramid)
+#: before each P picture
+CONTENT_720P_B = {"frames": 24, "pan": (5, 2), "cabac": True, "bframes": 3}
+
+
+def _frame_720p():
+    from adas_tpu_torch.ops.preprocess import bgr_to_i420
+    from adas_tpu_torch.render.image import imread
+
+    return bgr_to_i420(imread(os.path.join(os.path.dirname(HERE), "images", "frame_720p.png")))
+
+
 def content_720p() -> bytes:
     """The 720p content clip: an I_PCM IDR of
     ``tests/data/images/frame_720p.png`` (read by the port), then P
     pictures panning ``CONTENT_720P["pan"]``; deterministic."""
-    from adas_tpu_torch.ops.preprocess import bgr_to_i420
-    from adas_tpu_torch.render.image import imread
-
-    frame = bgr_to_i420(imread(os.path.join(os.path.dirname(HERE), "images", "frame_720p.png")))
-    return content(frame, n_p=CONTENT_720P["frames"] - 1, pan=CONTENT_720P["pan"],
+    return content(_frame_720p(), n_p=CONTENT_720P["frames"] - 1, pan=CONTENT_720P["pan"],
                    cabac=CONTENT_720P["cabac"])
+
+
+def content_720p_b() -> bytes:
+    """The 720p B clip: the I_PCM IDR of ``content_720p``, then the pan as
+    IBBBP with a B pyramid (``CONTENT_720P_B``); deterministic."""
+    spec = CONTENT_720P_B
+    return content(_frame_720p(), n_p=spec["frames"] - 1, pan=spec["pan"], cabac=spec["cabac"],
+                   bframes=spec["bframes"])
 
 
 def avcc(sps: bytes, pps: bytes, length_size: int = 4, in_band: bool = False) -> bytes:
@@ -115,11 +139,41 @@ def avcc(sps: bytes, pps: bytes, length_size: int = 4, in_band: bool = False) ->
             + bytes([1]) + len(pps).to_bytes(2, "big") + pps)
 
 
+def composition_offsets(aus) -> list:
+    """Each access unit's composition offset in frames, as FFmpeg's muxer
+    writes ``ctts`` for B pictures: the display position (POC order within
+    each IDR period) less the decoding position, plus the reorder depth so
+    that none is negative; None for a stream without B slices."""
+    d = h264.Decoder(None)
+    pocs, periods = [], []
+    for au in aus:
+        if any(n[0] & 0x1F == 5 for n in au):
+            periods.append(len(periods) and periods[-1] + 1)
+        else:
+            periods.append(periods[-1] if periods else 0)
+        d.decode(h264.annexb(au))
+        pocs.append(d.last_poc)
+    stats = d.stats()
+    d.close()
+    if not stats["b_slices"]:
+        return None
+    if stats["mmco5"]:
+        raise ValueError("composition offsets of a stream with MMCO 5 (POCs restart)")
+    order = sorted(range(len(aus)), key=lambda i: (periods[i], pocs[i]))
+    disp = [0] * len(aus)
+    for rank, i in enumerate(order):
+        disp[i] = rank
+    depth = max((i - disp[i] for i in range(len(aus))), default=0)
+    return None if not depth else [disp[i] - i + depth for i in range(len(aus))]
+
+
 def to_mp4(stream: bytes, path: str, fourcc: bytes = b"avc1", length_size: int = 4,
            fps: float = 30.0) -> int:
     """Writes an Annex B stream as one H.264 track of an MP4, an access unit
     a sample (NAL units ``length_size``-prefixed); ``avc1`` carries the
-    SPS and PPS in its ``avcC``, ``avc3`` in band.  Returns the samples."""
+    SPS and PPS in its ``avcC``, ``avc3`` in band.  A stream with B
+    pictures gets ``ctts`` and an ``edts``/``elst`` as FFmpeg's muxer
+    writes them.  Returns the samples."""
     import struct
 
     from adas_tpu_torch.render import mp4
@@ -129,13 +183,17 @@ def to_mp4(stream: bytes, path: str, fourcc: bytes = b"avc1", length_size: int =
     pps = next(n for n in nals if n[0] & 0x1F == 8)
     in_band = fourcc == b"avc3"
     samples, keys = [], []
-    for au in h264.access_units(nals):
+    aus = list(h264.access_units(nals))
+    cts = composition_offsets(aus)
+    for au in aus:
         body = b"".join(len(n).to_bytes(length_size, "big") + n for n in au
                         if in_band or n[0] & 0x1F not in (7, 8))
         if any(n[0] & 0x1F == 5 for n in au):
             keys.append(len(samples) + 1)
         samples.append(body)
     timescale, delta = mp4.rate(fps)
+    if cts is not None:
+        cts = [c * delta for c in cts]
     width, height = 16, 16  # the sample entry's; the decoder reads the SPS
     entry = mp4.visual_sample_entry(fourcc, width, height,
                                     mp4.box(b"avcC", avcc(sps, pps, length_size, in_band)))
@@ -146,7 +204,7 @@ def to_mp4(stream: bytes, path: str, fourcc: bytes = b"avc1", length_size: int =
             offsets.append(pos)
         pos += len(s)
     moov = mp4.build_moov(width, height, b"", timescale, delta, [len(s) for s in samples], keys,
-                          offsets, mp4.SAMPLES_PER_CHUNK, entry=entry)
+                          offsets, mp4.SAMPLES_PER_CHUNK, entry=entry, cts=cts)
     with open(path, "wb") as f:
         f.write(mp4.FTYP + struct.pack(">I4sQ", 1, b"mdat", 16 + len(mdat)) + mdat + moov)
     return len(samples)

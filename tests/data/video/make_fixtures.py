@@ -21,12 +21,15 @@ In ``h264/`` (``python tests/data/video/make_fixtures.py h264`` writes
 only these), H.264 streams of the stream writer ``h264_writer.py`` (cv2
 cannot encode H.264 here): exerciser streams of random legal syntax in
 CAVLC (``cavlc_100x58.h264``, Annex B) and CABAC (``cabac_176x144.mp4``,
-``avc1``; ``cabac_avc3_64x48.mp4``, ``avc3``), with cv2's Y sha256 per
+``avc1``; ``cabac_avc3_64x48.mp4``, ``avc3``), and with B pictures
+(``cavlc_b_96x64.h264``, Annex B without the VUI's reorder depth;
+``cabac_b_112x64.mp4``, ``avc1`` with ``ctts``), with cv2's Y sha256 per
 frame in ``h264/sha256.json``; and there too the digests of cv2's decode
-of the content clip ``h264_writer.content_720p()`` (an I_PCM IDR of
+of the content clips ``h264_writer.content_720p()`` (an I_PCM IDR of
 ``tests/data/images/frame_720p.png``, then P pictures of a quarter-sample
-pan), which is not committed: the writer is deterministic, so a host
-without cv2 rebuilds it and checks its decode against the digests.
+pan) and ``content_720p_b()`` (the pan coded IBBBP with a B pyramid),
+which are not committed: the writer is deterministic, so a host without
+cv2 rebuilds them and checks their decode against the digests.
 
 Beside them, for every file, cv2's decode: the Y planes
 (``cv2.VideoCapture`` with ``CAP_PROP_CONVERT_RGB`` 0 returns the decoded
@@ -117,6 +120,13 @@ H264_FIXTURES = {
                                weighted=1, scaling=2, slices=2, deblock=2, mmco=2), b"avc1"),
     "cabac_avc3_64x48.mp4": (dict(seed=13, cabac=1, frames=6, width=64, height=48, poc_type=2,
                                   nonref=1, cip=1, intra_in_p=30), b"avc3"),
+    # B pictures: Annex B without the VUI's reorder depth, and avc1 with ctts
+    "cavlc_b_96x64.h264": (dict(seed=21, cabac=0, frames=14, width=96, height=64, bframes=3,
+                                pyramid=1, direct=2, bipred=2, refs=3, ref_mods=1, slices=2,
+                                deblock=2), None),
+    "cabac_b_112x64.mp4": (dict(seed=22, cabac=1, frames=14, width=112, height=64, bframes=2,
+                                pyramid=1, direct=2, bipred=1, refs=3, mmco=1, long_term=1,
+                                slices=2, deblock=2, vui=1), b"avc1"),
 }
 def h264_main():
     sys.path.insert(0, HERE)
@@ -136,14 +146,17 @@ def h264_main():
         digests[name] = {
             "frames": len(ys), "height": int(ys.shape[1]), "width": int(ys.shape[2]),
             "y_sha256": [hashlib.sha256(y.tobytes()).hexdigest() for y in ys]}
-    tmp = os.path.join(H264_DIR, "content_720p.h264")
-    with open(tmp, "wb") as f:
-        f.write(h264_writer.content_720p())
-    ys = cv2_decode(tmp, False)
-    os.remove(tmp)
-    assert len(ys) == h264_writer.CONTENT_720P["frames"]
-    digests["content_720p"] = {**h264_writer.CONTENT_720P, "height": 720, "width": 1280,
-                               "y_sha256": [hashlib.sha256(y.tobytes()).hexdigest() for y in ys]}
+    for name, clip, spec in (("content_720p", h264_writer.content_720p, h264_writer.CONTENT_720P),
+                             ("content_720p_b", h264_writer.content_720p_b,
+                              h264_writer.CONTENT_720P_B)):
+        tmp = os.path.join(H264_DIR, name + ".h264")
+        with open(tmp, "wb") as f:
+            f.write(clip())
+        ys = cv2_decode(tmp, False)
+        os.remove(tmp)
+        assert len(ys) == spec["frames"]
+        digests[name] = {**spec, "height": 720, "width": 1280,
+                         "y_sha256": [hashlib.sha256(y.tobytes()).hexdigest() for y in ys]}
     with open(os.path.join(H264_DIR, "sha256.json"), "w") as f:
         json.dump(digests, f, indent=1)
         f.write("\n")

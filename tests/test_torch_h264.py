@@ -3,15 +3,19 @@ and ``render/video.MP4Reader`` / ``AnnexBReader``) against cv2's FFmpeg, on
 the CPU.
 
 The streams come from ``tests/data/video/h264_writer.cpp``, a writer of
-legal I/P syntax from a seed that shares the decoder's syntax layer; cv2
-is the independent judge of what the two share.
+legal I/P/B syntax from a seed that shares the decoder's syntax layer;
+cv2 is the independent judge of what the two share.
 
 * Luma: on exerciser streams over a grid of tools x {CAVLC, CABAC} x
   seeds, the port gives cv2's frame count in cv2's order and every Y plane
   to the bit (``cv2.VideoCapture`` with ``CAP_PROP_CONVERT_RGB`` 0 returns
   the decoded luma plane); the decoder's counters show each case uses its
   tool.  So does the content clip (an I_PCM IDR of a real frame, then P
-  pictures of a quarter-sample pan).
+  pictures of a quarter-sample pan, or IBBBP with a B pyramid).
+* Output order and count: the port follows FFmpeg's reorder delay (its
+  stream probe, the VUI's max_num_reorder_frames, the delay's growth) and
+  drops the B pictures FFmpeg drops; spliced streams hold where the
+  probe's reach ends.
 * Chroma, exactly: an I_PCM stream carries any I420 frame without loss,
   so cv2's BGR of the original stream equals cv2's BGR of the port's
   decoded planes re-wrapped as I_PCM exactly when the port's chroma is
@@ -77,6 +81,27 @@ TOOLS = {
     "cropping_vui_idr": (dict(frames=6, width=100, height=58, vui=1, idr_every=3),
                          "cropped_pictures"),
     "main_profile": (dict(frames=3, profile=77, t8x8=0), "pictures"),
+    # B pictures
+    "b_mb_types": (dict(frames=8, bframes=2, b_types=3, skip=0, intra_in_p=0, refs=2), "b16x8"),
+    "b_8x8_sub_types": (dict(frames=8, bframes=2, b_types=1, skip=0, intra_in_p=0),
+                        "b_sub_partitions_below_8x8"),
+    "b_skip_and_direct_16x16": (dict(frames=8, bframes=2, b_types=2, skip=50), "bskip"),
+    "spatial_direct": (dict(frames=8, bframes=2, direct=0, b_types=2, skip=30),
+                       "spatial_direct_slices"),
+    "temporal_direct": (dict(frames=10, bframes=2, direct=1, b_types=2, refs=3),
+                        "temporal_direct_slices"),
+    "direct_4x4": (dict(frames=8, bframes=2, direct=2, direct_4x4=1, b_types=2), "direct_4x4_mbs"),
+    "implicit_weights": (dict(frames=8, bframes=2, bipred=2, refs=3, b_types=3),
+                         "implicit_weight_slices"),
+    "explicit_bi_weights": (dict(frames=8, bframes=2, bipred=1, refs=3, b_types=3),
+                            "explicit_bipred_slices"),
+    "list1_modification": (dict(frames=10, bframes=2, refs=4, ref_mods=1), "ref_list1_modifications"),
+    "long_term_in_b_lists": (dict(frames=16, bframes=2, refs=3, mmco=1, long_term=1),
+                             "b_mbs_from_long_term"),
+    "b_pyramid": (dict(frames=12, bframes=3, pyramid=1), "reference_b_pictures"),
+    "b_vui_reorder": (dict(frames=12, bframes=3, pyramid=1, vui=1), "b_slices"),
+    "b_without_vui": (dict(frames=12, bframes=3, pyramid=1, idr_every=6), "b_slices"),
+    "b_slices_and_intra": (dict(frames=8, bframes=2, slices=4, intra_in_p=30), "bi_predicted_mbs"),
 }
 ENTROPY = {"cavlc": 0, "cabac": 1}
 
@@ -95,11 +120,13 @@ def _cv2_frames(path, convert_rgb=False):
 
 
 def _port(stream):
-    """(frames, counters) of an Annex B stream, an access unit at a time."""
-    d = h264.Decoder(None)
+    """(frames, counters) of an Annex B stream, an access unit at a time,
+    from the reorder delay of FFmpeg's probe (as cv2 decodes a file)."""
+    aus = [h264.annexb(au) for au in h264.access_units(h264.nal_units(stream))]
+    d = h264.Decoder(None, h264.probe_delay(aus))
     frames = []
-    for au in h264.access_units(h264.nal_units(stream)):
-        frames += d.decode(h264.annexb(au))
+    for au in aus:
+        frames += d.decode(au)
     frames += d.flush()
     stats = d.stats()
     d.close()
@@ -158,13 +185,30 @@ def test_content_clip(tmp_path, cabac):
     assert stats["ipcm"] == 99 and stats["pskip"] > 0 and stats["p16x16"] > 0
 
 
+@pytest.mark.parametrize("cabac", [False, True])
+def test_content_clip_with_b_pictures(tmp_path, cabac):
+    """The pan coded IBBBP with a B pyramid (B_Bi_16x16, B_Direct_16x16,
+    B_Skip; spatial and temporal direct): cv2's Y to the bit, cv2's count
+    and order, and the IDR is the frame."""
+    frame = _crop(_frame_720p(), 144, 176, 300, 500)
+    stream = hw.content(frame, n_p=11, pan=(5, 3), cabac=cabac, bframes=3)
+    frames, stats = _assert_luma(stream, _write(tmp_path, stream))
+    assert len(frames) == 12
+    np.testing.assert_array_equal(frames[0], frame)
+    for k in ("bskip", "b_direct_16x16", "b16x16", "reference_b_pictures", "spatial_direct_slices",
+              "temporal_direct_slices"):
+        assert stats[k] > 0, (k, stats)
+
+
 def _carrier_bgr(tmp_path, frames):
     """cv2's BGR of I420 frames carried losslessly as I_PCM pictures."""
     return _cv2_frames(_write(tmp_path, hw.content(np.stack(frames)), "carrier.h264"), True)
 
 
 CHROMA_CASES = ["intra4x4", "intra16x16", "p_partitions", "weighted", "scaling_lists",
-                "deblocking_controls", "cropping_vui_idr"]
+                "deblocking_controls", "cropping_vui_idr", "b_mb_types", "b_8x8_sub_types",
+                "temporal_direct", "direct_4x4", "implicit_weights", "explicit_bi_weights",
+                "b_pyramid"]
 
 
 @pytest.mark.parametrize("entropy", list(ENTROPY))
@@ -312,14 +356,14 @@ def _nal(ref_idc, kind, rbsp):
     return b"\x00\x00\x00\x01" + bytes(out)
 
 
-def _sps(profile=66, chroma=1, depth=8, bypass=0, frame_mbs_only=1, mbaff=0, mbs=(1, 1)):
+def _sps(profile=66, chroma=1, depth=8, bypass=0, frame_mbs_only=1, mbaff=0, mbs=(1, 1), refs=1):
     b = _Bits().u(8, profile).u(8, 0).u(8, 30).ue(0)
     if profile == 100:
         b.ue(chroma)
         if chroma == 3:
             b.u(1, 0)
         b.ue(depth - 8).ue(depth - 8).u(1, bypass).u(1, 0)
-    b.ue(0).ue(0).ue(0).ue(1).u(1, 0).ue(mbs[0] - 1).ue(mbs[1] - 1).u(1, frame_mbs_only)
+    b.ue(0).ue(0).ue(0).ue(refs).u(1, 0).ue(mbs[0] - 1).ue(mbs[1] - 1).u(1, frame_mbs_only)
     if not frame_mbs_only:
         b.u(1, mbaff)
     return _nal(3, 7, b.u(1, 1).u(1, 0).u(1, 0).rbsp())
@@ -349,9 +393,14 @@ def _p(frame_num, slice_type=5):
     return _nal(2, 1, b.u(1, 0).u(1, 0).u(1, 0).se(0).ue(1).rbsp())
 
 
+def _b(frame_num, poc_lsb):
+    """A non-reference B picture of one B_Skip macroblock (spatial direct)."""
+    b = _Bits().ue(0).ue(6).ue(0).u(4, frame_num).u(4, poc_lsb)
+    return _nal(0, 1, b.u(1, 1).u(1, 0).u(1, 0).u(1, 0).se(0).ue(1).rbsp())
+
+
 VALID = _sps() + _pps() + _idr() + _p(1)
 REFUSED = {
-    "B slices": VALID + _p(2, slice_type=6),
     "SP and SI": VALID + _p(2, slice_type=8),
     "field pictures and MBAFF": _sps(frame_mbs_only=0),
     "field pictures and MBAFF ": _sps(frame_mbs_only=0, mbaff=1),
@@ -375,6 +424,16 @@ def test_valid_handmade_stream_decodes(tmp_path):
     assert (frames[0] == 128).all() and (frames[1] == 128).all()
 
 
+def test_handmade_b_stream_decodes(tmp_path):
+    """Main profile, two reference frames: an IDR (POC 0), a P picture
+    (POC 2) and between them a B picture (POC 1) of one B_Skip: cv2's three
+    frames."""
+    stream = _sps(profile=77, refs=2) + _pps() + _idr() + _p(1) + _b(2, 1)
+    frames, stats = _assert_luma(stream, _write(tmp_path, stream))
+    assert len(frames) == 3 and stats["b_slices"] == stats["bskip"] == 1
+    assert stats["reorder_delay"] == 1 and stats["dropped_pictures"] == 0
+
+
 @pytest.mark.parametrize("tool", list(REFUSED))
 def test_refused_tools_raise_by_name(tool):
     with pytest.raises(ValueError, match=tool.strip()):
@@ -382,8 +441,8 @@ def test_refused_tools_raise_by_name(tool):
 
 
 def test_refused_tool_propagates_from_the_readers(tmp_path):
-    path = _write(tmp_path, REFUSED["B slices"])
-    with pytest.raises(ValueError, match="B slices"):
+    path = _write(tmp_path, REFUSED["SP and SI"])
+    with pytest.raises(ValueError, match="SP and SI"):
         with open_reader(path) as r:
             list(r)
     with pytest.raises(ValueError, match="without a sequence parameter set"):
@@ -400,11 +459,14 @@ FUZZ_SCRIPT = textwrap.dedent(
     rng = random.Random(int(sys.argv[1]))
     decoded = refused = 0
     for it in range(int(sys.argv[2])):
+        b = it % 4 >= 2
         stream = bytearray(hw.exercise(
-            seed=rng.randint(0, 10 ** 6), cabac=it % 2, frames=rng.randint(1, 4),
+            seed=rng.randint(0, 10 ** 6), cabac=it % 2, frames=rng.randint(1, 4) + 3 * b,
             refs=rng.randint(1, 3), ref_mods=1, mmco=1, long_term=1, weighted=rng.randint(0, 1),
             scaling=1, slices=rng.randint(1, 3), deblock=2, nonref=1, pcm=5,
-            width=rng.choice([16, 48, 64]), height=rng.choice([16, 32, 48])))
+            width=rng.choice([16, 48, 64]), height=rng.choice([16, 32, 48]),
+            bframes=rng.randint(1, 3) * b, pyramid=rng.randint(0, 1), direct=2,
+            bipred=rng.randint(0, 2), direct_4x4=rng.randint(0, 1)))
         kind = it % 3
         if kind == 0:
             stream = stream[:rng.randint(0, len(stream))]
@@ -412,7 +474,7 @@ FUZZ_SCRIPT = textwrap.dedent(
             for _ in range(rng.randint(1, 8)):
                 i = rng.randrange(len(stream))
                 stream[i] = rng.randint(0, 255) if kind == 1 else stream[i] ^ 1 << rng.randint(0, 7)
-        d = h264.Decoder(None)
+        d = h264.Decoder(None, rng.randint(0, 2))
         try:
             for au in h264.access_units(h264.nal_units(bytes(stream))):
                 d.decode(h264.annexb(au))
@@ -428,8 +490,9 @@ FUZZ_SCRIPT = textwrap.dedent(
 
 @pytest.mark.parametrize("seed", [1, 2])
 def test_truncated_and_mutated_streams_decode_or_raise(seed):
-    """Truncated streams and streams with bytes replaced or bits flipped
-    decode or raise ``ValueError``; the process never crashes."""
+    """Truncated streams and streams with bytes replaced or bits flipped,
+    I/P and with B pictures, decode or raise ``ValueError``; the process
+    never crashes."""
     proc = subprocess.run([sys.executable, "-c", FUZZ_SCRIPT, str(seed), "150"], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -448,7 +511,7 @@ def _digests(frames):
     return [hashlib.sha256(f[:f.shape[0] * 2 // 3].tobytes()).hexdigest() for f in frames]
 
 
-@pytest.mark.parametrize("name", [k for k in DIGESTS if k != "content_720p"])
+@pytest.mark.parametrize("name", [k for k in DIGESTS if not k.startswith("content_720p")])
 def test_fixtures_decode_to_cv2_digests(name):
     """The committed H.264 fixtures give cv2's Y planes (committed as
     sha256, and live) at their size and frame count."""
@@ -470,3 +533,58 @@ def test_content_720p_rebuilds_to_cv2_digests():
     assert len(frames) == want["frames"] == 24
     assert _digests(frames) == want["y_sha256"]
     assert stats["cabac_slices"] == 24 and stats["ipcm"] == 3600
+
+
+def test_content_720p_b_rebuilds_to_cv2_digests():
+    """The 720p B clip (the pan as IBBBP with a B pyramid) rebuilt by the
+    writer decodes to cv2's committed digests, in cv2's order."""
+    frames, stats = _port(hw.content_720p_b())
+    want = DIGESTS["content_720p_b"]
+    assert len(frames) == want["frames"] == 24
+    assert _digests(frames) == want["y_sha256"]
+    assert stats["b_slices"] == 17 and stats["reference_b_pictures"] == 6
+    assert stats["spatial_direct_slices"] > 0 and stats["temporal_direct_slices"] > 0
+
+
+# ------------------------------------------------------------------ output order and count
+
+
+def _spliced(k):
+    """An IBP stream of k pictures (reorder depth 1), then a B pyramid
+    (depth 2) after a second IDR picture."""
+    return (hw.exercise(seed=1, bframes=1, frames=k, width=32, height=32)
+            + hw.exercise(seed=2, bframes=3, pyramid=1, frames=13, width=32, height=32))
+
+
+@pytest.mark.parametrize("k,dropped", [(4, 0), (5, 1)])
+def test_ffmpeg_drops_a_picture_its_probe_did_not_reach(tmp_path, k, dropped):
+    """FFmpeg's stream probe decodes until 7 frames are out and cv2's
+    decoder starts from the reorder delay it reached.  With k = 4 the probe
+    sees the pyramid (delay 2); with k = 5 it stops at delay 1, and the
+    pyramid's first non-reference B picture (POC 2 after the second IDR),
+    decoded after its reference B picture (POC 4) was output, is dropped.
+    The port drops the same picture; as an MP4, ``ctts`` shows FFmpeg the
+    depth first and nothing is dropped."""
+    stream = _spliced(k)
+    frames, stats = _assert_luma(stream, _write(tmp_path, stream))
+    assert stats["dropped_pictures"] == dropped and len(frames) == k + 13 - dropped
+    path = str(tmp_path / "s.mp4")
+    hw.to_mp4(stream, path, b"avc3")  # two parameter set pairs: in band
+    with open_reader(path) as r:
+        got = list(r.i420_frames())
+        assert r.stats()["dropped_pictures"] == 0 and len(r) == k + 13
+    ys = _cv2_frames(path)
+    assert len(got) == len(ys) == k + 13
+    for g, y in zip(got, ys):
+        np.testing.assert_array_equal(g[:32], y)
+
+
+def test_missing_reference_entries_reset_the_reorder_count(tmp_path):
+    """Slices whose lists are longer than the references (legal while the
+    entries past them go unused) make FFmpeg forget its recent POCs, so its
+    delay stays at 1 through this pyramid (depth 2) and four B pictures are
+    dropped; the port follows (without that reset it would give all 20)."""
+    stream = hw.exercise(seed=33, bframes=3, pyramid=1, frames=20, cabac=1, direct=1)
+    frames, stats = _assert_luma(stream, _write(tmp_path, stream))
+    assert stats["dropped_pictures"] == 4 and len(frames) == 16
+    assert stats["reorder_delay"] == 1 and stats["temporal_direct_slices"] > 0

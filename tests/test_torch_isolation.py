@@ -490,6 +490,22 @@ VIDEO_SCRIPT = textwrap.dedent(
     for name in ("h264_out.mp4", "h264_lanes.mp4", "h264_cli.mp4", "h264_cli_lanes.mp4"):
         with open_reader(os.path.join(tmp, name)) as r:
             assert (r.width, r.height) == (160, 96) and len(list(r)) == 3
+    # with B pictures (IDR, then B P B P: a B pyramid of one reference B
+    # per group): an avc1 MP4 with ctts and elst, and Annex B
+    b_stream = h264_writer.content(frame, n_p=4, pan=(5, 3), bframes=1)
+    b_mp4, b_raw = os.path.join(tmp, "b.mp4"), os.path.join(tmp, "b.h264")
+    h264_writer.to_mp4(b_stream, b_mp4)
+    with open(b_raw, "wb") as f:
+        f.write(b_stream)
+    for clip in (b_mp4, b_raw):
+        stem = os.path.splitext(clip)[0]
+        assert app.run_video(clip, stem + "_out.y4m", device="cpu") == 5
+        assert lane_demo.run_lane_video(clip, stem + "_lanes.y4m", device="cpu") == 5
+        app.main(["-i", clip, "-o", stem + "_cli.y4m", "--device", "cpu"])
+        lane_demo.main(["-i", clip, "-o", stem + "_cli_lanes.y4m", "--device", "cpu"])
+        for suffix in ("_out.y4m", "_lanes.y4m", "_cli.y4m", "_cli_lanes.y4m"):
+            with open_reader(stem + suffix) as r:
+                assert (r.width, r.height) == (160, 96) and len(list(r)) == 5
     assert not [m for m in sys.modules if m.split(".")[0] in %r]
     print("frames", n)
     """
@@ -501,7 +517,9 @@ def test_video_io_runs_with_jax_package_and_cv2_blocked(tmp_path):
     """The MP4 reader on every committed video fixture (cv2's Y planes by
     their sha256), ``run_synthetic``, ``run_video`` and ``run_lane_video``
     to ``.mp4``, and ``run_video``, ``run_lane_video`` and both CLIs over an
-    H.264 ``.mp4``, in a process that cannot import ``jax``, ``adas_tpu``,
+    H.264 ``.mp4`` of I/P pictures and over B-picture H.264 as an ``.mp4``
+    (``ctts``, ``elst``) and as Annex B, in a process that cannot import
+    ``jax``, ``adas_tpu``,
     ``cv2``, ``PIL``, ``optax``, ``orbax`` or ``onnx``."""
     proc = subprocess.run(
         [sys.executable, "-c", VIDEO_SCRIPT, str(tmp_path)], cwd=REPO, env=ONE_THREAD,

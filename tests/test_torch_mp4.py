@@ -5,9 +5,12 @@ and rebuilt variants of the same samples: ``moov`` first, ``co64`` chunk
 offsets, several chunks per ``stsc`` run, one chunk for every sample, and
 an audio track before the video's.  The demuxer gives the same samples
 from each, and cv2 reads each file's frames as the port does.  H.264
-tracks (``avc1``, ``avc3``) demux with their ``avcC`` record; an ``avc1``
-entry without one, an ``hvc1`` sample entry, an esds of another object
-type, fragmented MP4 and truncated files raise ``ValueError`` by name.
+tracks (``avc1``, ``avc3``) demux with their ``avcC`` record; with B
+pictures, with ``ctts`` (versions 0 and 1) and ``edts``/``elst`` as
+FFmpeg's muxer writes them, and the reorder depth FFmpeg's mov demuxer
+reads from them.  An ``avc1`` entry without ``avcC``, an ``hvc1`` sample
+entry, an esds of another object type, fragmented MP4, edit lists that
+cut frames and truncated files raise ``ValueError`` by name.
 """
 from __future__ import annotations
 
@@ -260,3 +263,79 @@ def test_h264_entry_without_avcc_raises(written, tmp_path):
     path.write_bytes(_with_entry(open(written[0], "rb").read(), b"avc1"))
     with pytest.raises(ValueError, match=r"H\.264 \(avc1\) sample entry without an avcC"):
         MP4Reader(str(path))
+
+
+def _b_mp4(tmp_path, **options):
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "video"))
+    import h264_writer as hw
+
+    stream = hw.exercise(width=W, height=H, **options)
+    path = str(tmp_path / "b.mp4")
+    hw.to_mp4(stream, path, b"avc1", fps=25.0)
+    return stream, path, hw
+
+
+@pytest.mark.parametrize("pyramid,depth", [(0, 1), (1, 2)])
+def test_b_tracks_carry_ctts_and_elst(tmp_path, pyramid, depth):
+    """A B stream's MP4: ``ctts`` gives each sample's display position less
+    its decoding position (plus the depth), the ``elst`` starts at the
+    first frame's composition time, ``video_delay`` is the reorder depth;
+    the reader gives cv2's frames, all of them."""
+    from adas_tpu_torch.render import h264
+
+    stream, path, hw = _b_mp4(tmp_path, seed=4, frames=11, bframes=3, pyramid=pyramid, cabac=1)
+    d = mp4.Demuxer(path)
+    track = d.track
+    d.close()
+    want = hw.composition_offsets(list(h264.access_units(h264.nal_units(stream))))
+    assert track.cts == want and min(want) == 0 and want[0] == depth
+    assert track.video_delay == depth and track.fps == 25.0
+    data = open(path, "rb").read()
+    elst = data.index(b"elst")
+    assert struct.unpack_from(">IIi", data, elst + 8)[0::2] == (1, depth)
+    with MP4Reader(path) as r:
+        got = [p[:H] for p in r.i420_frames()]
+        assert len(r) == 11 and r.stats()["dropped_pictures"] == 0
+    ys, _ = _cv2_frames(path, False)
+    assert len(got) == len(ys) == 11
+    for g, y in zip(got, ys):
+        np.testing.assert_array_equal(g, y.reshape(H, W))
+
+
+def test_guess_video_delay_is_the_reorder_depth():
+    """The mov demuxer's guess: the most earlier presentation times above a
+    sample's, among the 16 largest."""
+    assert mp4.guess_video_delay([0, 1, 2, 3]) == 0
+    assert mp4.guess_video_delay([0, 3, 1, 2, 6, 4, 5]) == 1
+    assert mp4.guess_video_delay([0, 4, 2, 1, 3, 8, 6, 5, 7]) == 2
+    assert mp4.guess_video_delay(list(range(40, 20, -1))) == 16
+
+
+def test_ctts_version_1_takes_negative_offsets():
+    box = mp4.full_box(b"ctts", 1, 0, struct.pack(">I", 2), struct.pack(">Ii", 1, -2),
+                       struct.pack(">Ii", 2, 5))
+    assert mp4._ctts(box, 0, len(box), 3) == [-2, 5, 5]
+    with pytest.raises(ValueError, match="ctts gives 3 samples, stsz 4"):
+        mp4._ctts(box, 0, len(box), 4)
+
+
+def test_edit_lists_that_cut_frames_raise(tmp_path):
+    """An ``elst`` that starts after the first frame, or holds two edits,
+    would have FFmpeg drop or repeat frames: it raises by name."""
+    _, path, _ = _b_mp4(tmp_path, seed=5, frames=6, bframes=1)
+    data = bytearray(open(path, "rb").read())
+    at = data.index(b"elst") + 16  # the first edit's media_time
+    start = struct.unpack_from(">i", data, at)[0]
+    struct.pack_into(">i", data, at, start + 2)
+    bad = tmp_path / "late.mp4"
+    bad.write_bytes(bytes(data))
+    with pytest.raises(ValueError, match="edit lists that cut or repeat frames"):
+        MP4Reader(str(bad))
+    struct.pack_into(">i", data, at, start - 1)  # earlier than the first frame: nothing cut
+    ok = tmp_path / "early.mp4"
+    ok.write_bytes(bytes(data))
+    with MP4Reader(str(ok)) as r:
+        assert len(list(r.i420_frames())) == 6

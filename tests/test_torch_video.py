@@ -305,6 +305,46 @@ def test_run_video_reads_h264(tmp_path, small_nets, src_suffix):
         np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("src_suffix", [".mp4", ".h264"])
+def test_run_video_reads_h264_b_pictures(tmp_path, small_nets, src_suffix):
+    """``run_video`` over an H.264 clip with B pictures (an I_PCM IDR, then
+    the pan as IBBP with a reference B; an ``avc1`` MP4 with ``ctts`` and
+    ``elst``, or Annex B) writes one drawn frame for every frame cv2 reads,
+    in cv2's order, drawn over the port's decode, which is cv2's to the bit
+    in Y."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "video"))
+    import h264_writer as hw
+
+    hw_ = (96, 160)
+    stream = hw.content(bgr_to_i420(_smooth(1, hw_, seed=8)[0]), n_p=5, pan=(6, -3), bframes=2)
+    src, out = str(tmp_path / f"clip{src_suffix}"), str(tmp_path / "clip_out.y4m")
+    if src_suffix == ".mp4":
+        hw.to_mp4(stream, src, fps=12.0)
+    else:
+        with open(src, "wb") as f:
+            f.write(stream)
+    ys = _cv2_frames_y(src)
+    assert app.run_video(src, out, device="cpu") == len(ys) == 6
+    from adas_tpu_torch.render.video import open_reader
+
+    with open_reader(src) as r:
+        decoded = list(r.i420_frames())
+        assert r.stats()["b_slices"] == 3 and r.stats()["reference_b_pictures"] == 1
+    for d, y in zip(decoded, ys):
+        np.testing.assert_array_equal(d[:hw_[0]], y)
+    from adas_tpu_torch.native.draw import i420_to_bgr
+
+    want = _loop(small_nets, hw_, [i420_to_bgr(d, *hw_) for d in decoded])
+    with Y4MReader(out) as r:
+        got = list(r.i420_frames())
+    assert len(got) == 6
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
 def _cv2_frames_y(path):
     cap = cv2.VideoCapture(path)
     cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
