@@ -213,11 +213,11 @@ def run_video(
     max_frames: Optional[int] = None,
     device="cuda",
 ) -> int:
-    """Process a video (``.mp4`` with ``mp4v`` or H.264, a raw ``.h264``, or
-    ``.y4m``) end to end on ``device``,
-    writing the annotated frames to ``output_path``: an ``.mp4`` at 30 fps,
-    as the JAX package writes it, or a ``.y4m`` at the input's rate;
-    returns the number of frames processed."""
+    """Process a video (``.mp4``/``.mov`` or ``.avi`` with ``mp4v``, H.264
+    or Motion JPEG, a raw ``.h264``, or ``.y4m``) end to end on ``device``,
+    writing the annotated frames to ``output_path``: an ``.mp4`` or
+    ``.avi`` at 30 fps, as the JAX package writes them, or a ``.y4m`` at the
+    input's rate; returns the number of frames processed."""
     if display:
         _no_display()
     n = 0
@@ -262,9 +262,10 @@ def run_synthetic(output_path: str, frames: int = 16, frame_hw=(720, 1280), devi
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="ADAS demo pipeline (PyTorch port)")
     ap.add_argument("-i", "--input", default=None,
-                    help="input video (.mp4 with mp4v or H.264, .h264, or .y4m)")
+                    help="input video (.mp4/.mov/.avi with mp4v, H.264 or Motion JPEG, "
+                         ".h264, or .y4m)")
     ap.add_argument("-o", "--output", default=None,
-                    help="output video (.mp4 or .y4m; default <input>_out.mp4)")
+                    help="output video (.mp4, .avi or .y4m; default <input>_out.mp4)")
     ap.add_argument("--display", action="store_true")
     ap.add_argument("--max-frames", type=int, default=None)
     ap.add_argument("--synthetic", action="store_true",

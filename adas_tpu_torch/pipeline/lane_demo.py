@@ -4,15 +4,17 @@ image or a video and draw the points and the ego-lane area through the
 facade's ``AutoDrawLanes``.
 
 Images are read and written by ``render/image.py`` (PNG, BMP, JPEG in;
-PNG, BMP out) and video by ``render/video.py`` (MP4 with MPEG-4 Part 2,
-``mp4v``, as the JAX package's cv2 writes it, or YUV4MPEG2; H.264 in MP4
-or raw read too), as the port's ``pipeline/app.py`` serves it.  ``display=True`` is not planned:
+PNG, BMP out) and video by ``render/video.py`` (MP4 or AVI with MPEG-4
+Part 2, ``mp4v``, as the JAX package's cv2 writes them, or YUV4MPEG2;
+H.264 and Motion JPEG in MP4 or AVI, and raw H.264, read too), as the
+port's ``pipeline/app.py`` serves it.  ``display=True`` is not planned:
 the card's host has no window system.
 
 CLI::
 
     python -m adas_tpu_torch.pipeline.lane_demo -i road.png -o out.png [--device cuda]
     python -m adas_tpu_torch.pipeline.lane_demo -i drive.mp4 -o out.mp4 [--max-frames N]
+    python -m adas_tpu_torch.pipeline.lane_demo -i dashcam.avi -o out.avi
 """
 from __future__ import annotations
 
@@ -67,10 +69,11 @@ def run_lane_video(
     max_frames: Optional[int] = None,
     device="cuda",
 ) -> int:
-    """Lane-only loop over a video (``.mp4`` with ``mp4v`` or H.264, a raw
-    ``.h264``, or ``.y4m``), the annotated
-    frames written to ``output_path``: an ``.mp4`` at 30 fps, as the
-    reference writes it, or a ``.y4m`` at the input's rate; returns the
+    """Lane-only loop over a video (``.mp4``/``.mov`` or ``.avi`` with
+    ``mp4v``, H.264 or Motion JPEG, a raw ``.h264``, or ``.y4m``), the
+    annotated frames written to ``output_path``: an ``.mp4`` or ``.avi`` at
+    30 fps, as the reference writes them, or a ``.y4m`` at the input's
+    rate; returns the
     processed frame count (``lane_demo.py:47``).  The reference skips a
     frame whose detection raises, for cv2's unreadable frames; the port's
     readers give well-formed arrays or raise ``ValueError`` for a corrupt
@@ -103,7 +106,7 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description="Standalone lane detection")
     ap.add_argument("-i", "--input", required=True,
-                    help="image (.png/.bmp/.jpg) or video (.mp4/.h264/.y4m)")
+                    help="image (.png/.bmp/.jpg) or video (.mp4/.mov/.avi/.h264/.y4m)")
     ap.add_argument("-o", "--output", default=None)
     ap.add_argument("--display", action="store_true")
     ap.add_argument("--max-frames", type=int, default=None)

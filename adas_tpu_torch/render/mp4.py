@@ -6,16 +6,18 @@ track.
 ``mdat``, and takes the first track whose handler is ``vide`` (an audio or
 other track is ignored).  From it: the sample entry, either ``mp4v`` with
 its ``esds`` DecoderSpecificInfo (the MPEG-4 Visual VOS/VO/VOL headers,
-objectTypeIndication 0x20) or H.264's ``avc1`` / ``avc3`` with its
-``avcC`` record (``avc3`` may carry its parameter sets in band), the
+objectTypeIndication 0x20), H.264's ``avc1`` / ``avc3`` with its
+``avcC`` record (``avc3`` may carry its parameter sets in band), or Motion
+JPEG: ``jpeg`` and ``mjpa`` entries, and ``mp4v`` entries whose esds
+names JPEG (0x6C, as cv2 writes ``MJPG`` into an ``.mp4``); the
 samples' offsets and sizes from ``stsz``, ``stsc`` and ``stco``/``co64``,
 the rate from ``mdhd``'s timescale over ``stts``, and for streams that
 reorder (H.264 B pictures) the composition offsets of ``ctts`` (versions
 0 and 1) and the edit list of ``edts``/``elst``.  ``Track.codec`` says
-which; ``Track.video_delay`` is the reorder depth FFmpeg's mov demuxer
+which (``"mjpeg"`` for Motion JPEG); ``Track.video_delay`` is the reorder depth FFmpeg's mov demuxer
 reads from ``ctts`` (``mov_guess_video_delay``).  An edit list that cuts
 frames raises, as does one that is not a single edit (after an empty
-one).  Another sample entry (``hvc1``, ``av01``, ...) or object
+one).  Another sample entry (``hvc1``, ``av01``, ``mjpb``, ...) or object
 type, and fragmented MP4 (``moof``), raise a ``ValueError`` that names the
 codec or the feature; so does a box that runs past its parent or a sample
 past the file.
@@ -38,18 +40,22 @@ from typing import BinaryIO, List, Optional, Sequence, Tuple
 
 #: the H.264 sample entries the demuxer reads (their ``avcC`` record)
 AVC_ENTRIES = {b"avc1": "H.264 (avc1)", b"avc3": "H.264 (avc3)"}
+#: the Motion JPEG sample entries the demuxer reads
+MJPEG_ENTRIES = (b"jpeg", b"mjpa")
 #: sample entries the demuxer names when it refuses them
 CODEC_NAMES = {
     b"hvc1": "H.265 (hvc1)",
     b"hev1": "H.265 (hev1)", b"av01": "AV1 (av01)", b"vp08": "VP8 (vp08)",
-    b"vp09": "VP9 (vp09)", b"mjpa": "Motion JPEG (mjpa)", b"jpeg": "Motion JPEG (jpeg)",
+    b"vp09": "VP9 (vp09)", b"mjpb": "MJPEG-B (mjpb)",
     b"s263": "H.263 (s263)", b"encv": "encrypted video (encv)",
 }
 #: objectTypeIndication of an esds that the demuxer names when it refuses it
 OBJECT_TYPES = {0x6A: "MPEG-1 video", 0x60: "MPEG-2 video", 0x61: "MPEG-2 video",
                 0x62: "MPEG-2 video", 0x63: "MPEG-2 video", 0x64: "MPEG-2 video",
-                0x65: "MPEG-2 video", 0x6C: "JPEG", 0x21: "H.264"}
+                0x65: "MPEG-2 video", 0x21: "H.264"}
 MPEG4_VISUAL = 0x20
+#: the objectTypeIndication of JPEG (cv2's ``MJPG`` in an ``.mp4``)
+JPEG_OBJECT = 0x6C
 
 
 def _u32(b: bytes, o: int) -> int:
@@ -108,8 +114,10 @@ def _descriptor(data: bytes, pos: int, end: int) -> Tuple[int, int, int]:
     return tag, pos, pos + size
 
 
-def parse_esds(data: bytes, start: int, end: int) -> bytes:
-    """The DecoderSpecificInfo of an MPEG-4 Visual ``esds`` box."""
+def parse_esds(data: bytes, start: int, end: int) -> Tuple[int, bytes]:
+    """(objectTypeIndication, DecoderSpecificInfo) of an ``esds`` box of
+    MPEG-4 Visual, or of JPEG (whose DecoderSpecificInfo may be missing:
+    then ``b""``)."""
     tag, s, e = _descriptor(data, start + 4, end)  # after version / flags
     if tag != 0x03:
         raise ValueError("corrupt MP4: esds without an ES_Descriptor")
@@ -126,22 +134,26 @@ def parse_esds(data: bytes, start: int, end: int) -> bytes:
     if tag != 0x04 or s + 13 > e:
         raise ValueError("corrupt MP4: esds without a DecoderConfigDescriptor")
     oti = data[s]
-    if oti != MPEG4_VISUAL:
+    if oti not in (MPEG4_VISUAL, JPEG_OBJECT):
         name = OBJECT_TYPES.get(oti, f"objectTypeIndication 0x{oti:02x}")
-        raise ValueError(f"{name} in an MP4 is not supported (the port reads MPEG-4 Part 2, mp4v)")
+        raise ValueError(f"{name} in an MP4 is not supported (the port reads MPEG-4 Part 2 and "
+                         f"JPEG in an mp4v entry)")
     pos = s + 13
     while pos < e:
         tag, ds, de = _descriptor(data, pos, e)
         if tag == 0x05:
-            return data[ds:de]
+            return oti, data[ds:de]
         pos = de
+    if oti == JPEG_OBJECT:
+        return oti, b""
     raise ValueError("corrupt MP4: esds without a DecoderSpecificInfo")
 
 
 class Track:
     """The demuxed video track: size, rate, decoder config and samples.
     ``codec`` is ``"mp4v"`` (``dsi`` the MPEG-4 Visual headers) or
-    ``"avc1"`` / ``"avc3"`` (``dsi`` the ``avcC`` record)."""
+    ``"avc1"`` / ``"avc3"`` (``dsi`` the ``avcC`` record) or ``"mjpeg"``
+    (Motion JPEG, ``dsi`` empty)."""
 
     def __init__(self, width, height, fps, dsi, offsets, sizes, timescale, duration,
                  codec="mp4v", cts=None, video_delay=0):
@@ -276,15 +288,20 @@ def _video_track(data: bytes, trak: Tuple[int, int], file_size: int) -> Optional
     if entry + 8 > stsd[1]:
         raise ValueError("truncated stsd")
     size, fourcc = struct.unpack_from(">I4s", data, entry)
-    if fourcc != b"mp4v" and fourcc not in AVC_ENTRIES:
+    if fourcc != b"mp4v" and fourcc not in AVC_ENTRIES and fourcc not in MJPEG_ENTRIES:
         name = CODEC_NAMES.get(fourcc, f"codec {fourcc.decode('latin-1')!r}")
         raise ValueError(f"{name} video in an MP4 is not supported: the port reads MPEG-4 Part 2 "
-                         f"(mp4v), as cv2.VideoWriter writes it, and H.264 (avc1, avc3)")
+                         f"(mp4v), as cv2.VideoWriter writes it, H.264 (avc1, avc3) and Motion "
+                         f"JPEG (jpeg, mjpa)")
     if size < 86 or entry + size > stsd[1]:
         raise ValueError(f"corrupt MP4: short {fourcc.decode('latin-1')} sample entry")
     width, height = struct.unpack_from(">HH", data, entry + 32)
-    if fourcc == b"mp4v":
-        dsi = parse_esds(data, *_need(data, entry + 86, entry + size, b"esds"))
+    codec = fourcc.decode("latin-1")
+    if fourcc in MJPEG_ENTRIES:
+        codec, dsi = "mjpeg", b""
+    elif fourcc == b"mp4v":
+        oti, dsi = parse_esds(data, *_need(data, entry + 86, entry + size, b"esds"))
+        codec = "mjpeg" if oti == JPEG_OBJECT else codec
     else:
         avcc = _find(data, entry + 86, entry + size, b"avcC")
         if avcc is None:
@@ -302,8 +319,7 @@ def _video_track(data: bytes, trak: Tuple[int, int], file_size: int) -> Optional
     pts = dts if cts is None else [t + c for t, c in zip(dts, cts)]
     _check_edits(data, trak, pts, timescale)
     delay = guess_video_delay(pts) if cts is not None and fourcc in AVC_ENTRIES else 0
-    return Track(width, height, fps, dsi, offsets, sizes, timescale, duration,
-                 fourcc.decode("latin-1"), cts, delay)
+    return Track(width, height, fps, dsi, offsets, sizes, timescale, duration, codec, cts, delay)
 
 
 class Demuxer:
@@ -529,4 +545,4 @@ def rate(fps: float) -> Tuple[int, int]:
 
 __all__ = ["Demuxer", "Muxer", "Track", "build_moov", "box", "full_box", "esds_box",
            "parse_esds", "iter_boxes", "rate", "visual_sample_entry", "guess_video_delay", "FTYP",
-           "CODEC_NAMES", "AVC_ENTRIES", "MAX_REORDER_DELAY"]
+           "CODEC_NAMES", "AVC_ENTRIES", "MJPEG_ENTRIES", "MAX_REORDER_DELAY"]

@@ -30,8 +30,10 @@ import numpy as np
 
 from ..native.gxx import build_library
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native",
-                    "mpeg4.cpp")
+_NATIVE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
+_SRC = os.path.join(_NATIVE, "mpeg4.cpp")
+#: the IDCT mpeg4.cpp shares with mjpeg.cpp
+IDCT_H = os.path.join(_NATIVE, "simple_idct.h")
 _LOCK = threading.Lock()
 _lib = None
 
@@ -51,7 +53,7 @@ def _native():
     if _lib is None:
         with _LOCK:
             if _lib is None:
-                lib = ctypes.CDLL(build_library(_SRC, "mpeg4"))
+                lib = ctypes.CDLL(build_library(_SRC, "mpeg4", deps=(IDCT_H,)))
                 p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
                 ip = ctypes.POINTER(ctypes.c_int)
                 sigs = {

@@ -1,64 +1,78 @@
-"""Video I/O without cv2: MP4 (``.mp4``, ``.m4v``, ``.mov``) with MPEG-4
-Part 2 (``mp4v``) or H.264 (``avc1``, ``avc3``) video, raw H.264 Annex B
-streams (``.h264``, ``.264``), and YUV4MPEG2 (``.y4m``) 4:2:0 streams.
+"""Video I/O without cv2: MP4 (``.mp4``, ``.m4v``, ``.mov``) and AVI
+(``.avi``) with MPEG-4 Part 2, H.264 or Motion JPEG video, raw H.264 Annex
+B streams (``.h264``, ``.264``), and YUV4MPEG2 (``.y4m``) 4:2:0 streams.
 
 The JAX package reads and writes video through ``cv2.VideoCapture`` /
-``cv2.VideoWriter`` (fourcc ``mp4v``); the card's host has neither cv2
-nor a codec.  ``open_reader(path)`` and ``open_writer(path, width, height,
-fps)`` pick the format by the suffix:
+``cv2.VideoWriter`` (fourcc ``mp4v``, 30 fps, the container the suffix
+names); the card's host has neither cv2 nor a codec.  ``open_reader(path)``
+and ``open_writer(path, width, height, fps)`` pick the format by the
+suffix:
 
 - MP4: ``render/mp4.py`` (the container), ``render/mpeg4.py`` (the
-  ``mp4v`` decoder and encoder, ``native/mpeg4.cpp``) and
-  ``render/h264.py`` (the H.264 decoder, ``native/h264.cpp``).
-  ``MP4Reader`` takes the ``mp4v`` streams cv2 and the port write (I- and
-  P-VOPs) and the I/P/B H.264 of dash-cams, phones and FFmpeg's muxer
-  (``ctts``, ``edts``/``elst``), giving the frames cv2 gives in cv2's
-  order and count; other codecs, and H.264 tools the decoder refuses,
-  raise a ``ValueError`` that names them.  ``MP4Writer`` writes
-  an I-VOP every 12 frames (cv2's interval) and P-VOPs between at a fixed
-  quantiser; cv2 reads its files.
+  ``mp4v`` decoder and encoder, ``native/mpeg4.cpp``), ``render/h264.py``
+  (the H.264 decoder, ``native/h264.cpp``) and ``render/mjpeg.py`` (the
+  Motion JPEG decoder, ``native/mjpeg.cpp``).  ``MP4Reader`` takes the
+  ``mp4v`` streams cv2 and the port write (I- and P-VOPs), the I/P/B
+  H.264 of dash-cams, phones and FFmpeg's muxer (``ctts``,
+  ``edts``/``elst``) and Motion JPEG (``jpeg``, ``mjpa``, and ``mp4v``
+  entries of object type 0x6C, as cv2 writes ``MJPG`` into an ``.mp4``),
+  giving the frames cv2 gives in cv2's order and count; other codecs, and
+  tools the decoders refuse, raise a ``ValueError`` that names them.
+  ``MP4Writer`` writes an I-VOP every 12 frames (cv2's interval) and
+  P-VOPs between at a fixed quantiser; cv2 reads its files.
+- AVI: ``render/avi.py`` (the container).  ``AVIReader`` takes the first
+  video stream of ``mp4v``/``XVID``/``DIVX``-family, H.264 (Annex B
+  chunks) or Motion JPEG, indexed (``idx1``, OpenDML) or not, a truncated
+  last chunk dropped, as cv2 reads them; ``AVIWriter`` writes what
+  ``MP4Writer`` writes in FFmpeg's AVI layout, the VOS/VOL headers in band
+  before each I-VOP, as cv2 writes an ``.avi``.
 - H.264 Annex B: ``AnnexBReader``, read only, split into access units at
   each picture's first slice; the rate of the SPS's VUI timing, else 25
   (FFmpeg's for a raw stream).
 
-Both H.264 readers first decode the stream's opening access units as
+The H.264 readers first decode the stream's opening access units as
 FFmpeg's stream probe does (``render/h264.probe_delay``, from the delay an
-MP4's ``ctts`` shows), so that the decode proper starts from cv2's reorder
-delay: FFmpeg drops a B picture that comes after a later one was output,
-and which pictures that is depends on the delay.
+MP4's ``ctts`` shows, else 0), so that the decode proper starts from cv2's
+reorder delay: FFmpeg drops a B picture that comes after a later one was
+output, and which pictures that is depends on the delay.
 - Y4M: raw I420 frames behind a text header.  ``Y4MReader`` takes the
   ``C420``, ``C420jpeg``, ``C420mpeg2`` and ``C420paldv`` chroma tags
   (all decoded alike, nearest chroma upsampling as cv2's) or none, and
   the ``F`` rate.
 
 Both writers encode each BGR frame with ``ops/preprocess.bgr_to_i420``
-(``cv2.cvtColor(COLOR_BGR2YUV_I420)`` to the bit), both readers decode
-with ``native/draw.i420_to_bgr`` (``cv2.cvtColor(COLOR_YUV2BGR_I420)`` to
-the bit).  Frame sides must be even.
+(``cv2.cvtColor(COLOR_BGR2YUV_I420)`` to the bit), and the readers decode
+I420 with ``native/draw.i420_to_bgr`` (``cv2.cvtColor(COLOR_YUV2BGR_I420)``
+to the bit).  Motion JPEG frames are full-range ``yuvj`` planes, 4:2:2 as
+often as 4:2:0: their ``read()`` converts them with the full-range matrix
+(``render/mjpeg.Decoder.bgr``), ``read_planes()`` gives them as decoded,
+and ``read_i420()`` refuses them rather than pass them off as I420.
+Frame sides must be even, except a Motion JPEG input's.
 """
 from __future__ import annotations
 
 import os
 from collections import deque
 from fractions import Fraction
-from typing import Deque, Iterator, List, Optional
+from typing import Deque, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from ..native.draw import i420_to_bgr
 from ..ops.preprocess import bgr_to_i420
-from . import h264, mp4, mpeg4
+from . import avi, h264, mjpeg, mp4, mpeg4
 
 MAGIC = b"YUV4MPEG2"
 CHROMA_420 = ("420", "420jpeg", "420mpeg2", "420paldv")
 Y4M_SUFFIXES = (".y4m",)
 MP4_SUFFIXES = (".mp4", ".m4v", ".mov")
+AVI_SUFFIXES = (".avi",)
 H264_SUFFIXES = (".h264", ".264")
 #: the rate of a raw H.264 stream without VUI timing (FFmpeg's default)
 H264_FPS = 25.0
 #: bytes an Annex B reader takes from the file at a time
 CHUNK = 1 << 20
-#: the rate of an MP4 output, as the JAX package's cv2.VideoWriter writes it
+#: the rate of an MP4 or AVI output, as the JAX package's cv2.VideoWriter writes it
 MP4_FPS = 30.0
 
 
@@ -69,34 +83,41 @@ def _suffix(path: str) -> str:
 def _check_path(path: str, suffixes) -> None:
     if _suffix(path) not in suffixes:
         raise ValueError(
-            f"{path}: the port reads and writes MP4 ({', '.join(MP4_SUFFIXES)}, MPEG-4 Part 2 "
-            f"video; H.264 read too) and YUV4MPEG2 ({', '.join(Y4M_SUFFIXES)}) video and reads "
-            f"raw H.264 ({', '.join(H264_SUFFIXES)}); this class takes {', '.join(suffixes)} "
+            f"{path}: the port reads and writes MP4 ({', '.join(MP4_SUFFIXES)}) and AVI "
+            f"({', '.join(AVI_SUFFIXES)}) with MPEG-4 Part 2 video (H.264 and Motion JPEG read "
+            f"too) and YUV4MPEG2 ({', '.join(Y4M_SUFFIXES)}) video, and reads raw H.264 "
+            f"({', '.join(H264_SUFFIXES)}); this class takes {', '.join(suffixes)} "
             f"(open_reader / open_writer pick by the suffix)")
 
 
 def output_fps(path: str, input_fps: float) -> float:
-    """The rate the demo writes ``path`` at: 30.0 for an MP4, as the JAX
-    package's writer; a ``.y4m`` (the port's own format) keeps the input's."""
-    return MP4_FPS if _suffix(path) in MP4_SUFFIXES else input_fps
+    """The rate the demo writes ``path`` at: 30.0 for an MP4 or an AVI, as
+    the JAX package's writer; a ``.y4m`` (the port's own format) keeps the
+    input's."""
+    return MP4_FPS if _suffix(path) in MP4_SUFFIXES + AVI_SUFFIXES else input_fps
 
 
 def open_reader(path: str):
-    """An ``MP4Reader``, ``AnnexBReader`` or ``Y4MReader`` by the suffix;
-    any other raises."""
+    """An ``MP4Reader``, ``AVIReader``, ``AnnexBReader`` or ``Y4MReader``
+    by the suffix; any other raises."""
     if _suffix(path) in MP4_SUFFIXES:
         return MP4Reader(path)
+    if _suffix(path) in AVI_SUFFIXES:
+        return AVIReader(path)
     if _suffix(path) in H264_SUFFIXES:
         return AnnexBReader(path)
-    _check_path(path, Y4M_SUFFIXES + MP4_SUFFIXES)
+    _check_path(path, Y4M_SUFFIXES + MP4_SUFFIXES + AVI_SUFFIXES)
     return Y4MReader(path)
 
 
 def open_writer(path: str, width: int, height: int, fps: float = 30.0):
-    """An ``MP4Writer`` or ``Y4MWriter`` by the suffix; any other raises."""
+    """An ``MP4Writer``, ``AVIWriter`` or ``Y4MWriter`` by the suffix; any
+    other raises."""
     if _suffix(path) in MP4_SUFFIXES:
         return MP4Writer(path, width, height, fps)
-    _check_path(path, Y4M_SUFFIXES + MP4_SUFFIXES)
+    if _suffix(path) in AVI_SUFFIXES:
+        return AVIWriter(path, width, height, fps)
+    _check_path(path, Y4M_SUFFIXES + MP4_SUFFIXES + AVI_SUFFIXES)
     return Y4MWriter(path, width, height, fps)
 
 
@@ -155,7 +176,7 @@ class _Queued(_Frames):
             if f.shape != (self.height * 3 // 2, self.width):
                 raise ValueError(f"a frame of {f.shape[1]}x{f.shape[0] * 2 // 3} in a stream of "
                                  f"{self.width}x{self.height}: a change of size is not supported")
-            self._pending.append(f)
+        self._pending.extend(frames)
 
     def _h264_start(self, path: str) -> None:
         """The size of the first SPS: access units are decoded (their
@@ -169,8 +190,9 @@ class _Queued(_Frames):
         self.width, self.height = self._decoder.width, self._decoder.height
         self._queue(frames)
 
-    def read_i420(self) -> Optional[np.ndarray]:
-        """The next frame's (H*3/2, W) I420 planes, or None at the end."""
+    def read_planes(self):
+        """The next frame's planes as the decoder gives them, or None at the
+        end: (H*3/2, W) I420 planes (Motion JPEG: ``render/mjpeg``'s)."""
         while not self._pending and not self._flushed:
             au = self._next_access_unit()
             if au is None:
@@ -180,43 +202,53 @@ class _Queued(_Frames):
                 self._queue(self._decode(au))
         return self._pending.popleft() if self._pending else None
 
+    def read_i420(self) -> Optional[np.ndarray]:
+        """The next frame's (H*3/2, W) I420 planes, or None at the end."""
+        return self.read_planes()
+
     def stats(self) -> dict:
-        """The decoder's counts of the stream's tools (``render/mpeg4.STATS``
-        or ``render/h264.STATS``)."""
+        """The decoder's counts of the stream's tools (``render/mpeg4.STATS``,
+        ``render/h264.STATS`` or ``render/mjpeg.STATS``)."""
         return self._decoder.stats()
 
 
-class MP4Reader(_Queued):
-    """Frames of the first video track of an MP4 (``mp4v``, ``avc1`` or
-    ``avc3``) as BGR uint8 arrays, in display order; ``width``, ``height``
-    and ``fps`` from the track (an H.264 track's size from its SPS)."""
+class _SampleReader(_Queued):
+    """Frames of a container's video samples (``_demux``: ``len`` and
+    ``read(i)``) through the decoder of their codec: ``mp4v`` (MPEG-4 Part
+    2), ``mjpeg`` (Motion JPEG) or H.264 (``avc1``, ``avc3``, ``h264``)."""
 
-    def __init__(self, path: str):
-        _check_path(path, MP4_SUFFIXES)
-        self._demux = mp4.Demuxer(path)
-        self._decoder = None
+    _demux = None
+
+    def _start(self, path: str, codec: str, config: Optional[bytes], fps: float,
+               container_size: Tuple[int, int], delay: int = 0) -> None:
+        self.codec, self.fps = codec, fps
         self._next = 0
         self._pending, self._flushed = deque(), False
-        try:
-            track = self._demux.track
-            self.codec, self.fps = track.codec, track.fps
-            if track.codec == "mp4v":
-                self._decoder = mpeg4.Decoder(track.dsi)
-                self.width, self.height = self._decoder.width, self._decoder.height
+        if codec == "mp4v":
+            self._decoder = mpeg4.Decoder(config)
+            self.width, self.height = self._decoder.width, self._decoder.height
+        elif codec == "mjpeg":
+            # the size is the first frame's (FFmpeg's, from its SOF), the
+            # container's when there is none
+            self._decoder = mjpeg.Decoder(container_size[1])
+            self.width = self.height = 0
+            first = self._next_access_unit()
+            if first is None:
+                self.width, self.height = container_size
             else:
-                samples = (self._demux.read(i) for i in range(len(self._demux)))
-                delay = h264.probe_delay(samples, track.dsi, track.video_delay)
-                self._decoder = h264.Decoder(track.dsi, delay)
-                self._h264_start(path)
-            if self.width % 2 or self.height % 2:
-                raise ValueError(f"{path}: 4:2:0 frames need even sides, got "
-                                 f"{self.width}x{self.height}")
-        except Exception:
-            self.close()
-            raise
+                self._queue(self._decode(first))
+            return
+        else:
+            samples = (self._demux.read(i) for i in range(len(self._demux)))
+            delay = h264.probe_delay(samples, config, delay)
+            self._decoder = h264.Decoder(config, delay)
+            self._h264_start(path)
+        if self.width % 2 or self.height % 2:
+            raise ValueError(f"{path}: 4:2:0 frames need even sides, got "
+                             f"{self.width}x{self.height}")
 
     def __len__(self) -> int:
-        """The track's samples.  An H.264 stream gives as many frames
+        """The stream's samples.  An H.264 stream gives as many frames
         unless its reorder delay grows past the one the probe found; then
         FFmpeg, and the reader with it, drop the pictures that come too
         late (``stats()["dropped_pictures"]``)."""
@@ -228,7 +260,21 @@ class MP4Reader(_Queued):
         self._next += 1
         return self._demux.read(self._next - 1)
 
-    def _decode(self, sample: bytes) -> List[np.ndarray]:
+    def _queue(self, frames) -> None:
+        if self.codec != "mjpeg":
+            super()._queue(frames)
+            return
+        d = self._decoder
+        if not self.width:
+            self.width, self.height = d.width, d.height
+        if (d.width, d.height) != (self.width, self.height):
+            raise ValueError(f"a frame of {d.width}x{d.height} in a stream of "
+                             f"{self.width}x{self.height}: a change of size is not supported")
+        self._pending.extend(frames)
+
+    def _decode(self, sample: bytes) -> list:
+        if self.codec == "mjpeg":
+            return [self._decoder.decode(sample)]
         if self.codec != "mp4v":
             return self._decoder.decode(sample)
         planes = self._decoder.decode(sample)
@@ -236,12 +282,70 @@ class MP4Reader(_Queued):
         return [] if planes is None else [planes.reshape(self.height * 3 // 2, self.width)]
 
     def _flush(self) -> List[np.ndarray]:
-        return [] if self.codec == "mp4v" else self._decoder.flush()
+        return [] if self.codec in ("mp4v", "mjpeg") else self._decoder.flush()
+
+    def read(self) -> Optional[np.ndarray]:
+        if self.codec != "mjpeg":
+            return super().read()
+        # a Motion JPEG sample gives one frame as it is decoded, so the
+        # frame taken is the decoder's last
+        return None if self.read_planes() is None else self._decoder.bgr()
+
+    def read_i420(self) -> Optional[np.ndarray]:
+        if self.codec == "mjpeg":
+            raise ValueError(
+                "Motion JPEG frames are full-range yuvj planes (4:2:2 as often as 4:2:0), not "
+                "I420: read() gives them in BGR, read_planes() as decoded")
+        return super().read_i420()
 
     def close(self) -> None:
-        self._demux.close()
+        if self._demux is not None:
+            self._demux.close()
         if self._decoder is not None:
             self._decoder.close()
+
+
+class MP4Reader(_SampleReader):
+    """Frames of the first video track of an MP4 (``mp4v``, ``avc1``,
+    ``avc3``, or Motion JPEG: ``codec`` ``"mjpeg"``) as BGR uint8 arrays,
+    in display order; ``width``, ``height`` and ``fps`` from the track (an
+    H.264 track's size from its SPS, a Motion JPEG one's from its first
+    frame)."""
+
+    def __init__(self, path: str):
+        _check_path(path, MP4_SUFFIXES)
+        self._demux = mp4.Demuxer(path)
+        self._decoder = None
+        try:
+            track = self._demux.track
+            self._start(path, track.codec, track.dsi, track.fps, (track.width, track.height),
+                        track.video_delay)
+        except Exception:
+            self.close()
+            raise
+
+
+class AVIReader(_SampleReader):
+    """Frames of the first video stream of an AVI (``mp4v``/``XVID``/
+    ``DIVX``-family, H.264 or Motion JPEG; ``render/avi.CODECS``) as BGR
+    uint8 arrays, in display order, as cv2 reads them; ``width``,
+    ``height`` and ``fps`` (``dwRate / dwScale``) from the stream."""
+
+    def __init__(self, path: str):
+        _check_path(path, AVI_SUFFIXES)
+        self._demux = avi.Demuxer(path)
+        self._decoder = None
+        try:
+            stream = self._demux.stream
+            config = None
+            if stream.codec == "mp4v":
+                if not len(self._demux):
+                    raise ValueError(f"{path}: an MPEG-4 Part 2 stream without frames")
+                config = avi.mpeg4_config(stream.extradata, self._demux.read(0))
+            self._start(path, stream.codec, config, stream.fps, (stream.width, stream.height))
+        except Exception:
+            self.close()
+            raise
 
 
 def _file_nals(f) -> Iterator[bytes]:
@@ -312,20 +416,29 @@ class AnnexBReader(_Queued):
             self._decoder.close()
 
 
-class MP4Writer:
-    """Writes BGR uint8 frames of one size to an MP4 of MPEG-4 Part 2
-    video (``mp4v``, the fourcc of the JAX package's writer) at ``fps``.
-    ``write`` and ``write_i420`` return the frame's reconstructed I420
-    planes: what a reader of the file decodes, to the bit."""
+class _MPEG4Writer:
+    """Writes BGR uint8 frames of one size as MPEG-4 Part 2 video (``mp4v``,
+    the fourcc of the JAX package's writer) at ``fps`` into the container
+    of the subclass.  ``write`` and ``write_i420`` return the frame's
+    reconstructed I420 planes: what a reader of the file decodes, to the
+    bit."""
+
+    suffixes: tuple = ()
 
     def __init__(self, path: str, width: int, height: int, fps: float = 30.0):
-        _check_path(path, MP4_SUFFIXES)
+        _check_path(path, self.suffixes)
         if width % 2 or height % 2:
             raise ValueError(f"4:2:0 needs even sides, got {width}x{height}")
         self.width, self.height = width, height
         timescale, delta = mp4.rate(fps)
         self._encoder = mpeg4.Encoder(width, height, timescale, delta)
-        self._mux = mp4.Muxer(path, width, height, self._encoder.header(), timescale, delta)
+        self._mux = self._muxer(path, fps, timescale, delta)
+
+    def _muxer(self, path: str, fps: float, timescale: int, delta: int):
+        raise NotImplementedError
+
+    def _add(self, vop: bytes, key: bool) -> None:
+        self._mux.add(vop, key)
 
     def write(self, frame: np.ndarray) -> np.ndarray:
         if frame.shape != (self.height, self.width, 3):
@@ -338,7 +451,7 @@ class MP4Writer:
             raise ValueError(f"expected ({self.height * 3 // 2}, {self.width}) I420 planes, got "
                              f"{yuv.shape}")
         vop, key, recon = self._encoder.encode(yuv)
-        self._mux.add(vop, key)
+        self._add(vop, key)
         return recon.reshape(yuv.shape)
 
     def close(self) -> None:
@@ -350,6 +463,30 @@ class MP4Writer:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class MP4Writer(_MPEG4Writer):
+    """An MP4 of ``mp4v`` video, the VOS/VOL headers in the ``esds``."""
+
+    suffixes = MP4_SUFFIXES
+
+    def _muxer(self, path, fps, timescale, delta):
+        return mp4.Muxer(path, self.width, self.height, self._encoder.header(), timescale,
+                         delta)
+
+
+class AVIWriter(_MPEG4Writer):
+    """An AVI of ``mp4v`` video in FFmpeg's layout (``render/avi.Muxer``);
+    AVI has no ``esds``, so the VOS/VOL headers go in band before each
+    I-VOP, as FFmpeg's encoder writes them for an AVI."""
+
+    suffixes = AVI_SUFFIXES
+
+    def _muxer(self, path, fps, timescale, delta):
+        return avi.Muxer(path, self.width, self.height, b"mp4v", fps)
+
+    def _add(self, vop: bytes, key: bool) -> None:
+        self._mux.add(self._encoder.header() + vop if key else vop, key)
 
 
 class Y4MReader(_Frames):

@@ -273,7 +273,14 @@ Phases, each of which raises (exit code 1) on failure:
     decoded to cv2's Y digests, the 720p content clip (24 frames, CABAC)
     rebuilt by the stream writer and decoded to its digests with the ms per
     IDR and P picture, and ``run_video`` over it as an ``avc1`` ``.mp4``
-    with the defaults (stem 2, IoU 1, walk 1 per frame, 24 frames);
+    with the defaults (stem 2, IoU 1, walk 1 per frame, 24 frames); then
+    AVI and Motion JPEG (``video_avi``): the committed AVI/MOV/MP4 fixtures
+    (``tests/data/video/avi``) to cv2's digests, the 720p Motion JPEG clip
+    of the committed 4:2:0 and 4:2:2 JPEGs whole and damaged to cv2's
+    digests and counts, the decode ms per frame of each sampling, the
+    demux ms, the ``mp4v`` encode ms into ``.avi`` and ``.mp4``, and
+    ``run_video`` over the clip to an ``.avi`` (stem 2, IoU 1, walk 1 per
+    frame, 24 frames);
     ``[train-ufldv2]``, UFLDv2-CULane res18 with the aux head at
     320x1600, batch 8, 20 SGD steps in f32 (no kernel launches; the loss
     falls; the first step's loss, outputs and gradient within rel 1e-6,
@@ -3942,7 +3949,9 @@ def video_phase(mods, smi, torch, np):
           f"run_lane_video: {VIDEO_LANE_FRAMES} frames in {lanes_s:.2f} s, launches "
           f"{lanes_run} ({smi})", flush=True)
     h264_run = video_h264(mods, smi, torch, np)
-    return {k: synthetic_run[k] + video_run[k] + lanes_run[k] + h264_run[k] for k in KERNELS}
+    avi_run = video_avi(mods, smi, torch, np)
+    return {k: synthetic_run[k] + video_run[k] + lanes_run[k] + h264_run[k] + avi_run[k]
+            for k in KERNELS}
 
 
 def video_h264(mods, smi, torch, np):
@@ -4125,6 +4134,135 @@ def video_h264_b(mods, smi, torch, np, want):
           f"B {summary['B']}; non-zero counts { {k: v for k, v in stats.items() if v} }; "
           f"run_video over it as avc1 .mp4 with ctts (ADASPipeline defaults) to .mp4: {n} "
           f"frames in {run_s:.2f} s, launches {run} (per frame {per_frame}) ({smi})", flush=True)
+    return run
+
+
+def video_avi(mods, smi, torch, np):
+    """``[video]``, AVI and Motion JPEG (``render/{avi,mjpeg}.py``,
+    ``native/mjpeg.cpp`` built by g++): the committed fixtures
+    (``tests/data/video/avi``: cv2's ``mp4v``, ``XVID`` and ``MJPG`` AVIs,
+    ``MJPG`` in a ``.mov`` and an ``.mp4``) held to their sha256 and to
+    cv2's Y digests, count and rate; the 720p Motion JPEG clip
+    (``tests/data/video/avi_clips.py``: the committed 4:2:0 and 4:2:2 720p
+    JPEGs alternating, 24 frames) written by the port's muxer whole and as
+    a power cut leaves it (no ``idx1``, the last chunk cut, the sizes never
+    written), both held to cv2's digests and counts; the decode ms per 720p
+    frame of each sampling (p50, max), the demux ms of the clip, and the
+    ``mp4v`` encode ms per 720p frame into an ``.avi`` beside the MP4
+    writer's on the same frames; then ``run_video`` over the clip with
+    ``ADASPipeline``'s defaults to an ``.avi``, read back whole at 30 fps:
+    stem 2, IoU 1 and walk 1 per frame.  Returns the launches."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from adas_tpu_torch.pipeline import app
+    from adas_tpu_torch.render import avi, mjpeg, video
+
+    tag = "video"
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "video")
+    sys.path.insert(0, data)
+    import avi_clips
+
+    with open(os.path.join(data, "avi", "sha256.json")) as f:
+        digests = json.load(f)
+    t = time.perf_counter()
+    mjpeg._native()  # builds _build/libmjpeg.so
+    build_s = time.perf_counter() - t
+
+    def y_digests(path):
+        ys = []
+        with video.open_reader(path) as r:
+            while (planes := r.read_planes()) is not None:
+                ys.append(planes[0] if isinstance(planes, tuple) else planes[:r.height])
+            fps, codec = r.fps, r.codec
+        return [hashlib.sha256(y.tobytes()).hexdigest() for y in ys], fps, codec
+
+    n_frames, codecs = 0, []
+    for name, want in digests.items():
+        if name.startswith("clip_"):  # the clips the muxer rebuilds
+            continue
+        path = os.path.join(data, "avi", name)
+        with open(path, "rb") as f:
+            check(hashlib.sha256(f.read()).hexdigest() == want["sha256"],
+                  f"{tag}: {name} differs from the committed fixture")
+        got, fps, codec = y_digests(path)
+        check(got == want["y_sha256"] and fps == want["fps"],
+              f"{tag}: {name}'s Y planes, count or rate differ from cv2's decode")
+        n_frames += len(got)
+        codecs.append(f"{name}: {codec}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_avi_")
+    try:
+        clip, damaged = os.path.join(tmp, "clip.avi"), os.path.join(tmp, "damaged.avi")
+        avi_clips.mjpeg_720p(clip)
+        avi_clips.mjpeg_720p(damaged, damaged=True)
+        for path, name in ((clip, "clip_720p_mjpg.avi"), (damaged, "clip_720p_mjpg_damaged.avi")):
+            got, fps, codec = y_digests(path)
+            check(got == digests[name]["y_sha256"] and fps == 30.0 and codec == "mjpeg",
+                  f"{tag}: {name} gave {len(got)} frames, Y or rate other than cv2's "
+                  f"({digests[name]['frames']} frames)")
+        t = time.perf_counter()
+        demux = avi.Demuxer(clip)
+        demux_ms = (time.perf_counter() - t) * 1e3
+        samples = [demux.read(i) for i in range(len(demux))]
+        demux.close()
+        t = time.perf_counter()
+        bare = avi.Demuxer(damaged)
+        bare_ms = (time.perf_counter() - t) * 1e3
+        check(len(bare) == avi_clips.FRAMES - 1 and not bare.indexed and bare.truncated > 0,
+              f"{tag}: the damaged clip demuxed to {len(bare)} frames")
+        bare.close()
+        decoder = mjpeg.Decoder(720)
+        ms, frames = {}, []
+        for sample in samples:
+            t0 = time.perf_counter()
+            decoder.decode(sample)
+            bgr = decoder.bgr()
+            ms.setdefault(decoder.format, []).append((time.perf_counter() - t0) * 1e3)
+            frames.append(bgr)
+        decoder.close()
+        check(sorted(ms) == ["yuvj420p", "yuvj422p"], f"{tag}: the clip's samplings {sorted(ms)}")
+        enc_ms = {}
+        for suffix, writer in ((".avi", video.AVIWriter), (".mp4", video.MP4Writer)):
+            with writer(os.path.join(tmp, "enc" + suffix), 1280, 720) as w:
+                for f in frames:
+                    t0 = time.perf_counter()
+                    w.write(f)
+                    enc_ms.setdefault(suffix, []).append((time.perf_counter() - t0) * 1e3)
+        out = os.path.join(tmp, "clip_out.avi")
+        reset(mods)
+        t = time.perf_counter()
+        n = app.run_video(clip, out, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        run = counts(mods)
+        per_frame = {"stem": 2, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1}
+        for k, per in per_frame.items():
+            check(run[k] == per * avi_clips.FRAMES,
+                  f"{tag}: run_video over the Motion JPEG AVI {k} launches {run[k]}, expected "
+                  f"{per} per frame")
+        with video.AVIReader(out) as r:
+            drawn = list(r)
+            check(r.fps == 30.0 and r.codec == "mp4v", f"{tag}: {out} at {r.fps} ({r.codec})")
+        check(n == len(drawn) == avi_clips.FRAMES and
+              all(f.shape == (720, 1280, 3) for f in drawn),
+              f"{tag}: run_video over the Motion JPEG AVI wrote {len(drawn)} of {n} frames")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def p50_max(v):
+        return f"p50 {np.median(v):.2f} (max {max(v):.2f}, {len(v)} frames)"
+
+    print(f"[{tag}] AVI and Motion JPEG: native/mjpeg.cpp built in {build_s:.2f} s; "
+          f"{len(codecs)} fixtures ({'; '.join(codecs)}), {n_frames} frames, Y equal to cv2's "
+          f"digests; the 720p Motion JPEG clip ({avi_clips.FRAMES} frames) whole and damaged "
+          f"(no idx1, the last chunk cut) decoded to cv2's digests and counts; demux ms "
+          f"{demux_ms:.2f} indexed, {bare_ms:.2f} scanned; decode ms per 720p frame (host, "
+          f"planes + BGR) 4:2:0 {p50_max(ms['yuvj420p'])}, 4:2:2 {p50_max(ms['yuvj422p'])}; "
+          f"mp4v encode ms per 720p frame (host) into .avi {p50_max(enc_ms['.avi'])}, into .mp4 "
+          f"{p50_max(enc_ms['.mp4'])}; run_video over the clip (ADASPipeline defaults) to "
+          f".avi: {n} frames in {run_s:.2f} s, launches {run} (per frame {per_frame}) ({smi})",
+          flush=True)
     return run
 
 

@@ -9,7 +9,9 @@ PNGs of every colour type and bit depth, each row filter, Adam7 (written
 by ``png_bytes`` below, since cv2 cannot write them); 24- and 32-bit
 BMPs, bottom-up and top-down; JPEGs by cv2: gray, 4:4:4, 4:2:2, 4:4:0 and
 4:2:0, with and without restart intervals, at odd sizes; a progressive
-JPEG (which the port refuses); a 720p PNG and a 720p 4:2:0 JPEG.
+JPEG (which the port refuses); a 720p PNG and 720p 4:2:0 and 4:2:2 JPEGs
+(the latter two also the frames of the Motion JPEG clip of
+``tests/data/video/avi_clips.py``).
 """
 import hashlib
 import json
@@ -167,8 +169,11 @@ def main():
     cv2.imwrite(os.path.join(HERE, "frame_720p_420.jpg"), frame,
                 [cv2.IMWRITE_JPEG_QUALITY, 85, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, 0x221111,
                  cv2.IMWRITE_JPEG_RST_INTERVAL, 40])
+    cv2.imwrite(os.path.join(HERE, "frame_720p_422.jpg"), frame,
+                [cv2.IMWRITE_JPEG_QUALITY, 85, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, 0x211111,
+                 cv2.IMWRITE_JPEG_RST_INTERVAL, 40])
     digests = {}
-    for name in ("frame_720p.png", "frame_720p_420.jpg"):
+    for name in ("frame_720p.png", "frame_720p_420.jpg", "frame_720p_422.jpg"):
         decoded = cv2.imread(os.path.join(HERE, name), cv2.IMREAD_COLOR)
         digests[name] = {"shape": list(decoded.shape),
                          "sha256": hashlib.sha256(decoded.tobytes()).hexdigest()}

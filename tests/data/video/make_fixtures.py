@@ -31,6 +31,16 @@ pan) and ``content_720p_b()`` (the pan coded IBBBP with a B pyramid),
 which are not committed: the writer is deterministic, so a host without
 cv2 rebuilds them and checks their decode against the digests.
 
+In ``avi/`` (``python tests/data/video/make_fixtures.py avi`` writes only
+these), the AVI and Motion JPEG fixtures: by ``cv2.VideoWriter`` from
+seeded smooth frames, ``mp4v``, ``XVID`` and ``MJPG`` AVIs and ``MJPG`` in
+a ``.mov`` (a ``jpeg`` entry) and an ``.mp4`` (an ``mp4v`` entry of object
+type 0x6C), with each file's sha256, cv2's frame count, rate and Y sha256
+per frame in ``avi/sha256.json``; and there too the digests of cv2's
+decode of the 720p Motion JPEG clip ``avi_clips.mjpeg_720p`` whole and
+damaged, which is not committed: the port's muxer rebuilds it from the
+committed JPEGs.
+
 Beside them, for every file, cv2's decode: the Y planes
 (``cv2.VideoCapture`` with ``CAP_PROP_CONVERT_RGB`` 0 returns the decoded
 luma plane) as ``<name>_y.npy`` for the two small files and as a sha256
@@ -162,9 +172,56 @@ def h264_main():
         f.write("\n")
 
 
+AVI_DIR = os.path.join(HERE, "avi")
+#: the cv2-written AVI fixtures: file name -> the writer's fourcc
+AVI_FIXTURES = {"cv2_mp4v_96x64.avi": "mp4v", "cv2_xvid_96x64.avi": "XVID",
+                "cv2_mjpg_96x64.avi": "MJPG", "cv2_mjpg_96x64.mov": "MJPG",
+                "cv2_mjpg_96x64.mp4": "MJPG"}
+
+
+def _digests(path):
+    ys = cv2_decode(path, False)
+    cap = cv2.VideoCapture(path)
+    fps = cap.get(cv2.CAP_PROP_FPS)
+    cap.release()
+    return {"frames": len(ys), "height": int(ys.shape[1]), "width": int(ys.shape[2]),
+            "fps": fps, "y_sha256": [hashlib.sha256(y.tobytes()).hexdigest() for y in ys]}
+
+
+def avi_main():
+    sys.path.insert(0, HERE)
+    import avi_clips
+
+    os.makedirs(AVI_DIR, exist_ok=True)
+    frames = smooth(16, 64, 96, 4, 7, static_rows=16, patch=(9,))
+    digests = {}
+    for name, fourcc in AVI_FIXTURES.items():
+        path = os.path.join(AVI_DIR, name)
+        vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), 30.0, (96, 64))
+        assert vw.isOpened()
+        for f in frames:
+            vw.write(f)
+        vw.release()
+        with open(path, "rb") as f:
+            digests[name] = {"sha256": hashlib.sha256(f.read()).hexdigest(), **_digests(path)}
+        assert digests[name]["frames"] == len(frames)
+    for name, damaged in (("clip_720p_mjpg.avi", False), ("clip_720p_mjpg_damaged.avi", True)):
+        tmp = os.path.join(AVI_DIR, name)
+        avi_clips.mjpeg_720p(tmp, damaged)
+        digests[name] = _digests(tmp)
+        os.remove(tmp)
+        assert digests[name]["frames"] == avi_clips.FRAMES - damaged
+    with open(os.path.join(AVI_DIR, "sha256.json"), "w") as f:
+        json.dump(digests, f, indent=1)
+        f.write("\n")
+
+
 def main():
     if sys.argv[1:] == ["h264"]:
         h264_main()
+        return
+    if sys.argv[1:] == ["avi"]:
+        avi_main()
         return
     digests = {}
     for name, make in FIXTURES.items():

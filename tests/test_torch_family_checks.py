@@ -42,7 +42,7 @@ from adas_tpu.tools.params_io import flatten_variables, unflatten_variables
 from adas_tpu.utils.types import ObjectModelType as JaxObjectModelType
 from adas_tpu_torch.models import yolo
 from adas_tpu_torch.models.yolov6 import fuse_repvgg
-from adas_tpu_torch.perception.object_detector import YoloDetector
+from adas_tpu_torch.perception.object_detector import YOLO_OPTIONS, YoloDetector
 from adas_tpu_torch.utils.types import ObjectModelType
 from adas_tpu_torch.weights import load_flax_variables
 from test_torch_frame import rows
@@ -119,9 +119,13 @@ def check_bf16(family, scale, hw):
 
 def facade_pair(family, scale, path, hw, **kw):
     """(JAX facade, port facade) on one ``.npz``; the JAX one only when
-    asked for (``jax_side=False`` gives None)."""
+    asked for (``jax_side=False`` gives None).  Every option a test may
+    have set as a class default on its xdist worker is named on both sides
+    (``tests/test_yolo.py`` sets the JAX facade's ``max_det`` to 20 and its
+    ``box_score`` to 0.25 for the rest of its worker)."""
     jax_side = kw.pop("jax_side", True)
-    args = dict(model_path=path, scale=scale, input_size=hw, **kw)
+    named = {k: YOLO_OPTIONS[k] for k in ("classes_path", "box_score", "box_nms_iou", "max_det")}
+    args = {**named, "model_path": path, "scale": scale, "input_size": hw, **kw}
     return (JaxYolo(model_type=getattr(JaxObjectModelType, TYPES[family]), **args)
             if jax_side else None,
             YoloDetector(model_type=getattr(ObjectModelType, TYPES[family]), device="cpu", **args))

@@ -529,6 +529,74 @@ def test_video_io_runs_with_jax_package_and_cv2_blocked(tmp_path):
     assert int(proc.stdout.split()[-1]) >= 80
 
 
+AVI_SCRIPT = textwrap.dedent(
+    """
+    import hashlib, json, os, sys
+
+    class _Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in %r:
+                raise ImportError(f"{name} is blocked in this process")
+            return None
+
+    sys.meta_path.insert(0, _Block())
+    from adas_tpu_torch.models import ufld
+    from adas_tpu_torch.pipeline import app, lane_demo
+    from adas_tpu_torch.render import avi, mjpeg
+    from adas_tpu_torch.render.video import open_reader
+    from adas_tpu_torch.utils.types import LaneModelType
+
+    tmp = sys.argv[1]
+    data = os.path.join("tests", "data", "video")
+    sys.path.insert(0, data)
+    import avi_clips
+    with open(os.path.join(data, "avi", "sha256.json")) as f:
+        digests = json.load(f)
+    n = 0
+    for name, want in digests.items():
+        path = os.path.join(data, "avi", name)
+        if name.startswith("clip_"):
+            path = os.path.join(tmp, name)
+            avi_clips.mjpeg_720p(path, damaged="damaged" in name)
+        ys = []
+        with open_reader(path) as r:
+            while (p := r.read_planes()) is not None:
+                ys.append(p[0] if isinstance(p, tuple) else p[:r.height])
+        assert [hashlib.sha256(y.tobytes()).hexdigest() for y in ys] == want["y_sha256"], name
+        n += len(ys)
+    ufld.UFLDV2_SPECS[LaneModelType.UFLDV2_CULANE] = ufld.UFLDv2Spec(
+        64, 160, 0.6, 20, 72, 10, 16, mlp_mid=64)
+    src = os.path.join(data, "avi", "cv2_mjpg_96x64.avi")
+    out = os.path.join(tmp, "lanes.avi")
+    assert lane_demo.run_lane_video(src, out, device="cpu", max_frames=2) == 2
+    lane_demo.main(["-i", src, "-o", os.path.join(tmp, "cli_lanes.avi"), "--device", "cpu",
+                    "--max-frames", "1"])
+    for name, frames in (("lanes.avi", 2), ("cli_lanes.avi", 1)):
+        with open_reader(os.path.join(tmp, name)) as r:
+            assert r.fps == 30.0 and len(list(r)) == frames
+    assert not [m for m in sys.modules if m.split(".")[0] in %r]
+    print("frames", n)
+    """
+    % (BLOCKED, NOT_IMPORTED)
+)
+
+
+def test_avi_and_mjpeg_run_with_jax_package_and_cv2_blocked(tmp_path):
+    """The AVI reader and writer and the Motion JPEG decoder
+    (``render/{avi,mjpeg}.py``, ``native/mjpeg.cpp``): every AVI/MOV/MP4
+    fixture of ``tests/data/video/avi`` and the 720p Motion JPEG clip, whole
+    and damaged, decode to cv2's Y digests, and ``run_lane_video`` and the
+    lane CLI read a Motion JPEG ``.avi`` and write an ``.avi``, in a process
+    that cannot import ``jax``, ``adas_tpu``, ``cv2``, ``PIL``, ``optax``,
+    ``orbax`` or ``onnx``."""
+    proc = subprocess.run(
+        [sys.executable, "-c", AVI_SCRIPT, str(tmp_path)], cwd=REPO, env=ONE_THREAD,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) == 16 * 5 + 24 + 23
+
+
 @pytest.mark.parametrize("name", [
     "parallel.train:make_ufld_train_state", "pipeline.lane_demo:run_lane_image",
     "pipeline.lane_demo:run_lane_video", "tools.onnx_export:_build_export",

@@ -1,5 +1,5 @@
-"""The port's video I/O (``render/video.py``: YUV4MPEG2, MP4 with MPEG-4
-Part 2 or H.264 video, raw H.264) and its demo entry points
+"""The port's video I/O (``render/video.py``: YUV4MPEG2, MP4 and AVI with
+MPEG-4 Part 2, H.264 or Motion JPEG video, raw H.264) and its demo entry points
 (``pipeline/app.run_video``, ``run_synthetic``, ``main``) on the CPU.
 
 The Y4M writer's planes equal ``cv2.cvtColor(COLOR_BGR2YUV_I420)`` and
@@ -12,8 +12,10 @@ an ``.mp4``, every frame read back equals the writer's reconstruction of
 the drawn frame (an encoder is deterministic, so a second writer given
 the drawn frames reconstructs the same), within a Y PSNR bound of the
 drawn frame, at 30 fps whatever the input's rate (the JAX package's
-``cv2.VideoWriter(..., 30.0, ...)``); the CLI's default output names are
-the JAX package's.
+``cv2.VideoWriter(..., 30.0, ...)``), and the same in an ``.avi``, which
+cv2 reads at 30 fps with every frame, from ``.avi`` input of ``mp4v`` or
+Motion JPEG and from Motion JPEG in a ``.mov``; the CLI's default output
+names are the JAX package's (``-i x.avi`` writes ``x_out.mp4``).
 """
 from __future__ import annotations
 
@@ -356,3 +358,49 @@ def _cv2_frames_y(path):
         out.append(f.copy())
     cap.release()
     return out
+
+
+def _cv2_write(path, frames, fourcc, fps=12.0):
+    h, w = frames[0].shape[:2]
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), fps, (w, h))
+    assert vw.isOpened()
+    for f in frames:
+        vw.write(f)
+    vw.release()
+
+
+def test_run_video_reads_and_writes_avi(tmp_path, small_nets):
+    """``run_video`` over cv2's Motion JPEG AVI at 12 fps writes an ``.avi``
+    at 30 fps that cv2 reads whole: each frame the writer's reconstruction
+    of the frame drawn over the port's decode, within the MP4 writer's PSNR
+    bound.  (Every AVI and Motion JPEG input decodes to cv2's Y in
+    ``test_torch_avi.py`` and ``test_torch_mjpeg.py``.)"""
+    from adas_tpu_torch.render.video import open_reader
+
+    hw = (96, 160)
+    src, out = str(tmp_path / "in.avi"), str(tmp_path / "in_out.avi")
+    _cv2_write(src, _smooth(3, hw, seed=9), "MJPG")
+    assert app.run_video(src, out, device="cpu", max_frames=2) == 2
+    with open_reader(src) as r:
+        assert r.fps == 12.0 and r.codec == "mjpeg"
+        decoded = [r.read() for _ in range(2)]
+    drawn = _loop(small_nets, hw, decoded)
+    want = _reconstructed(drawn, hw, str(tmp_path / "again.mp4"))
+    got = _cv2_frames_y(out)
+    cap = cv2.VideoCapture(out)
+    assert cap.get(cv2.CAP_PROP_FPS) == 30.0 and len(got) == 2
+    for g, w, d in zip(got, want, drawn):
+        np.testing.assert_array_equal(g, w[:hw[0]])
+        assert _psnr(g, d[:hw[0]]) >= SMOOTH_PSNR_DB
+
+
+def test_main_reads_avi_and_writes_the_jax_default_name(tmp_path, monkeypatch):
+    """``-i drive.avi`` writes ``drive_out.mp4`` (the JAX CLI's name) and
+    ``-o`` may name an ``.avi``."""
+    calls = []
+    monkeypatch.setattr(app, "run_video",
+                        lambda src, out, max_frames, device: (calls.append((src, out)), 0)[1])
+    src = str(tmp_path / "drive.avi")
+    app.main(["-i", src, "--device", "cpu"])
+    app.main(["-i", src, "-o", str(tmp_path / "x.avi"), "--device", "cpu"])
+    assert calls == [(src, str(tmp_path / "drive_out.mp4")), (src, str(tmp_path / "x.avi"))]
