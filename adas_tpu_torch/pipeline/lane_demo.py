@@ -3,8 +3,9 @@
 image or a video and draw the points and the ego-lane area through the
 facade's ``AutoDrawLanes``.
 
-Images are read and written by ``render/image.py`` (PNG, BMP, JPEG in;
-PNG, BMP out) and video by ``render/video.py`` (MP4 or AVI with MPEG-4
+Images are read and written by ``render/image.py`` (PNG, BMP, JPEG in,
+turned by their EXIF Orientation as cv2 turns them; JPEG, PNG, BMP out)
+and video by ``render/video.py`` (MP4 or AVI with MPEG-4
 Part 2, ``mp4v``, as the JAX package's cv2 writes them, or YUV4MPEG2;
 H.264 and Motion JPEG in MP4 or AVI, and raw H.264, read too), as the
 port's ``pipeline/app.py`` serves it.  ``display=True`` is not planned:
@@ -50,8 +51,8 @@ def run_lane_image(
     device="cuda",
 ) -> np.ndarray:
     """Detect and draw lanes on one image; returns the annotated array
-    (``lane_demo.py:24``), written to ``output_path`` (``.png``/``.bmp``)
-    when given."""
+    (``lane_demo.py:24``), written to ``output_path`` (``.jpg``, ``.png`` or
+    ``.bmp``, as ``cv2.imwrite`` writes them) when given."""
     img = imread(image_path)
     if img is None:
         raise FileNotFoundError(image_path)

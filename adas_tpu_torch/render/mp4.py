@@ -15,7 +15,10 @@ the rate from ``mdhd``'s timescale over ``stts``, and for streams that
 reorder (H.264 B pictures) the composition offsets of ``ctts`` (versions
 0 and 1) and the edit list of ``edts``/``elst``.  ``Track.codec`` says
 which (``"mjpeg"`` for Motion JPEG); ``Track.video_delay`` is the reorder depth FFmpeg's mov demuxer
-reads from ``ctts`` (``mov_guess_video_delay``).  An edit list that cuts
+reads from ``ctts`` (``mov_guess_video_delay``).  ``Track.rotation`` is the
+clockwise turn, 0, 90, 180 or 270 degrees, that cv2's FFmpeg backend gives
+the frames for the track's display matrix (``tkhd``'s after ``mvhd``'s,
+``display_rotation``).  An edit list that cuts
 frames raises, as does one that is not a single edit (after an empty
 one).  Another sample entry (``hvc1``, ``av01``, ``mjpb``, ...) or object
 type, and fragmented MP4 (``moof``), raise a ``ValueError`` that names the
@@ -34,6 +37,7 @@ for B pictures.
 """
 from __future__ import annotations
 
+import math
 import struct
 from fractions import Fraction
 from typing import BinaryIO, List, Optional, Sequence, Tuple
@@ -156,7 +160,7 @@ class Track:
     (Motion JPEG, ``dsi`` empty)."""
 
     def __init__(self, width, height, fps, dsi, offsets, sizes, timescale, duration,
-                 codec="mp4v", cts=None, video_delay=0):
+                 codec="mp4v", cts=None, video_delay=0, rotation=0):
         self.width, self.height, self.fps, self.dsi = width, height, fps, dsi
         self.offsets, self.sizes = offsets, sizes
         self.timescale, self.duration = timescale, duration
@@ -164,6 +168,58 @@ class Track:
         #: each sample's composition offset (``ctts``), None without one
         self.cts = cts
         self.video_delay = video_delay
+        #: the clockwise turn of the frames, in degrees (``display_rotation``)
+        self.rotation = rotation
+
+
+#: the identity display matrix (``tkhd``, ``mvhd``): 16.16, 16.16, 2.30
+IDENTITY = (1 << 16, 0, 0, 0, 1 << 16, 0, 0, 0, 1 << 30)
+
+
+def _int32(v: int) -> int:
+    return (v + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def display_matrix(track: Sequence[int], movie: Sequence[int]) -> Tuple[int, ...]:
+    """``tkhd``'s matrix after ``mvhd``'s, in FFmpeg's fixed point
+    (``mov_read_tkhd``: each product shifted by its row's 16, 16 or 30
+    bits, the sums in 32 bits)."""
+    out = []
+    for i in range(3):
+        for j in range(3):
+            acc = 0
+            for e, shift in enumerate((16, 16, 30)):
+                acc = _int32(acc + ((track[3 * i + e] * movie[3 * e + j]) >> shift))
+            out.append(acc)
+    return tuple(out)
+
+
+def display_rotation(matrix: Sequence[int]) -> int:
+    """The clockwise turn cv2's FFmpeg backend gives frames of a display
+    matrix: ``-cvRound(av_display_rotation_get(matrix))`` in [0, 360), and
+    only 90, 180 and 270 turn (``cv::rotate``); another angle, a matrix
+    without scale, and the identity leave the frames as decoded."""
+    if tuple(matrix) == IDENTITY:
+        return 0
+    a, b, c, d = (v / 65536.0 for v in (matrix[0], matrix[1], matrix[3], matrix[4]))
+    scale0, scale1 = math.hypot(a, c), math.hypot(b, d)
+    if scale0 == 0.0 or scale1 == 0.0:
+        return 0
+    angle = -round(-(math.atan2(b / scale1, a / scale0) * 180 / math.pi))
+    angle += 360 if angle < 0 else 0
+    return angle if angle in (90, 180, 270) else 0
+
+
+def _matrix(data: bytes, start: int, end: int, kind: bytes, v0: int, v1: int) -> Tuple[int, ...]:
+    """The 3x3 matrix of an ``mvhd`` or ``tkhd`` box (at payload offset
+    ``v0``, or ``v1`` in a version 1 box); FFmpeg's zeros without one."""
+    found = _find(data, start, end, kind)
+    if found is None:
+        return (0,) * 9
+    at = found[0] + (v1 if data[found[0]] == 1 else v0)
+    if at + 36 > found[1]:
+        raise ValueError(f"truncated {kind.decode()}")
+    return struct.unpack_from(">9i", data, at)
 
 
 #: the pts FFmpeg's mov demuxer keeps to guess the reorder delay
@@ -274,7 +330,8 @@ def _sample_table(data: bytes, s: int, e: int, file_size: int):
     return offsets, sizes, duration, deltas
 
 
-def _video_track(data: bytes, trak: Tuple[int, int], file_size: int) -> Optional[Track]:
+def _video_track(data: bytes, trak: Tuple[int, int], file_size: int,
+                 movie: Sequence[int] = IDENTITY) -> Optional[Track]:
     mdia = _need(data, *trak, b"mdia")
     hdlr = _need(data, *mdia, b"hdlr")
     if data[hdlr[0] + 8:hdlr[0] + 12] != b"vide":
@@ -319,7 +376,9 @@ def _video_track(data: bytes, trak: Tuple[int, int], file_size: int) -> Optional
     pts = dts if cts is None else [t + c for t, c in zip(dts, cts)]
     _check_edits(data, trak, pts, timescale)
     delay = guess_video_delay(pts) if cts is not None and fourcc in AVC_ENTRIES else 0
-    return Track(width, height, fps, dsi, offsets, sizes, timescale, duration, codec, cts, delay)
+    rotation = display_rotation(display_matrix(_matrix(data, *trak, b"tkhd", 40, 52), movie))
+    return Track(width, height, fps, dsi, offsets, sizes, timescale, duration, codec, cts, delay,
+                 rotation)
 
 
 class Demuxer:
@@ -365,9 +424,10 @@ class Demuxer:
             raise ValueError("MP4 without a moov box (an unfinished recording?)")
         if _find(moov, 0, len(moov), b"mvex") is not None:
             raise ValueError("fragmented MP4 (mvex) is not supported")
+        movie = _matrix(moov, 0, len(moov), b"mvhd", 36, 48)
         for kind, s, e in iter_boxes(moov):
             if kind == b"trak":
-                track = _video_track(moov, (s, e), file_size)
+                track = _video_track(moov, (s, e), file_size, movie)
                 if track is not None:
                     return track
         raise ValueError("MP4 without a video track")

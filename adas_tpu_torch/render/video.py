@@ -161,6 +161,14 @@ class _Queued(_Frames):
 
     _pending: Deque[np.ndarray]
     _flushed: bool
+    #: the clockwise turn of the frames, in degrees (an MP4 track's
+    #: display matrix)
+    rotation = 0
+
+    def _coded(self) -> Tuple[int, int]:
+        """(width, height) of the frames as decoded, before the turn."""
+        return (self.height, self.width) if self.rotation in (90, 270) else \
+            (self.width, self.height)
 
     def _next_access_unit(self) -> Optional[bytes]:
         raise NotImplementedError
@@ -172,10 +180,11 @@ class _Queued(_Frames):
         raise NotImplementedError
 
     def _queue(self, frames: List[np.ndarray]) -> None:
+        w, h = self._coded()
         for f in frames:
-            if f.shape != (self.height * 3 // 2, self.width):
+            if f.shape != (h * 3 // 2, w):
                 raise ValueError(f"a frame of {f.shape[1]}x{f.shape[0] * 2 // 3} in a stream of "
-                                 f"{self.width}x{self.height}: a change of size is not supported")
+                                 f"{w}x{h}: a change of size is not supported")
         self._pending.extend(frames)
 
     def _h264_start(self, path: str) -> None:
@@ -267,9 +276,9 @@ class _SampleReader(_Queued):
         d = self._decoder
         if not self.width:
             self.width, self.height = d.width, d.height
-        if (d.width, d.height) != (self.width, self.height):
+        if (d.width, d.height) != self._coded():
             raise ValueError(f"a frame of {d.width}x{d.height} in a stream of "
-                             f"{self.width}x{self.height}: a change of size is not supported")
+                             "{}x{}: a change of size is not supported".format(*self._coded()))
         self._pending.extend(frames)
 
     def _decode(self, sample: bytes) -> list:
@@ -279,7 +288,8 @@ class _SampleReader(_Queued):
             return self._decoder.decode(sample)
         planes = self._decoder.decode(sample)
         # a VOP that is not coded gives no frame, as in FFmpeg
-        return [] if planes is None else [planes.reshape(self.height * 3 // 2, self.width)]
+        w, h = self._coded()
+        return [] if planes is None else [planes.reshape(h * 3 // 2, w)]
 
     def _flush(self) -> List[np.ndarray]:
         return [] if self.codec in ("mp4v", "mjpeg") else self._decoder.flush()
@@ -289,7 +299,9 @@ class _SampleReader(_Queued):
             return super().read()
         # a Motion JPEG sample gives one frame as it is decoded, so the
         # frame taken is the decoder's last
-        return None if self.read_planes() is None else self._decoder.bgr()
+        if _Queued.read_planes(self) is None:
+            return None
+        return turn(self._decoder.bgr(), self.rotation)
 
     def read_i420(self) -> Optional[np.ndarray]:
         if self.codec == "mjpeg":
@@ -305,12 +317,33 @@ class _SampleReader(_Queued):
             self._decoder.close()
 
 
+def turn(img: np.ndarray, rotation: int) -> np.ndarray:
+    """``img`` turned clockwise by 0, 90, 180 or 270 degrees (``cv::rotate``)."""
+    if not rotation:
+        return img
+    return np.ascontiguousarray(np.rot90(img, {90: -1, 180: 2, 270: 1}[rotation]))
+
+
+def turn_i420(yuv: np.ndarray, width: int, height: int, rotation: int) -> np.ndarray:
+    """The (H*3/2, W) I420 planes of a ``width`` x ``height`` frame, each
+    plane turned clockwise by ``rotation``: the I420 of the turned frame
+    (the chroma of a 2x2 block stays that block's)."""
+    if not rotation:
+        return yuv
+    y = turn(yuv[:height], rotation)
+    u, v = (turn(c, rotation) for c in yuv[height:].reshape(2, height // 2, width // 2))
+    return np.concatenate([y.ravel(), u.ravel(), v.ravel()]).reshape(-1, y.shape[1])
+
+
 class MP4Reader(_SampleReader):
     """Frames of the first video track of an MP4 (``mp4v``, ``avc1``,
     ``avc3``, or Motion JPEG: ``codec`` ``"mjpeg"``) as BGR uint8 arrays,
     in display order; ``width``, ``height`` and ``fps`` from the track (an
     H.264 track's size from its SPS, a Motion JPEG one's from its first
-    frame)."""
+    frame).  A display matrix that turns the picture by 90, 180 or 270
+    degrees turns the frames, and ``width`` and ``height`` are the turned
+    frame's, as cv2 reads the file (``CAP_PROP_ORIENTATION_AUTO``, on by
+    default): ``rotation``."""
 
     def __init__(self, path: str):
         _check_path(path, MP4_SUFFIXES)
@@ -320,9 +353,26 @@ class MP4Reader(_SampleReader):
             track = self._demux.track
             self._start(path, track.codec, track.dsi, track.fps, (track.width, track.height),
                         track.video_delay)
+            self.rotation = track.rotation
+            if self.rotation in (90, 270):
+                self.width, self.height = self.height, self.width
         except Exception:
             self.close()
             raise
+
+    def read_planes(self):
+        """The next frame's I420 planes, turned as the frames are; a Motion
+        JPEG stream's decoded planes when the track does not turn them."""
+        if self.rotation and self.codec == "mjpeg":
+            raise ValueError(
+                f"the track's display matrix turns its frames by {self.rotation} degrees: "
+                f"read() gives them turned in BGR; Motion JPEG planes (4:2:2 as often as "
+                f"4:2:0) are not turned")
+        planes = super().read_planes()
+        if planes is None or not self.rotation:
+            return planes
+        w, h = self._coded()
+        return turn_i420(planes, w, h, self.rotation)
 
 
 class AVIReader(_SampleReader):

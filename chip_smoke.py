@@ -3677,15 +3677,21 @@ def train_phase(mods, smi, torch, np):
 
 def codec_phase(mods, smi, torch, np):
     """``[codec]``: the committed fixtures (``tests/data/images``: PNGs of
-    every colour type and depth, plain and Adam7; 24/32-bit BMPs; JPEGs
-    gray, 4:4:4, 4:2:2, 4:4:0, 4:2:0, with restart intervals) decoded on
-    this host by ``render/image.py`` (``native/image.cpp``, g++) equal to
-    the cv2 decodes committed beside them (``.npy``; sha256 for the 720p
-    frames), the ms of a 720p decode; then ``run_lane_image`` on the 720p
-    PNG and ``run_lane_video`` over a 3-frame ``.y4m`` (seeded
-    UFLDv2-CULane f32 on the card, one stem launch per image), and
-    ``quantize --calibrate YOLOV8 --calib-dir`` on a directory of a PNG, a
-    BMP and a JPEG on the card (every int8 conv and dense layer gets its
+    every colour type and depth, plain and Adam7; every BMP kind cv2 reads;
+    JPEGs gray, 4:4:4, 4:2:2, 4:4:0, 4:2:0, with restart intervals,
+    baseline and progressive; EXIF-oriented JPEGs and PNGs) decoded on this
+    host by ``render/image.py`` (``native/image.cpp``, g++) equal to the cv2
+    decodes committed beside them (``.npy``; sha256 for the 720p frames,
+    one of them a progressive JPEG with Orientation 6), the ms of each 720p
+    decode; a progressive file without its last scan refused by name; the
+    720p frame's JPEG encode held to cv2's bytes (its sha256) and timed;
+    then ``run_lane_image`` on the 720p PNG and ``run_lane_video`` over a
+    3-frame ``.y4m`` (seeded UFLDv2-CULane f32 on the card, one stem launch
+    per image), ``run_lane_image`` from the progressive Orientation-6 JPEG
+    to a ``.jpg`` (one stem launch, 1280x720 upright, the file the port's
+    encode of the output), and ``quantize --calibrate YOLOV8 --calib-dir``
+    on a directory of a PNG, a BMP, a JPEG, a progressive JPEG and cv2's
+    paletted gray BMP on the card (every int8 conv and dense layer gets its
     scale).  Returns the launches."""
     import glob
     import hashlib
@@ -3712,14 +3718,15 @@ def codec_phase(mods, smi, torch, np):
         check(got is not None and np.array_equal(got, np.load(npy)),
               f"{tag}: {os.path.basename(src)} differs from cv2's decode")
         n += 1
-    check(n >= 60, f"{tag}: {n} fixtures")
+    check(n >= 110, f"{tag}: {n} fixtures")
     with open(os.path.join(data, "sha256.json")) as f:
         digests = json.load(f)
     decode_ms = {}
     for name, want in digests.items():
         path = os.path.join(data, name)
         got = image.imread(path)
-        check(hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"],
+        check(list(got.shape) == want["shape"] and
+              hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"],
               f"{tag}: {name} differs from cv2's decode")
         times = []
         for _ in range(7):
@@ -3727,16 +3734,33 @@ def codec_phase(mods, smi, torch, np):
             image.imread(path)
             times.append((time.perf_counter() - t) * 1e3)
         decode_ms[name] = float(np.median(times))
-    try:
-        image.imread(os.path.join(data, "progressive.jpg"))
+    with open(os.path.join(data, "progressive.jpg"), "rb") as f:
+        progressive = f.read()
+    try:  # without its last scan (a refinement): libjpeg-turbo would smooth
+        image.imdecode(progressive[:progressive.rfind(b"\xff\xda")] + b"\xff\xd9")
         refused = ""
     except ValueError as e:
         refused = str(e)
-    check("progressive" in refused, f"{tag}: a progressive JPEG was not refused by name")
-    print(f"[{tag}] native/image.cpp built in {build_s:.2f} s; {n} fixtures (PNG, BMP, JPEG) "
-          f"equal to cv2's decodes, the two 720p frames to their sha256; a progressive JPEG "
-          f"refused; ms per 720p decode (median of 7, host): "
-          f"{json.dumps({k: round(v, 2) for k, v in decode_ms.items()})} ({smi})", flush=True)
+    check("progressive JPEG whose scans leave" in refused,
+          f"{tag}: an incomplete progressive JPEG was not refused by name: {refused!r}")
+    with open(os.path.join(data, "encode_sha256.json")) as f:
+        want_jpg = json.load(f)["frame_720p.png"]["jpg"]
+    frame = image.imread(os.path.join(data, "frame_720p.png"))
+    encode_times = []
+    for _ in range(7):
+        t = time.perf_counter()
+        encoded = image.imencode(".jpg", frame)
+        encode_times.append((time.perf_counter() - t) * 1e3)
+    check(hashlib.sha256(encoded).hexdigest() == want_jpg,
+          f"{tag}: the 720p JPEG encode differs from cv2.imencode's bytes")
+    encode_ms = float(np.median(encode_times))
+    print(f"[{tag}] native/image.cpp built in {build_s:.2f} s; {n} fixtures (PNG, BMP of every "
+          f"kind, JPEG baseline and progressive, EXIF-oriented) equal to cv2's decodes, the "
+          f"720p frames to their sha256; a progressive JPEG without its last scan refused; "
+          f"ms per 720p decode (median of 7, host): "
+          f"{json.dumps({k: round(v, 3) for k, v in decode_ms.items()})}; 720p JPEG encode "
+          f"(quality 95, 4:2:0) equal to cv2's bytes, {len(encoded)} bytes in "
+          f"{encode_ms:.3f} ms (median of 7, host) ({smi})", flush=True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_codec_")
     try:
         frame = image.imread(os.path.join(data, "frame_720p.png"))
@@ -3762,9 +3786,27 @@ def codec_phase(mods, smi, torch, np):
         check(frames == written == 3 and lanes_run["stem"] == 4 and
               sum(lanes_run.values()) == 4, f"{tag}: lane demo launches {lanes_run}, {frames} "
                                             f"frames, {written} written")
+        # the progressive Orientation-6 JPEG (stored 720x1280) to a .jpg
+        reset(mods)
+        t = time.perf_counter()
+        turned = lane_demo.run_lane_image(os.path.join(data, "frame_720p_prog_exif6.jpg"),
+                                          os.path.join(tmp, "lanes.jpg"))
+        turned_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        turned_run = counts(mods)
+        with open(os.path.join(tmp, "lanes.jpg"), "rb") as f:
+            written = f.read()
+        back = image.imread(os.path.join(tmp, "lanes.jpg"))
+        check(turned.shape == (720, 1280, 3) and written == image.imencode(".jpg", turned) and
+              back is not None and back.shape == (720, 1280, 3),
+              f"{tag}: run_lane_image from the progressive Orientation-6 JPEG: "
+              f"{turned.shape}, {len(written)} bytes written")
+        check(turned_run["stem"] == 1 and sum(turned_run.values()) == 1,
+              f"{tag}: run_lane_image (progressive JPEG) launches {turned_run}")
         calib = os.path.join(tmp, "calib")
         os.makedirs(calib)
-        for name in ("frame_720p.png", "frame_720p_420.jpg", "bmp_24_bu.bmp"):
+        for name in ("frame_720p.png", "frame_720p_420.jpg", "bmp_24_bu.bmp",
+                     "frame_720p_prog_exif6.jpg", "bmp_8_gray.bmp"):
             shutil.copy(os.path.join(data, name), calib)
         seeded = YoloDetector(model_type=ObjectModelType.YOLOV8, scale="n", device="cuda", seed=0)
         npz = os.path.join(tmp, "yolov8n.npz")
@@ -3784,11 +3826,13 @@ def codec_phase(mods, smi, torch, np):
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[{tag}] run_lane_image on the 720p PNG (UFLDv2-CULane f32, seeded, on the card) in "
           f"{image_s:.2f} s, the annotated PNG read back equal; run_lane_video: {frames} of 3 "
-          f"frames of a 720p .y4m in {video_s:.2f} s; launches {lanes_run}; quantize "
-          f"--calibrate YOLOV8 --calib-dir (a PNG, a JPEG, a BMP) on the card in "
-          f"{calib_s:.2f} s: {len(scales)} activation scales, launches {calib_run} ({smi})",
-          flush=True)
-    return {k: lanes_run[k] + calib_run[k] for k in KERNELS}
+          f"frames of a 720p .y4m in {video_s:.2f} s; launches {lanes_run}; run_lane_image "
+          f"from the progressive Orientation-6 JPEG to a .jpg in {turned_s:.2f} s, "
+          f"{turned.shape[1]}x{turned.shape[0]}, launches {turned_run}; quantize --calibrate "
+          f"YOLOV8 --calib-dir (a PNG, a JPEG, a progressive JPEG, a 24-bit and a paletted "
+          f"BMP) on the card in {calib_s:.2f} s: {len(scales)} activation scales, launches "
+          f"{calib_run} ({smi})", flush=True)
+    return {k: lanes_run[k] + turned_run[k] + calib_run[k] for k in KERNELS}
 
 
 #: ``[video]``: frames of ``run_synthetic`` (two GOPs of the writer), of
@@ -3950,8 +3994,73 @@ def video_phase(mods, smi, torch, np):
           f"{lanes_run} ({smi})", flush=True)
     h264_run = video_h264(mods, smi, torch, np)
     avi_run = video_avi(mods, smi, torch, np)
-    return {k: synthetic_run[k] + video_run[k] + lanes_run[k] + h264_run[k] + avi_run[k]
-            for k in KERNELS}
+    rotated_run = video_rotated(mods, smi, torch, np)
+    return {k: synthetic_run[k] + video_run[k] + lanes_run[k] + h264_run[k] + avi_run[k] +
+            rotated_run[k] for k in KERNELS}
+
+
+#: ``[video]``: frames of ``run_video`` over the quarter-turned fixture
+VIDEO_ROTATED_FRAMES = 6
+
+
+def video_rotated(mods, smi, torch, np):
+    """``[video]``, MP4 display matrices (``render/mp4.display_rotation``,
+    ``MP4Reader``): each fixture of ``tests/data/video/rotated`` (cv2's
+    ``mp4v`` files with ``tkhd`` turned 90, 180, 270 degrees, mirrored,
+    turned 30 degrees, and under a turned ``mvhd``) gives cv2's reported
+    size and cv2's Y planes of the turned frames (their sha256); then
+    ``run_video`` with the default nets on the card over the quarter-turned
+    176x144 clip to an ``.mp4``: ``VIDEO_ROTATED_FRAMES`` frames of 144x176,
+    stem 2, IoU 1, walk 1 per frame.  Returns the launches."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from adas_tpu_torch.pipeline import app
+    from adas_tpu_torch.render import video
+
+    tag = "video"
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "video",
+                        "rotated")
+    with open(os.path.join(data, "sha256.json")) as f:
+        digests = json.load(f)
+    seen = {}
+    for name, want in digests.items():
+        with video.MP4Reader(os.path.join(data, name)) as r:
+            check((r.width, r.height) == (want["width"], want["height"]),
+                  f"{tag}: {name} reports {r.width}x{r.height}, cv2 "
+                  f"{want['width']}x{want['height']}")
+            ys = [p[:r.height] for p in r.i420_frames()]
+            seen[name] = r.rotation
+        check([hashlib.sha256(y.tobytes()).hexdigest() for y in ys] == want["y_sha256"],
+              f"{tag}: {name}'s turned Y planes differ from cv2's decode")
+    src = os.path.join(data, "smooth_176x144_rot90.mp4")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rotated_")
+    try:
+        out = os.path.join(tmp, "rotated_out.mp4")
+        reset(mods)
+        t = time.perf_counter()
+        n = app.run_video(src, out, max_frames=VIDEO_ROTATED_FRAMES, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        run = counts(mods)
+        per_frame = {"stem": 2, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1}
+        for k, per in per_frame.items():
+            check(run[k] == per * VIDEO_ROTATED_FRAMES,
+                  f"{tag}: run_video over the turned clip: {k} launches {run[k]}, expected "
+                  f"{per} per frame")
+        with video.MP4Reader(out) as r:
+            drawn = list(r)
+        check(n == len(drawn) == VIDEO_ROTATED_FRAMES and
+              all(f.shape == (176, 144, 3) for f in drawn),
+              f"{tag}: run_video over the turned clip wrote {len(drawn)} frames of "
+              f"{drawn[0].shape if drawn else None}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[{tag}] display matrices: {len(digests)} turned fixtures at cv2's size and Y planes "
+          f"(turns {seen}); run_video over the quarter-turned 176x144 clip: {n} frames of 144x176 "
+          f"in {run_s:.2f} s, launches {run} (per frame {per_frame}) ({smi})", flush=True)
+    return run
 
 
 def video_h264(mods, smi, torch, np):

@@ -41,6 +41,14 @@ decode of the 720p Motion JPEG clip ``avi_clips.mjpeg_720p`` whole and
 damaged, which is not committed: the port's muxer rebuilds it from the
 committed JPEGs.
 
+In ``rotated/`` (``python tests/data/video/make_fixtures.py rotated`` writes
+only these), cv2's ``cv2_smooth_176x144.mp4`` and ``cv2_noise_64x48.mp4``
+with their display matrices patched (``patch_matrices``): ``tkhd`` turned
+90, 180 and 270 degrees, mirrored, turned 30 degrees, and ``mvhd`` turned
+90 degrees under a ``tkhd`` turned 180; with cv2's reported width and
+height and Y sha256 per frame (cv2 turns the frames) in
+``rotated/sha256.json``.
+
 Beside them, for every file, cv2's decode: the Y planes
 (``cv2.VideoCapture`` with ``CAP_PROP_CONVERT_RGB`` 0 returns the decoded
 luma plane) as ``<name>_y.npy`` for the two small files and as a sha256
@@ -51,6 +59,7 @@ absent).
 import hashlib
 import json
 import os
+import struct
 import sys
 
 import cv2
@@ -216,7 +225,60 @@ def avi_main():
         f.write("\n")
 
 
+ROTATED_DIR = os.path.join(HERE, "rotated")
+ONE = 1 << 16
+#: display matrices (a, b, c, d of the 16.16 upper-left 2x2) in ISO order
+TURNS = {90: (0, ONE, -ONE, 0), 180: (-ONE, 0, 0, -ONE), 270: (0, -ONE, ONE, 0),
+         "mirror": (-ONE, 0, 0, ONE), 30: (56756, 32768, -32768, 56756)}
+#: file name -> (source fixture, tkhd turn, mvhd turn or None)
+ROTATED = {
+    "smooth_176x144_rot90.mp4": ("cv2_smooth_176x144.mp4", 90, None),
+    "noise_64x48_rot180.mp4": ("cv2_noise_64x48.mp4", 180, None),
+    "noise_64x48_rot270.mp4": ("cv2_noise_64x48.mp4", 270, None),
+    "noise_64x48_mirror.mp4": ("cv2_noise_64x48.mp4", "mirror", None),
+    "noise_64x48_rot30.mp4": ("cv2_noise_64x48.mp4", 30, None),
+    "noise_64x48_rot180_movie90.mp4": ("cv2_noise_64x48.mp4", 180, 90),
+}
+
+
+def patch_matrices(data, tkhd, mvhd=None):
+    """An MP4 (version 0 ``tkhd`` and ``mvhd``, as cv2 writes them) with
+    its first track's matrix, and the movie's, set to the (a, b, c, d)
+    given."""
+    out = bytearray(data)
+    for kind, offset, turn in ((b"tkhd", 40, tkhd), (b"mvhd", 36, mvhd)):
+        if turn is not None:
+            at = out.index(kind) + 4 + offset
+            a, b, c, d = turn
+            struct.pack_into(">9i", out, at, a, b, 0, c, d, 0, 0, 0, 1 << 30)
+    return bytes(out)
+
+
+def rotated_main():
+    os.makedirs(ROTATED_DIR, exist_ok=True)
+    digests = {}
+    for name, (source, turn, movie) in ROTATED.items():
+        with open(os.path.join(HERE, source), "rb") as f:
+            data = patch_matrices(f.read(), TURNS[turn], movie and TURNS[movie])
+        path = os.path.join(ROTATED_DIR, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        cap = cv2.VideoCapture(path)
+        width, height = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)), int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+        cap.release()
+        ys = cv2_decode(path, False)
+        assert ys.shape[1:] == (height, width), (name, ys.shape, width, height)
+        digests[name] = {"frames": len(ys), "width": width, "height": height,
+                         "y_sha256": [hashlib.sha256(y.tobytes()).hexdigest() for y in ys]}
+    with open(os.path.join(ROTATED_DIR, "sha256.json"), "w") as f:
+        json.dump(digests, f, indent=1)
+        f.write("\n")
+
+
 def main():
+    if sys.argv[1:] == ["rotated"]:
+        rotated_main()
+        return
     if sys.argv[1:] == ["h264"]:
         h264_main()
         return

@@ -14,14 +14,21 @@ the JAX package's, both on the port's cv2-free image codec
   an ``.mp4`` (and through the CLI): each frame read back is the writer's
   reconstruction of the drawn frame, at 30 fps as the JAX package writes
   it.
+* The kinds cv2 turns or that the port reads since its codec grew: a
+  progressive JPEG with EXIF Orientation 6 through ``run_lane_image`` to a
+  ``.jpg`` (>= 99.5% of JAX's pixels; the file is ``cv2.imencode('.jpg',
+  got)``'s bytes), and ``run_lane_video`` over an MP4 whose display matrix
+  turns it a quarter (JAX's frame count and frame size, read back by cv2).
 * ``quantize --mode int8 --calibrate YOLOV8 --calib-dir``: JAX's file
   selection (sorted, the image suffixes, the first ``--calib-frames``)
-  and letterbox on a directory of a PNG, a BMP, a JPEG and a text file;
-  the baked activation scales within rtol 2e-2 of JAX's on the same files
-  (``test_torch_int8_weights``' calibrator bound: the two stems round
-  differently in bf16).
+  and letterbox on a directory of a PNG, a BMP, a JPEG and a text file,
+  and on one of a progressive JPEG, an EXIF-turned JPEG and cv2's gray
+  BMP; the baked activation scales within rtol 2e-2 of JAX's on the same
+  files (``test_torch_int8_weights``' calibrator bound: the two stems
+  round differently in bf16).
 """
 import os
+import struct
 import sys
 
 import cv2
@@ -45,6 +52,16 @@ from test_torch_models import random_flax_weights
 from test_torch_slice import CULANE, FRAME_HW, npz_paths, weights
 
 __all__ = ["npz_paths", "weights"]  # fixtures shared with the slice tests
+
+VIDEO_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "video")
+
+
+def _exif6(jpeg):
+    """``jpeg`` with an Exif APP1 holding Orientation 6 after its SOI."""
+    tiff = b"II" + struct.pack("<HIH", 42, 8, 1) + struct.pack("<HHIHH", 0x0112, 3, 1, 6, 0) \
+        + bytes(4)
+    body = b"Exif\0\0" + tiff
+    return jpeg[:2] + b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body + jpeg[2:]
 
 
 def _frame(seed):
@@ -138,20 +155,64 @@ def test_run_lane_video_raises_what_the_stem_raises(weights, tmp_path, monkeypat
         lane_demo.run_lane_video(src, config=config, device="cpu")
 
 
-def test_calib_dir_matches_jax(tmp_path, monkeypatch):
+def test_run_lane_image_progressive_exif_jpeg_matches_jax(weights, tmp_path):
+    """A progressive JPEG stored a quarter turn left with Orientation 6
+    (cv2 reads it upright) to ``out.jpg``."""
+    src, out = str(tmp_path / "road.jpg"), str(tmp_path / "out.jpg")
+    frame = _frame(2)
+    stored = cv2.imencode(".jpg", np.ascontiguousarray(np.rot90(frame)),
+                          [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
+    with open(src, "wb") as f:
+        f.write(_exif6(stored))
+    assert cv2.imread(src).shape == (*FRAME_HW, 3)
+    want = jax_lane_demo.run_lane_image(src, config={"model_path": weights["lane"],
+                                                     "model_type": CULANE})
+    got = lane_demo.run_lane_image(src, out, config={
+        "model_path": weights["lane"], "model_type": LaneModelType.UFLDV2_CULANE}, device="cpu")
+    assert got.shape == want.shape == (*FRAME_HW, 3)
+    np.testing.assert_array_equal(imread(src), cv2.imread(src))
+    same = (got == want).all(axis=-1).mean()
+    assert same >= 0.995, same
+    with open(out, "rb") as f:
+        assert f.read() == cv2.imencode(".jpg", got)[1].tobytes()
+
+
+def test_run_lane_video_rotated_mp4_matches_jax(weights, tmp_path):
+    """An ``.mp4`` whose display matrix turns it 90 degrees: the port's and
+    JAX's demos write as many frames, of the turned size."""
+    src = os.path.join(VIDEO_DATA, "rotated", "smooth_176x144_rot90.mp4")
+    got_path, want_path = str(tmp_path / "port.mp4"), str(tmp_path / "jax.mp4")
+    n_want = jax_lane_demo.run_lane_video(src, want_path, config={
+        "model_path": weights["lane"], "model_type": CULANE}, max_frames=3)
+    n_got = lane_demo.run_lane_video(src, got_path, config={
+        "model_path": weights["lane"], "model_type": LaneModelType.UFLDV2_CULANE},
+        max_frames=3, device="cpu")
+    assert n_got == n_want == 3
+    sizes = []
+    for path in (got_path, want_path):
+        cap = cv2.VideoCapture(path)
+        frames = []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            frames.append(f.shape)
+        cap.release()
+        sizes.append(frames)
+    assert sizes[0] == sizes[1] == [(176, 144, 3)] * 3
+
+
+def _calib_dir_matches_jax(tmp_path, monkeypatch, write_files):
+    """The int8 scales ``quantize --calib-dir`` bakes from the first three
+    image files of a directory ``write_files(dir)`` fills, the port's
+    against JAX's."""
     flat = random_flax_weights(JaxYoloV8(JaxYoloSpec("v8", "n", 80, (64, 64))), (1, 64, 64, 3),
                                seed=43)
     npz = str(tmp_path / "yolov8n.npz")
     jax_params_io.save_params(npz, jax_params_io.unflatten_variables(flat))
     calib = tmp_path / "calib"
     calib.mkdir()
-    # sorted: a.png, b.bmp, c.jpg (the text file is skipped; --calib-frames 3)
-    frames = [_frame(20 + i) for i in range(4)]
-    imwrite(str(calib / "a.png"), frames[0])
-    imwrite(str(calib / "b.bmp"), frames[1])
-    assert cv2.imwrite(str(calib / "c.jpg"), frames[2])
-    assert cv2.imwrite(str(calib / "d.png"), frames[3])
-    (calib / "notes.txt").write_text("not an image")
+    write_files(calib)
     got_path, want_path = str(tmp_path / "port_int8.npz"), str(tmp_path / "jax_int8.npz")
     args = ["-i", npz, "--mode", "int8", "--calibrate", "YOLOV8", "--scale", "n",
             "--calib-dir", str(calib), "--calib-frames", "3"]
@@ -164,6 +225,21 @@ def test_calib_dir_matches_jax(tmp_path, monkeypatch):
     for k, v in want.items():
         dev = abs(float(got[k]) / float(v) - 1)
         assert dev < 2e-2, (k, dev)
+    return calib, got_path
+
+
+def test_calib_dir_matches_jax(tmp_path, monkeypatch):
+    frames = [_frame(20 + i) for i in range(4)]
+
+    def write_files(calib):
+        # sorted: a.png, b.bmp, c.jpg (the text file is skipped; --calib-frames 3)
+        imwrite(str(calib / "a.png"), frames[0])
+        imwrite(str(calib / "b.bmp"), frames[1])
+        assert cv2.imwrite(str(calib / "c.jpg"), frames[2])
+        assert cv2.imwrite(str(calib / "d.png"), frames[3])
+        (calib / "notes.txt").write_text("not an image")
+
+    calib, got_path = _calib_dir_matches_jax(tmp_path, monkeypatch, write_files)
     # the first three files by name, and only images
     hw = (640, 640)
     used = list(quantize.calib_dir_frames(str(calib), 3, hw, device="cpu"))
@@ -172,3 +248,21 @@ def test_calib_dir_matches_jax(tmp_path, monkeypatch):
         list(quantize.calib_dir_frames(str(tmp_path), 3, hw, device="cpu"))
     assert imread(str(calib / "c.jpg")).shape == (*FRAME_HW, 3)
     assert os.path.exists(got_path)
+
+
+def test_calib_dir_progressive_exif_and_gray_bmp_match_jax(tmp_path, monkeypatch):
+    """A progressive JPEG, a JPEG with EXIF Orientation 6 (read turned, as
+    cv2 reads it) and cv2's 8-bit gray BMP."""
+    frames = [_frame(30 + i) for i in range(3)]
+
+    def write_files(calib):
+        assert cv2.imwrite(str(calib / "a.jpg"), frames[0], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+        turned = cv2.imencode(".jpg", np.ascontiguousarray(np.rot90(frames[1])))[1].tobytes()
+        (calib / "b.jpeg").write_bytes(_exif6(turned))
+        assert cv2.imwrite(str(calib / "c.bmp"), frames[2][..., 1])
+
+    calib, _ = _calib_dir_matches_jax(tmp_path, monkeypatch, write_files)
+    for name in ("a.jpg", "b.jpeg", "c.bmp"):
+        path = str(calib / name)
+        np.testing.assert_array_equal(imread(path), cv2.imread(path))
+    assert imread(str(calib / "b.jpeg")).shape == (*FRAME_HW, 3)
