@@ -36,9 +36,9 @@
 // read leaves the input.  Errors are C++ exceptions caught at the C entry
 // points, which return -1 and keep the message.
 //
-// mjpeg_bgr converts the last frame to BGR with the full-range BT.601
-// matrix of JFIF (libjpeg's jdcolor.c fixed point, 16 fraction bits) and
-// nearest chroma, as a stand-in for cv2's swscale conversion.
+// mjpeg_bgr converts the last frame to BGR as cv2 does it, through x86
+// libswscale's YUVJ -> BGR24 conversion with SWS_BICUBIC (the sws
+// namespace below): its chroma filters, fixed points and rounding.
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
@@ -189,7 +189,7 @@ struct Component {
     std::vector<uint8_t> plane;
 };
 
-enum Stat { kFrames, kScans, kRestarts, kStandardTableScans, kNumStats };
+enum Stat { kFrames, kScans, kRestarts, kStandardTableScans, kOverreads, kNumStats };
 
 enum Format { kGray, k420, k422, k440, k444, k411 };
 
@@ -198,6 +198,8 @@ inline int be16(const uint8_t* p) { return p[0] << 8 | p[1]; }
 struct Decoder {
     std::string error;
     long stats[kNumStats] = {};
+    std::vector<std::vector<uint8_t>> recycled;  // the last frame's planes
+    int last_format = -1, last_width = 0, last_height = 0;
     int container_height = 0;
     // what persists from frame to frame (FFmpeg's context)
     Huffman dc[4], ac[4];
@@ -332,6 +334,10 @@ struct Decoder {
         }
         int mcux = (width + 8 * hmax - 1) / (8 * hmax);
         int mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+        bool same = format == last_format && width == last_width && height == last_height;
+        last_format = format;
+        last_width = width;
+        last_height = height;
         for (size_t i = 0; i < comps.size(); i++) {
             Component& c = comps[i];
             c.bw = mcux * c.h;
@@ -343,7 +349,15 @@ struct Decoder {
             }
             c.dw = i ? -((-width) >> sw) : width;
             c.dh = i ? -((-height) >> sh) : height;
-            c.plane.assign(size_t(c.bw) * 8 * size_t(c.bh) * 8, 0);
+            // the previous frame's plane when its format and size are the
+            // same: the MCUs an overread leaves undecoded show it, as cv2 shows
+            // them (FFmpeg's frame pool hands the decoder back the buffer of
+            // the frame before; a new format starts a new pool, of zeros)
+            size_t need = size_t(c.bw) * 8 * size_t(c.bh) * 8;
+            if (same && i < recycled.size() && recycled[i].size() == need)
+                c.plane.swap(recycled[i]);
+            else
+                c.plane.assign(need, 0);
         }
     }
 
@@ -466,7 +480,12 @@ struct Decoder {
         for (int my = 0; my < mcuy; my++) {
             for (int mx = 0; mx < mcux; mx++) {
                 if (restart && !count) count = restart;
-                if (br.left() < 0) fail("truncated Motion JPEG: the scan's data ends early");
+                if (br.left() < 0) {
+                    // FFmpeg: "overread", the scan stops and the frame is let out
+                    // with the MCUs decoded so far ("EOI missing, emulating")
+                    stats[kOverreads]++;
+                    return end;
+                }
                 for (int i = 0; i < ns; i++) {
                     int bh = ns == 1 ? 1 : sc[i]->v, bwd = ns == 1 ? 1 : sc[i]->h;
                     for (int by = 0; by < bh; by++)
@@ -487,6 +506,8 @@ struct Decoder {
     // one frame into the components' planes (errors throw)
     void decode(const uint8_t* d, size_t n) {
         has_frame = false;
+        recycled.resize(comps.size());
+        for (size_t i = 0; i < comps.size(); i++) recycled[i].swap(comps[i].plane);
         comps.clear();
         restart = 0;
         adobe_rgb = false;
@@ -559,27 +580,179 @@ struct Decoder {
     }
 };
 
-// jdcolor.c's full-range YCbCr -> RGB tables, 16 fraction bits
-struct Ycc {
-    int cr_r[256], cb_b[256];
-    long cr_g[256], cb_g[256];
-    Ycc() {
-        const long half = 1L << 15;
-        for (int i = 0; i < 256; i++) {
-            long x = i - 128;
-            cr_r[i] = int((91881L * x + half) >> 16);   // 1.40200
-            cb_b[i] = int((116130L * x + half) >> 16);  // 1.77200
-            cr_g[i] = -46802L * x;                      // -0.71414
-            cb_g[i] = -22554L * x + half;               // -0.34414
-        }
+inline uint8_t clamp255(int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); }
+inline uint8_t clamp_u8(int v) { return clamp255(v); }
+
+// ------------------------------------------------ swscale's YUVJ -> BGR24
+//
+// cv2 converts each decoded frame with sws_scale(SWS_BICUBIC) to BGR24;
+// x86 libswscale takes one of three paths, each emulated here:
+// - 4:2:0 / 4:2:2 of even height: the unscaled yuv2rgb converter, nearest
+//   chroma (a pair of pixels per sample), its 16-bit fixed point (pmulhw
+//   of 8x the samples by the full-range coefficients);
+// - otherwise the scaler: the chroma resampled by bicubic filters
+//   (initFilter: B = 0, C = 0.6, samples sited at their centres) to half
+//   the width (packed output) or, for an odd width or unsubsampled chroma,
+//   to the full width (SWS_FULL_CHR_H_INT, which swscale then forces);
+//   packed rows in the MMX fixed point, its last two rows through the C
+//   tables; full-chroma rows through yuv2rgb_write_full.
+namespace sws {
+
+// the full-range BT.601 coefficients of ff_yuv2rgb_c_init_tables: for the
+// SIMD and full paths (13 fraction bits) and for the C tables (16)
+constexpr int kVr = 11485, kUb = 14516, kUg = -2819, kVg = -5850, kY = 8192;
+constexpr int kCrv = 91881, kCbu = 116129, kCgu = -22552, kCgv = -46800;
+
+inline int mulhi(int a, int b) { return int16_t((a * b) >> 16); }
+inline int64_t cdiv(int64_t a, int64_t b) { return a / b; }  // C's truncation
+
+// pmulhw / paddw / packuswb of 8x the samples (yuv_2_rgb.asm, YSCALEYUV2RGB*)
+inline void simd_bgr(int y8, int u8, int v8, uint8_t* o) {
+    int y = mulhi(y8, kY), u = u8 - 1024, v = v8 - 1024;
+    o[0] = clamp_u8(y + mulhi(u, kUb));
+    o[1] = clamp_u8(y + mulhi(u, kUg) + mulhi(v, kVg));
+    o[2] = clamp_u8(y + mulhi(v, kVr));
+}
+// the C tables (yuv2rgb_write of 8-bit samples)
+inline void table_bgr(int y, int u, int v, uint8_t* o) {
+    u = std::min(std::max(u, 0), 255);
+    v = std::min(std::max(v, 0), 255);
+    auto f = [](int a, int c) { return int((int64_t(a) * c) >> 16) - (c >> 9); };
+    o[0] = clamp_u8(y + f(u, kCbu));
+    o[1] = clamp_u8(y + f(u, kCgu) + f(v, kCgv));
+    o[2] = clamp_u8(y + f(v, kCrv));
+}
+// yuv2rgb_write_full of samples at 2^9 (chroma centred)
+inline void full_bgr(int y, int u, int v, uint8_t* o) {
+    int64_t yy = int64_t(y) * kY + (1 << 21);
+    int64_t c[3] = {yy + int64_t(u) * kUb, yy + int64_t(v) * kVg + int64_t(u) * kUg,
+                    yy + int64_t(v) * kVr};
+    for (int k = 0; k < 3; k++) {
+        int32_t x = int32_t(uint32_t(c[k]));
+        if (x & 0xC0000000) x = x < 0 ? 0 : (1 << 30) - 1;
+        o[k] = uint8_t(x >> 22);
     }
-};
-const Ycc& ycc() {
-    static const Ycc t;
-    return t;
 }
 
-inline uint8_t clamp255(int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); }
+// initFilter's bicubic filter from srcW samples to dstW, normalised to `one`
+struct Filter {
+    int size = 1;
+    std::vector<int> pos;
+    std::vector<int> coef;  // dstW x size
+};
+inline int av_log2(unsigned v) { return v ? 31 - __builtin_clz(v) : 0; }
+Filter init_filter(int64_t xinc, int src_w, int dst_w, int align, int one) {
+    const int64_t fone = int64_t(1) << (54 - std::min(av_log2(unsigned(src_w / dst_w)), 8));
+    int size;
+    std::vector<int64_t> f;
+    std::vector<int> pos(static_cast<size_t>(dst_w));
+    if (std::abs(xinc - 0x10000) < 10) {  // unscaled (the sitings are equal)
+        size = 1;
+        f.assign(size_t(dst_w), fone);
+        for (int i = 0; i < dst_w; i++) pos[size_t(i)] = i;
+    } else {
+        const int factor = 4;  // bicubic
+        size = xinc <= 1 << 16 ? 1 + factor : 1 + int((factor * int64_t(src_w) + dst_w - 1) / dst_w);
+        size = std::max(std::min(size, src_w - 2), 1);
+        f.assign(size_t(dst_w) * size, 0);
+        const int64_t B = 0, C = int64_t(0.6 * (1 << 24));
+        int64_t x_in_src = ((128 * xinc) >> 7) - ((128 * 0x10000LL) >> 7);
+        for (int i = 0; i < dst_w; i++) {
+            int64_t xx = cdiv(x_in_src - int64_t(size - 2) * (1 << 16), 1 << 17);
+            pos[size_t(i)] = int(xx);
+            for (int j = 0; j < size; j++, xx++) {
+                int64_t d = std::abs(xx * (1 << 17) - x_in_src) << 13, coeff = 0;
+                if (xinc > 1 << 16) d = d * dst_w / src_w;
+                if (d < int64_t(1) << 31) {
+                    int64_t dd = (d * d) >> 30, ddd = (dd * d) >> 30;
+                    if (d < int64_t(1) << 30)
+                        coeff = (12 * (1LL << 24) - 9 * B - 6 * C) * ddd +
+                                (-18 * (1LL << 24) + 12 * B + 6 * C) * dd +
+                                (6 * (1LL << 24) - 2 * B) * (1LL << 30);
+                    else
+                        coeff = (-B - 6 * C) * ddd + (6 * B + 30 * C) * dd +
+                                (-12 * B - 48 * C) * d + (8 * B + 24 * C) * (1LL << 30);
+                }
+                f[size_t(i) * size + j] = cdiv(coeff, (int64_t(1) << 54) / fone);
+            }
+            x_in_src += 2 * xinc;
+        }
+    }
+    // drop near-zero taps on the left and count them on the right
+    const double cut = 0.002;
+    int min_size = 0;
+    for (int i = dst_w - 1; i >= 0; i--) {
+        int64_t* row = &f[size_t(i) * size];
+        int mn = size;
+        int64_t acc = 0;
+        for (int j = 0; j < size; j++) {
+            acc += std::abs(row[0]);
+            if (acc > cut * fone) break;
+            if (i < dst_w - 1 && pos[size_t(i)] >= pos[size_t(i) + 1]) break;
+            for (int k = 1; k < size; k++) row[k - 1] = row[k];
+            row[size - 1] = 0;
+            pos[size_t(i)]++;
+        }
+        acc = 0;
+        for (int j = size - 1; j > 0; j--) {
+            acc += std::abs(row[j]);
+            if (acc > cut * fone) break;
+            mn--;
+        }
+        min_size = std::max(min_size, mn);
+    }
+    if (min_size == 1 && align == 2) align = 1;
+    int out_size = (min_size + align - 1) & ~(align - 1);
+    std::vector<int64_t> g(size_t(dst_w) * out_size, 0);
+    for (int i = 0; i < dst_w; i++)
+        for (int j = 0; j < std::min(size, out_size); j++)
+            g[size_t(i) * out_size + j] = f[size_t(i) * size + j];
+    // fold the taps past the borders onto the edge samples
+    for (int i = 0; i < dst_w; i++) {
+        int64_t* row = &g[size_t(i) * out_size];
+        int& p = pos[size_t(i)];
+        if (p < 0) {
+            for (int j = 1; j < out_size; j++) {
+                int left = std::max(j + p, 0);
+                row[left] += row[j];
+                row[j] = 0;
+            }
+            p = 0;
+        }
+        if (p + out_size > src_w) {
+            int shift = p + std::min(out_size - src_w, 0);
+            int64_t acc = 0;
+            for (int j = out_size - 1; j >= 0; j--)
+                if (p + j >= src_w) {
+                    acc += row[j];
+                    row[j] = 0;
+                }
+            for (int j = out_size - 1; j >= 0; j--) row[j] = j < shift ? 0 : row[j - shift];
+            p -= shift;
+            row[src_w - 1 - p] += acc;
+        }
+    }
+    Filter out;
+    out.size = out_size;
+    out.pos = pos;
+    out.coef.assign(size_t(dst_w) * out_size, 0);
+    for (int i = 0; i < dst_w; i++) {
+        int64_t sum = 0, error = 0;
+        for (int j = 0; j < out_size; j++) sum += g[size_t(i) * out_size + j];
+        sum = (sum + one / 2) / one;
+        if (!sum) sum = 1;
+        for (int j = 0; j < out_size; j++) {
+            int64_t v = g[size_t(i) * out_size + j] + error;
+            int64_t iv = v >= 0 ? (v + sum / 2) / sum : -((-v + sum / 2) / sum);  // ROUNDED_DIV
+            out.coef[size_t(i) * out_size + j] = int(iv);
+            error = v - iv * sum;
+        }
+    }
+    return out;
+}
+
+}  // namespace sws
+
 
 template <class F>
 int guarded(std::string* error, F&& f) {
@@ -642,21 +815,76 @@ int mjpeg_bgr(void* dp, uint8_t* out) {
         }
         return 0;
     }
-    const Ycc& t = ycc();
     const Component &cb = d->comps[1], &cr = d->comps[2];
-    const int cs = cb.bw * 8;
+    const int cs = cb.bw * 8, w = d->width, h = d->height;
     int sw = d->format == k420 || d->format == k422 ? 1 : d->format == k411 ? 2 : 0;
     int sh = d->format == k420 || d->format == k440 ? 1 : 0;
-    for (int r = 0; r < d->height; r++) {
+    if (sw == 1 && !(h & 1)) {  // the unscaled converter
+        for (int r = 0; r < h; r++) {
+            const uint8_t* py = y.plane.data() + size_t(r) * ys;
+            const uint8_t* pb = cb.plane.data() + size_t(r >> sh) * cs;
+            const uint8_t* pr = cr.plane.data() + size_t(r >> sh) * cs;
+            uint8_t* o = out + size_t(r) * w * 3;
+            for (int x = 0; x < w; x++)
+                sws::simd_bgr(py[x] << 3, pb[x >> 1] << 3, pr[x >> 1] << 3, o + 3 * x);
+        }
+        return 0;
+    }
+    // the scaler: chroma lines of src_w x src_h to dst_w x h
+    const bool full = (w & 1) || (!sw && !sh);
+    const int src_w = -((-w) >> sw), src_h = -((-h) >> sh), dst_w = full ? w : (w + 1) / 2;
+    const int64_t xinc = ((int64_t(src_w) << 16) + (dst_w >> 1)) / dst_w;
+    const int64_t yinc = ((int64_t(src_h) << 16) + (h >> 1)) / h;
+    const sws::Filter hf = sws::init_filter(xinc, src_w, dst_w, 4, 1 << 14);
+    const sws::Filter vf = sws::init_filter(yinc, src_h, h, 2, 1 << 12);
+    std::vector<int> lines[2];  // hScale8To15 of each chroma line
+    for (int c = 0; c < 2; c++) {
+        const Component& comp = d->comps[1 + c];
+        lines[c].assign(size_t(src_h) * dst_w, 0);
+        for (int r = 0; r < src_h; r++) {
+            const uint8_t* p = comp.plane.data() + size_t(r) * cs;
+            for (int i = 0; i < dst_w; i++) {
+                int v = 0;
+                for (int j = 0; j < hf.size; j++) {
+                    int k = hf.pos[size_t(i)] + j;
+                    if (k < src_w) v += p[k] * hf.coef[size_t(i) * hf.size + j];
+                }
+                lines[c][size_t(r) * dst_w + i] = std::min(v >> 7, (1 << 15) - 1);
+            }
+        }
+    }
+    std::vector<int> u(static_cast<size_t>(dst_w)), v(static_cast<size_t>(dst_w));
+    for (int r = 0; r < h; r++) {
         const uint8_t* py = y.plane.data() + size_t(r) * ys;
-        const uint8_t* pb = cb.plane.data() + size_t(r >> sh) * cs;
-        const uint8_t* pr = cr.plane.data() + size_t(r >> sh) * cs;
-        uint8_t* o = out + size_t(r) * d->width * 3;
-        for (int x = 0; x < d->width; x++) {
-            int l = py[x], b = pb[x >> sw], c = pr[x >> sw];
-            o[3 * x + 0] = clamp255(l + t.cb_b[b]);
-            o[3 * x + 1] = clamp255(l + int((t.cb_g[b] + t.cr_g[c]) >> 16));
-            o[3 * x + 2] = clamp255(l + t.cr_r[c]);
+        uint8_t* o = out + size_t(r) * w * 3;
+        const int p0 = vf.pos[size_t(r)];
+        const int* taps = &vf.coef[size_t(r) * vf.size];
+        const bool simd = !full && r < h - 2;  // swscale's last two rows are C
+        for (int c = 0; c < 2; c++) {
+            std::vector<int>& acc = c ? v : u;
+            for (int i = 0; i < dst_w; i++) {
+                if (vf.size == 1) {
+                    int s = lines[c][size_t(p0) * dst_w + i];
+                    acc[size_t(i)] = full ? (s - (128 << 7)) * 4 : simd ? s >> 4 : (s + 64) >> 7;
+                    continue;
+                }
+                int64_t a = full ? (1 << 9) - (128 << 19) : simd ? 4 : 1 << 18;
+                for (int j = 0; j < vf.size; j++) {
+                    int s = lines[c][size_t(std::min(p0 + j, src_h - 1)) * dst_w + i];
+                    a += simd ? sws::mulhi(s, taps[j]) : int64_t(s) * taps[j];
+                }
+                acc[size_t(i)] = int(full ? a >> 10 : simd ? int16_t(a) : a >> 19);
+            }
+        }
+        for (int x = 0; x < w; x++) {
+            int i = full ? x : x >> 1;
+            if (full)
+                sws::full_bgr(py[x] << 9, u[size_t(i)], v[size_t(i)], o + 3 * x);
+            else if (simd)
+                sws::simd_bgr(vf.size == 1 ? py[x] << 3 : 4 + (py[x] << 3), u[size_t(i)],
+                              v[size_t(i)], o + 3 * x);
+            else
+                sws::table_bgr(py[x], u[size_t(i)], v[size_t(i)], o + 3 * x);
         }
     }
     return 0;

@@ -1,18 +1,27 @@
-// MPEG-4 Part 2 Simple Profile video (ISO/IEC 14496-2, the `mp4v` that
-// cv2.VideoWriter writes through FFmpeg): a decoder of I- and P-VOPs and an
-// encoder that writes what the decoder reads, for render/mpeg4.py.
+// MPEG-4 Part 2 video (ISO/IEC 14496-2, the `mp4v` of cv2.VideoWriter,
+// XviD and DivX): a decoder of Simple and Advanced Simple streams and an
+// encoder of Simple ones that writes what the decoder reads, for
+// render/mpeg4.py.
 //
 // Decoder: VOS/VO/VOL/GOV/user-data headers; rectangular progressive VOLs
-// with H.263 quantisation; I-VOPs (intra DC VLCs with DC prediction, AC
-// prediction, the intra TCOEF VLC and its three escapes) and P-VOPs (1MV
-// half-pel motion with median prediction, f_code 1-7, unrestricted vectors
-// clamped at the picture edge, not_coded and intra macroblocks, the inter
-// TCOEF VLC), reconstructed with FFmpeg's "simple" integer IDCT, the one
-// libavcodec picks for Lavc streams, so that the planes equal FFmpeg's.
-// Every other tool (B-VOPs, 4MV, MPEG quantisation, interlace, data
-// partitioning, sprites, quarter-pel, the short video header, resync
-// markers, ...) fails with an error that names it; corrupt or truncated
-// data fails too, and no read leaves the input.  Errors are C++ exceptions
+// with H.263 or MPEG quantisation (default and loaded matrices, FFmpeg's
+// MPEG-2 unquantisers with their mismatch control); I-, P- and B-VOPs:
+// intra DC VLCs with DC prediction, AC prediction, the TCOEF VLCs and
+// their three escapes; 1MV and 4MV vectors with FFmpeg's median prediction,
+// half- or quarter-sample (qpeldsp's 8-tap filter with mirrored edges, its
+// rounding and no-rounding forms), f_code 1-7, unrestricted vectors through
+// FFmpeg's edge emulation; not_coded and intra macroblocks; B-VOPs' direct
+// (from the next P-VOP's co-located vectors and the VOP times),
+// interpolated, forward and backward macroblocks, and those skipped in the
+// next P-VOP; N-VOPs; resync markers (video packets, HEC); FFmpeg's output
+// order, delay and flush, DivX's packed B-VOPs included.  From the user
+// data (Lavc, XviD, DivX builds) and the AVI fourcc it picks, as
+// libavcodec's ff_mpeg4_workaround_bugs does, the IDCT (FFmpeg's simple
+// IDCT, or XviD's for XviD streams) and the build workarounds that change
+// pictures (the edge, DC clipping, quarter-sample chroma).  Interlace, data
+// partitioning, sprites / GMC, OBMC, the short video header and other
+// tools fail with an error that names them; corrupt or truncated data
+// fails too, and no read leaves the input.  Errors are C++ exceptions
 // caught at the C entry points, which return -1 and keep the message.
 //
 // Encoder: an I-VOP every `gop` frames and P-VOPs between, a fixed
@@ -27,8 +36,10 @@
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <stdexcept>
 #include <string>
 #include <vector>
@@ -278,10 +289,38 @@ int median(int a, int b, int c) {
     return std::max(std::min(a, b), std::min(std::max(a, b), c));
 }
 
+// one bw x bh half-sample prediction from the (bw + 1) x (bh + 1) window.
+// Without rounding, x86 libavcodec's 8-wide x2 and y2 averages are pavgb of
+// one operand less 1 (saturated): the left sample, and of two rows the odd
+// one (put_no_rnd_pixels8_{x2,y2}_mmxext), a level off where that sample is 0
+void hpel_mc(const uint8_t* s, int ss, int bw, int bh, int dxy, int rnd, uint8_t* o) {
+    bool approx = !rnd && bw == 8;
+    auto dec1 = [](int v) { return v ? v - 1 : 0; };
+    for (int j = 0; j < bh; j++)
+        for (int i = 0; i < bw; i++) {
+            const uint8_t* p = s + j * ss + i;
+            int v;
+            switch (dxy) {
+                case 0: v = p[0]; break;
+                case 1: v = approx ? (dec1(p[0]) + p[1] + 1) >> 1 : (p[0] + p[1] + rnd) >> 1; break;
+                case 2:
+                    v = !approx ? (p[0] + p[ss] + rnd) >> 1
+                        : (j & 1) ? (dec1(p[0]) + p[ss] + 1) >> 1 : (p[0] + dec1(p[ss]) + 1) >> 1;
+                    break;
+                default: v = (p[0] + p[1] + p[ss] + p[ss + 1] + 1 + rnd) >> 2;
+            }
+            o[j * bw + i] = uint8_t(v);
+        }
+}
+
 // decoder counters, read by the tests to show which tools a stream used
 enum Stat {
     kIVops, kPVops, kRound0, kRound1, kIntraMbI, kIntraMbP, kInterMb, kNotCoded, kAcPredOn,
-    kAcPredOff, kEsc1, kEsc2, kEsc3, kMaxFcode, kMvOutside, kDquantMb, kNumStats
+    kAcPredOff, kEsc1, kEsc2, kEsc3, kMaxFcode, kMvOutside, kDquantMb, kBVops, kNVops,
+    kInter4vMb, kDirectMb, kDirect8x8Mb, kForwardMb, kBackwardMb, kInterpolateMb, kBSkippedMb,
+    kDbquantMb, kMaxBcode, kQpelVops, kMpegQuantVops, kCustomMatrices, kPackets, kHecPackets,
+    kPackedBVops, kXvidIdctVops, kInterlacedVops, kAltScanVops, kFieldMb, kFieldDctMb,
+    kFieldDirectMb, kNumStats
 };
 
 struct Codec {
@@ -418,46 +457,16 @@ struct Codec {
     // half-pel flags dxy from `src` (clamped at the edges ew x eh)
     static void mc_block(const uint8_t* src, int stride, int ew, int eh, int x, int y, int dxy,
                          int bw, int bh, int rounding, uint8_t* dst, int dstride) {
-        uint8_t win[17 * 17];
-        const uint8_t* s;
-        int ss;
-        if (x >= 0 && y >= 0 && x + bw + 1 <= ew && y + bh + 1 <= eh) {
-            s = src + size_t(y) * stride + x;
-            ss = stride;
-        } else {
-            for (int j = 0; j <= bh; j++) {
-                int yy = std::min(std::max(y + j, 0), eh - 1);
-                for (int i = 0; i <= bw; i++) {
-                    int xx = std::min(std::max(x + i, 0), ew - 1);
-                    win[j * 17 + i] = src[size_t(yy) * stride + xx];
-                }
+        uint8_t win[17 * 17], out[256];
+        for (int j = 0; j <= bh; j++) {
+            int yy = std::min(std::max(y + j, 0), eh - 1);
+            for (int i = 0; i <= bw; i++) {
+                int xx = std::min(std::max(x + i, 0), ew - 1);
+                win[j * 17 + i] = src[size_t(yy) * stride + xx];
             }
-            s = win;
-            ss = 17;
         }
-        switch (dxy) {
-            case 0:
-                for (int j = 0; j < bh; j++) std::memcpy(dst + j * dstride, s + j * ss, bw);
-                break;
-            case 1:
-                for (int j = 0; j < bh; j++)
-                    for (int i = 0; i < bw; i++)
-                        dst[j * dstride + i] =
-                            uint8_t((s[j * ss + i] + s[j * ss + i + 1] + 1 - rounding) >> 1);
-                break;
-            case 2:
-                for (int j = 0; j < bh; j++)
-                    for (int i = 0; i < bw; i++)
-                        dst[j * dstride + i] =
-                            uint8_t((s[j * ss + i] + s[(j + 1) * ss + i] + 1 - rounding) >> 1);
-                break;
-            default:
-                for (int j = 0; j < bh; j++)
-                    for (int i = 0; i < bw; i++)
-                        dst[j * dstride + i] =
-                            uint8_t((s[j * ss + i] + s[j * ss + i + 1] + s[(j + 1) * ss + i] +
-                                     s[(j + 1) * ss + i + 1] + 2 - rounding) >> 2);
-        }
+        hpel_mc(win, 17, bw, bh, dxy, 1 - rounding, out);
+        for (int j = 0; j < bh; j++) std::memcpy(dst + j * dstride, out + j * bw, size_t(bw));
     }
 
     // the motion-compensated macroblock (mx, my half-pels) into `cur`;
@@ -517,46 +526,220 @@ struct Codec {
 };
 
 // ---------------------------------------------------------------- decoder
+//
+// The decoder follows libavcodec's mpeg4 decoder (mpeg4videodec.c,
+// h263dec.c, mpegvideo_motion.c) wherever a legal stream leaves it a
+// choice: the picture it outputs when, the IDCT and the bug workarounds it
+// picks from the user data, and the edge handling of motion compensation.
+
+#include "xvid_idct.h"
+
+// libavcodec's workaround_bugs flags that change the pictures of the
+// tools decoded here
+enum Bug : unsigned {
+    kBugEdge = 1,             // FF_BUG_EDGE: the picture edge is the VOL size
+    kBugDcClip = 2,           // FF_BUG_DC_CLIP: intra DC predictors kept past 2047
+    kBugQpelChroma = 4,       // FF_BUG_QPEL_CHROMA
+    kBugQpelChroma2 = 8,      // FF_BUG_QPEL_CHROMA2
+    kBugStdQpel = 16,         // FF_BUG_STD_QPEL: old Lavc's quarter-sample filter
+    kBugUmp4 = 32,            // FF_BUG_UMP4
+    kBugXvidIlace = 64,       // FF_BUG_XVID_ILACE: interlaced_dct read without a cbp
+    kBugHpelChroma = 128,     // FF_BUG_HPEL_CHROMA: DivX's field chroma vectors
+    kBugIedge = 256,          // FF_BUG_IEDGE: an emulated chroma edge one row short
+};
+
+enum MbKind : uint8_t { kMbIntra, kMb16x16, kMb8x8, kMbField };
+
+// a decoded picture with what a later B-VOP reads of it
+struct Picture {
+    std::vector<uint8_t> p[3];
+    std::vector<int16_t> mv;    // (x, y) per 8x8 block, FFmpeg's motion_val layout
+    std::vector<uint8_t> kind;  // MbKind per macroblock
+    std::vector<uint8_t> skip;  // not_coded per macroblock (P-VOPs)
+    // a field-predicted P macroblock's field selects and vectors
+    // (FFmpeg's ref_index and p_field_mv_table)
+    std::vector<uint8_t> field_sel;
+    std::vector<int16_t> field_mv;
+    int vop_type = 0;
+};
+using PicturePtr = std::shared_ptr<Picture>;
+
+const uint8_t kDefaultIntraMatrix[64] = {
+    8,  17, 18, 19, 21, 23, 25, 27, 17, 18, 19, 21, 23, 25, 27, 28,
+    20, 21, 22, 23, 24, 26, 28, 30, 21, 22, 23, 24, 26, 28, 30, 32,
+    22, 23, 24, 26, 28, 30, 32, 35, 23, 24, 26, 28, 30, 32, 35, 38,
+    25, 26, 28, 30, 32, 35, 38, 41, 27, 28, 30, 32, 35, 38, 41, 45};
+const uint8_t kDefaultInterMatrix[64] = {
+    16, 17, 18, 19, 20, 21, 22, 23, 17, 18, 19, 20, 21, 22, 23, 24,
+    18, 19, 20, 21, 22, 23, 24, 25, 19, 20, 21, 22, 23, 24, 26, 27,
+    20, 21, 22, 23, 25, 26, 27, 28, 21, 22, 23, 24, 26, 27, 28, 30,
+    22, 23, 24, 26, 27, 28, 30, 31, 23, 24, 25, 27, 28, 30, 31, 33};
+
+// mb_type of B-VOPs (Table B-4): direct, interpolate, backward, forward
+const Code kBMbType[4] = {{1, 1}, {1, 2}, {1, 3}, {1, 4}};
+enum BMbType { kBDirect, kBInterpolate, kBBackward, kBForward };
+const Vlc& b_mb_type_vlc() {
+    static const Vlc v(kBMbType, 4);
+    return v;
+}
+
+// the vector of an 8x8 chroma block from the sum of four luma vectors
+// (H.263's table of sixteenths)
+int round_chroma(int x) {
+    static const uint8_t kRound[16] = {0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2};
+    return kRound[x & 15] + ((x >> 3) & ~1);
+}
+
+inline uint8_t clip8(int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+// the MPEG-4 8-tap quarter-sample lowpass of n + 1 samples (step `d`) into
+// n, the samples mirrored past both ends (qpeldsp.c)
+template <int n>
+inline void qpel_lowpass(const uint8_t* s, int d, uint8_t* o, int od, int rnd) {
+    auto at = [&](int i) { return int(s[(i < 0 ? -1 - i : i > n ? 2 * n + 1 - i : i) * d]); };
+    for (int i = 0; i < n; i++) {
+        int v = (at(i) + at(i + 1)) * 20 - (at(i - 1) + at(i + 2)) * 6 +
+                (at(i - 2) + at(i + 3)) * 3 - (at(i - 3) + at(i + 4));
+        o[i * od] = clip8((v + 15 + rnd) >> 5);
+    }
+}
+// the lowpass of `rows` rows (horizontal) or of n columns (vertical)
+template <int n>
+void qpel_h(const uint8_t* s, int ss, int rows, uint8_t* o, int os, int rnd) {
+    for (int j = 0; j < rows; j++) qpel_lowpass<n>(s + j * ss, 1, o + j * os, 1, rnd);
+}
+template <int n>
+void qpel_v(const uint8_t* s, int ss, uint8_t* o, int os, int rnd) {
+    for (int i = 0; i < n; i++) qpel_lowpass<n>(s + i, ss, o + i, os, rnd);
+}
+// the average of two n-wide blocks, rounded up (rnd) or down
+template <int n>
+void avg2(const uint8_t* a, int as, const uint8_t* b, int bs, int rows, uint8_t* o, int os,
+          int rnd) {
+    for (int j = 0; j < rows; j++)
+        for (int i = 0; i < n; i++) o[j * os + i] = uint8_t((a[j * as + i] + b[j * bs + i] + rnd) >> 1);
+}
+
+// one n x n quarter-sample prediction (FFmpeg's qpelN_mcXY, X = dxy & 3,
+// Y = dxy >> 2) from the (n + 1)^2 window `w` of stride `ws`
+template <int n>
+void qpel_mc(const uint8_t* w, int ws, int dxy, int rnd, uint8_t* o) {
+    constexpr int m = n + 1;
+    uint8_t hh[m * n], hv[n * n];
+    int x = dxy & 3, y = dxy >> 2;
+    if (!y) {
+        if (!x) {
+            for (int j = 0; j < n; j++) std::memcpy(o + j * n, w + j * ws, n);
+        } else if (x == 2) {
+            qpel_h<n>(w, ws, n, o, n, rnd);
+        } else {
+            qpel_h<n>(w, ws, n, hh, n, rnd);
+            avg2<n>(w + (x == 3), ws, hh, n, n, o, n, rnd);
+        }
+        return;
+    }
+    if (!x) {
+        if (y == 2) {
+            qpel_v<n>(w, ws, o, n, rnd);
+        } else {
+            qpel_v<n>(w, ws, hv, n, rnd);
+            avg2<n>(w + (y == 3) * ws, ws, hv, n, n, o, n, rnd);
+        }
+        return;
+    }
+    qpel_h<n>(w, ws, m, hh, n, rnd);  // n + 1 rows
+    if (x != 2) avg2<n>(hh, n, w + (x == 3), ws, m, hh, n, rnd);
+    if (y == 2) {
+        qpel_v<n>(hh, n, o, n, rnd);
+        return;
+    }
+    qpel_v<n>(hh, n, hv, n, rnd);
+    avg2<n>(hh + (y == 3) * n, n, hv, n, n, o, n, rnd);
+}
+
+// how a prediction is stored: put with rounding (rnd 1) or without, or the
+// rounded average with what is there (the second direction of a B-VOP)
+struct McOp {
+    int rnd;
+    bool avg;
+};
+void store(const uint8_t* v, int bw, int bh, McOp op, uint8_t* d, int ds) {
+    for (int j = 0; j < bh; j++)
+        for (int i = 0; i < bw; i++)
+            d[j * ds + i] = op.avg ? uint8_t((d[j * ds + i] + v[j * bw + i] + 1) >> 1) : v[j * bw + i];
+}
 
 struct Vol {
-    int width = 0, height = 0, time_bits = 1, resolution = 0;
-    bool resync_disable = true;
+    int width = 0, height = 0, time_bits = 1, resolution = 0, verid = 1, vo_type = 0;
+    bool control = false, resync = false, mpeg_quant = false, quarter = false,
+         interlaced = false;
 };
 
 struct Decoder : Codec {
     bool have_vol = false;
     Vol vol;
     std::string error;
+    uint32_t codec_tag = 0;
+    // what the user data tells (-1: nothing)
+    int divx_version = -1, divx_build = -1, lavc_build = -1, xvid_build = -1;
+    bool divx_packed = false;
+    unsigned bugs = 0;
+    bool use_xvid_idct = false, low_delay = false;
+    long picture_number = 0;
+    int intra_matrix[64], inter_matrix[64];  // natural order
+    // VOP times (FFmpeg's time_base, time, last_non_b_time, pp/pb_time)
+    long time_base = 0, last_time_base = 0, time = 0, last_non_b_time = 0, pp_time = 0,
+         pb_time = 0;
+    int b8s = 0;  // the stride of Picture::mv in blocks
+    PicturePtr last, next, cur;
+    std::vector<PicturePtr> out;  // pictures let out, in order
+    std::vector<uint8_t> stash;   // a packed B-VOP kept for the next sample
+    bool skipped_last = false;
+    // the VOP being decoded
+    int type = 0, q = 1, rounding = 0, fcode = 1, bcode = 1, dc_thr = 99;
+    int edge_w = 0, edge_h = 0;
+    int resync_x = 0, resync_y = 0;
+    bool first_line = true;
+    int last_mv[2][2][2] = {};  // B-VOP vector predictors: direction, field, x / y
+    // interlace: the VOP's top_field_first and alternate scan, the
+    // macroblock's field DCT, the B-VOP field times
+    bool tff = false, alt_scan = false, idct_field = false;
+    long t_frame = 0, pp_field_time = 0, pb_field_time = 0;
+
+    void init_size(int width, int height) {
+        init(width, height);
+        b8s = 2 * mbw + 1;
+        last.reset();
+        next.reset();
+        cur.reset();
+    }
 
     // ---- headers
 
     void parse_vol(BitReader& br) {
         Vol v;
         br.skip(1);  // random_accessible_vol
-        int type = int(br.get(8));
-        if (type == 0x12) fail("MPEG-4 fine granularity scalable video is not supported");
-        int verid = 1;
+        v.vo_type = int(br.get(8));
+        if (v.vo_type == 0x12) fail("MPEG-4 fine granularity scalable video is not supported");
         if (br.get1()) {  // is_object_layer_identifier
-            verid = int(br.get(4));
+            v.verid = int(br.get(4));
             br.skip(3);
         }
         if (br.get(4) == 15) br.skip(16);  // aspect_ratio_info, extended PAR
-        if (br.get1()) {                   // vol_control_parameters
+        bool delay = low_delay;
+        if ((v.control = br.get1())) {  // vol_control_parameters
             if (br.get(2) != 1)
                 fail("MPEG-4 video chroma formats other than 4:2:0 are not supported");
-            br.skip(1);  // low_delay
+            delay = br.get1();
             if (br.get1()) {  // vbv_parameters
-                br.skip(15);
-                br.marker("VOL");
-                br.skip(15);
-                br.marker("VOL");
-                br.skip(15);
-                br.marker("VOL");
-                br.skip(3 + 11);
-                br.marker("VOL");
-                br.skip(15);
-                br.marker("VOL");
+                for (int bits : {15, 15, 15, 3 + 11, 15}) {
+                    br.skip(bits);
+                    br.marker("VOL");
+                }
             }
+        } else if (!picture_number) {
+            // FFmpeg: Simple and Advanced Simple without the flag are low delay
+            delay = v.vo_type == 1 || v.vo_type == 17;
         }
         int shape = int(br.get(2));
         if (shape != 0)
@@ -575,35 +758,518 @@ struct Decoder : Codec {
         br.marker("VOL");
         v.height = int(br.get(13));
         br.marker("VOL");
-        if (br.get1()) fail("interlaced MPEG-4 video is not supported");
+        v.interlaced = br.get1();
         if (!br.get1()) fail("MPEG-4 overlapped block motion compensation (OBMC) is not supported");
-        int sprite = int(br.get(verid == 1 ? 1 : 2));
+        int sprite = int(br.get(v.verid == 1 ? 1 : 2));
         if (sprite) fail("MPEG-4 sprites and global motion compensation (GMC) are not supported");
         if (br.get1())
             fail("MPEG-4 video with other than 8-bit samples (not_8_bit) is not supported");
-        if (br.get1())
-            fail("MPEG-4 MPEG quantisation (quant_type 1, quantiser matrices) is not supported");
-        if (verid != 1 && br.get1())
-            fail("MPEG-4 quarter-pel motion (quarter_sample) is not supported");
+        int intra[64], inter[64];
+        std::memcpy(intra, intra_matrix, sizeof intra);
+        std::memcpy(inter, inter_matrix, sizeof inter);
+        if ((v.mpeg_quant = br.get1())) {  // quant_type: MPEG, with its matrices
+            for (int i = 0; i < 64; i++) {
+                intra[i] = kDefaultIntraMatrix[i];
+                inter[i] = kDefaultInterMatrix[i];
+            }
+            for (int* m : {intra, inter}) {
+                if (!br.get1()) continue;  // load_*_quant_mat
+                int i = 0, last_v = 0;
+                for (; i < 64; i++) {
+                    if (br.left() < 8)
+                        fail("truncated MPEG-4 video: a MPEG quantisation matrix cut short");
+                    int val = int(br.get(8));
+                    if (!val) break;
+                    last_v = val;
+                    m[kZigzag[i]] = val;
+                }
+                for (; i < 64; i++) m[kZigzag[i]] = last_v;
+                stats[kCustomMatrices]++;
+            }
+        }
+        v.quarter = v.verid != 1 && br.get1();
         if (!br.get1()) fail("MPEG-4 complexity estimation headers are not supported");
-        v.resync_disable = br.get1();
+        v.resync = !br.get1();
         if (br.get1()) fail("MPEG-4 data partitioning is not supported");
-        if (verid != 1) {
+        if (v.verid != 1) {
             if (br.get1()) fail("MPEG-4 NEWPRED is not supported");
             if (br.get1()) fail("MPEG-4 reduced resolution VOPs are not supported");
         }
         if (br.get1()) fail("MPEG-4 scalability (enhancement layers) is not supported");
-        if (!have_vol || v.width != vol.width || v.height != vol.height) init(v.width, v.height);
+        if (!have_vol || v.width != vol.width || v.height != vol.height)
+            init_size(v.width, v.height);
         vol = v;
         have_vol = true;
+        low_delay = delay;
+        std::memcpy(intra_matrix, intra, sizeof intra);
+        std::memcpy(inter_matrix, inter, sizeof inter);
     }
 
-    // ---- macroblocks
+    // FFmpeg's decode_user_data: the encoder's name and build
+    void parse_user_data(const uint8_t* d, size_t n) {
+        char buf[256];
+        BitReader br(d, n);
+        int i = 0;
+        for (; i < 255 && br.pos < br.nbits; i++) {
+            if (br.peek(23) == 0) break;
+            buf[i] = char(br.get(8));
+        }
+        buf[i] = 0;
+        int ver = 0, build = 0, ver2 = 0, ver3 = 0;
+        char lastc = 0;
+        int e = std::sscanf(buf, "DivX%dBuild%d%c", &ver, &build, &lastc);
+        if (e < 2) e = std::sscanf(buf, "DivX%db%d%c", &ver, &build, &lastc);
+        if (e >= 2) {
+            divx_version = ver;
+            divx_build = build;
+            divx_packed = e == 3 && lastc == 'p';
+        }
+        e = std::sscanf(buf, "FFmpe%*[^b]b%d", &build) + 3;
+        if (e != 4)
+            e = std::sscanf(buf, "FFmpeg v%d.%d.%d / libavcodec build: %d", &ver, &ver2, &ver3,
+                            &build);
+        if (e != 4) {
+            e = std::sscanf(buf, "Lavc%d.%d.%d", &ver, &ver2, &ver3) + 1;
+            if (e > 1) build = ((ver & 0xFF) << 16) + ((ver2 & 0xFF) << 8) + (ver3 & 0xFF);
+        }
+        if (e != 4 && !std::strcmp(buf, "ffmpeg")) lavc_build = 4600;
+        if (e == 4) lavc_build = build;
+        if (std::sscanf(buf, "XviD%d", &build) == 1) xvid_build = build;
+    }
+
+    // FFmpeg's ff_mpeg4_workaround_bugs, run before each VOP's macroblocks
+    void workaround_bugs() {
+        auto tag = [&](const char* t) {
+            return codec_tag == (uint32_t(uint8_t(t[0])) | uint32_t(uint8_t(t[1])) << 8 |
+                                 uint32_t(uint8_t(t[2])) << 16 | uint32_t(uint8_t(t[3])) << 24);
+        };
+        if (xvid_build == -1 && divx_version == -1 && lavc_build == -1) {
+            if (tag("XVID") || tag("XVIX") || tag("RMP4") || tag("ZMP4") || tag("SIPP"))
+                xvid_build = 0;
+            else if (tag("DIVX") && vol.vo_type == 0 && !vol.control)
+                divx_version = 400;
+        }
+        if (xvid_build >= 0 && divx_version >= 0) divx_version = divx_build = -1;
+        if (tag("UMP4")) bugs |= kBugUmp4;
+        if (tag("XVIX")) bugs |= kBugXvidIlace;
+        auto below = [](int v, unsigned limit) { return unsigned(v) < limit; };
+        if (divx_version >= 500 && divx_build < 1814) bugs |= kBugQpelChroma;
+        if (divx_version > 502 && divx_build < 1814) bugs |= kBugQpelChroma2;
+        if (below(xvid_build, 2)) bugs |= kBugQpelChroma;
+        if (below(xvid_build, 13)) bugs |= kBugEdge;
+        if (below(xvid_build, 33)) bugs |= kBugDcClip;
+        if (below(lavc_build, 4653)) bugs |= kBugStdQpel;
+        if (below(lavc_build, 4670)) bugs |= kBugEdge;
+        if (below(lavc_build, 4713)) bugs |= kBugDcClip;
+        if (below(divx_version, 500)) bugs |= kBugEdge;
+        if (divx_version >= 0) bugs |= kBugHpelChroma;
+        if ((lavc_build & 0xFF) >= 100 && lavc_build > 3621476 && lavc_build < 3752552 &&
+            (lavc_build < 3752037 || lavc_build > 3752191))
+            bugs |= kBugIedge;
+        if (xvid_build >= 0) use_xvid_idct = true;  // FF_IDCT_XVID, kept from here on
+    }
+
+    // ---- prediction state
+
+    int16_t* mv_at(Picture& p, int bx, int by) {  // block (bx, by); by may be -1
+        return &p.mv[(size_t(by + 1) * b8s + bx) * 2];
+    }
+    int16_t* block_mv(int mbx, int mby, int n) {
+        return mv_at(*cur, 2 * mbx + (n & 1), 2 * mby + (n >> 1));
+    }
+
+    // FFmpeg's ff_h263_pred_motion: the predictor of block n's vector, with
+    // its cases at the first row of a video packet
+    void pred_motion(int mbx, int mby, int n, int& px, int& py) {
+        static const int kOff[4] = {2, 1, 1, -1};
+        int16_t* mv = block_mv(mbx, mby, n);
+        int16_t* a = mv - 2;
+        int16_t* b = mv - b8s * 2;
+        int16_t* c = mv + (kOff[n] - b8s) * 2;
+        if (first_line && n < 3) {
+            if (n == 0) {
+                if (mbx == resync_x) {
+                    px = py = 0;
+                } else if (mbx + 1 == resync_x) {
+                    if (mbx == 0) {
+                        px = c[0];
+                        py = c[1];
+                    } else {
+                        px = median(a[0], 0, c[0]);
+                        py = median(a[1], 0, c[1]);
+                    }
+                } else {
+                    px = a[0];
+                    py = a[1];
+                }
+            } else if (n == 1) {
+                if (mbx + 1 == resync_x) {
+                    px = median(a[0], 0, c[0]);
+                    py = median(a[1], 0, c[1]);
+                } else {
+                    px = a[0];
+                    py = a[1];
+                }
+            } else {
+                if (mbx == resync_x) a[0] = a[1] = 0;  // FFmpeg writes the 0 back
+                px = median(a[0], b[0], c[0]);
+                py = median(a[1], b[1], c[1]);
+            }
+            return;
+        }
+        px = median(a[0], b[0], c[0]);
+        py = median(a[1], b[1], c[1]);
+    }
+
+    // FFmpeg's ff_mpeg4_pred_dc: the DC predictor of block n (0 from the
+    // left, 1 from above), with its cases at the first row of a video packet
+    int dc_pred(int mbx, int mby, int n, int scale, int& dir) {
+        int c = comp(n), bx, by;
+        block_xy(mbx, mby, n, bx, by);
+        int a = dc_at(c, bx - 1, by), b = dc_at(c, bx - 1, by - 1), cc = dc_at(c, bx, by - 1);
+        if (first_line && n != 3) {
+            if (n != 2) b = cc = 1024;
+            if (n != 1 && mbx == resync_x) b = a = 1024;
+        }
+        if (mbx == resync_x && mby == resync_y + 1 && (n == 0 || n == 4 || n == 5)) b = 1024;
+        int pred;
+        if (std::abs(a - b) < std::abs(b - cc)) {
+            pred = cc;
+            dir = 1;
+        } else {
+            pred = a;
+            dir = 0;
+        }
+        return (pred + (scale >> 1)) / scale;
+    }
+    void dc_keep(int mbx, int mby, int n, int level, int scale) {
+        int c = comp(n), bx, by;
+        block_xy(mbx, mby, n, bx, by);
+        int v = level * scale;
+        if (v & ~2047) v = v < 0 ? 0 : (bugs & kBugDcClip) ? v : 2047;
+        dc[c][size_t(by) * bgw(c) + bx] = int16_t(v);
+    }
+
+    // FFmpeg's ff_mpeg4_clean_buffers at a video packet: the DC and AC
+    // predictors around the packet's first macroblock, and the B vectors
+    void clean_buffers(int mbx, int mby) {
+        // cols [x0, x1) of block row `by` of component c
+        auto clean = [&](int c, int by, int x0, int x1) {
+            int gw = bgw(c), gh = c ? mbh : 2 * mbh;
+            if (by < 0 || by >= gh) return;
+            for (int bx = std::max(x0, 0); bx < std::min(x1, gw); bx++) {
+                size_t i = size_t(by) * gw + bx;
+                dc[c][i] = 1024;
+                std::memset(&ac[c][i * 16], 0, 16 * sizeof(int16_t));
+            }
+        };
+        // FFmpeg's runs from the block above-left to the block left of the
+        // macroblock's lower row (its rows carry one padding column)
+        clean(0, 2 * mby - 1, 2 * mbx - 1, 2 * mbw);
+        clean(0, 2 * mby, 0, 2 * mbw);
+        clean(0, 2 * mby + 1, 0, 2 * mbx);
+        for (int c = 1; c < 3; c++) {
+            clean(c, mby - 1, mbx - 1, mbw);
+            clean(c, mby, 0, mbx);
+        }
+        // the B vector predictors of the first field only, as FFmpeg clears them
+        for (int d = 0; d < 2; d++) last_mv[d][0][0] = last_mv[d][0][1] = 0;
+    }
+
+    // ---- motion compensation
+
+    // FFmpeg's edge emulation: a window of `src` at (x, y), its samples
+    // clamped at (ew, eh) when `emu`, else read as they lie (the plane's
+    // macroblock-aligned size bounds the read)
+    void fetch(int c, const Picture& ref, bool emu, int x, int y, int bw, int bh,
+               uint8_t* win) const {
+        int stride = c ? cs : ys, pw = c ? cs : ys, ph = c ? mbh * 8 : mbh * 16;
+        int ew = c ? edge_w >> 1 : edge_w, eh = c ? edge_h >> 1 : edge_h;
+        int mw = emu ? ew : pw, mh = emu ? eh : ph;
+        const uint8_t* s = ref.p[c].data();
+        for (int j = 0; j < bh; j++) {
+            int yy = std::min(std::max(y + j, 0), mh - 1);
+            for (int i = 0; i < bw; i++) {
+                int xx = std::min(std::max(x + i, 0), mw - 1);
+                win[j * bw + i] = s[size_t(yy) * stride + xx];
+            }
+        }
+    }
+    uint8_t* dst_ptr(int c, int mbx, int mby, int& stride) {
+        stride = c ? cs : ys;
+        return c ? &cur->p[c][size_t(mby) * 8 * cs + mbx * 8]
+                 : &cur->p[0][size_t(mby) * 16 * ys + mbx * 16];
+    }
+    void note_outside(int x, int y, int bw, int bh) {
+        if (x < 0 || y < 0 || x + bw > edge_w || y + bh > edge_h) stats[kMvOutside]++;
+    }
+
+    // mpeg_motion: a 16x16 half-sample vector, the chroma's from it
+    void mc_hpel16(const Picture& ref, int mbx, int mby, int mx, int my, McOp op) {
+        uint8_t win[17 * 17], v[256];
+        int dxy = ((my & 1) << 1) | (mx & 1);
+        int sx = mbx * 16 + (mx >> 1), sy = mby * 16 + (my >> 1);
+        bool emu = unsigned(sx) >= unsigned(std::max(edge_w - (mx & 1) - 15, 0)) ||
+                   unsigned(sy) >= unsigned(std::max(edge_h - (my & 1) - 15, 0));
+        note_outside(sx, sy, 16 + (mx & 1), 16 + (my & 1));
+        fetch(0, ref, emu, sx, sy, 17, 17, win);
+        hpel_mc(win, 17, 16, 16, dxy, op.rnd, v);
+        int ds;
+        uint8_t* d = dst_ptr(0, mbx, mby, ds);
+        store(v, 16, 16, op, d, ds);
+        int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
+        for (int c = 1; c < 3; c++) {
+            fetch(c, ref, emu, sx >> 1, sy >> 1, 9, 9, win);
+            hpel_mc(win, 9, 8, 8, uvdxy, op.rnd, v);
+            d = dst_ptr(c, mbx, mby, ds);
+            store(v, 8, 8, op, d, ds);
+        }
+    }
+
+    // qpel_motion: a 16x16 quarter-sample vector, the chroma's from it
+    // with FFmpeg's rounding and the XviD / DivX build workarounds
+    void mc_qpel16(const Picture& ref, int mbx, int mby, int mx, int my, McOp op) {
+        uint8_t win[17 * 17], v[256];
+        int dxy = ((my & 3) << 2) | (mx & 3);
+        int sx = mbx * 16 + (mx >> 2), sy = mby * 16 + (my >> 2);
+        int cx, cy;
+        if (bugs & kBugQpelChroma2) {
+            static const int kRtab[8] = {0, 0, 1, 1, 0, 0, 0, 1};
+            cx = (mx >> 1) + kRtab[mx & 7];
+            cy = (my >> 1) + kRtab[my & 7];
+        } else if (bugs & kBugQpelChroma) {
+            cx = (mx >> 1) | (mx & 1);
+            cy = (my >> 1) | (my & 1);
+        } else {
+            cx = mx / 2;
+            cy = my / 2;
+        }
+        cx = (cx >> 1) | (cx & 1);
+        cy = (cy >> 1) | (cy & 1);
+        int uvdxy = (cx & 1) | ((cy & 1) << 1);
+        cx >>= 1;
+        cy >>= 1;
+        bool emu = unsigned(sx) > unsigned(std::max(edge_w - (mx & 3) - 16, 0)) ||
+                   unsigned(sy) > unsigned(std::max(edge_h - (my & 3) - 16, 0));
+        note_outside(sx, sy, 16 + !!(mx & 3), 16 + !!(my & 3));
+        fetch(0, ref, emu, sx, sy, 17, 17, win);
+        qpel_mc<16>(win, 17, dxy, op.avg ? 1 : op.rnd, v);
+        int ds;
+        uint8_t* d = dst_ptr(0, mbx, mby, ds);
+        store(v, 16, 16, op, d, ds);
+        for (int c = 1; c < 3; c++) {
+            fetch(c, ref, emu, mbx * 8 + cx, mby * 8 + cy, 9, 9, win);
+            hpel_mc(win, 9, 8, 8, uvdxy, op.rnd, v);
+            d = dst_ptr(c, mbx, mby, ds);
+            store(v, 8, 8, op, d, ds);
+        }
+    }
+
+    // one field of a macroblock (`bottom`) predicted from field `sel` of
+    // `ref` by a vector in field units (mpeg_motion_field, or qpel_motion
+    // with field_based: two 8x8 quarter-sample blocks).  The windows are
+    // read in frame rows and the field's rows taken from them, so that an
+    // emulated edge replicates the frame's last row, as FFmpeg's does
+    void mc_field(const Picture& ref, int mbx, int mby, int bottom, int sel, int mx, int my,
+                  McOp op) {
+        uint8_t win[18 * 17], fw[9 * 17], v[128], cw[2][10 * 9], cf[5 * 9];
+        const int field_h = edge_h >> 1;
+        int sx, sy, dxy, cx, cy, uvdxy;
+        bool emu;
+        if (vol.quarter) {
+            dxy = ((my & 3) << 2) | (mx & 3);
+            sx = mbx * 16 + (mx >> 2);
+            sy = mby * 8 + (my >> 2);
+            int tx = mx / 2, ty = my >> 1;
+            tx = (tx >> 1) | (tx & 1);
+            ty = (ty >> 1) | (ty & 1);
+            uvdxy = (tx & 1) | ((ty & 1) << 1);
+            cx = mbx * 8 + (tx >> 1);
+            cy = mby * 4 + (ty >> 1);
+            emu = unsigned(sx) > unsigned(std::max(edge_w - (mx & 3) - 16, 0)) ||
+                  unsigned(sy) > unsigned(std::max(field_h - (my & 3) - 8, 0));
+        } else {
+            dxy = ((my & 1) << 1) | (mx & 1);
+            sx = mbx * 16 + (mx >> 1);
+            sy = mby * 8 + (my >> 1);
+            if (bugs & kBugHpelChroma) {
+                int tx = (mx >> 1) | (mx & 1), ty = my >> 1;
+                uvdxy = ((ty & 1) << 1) | (tx & 1);
+                cx = mbx * 8 + (tx >> 1);
+                cy = mby * 4 + (ty >> 1);
+            } else {
+                uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
+                cx = sx >> 1;
+                cy = sy >> 1;
+            }
+            emu = unsigned(sx) >= unsigned(std::max(edge_w - (mx & 1) - 15, 0)) ||
+                  unsigned(sy) >= unsigned(std::max(field_h - (my & 1) - 7, 0));
+        }
+        note_outside(sx, 2 * sy, 17, 18);
+        fetch(0, ref, emu, sx, 2 * sy, 17, 18, win);
+        for (int j = 0; j < 9; j++) std::memcpy(fw + j * 17, win + (sel + 2 * j) * 17, 17);
+        if (vol.quarter) {
+            uint8_t half[64];
+            qpel_mc<8>(fw, 17, dxy, op.avg ? 1 : op.rnd, half);
+            for (int j = 0; j < 8; j++) std::memcpy(v + j * 16, half + j * 8, 8);
+            qpel_mc<8>(fw + 8, 17, dxy, op.avg ? 1 : op.rnd, half);
+            for (int j = 0; j < 8; j++) std::memcpy(v + j * 16 + 8, half + j * 8, 8);
+        } else {
+            hpel_mc(fw, 17, 16, 8, dxy, op.rnd, v);
+        }
+        int ds;
+        uint8_t* d = dst_ptr(0, mbx, mby, ds);
+        store(v, 16, 8, op, d + bottom * ds, 2 * ds);
+        for (int c = 1; c < 3; c++) fetch(c, ref, emu, cx, 2 * cy, 9, 10, cw[c - 1]);
+        if (emu && (bugs & kBugIedge)) std::memcpy(cw[0] + 9 * 9, cw[1], 9);  // vbuf's first row
+        for (int c = 1; c < 3; c++) {
+            for (int j = 0; j < 5; j++) std::memcpy(cf + j * 9, cw[c - 1] + (sel + 2 * j) * 9, 9);
+            hpel_mc(cf, 9, 8, 4, uvdxy, op.rnd, v);
+            d = dst_ptr(c, mbx, mby, ds);
+            store(v, 8, 4, op, d + bottom * ds, 2 * ds);
+        }
+    }
+
+    // apply_8x8: four 8x8 vectors (half- or quarter-sample) and the chroma
+    // vector from their sum
+    void mc_8x8(const Picture& ref, int mbx, int mby, const int (*mv)[2], McOp op) {
+        uint8_t win[9 * 9], v[64];
+        int sumx = 0, sumy = 0, ds;
+        uint8_t* d0 = dst_ptr(0, mbx, mby, ds);
+        for (int i = 0; i < 4; i++) {
+            int mx = mv[i][0], my = mv[i][1], dxy, sx, sy;
+            bool emu;
+            if (vol.quarter) {
+                dxy = ((my & 3) << 2) | (mx & 3);
+                sx = mbx * 16 + (mx >> 2) + (i & 1) * 8;
+                sy = mby * 16 + (my >> 2) + (i >> 1) * 8;
+                sx = std::min(std::max(sx, -16), w);
+                if (sx == w) dxy &= ~3;
+                sy = std::min(std::max(sy, -16), h);
+                if (sy == h) dxy &= ~12;
+                emu = unsigned(sx) >= unsigned(std::max(edge_w - (mx & 3) - 7, 0)) ||
+                      unsigned(sy) >= unsigned(std::max(edge_h - (my & 3) - 7, 0));
+                note_outside(sx, sy, 8 + !!(dxy & 3), 8 + !!(dxy & 12));
+                fetch(0, ref, emu, sx, sy, 9, 9, win);
+                qpel_mc<8>(win, 9, dxy, op.avg ? 1 : op.rnd, v);
+                sumx += mx / 2;
+                sumy += my / 2;
+            } else {
+                sx = mbx * 16 + (i & 1) * 8 + (mx >> 1);
+                sy = mby * 16 + (i >> 1) * 8 + (my >> 1);
+                dxy = 0;
+                sx = std::min(std::max(sx, -16), w);
+                if (sx != w) dxy |= mx & 1;
+                sy = std::min(std::max(sy, -16), h);
+                if (sy != h) dxy |= (my & 1) << 1;
+                emu = unsigned(sx) >= unsigned(std::max(edge_w - (mx & 1) - 7, 0)) ||
+                      unsigned(sy) >= unsigned(std::max(edge_h - (my & 1) - 7, 0));
+                note_outside(sx, sy, 8 + (dxy & 1), 8 + (dxy >> 1));
+                fetch(0, ref, emu, sx, sy, 9, 9, win);
+                hpel_mc(win, 9, 8, 8, dxy, op.rnd, v);
+                sumx += mx;
+                sumy += my;
+            }
+            store(v, 8, 8, op, d0 + (i >> 1) * 8 * ds + (i & 1) * 8, ds);
+        }
+        // chroma_4mv_motion
+        int mx = round_chroma(sumx), my = round_chroma(sumy);
+        int dxy = ((my & 1) << 1) | (mx & 1);
+        mx >>= 1;
+        my >>= 1;
+        int sx = mbx * 8 + mx, sy = mby * 8 + my;
+        sx = std::min(std::max(sx, -8), w >> 1);
+        if (sx == (w >> 1)) dxy &= ~1;
+        sy = std::min(std::max(sy, -8), h >> 1);
+        if (sy == (h >> 1)) dxy &= ~2;
+        bool emu = unsigned(sx) >= unsigned(std::max((edge_w >> 1) - (dxy & 1) - 7, 0)) ||
+                   unsigned(sy) >= unsigned(std::max((edge_h >> 1) - (dxy >> 1) - 7, 0));
+        for (int c = 1; c < 3; c++) {
+            fetch(c, ref, emu, sx, sy, 9, 9, win);
+            hpel_mc(win, 9, 8, 8, dxy, op.rnd, v);
+            uint8_t* d = dst_ptr(c, mbx, mby, ds);
+            store(v, 8, 8, op, d, ds);
+        }
+    }
+
+    // a macroblock's prediction from `ref` along one direction
+    void predict(const Picture& ref, int mbx, int mby, bool four, const int (*mv)[2], McOp op) {
+        if (four)
+            mc_8x8(ref, mbx, mby, mv, op);
+        else if (vol.quarter)
+            mc_qpel16(ref, mbx, mby, mv[0][0], mv[0][1], op);
+        else
+            mc_hpel16(ref, mbx, mby, mv[0][0], mv[0][1], op);
+    }
+
+    // ---- residual
+
+    void idct_put(int16_t* blk, uint8_t* d, int s) {
+        if (use_xvid_idct)
+            xvid_idct<false>(blk, d, s);
+        else
+            idct<false>(blk, d, s);
+    }
+    void idct_add(int16_t* blk, uint8_t* d, int s) {
+        if (use_xvid_idct)
+            xvid_idct<true>(blk, d, s);
+        else
+            idct<true>(blk, d, s);
+    }
+    uint8_t* block_dst(int mbx, int mby, int n, int& stride) {
+        if (n < 4 && idct_field) {  // field DCT: blocks 0-1 the top field, 2-3 the bottom
+            stride = 2 * ys;
+            return &cur->p[0][size_t(mby * 16 + (n >> 1)) * ys + mbx * 16 + (n & 1) * 8];
+        }
+        if (n < 4) {
+            stride = ys;
+            return &cur->p[0][size_t(mby * 16 + (n >> 1) * 8) * ys + mbx * 16 + (n & 1) * 8];
+        }
+        return dst_ptr(n - 3, mbx, mby, stride);
+    }
+
+    // an intra block's levels (after AC prediction) -> dequantised -> put
+    void intra_block(int mbx, int mby, int n, int16_t* blk) {
+        int scale = n < 4 ? luma_dc_scale(q) : chroma_dc_scale(q);
+        blk[0] = int16_t(blk[0] * scale);
+        if (vol.mpeg_quant) {  // dct_unquantize_mpeg2_intra, its qscale doubled
+            for (int i = 1; i < 64; i++)
+                if (blk[i]) {
+                    int l = std::abs(int(blk[i])) * 2 * q * intra_matrix[i] >> 4;
+                    blk[i] = int16_t(blk[i] < 0 ? -l : l);
+                }
+        } else {
+            int qmul = 2 * q, qadd = (q - 1) | 1;
+            for (int i = 1; i < 64; i++)
+                if (blk[i]) blk[i] = int16_t(blk[i] > 0 ? blk[i] * qmul + qadd : blk[i] * qmul - qadd);
+        }
+        int stride;
+        uint8_t* d = block_dst(mbx, mby, n, stride);
+        idct_put(blk, d, stride);
+    }
+    // an inter block (H.263: dequantised as read; MPEG: dequantised here
+    // with the mismatch control) -> added to the prediction
+    void inter_block(int mbx, int mby, int n, int16_t* blk) {
+        if (vol.mpeg_quant) {  // dct_unquantize_mpeg2_inter, its qscale doubled
+            int sum = -1;
+            for (int i = 0; i < 64; i++)
+                if (blk[i]) {
+                    int l = ((2 * std::abs(int(blk[i])) + 1) * 2 * q * inter_matrix[i]) >> 5;
+                    blk[i] = int16_t(blk[i] < 0 ? -l : l);
+                    sum += blk[i];
+                }
+            blk[63] = int16_t(blk[63] ^ (sum & 1));
+        }
+        int stride;
+        uint8_t* d = block_dst(mbx, mby, n, stride);
+        idct_add(blk, d, stride);
+    }
 
     int decode_dc_diff(BitReader& br, bool luma) {
         const Tables& t = tables();
         int size = (luma ? t.dc_luma : t.dc_chroma).decode(br, "DC size");
         if (!size) return 0;
+        if (size > 9) fail("corrupt MPEG-4 video: an intra DC size over 9");
         int diff = int(br.get(size));
         if (!(diff >> (size - 1))) diff = diff - (1 << size) + 1;
         if (size > 8) br.marker("DC differential");
@@ -611,7 +1277,7 @@ struct Decoder : Codec {
     }
 
     // TCOEF events into blk (natural order) from scan position `i` + 1 on;
-    // intra: quantised levels, inter: dequantised by qmul / qadd
+    // intra and MPEG-quantised inter: levels; H.263 inter: dequantised
     void decode_coeffs(BitReader& br, bool intra, const uint8_t* scan, int i, int qmul, int qadd,
                        int16_t* blk) {
         const Tables& t = tables();
@@ -663,184 +1329,586 @@ struct Decoder : Codec {
         }
     }
 
-    void decode_intra_mb(BitReader& br, int mbx, int mby, int cbp, int q, bool ac_pred,
-                         bool dc_vlc) {
+    void set_q(int v) { q = std::min(std::max(v, 1), 31); }
+
+    void intra_mb(BitReader& br, int mbx, int mby, int cbpc, bool dquant) {
+        const Tables& t = tables();
+        bool ac_pred = br.get1();
+        int cbp = (t.cbpy.decode(br, "cbpy") << 2) | (cbpc & 3);
+        bool dc_vlc = q < dc_thr;
+        if (dquant) {
+            set_q(q + kDquant[br.get(2)]);
+            stats[kDquantMb]++;
+        }
+        idct_field = vol.interlaced && br.get1();
+        if (idct_field) stats[kFieldDctMb]++;
+        size_t mi = size_t(mby) * mbw + mbx;
+        mbq[mi] = int8_t(q);
         for (int n = 0; n < 6; n++) {
             int16_t blk[64] = {};
             int c = comp(n), bx, by, dir;
             block_xy(mbx, mby, n, bx, by);
             int scale = n < 4 ? luma_dc_scale(q) : chroma_dc_scale(q);
-            int pred = dc_predict(c, bx, by, scale, dir);
+            int pred = dc_pred(mbx, mby, n, scale, dir);
             int i = -1;
             if (dc_vlc) {
                 blk[0] = int16_t(pred + decode_dc_diff(br, n < 4));
                 i = 0;
             }
-            const uint8_t* scan = !ac_pred ? kZigzag : dir == 0 ? kAltVertical : kAltHorizontal;
+            const uint8_t* scan = alt_scan || (ac_pred && dir == 0) ? kAltVertical
+                                  : ac_pred ? kAltHorizontal : kZigzag;
             if (cbp & (32 >> n)) decode_coeffs(br, true, scan, i, 1, 0, blk);
             if (!dc_vlc) blk[0] = int16_t(blk[0] + pred);
-            dc_store(c, bx, by, blk[0], scale);
+            dc_keep(mbx, mby, n, blk[0], scale);
             ac_predict(c, bx, by, mbx, mby, q, dir, ac_pred, blk);
-            recon_intra(mbx, mby, n, q, blk);
+            intra_block(mbx, mby, n, blk);
         }
-        mvs[(size_t(mby) * mbw + mbx) * 2] = mvs[(size_t(mby) * mbw + mbx) * 2 + 1] = 0;
+        cur->kind[mi] = kMbIntra;
+        for (int n = 0; n < 4; n++) {
+            int16_t* mv = block_mv(mbx, mby, n);
+            mv[0] = mv[1] = 0;
+        }
+        stats[type ? kIntraMbP : kIntraMbI]++;
+        stats[ac_pred ? kAcPredOn : kAcPredOff]++;
     }
 
-    int decode_motion(BitReader& br, int pred, int fcode) {
+    // the coded blocks of an inter macroblock
+    void inter_blocks(BitReader& br, int mbx, int mby, int cbp) {
+        int qmul = vol.mpeg_quant ? 1 : 2 * q, qadd = vol.mpeg_quant ? 0 : (q - 1) | 1;
+        for (int n = 0; n < 6; n++) {
+            if (!(cbp & (32 >> n))) continue;
+            int16_t blk[64] = {};
+            decode_coeffs(br, false, alt_scan ? kAltVertical : kZigzag, -1, qmul, qadd, blk);
+            inter_block(mbx, mby, n, blk);
+        }
+    }
+
+    int decode_motion(BitReader& br, int pred, int code_f) {
         int code = tables().mvd.decode(br, "motion vector");
         if (!code) return pred;
         bool sign = br.get1();
-        int shift = fcode - 1, val = code;
+        int shift = code_f - 1, val = code;
         if (shift) val = (((val - 1) << shift) | int(br.get(shift))) + 1;
         if (sign) val = -val;
         val += pred;
-        int bits = 5 + fcode;  // the range wraps
-        val = int(uint32_t(val) << (32 - bits)) >> (32 - bits);
-        return val;
+        int bits = 5 + code_f;  // the range wraps
+        return int(uint32_t(val) << (32 - bits)) >> (32 - bits);
     }
 
-    bool at_resync_marker(const BitReader& br, int fcode) const {
-        // next_start_code stuffing (a 0 then 1s to the byte) then 16 + fcode - 1 zeros
+    void p_mb(BitReader& br, int mbx, int mby) {
+        const Tables& t = tables();
+        size_t mi = size_t(mby) * mbw + mbx;
+        int cbpc;
+        do {
+            if (br.get1()) {  // not_coded
+                int zero[1][2] = {{0, 0}};
+                for (int n = 0; n < 4; n++) {
+                    int16_t* mv = block_mv(mbx, mby, n);
+                    mv[0] = mv[1] = 0;
+                }
+                mbq[mi] = int8_t(q);
+                cur->kind[mi] = kMb16x16;
+                cur->skip[mi] = 1;
+                predict(*last, mbx, mby, false, zero, {!rounding, false});
+                clear_intra(mbx, mby);
+                stats[kNotCoded]++;
+                return;
+            }
+            cbpc = t.inter_mcbpc.decode(br, "mcbpc");
+        } while (cbpc == kInterMcbpcStuffing);
+        bool dquant = cbpc & 8;
+        if (cbpc & 4) {
+            intra_mb(br, mbx, mby, cbpc, dquant);
+            return;
+        }
+        int cbp = ((t.cbpy.decode(br, "cbpy") ^ 15) << 2) | (cbpc & 3);
+        if (dquant) {
+            set_q(q + kDquant[br.get(2)]);
+            stats[kDquantMb]++;
+        }
+        mbq[mi] = int8_t(q);
+        idct_field = vol.interlaced && (cbp || (bugs & kBugXvidIlace)) && br.get1();
+        if (idct_field) stats[kFieldDctMb]++;
+        int mv[4][2];
+        bool four = cbpc & 16;
+        if (!four && vol.interlaced && br.get1()) {  // 16x8 field prediction
+            int sel[2] = {br.get1(), br.get1()};
+            int px, py;
+            pred_motion(mbx, mby, 0, px, py);
+            for (int i = 0; i < 2; i++) {
+                mv[i][0] = decode_motion(br, px, fcode);
+                mv[i][1] = decode_motion(br, py / 2, fcode);
+                cur->field_sel[mi * 2 + i] = uint8_t(sel[i]);
+                cur->field_mv[mi * 4 + i * 2] = int16_t(mv[i][0]);
+                cur->field_mv[mi * 4 + i * 2 + 1] = int16_t(mv[i][1]);
+            }
+            // ff_h263_update_motion_val: x averaged (odd rounded up), y summed
+            int ax = mv[0][0] + mv[1][0], ay = mv[0][1] + mv[1][1];
+            ax = (ax >> 1) | (ax & 1);
+            for (int n = 0; n < 4; n++) {
+                int16_t* m = block_mv(mbx, mby, n);
+                m[0] = int16_t(ax);
+                m[1] = int16_t(ay);
+            }
+            cur->kind[mi] = kMbField;
+            for (int i = 0; i < 2; i++)
+                mc_field(*last, mbx, mby, i, sel[i], mv[i][0], mv[i][1], {!rounding, false});
+            clear_intra(mbx, mby);
+            inter_blocks(br, mbx, mby, cbp);
+            stats[kInterMb]++;
+            stats[kFieldMb]++;
+            return;
+        }
+        for (int n = 0; n < (four ? 4 : 1); n++) {
+            int px, py;
+            pred_motion(mbx, mby, n, px, py);
+            mv[n][0] = decode_motion(br, px, fcode);
+            mv[n][1] = decode_motion(br, py, fcode);
+            if (four) {
+                int16_t* m = block_mv(mbx, mby, n);
+                m[0] = int16_t(mv[n][0]);
+                m[1] = int16_t(mv[n][1]);
+            }
+        }
+        if (!four)
+            for (int n = 0; n < 4; n++) {
+                int16_t* m = block_mv(mbx, mby, n);
+                m[0] = int16_t(mv[0][0]);
+                m[1] = int16_t(mv[0][1]);
+            }
+        cur->kind[mi] = four ? kMb8x8 : kMb16x16;
+        predict(*last, mbx, mby, four, mv, {!rounding, false});
+        clear_intra(mbx, mby);
+        inter_blocks(br, mbx, mby, cbp);
+        stats[kInterMb]++;
+        if (four) stats[kInter4vMb]++;
+    }
+
+    // ff_mpeg4_set_direct_mv: the two directions' vectors of a direct
+    // macroblock from the co-located one of the next picture; its kind
+    // (kMb8x8, kMb16x16, or kMbField with the field selects in `sel`)
+    int direct_mv(int mbx, int mby, int dx, int dy, int (*f)[2], int (*b)[2], int (*sel)[2]) {
+        Picture& nx = *next;
+        size_t mi = size_t(mby) * mbw + mbx;
+        if (nx.kind[mi] == kMbField) {
+            for (int i = 0; i < 2; i++) {
+                int fs = nx.field_sel[mi * 2 + i];
+                sel[0][i] = fs;
+                sel[1][i] = i;
+                uint16_t tpp, tpb;
+                if (tff) {
+                    tpp = uint16_t(pp_field_time - fs + i);
+                    tpb = uint16_t(pb_field_time - fs + i);
+                } else {
+                    tpp = uint16_t(pp_field_time + fs - i);
+                    tpb = uint16_t(pb_field_time + fs - i);
+                }
+                if (!tpp) fail("corrupt MPEG-4 video: a field direct time of 0");
+                int d[2] = {dx, dy};
+                for (int k = 0; k < 2; k++) {
+                    int pv = nx.field_mv[mi * 4 + i * 2 + k];
+                    f[i][k] = pv * int(tpb) / int(tpp) + d[k];
+                    b[i][k] = d[k] ? f[i][k] - pv : pv * (int(tpb) - int(tpp)) / int(tpp);
+                }
+            }
+            return kMbField;
+        }
+        bool eight = nx.kind[mi] == kMb8x8;
+        auto one = [&](int i) {
+            const int16_t* p = mv_at(nx, 2 * mbx + (i & 1), 2 * mby + (i >> 1));
+            int d[2] = {dx, dy};
+            for (int k = 0; k < 2; k++) {
+                long pv = p[k];
+                f[i][k] = int(pv * pb_time / pp_time) + d[k];
+                b[i][k] = d[k] ? f[i][k] - int(pv) : int(pv * (pb_time - pp_time) / pp_time);
+            }
+        };
+        if (eight) {
+            for (int i = 0; i < 4; i++) one(i);
+            return kMb8x8;
+        }
+        one(0);
+        for (int i = 1; i < 4; i++)
+            for (int k = 0; k < 2; k++) {
+                f[i][k] = f[0][k];
+                b[i][k] = b[0][k];
+            }
+        // quarter-sample: four equal 8x8 vectors (FFmpeg tests
+        // FF_BUG_DIRECT_BLOCKSIZE in the user's flags, which its detection
+        // never sets)
+        return vol.quarter ? kMb8x8 : kMb16x16;
+    }
+
+    void b_mb(BitReader& br, int mbx, int mby) {
+        size_t mi = size_t(mby) * mbw + mbx;
+        if (mbx == 0) std::memset(last_mv, 0, sizeof last_mv);
+        cur->kind[mi] = kMb16x16;
+        clear_intra(mbx, mby);
+        if (next->skip[mi]) {  // skipped in the next P-VOP: a copy of the past one
+            int zero[1][2] = {{0, 0}};
+            predict(*last, mbx, mby, false, zero, {1, false});
+            stats[kBSkippedMb]++;
+            return;
+        }
+        int kind, cbp = 0;
+        bool field = false;
+        int sel[2][2] = {};
+        idct_field = false;
+        if (br.get1()) {  // modb '1': direct, no vectors or blocks
+            kind = -1;
+        } else {
+            bool no_cbp = br.get1();
+            kind = b_mb_type_vlc().decode(br, "B mb_type");
+            if (!no_cbp) cbp = int(br.get(6));
+            if (kind != kBDirect && cbp && br.get1()) {
+                set_q(q + br.get1() * 4 - 2);
+                stats[kDbquantMb]++;
+            }
+            if (vol.interlaced) {
+                idct_field = cbp && br.get1();
+                if (idct_field) stats[kFieldDctMb]++;
+                if (kind != kBDirect && br.get1()) {
+                    field = true;
+                    for (int d = 0; d < 2; d++)
+                        if (kind != (d ? kBForward : kBBackward)) {
+                            sel[d][0] = br.get1();
+                            sel[d][1] = br.get1();
+                        }
+                }
+            }
+        }
+        int f[4][2], b[4][2];
+        int mode = kMb16x16;
+        int dir = 0;  // 1 forward, 2 backward, 3 both
+        if (kind == kBDirect || kind == -1) {
+            int dx = 0, dy = 0;
+            if (kind == kBDirect) {
+                dx = decode_motion(br, 0, 1);
+                dy = decode_motion(br, 0, 1);
+            }
+            mode = direct_mv(mbx, mby, dx, dy, f, b, sel);
+            dir = 3;
+            stats[kDirectMb]++;
+            if (mode == kMb8x8) stats[kDirect8x8Mb]++;
+            if (mode == kMbField) stats[kFieldDirectMb]++;
+        } else {
+            for (int d = 0; d < 2; d++) {
+                if (kind == (d ? kBForward : kBBackward)) continue;
+                int(*mv)[2] = d ? b : f;
+                int code = d ? bcode : fcode;
+                if (!field) {
+                    for (int k = 0; k < 2; k++)
+                        mv[0][k] = last_mv[d][0][k] = last_mv[d][1][k] =
+                            decode_motion(br, last_mv[d][0][k], code);
+                } else {
+                    for (int i = 0; i < 2; i++) {
+                        mv[i][0] = last_mv[d][i][0] = decode_motion(br, last_mv[d][i][0], code);
+                        mv[i][1] = decode_motion(br, last_mv[d][i][1] / 2, code);
+                        last_mv[d][i][1] = mv[i][1] * 2;
+                    }
+                }
+                dir |= 1 << d;
+            }
+            if (field) {
+                mode = kMbField;
+                stats[kFieldMb]++;
+            }
+            stats[kind == kBForward ? kForwardMb : kind == kBBackward ? kBackwardMb
+                                                                       : kInterpolateMb]++;
+        }
+        for (int d = 0; d < 2; d++) {
+            if (!(dir & (1 << d))) continue;
+            const Picture& ref = d ? *next : *last;
+            McOp op = {1, d == 1 && dir == 3};
+            if (mode == kMbField) {
+                for (int i = 0; i < 2; i++) {
+                    const int* mv = d ? b[i] : f[i];
+                    mc_field(ref, mbx, mby, i, sel[d][i], mv[0], mv[1], op);
+                }
+            } else {
+                predict(ref, mbx, mby, mode == kMb8x8, d ? b : f, op);
+            }
+        }
+        inter_blocks(br, mbx, mby, cbp);
+    }
+
+    // ---- video packets
+
+    int packet_prefix() const {
+        return type == 0 ? 16 : type == 1 ? fcode + 15 : std::max(std::max(fcode, bcode), 2) + 15;
+    }
+    bool at_resync_marker(const BitReader& br) const {
+        // next_start_code stuffing (a 0 then 1s to the byte), then the prefix's zeros and a 1
         int n = 8 - int(br.pos & 7);
         if (br.left() < size_t(n + 17)) return false;
-        uint32_t stuffing = br.peek(n);
-        if (stuffing != (1u << (n - 1)) - 1) return false;
+        if (br.peek(n) != (1u << (n - 1)) - 1) return false;
         BitReader look = br;
         look.pos += n;
-        int zeros = 16 + std::max(fcode, 1) - 1;
+        int zeros = packet_prefix();
         return look.peek(zeros) == 0 && look.peek(zeros + 1) == 1;
+    }
+    // the video packet header after a resync marker: its first macroblock
+    int packet_header(BitReader& br) {
+        br.skip(8 - int(br.pos & 7));
+        int len = 0;
+        while (len < 32 && !br.get1()) len++;
+        if (len != packet_prefix())
+            fail("corrupt MPEG-4 video: a resync marker that does not match f_code");
+        int n = mbw * mbh, bits = 0;
+        while ((1 << bits) < n) bits++;
+        int mb = int(br.get(std::max(bits, 1)));
+        if (!mb || mb >= n)
+            fail("corrupt MPEG-4 video: a video packet's macroblock number is out of range");
+        int qs = int(br.get(5));
+        if (qs) set_q(qs);
+        if (br.get1()) {  // header_extension_code: the VOP header again (FFmpeg skips it)
+            while (br.get1()) {
+            }
+            br.marker("video packet header");
+            br.skip(vol.time_bits);
+            br.marker("video packet header");
+            br.skip(2 + 3);  // vop_coding_type, intra_dc_vlc_thr
+            if (type) br.skip(3);
+            if (type == 2) br.skip(3);
+            stats[kHecPackets]++;
+        }
+        stats[kPackets]++;
+        return mb;
     }
 
     // ---- VOP
 
-    // returns 0 (a coded VOP, now the reference) or 1 (vop_coded = 0)
-    int decode_vop(BitReader& br, int& type_out) {
+    enum { kDecoded, kSkipped };
+
+    // the VOP header; kSkipped for a VOP that FFmpeg passes over
+    int vop_header(BitReader& br) {
         if (!have_vol) fail("MPEG-4 video: a VOP before any VOL header");
-        int type = int(br.get(2));
-        if (type == 2) fail("MPEG-4 B-VOPs are not supported");
+        type = int(br.get(2));
         if (type == 3) fail("MPEG-4 S-VOPs (sprites / GMC) are not supported");
-        while (br.get1()) {
-        }  // modulo_time_base
+        if (type == 2 && low_delay && !vol.control) low_delay = false;
+        int incr = 0;
+        while (br.get1()) incr++;  // modulo_time_base
         br.marker("VOP");
-        br.skip(vol.time_bits);
+        long ticks = long(br.get(vol.time_bits));
         br.marker("VOP");
-        if (!br.get1()) return 1;  // vop_coded
-        int rounding = type == 1 ? br.get1() : 0;
-        int thr = kDcThreshold[br.get(3)];
-        int q = int(br.get(5));
-        if (!q) fail("corrupt MPEG-4 video: vop_quant of 0");
-        int fcode = 0;
-        if (type == 1) {
-            fcode = int(br.get(3));
-            if (!fcode) fail("corrupt MPEG-4 video: vop_fcode_forward of 0");
-            if (!have_ref) fail("MPEG-4 video: a P-VOP without a reference picture");
-        }
-        type_out = type;
-        const Tables& t = tables();
-        stats[type ? kPVops : kIVops]++;
-        if (type == 1) {
-            stats[rounding ? kRound1 : kRound0]++;
-            stats[kMaxFcode] = std::max(stats[kMaxFcode], long(fcode));
-        }
-        for (int mby = 0; mby < mbh; mby++) {
-            for (int mbx = 0; mbx < mbw; mbx++) {
-                if (!vol.resync_disable && (mbx || mby) && at_resync_marker(br, fcode))
-                    fail("MPEG-4 resync markers (video packets) are not supported");
-                size_t mi = size_t(mby) * mbw + mbx;
-                int cbpc;
-                bool intra;
-                if (type == 1) {
-                    if (br.get1()) {  // not_coded
-                        mvs[mi * 2] = mvs[mi * 2 + 1] = 0;
-                        mbq[mi] = int8_t(q);
-                        if (predict_mb(mbx, mby, 0, 0, rounding)) stats[kMvOutside]++;
-                        clear_intra(mbx, mby);
-                        stats[kNotCoded]++;
-                        continue;
-                    }
-                    do cbpc = t.inter_mcbpc.decode(br, "mcbpc");
-                    while (cbpc == kInterMcbpcStuffing);
-                    if (cbpc & 16)
-                        fail("MPEG-4 four motion vectors per macroblock (inter4v) are not "
-                             "supported");
-                    intra = cbpc & 4;
-                } else {
-                    do cbpc = t.intra_mcbpc.decode(br, "mcbpc");
-                    while (cbpc == kIntraMcbpcStuffing);
-                    cbpc = (cbpc & 3) | 4 | ((cbpc & 4) << 1);
-                    intra = true;
-                }
-                bool dquant = cbpc & 8;
-                if (intra) {
-                    bool ac_pred = br.get1();
-                    int cbp = (t.cbpy.decode(br, "cbpy") << 2) | (cbpc & 3);
-                    bool dc_vlc = q < thr;
-                    if (dquant) {
-                        q = std::min(std::max(q + kDquant[br.get(2)], 1), 31);
-                        stats[kDquantMb]++;
-                    }
-                    mbq[mi] = int8_t(q);
-                    decode_intra_mb(br, mbx, mby, cbp, q, ac_pred, dc_vlc);
-                    stats[type ? kIntraMbP : kIntraMbI]++;
-                    stats[ac_pred ? kAcPredOn : kAcPredOff]++;
-                    continue;
-                }
-                int cbp = ((t.cbpy.decode(br, "cbpy") ^ 15) << 2) | (cbpc & 3);
-                if (dquant) {
-                    q = std::min(std::max(q + kDquant[br.get(2)], 1), 31);
-                    stats[kDquantMb]++;
-                }
-                mbq[mi] = int8_t(q);
-                int px, py;
-                mv_predict(mbx, mby, px, py);
-                int mx = decode_motion(br, px, fcode);
-                int my = decode_motion(br, py, fcode);
-                mvs[mi * 2] = int16_t(mx);
-                mvs[mi * 2 + 1] = int16_t(my);
-                if (predict_mb(mbx, mby, mx, my, rounding)) stats[kMvOutside]++;
-                clear_intra(mbx, mby);
-                int qmul = 2 * q, qadd = (q - 1) | 1;
-                for (int n = 0; n < 6; n++) {
-                    if (!(cbp & (32 >> n))) continue;
-                    int16_t blk[64] = {};
-                    decode_coeffs(br, false, kZigzag, -1, qmul, qadd, blk);
-                    recon_inter(mbx, mby, n, blk);
-                }
-                stats[kInterMb]++;
+        long res = vol.resolution;
+        if (type != 2) {
+            last_time_base = time_base;
+            time_base += incr;
+            time = time_base * res + ticks;
+            if ((bugs & kBugUmp4) && time < last_non_b_time) {
+                time_base++;
+                time += res;
+            }
+            pp_time = time - last_non_b_time;
+            last_non_b_time = time;
+        } else {
+            time = (last_time_base + incr) * res + ticks;
+            pb_time = pp_time - (last_non_b_time - time);
+            if (pp_time <= pb_time || pp_time <= pp_time - pb_time || pp_time <= 0)
+                return kSkipped;  // FFmpeg: "messed up order"
+            // the field times of field direct, from the first B-VOP's distance
+            if (!t_frame) t_frame = pb_time;
+            if (!t_frame) t_frame = 1;
+            auto rdiv = [](long a, long b) { return (a >= 0 ? a + (b >> 1) : a - (b >> 1)) / b; };
+            long base = rdiv(last_non_b_time - pp_time, t_frame);
+            pp_field_time = (rdiv(last_non_b_time, t_frame) - base) * 2;
+            pb_field_time = (rdiv(time, t_frame) - base) * 2;
+            if (pp_field_time <= pb_field_time || pb_field_time <= 1) {
+                pb_field_time = 2;
+                pp_field_time = 4;
+                if (vol.interlaced) return kSkipped;
             }
         }
-        swap_frames();
-        return 0;
+        if (!br.get1()) {  // vop_coded 0: an N-VOP
+            stats[kNVops]++;
+            return kSkipped;
+        }
+        rounding = type == 1 ? br.get1() : 0;
+        dc_thr = kDcThreshold[br.get(3)];
+        alt_scan = false;
+        if (vol.interlaced) {
+            tff = br.get1();
+            alt_scan = br.get1();
+        }
+        q = int(br.get(5));
+        if (!q) fail("corrupt MPEG-4 video: vop_quant of 0");
+        fcode = bcode = 1;
+        if (type) {
+            fcode = int(br.get(3));
+            if (!fcode) fail("corrupt MPEG-4 video: vop_fcode_forward of 0");
+        }
+        if (type == 2) {
+            bcode = int(br.get(3));
+            if (!bcode) fail("corrupt MPEG-4 video: vop_fcode_backward of 0");
+        }
+        if (vol.vo_type == 0 && !vol.control && divx_version == -1 && picture_number == 0)
+            low_delay = true;  // FFmpeg: "(divx4/(old)xvid/opendivx) -> forcing low_delay"
+        picture_number++;
+        return kDecoded;
     }
 
-    // one sample: header units, then one VOP; returns 0 (a frame) or 1 (a
-    // VOP that is not coded, or headers only)
-    int decode(const uint8_t* data, size_t n, int& type) {
+    // one VOP's macroblocks into `cur`
+    void vop_data(BitReader& br) {
+        edge_w = (bugs & kBugEdge) ? w : mbw * 16;
+        edge_h = (bugs & kBugEdge) ? h : mbh * 16;
+        resync_x = resync_y = 0;
+        first_line = true;
+        std::memset(last_mv, 0, sizeof last_mv);
+        int n = mbw * mbh;
+        for (int mb = 0; mb < n; mb++) {
+            int mbx = mb % mbw, mby = mb / mbw;
+            bool b_skip = type == 2 && next->skip[size_t(mb)];
+            if (vol.resync && mb && !b_skip && at_resync_marker(br)) {
+                int start = packet_header(br);
+                if (start > mb) fail("corrupt MPEG-4 video: a video packet skips macroblocks");
+                for (int k = start; k < mb; k++)
+                    if (!(type == 2 && next->skip[size_t(k)]))
+                        fail("corrupt MPEG-4 video: video packets that overlap");
+                resync_x = start % mbw;
+                resync_y = start / mbw;
+                first_line = true;
+                clean_buffers(resync_x, resync_y);
+            }
+            if (resync_x == mbx && resync_y + 1 == mby) first_line = false;
+            if (type == 0) {
+                int cbpc;
+                do cbpc = tables().intra_mcbpc.decode(br, "mcbpc");
+                while (cbpc == kIntraMcbpcStuffing);
+                intra_mb(br, mbx, mby, cbpc & 3, cbpc & 4);
+            } else if (type == 1) {
+                p_mb(br, mbx, mby);
+            } else {
+                b_mb(br, mbx, mby);
+            }
+        }
+    }
+
+    PicturePtr new_picture() {
+        auto p = std::make_shared<Picture>();
+        for (int c = 0; c < 3; c++) p->p[c].assign(cur_size(c), 0);
+        p->mv.assign(size_t(b8s) * (2 * mbh + 1) * 2, 0);
+        p->kind.assign(size_t(mbw) * mbh, kMbIntra);
+        p->skip.assign(size_t(mbw) * mbh, 0);
+        p->field_sel.assign(size_t(mbw) * mbh * 2, 0);
+        p->field_mv.assign(size_t(mbw) * mbh * 4, 0);
+        p->vop_type = type;
+        return p;
+    }
+    size_t cur_size(int c) const { return c ? size_t(cs) * mbh * 8 : size_t(ys) * mbh * 16; }
+
+    // one VOP from `buf` (its headers first), FFmpeg's ff_h263_decode_frame
+    // after the header: the picture it lets out goes to `out`
+    bool decode_vop(BitReader& br) {
+        int r = vop_header(br);
+        skipped_last = r == kSkipped;
+        if (r == kSkipped) return false;
+        workaround_bugs();
+        if ((bugs & kBugStdQpel) && vol.quarter)
+            fail("MPEG-4 quarter-sample video of Lavc builds before 4653 (FFmpeg's old qpel "
+                 "filter) is not supported");
+        if (type == 2 && !last) return false;  // FFmpeg skips B-VOPs without references
+        if (type != 2 && size_t(mbw) * mbh / 2 > br.left())
+            fail("truncated MPEG-4 video: a VOP shorter than its macroblocks");
+        if (type == 1 && !next) fail("MPEG-4 video: a P-VOP without a reference picture");
+        cur = new_picture();
+        if (type != 2) {
+            last = next;
+            next = cur;
+        }
+        stats[type == 0 ? kIVops : type == 1 ? kPVops : kBVops]++;
+        if (type == 1) stats[rounding ? kRound1 : kRound0]++;
+        stats[kMaxFcode] = std::max(stats[kMaxFcode], long(fcode));
+        if (type == 2) stats[kMaxBcode] = std::max(stats[kMaxBcode], long(bcode));
+        if (vol.quarter) stats[kQpelVops]++;
+        if (vol.mpeg_quant) stats[kMpegQuantVops]++;
+        if (use_xvid_idct) stats[kXvidIdctVops]++;
+        if (vol.interlaced) stats[kInterlacedVops]++;
+        if (alt_scan) stats[kAltScanVops]++;
+        vop_data(br);
+        if (type == 2 || low_delay)
+            out.push_back(cur);
+        else if (last)
+            out.push_back(last);
+        return true;
+    }
+
+    // one sample: header units, then its first VOP (a packed B-VOP after it
+    // kept for the next sample, as FFmpeg keeps DivX's)
+    void decode(const uint8_t* data, size_t n) {
         if (n >= 3 && data[0] == 0 && data[1] == 0 && (data[2] & 0xfc) == 0x80)
             fail("MPEG-4 short video header (H.263 baseline) streams are not supported");
+        std::vector<uint8_t> buf;
+        bool from_stash = false;
+        if (!stash.empty() && divx_packed) {
+            for (size_t i = 0; i + 3 < n; i++)
+                if (data[i] == 0 && data[i + 1] == 0 && data[i + 2] == 1) {
+                    if (data[i + 3] == 0xb0) stash.clear();  // "Discarding excessive bitstream"
+                    break;
+                }
+        }
+        if (!stash.empty() && (divx_packed || n <= 19)) {
+            buf.swap(stash);
+            from_stash = true;
+            stats[kPackedBVops]++;
+        } else {
+            buf.assign(data, data + n);
+        }
+        stash.clear();
+        size_t bn = buf.size();
+        buf.resize(bn + 8, 0);
         size_t i = 0;
-        int result = 1;
         while (true) {
             // find the next start code 00 00 01 xx
-            while (i + 3 < n && !(data[i] == 0 && data[i + 1] == 0 && data[i + 2] == 1)) i++;
-            if (i + 3 >= n) break;
-            int code = data[i + 3];
+            while (i + 3 < bn && !(buf[i] == 0 && buf[i + 1] == 0 && buf[i + 2] == 1)) i++;
+            if (i + 3 >= bn) {  // headers only: no picture
+                skipped_last = false;
+                return;
+            }
+            int code = buf[i + 3];
             size_t start = i + 4, end = start;
-            while (end + 2 < n && !(data[end] == 0 && data[end + 1] == 0 && data[end + 2] == 1))
+            while (end + 2 < bn && !(buf[end] == 0 && buf[end + 1] == 0 && buf[end + 2] == 1))
                 end++;
-            if (end + 2 >= n) end = n;
-            std::vector<uint8_t> unit(data + start, data + end);
+            if (end + 2 >= bn) end = bn;
+            if (code == 0xb6) {
+                // the VOP runs to the end of the sample, as FFmpeg reads it
+                BitReader br(&buf[start], bn - start);
+                if (decode_vop(br) && divx_packed)
+                    keep_packed(data, n, from_stash ? 0 : start + (br.pos >> 3));
+                return;
+            }
+            std::vector<uint8_t> unit(buf.begin() + long(start), buf.begin() + long(end));
             unit.resize(unit.size() + 8, 0);
             BitReader br(unit.data(), end - start);
-            if (code >= 0x20 && code <= 0x2f) {
+            if (code >= 0x20 && code <= 0x2f)
                 parse_vol(br);
-            } else if (code == 0xb6) {
-                result = decode_vop(br, type);
-                return result;
-            }  // VOS, VO, user data, GOV, ...: nothing to keep
+            else if (code == 0xb2)
+                parse_user_data(unit.data(), end - start);
             i = end;
         }
-        return result;
+    }
+
+    // ff_mpeg4_frame_end: a DivX sample's second VOP, an I- or B-VOP after
+    // the decoded one, is kept for the next sample
+    void keep_packed(const uint8_t* data, size_t n, size_t pos) {
+        if (n <= pos + 7) return;
+        for (size_t i = pos; i + 4 < n; i++)
+            if (data[i] == 0 && data[i + 1] == 0 && data[i + 2] == 1 && data[i + 3] == 0xb6) {
+                if (!(data[i + 4] & 0x40)) stash.assign(data + pos, data + n);
+                return;
+            }
+    }
+
+    // the end of the stream: FFmpeg's last reference, or the last picture
+    // again after a closing N-VOP
+    void flush() {
+        if (!low_delay && next) {
+            out.push_back(next);
+            next.reset();
+        } else if (skipped_last && cur) {
+            out.push_back(cur);
+            cur.reset();
+        }
     }
 };
 
@@ -1357,6 +2425,7 @@ int guarded(std::string* error, F&& f) {
 
 }  // namespace
 
+
 extern "C" {
 
 // ---- decoder
@@ -1365,40 +2434,59 @@ void* mpeg4_decoder_new() { return new (std::nothrow) Decoder(); }
 void mpeg4_decoder_free(void* d) { delete static_cast<Decoder*>(d); }
 const char* mpeg4_decoder_error(void* d) { return static_cast<Decoder*>(d)->error.c_str(); }
 
-// parses the DecoderSpecificInfo (VOS/VO/VOL); -1 on error
+// the container's codec tag (an AVI's fourcc, little-endian), which FFmpeg
+// reads for its workarounds; 0 for none
+void mpeg4_decoder_tag(void* d, unsigned tag) { static_cast<Decoder*>(d)->codec_tag = tag; }
+
+// parses the DecoderSpecificInfo (VOS/VO/VOL/user data); -1 on error
 int mpeg4_decoder_config(void* dp, const uint8_t* data, long n, int* width, int* height) {
     Decoder* d = static_cast<Decoder*>(dp);
     return guarded(&d->error, [&] {
         if (n < 0) fail("negative length");
-        int type = 0;
-        d->decode(data, size_t(n), type);
+        d->decode(data, size_t(n));
         if (!d->have_vol) fail("MPEG-4 video configuration without a VOL header");
+        d->out.clear();
         *width = d->w;
         *height = d->h;
         return 0;
     });
 }
 
-// one sample -> 0 with the cropped I420 planes in `out` (w*h + 2*cw*ch
-// bytes), 1 for a VOP that is not coded (no picture), -1 on error; the
-// VOP's type (0 I, 1 P) in *type.  A sample may change the VOL size: the
-// caller reads *width / *height before the planes.
-int mpeg4_decode(void* dp, const uint8_t* data, long n, uint8_t* out, long out_size, int* width,
-                 int* height, int* type) {
+// one sample -> the number of pictures waiting to be taken
+// (mpeg4_decoder_output), -1 on error.  A sample may change the VOL size:
+// the caller reads *width / *height before the planes.
+int mpeg4_decode(void* dp, const uint8_t* data, long n, int* width, int* height) {
     Decoder* d = static_cast<Decoder*>(dp);
     return guarded(&d->error, [&] {
         if (n < 0) fail("negative length");
         int w0 = d->w, h0 = d->h;
-        int t = -1;
-        int r = d->decode(data, size_t(n), t);
+        d->decode(data, size_t(n));
         *width = d->w;
         *height = d->h;
         if (d->w != w0 || d->h != h0) fail("the MPEG-4 VOL changed the picture size mid-stream");
-        if (r == 1) return 1;
+        return int(d->out.size());
+    });
+}
+
+// the end of the stream -> the number of pictures waiting
+int mpeg4_decoder_flush(void* dp) {
+    Decoder* d = static_cast<Decoder*>(dp);
+    d->flush();
+    return int(d->out.size());
+}
+
+// the oldest waiting picture, cropped I420 into `out` (w*h + 2*cw*ch bytes),
+// its VOP type (0 I, 1 P, 2 B) in *type; 1 when none waits, -1 on error
+int mpeg4_decoder_output(void* dp, uint8_t* out, long out_size, int* type) {
+    Decoder* d = static_cast<Decoder*>(dp);
+    return guarded(&d->error, [&] {
+        if (d->out.empty()) return 1;
         long need = long(d->w) * d->h + 2L * ((d->w + 1) / 2) * ((d->h + 1) / 2);
         if (out_size < need) fail("output buffer too small");
-        d->crop(d->ref, out);
-        *type = t;
+        PicturePtr p = d->out.front();
+        d->out.erase(d->out.begin());
+        d->crop(p->p, out);
+        *type = p->vop_type;
         return 0;
     });
 }
@@ -1457,3 +2545,4 @@ void mpeg4_encoder_output(void* ep, uint8_t* out) {
 }
 
 }  // extern "C"
+

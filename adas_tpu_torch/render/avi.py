@@ -16,10 +16,10 @@ codec comes from the ``strf`` BITMAPINFOHEADER's compression tag
   and ``idx1`` chunks and ``RIFF AVIX`` extensions (``avi_sync``); a video
   chunk of 0 bytes is skipped, and a chunk that runs past the end of the
   file (the last one of a recording cut by a power loss) ends the stream
-  (``truncated`` counts its bytes).  FFmpeg drops that chunk too when the
-  ``movi`` list's size is 0 or within the file; when the size runs past the
-  file it hands the decoder the partial chunk and cv2 gives a partly
-  decoded last frame, which the port does not;
+  (``truncated`` counts its bytes).  FFmpeg drops that chunk when the
+  RIFF's size is 0 or within the file; when the size runs past the file
+  it hands the decoder the partial chunk, and so does the demuxer
+  (``partial``): a Motion JPEG decoder decodes what it holds;
 - the index, an OpenDML super index (``indx``) over standard indexes
   (``ix##``) or else ``idx1`` (its offsets relative to ``movi`` or to the
   file, told apart as ``avi_read_idx1`` tells them; an OpenDML index that
@@ -46,7 +46,6 @@ FFmpeg does.
 """
 from __future__ import annotations
 
-import re
 import struct
 from fractions import Fraction
 from typing import BinaryIO, Dict, List, Optional, Tuple
@@ -76,8 +75,6 @@ RIFF_LIMIT = 1 << 30
 MASTER_INDEX_SIZE = 256
 #: AVIIF_KEYFRAME of idx1 (FFmpeg's AVIIF_INDEX)
 KEYFRAME = 0x10
-#: a DivX build string whose last letter is ``p``: packed B-VOPs
-_DIVX_PACKED = re.compile(rb"DivX(\d+)(?:Build|b)(\d+)p")
 
 
 def _u32(b: bytes, o: int) -> int:
@@ -140,6 +137,10 @@ class Demuxer:
         # a recording cut short may leave the RIFF size unwritten or too large
         riff_size = _u32(head, 4)
         riff_end = min(8 + riff_size, size) if riff_size else size
+        # FFmpeg's avi->fsize: the RIFF's declared end when it runs past the
+        # file (a recording cut short after its sizes were written), within
+        # which a chunk cut by the end of the file is still read
+        self.declared_end = max(size, 8 + riff_size)
         streams: List[Tuple[bytes, bytes, bytes]] = []  # (strh, strf, indx)
         self.movi: Optional[int] = None
         pos = 12
@@ -234,6 +235,7 @@ class Demuxer:
         if self.non_interleaved:
             mine = [(p, n, k) for s, p, n, k in index[0]
                     if s == self.stream.number and p + 8 + n <= self.file_size]
+            self.partial = False  # the index's chunks are whole
             self.offsets = [p + 8 for p, _, _ in mine]
             self.sizes = [n for _, n, _ in mine]
             self.keys = [k for _, _, k in mine]
@@ -247,10 +249,12 @@ class Demuxer:
     def _chunks(self):
         """(position, fourcc, size) of each chunk from ``movi`` on, as
         FFmpeg's ``avi_sync`` meets them: into ``rec ``, ``movi`` and
-        ``AVIX`` lists, to the end of the file.  A last chunk cut by the
-        end of the file ends them (``truncated``: its bytes)."""
+        ``AVIX`` lists, to the end of the file.  A last chunk cut by the end
+        of the file ends them (``truncated``: its bytes in the file); it is
+        the last one met, cut short (``partial``), when the RIFF's declared
+        size holds it, as FFmpeg hands it to the decoder, else dropped."""
         pos, end = self.movi + 4, self.file_size
-        self.truncated = 0
+        self.truncated, self.partial = 0, False
         while pos + 8 <= end:
             kind, n = self._header(pos)
             if kind in (b"LIST", b"RIFF"):  # rec, movi, AVIX: step in
@@ -258,6 +262,9 @@ class Demuxer:
                 continue
             if pos + 8 + n > end:
                 self.truncated = end - pos - 8
+                if pos + 8 + n <= self.declared_end and self.truncated:
+                    self.partial = True
+                    yield pos, kind, self.truncated
                 return
             yield pos, kind, n
             pos += 8 + n
@@ -385,6 +392,12 @@ class Demuxer:
     def __len__(self) -> int:
         return len(self.sizes)
 
+    def drop_last(self) -> None:
+        """Leaves the partial last chunk out (``partial``)."""
+        if self.partial:
+            del self.offsets[-1], self.sizes[-1], self.keys[-1]
+            self.partial = False
+
     def read(self, i: int) -> bytes:
         data = self._read_at(self.offsets[i], self.sizes[i])
         if len(data) != self.sizes[i]:
@@ -398,13 +411,9 @@ class Demuxer:
 def mpeg4_config(extradata: bytes, first: bytes) -> bytes:
     """An ``mp4v``-family stream's decoder configuration: ``strf``'s extra
     bytes and the headers in band before the first frame's VOP (start code
-    0x000001B6).  DivX's packed B-VOPs raise by name."""
+    0x000001B6)."""
     vop = first.find(b"\x00\x00\x01\xb6")
-    config = extradata + (first if vop < 0 else first[:vop])
-    packed = _DIVX_PACKED.search(config)
-    if packed:
-        raise ValueError(f"DivX packed B-VOPs ({packed.group(0).decode()}) are not supported")
-    return config
+    return extradata + (first if vop < 0 else first[:vop])
 
 
 # ------------------------------------------------------------------ muxer

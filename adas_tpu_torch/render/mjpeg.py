@@ -10,9 +10,12 @@ frame's planes as decoded, full range and not upsampled: one (height,
 width) array for gray, else a tuple (Y, Cb, Cr) of FFmpeg's ``yuvj444p``,
 ``yuvj422p``, ``yuvj440p``, ``yuvj420p`` or ``yuvj411p`` sizes
 (``format`` names which); ``bgr()`` is the last frame as (height, width,
-3) uint8 BGR, converted with JFIF's full-range BT.601 matrix and nearest
-chroma.  ``stats()`` counts frames, scans, restart markers and scans that
-used a standard table (``STATS``).
+3) uint8 BGR as cv2 converts it (x86 libswscale's full-range BT.601 with
+its bicubic chroma filters where it filters, its fixed point: cv2's BGR to
+the bit).  ``stats()`` counts frames, scans, restart markers, scans that
+used a standard table and scans cut short by the end of their data
+(``STATS``): such a frame comes out as FFmpeg lets it out, with the MCUs
+read so far.
 
 Progressive, lossless, hierarchical, arithmetic-coded, JPEG-LS and
 12-bit frames, RGB and CMYK frames, other sampling factors, interlaced
@@ -47,7 +50,7 @@ FORMATS = ("gray", "yuvj420p", "yuvj422p", "yuvj440p", "yuvj444p", "yuvj411p")
 CHROMA_SHIFT = {"yuvj420p": (1, 1), "yuvj422p": (1, 0), "yuvj440p": (0, 1),
                 "yuvj444p": (0, 0), "yuvj411p": (2, 0)}
 #: the decoder's counters, in the library's order
-STATS = ("frames", "scans", "restart_markers", "standard_table_scans")
+STATS = ("frames", "scans", "restart_markers", "standard_table_scans", "overread_scans")
 
 
 def _native():

@@ -248,10 +248,14 @@ def _ctts(data: bytes, s: int, e: int, count: int) -> Optional[List[int]]:
     cts: List[int] = []
     for i in range(n):
         run, off = struct.unpack_from(">I" + ("i" if version else "I"), data, found[0] + 8 + 8 * i)
+        if len(cts) + run > count:  # before a corrupt run is expanded
+            break
         cts += [off] * run
-    if len(cts) != count:
-        raise ValueError(f"corrupt MP4: ctts gives {len(cts)} samples, stsz {count}")
-    return cts
+    else:
+        if len(cts) == count:
+            return cts
+    total = sum(struct.unpack_from(">I", data, found[0] + 8 + 8 * i)[0] for i in range(n))
+    raise ValueError(f"corrupt MP4: ctts gives {total} samples, stsz {count}")
 
 
 def _check_edits(data: bytes, trak: Tuple[int, int], pts: List[int], timescale: int) -> None:

@@ -1,30 +1,37 @@
-"""ctypes binding of ``native/mpeg4.cpp``: the MPEG-4 Part 2 Simple
-Profile decoder and encoder of the ``mp4v`` video the demo reads and
-writes (``render/video.py``).
+"""ctypes binding of ``native/mpeg4.cpp``: the MPEG-4 Part 2 decoder and
+encoder of the ``mp4v`` video the demo reads and writes
+(``render/video.py``).
 
-``Decoder(config)`` takes the container's DecoderSpecificInfo (the VOS /
-VO / VOL headers); ``decode(sample)`` gives a frame's packed I420 planes
-(Y of ``height`` x ``width``, then U and V of ``(height + 1) // 2`` x
-``(width + 1) // 2``) as a flat uint8 array, or None for a VOP that is not
-coded; ``stats()`` counts the tools the stream used.  ``Encoder(width,
-height, ...)`` gives its ``header()`` and ``encode(planes)`` -> (VOP bytes,
-key, reconstructed planes): the planes a decoder of the stream gives, to
-the bit.
+``Decoder(config, codec_tag)`` takes the container's DecoderSpecificInfo
+(the VOS / VO / VOL headers and any user data) and, from an AVI, its
+fourcc; ``decode(sample)`` gives the frames the sample lets out, in
+FFmpeg's order and delay (packed I420 planes: Y of ``height`` x ``width``,
+then U and V of ``(height + 1) // 2`` x ``(width + 1) // 2``, each a flat
+uint8 array), ``flush()`` the rest at the end; ``last_type`` is the VOP
+type of the last frame let out; ``stats()`` counts the tools the stream
+used.  The decoder reads Simple and Advanced Simple streams: I-, P- and
+B-VOPs (direct, interpolated, forward and backward, DivX's packed
+B-VOPs), N-VOPs, 4MV, half- and quarter-sample vectors, H.263 and MPEG
+quantisation (default and loaded matrices), resync markers (video
+packets), and picks the IDCT (simple, or XviD's for XviD streams) and
+bug workarounds from the user data and fourcc as libavcodec does.
+``Encoder(width, height, ...)`` gives its ``header()`` and
+``encode(planes)`` -> (VOP bytes, key, reconstructed planes): the planes a
+decoder of the stream gives, to the bit.
 
-Tools outside what cv2's ``mp4v`` writer uses (B-VOPs, 4MV, MPEG
-quantisation, interlace, data partitioning, sprites, quarter-pel, the
-short video header, resync markers), corrupt or truncated data, and
-pictures of more than ``MAX_PIXELS`` raise a ``ValueError`` carrying the
-library's message.  The library is built with g++ into
-``adas_tpu_torch/_build/libmpeg4.so`` on first use (``native/gxx.py``); a
-failed build raises.
+Interlaced video, data partitioning, sprites and GMC, OBMC, the short
+video header and the other tools outside Advanced Simple, corrupt or
+truncated data, and pictures of more than ``MAX_PIXELS`` raise a
+``ValueError`` carrying the library's message, which names the tool.  The
+library is built with g++ into ``adas_tpu_torch/_build/libmpeg4.so`` on
+first use (``native/gxx.py``); a failed build raises.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -34,6 +41,8 @@ _NATIVE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 _SRC = os.path.join(_NATIVE, "mpeg4.cpp")
 #: the IDCT mpeg4.cpp shares with mjpeg.cpp
 IDCT_H = os.path.join(_NATIVE, "simple_idct.h")
+#: the IDCT of streams an XviD build wrote
+XVID_IDCT_H = os.path.join(_NATIVE, "xvid_idct.h")
 _LOCK = threading.Lock()
 _lib = None
 
@@ -45,7 +54,13 @@ QUANT, GOP, FCODE = 4, 12, 2
 #: the decoder's counters, in the library's order
 STATS = ("i_vops", "p_vops", "p_rounding_0", "p_rounding_1", "intra_mbs_in_i", "intra_mbs_in_p",
          "inter_mbs", "not_coded_mbs", "ac_pred_on", "ac_pred_off", "escape_1", "escape_2",
-         "escape_3", "max_fcode", "mv_outside", "dquant_mbs")
+         "escape_3", "max_fcode", "mv_outside", "dquant_mbs", "b_vops", "n_vops", "inter4v_mbs",
+         "direct_mbs", "direct_8x8_mbs", "forward_mbs", "backward_mbs", "interpolate_mbs",
+         "b_skipped_mbs", "dbquant_mbs", "max_bcode", "qpel_vops", "mpeg_quant_vops",
+         "custom_matrices", "video_packets", "hec_packets", "packed_b_vops", "xvid_idct_vops",
+         "interlaced_vops", "alt_scan_vops", "field_mbs", "field_dct_mbs", "field_direct_mbs")
+#: the VOP types of ``Decoder.last_type``
+TYPES = "IPB"
 
 
 def _native():
@@ -53,14 +68,17 @@ def _native():
     if _lib is None:
         with _LOCK:
             if _lib is None:
-                lib = ctypes.CDLL(build_library(_SRC, "mpeg4", deps=(IDCT_H,)))
+                lib = ctypes.CDLL(build_library(_SRC, "mpeg4", deps=(IDCT_H, XVID_IDCT_H)))
                 p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
                 ip = ctypes.POINTER(ctypes.c_int)
                 sigs = {
                     "mpeg4_decoder_new": ([], p), "mpeg4_decoder_free": ([p], None),
                     "mpeg4_decoder_error": ([p], ctypes.c_char_p),
+                    "mpeg4_decoder_tag": ([p, ctypes.c_uint], None),
                     "mpeg4_decoder_config": ([p, p, l, ip, ip], i),
-                    "mpeg4_decode": ([p, p, l, p, l, ip, ip, ip], i),
+                    "mpeg4_decode": ([p, p, l, ip, ip], i),
+                    "mpeg4_decoder_flush": ([p], i),
+                    "mpeg4_decoder_output": ([p, p, l, ip], i),
                     "mpeg4_decoder_stats": ([p, p, i], i),
                     "mpeg4_encoder_new": ([], p), "mpeg4_encoder_free": ([p], None),
                     "mpeg4_encoder_error": ([p], ctypes.c_char_p),
@@ -81,20 +99,27 @@ def plane_bytes(width: int, height: int) -> int:
 
 
 class Decoder:
-    """An ``mp4v`` stream's decoder, configured by its VOL headers."""
+    """An ``mp4v`` stream's decoder, configured by its VOS / VOL headers
+    (and any user data before them), in FFmpeg's order and delay: ``decode``
+    gives the frames a sample lets out, ``flush`` the rest at the end.
+    ``codec_tag`` is the container's fourcc (an AVI's ``XVID``, ``DIVX``,
+    ...), from which FFmpeg, and the decoder with it, take the encoder when
+    the user data does not name it."""
 
-    def __init__(self, config: bytes):
+    def __init__(self, config: bytes, codec_tag: bytes = b""):
         lib = _native()
         self._lib, self._d = lib, lib.mpeg4_decoder_new()
         if not self._d:
             raise MemoryError("mpeg4 decoder")
+        if codec_tag:
+            lib.mpeg4_decoder_tag(self._d, int.from_bytes(codec_tag[:4].ljust(4, b"\0"),
+                                                          "little"))
         w, h = ctypes.c_int(), ctypes.c_int()
         if lib.mpeg4_decoder_config(self._d, config, len(config), ctypes.byref(w),
                                     ctypes.byref(h)):
             self._raise()
         self.width, self.height = w.value, h.value
-        self._out = np.empty(plane_bytes(self.width, self.height), np.uint8)
-        #: the type of the last decoded VOP, "I" or "P"
+        #: the VOP type ("I", "P" or "B") of the last frame let out
         self.last_type = ""
 
     def _raise(self):
@@ -102,19 +127,31 @@ class Decoder:
         self.close()
         raise ValueError(msg)
 
-    def decode(self, sample: bytes) -> Optional[np.ndarray]:
-        """One sample -> the frame's packed I420 planes (a new array), or
-        None for a VOP that is not coded."""
-        w, h, t = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        r = self._lib.mpeg4_decode(self._d, sample, len(sample), self._out.ctypes.data,
-                                   self._out.size, ctypes.byref(w), ctypes.byref(h),
-                                   ctypes.byref(t))
-        if r < 0:
+    def _take(self, n: int) -> List[np.ndarray]:
+        if n < 0:
             raise ValueError(self._lib.mpeg4_decoder_error(self._d).decode())
-        if r == 1:
-            return None
-        self.last_type = "IP"[t.value]
-        return self._out.copy()
+        frames = []
+        t = ctypes.c_int()
+        for _ in range(n):
+            planes = np.empty(plane_bytes(self.width, self.height), np.uint8)
+            if self._lib.mpeg4_decoder_output(self._d, planes.ctypes.data, planes.size,
+                                              ctypes.byref(t)):
+                raise ValueError(self._lib.mpeg4_decoder_error(self._d).decode())
+            self.last_type = TYPES[t.value]
+            frames.append(planes)
+        return frames
+
+    def decode(self, sample: bytes) -> List[np.ndarray]:
+        """One sample -> the frames it lets out (packed I420 planes, each a
+        new array): none for a VOP that is not coded or before the reorder
+        delay is filled, one otherwise."""
+        w, h = ctypes.c_int(), ctypes.c_int()
+        return self._take(self._lib.mpeg4_decode(self._d, sample, len(sample), ctypes.byref(w),
+                                                 ctypes.byref(h)))
+
+    def flush(self) -> List[np.ndarray]:
+        """The end of the stream: the frames still held back."""
+        return self._take(self._lib.mpeg4_decoder_flush(self._d))
 
     def stats(self) -> Dict[str, int]:
         out = np.zeros(len(STATS), np.int64)

@@ -12,7 +12,9 @@ suffix:
   ``mp4v`` decoder and encoder, ``native/mpeg4.cpp``), ``render/h264.py``
   (the H.264 decoder, ``native/h264.cpp``) and ``render/mjpeg.py`` (the
   Motion JPEG decoder, ``native/mjpeg.cpp``).  ``MP4Reader`` takes the
-  ``mp4v`` streams cv2 and the port write (I- and P-VOPs), the I/P/B
+  ``mp4v`` streams of cv2, the port, XviD and DivX (Simple and Advanced
+  Simple: B-VOPs, DivX's packed B-VOPs, 4MV, quarter-sample, MPEG
+  quantisation, video packets; in FFmpeg's delay and order), the I/P/B
   H.264 of dash-cams, phones and FFmpeg's muxer (``ctts``,
   ``edts``/``elst``) and Motion JPEG (``jpeg``, ``mjpa``, and ``mp4v``
   entries of object type 0x6C, as cv2 writes ``MJPG`` into an ``.mp4``),
@@ -21,9 +23,13 @@ suffix:
   ``MP4Writer`` writes an I-VOP every 12 frames (cv2's interval) and
   P-VOPs between at a fixed quantiser; cv2 reads its files.
 - AVI: ``render/avi.py`` (the container).  ``AVIReader`` takes the first
-  video stream of ``mp4v``/``XVID``/``DIVX``-family, H.264 (Annex B
-  chunks) or Motion JPEG, indexed (``idx1``, OpenDML) or not, a truncated
-  last chunk dropped, as cv2 reads them; ``AVIWriter`` writes what
+  video stream of ``mp4v``/``XVID``/``DIVX``-family (the fourcc passed to
+  the decoder, which FFmpeg reads for its XviD and DivX workarounds),
+  H.264 (Annex B chunks) or Motion JPEG, indexed (``idx1``, OpenDML) or
+  not, as cv2 reads them; a last chunk cut by the end of the file is
+  decoded as far as it goes (Motion JPEG) where FFmpeg hands it over, and
+  left out for ``mp4v`` and H.264, whose lost part FFmpeg conceals and the
+  port does not (one frame fewer than cv2); ``AVIWriter`` writes what
   ``MP4Writer`` writes in FFmpeg's AVI layout, the VOS/VOL headers in band
   before each I-VOP, as cv2 writes an ``.avi``.
 - H.264 Annex B: ``AnnexBReader``, read only, split into access units at
@@ -44,7 +50,7 @@ Both writers encode each BGR frame with ``ops/preprocess.bgr_to_i420``
 (``cv2.cvtColor(COLOR_BGR2YUV_I420)`` to the bit), and the readers decode
 I420 with ``native/draw.i420_to_bgr`` (``cv2.cvtColor(COLOR_YUV2BGR_I420)``
 to the bit).  Motion JPEG frames are full-range ``yuvj`` planes, 4:2:2 as
-often as 4:2:0: their ``read()`` converts them with the full-range matrix
+often as 4:2:0: their ``read()`` converts them as cv2's swscale does
 (``render/mjpeg.Decoder.bgr``), ``read_planes()`` gives them as decoded,
 and ``read_i420()`` refuses them rather than pass them off as I420.
 Frame sides must be even, except a Motion JPEG input's.
@@ -229,12 +235,12 @@ class _SampleReader(_Queued):
     _demux = None
 
     def _start(self, path: str, codec: str, config: Optional[bytes], fps: float,
-               container_size: Tuple[int, int], delay: int = 0) -> None:
+               container_size: Tuple[int, int], delay: int = 0, tag: bytes = b"") -> None:
         self.codec, self.fps = codec, fps
         self._next = 0
         self._pending, self._flushed = deque(), False
         if codec == "mp4v":
-            self._decoder = mpeg4.Decoder(config)
+            self._decoder = mpeg4.Decoder(config, tag)
             self.width, self.height = self._decoder.width, self._decoder.height
         elif codec == "mjpeg":
             # the size is the first frame's (FFmpeg's, from its SOF), the
@@ -273,6 +279,8 @@ class _SampleReader(_Queued):
         if self.codec != "mjpeg":
             super()._queue(frames)
             return
+        if not frames:
+            return
         d = self._decoder
         if not self.width:
             self.width, self.height = d.width, d.height
@@ -283,16 +291,28 @@ class _SampleReader(_Queued):
 
     def _decode(self, sample: bytes) -> list:
         if self.codec == "mjpeg":
-            return [self._decoder.decode(sample)]
+            try:
+                return [self._decoder.decode(sample)]
+            except ValueError:
+                # an AVI's partial last chunk that does not reach its scan
+                # fails in FFmpeg too, and gives no frame
+                if getattr(self._demux, "partial", False) and self._next == len(self._demux):
+                    return []
+                raise
+        frames = self._decoder.decode(sample)
         if self.codec != "mp4v":
-            return self._decoder.decode(sample)
-        planes = self._decoder.decode(sample)
-        # a VOP that is not coded gives no frame, as in FFmpeg
+            return frames
         w, h = self._coded()
-        return [] if planes is None else [planes.reshape(h * 3 // 2, w)]
+        return [f.reshape(h * 3 // 2, w) for f in frames]
 
     def _flush(self) -> List[np.ndarray]:
-        return [] if self.codec in ("mp4v", "mjpeg") else self._decoder.flush()
+        if self.codec == "mjpeg":
+            return []
+        frames = self._decoder.flush()
+        if self.codec != "mp4v":
+            return frames
+        w, h = self._coded()
+        return [f.reshape(h * 3 // 2, w) for f in frames]
 
     def read(self) -> Optional[np.ndarray]:
         if self.codec != "mjpeg":
@@ -352,7 +372,7 @@ class MP4Reader(_SampleReader):
         try:
             track = self._demux.track
             self._start(path, track.codec, track.dsi, track.fps, (track.width, track.height),
-                        track.video_delay)
+                        track.video_delay, b"mp4v")
             self.rotation = track.rotation
             if self.rotation in (90, 270):
                 self.width, self.height = self.height, self.width
@@ -387,12 +407,17 @@ class AVIReader(_SampleReader):
         self._decoder = None
         try:
             stream = self._demux.stream
+            if self._demux.partial and stream.codec != "mjpeg":
+                # FFmpeg conceals what a cut mp4v or H.264 chunk lacks; the
+                # port has no concealment and leaves that frame out
+                self._demux.drop_last()
             config = None
             if stream.codec == "mp4v":
                 if not len(self._demux):
                     raise ValueError(f"{path}: an MPEG-4 Part 2 stream without frames")
                 config = avi.mpeg4_config(stream.extradata, self._demux.read(0))
-            self._start(path, stream.codec, config, stream.fps, (stream.width, stream.height))
+            self._start(path, stream.codec, config, stream.fps, (stream.width, stream.height),
+                        tag=stream.tag.encode("latin-1"))
         except Exception:
             self.close()
             raise

@@ -280,7 +280,15 @@ Phases, each of which raises (exit code 1) on failure:
     digests and counts, the decode ms per frame of each sampling, the
     demux ms, the ``mp4v`` encode ms into ``.avi`` and ``.mp4``, and
     ``run_video`` over the clip to an ``.avi`` (stem 2, IoU 1, walk 1 per
-    frame, 24 frames);
+    frame, 24 frames), the clip cut in its last chunk with its sizes
+    written (the partial chunk decoded) to cv2's digests; then MPEG-4
+    Advanced Simple (``video_mpeg4_asp``): the committed ASP fixtures
+    (``tests/data/video/mpeg4``: B-VOPs, DivX's packed B-VOPs, N-VOPs,
+    4MV, quarter-sample, MPEG matrices, video packets, the XviD IDCT) to
+    cv2's digests and counts, the 720p ASP clip (12 frames, IBBP) rebuilt
+    by the writer and decoded to its digests with the ms per I, P and B
+    VOP, and ``run_video`` over it as an ``XVID`` ``.avi`` (stem 2, IoU 1,
+    walk 1 per frame, 12 frames);
     ``[train-ufldv2]``, UFLDv2-CULane res18 with the aux head at
     320x1600, batch 8, 20 SGD steps in f32 (no kernel launches; the loss
     falls; the first step's loss, outputs and gradient within rel 1e-6,
@@ -3995,8 +4003,117 @@ def video_phase(mods, smi, torch, np):
     h264_run = video_h264(mods, smi, torch, np)
     avi_run = video_avi(mods, smi, torch, np)
     rotated_run = video_rotated(mods, smi, torch, np)
+    asp_run = video_mpeg4_asp(mods, smi, torch, np)
     return {k: synthetic_run[k] + video_run[k] + lanes_run[k] + h264_run[k] + avi_run[k] +
-            rotated_run[k] for k in KERNELS}
+            rotated_run[k] + asp_run[k] for k in KERNELS}
+
+
+def video_mpeg4_asp(mods, smi, torch, np):
+    """``[video]``, MPEG-4 Advanced Simple (``native/mpeg4.cpp``'s B-VOPs,
+    4MV, quarter-sample, MPEG quantisation, video packets, N-VOPs, DivX's
+    packed B-VOPs, the XviD IDCT and interlace): the committed fixtures
+    (``tests/data/video/mpeg4``) to cv2's Y digests and counts (the
+    interlaced ones, whose frames cv2 returns blank, every plane to its
+    libavcodec's digests); the 720p
+    content clip (``mpeg4_writer.content_720p``: an intra VOP, then a pan
+    as IBBP with 4MV, quarter-sample vectors and MPEG matrices, XviD's user
+    data) rebuilt by the writer (g++), decoded sample by sample to cv2's
+    digests and count, each VOP's decode timed by its kind (I, P, B); then
+    ``run_video`` over it as an ``XVID`` AVI with ``ADASPipeline``'s
+    defaults to an ``.avi``: stem 2, IoU 1 and walk 1 per frame, every
+    frame written.  Returns the launches."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from adas_tpu_torch.pipeline import app
+    from adas_tpu_torch.render import mpeg4, video
+
+    tag = "video"
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "video")
+    sys.path.insert(0, data)
+    import mpeg4_writer
+
+    with open(os.path.join(data, "mpeg4", "sha256.json")) as f:
+        digests = json.load(f)
+    n_fixtures = n_frames = 0
+    totals = {}
+    for name, want in digests.items():
+        if name == "content_720p":
+            continue
+        path = os.path.join(data, "mpeg4", name)
+        got = []
+        with video.open_reader(path) as r:
+            while (planes := r.read_planes()) is not None:
+                # cv2's Y, or every plane of libavcodec's decode (interlaced)
+                got.append(planes if "yuv_sha256" in want else planes[:r.height])
+            for k, v in r.stats().items():
+                totals[k] = totals.get(k, 0) + v
+        check([hashlib.sha256(p.tobytes()).hexdigest() for p in got] ==
+              want.get("yuv_sha256", want.get("y_sha256")),
+              f"{tag}: {name} gave {len(got)} frames or planes other than the reference's "
+              f"({want['frames']} frames)")
+        n_fixtures += 1
+        n_frames += len(got)
+    for k in ("b_vops", "n_vops", "inter4v_mbs", "direct_8x8_mbs", "qpel_vops",
+              "mpeg_quant_vops", "custom_matrices", "video_packets", "packed_b_vops",
+              "xvid_idct_vops", "interlaced_vops", "field_mbs", "field_direct_mbs"):
+        check(totals.get(k, 0) > 0, f"{tag}: the ASP fixtures lack {k}: {totals}")
+    want = digests["content_720p"]
+    t = time.perf_counter()
+    stream = mpeg4_writer.content_720p()
+    write_s = time.perf_counter() - t
+    decoder = mpeg4.Decoder(stream.header, b"XVID")
+    frames, ms = [], {"I": [], "P": [], "B": []}
+    for sample, kind in zip(stream.samples, stream.types):
+        t0 = time.perf_counter()
+        frames += decoder.decode(sample)
+        ms["IPB"[kind]].append((time.perf_counter() - t0) * 1e3)
+    frames += decoder.flush()
+    stats = decoder.stats()
+    decoder.close()
+    w, h = want["width"], want["height"]
+    check(len(frames) == want["frames"] and
+          [hashlib.sha256(p[:w * h].tobytes()).hexdigest() for p in frames] == want["y_sha256"],
+          f"{tag}: the 720p ASP clip gave {len(frames)} frames or Y planes other than cv2's")
+    check(stats["b_vops"] > 0 and stats["inter4v_mbs"] > 0 and stats["direct_8x8_mbs"] > 0 and
+          stats["qpel_vops"] == stats["mpeg_quant_vops"] == stats["xvid_idct_vops"] ==
+          want["frames"], f"{tag}: the 720p ASP clip lacks a tool: {stats}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_asp_")
+    try:
+        clip = os.path.join(tmp, "clip_asp.avi")
+        mpeg4_writer.to_avi(stream, clip, b"XVID")
+        out = os.path.join(tmp, "clip_asp_out.avi")
+        reset(mods)
+        t = time.perf_counter()
+        n = app.run_video(clip, out, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        run = counts(mods)
+        per_frame = {"stem": 2, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1}
+        for k, per in per_frame.items():
+            check(run[k] == per * want["frames"],
+                  f"{tag}: run_video over the ASP clip {k} launches {run[k]}, expected {per} "
+                  f"per frame")
+        with video.AVIReader(out) as r:
+            drawn = list(r)
+        check(n == len(drawn) == want["frames"] and all(f.shape == (h, w, 3) for f in drawn),
+              f"{tag}: run_video over the ASP clip wrote {len(drawn)} of {n} frames")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = {k: (f"median {np.median(v):.2f} (max {max(v):.2f}, {len(v)} VOPs)" if v else "none")
+               for k, v in ms.items()}
+    print(f"[{tag}] MPEG-4 Advanced Simple: {n_fixtures} fixtures, {n_frames} frames, Y equal "
+          f"to cv2's digests and counts (B-VOPs, DivX packed, N-VOPs, 4MV, quarter-sample, MPEG "
+          f"matrices, video packets, the XviD IDCT; interlaced ones every plane to libavcodec's); "
+          f"the 720p clip ({want['frames']} frames, "
+          f"IBBP, 4MV, quarter-sample, MPEG quantisation, pan {want['pan']} quarter samples) "
+          f"rebuilt in {write_s:.2f} s and decoded to cv2's digests: decode ms per 720p VOP "
+          f"(host) I {summary['I']}, P {summary['P']}, B {summary['B']}; non-zero counts "
+          f"{ {k: v for k, v in stats.items() if v} }; run_video over it as an XVID .avi "
+          f"(ADASPipeline defaults) to .avi: {n} frames in {run_s:.2f} s, launches {run} (per "
+          f"frame {per_frame}) ({smi})", flush=True)
+    return run
 
 
 #: ``[video]``: frames of ``run_video`` over the quarter-turned fixture
@@ -4255,7 +4372,9 @@ def video_avi(mods, smi, torch, np):
     (``tests/data/video/avi_clips.py``: the committed 4:2:0 and 4:2:2 720p
     JPEGs alternating, 24 frames) written by the port's muxer whole and as
     a power cut leaves it (no ``idx1``, the last chunk cut, the sizes never
-    written), both held to cv2's digests and counts; the decode ms per 720p
+    written) and cut after its sizes were written (FFmpeg hands the
+    decoder the partial chunk: its scan stops at the overread), each held
+    to cv2's digests and counts; the decode ms per 720p
     frame of each sampling (p50, max), the demux ms of the clip, and the
     ``mp4v`` encode ms per 720p frame into an ``.avi`` beside the MP4
     writer's on the same frames; then ``run_video`` over the clip with
@@ -4275,6 +4394,8 @@ def video_avi(mods, smi, torch, np):
 
     with open(os.path.join(data, "avi", "sha256.json")) as f:
         digests = json.load(f)
+    with open(os.path.join(data, "avi", "cut_sha256.json")) as f:
+        cut_digests = json.load(f)
     t = time.perf_counter()
     mjpeg._native()  # builds _build/libmjpeg.so
     build_s = time.perf_counter() - t
@@ -4303,13 +4424,17 @@ def video_avi(mods, smi, torch, np):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_avi_")
     try:
         clip, damaged = os.path.join(tmp, "clip.avi"), os.path.join(tmp, "damaged.avi")
+        cut = os.path.join(tmp, "cut.avi")
         avi_clips.mjpeg_720p(clip)
         avi_clips.mjpeg_720p(damaged, damaged=True)
-        for path, name in ((clip, "clip_720p_mjpg.avi"), (damaged, "clip_720p_mjpg_damaged.avi")):
+        avi_clips.mjpeg_720p(cut, cut=True)
+        for path, name in ((clip, "clip_720p_mjpg.avi"), (damaged, "clip_720p_mjpg_damaged.avi"),
+                           (cut, "clip_720p_mjpg_cut.avi")):
+            want = {**digests, **cut_digests}[name]
             got, fps, codec = y_digests(path)
-            check(got == digests[name]["y_sha256"] and fps == 30.0 and codec == "mjpeg",
+            check(got == want["y_sha256"] and fps == 30.0 and codec == "mjpeg",
                   f"{tag}: {name} gave {len(got)} frames, Y or rate other than cv2's "
-                  f"({digests[name]['frames']} frames)")
+                  f"({want['frames']} frames)")
         t = time.perf_counter()
         demux = avi.Demuxer(clip)
         demux_ms = (time.perf_counter() - t) * 1e3
@@ -4364,8 +4489,9 @@ def video_avi(mods, smi, torch, np):
 
     print(f"[{tag}] AVI and Motion JPEG: native/mjpeg.cpp built in {build_s:.2f} s; "
           f"{len(codecs)} fixtures ({'; '.join(codecs)}), {n_frames} frames, Y equal to cv2's "
-          f"digests; the 720p Motion JPEG clip ({avi_clips.FRAMES} frames) whole and damaged "
-          f"(no idx1, the last chunk cut) decoded to cv2's digests and counts; demux ms "
+          f"digests; the 720p Motion JPEG clip ({avi_clips.FRAMES} frames) whole, damaged "
+          f"(no idx1, the last chunk cut, sizes 0) and cut with its sizes written (the partial "
+          f"chunk decoded to its overread) decoded to cv2's digests and counts; demux ms "
           f"{demux_ms:.2f} indexed, {bare_ms:.2f} scanned; decode ms per 720p frame (host, "
           f"planes + BGR) 4:2:0 {p50_max(ms['yuvj420p'])}, 4:2:2 {p50_max(ms['yuvj422p'])}; "
           f"mp4v encode ms per 720p frame (host) into .avi {p50_max(enc_ms['.avi'])}, into .mp4 "

@@ -8,8 +8,11 @@ decode in ``avi/sha256.json`` (``make_fixtures.py avi`` writes them).
 ``mjpeg_720p(path)`` writes ``FRAMES`` frames alternating the two JPEGs
 as an ``MJPG`` AVI; ``damaged=True`` writes it as a recording cut short by
 a power loss leaves it: no ``idx1``, the last chunk cut in half, and the
-``RIFF`` and ``movi`` sizes never written (0).  cv2 reads ``FRAMES`` and
-``FRAMES - 1`` frames of them.
+``RIFF`` and ``movi`` sizes never written (0); ``cut=True`` cuts it the
+same way after the sizes were written (those of the whole file).  cv2
+reads ``FRAMES``, ``FRAMES - 1`` and ``FRAMES`` frames of them: FFmpeg
+hands the decoder the cut chunk when the RIFF's size holds it, and the
+last frame is decoded as far as its data goes.
 """
 import os
 import struct
@@ -34,12 +37,12 @@ def jpegs():
     return out
 
 
-def mjpeg_720p(path: str, damaged: bool = False) -> None:
+def mjpeg_720p(path: str, damaged: bool = False, cut: bool = False) -> None:
     frames = jpegs()
     with avi.Muxer(path, 1280, 720, b"MJPG", 30.0) as mux:
         for i in range(FRAMES):
             mux.add(frames[i % 2], True)
-    if not damaged:
+    if not damaged and not cut:
         return
     with open(path, "rb") as f:
         data = bytearray(f.read())
@@ -47,8 +50,9 @@ def mjpeg_720p(path: str, damaged: bool = False) -> None:
     last = data.rindex(b"00dc", 0, idx1)
     size = struct.unpack_from("<I", data, last + 4)[0]
     data = data[:last + 8 + size // 2]
-    data[4:8] = bytes(4)
-    movi = data.index(b"movi")
-    data[movi - 4:movi] = bytes(4)
+    if damaged:
+        data[4:8] = bytes(4)
+        movi = data.index(b"movi")
+        data[movi - 4:movi] = bytes(4)
     with open(path, "wb") as f:
         f.write(bytes(data))

@@ -41,6 +41,22 @@ decode of the 720p Motion JPEG clip ``avi_clips.mjpeg_720p`` whole and
 damaged, which is not committed: the port's muxer rebuilds it from the
 committed JPEGs.
 
+In ``mpeg4/`` (``python tests/data/video/make_fixtures.py mpeg4`` writes
+only these), MPEG-4 Advanced Simple streams of the stream writer
+``mpeg4_writer.py`` (cv2's writer uses none of these tools), muxed by the
+port as AVIs tagged ``XVID`` / ``DX50`` and as ``mp4v`` MP4s
+(``MPEG4_FIXTURES``: XviD's IDCT, an XVID tag without user data, XviD's
+preset of B-VOPs + 4MV + quarter-sample + MPEG matrices, Lavc's user data
+with loaded matrices and video packets, DivX's packed B-VOPs, N-VOPs),
+each admitted only when FFmpeg logs no error while cv2 decodes it
+(``cv2_errors``), with cv2's frame count and Y sha256 per frame in
+``mpeg4/sha256.json``; interlaced ones (``MPEG4_INTERLACED``), for which
+cv2 5.0 on FFmpeg 8.1 returns blank frames (its ``sws_scale`` refuses an
+interlaced frame), with cv2's count and the sha256 of the Y, U and V
+planes of cv2's bundled libavcodec (``libavcodec_planes``, ctypes); and there too the digests of cv2's decode of the
+720p content clip ``mpeg4_writer.content_720p()`` as an ``XVID`` AVI, not
+committed: the writer is deterministic.
+
 In ``rotated/`` (``python tests/data/video/make_fixtures.py rotated`` writes
 only these), cv2's ``cv2_smooth_176x144.mp4`` and ``cv2_noise_64x48.mp4``
 with their display matrices patched (``patch_matrices``): ``tkhd`` turned
@@ -214,15 +230,64 @@ def avi_main():
         with open(path, "rb") as f:
             digests[name] = {"sha256": hashlib.sha256(f.read()).hexdigest(), **_digests(path)}
         assert digests[name]["frames"] == len(frames)
-    for name, damaged in (("clip_720p_mjpg.avi", False), ("clip_720p_mjpg_damaged.avi", True)):
+    clip_digests(digests)
+
+
+#: Motion JPEG frames whose BGR cv2 converts through swscale's scaler
+#: (odd sides, 4:4:0, 4:1:1): sampling -> (height, width), encoded by
+#: ``cv2.imencode`` from ``smooth`` content
+SWSCALE_CASES = {"420": (37, 53), "422": (45, 70), "440": (48, 64), "411": (37, 64),
+                 "444": (17, 9)}
+SWSCALE_FACTORS = {"420": 0x221111, "422": 0x211111, "440": 0x121111, "411": 0x411111,
+                   "444": 0x111111}
+
+
+def swscale_main():
+    """``avi/swscale_cases.npz``: each case's JPEG and cv2's BGR of it read
+    from an ``MJPG`` AVI (the port's muxer), for hosts without cv2."""
+    from adas_tpu_torch.render import avi
+
+    out = {}
+    for sampling, (h, w) in SWSCALE_CASES.items():
+        frame = smooth(1, h, w, 3, 11)[0]
+        jpeg = cv2.imencode(".jpg", frame, [cv2.IMWRITE_JPEG_QUALITY, 90,
+                                            cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                            SWSCALE_FACTORS[sampling]])[1]
+        path = os.path.join(AVI_DIR, "swscale_tmp.avi")
+        with avi.Muxer(path, w, h, b"MJPG") as m:
+            m.add(jpeg.tobytes(), True)
+        bgr = cv2_decode(path, True)
+        os.remove(path)
+        assert bgr.shape == (1, h, w, 3)
+        out[f"jpeg_{sampling}"] = jpeg
+        out[f"bgr_{sampling}"] = bgr[0]
+    np.savez_compressed(os.path.join(AVI_DIR, "swscale_cases.npz"), **out)
+
+
+def clip_digests(digests):
+    """cv2's digests of the 720p Motion JPEG clip whole and damaged
+    (``avi_clips.mjpeg_720p``), into ``avi/sha256.json`` beside
+    ``digests``, and cut after its sizes were written, into
+    ``avi/cut_sha256.json``; ``make_fixtures.py avi clips`` rewrites only
+    these."""
+    sys.path.insert(0, HERE)
+    import avi_clips
+
+    cut_digests = {}
+    for name, damaged, cut in (("clip_720p_mjpg.avi", False, False),
+                               ("clip_720p_mjpg_damaged.avi", True, False),
+                               ("clip_720p_mjpg_cut.avi", False, True)):
         tmp = os.path.join(AVI_DIR, name)
-        avi_clips.mjpeg_720p(tmp, damaged)
-        digests[name] = _digests(tmp)
+        avi_clips.mjpeg_720p(tmp, damaged, cut)
+        table = cut_digests if cut else digests
+        table[name] = _digests(tmp)
         os.remove(tmp)
-        assert digests[name]["frames"] == avi_clips.FRAMES - damaged
-    with open(os.path.join(AVI_DIR, "sha256.json"), "w") as f:
-        json.dump(digests, f, indent=1)
-        f.write("\n")
+        assert table[name]["frames"] == avi_clips.FRAMES - damaged
+    for file, table in (("sha256.json", digests), ("cut_sha256.json", cut_digests)):
+        with open(os.path.join(AVI_DIR, file), "w") as f:
+            json.dump(table, f, indent=1)
+            f.write("\n")
+
 
 
 ROTATED_DIR = os.path.join(HERE, "rotated")
@@ -275,12 +340,187 @@ def rotated_main():
         f.write("\n")
 
 
+MPEG4_DIR = os.path.join(HERE, "mpeg4")
+#: the MPEG-4 Advanced Simple fixtures of ``mpeg4_writer.py``: file name ->
+#: (writer options, AVI fourcc or None for an MP4)
+MPEG4_FIXTURES = {
+    # Simple tools with XviD's user data: libavcodec's XviD IDCT
+    "xvid_idct_64x48.avi": (dict(seed=1, frames=6, width=64, height=48, user=1, four_mv=0,
+                                 intra=20), b"XVID"),
+    # no user data in an XVID AVI: XviD build 0 (the edge, DC clip and
+    # quarter-sample chroma workarounds)
+    "xvid_tag_72x40.avi": (dict(seed=2, frames=8, width=72, height=40, user=3, bframes=2,
+                                four_mv=30, qpel=1), b"XVID"),
+    # XviD's preset: B-VOPs, 4MV, quarter-sample, MPEG matrices
+    "xvid_asp_96x64.avi": (dict(seed=3, frames=10, width=96, height=64, user=1, bframes=2,
+                                four_mv=30, qpel=1, mpeg_quant=1), b"XVID"),
+    "xvid_asp_96x64.mp4": (dict(seed=3, frames=10, width=96, height=64, user=1, bframes=2,
+                                four_mv=30, qpel=1, mpeg_quant=1), None),
+    # Lavc: three B-VOPs, loaded matrices, video packets with HEC, half-sample 4MV
+    "lavc_packets_80x48.mp4": (dict(seed=4, frames=9, width=80, height=48, user=0, bframes=3,
+                                    four_mv=40, mpeg_quant=2, packets=12, hec=50), None),
+    # DivX 5.03 packed B-VOPs (build 1393: quarter-sample chroma workarounds)
+    "divx_packed_80x64.avi": (dict(seed=5, frames=9, width=80, height=64, user=2, build=1393,
+                                   bframes=1, four_mv=30, qpel=1), b"DX50"),
+    "divx_packed_80x64.mp4": (dict(seed=5, frames=9, width=80, height=64, user=2, build=1393,
+                                   bframes=1, four_mv=30, qpel=1), None),
+    # N-VOPs in a low-delay stream, video packets
+    "nvop_64x48.avi": (dict(seed=6, frames=8, width=64, height=48, user=0, nvop=40, packets=15,
+                            four_mv=30), b"XVID"),
+}
+
+
+#: interlaced fixtures: cv2 5.0 on FFmpeg 8.1 returns blank frames for
+#: them (its sws_scale refuses an interlaced frame), so their digests are
+#: those of cv2's bundled libavcodec's planes, read through ctypes
+MPEG4_INTERLACED = {
+    "interlaced_96x64.avi": (dict(seed=8, frames=9, width=96, height=64, user=1, bframes=2,
+                                  four_mv=20, qpel=1, mpeg_quant=1, interlaced=1, field_mv=50,
+                                  packets=12), b"XVID"),
+    "interlaced_lavc56_72x40.mp4": (dict(seed=9, frames=8, width=72, height=40, user=0,
+                                         lavc_major=56, bframes=1, interlaced=1, field_mv=60,
+                                         outside=40), None),
+    "interlaced_xvix_64x48.avi": (dict(seed=10, frames=6, width=64, height=48, user=3,
+                                       interlaced=1, xvid_ilace=1, field_mv=60), b"XVIX"),
+    "interlaced_divx_80x48.avi": (dict(seed=11, frames=7, width=80, height=48, user=2,
+                                       build=2000, bframes=1, interlaced=1, field_mv=60),
+                                  b"DX50"),
+}
+
+
+def libavcodec_planes(samples, tag=b""):
+    """cv2's bundled libavcodec's decode of an ``mp4v`` stream's samples (one
+    thread): each frame's (Y, U, V) planes, as FFmpeg gives them before
+    cv2's conversion."""
+    import ctypes
+    import glob
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(cv2.__file__)), "opencv_python.libs")
+    avu = ctypes.CDLL(glob.glob(os.path.join(libs, "libavutil-*.so*"))[0], mode=ctypes.RTLD_GLOBAL)
+    avc = ctypes.CDLL(glob.glob(os.path.join(libs, "libavcodec-*.so*"))[0])
+    vp = ctypes.c_void_p
+    avc.avcodec_find_decoder.restype = vp
+    avc.avcodec_alloc_context3.restype, avc.avcodec_alloc_context3.argtypes = vp, [vp]
+    avc.avcodec_open2.argtypes = [vp, vp, vp]
+    avc.av_packet_alloc.restype = vp
+    avc.av_new_packet.argtypes = [vp, ctypes.c_int]
+    avc.avcodec_send_packet.argtypes = [vp, vp]
+    avc.avcodec_receive_frame.argtypes = [vp, vp]
+    avc.av_packet_unref.argtypes = [vp]
+    avu.av_frame_alloc.restype = vp
+    avu.av_frame_unref.argtypes = [vp]
+    avu.av_opt_set_int.argtypes = [vp, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int]
+    ctx = avc.avcodec_alloc_context3(avc.avcodec_find_decoder(12))  # AV_CODEC_ID_MPEG4
+    if tag:  # AVCodecContext.codec_tag
+        ctypes.c_uint.from_address(ctx + 28).value = int.from_bytes(tag, "little")
+    avu.av_opt_set_int(ctx, b"threads", 1, 0)
+    assert avc.avcodec_open2(ctx, avc.avcodec_find_decoder(12), None) == 0
+    pkt, frame = avc.av_packet_alloc(), avu.av_frame_alloc()
+    out = []
+
+    def receive():
+        while avc.avcodec_receive_frame(ctx, frame) == 0:
+            w = ctypes.c_int.from_address(frame + 104).value  # AVFrame width, height
+            h = ctypes.c_int.from_address(frame + 108).value
+            planes = []
+            for i in range(3):
+                data = ctypes.c_void_p.from_address(frame + 8 * i).value
+                stride = ctypes.c_int.from_address(frame + 64 + 4 * i).value
+                ph, pw = (h, w) if i == 0 else ((h + 1) // 2, (w + 1) // 2)
+                buf = (ctypes.c_uint8 * (stride * ph)).from_address(data)
+                planes.append(np.ctypeslib.as_array(buf).reshape(ph, stride)[:, :pw].copy())
+            out.append(planes)
+            avu.av_frame_unref(frame)
+
+    for sample in samples:
+        avc.av_new_packet(pkt, len(sample))
+        ctypes.memmove(ctypes.c_void_p.from_address(pkt + 24).value, sample, len(sample))
+        avc.avcodec_send_packet(ctx, pkt)
+        avc.av_packet_unref(pkt)
+        receive()
+    avc.avcodec_send_packet(ctx, None)
+    receive()
+    return out
+
+
+def cv2_errors(path):
+    """What FFmpeg logs at its error level while cv2 decodes ``path``, in a
+    subprocess (cv2 passes ``OPENCV_FFMPEG_LOGLEVEL`` to av_log_set_level)."""
+    import subprocess
+
+    code = ("import cv2, sys\ncap = cv2.VideoCapture(sys.argv[1])\n"
+            "while cap.read()[0]:\n    pass\n")
+    env = {**os.environ, "OPENCV_FFMPEG_LOGLEVEL": "16", "OPENCV_LOG_LEVEL": "ERROR"}
+    proc = subprocess.run([sys.executable, "-c", code, path], capture_output=True, text=True,
+                          env=env, timeout=120)
+    return [line for line in proc.stderr.splitlines() if " @ 0x" in line]
+
+
+def mpeg4_main():
+    sys.path.insert(0, HERE)
+    import mpeg4_writer
+
+    os.makedirs(MPEG4_DIR, exist_ok=True)
+    digests = {}
+    for name, (options, fourcc) in MPEG4_FIXTURES.items():
+        path = os.path.join(MPEG4_DIR, name)
+        stream = mpeg4_writer.exercise(**options)
+        if fourcc is None:
+            mpeg4_writer.to_mp4(stream, path)
+        else:
+            mpeg4_writer.to_avi(stream, path, fourcc)
+        errors = cv2_errors(path)
+        assert not errors, (name, errors)
+        ys = cv2_decode(path, False)
+        digests[name] = {
+            "options": options, "fourcc": fourcc.decode() if fourcc else "mp4v",
+            "frames": len(ys), "height": int(ys.shape[1]), "width": int(ys.shape[2]),
+            "y_sha256": [hashlib.sha256(y.tobytes()).hexdigest() for y in ys]}
+    for name, (options, fourcc) in MPEG4_INTERLACED.items():
+        path = os.path.join(MPEG4_DIR, name)
+        stream = mpeg4_writer.exercise(**options)
+        if fourcc is None:
+            mpeg4_writer.to_mp4(stream, path)
+        else:
+            mpeg4_writer.to_avi(stream, path, fourcc)
+        planes = libavcodec_planes(stream.samples, fourcc or b"mp4v")
+        assert len(cv2_decode(path, False)) == len(planes), name
+        digests[name] = {
+            "options": options, "fourcc": fourcc.decode() if fourcc else "mp4v",
+            "frames": len(planes), "height": int(planes[0][0].shape[0]),
+            "width": int(planes[0][0].shape[1]), "reference": "libavcodec",
+            "yuv_sha256": [hashlib.sha256(b"".join(p.tobytes() for p in f)).hexdigest()
+                           for f in planes]}
+    tmp = os.path.join(MPEG4_DIR, "content_720p.avi")
+    mpeg4_writer.to_avi(mpeg4_writer.content_720p(), tmp, b"XVID")
+    assert not cv2_errors(tmp)
+    ys = cv2_decode(tmp, False)
+    os.remove(tmp)
+    spec = mpeg4_writer.CONTENT_720P
+    assert len(ys) == spec["frames"]
+    digests["content_720p"] = {**spec, "fourcc": "XVID", "height": 720, "width": 1280,
+                               "y_sha256": [hashlib.sha256(y.tobytes()).hexdigest() for y in ys]}
+    with open(os.path.join(MPEG4_DIR, "sha256.json"), "w") as f:
+        json.dump(digests, f, indent=1)
+        f.write("\n")
+
+
 def main():
+    if sys.argv[1:] == ["mpeg4"]:
+        mpeg4_main()
+        return
     if sys.argv[1:] == ["rotated"]:
         rotated_main()
         return
     if sys.argv[1:] == ["h264"]:
         h264_main()
+        return
+    if sys.argv[1:] == ["avi", "swscale"]:
+        swscale_main()
+        return
+    if sys.argv[1:] == ["avi", "clips"]:
+        with open(os.path.join(AVI_DIR, "sha256.json")) as f:
+            clip_digests(json.load(f))
         return
     if sys.argv[1:] == ["avi"]:
         avi_main()

@@ -227,9 +227,11 @@ def test_truncated_last_chunk(tmp_path, cut):
     """A file cut by the end of the disk or a power loss.  With its sizes
     unwritten (0), or cut inside a chunk header, cv2 drops the last chunk
     as the port does.  With the sizes of the finished file, FFmpeg hands
-    the decoder the partial chunk and cv2 gives a partly decoded last frame;
-    the port drops it (``Demuxer.truncated``): the frames before it are
-    cv2's."""
+    the decoder the partial chunk (``Demuxer.partial``), its scan stops at
+    the overread and the frame comes out ("EOI missing"); the port does
+    the same, and the macroblocks past the data show the frame before, as
+    cv2's do (FFmpeg's frame pool hands the decoder that frame's buffer):
+    all 7 frames are cv2's to the bit."""
     path = _mux(tmp_path / "v.avi", _jpegs(8))
     demux = avi.Demuxer(path)
     off, size = demux.offsets[6], demux.sizes[6]
@@ -243,11 +245,57 @@ def test_truncated_last_chunk(tmp_path, cut):
     bad = tmp_path / "cut.avi"
     bad.write_bytes(bytes(data))
     want = cv2_ys(str(bad))
-    got, _ = port_ys(str(bad))
-    assert len(got) == 6
-    assert len(want) == (7 if cut == "mid_chunk" else 6)
+    got, info = port_ys(str(bad))
+    assert len(got) == len(want) == (7 if cut == "mid_chunk" else 6)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+    assert info["stats"]["overread_scans"] == (cut == "mid_chunk")
+
+
+@pytest.mark.parametrize("codec", ["mp4v", "h264"])
+def test_cut_mp4v_and_h264_chunks_give_one_frame_fewer(tmp_path, codec):
+    """The same cut (the sizes written) of an ``mp4v`` or H.264 AVI: FFmpeg
+    hands the decoder the partial chunk and conceals what it lacks
+    (error_resilience.c), so cv2 gives 7 frames; the port has no
+    concealment and leaves that chunk out: 6, each cv2's to the bit
+    (ROADMAP §3)."""
+    src = str(tmp_path / "v.avi")
+    if codec == "mp4v":
+        with AVIWriter(src, 96, 64) as w:
+            for f in _smooth(8, 64, 96):
+                w.write(f)
+    else:
+        stream = h264_writer.exercise(frames=8, width=64, height=48, seed=3)
+        _mux(src, [h264.annexb(au) for au in h264.access_units(h264.nal_units(stream))], 64, 48,
+             b"H264")
+    demux = avi.Demuxer(src)
+    off, size = demux.offsets[6], demux.sizes[6]
+    demux.close()
+    bad = tmp_path / "cut.avi"
+    bad.write_bytes(open(src, "rb").read()[:off + size // 2])
+    demux = avi.Demuxer(str(bad))
+    assert demux.partial and len(demux) == 7
+    demux.close()
+    want = cv2_ys(str(bad))
+    got, _ = port_ys(str(bad))
+    assert (len(got), len(want)) == (6, 7)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_720p_mjpeg_clip_cut_mid_chunk_gives_cv2s_digests(tmp_path):
+    """The 720p clip cut in its last chunk after its sizes were written: 24
+    frames, the last decoded as far as its data goes (its 4:2:2 format is
+    not the frame before's, so the rest comes from a new buffer: zeros),
+    all to cv2's digests."""
+    path = str(tmp_path / "clip.avi")
+    avi_clips.mjpeg_720p(path, cut=True)
+    ys, info = port_ys(path)
+    with open(os.path.join(AVI_DATA, "cut_sha256.json")) as f:
+        want = json.load(f)["clip_720p_mjpg_cut.avi"]
+    assert len(ys) == want["frames"] == avi_clips.FRAMES
+    assert [_sha(y) for y in ys] == want["y_sha256"]
+    assert info["stats"]["overread_scans"] == 1
 
 
 def test_empty_chunks_are_skipped(tmp_path):
@@ -430,6 +478,8 @@ def test_corrupt_structure_raises(tmp_path):
 
 
 def test_divx_packed_bvops_raise(tmp_path):
+    """DivX's packed B-VOPs are decoded now (``test_torch_mpeg4_asp.py``):
+    a stream whose user data says so reads as cv2 reads it."""
     frames = _smooth(2, 64, 96)
     src = str(tmp_path / "v.avi")
     with AVIWriter(src, 96, 64) as w:
@@ -446,8 +496,7 @@ def test_divx_packed_bvops_raise(tmp_path):
     first = demux.read(0)
     demux.close()
     assert b"DivX503b1393p" in first
-    with pytest.raises(ValueError, match="DivX packed B-VOPs"):
-        AVIReader(str(path))
+    assert_cv2s(str(path))
 
 
 @pytest.mark.parametrize("name", ["cv2_mjpg_96x64.avi", "cv2_mp4v_96x64.avi"])

@@ -45,7 +45,7 @@ from adas_tpu_torch.native.draw import i420_to_bgr
 from adas_tpu_torch.ops.preprocess import bgr_to_i420
 from adas_tpu_torch.pipeline import lane_demo
 from adas_tpu_torch.render.image import imread, imwrite
-from adas_tpu_torch.render.video import MP4Reader, MP4Writer, Y4MReader, Y4MWriter
+from adas_tpu_torch.render.video import AVIReader, MP4Reader, MP4Writer, Y4MReader, Y4MWriter
 from adas_tpu_torch.tools import quantize
 from adas_tpu_torch.utils.types import LaneModelType
 from test_torch_models import random_flax_weights
@@ -200,6 +200,52 @@ def test_run_lane_video_rotated_mp4_matches_jax(weights, tmp_path):
         cap.release()
         sizes.append(frames)
     assert sizes[0] == sizes[1] == [(176, 144, 3)] * 3
+
+
+def test_run_lane_video_xvid_asp_avi_matches_jax(weights, tmp_path):
+    """An XviD AVI of MPEG-4 Advanced Simple video (B-VOPs, 4MV,
+    quarter-sample vectors, MPEG matrices, XviD's user data and IDCT; the
+    seeded stream writer's, which cv2 cannot write): the port's and JAX's
+    demos read as many frames in the same order, the Y planes each decodes
+    equal to the bit, and write as many frames of one size.  The facade's
+    config names the weights and the model type on both sides."""
+    sys.path.insert(0, VIDEO_DATA)
+    import mpeg4_writer
+
+    src = str(tmp_path / "asp.avi")
+    planes = mpeg4_writer.pan_frames(bgr_to_i420(_frame(5)), 7, (6, 2))
+    stream = mpeg4_writer.content(planes, (6, 2), frames=7, bframes=2)
+    mpeg4_writer.to_avi(stream, src, b"XVID")
+    ys = []
+    with AVIReader(src) as r:
+        while (p := r.read_planes()) is not None:
+            ys.append(p[:FRAME_HW[0]])
+        assert r.stats()["b_vops"] and r.stats()["inter4v_mbs"] and r.stats()["qpel_vops"]
+    cap = cv2.VideoCapture(src)
+    cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+    want = []
+    while (f := cap.read())[0]:
+        want.append(f[1])
+    cap.release()
+    assert len(ys) == len(want) == 7
+    for a, b in zip(ys, want):
+        np.testing.assert_array_equal(a, b)
+    got_path, want_path = str(tmp_path / "port.mp4"), str(tmp_path / "jax.mp4")
+    n_want = jax_lane_demo.run_lane_video(src, want_path, config={
+        "model_path": weights["lane"], "model_type": CULANE}, max_frames=7)
+    n_got = lane_demo.run_lane_video(src, got_path, config={
+        "model_path": weights["lane"], "model_type": LaneModelType.UFLDV2_CULANE},
+        max_frames=7, device="cpu")
+    assert n_got == n_want == 7
+    shapes = []
+    for path in (got_path, want_path):
+        cap = cv2.VideoCapture(path)
+        frames = []
+        while (f := cap.read())[0]:
+            frames.append(f[1].shape)
+        cap.release()
+        shapes.append(frames)
+    assert shapes[0] == shapes[1] == [(*FRAME_HW, 3)] * 7
 
 
 def _calib_dir_matches_jax(tmp_path, monkeypatch, write_files):

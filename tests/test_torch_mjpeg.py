@@ -9,12 +9,12 @@ decoder, on the CPU.
   intervals, with their DHT stripped (FFmpeg's standard tables), with an
   ``AVI1`` APP0, and with optimised tables a later frame inherits; each
   muxed by the port into an ``MJPG`` AVI.
-* BGR: ``read()`` converts with the full-range matrix and nearest chroma;
-  its gap to cv2's BGR (swscale) holds ``BGR_BOUND`` on even-sided 4:2:0,
-  4:2:2, 4:4:4 and gray frames and on 4:4:4 at any size (ROADMAP §3
-  "Standing bounds"); the limited-range I420 conversion breaks it.  Where
-  swscale filters the chroma (odd sides, 4:4:0, 4:1:1) the gap is larger
-  and not held (ROADMAP §3).
+* BGR: ``read()`` converts as cv2's swscale does; its gap to cv2's BGR
+  holds ``BGR_BOUND`` on even-sided 4:2:0, 4:2:2, 4:4:4 and gray frames
+  and on 4:4:4 at any size (measured: 0 everywhere); the
+  limited-range I420 conversion breaks it.  Where swscale filters the
+  chroma (odd sides, 4:4:0, 4:1:1) ``test_torch_mjpeg_swscale.py`` holds
+  the BGR to the bit.
 * Refusals name the tool (progressive, lossless, hierarchical,
   arithmetic, JPEG-LS, 12-bit, RGB, CMYK, other sampling factors,
   interlaced fields, a missing DQT); corrupt and truncated frames raise
@@ -263,10 +263,15 @@ def test_cmyk_and_adobe_rgb_raise():
 
 
 def test_corrupt_and_truncated_frames_raise():
+    """Corrupt frames and frames cut before their scan raise.  A frame cut
+    inside its scan decodes as FFmpeg decodes it (an AVI's partial last
+    chunk, ``test_torch_avi.py``): the scan stops at the overread and the
+    frame comes out with the MCUs read so far."""
     j = encode(_smooth(1, 48, 64)[0], "420")
     scan = segments(j)[-1][2]
-    with pytest.raises(ValueError, match="truncated"):
-        _decode(j[:scan + (len(j) - scan) // 3])
+    d = mjpeg.Decoder()
+    d.decode(j[:scan + (len(j) - scan) // 3])
+    assert d.stats()["overread_scans"] == 1
     with pytest.raises(ValueError, match="truncated|corrupt"):
         _decode(j[:segments(j)[1][1] + 5])
     with pytest.raises(ValueError, match="without a frame header"):

@@ -17,9 +17,12 @@
   written size and 30 fps; its Y planes equal the port's decode, which
   equals the writer's reconstruction to the bit; Y PSNR >= 38 dB against
   the source on smooth content.
-* The tools the decoder does not implement, other codecs, corrupt and
-  truncated data, and oversized pictures raise ``ValueError``; so do
-  seeded mutations of the fixtures, or they decode.
+* The tools the decoder does not implement (interlace, data partitioning,
+  sprites / GMC, OBMC, the short video header, ...), other codecs, corrupt
+  and truncated data, and oversized pictures raise ``ValueError``; so do
+  seeded mutations of the fixtures, or they decode.  The Advanced Simple
+  tools (B-VOPs, 4MV, quarter-sample, MPEG quantisation, video packets)
+  are held to cv2 in ``test_torch_mpeg4_asp.py``.
 """
 from __future__ import annotations
 
@@ -372,10 +375,11 @@ def test_every_tcoef_code_and_escape_decodes_as_cv2s(tmp_path):
 
 
 def test_crafted_stream_decodes():
-    """The crafted headers are valid: a gray I-VOP decodes."""
+    """The crafted headers are valid: a gray I-VOP decodes (a low-delay VOL:
+    the frame comes out at once)."""
     dec = mpeg4.Decoder(vol())
-    planes = dec.decode(i_vop())
-    assert planes is not None and dec.last_type == "I"
+    [planes] = dec.decode(i_vop())
+    assert dec.last_type == "I" and dec.flush() == []
     assert (planes == 128).all()  # DC levels predicted from 1024 / 8
 
 
@@ -394,22 +398,43 @@ def test_crafted_stream_decodes():
     ({"width": 0}, "empty"),
 ])
 def test_refused_vol_tools_raise_by_name(kwargs, name):
+    """Tools the decoder lacks raise by name.  Quarter-sample and
+    interlaced VOLs are decoded now (``test_torch_mpeg4_asp.py``): the
+    decoder takes them (an I-VOP after a quarter-sample one decodes; an
+    interlaced VOP carries two more header bits); an MPEG quantisation VOL
+    here reads the next header bits as a loaded matrix, which the VOL cuts
+    short."""
+    if name == "quarter-pel":
+        dec = mpeg4.Decoder(vol(**kwargs))
+        [planes] = dec.decode(i_vop())
+        assert (planes == 128).all()
+        return
+    if name == "interlaced":
+        dec = mpeg4.Decoder(vol(**kwargs))
+        assert (dec.width, dec.height) == (32, 16)
+        return
     with pytest.raises(ValueError, match=name):
         mpeg4.Decoder(vol(**kwargs))
 
 
 def test_refused_vop_tools_raise_by_name():
+    """S-VOPs and the short video header raise by name.  B-VOPs, inter4v
+    and video packets are decoded now: a B-VOP with no past reference is
+    passed over as FFmpeg passes it, an inter4v macroblock decodes, and a
+    video packet header is read (here one whose macroblock number is out
+    of range, which raises)."""
     dec = mpeg4.Decoder(vol())
     with pytest.raises(ValueError, match="P-VOP without a reference"):
         dec.decode(vop_header(1).stuffing().bytes())
     dec.decode(i_vop())
-    with pytest.raises(ValueError, match="B-VOPs"):
-        dec.decode(vop_header(2).stuffing().bytes())
+    assert dec.decode(vop_header(2, fcode=1).put(1, 3).stuffing().bytes()) == []
     with pytest.raises(ValueError, match="S-VOPs"):
         dec.decode(vop_header(3).stuffing().bytes())
-    # a P-VOP whose first macroblock is inter4v (mcbpc 010)
-    with pytest.raises(ValueError, match="inter4v"):
-        dec.decode(vop_header(1).put(0, 1).put(0b010, 3).stuffing().bytes())
+    # a P-VOP whose first macroblock is inter4v (mcbpc 010, cbpy 0, four
+    # zero vector differences), the second not coded
+    [planes] = dec.decode(vop_header(1).put(0, 1).put(0b010, 3).put(0b11, 2).put(0xFF, 8)
+                          .put(1, 1).stuffing().bytes())
+    assert (planes == 128).all() and dec.stats()["inter4v_mbs"] == 1
     with pytest.raises(ValueError, match="short video header"):
         dec.decode(b"\x00\x00\x80\x02" + bytes(20))
     with pytest.raises(ValueError, match="without a VOL"):
@@ -417,7 +442,7 @@ def test_refused_vop_tools_raise_by_name():
     # resync markers: a VOL that keeps them, and one after the first macroblock
     dec = mpeg4.Decoder(vol(resync_disable=0))
     b = empty_intra_mb(vop_header(0)).stuffing().put(1, 17)  # 16 zeros and a 1
-    with pytest.raises(ValueError, match="resync markers"):
+    with pytest.raises(ValueError, match="video packet"):
         dec.decode(b.put(0, 8).bytes())
 
 
