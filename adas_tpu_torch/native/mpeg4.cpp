@@ -18,11 +18,17 @@
 // data (Lavc, XviD, DivX builds) and the AVI fourcc it picks, as
 // libavcodec's ff_mpeg4_workaround_bugs does, the IDCT (FFmpeg's simple
 // IDCT, or XviD's for XviD streams) and the build workarounds that change
-// pictures (the edge, DC clipping, quarter-sample chroma).  Interlace, data
-// partitioning, sprites / GMC, OBMC, the short video header and other
-// tools fail with an error that names them; corrupt or truncated data
-// fails too, and no read leaves the input.  Errors are C++ exceptions
-// caught at the C entry points, which return -1 and keep the message.
+// pictures (the edge, DC clipping, quarter-sample chroma).  Data
+// partitioning (RVLC), sprites / GMC, OBMC, the short video header,
+// NEWPRED, reduced resolution, scalability and other tools fail with an
+// error that names them.  A VOP's damaged or cut data is decoded as
+// FFmpeg's h263dec.c decodes it: the bit reader reads past the end as
+// zeros, a video packet that fails marks its macroblocks and decoding goes
+// on at the next resync marker, and at the VOP's end FFmpeg's error
+// concealment (error_resilience.h) fills what was lost; headers FFmpeg
+// refuses still fail.  No read leaves the input.  Errors are C++
+// exceptions caught at the C entry points, which return -1 and keep the
+// message.
 //
 // Encoder: an I-VOP every `gop` frames and P-VOPs between, a fixed
 // vop_quant, 1MV half-pel motion search (diamond + half-pel refinement) in
@@ -34,6 +40,7 @@
 // Planes are macroblock-aligned inside and cropped to the VOL size at the
 // C boundary: Y (w x h), then U and V ((w+1)/2 x (h+1)/2), packed.
 #include <algorithm>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -181,16 +188,26 @@ struct BitReader {
     const uint8_t* p;  // followed by at least 8 readable bytes
     size_t nbits;
     size_t pos = 0;
+    // FFmpeg's unchecked reader (mpeg4videodec.c): reads past the end give
+    // zeros and move on, as over the input's zero padding; `avail` bounds
+    // the bytes actually read
+    bool unchecked = false;
+    size_t avail;
 
-    BitReader(const uint8_t* data, size_t nbytes) : p(data), nbits(nbytes * 8) {}
+    BitReader(const uint8_t* data, size_t nbytes) : p(data), nbits(nbytes * 8), avail(nbytes + 8) {}
     uint32_t peek(int n) const {  // n <= 32; bits past the end read as 0
-        const uint8_t* b = p + (pos >> 3);
+        size_t at = pos >> 3;
         uint64_t v = 0;
-        for (int i = 0; i < 8; i++) v = v << 8 | b[i];
+        if (at + 8 <= avail) {
+            const uint8_t* b = p + at;
+            for (int i = 0; i < 8; i++) v = v << 8 | b[i];
+        } else {
+            for (size_t i = 0; i < 8; i++) v = v << 8 | (at + i < avail ? p[at + i] : 0);
+        }
         return uint32_t((v << (pos & 7)) >> (64 - n));
     }
     void skip(int n) {
-        if (pos + n > nbits) fail("truncated MPEG-4 video data");
+        if (!unchecked && pos + n > nbits) fail("truncated MPEG-4 video data");
         pos += n;
     }
     uint32_t get(int n) {
@@ -207,7 +224,8 @@ struct BitReader {
     void marker(const char* where) {
         if (!get1()) fail(std::string("corrupt MPEG-4 video: marker bit missing in ") + where);
     }
-    size_t left() const { return nbits - pos; }
+    size_t left() const { return nbits > pos ? nbits - pos : 0; }
+    long bits_left() const { return long(nbits) - long(pos); }  // FFmpeg's get_bits_left
 };
 
 struct Vlc {
@@ -320,7 +338,7 @@ enum Stat {
     kInter4vMb, kDirectMb, kDirect8x8Mb, kForwardMb, kBackwardMb, kInterpolateMb, kBSkippedMb,
     kDbquantMb, kMaxBcode, kQpelVops, kMpegQuantVops, kCustomMatrices, kPackets, kHecPackets,
     kPackedBVops, kXvidIdctVops, kInterlacedVops, kAltScanVops, kFieldMb, kFieldDctMb,
-    kFieldDirectMb, kNumStats
+    kFieldDirectMb, kConcealedMbs, kDamagedVops, kDamagedPackets, kResyncs, kConcealUs, kNumStats
 };
 
 struct Codec {
@@ -533,6 +551,7 @@ struct Codec {
 // picks from the user data, and the edge handling of motion compensation.
 
 #include "xvid_idct.h"
+#include "error_resilience.h"
 
 // libavcodec's workaround_bugs flags that change the pictures of the
 // tools decoded here
@@ -704,11 +723,37 @@ struct Decoder : Codec {
     // interlace: the VOP's top_field_first and alternate scan, the
     // macroblock's field DCT, the B-VOP field times
     bool tff = false, alt_scan = false, idct_field = false;
+    // error resilience: the macroblock being decoded (FFmpeg's mb_x, mb_y),
+    // where the video packet's data began, the padding bug detection, the
+    // motion state FFmpeg writes back for a macroblock that fails (its
+    // mb_intra, mv[0][0] and whether the vectors were 8x8), FFmpeg's
+    // decoder-wide skip table (1 for a skipped or B macroblock, kept across
+    // VOPs), and the VOP's tables in concealment's layout (one padding
+    // column a row)
+    int cx = 0, cy = 0;
+    size_t last_resync_pos = 0;
+    int padding_bug_score = 0;
+    bool no_padding = false;
+    bool ff_intra = false, ff_four = false;
+    int ff_mv[2] = {0, 0};
+    std::vector<uint8_t> mbskip, er_type;
+    std::vector<int8_t> ref0;
+    struct Er : er::Context {
+        Decoder* d = nullptr;
+        void decode_mb(int, int mv_dir, const int (*mv)[2], int x, int y) override {
+            d->er_decode_mb(mv_dir, mv, x, y);
+        }
+    } er;
     long t_frame = 0, pp_field_time = 0, pb_field_time = 0;
 
     void init_size(int width, int height) {
         init(width, height);
         b8s = 2 * mbw + 1;
+        er.d = this;
+        er.init(mbw, mbh, false);
+        mbskip.assign(size_t(mbw + 1) * mbh, 0);
+        er_type.assign(size_t(mbw + 1) * mbh, 0);
+        ref0.assign(size_t(mbw + 1) * mbh * 4, 0);
         last.reset();
         next.reset();
         cur.reset();
@@ -863,6 +908,8 @@ struct Decoder : Codec {
         if (below(lavc_build, 4713)) bugs |= kBugDcClip;
         if (below(divx_version, 500)) bugs |= kBugEdge;
         if (divx_version >= 0) bugs |= kBugHpelChroma;
+        if (unsigned(xvid_build) <= 3 || (divx_version == 501 && divx_build == 20020416))
+            padding_bug_score = 256 * 256 * 256 * 64;
         if ((lavc_build & 0xFF) >= 100 && lavc_build > 3621476 && lavc_build < 3752552 &&
             (lavc_build < 3752037 || lavc_build > 3752191))
             bugs |= kBugIedge;
@@ -1272,7 +1319,7 @@ struct Decoder : Codec {
         if (size > 9) fail("corrupt MPEG-4 video: an intra DC size over 9");
         int diff = int(br.get(size));
         if (!(diff >> (size - 1))) diff = diff - (1 << size) + 1;
-        if (size > 8) br.marker("DC differential");
+        if (size > 8) br.skip(1);  // the marker bit: FFmpeg does not check it
         return diff;
     }
 
@@ -1314,12 +1361,12 @@ struct Decoder : Codec {
                 br.marker("third escape");
                 level = br.sget(12);
                 br.marker("third escape");
-                if (level == 0) fail("corrupt MPEG-4 video: a zero level in the third escape");
                 clamp = true;
                 stats[kEsc3]++;
             }
             i += run + 1;
-            if (i > 63) fail("corrupt MPEG-4 video: more than 64 coefficients in a block");
+            if (i > 63 || (i == 63 && !last))
+                fail("corrupt MPEG-4 video: more than 64 coefficients in a block");
             if (qmul > 1 || qadd) {
                 level = level > 0 ? level * qmul + qadd : level * qmul - qadd;
                 if (clamp && (level < -2048 || level > 2047)) level = level < 0 ? -2048 : 2047;
@@ -1354,6 +1401,8 @@ struct Decoder : Codec {
             if (dc_vlc) {
                 blk[0] = int16_t(pred + decode_dc_diff(br, n < 4));
                 i = 0;
+                // FFmpeg's mpeg4_decode_block takes a negative DC level for an error
+                if (blk[0] < 0) fail("corrupt MPEG-4 video: a negative intra DC level");
             }
             const uint8_t* scan = alt_scan || (ac_pred && dir == 0) ? kAltVertical
                                   : ac_pred ? kAltHorizontal : kZigzag;
@@ -1383,7 +1432,14 @@ struct Decoder : Codec {
         }
     }
 
-    int decode_motion(BitReader& br, int pred, int code_f) {
+    // ff_h263_decode_motion; an invalid code fails, or in B-VOPs (whose
+    // vectors FFmpeg does not check) gives its 0xffff after the 9 bits its
+    // table reads
+    int decode_motion(BitReader& br, int pred, int code_f, bool lax = false) {
+        if (lax && br.peek(11) == 0) {
+            br.skip(9);
+            return 0xffff;
+        }
         int code = tables().mvd.decode(br, "motion vector");
         if (!code) return pred;
         bool sign = br.get1();
@@ -1401,6 +1457,8 @@ struct Decoder : Codec {
         int cbpc;
         do {
             if (br.get1()) {  // not_coded
+                ff_intra = false;
+                ff_mv[0] = ff_mv[1] = 0;
                 int zero[1][2] = {{0, 0}};
                 for (int n = 0; n < 4; n++) {
                     int16_t* mv = block_mv(mbx, mby, n);
@@ -1417,6 +1475,7 @@ struct Decoder : Codec {
             cbpc = t.inter_mcbpc.decode(br, "mcbpc");
         } while (cbpc == kInterMcbpcStuffing);
         bool dquant = cbpc & 8;
+        ff_intra = cbpc & 4;
         if (cbpc & 4) {
             intra_mb(br, mbx, mby, cbpc, dquant);
             return;
@@ -1431,6 +1490,7 @@ struct Decoder : Codec {
         if (idct_field) stats[kFieldDctMb]++;
         int mv[4][2];
         bool four = cbpc & 16;
+        if (four) ff_four = true;
         if (!four && vol.interlaced && br.get1()) {  // 16x8 field prediction
             int sel[2] = {br.get1(), br.get1()};
             int px, py;
@@ -1464,6 +1524,10 @@ struct Decoder : Codec {
             pred_motion(mbx, mby, n, px, py);
             mv[n][0] = decode_motion(br, px, fcode);
             mv[n][1] = decode_motion(br, py, fcode);
+            if (n == 0) {
+                ff_mv[0] = mv[0][0];
+                ff_mv[1] = mv[0][1];
+            }
             if (four) {
                 int16_t* m = block_mv(mbx, mby, n);
                 m[0] = int16_t(mv[n][0]);
@@ -1583,8 +1647,8 @@ struct Decoder : Codec {
         if (kind == kBDirect || kind == -1) {
             int dx = 0, dy = 0;
             if (kind == kBDirect) {
-                dx = decode_motion(br, 0, 1);
-                dy = decode_motion(br, 0, 1);
+                dx = decode_motion(br, 0, 1, true);
+                dy = decode_motion(br, 0, 1, true);
             }
             mode = direct_mv(mbx, mby, dx, dy, f, b, sel);
             dir = 3;
@@ -1599,11 +1663,11 @@ struct Decoder : Codec {
                 if (!field) {
                     for (int k = 0; k < 2; k++)
                         mv[0][k] = last_mv[d][0][k] = last_mv[d][1][k] =
-                            decode_motion(br, last_mv[d][0][k], code);
+                            decode_motion(br, last_mv[d][0][k], code, true);
                 } else {
                     for (int i = 0; i < 2; i++) {
-                        mv[i][0] = last_mv[d][i][0] = decode_motion(br, last_mv[d][i][0], code);
-                        mv[i][1] = decode_motion(br, last_mv[d][i][1] / 2, code);
+                        mv[i][0] = last_mv[d][i][0] = decode_motion(br, last_mv[d][i][0], code, true);
+                        mv[i][1] = decode_motion(br, last_mv[d][i][1] / 2, code, true);
                         last_mv[d][i][1] = mv[i][1] * 2;
                     }
                 }
@@ -1632,48 +1696,275 @@ struct Decoder : Codec {
         inter_blocks(br, mbx, mby, cbp);
     }
 
-    // ---- video packets
+    // ---- video packets and error resilience (h263dec.c's decode_slice and
+    // the resync loop of ff_h263_decode_frame, mpeg4videodec.c's
+    // mpeg4_is_resync and video packet header)
+
+    enum { kSliceOk, kSliceEnd };
 
     int packet_prefix() const {
         return type == 0 ? 16 : type == 1 ? fcode + 15 : std::max(std::max(fcode, bcode), 2) + 15;
     }
-    bool at_resync_marker(const BitReader& br) const {
-        // next_start_code stuffing (a 0 then 1s to the byte), then the prefix's zeros and a 1
-        int n = 8 - int(br.pos & 7);
-        if (br.left() < size_t(n + 17)) return false;
-        if (br.peek(n) != (1u << (n - 1)) - 1) return false;
-        BitReader look = br;
-        look.pos += n;
-        int zeros = packet_prefix();
-        return look.peek(zeros) == 0 && look.peek(zeros + 1) == 1;
-    }
-    // the video packet header after a resync marker: its first macroblock
-    int packet_header(BitReader& br) {
-        br.skip(8 - int(br.pos & 7));
-        int len = 0;
-        while (len < 32 && !br.get1()) len++;
-        if (len != packet_prefix())
-            fail("corrupt MPEG-4 video: a resync marker that does not match f_code");
+    int mb_num_bits() const {
         int n = mbw * mbh, bits = 0;
         while ((1 << bits) < n) bits++;
-        int mb = int(br.get(std::max(bits, 1)));
-        if (!mb || mb >= n)
-            fail("corrupt MPEG-4 video: a video packet's macroblock number is out of range");
+        return std::max(bits, 1);
+    }
+    static void align(BitReader& br) { br.pos = (br.pos + 7) & ~size_t(7); }
+
+    // the first macroblock of the video packet a resync marker at the
+    // current position starts, the VOP's macroblock count at its end, 0
+    // when neither follows (stuffing macroblock types are skipped first)
+    int is_resync(BitReader& br) {
+        if (no_padding && !vol.resync) return 0;
+        uint32_t v = br.peek(16);
+        int pict_type = type + 1;  // FFmpeg's I 1, P 2, B 3
+        while (v <= 0xFF) {
+            if (type == 2 || (v >> (8 - pict_type)) != 1) break;
+            br.skip(8 + pict_type);
+            v = br.peek(16);
+        }
+        long bits = long(br.pos);
+        if (bits + 8 >= long(br.nbits)) {
+            v >>= 8;
+            v |= 0x7F >> (7 - (bits & 7));
+            if (v == 0x7F) return mbw * mbh;
+        } else {
+            static const uint16_t kPrefix[8] = {0x7F00, 0x7E00, 0x7C00, 0x7800,
+                                                0x7000, 0x6000, 0x4000, 0x0000};
+            if (v == kPrefix[bits & 7]) {
+                BitReader g = br;
+                g.skip(1);
+                align(g);
+                int len = 0;
+                for (; len < 32; len++)
+                    if (g.get1()) break;
+                int mb = int(g.get(mb_num_bits()));
+                if (!mb || mb > mbw * mbh || long(g.pos) + 6 > long(g.nbits)) mb = -1;
+                if (len >= packet_prefix()) return mb;
+            }
+        }
+        return 0;
+    }
+
+    // the video packet header after a resync marker (0 when it is one,
+    // FFmpeg's checks): its first macroblock into (cx, cy), its quantiser
+    int packet_header(BitReader& br) {
+        if (long(br.pos) > long(br.nbits) - 20) return -1;
+        int len = 0;
+        for (; len < 32; len++)
+            if (br.get1()) break;
+        if (len != packet_prefix()) return -1;
+        int mb = int(br.get(mb_num_bits()));
+        if (mb >= mbw * mbh || !mb) return -1;
+        cx = mb % mbw;
+        cy = mb / mbw;
         int qs = int(br.get(5));
-        if (qs) set_q(qs);
+        if (qs) q = qs;
         if (br.get1()) {  // header_extension_code: the VOP header again (FFmpeg skips it)
             while (br.get1()) {
             }
-            br.marker("video packet header");
+            br.skip(1);
             br.skip(vol.time_bits);
-            br.marker("video packet header");
+            br.skip(1);
             br.skip(2 + 3);  // vop_coding_type, intra_dc_vlc_thr
             if (type) br.skip(3);
             if (type == 2) br.skip(3);
             stats[kHecPackets]++;
         }
         stats[kPackets]++;
-        return mb;
+        return 0;
+    }
+
+    // ff_h263_resync: the next video packet, at the current position or
+    // searched byte by byte from where the last one's data began
+    bool resync(BitReader& br) {
+        br.skip(1);
+        align(br);
+        if (br.peek(16) == 0 && packet_header(br) == 0) return true;
+        br.pos = last_resync_pos;
+        align(br);
+        for (long left = br.bits_left(); left > 16 + 1 + 5 + 5; left -= 8) {
+            if (br.peek(16) == 0) {
+                size_t bak = br.pos;
+                if (packet_header(br) == 0) return true;
+                br.pos = bak;
+            }
+            br.skip(8);
+        }
+        return false;
+    }
+
+    // one macroblock, then FFmpeg's end-of-packet check
+    int decode_mb(BitReader& br) {
+        if (type == 0) {
+            int cbpc;
+            do cbpc = tables().intra_mcbpc.decode(br, "mcbpc");
+            while (cbpc == kIntraMcbpcStuffing);
+            ff_intra = true;
+            intra_mb(br, cx, cy, cbpc & 3, cbpc & 4);
+        } else if (type == 1) {
+            p_mb(br, cx, cy);
+        } else {
+            b_mb(br, cx, cy);
+        }
+        int next_mb = is_resync(br);
+        if (!next_mb) return kSliceOk;
+        if (cx + cy * mbw + 1 >= next_mb) return kSliceEnd;
+        if (type == 2) {  // the next macroblock skipped: no marker yet
+            size_t k = size_t(cy) * mbw + cx + 1;
+            if (k < size_t(mbw) * mbh && next->skip[k]) return kSliceOk;
+        }
+        return kSliceEnd;
+    }
+
+    // ff_h263_update_motion_val for a macroblock that failed: FFmpeg writes
+    // its last vector (0 if intra) unless the vectors were 8x8
+    void failed_motion(int mbx, int mby) {
+        if (ff_four) return;
+        for (int n = 0; n < 4; n++) {
+            int16_t* m = block_mv(mbx, mby, n);
+            m[0] = int16_t(ff_intra ? 0 : ff_mv[0]);
+            m[1] = int16_t(ff_intra ? 0 : ff_mv[1]);
+        }
+    }
+
+    // decode_slice: macroblocks from (cx, cy) to the packet's end; -1 when
+    // the packet failed or did not end where its data did
+    int decode_slice(BitReader& br) {
+        last_resync_pos = br.pos;
+        first_line = true;
+        resync_x = cx;
+        resync_y = cy;
+        for (; cy < mbh; cy++) {
+            for (; cx < mbw; cx++) {
+                if (resync_x == cx && resync_y + 1 == cy) first_line = false;
+                ff_four = false;
+                int r;
+                try {
+                    r = decode_mb(br);
+                } catch (const Error& e) {
+                    r = -1;
+                    error = e.what();
+                }
+                if (r >= 0) mbskip[size_t(cx + cy * (mbw + 1))] = type == 2 || cur->skip[size_t(cy) * mbw + cx];
+                if (r < 0) {
+                    if (type != 2) failed_motion(cx, cy);
+                    er.add_slice(resync_x, resync_y, cx, cy, er::kMbError);
+                    stats[kDamagedPackets]++;
+                    return -1;
+                }
+                if (r == kSliceEnd) {
+                    er.add_slice(resync_x, resync_y, cx, cy, er::kMbEnd);
+                    padding_bug_score--;
+                    if (++cx >= mbw) {
+                        cx = 0;
+                        cy++;
+                    }
+                    return 0;
+                }
+            }
+            cx = 0;
+        }
+        // the end of the picture without the packet's end: FFmpeg's padding
+        // bug detection, then its verdict
+        long left = br.bits_left();
+        if (left >= 48 && br.peek(24) == 0x4010) padding_bug_score += 32;
+        if (left >= 0 && left < 137) {
+            long bits = long(br.pos);
+            if (left == 0) {
+                padding_bug_score += 16;
+            } else if (left != 1) {
+                int v = int(br.peek(8));
+                v |= 0x7F >> (7 - (bits & 7));
+                if (v == 0x7F && left <= 8)
+                    padding_bug_score--;
+                else if (v == 0x7F && ((bits + 8) & 8) && left <= 16)
+                    padding_bug_score += 4;
+                else
+                    padding_bug_score++;
+            }
+        }
+        no_padding = padding_bug_score > -2;
+        if (no_padding) {
+            // junk after the picture, or an overread, leaves the packet unmarked
+            if (left >= 0 && left <= 7) er.add_slice(resync_x, resync_y, cx - 1, cy, er::kMbEnd);
+            return 0;
+        }
+        er.add_slice(resync_x, resync_y, cx, cy, er::kMbEnd);  // "slice end not reached"
+        stats[kDamagedPackets]++;
+        return -1;
+    }
+
+    // one VOP's macroblocks into `cur`, packet by packet, then concealment
+    void vop_data(BitReader& br) {
+        edge_w = (bugs & kBugEdge) ? w : mbw * 16;
+        edge_h = (bugs & kBugEdge) ? h : mbh * 16;
+        std::memset(last_mv, 0, sizeof last_mv);
+        er.frame_start();
+        cx = cy = 0;
+        bool failed = decode_slice(br) < 0;
+        while (cy < mbh) {
+            if (!resync(br)) break;
+            if (failed) stats[kResyncs]++;
+            clean_buffers(cx, cy);
+            failed = decode_slice(br) < 0;
+        }
+        conceal();
+    }
+
+    // FFmpeg's ff_er_frame_end over the VOP
+    void conceal() {
+        const int ms = mbw + 1;
+        for (int y = 0; y < mbh; y++)
+            for (int x = 0; x < mbw; x++) {
+                uint8_t k = cur->kind[size_t(y) * mbw + x];
+                er_type[size_t(x + y * ms)] = k == kMbIntra ? er::kTypeIntra : er::kTypeInter;
+            }
+        auto pic = [&](Picture* p) {
+            er::Pic e;
+            if (!p) return e;
+            for (int c = 0; c < 3; c++) {
+                e.planes.data[c] = p->p[c].data();
+                e.planes.linesize[c] = c ? cs : ys;
+            }
+            e.motion_val = reinterpret_cast<int16_t(*)[2]>(p->mv.data() + size_t(b8s) * 2);
+            e.ref_index = ref0.data();
+            return e;
+        };
+        er.cur = pic(cur.get());
+        er.last = pic(last.get());
+        er.next = pic(next.get());  // an I- or P-VOP's is itself, as FFmpeg's next_pic
+        er.mb_type = er_type.data();
+        er.mbskip = mbskip.data();  // FFmpeg's decoder-wide table, kept across VOPs
+        er.b_picture = type == 2;
+        er.i_picture = type == 0;
+        er.pp_time = int(pp_time);
+        er.pb_time = int(pb_time);
+        auto t0 = std::chrono::steady_clock::now();
+        long n = er.frame_end();
+        if (!n) return;
+        stats[kConcealUs] += std::chrono::duration_cast<std::chrono::microseconds>(
+                                 std::chrono::steady_clock::now() - t0).count();
+        stats[kConcealedMbs] += n;
+        stats[kDamagedVops]++;
+        for (int y = 0; y < mbh; y++)
+            for (int x = 0; x < mbw; x++) {
+                if (!(er.status[size_t(x + y * ms)] & er::kMbError)) continue;
+                cur->kind[size_t(y) * mbw + x] =
+                    er_type[size_t(x + y * ms)] & er::kTypeIntra ? kMbIntra : kMb16x16;
+            }
+    }
+
+    // concealment's macroblock: predicted from the references along
+    // `mv_dir`, no residual (mpeg_er_decode_mb)
+    void er_decode_mb(int mv_dir, const int (*mv)[2], int x, int y) {
+        int rnd = type == 2 ? 1 : !rounding;
+        if (mv_dir & er::kMvDirForward) predict(*last, x, y, false, &mv[0], {rnd, false});
+        if (mv_dir & er::kMvDirBackward)
+            predict(*next, x, y, false, &mv[1], {rnd, (mv_dir & er::kMvDirForward) != 0});
+        clear_intra(x, y);
+        mbskip[size_t(x + y * (mbw + 1))] = type == 2;
     }
 
     // ---- VOP
@@ -1748,42 +2039,6 @@ struct Decoder : Codec {
         return kDecoded;
     }
 
-    // one VOP's macroblocks into `cur`
-    void vop_data(BitReader& br) {
-        edge_w = (bugs & kBugEdge) ? w : mbw * 16;
-        edge_h = (bugs & kBugEdge) ? h : mbh * 16;
-        resync_x = resync_y = 0;
-        first_line = true;
-        std::memset(last_mv, 0, sizeof last_mv);
-        int n = mbw * mbh;
-        for (int mb = 0; mb < n; mb++) {
-            int mbx = mb % mbw, mby = mb / mbw;
-            bool b_skip = type == 2 && next->skip[size_t(mb)];
-            if (vol.resync && mb && !b_skip && at_resync_marker(br)) {
-                int start = packet_header(br);
-                if (start > mb) fail("corrupt MPEG-4 video: a video packet skips macroblocks");
-                for (int k = start; k < mb; k++)
-                    if (!(type == 2 && next->skip[size_t(k)]))
-                        fail("corrupt MPEG-4 video: video packets that overlap");
-                resync_x = start % mbw;
-                resync_y = start / mbw;
-                first_line = true;
-                clean_buffers(resync_x, resync_y);
-            }
-            if (resync_x == mbx && resync_y + 1 == mby) first_line = false;
-            if (type == 0) {
-                int cbpc;
-                do cbpc = tables().intra_mcbpc.decode(br, "mcbpc");
-                while (cbpc == kIntraMcbpcStuffing);
-                intra_mb(br, mbx, mby, cbpc & 3, cbpc & 4);
-            } else if (type == 1) {
-                p_mb(br, mbx, mby);
-            } else {
-                b_mb(br, mbx, mby);
-            }
-        }
-    }
-
     PicturePtr new_picture() {
         auto p = std::make_shared<Picture>();
         for (int c = 0; c < 3; c++) p->p[c].assign(cur_size(c), 0);
@@ -1808,8 +2063,6 @@ struct Decoder : Codec {
             fail("MPEG-4 quarter-sample video of Lavc builds before 4653 (FFmpeg's old qpel "
                  "filter) is not supported");
         if (type == 2 && !last) return false;  // FFmpeg skips B-VOPs without references
-        if (type != 2 && size_t(mbw) * mbh / 2 > br.left())
-            fail("truncated MPEG-4 video: a VOP shorter than its macroblocks");
         if (type == 1 && !next) fail("MPEG-4 video: a P-VOP without a reference picture");
         cur = new_picture();
         if (type != 2) {
@@ -1873,6 +2126,7 @@ struct Decoder : Codec {
             if (code == 0xb6) {
                 // the VOP runs to the end of the sample, as FFmpeg reads it
                 BitReader br(&buf[start], bn - start);
+                br.unchecked = true;
                 if (decode_vop(br) && divx_packed)
                     keep_packed(data, n, from_stash ? 0 : start + (br.pos >> 3));
                 return;

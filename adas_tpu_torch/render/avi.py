@@ -19,7 +19,8 @@ codec comes from the ``strf`` BITMAPINFOHEADER's compression tag
   (``truncated`` counts its bytes).  FFmpeg drops that chunk when the
   RIFF's size is 0 or within the file; when the size runs past the file
   it hands the decoder the partial chunk, and so does the demuxer
-  (``partial``): a Motion JPEG decoder decodes what it holds;
+  (``partial``): a Motion JPEG decoder decodes what it holds, an ``mp4v``
+  or H.264 decoder what it holds and conceals the rest as FFmpeg does;
 - the index, an OpenDML super index (``indx``) over standard indexes
   (``ix##``) or else ``idx1`` (its offsets relative to ``movi`` or to the
   file, told apart as ``avi_read_idx1`` tells them; an OpenDML index that
@@ -391,12 +392,6 @@ class Demuxer:
 
     def __len__(self) -> int:
         return len(self.sizes)
-
-    def drop_last(self) -> None:
-        """Leaves the partial last chunk out (``partial``)."""
-        if self.partial:
-            del self.offsets[-1], self.sizes[-1], self.keys[-1]
-            self.partial = False
 
     def read(self, i: int) -> bytes:
         data = self._read_at(self.offsets[i], self.sizes[i])

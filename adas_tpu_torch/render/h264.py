@@ -20,10 +20,16 @@ grows as pictures arrive out of order; a picture that arrives after a
 later one was output is dropped (``stats()["dropped_pictures"]``), as
 FFmpeg drops it.
 
-SP and SI slices, field pictures and MBAFF, chroma formats other than
-4:2:0, bit depths above 8, slice groups, redundant pictures, data
-partitioning, transform bypass, gaps in frame_num, corrupt or truncated
-data and pictures of more than ``MAX_PIXELS`` raise a ``ValueError``
+Damaged, cut or lost slices are decoded and concealed as FFmpeg conceals
+them (``native/error_resilience.h``), at the end of each ``decode`` call
+(a packet), and a gap in frame_num is filled as FFmpeg fills it;
+``stats()`` counts ``concealed_mbs``, ``damaged_pictures``,
+``damaged_slices``, ``gap_frames`` and the microseconds spent concealing
+(``conceal_us``).  SP and SI slices, field pictures and MBAFF, chroma
+formats other than 4:2:0, bit depths above 8, slice groups, redundant
+pictures, data partitioning, transform bypass, what FFmpeg itself refuses
+(damaged parameter sets and slice headers, a NAL unit that runs past its
+sample) and pictures of more than ``MAX_PIXELS`` raise a ``ValueError``
 carrying the library's message, which names the tool.  The library is
 built with g++ into ``adas_tpu_torch/_build/libh264.so`` on first use
 (``native/gxx.py``); a failed build raises.
@@ -42,6 +48,8 @@ from ..native.gxx import build_library
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native",
                    "h264.cpp")
+#: FFmpeg's error concealment, shared with mpeg4.cpp
+ER_H = os.path.join(os.path.dirname(SRC), "error_resilience.h")
 _LOCK = threading.Lock()
 _lib = None
 
@@ -59,7 +67,8 @@ STATS = ("i_slices", "p_slices", "idr_pictures", "pictures", "cavlc_slices", "ca
          "bi_predicted_mbs", "spatial_direct_slices", "temporal_direct_slices",
          "implicit_weight_slices", "explicit_bipred_slices", "ref_list1_modifications",
          "b_mbs_from_long_term", "reference_b_pictures", "direct_4x4_mbs", "dropped_pictures",
-         "reorder_delay")
+         "reorder_delay", "concealed_mbs", "damaged_pictures", "damaged_slices", "gap_frames",
+         "conceal_us")
 
 
 def _native():
@@ -67,7 +76,7 @@ def _native():
     if _lib is None:
         with _LOCK:
             if _lib is None:
-                lib = ctypes.CDLL(build_library(SRC, "h264"))
+                lib = ctypes.CDLL(build_library(SRC, "h264", deps=(ER_H,)))
                 p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
                 ip = ctypes.POINTER(ctypes.c_int)
                 sigs = {

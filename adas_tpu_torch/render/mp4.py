@@ -321,9 +321,8 @@ def _sample_table(data: bytes, s: int, e: int, file_size: int):
                 pos += sizes[len(offsets) - 1]
     if len(offsets) != count:
         raise ValueError(f"corrupt MP4: {count} samples in stsz, {len(offsets)} in the chunks")
-    for o, n in zip(offsets, sizes):
-        if o + n > file_size:
-            raise ValueError("corrupt MP4: a sample runs past the end of the file")
+    # a sample past the end of the file: an mdat cut short (the Demuxer
+    # keeps those that start in the file)
     stts = _need(data, s, e, b"stts")
     n_stts = _u32(data, stts[0] + 4)
     if stts[0] + 8 + 8 * n_stts > stts[1]:
@@ -399,7 +398,7 @@ class Demuxer:
     def _parse(self) -> Track:
         f = self._f
         f.seek(0, 2)
-        file_size = f.tell()
+        file_size = self.file_size = f.tell()
         pos, moov, ftyp = 0, None, False
         while pos + 8 <= file_size:
             f.seek(pos)
@@ -412,6 +411,8 @@ class Demuxer:
                 size, hlen = struct.unpack_from(">Q", head, 8)[0], 16
             elif size == 0:
                 size = file_size - pos
+            if size >= hlen and pos + size > file_size and kind == b"mdat":
+                size = file_size - pos  # cut by the end of the file: its samples past it are lost
             if size < hlen or pos + size > file_size:
                 raise ValueError(f"corrupt or truncated MP4: box {kind!r} of {size} bytes at "
                                  f"{pos} runs past the file's {file_size}")
@@ -433,16 +434,30 @@ class Demuxer:
             if kind == b"trak":
                 track = _video_track(moov, (s, e), file_size, movie)
                 if track is not None:
+                    # an mdat cut by the end of the file (a recording cut
+                    # short after its moov was written): FFmpeg reads the
+                    # samples that start in the file, the last of them as
+                    # far as it goes
+                    kept = sum(1 for o in track.offsets if o < file_size)
+                    del track.offsets[kept:], track.sizes[kept:]
                     return track
         raise ValueError("MP4 without a video track")
 
     def __len__(self) -> int:
         return len(self.track.sizes)
 
+    @property
+    def partial(self) -> bool:
+        """Whether the last sample is cut by the end of the file."""
+        t = self.track
+        return bool(t.sizes) and t.offsets[-1] + t.sizes[-1] > self.file_size
+
     def read(self, i: int) -> bytes:
+        """Sample i; the last one as far as the file goes when it is cut
+        (``partial``), as FFmpeg's demuxer hands it over."""
         self._f.seek(self.track.offsets[i])
         data = self._f.read(self.track.sizes[i])
-        if len(data) != self.track.sizes[i]:
+        if len(data) != self.track.sizes[i] and not (self.partial and i == len(self) - 1):
             raise ValueError("truncated MP4 sample")
         return data
 

@@ -19,10 +19,14 @@ bug workarounds from the user data and fourcc as libavcodec does.
 ``encode(planes)`` -> (VOP bytes, key, reconstructed planes): the planes a
 decoder of the stream gives, to the bit.
 
-Interlaced video, data partitioning, sprites and GMC, OBMC, the short
-video header and the other tools outside Advanced Simple, corrupt or
-truncated data, and pictures of more than ``MAX_PIXELS`` raise a
-``ValueError`` carrying the library's message, which names the tool.  The
+A VOP's damaged, cut or lost video packets are decoded and concealed as
+FFmpeg conceals them (``native/error_resilience.h``); ``stats()`` counts
+``concealed_mbs``, ``damaged_vops``, ``damaged_packets``, ``resyncs``
+and the microseconds spent concealing (``conceal_us``).  Data
+partitioning, sprites and GMC, OBMC, the short video header and the
+other tools outside Advanced Simple, headers FFmpeg refuses, and
+pictures of more than ``MAX_PIXELS`` raise a ``ValueError`` carrying the
+library's message, which names the tool.  The
 library is built with g++ into ``adas_tpu_torch/_build/libmpeg4.so`` on
 first use (``native/gxx.py``); a failed build raises.
 """
@@ -43,6 +47,8 @@ _SRC = os.path.join(_NATIVE, "mpeg4.cpp")
 IDCT_H = os.path.join(_NATIVE, "simple_idct.h")
 #: the IDCT of streams an XviD build wrote
 XVID_IDCT_H = os.path.join(_NATIVE, "xvid_idct.h")
+#: FFmpeg's error concealment, shared with h264.cpp
+ER_H = os.path.join(_NATIVE, "error_resilience.h")
 _LOCK = threading.Lock()
 _lib = None
 
@@ -58,7 +64,8 @@ STATS = ("i_vops", "p_vops", "p_rounding_0", "p_rounding_1", "intra_mbs_in_i", "
          "direct_mbs", "direct_8x8_mbs", "forward_mbs", "backward_mbs", "interpolate_mbs",
          "b_skipped_mbs", "dbquant_mbs", "max_bcode", "qpel_vops", "mpeg_quant_vops",
          "custom_matrices", "video_packets", "hec_packets", "packed_b_vops", "xvid_idct_vops",
-         "interlaced_vops", "alt_scan_vops", "field_mbs", "field_dct_mbs", "field_direct_mbs")
+         "interlaced_vops", "alt_scan_vops", "field_mbs", "field_dct_mbs", "field_direct_mbs",
+         "concealed_mbs", "damaged_vops", "damaged_packets", "resyncs", "conceal_us")
 #: the VOP types of ``Decoder.last_type``
 TYPES = "IPB"
 
@@ -68,7 +75,7 @@ def _native():
     if _lib is None:
         with _LOCK:
             if _lib is None:
-                lib = ctypes.CDLL(build_library(_SRC, "mpeg4", deps=(IDCT_H, XVID_IDCT_H)))
+                lib = ctypes.CDLL(build_library(_SRC, "mpeg4", deps=(IDCT_H, XVID_IDCT_H, ER_H)))
                 p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
                 ip = ctypes.POINTER(ctypes.c_int)
                 sigs = {

@@ -27,9 +27,10 @@ suffix:
   the decoder, which FFmpeg reads for its XviD and DivX workarounds),
   H.264 (Annex B chunks) or Motion JPEG, indexed (``idx1``, OpenDML) or
   not, as cv2 reads them; a last chunk cut by the end of the file is
-  decoded as far as it goes (Motion JPEG) where FFmpeg hands it over, and
-  left out for ``mp4v`` and H.264, whose lost part FFmpeg conceals and the
-  port does not (one frame fewer than cv2); ``AVIWriter`` writes what
+  decoded as far as it goes where FFmpeg hands it over, the rest of the
+  picture concealed for ``mp4v`` and H.264 as FFmpeg conceals it (and any
+  damaged or lost slice or video packet with it, ``native/
+  error_resilience.h``); ``AVIWriter`` writes what
   ``MP4Writer`` writes in FFmpeg's AVI layout, the VOS/VOL headers in band
   before each I-VOP, as cv2 writes an ``.avi``.
 - H.264 Annex B: ``AnnexBReader``, read only, split into access units at
@@ -299,16 +300,50 @@ class _SampleReader(_Queued):
                 if getattr(self._demux, "partial", False) and self._next == len(self._demux):
                     return []
                 raise
-        frames = self._decoder.decode(sample)
-        if self.codec != "mp4v":
-            return frames
-        w, h = self._coded()
-        return [f.reshape(h * 3 // 2, w) for f in frames]
+        if self.codec == "mp4v":
+            w, h = self._coded()
+            return [f.reshape(h * 3 // 2, w) for f in self._decoder.decode(sample)]
+        try:
+            return self._decoder.decode(sample)
+        except ValueError:
+            # an MP4's H.264 sample cut by the end of the file, a NAL unit
+            # running past it: FFmpeg refuses the whole sample, and cv2's
+            # frame-threaded decode loses the frame before it as well
+            if self._cut_h264_mp4() and self._next == len(self._demux):
+                self._lose_last = True
+                return []
+            raise
+
+    def _cut_h264_mp4(self) -> bool:
+        """An H.264 MP4 whose last sample is cut by the end of the file."""
+        return (self.codec not in ("mp4v", "mjpeg") and isinstance(self._demux, mp4.Demuxer)
+                and self._demux.partial)
+
+    _lose_last = False
+
+    def read_planes(self):
+        # an H.264 MP4 cut in its last sample: the frame before it waits
+        # until that sample has been tried
+        if len(self._pending) == 1 and not self._flushed and self._cut_h264_mp4():
+            while not self._flushed and len(self._pending) < 2:
+                au = self._next_access_unit()
+                if au is None:
+                    self._flushed = True
+                    self._queue(self._flush())
+                else:
+                    self._queue(self._decode(au))
+        return super().read_planes()
 
     def _flush(self) -> List[np.ndarray]:
         if self.codec == "mjpeg":
             return []
         frames = self._decoder.flush()
+        if self._lose_last:
+            self._lose_last = False
+            if frames:
+                frames = frames[:-1]
+            elif self._pending:
+                self._pending.pop()
         if self.codec != "mp4v":
             return frames
         w, h = self._coded()
@@ -407,10 +442,6 @@ class AVIReader(_SampleReader):
         self._decoder = None
         try:
             stream = self._demux.stream
-            if self._demux.partial and stream.codec != "mjpeg":
-                # FFmpeg conceals what a cut mp4v or H.264 chunk lacks; the
-                # port has no concealment and leaves that frame out
-                self._demux.drop_last()
             config = None
             if stream.codec == "mp4v":
                 if not len(self._demux):

@@ -4004,8 +4004,105 @@ def video_phase(mods, smi, torch, np):
     avi_run = video_avi(mods, smi, torch, np)
     rotated_run = video_rotated(mods, smi, torch, np)
     asp_run = video_mpeg4_asp(mods, smi, torch, np)
+    conceal_run = video_conceal(mods, smi, torch, np)
     return {k: synthetic_run[k] + video_run[k] + lanes_run[k] + h264_run[k] + avi_run[k] +
-            rotated_run[k] + asp_run[k] for k in KERNELS}
+            rotated_run[k] + asp_run[k] + conceal_run[k] for k in KERNELS}
+
+
+def video_conceal(mods, smi, torch, np):
+    """``[video]``, damaged video (``native/error_resilience.h``, FFmpeg's
+    error concealment in the ``mp4v`` and H.264 decoders): the damaged
+    720p clips of ``tests/data/video/conceal_clips.py`` -- the H.264 IBBBP
+    clip and the ASP IBBP clip, each in slices or video packets of 9
+    macroblock rows, 20 bytes replaced in a P and a B picture, a slice or
+    packet of another P dropped, the last chunk cut -- rebuilt by the
+    writers, read by ``open_reader`` to the committed digests and count
+    of FFmpeg's one-thread decode, each sample's decode and its
+    concealment timed on the damaged pictures; then ``run_video`` over the
+    damaged H.264 clip with ``ADASPipeline``'s defaults: stem 2, IoU 1 and
+    walk 1 per frame, every frame written.  Returns the launches."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from adas_tpu_torch.pipeline import app
+    from adas_tpu_torch.render import video
+
+    tag = "video"
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "video")
+    sys.path.insert(0, data)
+    import conceal_clips
+
+    with open(os.path.join(data, "conceal_sha256.json")) as f:
+        digests = json.load(f)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_conceal_")
+    lines, run, n_run, run_s = [], {k: 0 for k in KERNELS}, 0, 0.0
+    per_frame = {"stem": 2, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1}
+    try:
+        for name, build in conceal_clips.CLIPS.items():
+            want = digests[name]
+            path = os.path.join(tmp, name)
+            t = time.perf_counter()
+            hit = build(path)
+            build_s = time.perf_counter() - t
+            check(hit == want["damaged"], f"{tag}: {name} damaged {hit}, expected {want['damaged']}")
+            frames, decode_ms, conceal_ms = [], [], []
+            with video.open_reader(path) as r:
+                dec = r._decoder
+                plain = dec.decode
+
+                def timed(sample, plain=plain, dec=dec):
+                    before = dec.stats()["conceal_us"]
+                    t0 = time.perf_counter()
+                    out = plain(sample)
+                    dt = (time.perf_counter() - t0) * 1e3
+                    spent = dec.stats()["conceal_us"] - before
+                    if spent:  # a damaged picture: its decode and the concealment in it
+                        decode_ms.append(dt)
+                        conceal_ms.append(spent / 1e3)
+                    return out
+
+                dec.decode = timed
+                while (planes := r.read_planes()) is not None:
+                    frames.append(planes[:r.height])
+                stats = r.stats()
+            check(len(frames) == want["frames"],
+                  f"{tag}: {name} gave {len(frames)} frames, FFmpeg {want['frames']}")
+            check([hashlib.sha256(np.ascontiguousarray(y).tobytes()).hexdigest() for y in frames]
+                  == want["y_sha256"], f"{tag}: {name}'s Y planes differ from FFmpeg's decode")
+            check(stats["concealed_mbs"] > 0 and len(decode_ms) >= 4,
+                  f"{tag}: {name} concealed {stats['concealed_mbs']} macroblocks in "
+                  f"{len(decode_ms)} pictures")
+            lines.append(
+                f"{name}: rebuilt in {build_s:.2f} s, {len(frames)} frames to FFmpeg's digests, "
+                f"{stats['concealed_mbs']} macroblocks concealed in {len(decode_ms)} damaged "
+                f"pictures; ms per damaged 720p picture (host): decode p50 "
+                f"{np.median(decode_ms):.2f} max {max(decode_ms):.2f}, of it concealment p50 "
+                f"{np.median(conceal_ms):.2f} max {max(conceal_ms):.2f}; counts "
+                f"{ {k: v for k, v in stats.items() if v and k != 'conceal_us'} }")
+            if "h264" in name:
+                out = os.path.join(tmp, "conceal_out.avi")
+                reset(mods)
+                t = time.perf_counter()
+                n_run = app.run_video(path, out, device="cuda")
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t
+                run = counts(mods)
+                for k, per in per_frame.items():
+                    check(run[k] == per * want["frames"],
+                          f"{tag}: run_video over {name} {k} launches {run[k]}, expected {per} "
+                          f"per frame")
+                with video.open_reader(out) as r:
+                    drawn = list(r)
+                check(n_run == len(drawn) == want["frames"]
+                      and all(f.shape == (720, 1280, 3) for f in drawn),
+                      f"{tag}: run_video over {name} wrote {len(drawn)} of {n_run} frames")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[{tag}] damaged video, concealed as FFmpeg conceals it: " + "; ".join(lines) +
+          f"; run_video over the damaged H.264 clip (ADASPipeline defaults) to .avi: {n_run} "
+          f"frames in {run_s:.2f} s, launches {run} (per frame {per_frame}) ({smi})", flush=True)
+    return run
 
 
 def video_mpeg4_asp(mods, smi, torch, np):

@@ -653,11 +653,7 @@ struct Writer {
     for (auto& mm : h.mmcos) mmco5 |= mm.op == 5;
     // slices
     int total = mb_w * mb_h;
-    int n_slices = content ? 1 : rng.range(1, std::max(1, std::min(o[O_SLICES], total)));
-    std::vector<int> starts = {0};
-    for (int i = 1; i < n_slices; i++) starts.push_back(rng.range(1, total - 1));
-    std::sort(starts.begin(), starts.end());
-    starts.erase(std::unique(starts.begin(), starts.end()), starts.end());
+    std::vector<int> starts = slice_starts(content, total);
     mbs.assign(total, MbState());
     for (auto& m : mbs) m.reset(-1);
     // slice types: all alike (then slice_type may say so, 5-9), or mixed I and P
@@ -895,11 +891,7 @@ struct Writer {
       }
     }
     int total = mb_w * mb_h;
-    int n_slices = content ? 1 : rng.range(1, std::max(1, std::min(o[O_SLICES], total)));
-    std::vector<int> starts = {0};
-    for (int i = 1; i < n_slices; i++) starts.push_back(rng.range(1, total - 1));
-    std::sort(starts.begin(), starts.end());
-    starts.erase(std::unique(starts.begin(), starts.end()), starts.end());
+    std::vector<int> starts = slice_starts(content, total);
     mbs.assign(total, MbState());
     for (auto& m : mbs) m.reset(-1);
     // P pictures may mix I and P slices after a first P slice (FFmpeg
@@ -1019,6 +1011,21 @@ struct Writer {
       }
     }
     if (!marking_ok(h)) fail("H.264 writer: no legal marking");
+  }
+
+  // the first macroblocks of a picture's slices: random, or in content
+  // pictures one slice every O_SLICES macroblock rows (one when 0)
+  std::vector<int> slice_starts(bool content, int total) {
+    std::vector<int> starts = {0};
+    if (content) {
+      for (int r = o[O_SLICES]; o[O_SLICES] > 0 && r < mb_h; r += o[O_SLICES]) starts.push_back(r * mb_w);
+      return starts;
+    }
+    int n_slices = rng.range(1, std::max(1, std::min(o[O_SLICES], total)));
+    for (int i = 1; i < n_slices; i++) starts.push_back(rng.range(1, total - 1));
+    std::sort(starts.begin(), starts.end());
+    starts.erase(std::unique(starts.begin(), starts.end()), starts.end());
+    return starts;
   }
 
   void slice(SliceHeader& h, int slice_num, int first_mb, int last_mb, bool content) {
@@ -1172,10 +1179,11 @@ int h264w_exercise(Writer* w, const int* opts, int n) {
 // pictures in groups of `bframes` B pictures (a pyramid) before each P
 // picture.  Returns 0, or -1.
 int h264w_content(Writer* w, const uint8_t* frames, int n_pcm, int width, int height, int n_p,
-                  int pan_x, int pan_y, int cabac, int bframes) {
+                  int pan_x, int pan_y, int cabac, int bframes, int slice_rows) {
   try {
     using namespace h264w;
     std::memset(w->o, 0, sizeof w->o);
+    w->o[O_SLICES] = slice_rows;
     w->o[O_PROFILE] = cabac ? 77 : 66;
     w->o[O_CABAC] = cabac;
     w->o[O_REFS] = 1;

@@ -41,14 +41,14 @@ def _native():
     if _lib is None:
         with _LOCK:
             if _lib is None:
-                lib = ctypes.CDLL(build_library(os.path.join(HERE, "h264_writer.cpp"), "h264_writer",
-                                                deps=(h264.SRC,)))
+                lib = ctypes.CDLL(build_library(os.path.join(HERE, "h264_writer.cpp"),
+                                                "h264_writer", deps=(h264.SRC, h264.ER_H)))
                 p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
                 for name, args, res in (
                         ("h264w_new", [], p), ("h264w_free", [p], None),
                         ("h264w_error", [p], ctypes.c_char_p),
                         ("h264w_exercise", [p, p, i], i),
-                        ("h264w_content", [p, p, i, i, i, i, i, i, i, i], i),
+                        ("h264w_content", [p, p, i, i, i, i, i, i, i, i, i], i),
                         ("h264w_size", [p], l), ("h264w_copy", [p, p], None)):
                     f = getattr(lib, name)
                     f.argtypes, f.restype = args, res
@@ -79,21 +79,23 @@ def exercise(**options) -> bytes:
     return _run(lambda lib, w: lib.h264w_exercise(w, opts.ctypes.data, len(opts)))
 
 
-def content(frames, n_p: int = 0, pan=(0, 0), cabac: bool = True, bframes: int = 0) -> bytes:
+def content(frames, n_p: int = 0, pan=(0, 0), cabac: bool = True, bframes: int = 0,
+            slice_rows: int = 0) -> bytes:
     """I_PCM pictures of ``frames`` ((N, H*3/2, W) I420 planes, or one
     frame), then ``n_p`` P pictures of P_L0_16x16 / P_Skip panning ``pan``
     = (x, y) quarter samples a picture, no residual; deblocking on.  With
     ``bframes`` (one frame), the ``n_p`` pictures come as groups of
     ``bframes`` B pictures (a pyramid of reference B pictures; B_Bi_16x16,
     B_Direct_16x16 and B_Skip, spatial and temporal direct in turn) before
-    each P picture."""
+    each P picture.  ``slice_rows``: a slice every that many macroblock
+    rows (0: one slice a picture)."""
     frames = np.ascontiguousarray(frames, np.uint8)
     if frames.ndim == 2:
         frames = frames[None]
     n, h3, w = frames.shape
     return _run(lambda lib, wr: lib.h264w_content(wr, frames.ctypes.data, n, w, h3 * 2 // 3, n_p,
                                                   int(pan[0]), int(pan[1]), int(cabac),
-                                                  int(bframes)))
+                                                  int(bframes), int(slice_rows)))
 
 
 #: the 720p content clip: frames (an IDR, then P pictures) and the pan in
@@ -168,12 +170,13 @@ def composition_offsets(aus) -> list:
 
 
 def to_mp4(stream: bytes, path: str, fourcc: bytes = b"avc1", length_size: int = 4,
-           fps: float = 30.0) -> int:
+           fps: float = 30.0, moov_first: bool = False) -> int:
     """Writes an Annex B stream as one H.264 track of an MP4, an access unit
     a sample (NAL units ``length_size``-prefixed); ``avc1`` carries the
     SPS and PPS in its ``avcC``, ``avc3`` in band.  A stream with B
     pictures gets ``ctts`` and an ``edts``/``elst`` as FFmpeg's muxer
-    writes them.  Returns the samples."""
+    writes them; the ``moov`` before the ``mdat`` with ``moov_first``.
+    Returns the samples."""
     import struct
 
     from adas_tpu_torch.render import mp4
@@ -198,13 +201,21 @@ def to_mp4(stream: bytes, path: str, fourcc: bytes = b"avc1", length_size: int =
     entry = mp4.visual_sample_entry(fourcc, width, height,
                                     mp4.box(b"avcC", avcc(sps, pps, length_size, in_band)))
     mdat = b"".join(samples)
-    offsets, pos = [], len(mp4.FTYP) + 16
-    for i, s in enumerate(samples):
-        if i % mp4.SAMPLES_PER_CHUNK == 0:
-            offsets.append(pos)
-        pos += len(s)
-    moov = mp4.build_moov(width, height, b"", timescale, delta, [len(s) for s in samples], keys,
-                          offsets, mp4.SAMPLES_PER_CHUNK, entry=entry, cts=cts)
+
+    def moov_at(base):
+        offsets, pos = [], base
+        for i, s in enumerate(samples):
+            if i % mp4.SAMPLES_PER_CHUNK == 0:
+                offsets.append(pos)
+            pos += len(s)
+        return mp4.build_moov(width, height, b"", timescale, delta, [len(s) for s in samples],
+                              keys, offsets, mp4.SAMPLES_PER_CHUNK, entry=entry, cts=cts)
+
+    head = struct.pack(">I4sQ", 1, b"mdat", 16 + len(mdat))
+    if moov_first:  # as a recorder that writes its index ahead: a cut file keeps it
+        data = mp4.FTYP + moov_at(len(mp4.FTYP) + len(moov_at(0)) + 16) + head + mdat
+    else:
+        data = mp4.FTYP + head + mdat + moov_at(len(mp4.FTYP) + 16)
     with open(path, "wb") as f:
-        f.write(mp4.FTYP + struct.pack(">I4sQ", 1, b"mdat", 16 + len(mdat)) + mdat + moov)
+        f.write(data)
     return len(samples)

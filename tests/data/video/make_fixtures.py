@@ -57,6 +57,13 @@ planes of cv2's bundled libavcodec (``libavcodec_planes``, ctypes); and there to
 720p content clip ``mpeg4_writer.content_720p()`` as an ``XVID`` AVI, not
 committed: the writer is deterministic.
 
+``conceal_sha256.json`` (``python tests/data/video/make_fixtures.py
+conceal`` writes only it): the digests of the damaged 720p clips of
+``conceal_clips.py`` as cv2's bundled FFmpeg decodes them on one thread
+(``libavformat_planes``: cv2's demuxer and stream probe; one thread, as
+cv2's frame threads make a concealed picture depend on their timing), not
+committed: the writers are deterministic.
+
 In ``rotated/`` (``python tests/data/video/make_fixtures.py rotated`` writes
 only these), cv2's ``cv2_smooth_176x144.mp4`` and ``cv2_noise_64x48.mp4``
 with their display matrices patched (``patch_matrices``): ``tkhd`` turned
@@ -388,10 +395,10 @@ MPEG4_INTERLACED = {
 }
 
 
-def libavcodec_planes(samples, tag=b""):
-    """cv2's bundled libavcodec's decode of an ``mp4v`` stream's samples (one
-    thread): each frame's (Y, U, V) planes, as FFmpeg gives them before
-    cv2's conversion."""
+def libavcodec_planes(samples, tag=b"", codec=12):
+    """cv2's bundled libavcodec's decode of an ``mp4v`` stream's samples
+    (``codec`` 27: H.264 access units) on one thread: each frame's (Y, U,
+    V) planes, as FFmpeg gives them before cv2's conversion."""
     import ctypes
     import glob
 
@@ -410,11 +417,11 @@ def libavcodec_planes(samples, tag=b""):
     avu.av_frame_alloc.restype = vp
     avu.av_frame_unref.argtypes = [vp]
     avu.av_opt_set_int.argtypes = [vp, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int]
-    ctx = avc.avcodec_alloc_context3(avc.avcodec_find_decoder(12))  # AV_CODEC_ID_MPEG4
+    ctx = avc.avcodec_alloc_context3(avc.avcodec_find_decoder(codec))  # 12: MPEG4, 27: H264
     if tag:  # AVCodecContext.codec_tag
         ctypes.c_uint.from_address(ctx + 28).value = int.from_bytes(tag, "little")
     avu.av_opt_set_int(ctx, b"threads", 1, 0)
-    assert avc.avcodec_open2(ctx, avc.avcodec_find_decoder(12), None) == 0
+    assert avc.avcodec_open2(ctx, avc.avcodec_find_decoder(codec), None) == 0
     pkt, frame = avc.av_packet_alloc(), avu.av_frame_alloc()
     out = []
 
@@ -440,6 +447,80 @@ def libavcodec_planes(samples, tag=b""):
         receive()
     avc.avcodec_send_packet(ctx, None)
     receive()
+    return out
+
+
+def libavformat_planes(path, threads=1):
+    """What cv2's bundled FFmpeg decodes of ``path``'s video stream as cv2
+    reads it (libavformat's demuxer and stream probe, the decoder opened
+    from the stream's parameters), on ``threads`` threads: each frame's
+    (Y, U, V) planes before cv2's conversion."""
+    import ctypes
+    import glob
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(cv2.__file__)), "opencv_python.libs")
+    avu = ctypes.CDLL(glob.glob(os.path.join(libs, "libavutil-*.so*"))[0], mode=ctypes.RTLD_GLOBAL)
+    avc = ctypes.CDLL(glob.glob(os.path.join(libs, "libavcodec-*.so*"))[0], mode=ctypes.RTLD_GLOBAL)
+    avf = ctypes.CDLL(glob.glob(os.path.join(libs, "libavformat-*.so*"))[0])
+    vp, pp = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+    avf.avformat_open_input.argtypes = [pp, ctypes.c_char_p, vp, vp]
+    avf.avformat_find_stream_info.argtypes = [vp, vp]
+    avf.av_find_best_stream.argtypes = [vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp,
+                                        ctypes.c_int]
+    avf.av_read_frame.argtypes = [vp, vp]
+    avf.avformat_close_input.argtypes = [pp]
+    avc.avcodec_find_decoder.restype = vp
+    avc.avcodec_alloc_context3.restype, avc.avcodec_alloc_context3.argtypes = vp, [vp]
+    avc.avcodec_parameters_to_context.argtypes = [vp, vp]
+    avc.avcodec_open2.argtypes = [vp, vp, vp]
+    avc.av_packet_alloc.restype = vp
+    avc.avcodec_send_packet.argtypes = [vp, vp]
+    avc.avcodec_receive_frame.argtypes = [vp, vp]
+    avc.av_packet_unref.argtypes = [vp]
+    avc.avcodec_free_context.argtypes = [pp]
+    avu.av_frame_alloc.restype = vp
+    avu.av_frame_unref.argtypes = [vp]
+    avu.av_opt_set_int.argtypes = [vp, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int]
+    fmt = ctypes.c_void_p()
+    assert avf.avformat_open_input(ctypes.byref(fmt), path.encode(), None, None) == 0
+    assert avf.avformat_find_stream_info(fmt, None) >= 0
+    index = avf.av_find_best_stream(fmt, 0, -1, -1, None, 0)  # AVMEDIA_TYPE_VIDEO
+    assert index >= 0
+    streams = ctypes.c_void_p.from_address(fmt.value + 48).value  # AVFormatContext.streams
+    stream = ctypes.c_void_p.from_address(streams + 8 * index).value
+    par = ctypes.c_void_p.from_address(stream + 16).value  # AVStream.codecpar
+    codec_id = ctypes.c_int.from_address(par + 4).value  # AVCodecParameters.codec_id
+    dec = avc.avcodec_find_decoder(codec_id)
+    ctx = avc.avcodec_alloc_context3(dec)
+    assert avc.avcodec_parameters_to_context(ctx, par) >= 0
+    avu.av_opt_set_int(ctx, b"threads", threads, 0)
+    assert avc.avcodec_open2(ctx, dec, None) == 0
+    pkt, frame = avc.av_packet_alloc(), avu.av_frame_alloc()
+    out = []
+
+    def receive():
+        while avc.avcodec_receive_frame(ctx, frame) == 0:
+            w = ctypes.c_int.from_address(frame + 104).value
+            h = ctypes.c_int.from_address(frame + 108).value
+            planes = []
+            for i in range(3):
+                data = ctypes.c_void_p.from_address(frame + 8 * i).value
+                stride = ctypes.c_int.from_address(frame + 64 + 4 * i).value
+                ph, pw = (h, w) if i == 0 else ((h + 1) // 2, (w + 1) // 2)
+                buf = (ctypes.c_uint8 * (stride * ph)).from_address(data)
+                planes.append(np.ctypeslib.as_array(buf).reshape(ph, stride)[:, :pw].copy())
+            out.append(planes)
+            avu.av_frame_unref(frame)
+
+    while avf.av_read_frame(fmt, pkt) >= 0:
+        if ctypes.c_int.from_address(pkt + 36).value == index:  # AVPacket.stream_index
+            avc.avcodec_send_packet(ctx, pkt)
+            receive()
+        avc.av_packet_unref(pkt)
+    avc.avcodec_send_packet(ctx, None)
+    receive()
+    avc.avcodec_free_context(ctypes.byref(ctypes.c_void_p(ctx)))
+    avf.avformat_close_input(ctypes.byref(fmt))
     return out
 
 
@@ -505,7 +586,31 @@ def mpeg4_main():
         f.write("\n")
 
 
+def conceal_main():
+    """``conceal_sha256.json``: the frame count and Y sha256 per frame of
+    cv2's bundled FFmpeg decoding each damaged 720p clip of
+    ``conceal_clips.py`` on one thread (``libavformat_planes``)."""
+    import tempfile
+
+    sys.path.insert(0, HERE)
+    import conceal_clips
+
+    digests = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, build in conceal_clips.CLIPS.items():
+            path = os.path.join(tmp, name)
+            hit = build(path)
+            planes = libavformat_planes(path)
+            digests[name] = {"frames": len(planes), "damaged": hit,
+                             "y_sha256": [hashlib.sha256(np.ascontiguousarray(p[0]).tobytes())
+                                          .hexdigest() for p in planes]}
+    with open(os.path.join(HERE, "conceal_sha256.json"), "w") as f:
+        json.dump(digests, f, indent=1)
+
+
 def main():
+    if sys.argv[1:] == ["conceal"]:
+        return conceal_main()
     if sys.argv[1:] == ["mpeg4"]:
         mpeg4_main()
         return

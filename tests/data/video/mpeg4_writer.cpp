@@ -753,6 +753,11 @@ struct Writer {
         int f = std::min(t, n_src - 1);
         for (int mby = 0; mby < st.mbh; mby++)
             for (int mbx = 0; mbx < st.mbw; mbx++) {
+                // a video packet every o.packets macroblock rows
+                int mb = mby * st.mbw + mbx;
+                if (o.packets && mb && !mbx && mby % o.packets == 0 &&
+                    !(type == 2 && st.next->skip[size_t(mb)]))
+                    packet_header(mb, type, t);
                 if (st.resync_x == mbx && st.resync_y + 1 == mby) st.first_line = false;
                 if (type == 0) {
                     int16_t lv[6][64];

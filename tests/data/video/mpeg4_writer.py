@@ -67,7 +67,7 @@ def _native():
             if _lib is None:
                 lib = ctypes.CDLL(build_library(
                     os.path.join(HERE, "mpeg4_writer.cpp"), "mpeg4_writer",
-                    deps=(mpeg4._SRC, mpeg4.IDCT_H, mpeg4.XVID_IDCT_H)))
+                    deps=(mpeg4._SRC, mpeg4.IDCT_H, mpeg4.XVID_IDCT_H, mpeg4.ER_H)))
                 p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
                 for name, args, res in (
                         ("mpeg4w_new", [], p), ("mpeg4w_free", [p], None),
@@ -120,7 +120,8 @@ def exercise(**options) -> Stream:
 def content(src: np.ndarray, pan=(0, 0), **options) -> Stream:
     """An intra VOP of ``src[0]`` ((N, H*3/2, W) I420 planes), then the
     display frames 1.. coded from ``src[t]`` as I(B..)P with 4MV and the
-    pan's quarter-sample vectors (``pan`` a frame), MPEG-quantised."""
+    pan's quarter-sample vectors (``pan`` a frame), MPEG-quantised; with
+    ``packets``, a video packet every that many macroblock rows."""
     frames = np.ascontiguousarray(src, np.uint8)
     n, h3, w = frames.shape
     opts = _options({"qpel": 1, "mpeg_quant": 1, "user": XVID, **options,
@@ -189,9 +190,10 @@ def to_avi(stream: Stream, path: str, fourcc: bytes = b"XVID", fps: float = 30.0
     return len(stream.samples)
 
 
-def to_mp4(stream: Stream, path: str, fps: float = 30.0) -> int:
+def to_mp4(stream: Stream, path: str, fps: float = 30.0, moov_first: bool = False) -> int:
     """The samples as an ``mp4v`` track (the headers in the ``esds``, none
-    in band); ``ctts`` for B-VOPs as FFmpeg's muxer writes it."""
+    in band); ``ctts`` for B-VOPs as FFmpeg's muxer writes it; the ``moov``
+    after the ``mdat``, or before it with ``moov_first``."""
     samples = [s[len(stream.header):] if k else s for s, k in zip(stream.samples, stream.keys)]
     timescale, delta = mp4.rate(fps)
     n = len(samples)
@@ -199,14 +201,31 @@ def to_mp4(stream: Stream, path: str, fps: float = 30.0) -> int:
     cts = None if not depth else [(d - i + depth) * delta for i, d in enumerate(stream.display)]
     keys = [i + 1 for i, k in enumerate(stream.keys) if k]
     mdat = b"".join(samples)
-    offsets, pos = [], len(mp4.FTYP) + 16
-    for i, s in enumerate(samples):
-        if i % mp4.SAMPLES_PER_CHUNK == 0:
-            offsets.append(pos)
-        pos += len(s)
     d = mpeg4.Decoder(stream.header)
-    moov = mp4.build_moov(d.width, d.height, stream.header, timescale, delta, [len(s) for s in samples],
-                          keys, offsets, mp4.SAMPLES_PER_CHUNK, cts=cts)
-    with open(path, "wb") as f:
-        f.write(mp4.FTYP + struct.pack(">I4sQ", 1, b"mdat", 16 + len(mdat)) + mdat + moov)
+
+    def moov_at(base):
+        offsets, pos = [], base
+        for i, s in enumerate(samples):
+            if i % mp4.SAMPLES_PER_CHUNK == 0:
+                offsets.append(pos)
+            pos += len(s)
+        return mp4.build_moov(d.width, d.height, stream.header, timescale, delta,
+                              [len(s) for s in samples], keys, offsets, mp4.SAMPLES_PER_CHUNK,
+                              cts=cts)
+
+    _write_mp4(path, mdat, moov_at, moov_first)
     return n
+
+
+def _write_mp4(path, mdat, moov_at, moov_first):
+    """ftyp, then mdat and moov, or moov first (as a recorder that writes
+    its index ahead, so that a cut file keeps it); ``moov_at(base)`` builds
+    the moov for samples from ``base``."""
+    head = struct.pack(">I4sQ", 1, b"mdat", 16 + len(mdat))
+    if moov_first:
+        moov = moov_at(len(mp4.FTYP) + len(moov_at(0)) + 16)
+        data = mp4.FTYP + moov + head + mdat
+    else:
+        data = mp4.FTYP + head + mdat + moov_at(len(mp4.FTYP) + 16)
+    with open(path, "wb") as f:
+        f.write(data)

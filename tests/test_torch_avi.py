@@ -256,9 +256,14 @@ def test_truncated_last_chunk(tmp_path, cut):
 def test_cut_mp4v_and_h264_chunks_give_one_frame_fewer(tmp_path, codec):
     """The same cut (the sizes written) of an ``mp4v`` or H.264 AVI: FFmpeg
     hands the decoder the partial chunk and conceals what it lacks
-    (error_resilience.c), so cv2 gives 7 frames; the port has no
-    concealment and leaves that chunk out: 6, each cv2's to the bit
-    (ROADMAP §3)."""
+    (error_resilience.c), and so does the port: cv2's 7 frames, not one
+    fewer as before concealment (ROADMAP §3, repaired).  Every plane of
+    every frame is libavcodec's one-thread decode, and the Y planes are
+    cv2's, but for the concealed H.264 picture, whose frame-threaded decode
+    in cv2 reads FFmpeg's pooled motion tables in another order
+    (``test_torch_conceal.py``)."""
+    from make_fixtures import libavcodec_planes
+
     src = str(tmp_path / "v.avi")
     if codec == "mp4v":
         with AVIWriter(src, 96, 64) as w:
@@ -275,12 +280,17 @@ def test_cut_mp4v_and_h264_chunks_give_one_frame_fewer(tmp_path, codec):
     bad.write_bytes(open(src, "rb").read()[:off + size // 2])
     demux = avi.Demuxer(str(bad))
     assert demux.partial and len(demux) == 7
+    samples = [demux.read(i) for i in range(len(demux))]
     demux.close()
     want = cv2_ys(str(bad))
-    got, _ = port_ys(str(bad))
-    assert (len(got), len(want)) == (6, 7)
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a, b)
+    lav = libavcodec_planes(samples, b"FMP4" if codec == "mp4v" else b"", 12 if codec == "mp4v" else 27)
+    got, info = port_ys(str(bad))
+    assert len(got) == len(want) == len(lav) == 7
+    for k, (a, b, c) in enumerate(zip(got, want, lav)):
+        np.testing.assert_array_equal(a, c[0], err_msg=f"frame {k}")
+        if codec == "mp4v" or k < 6:
+            np.testing.assert_array_equal(a, b, err_msg=f"frame {k}")
+    assert info["stats"]["concealed_mbs"] > 0
 
 
 def test_720p_mjpeg_clip_cut_mid_chunk_gives_cv2s_digests(tmp_path):

@@ -412,7 +412,6 @@ REFUSED = {
     "slice groups": _sps() + _pps(slice_groups=2),
     "redundant pictures": _sps() + _pps(redundant=1) + _idr(redundant_cnt=1),
     "data partitioning": VALID + _nal(2, 2, b"\x80"),
-    "gaps in frame_num": VALID + _p(3),
     "larger than 33554432 pixels": _sps(mbs=(2048, 1024)),
     "does not start with an IDR": _sps() + _pps() + _p(1),
 }

@@ -30,6 +30,7 @@ import glob
 import hashlib
 import json
 import os
+import sys
 import random
 
 import numpy as np
@@ -43,6 +44,9 @@ from adas_tpu_torch.render import mp4, mpeg4  # noqa: E402
 from adas_tpu_torch.render.video import MP4Reader, MP4Writer  # noqa: E402
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "video")
+sys.path.insert(0, DATA)
+from make_fixtures import libavcodec_planes  # noqa: E402
+
 FIXTURES = sorted(glob.glob(os.path.join(DATA, "*.mp4")))
 with open(os.path.join(DATA, "sha256.json")) as _f:
     DIGESTS = json.load(_f)
@@ -422,7 +426,8 @@ def test_refused_vop_tools_raise_by_name():
     and video packets are decoded now: a B-VOP with no past reference is
     passed over as FFmpeg passes it, an inter4v macroblock decodes, and a
     video packet header is read (here one whose macroblock number is out
-    of range, which raises)."""
+    of range: FFmpeg finds no packet there and conceals the rest of the
+    VOP, and so does the port, to libavcodec's planes)."""
     dec = mpeg4.Decoder(vol())
     with pytest.raises(ValueError, match="P-VOP without a reference"):
         dec.decode(vop_header(1).stuffing().bytes())
@@ -440,22 +445,34 @@ def test_refused_vop_tools_raise_by_name():
     with pytest.raises(ValueError, match="without a VOL"):
         mpeg4.Decoder(b"\x00\x00\x01\xb0\x01")
     # resync markers: a VOL that keeps them, and one after the first macroblock
-    dec = mpeg4.Decoder(vol(resync_disable=0))
+    config = vol(resync_disable=0)
+    dec = mpeg4.Decoder(config)
     b = empty_intra_mb(vop_header(0)).stuffing().put(1, 17)  # 16 zeros and a 1
-    with pytest.raises(ValueError, match="video packet"):
-        dec.decode(b.put(0, 8).bytes())
+    vop = b.put(0, 8).bytes()
+    [planes] = dec.decode(vop)
+    assert dec.stats()["concealed_mbs"] == 1  # the second of two macroblocks
+    [want] = libavcodec_planes([config + vop])
+    assert np.array_equal(planes, np.concatenate([p.ravel() for p in want]))
 
 
 def test_truncated_and_corrupt_vops_raise():
+    """A VOP cut in half, and one with 8 bytes zeroed inside, no longer
+    raise: the decoder reads the cut one into zero padding as FFmpeg's
+    unchecked reader does, finds the errors where FFmpeg finds them, and
+    conceals the rest; every plane is libavcodec's one-thread decode of the
+    same samples."""
     frames = smooth(3, 48, 64)
     enc = mpeg4.Encoder(64, 48)
     vops = [enc.encode(bgr_to_i420(f))[0] for f in frames]
-    dec = mpeg4.Decoder(enc.header())
-    dec.decode(vops[0])
-    with pytest.raises(ValueError, match="truncated"):
-        dec.decode(vops[1][:len(vops[1]) // 2])
-    with pytest.raises(ValueError, match="MPEG-4"):
-        dec.decode(vops[1][:8] + b"\x00" * 8 + vops[1][16:])
+    header = enc.header()
+    for bad in (vops[1][:len(vops[1]) // 2], vops[1][:8] + b"\x00" * 8 + vops[1][16:]):
+        dec = mpeg4.Decoder(header)
+        got = dec.decode(vops[0]) + dec.decode(bad) + dec.decode(vops[2]) + dec.flush()
+        want = libavcodec_planes([header + vops[0], bad, vops[2]])
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            assert np.array_equal(g, np.concatenate([p.ravel() for p in w]))
+        assert dec.stats()["damaged_vops"] >= 1 and dec.stats()["concealed_mbs"] > 0
 
 
 def test_mutated_fixtures_decode_or_raise_value_error():
