@@ -338,7 +338,8 @@ enum Stat {
     kInter4vMb, kDirectMb, kDirect8x8Mb, kForwardMb, kBackwardMb, kInterpolateMb, kBSkippedMb,
     kDbquantMb, kMaxBcode, kQpelVops, kMpegQuantVops, kCustomMatrices, kPackets, kHecPackets,
     kPackedBVops, kXvidIdctVops, kInterlacedVops, kAltScanVops, kFieldMb, kFieldDctMb,
-    kFieldDirectMb, kConcealedMbs, kDamagedVops, kDamagedPackets, kResyncs, kConcealUs, kNumStats
+    kFieldDirectMb, kConcealedMbs, kDamagedVops, kDamagedPackets, kResyncs, kConcealUs,
+    kTimeBitsGuessed, kDamagedHeaders, kNumStats
 };
 
 struct Codec {
@@ -1979,9 +1980,19 @@ struct Decoder : Codec {
         if (type == 2 && low_delay && !vol.control) low_delay = false;
         int incr = 0;
         while (br.get1()) incr++;  // modulo_time_base
-        br.marker("VOP");
+        br.get1();  // marker_bit: FFmpeg only logs its absence
+        // no marker after vop_time_increment: FFmpeg takes the width from
+        // the bits that follow instead, and keeps it
+        if (!vol.time_bits || !(br.peek(vol.time_bits + 1) & 1)) {
+            stats[kTimeBitsGuessed]++;
+            for (vol.time_bits = 1; vol.time_bits < 16; vol.time_bits++) {
+                if (type == 1 ? (br.peek(vol.time_bits + 6) & 0x37) == 0x30
+                              : (br.peek(vol.time_bits + 5) & 0x1F) == 0x18)
+                    break;
+            }
+        }
         long ticks = long(br.get(vol.time_bits));
-        br.marker("VOP");
+        br.get1();  // marker_bit
         long res = vol.resolution;
         if (type != 2) {
             last_time_base = time_base;
@@ -2054,8 +2065,18 @@ struct Decoder : Codec {
 
     // one VOP from `buf` (its headers first), FFmpeg's ff_h263_decode_frame
     // after the header: the picture it lets out goes to `out`
+    bool refused = false;  // the last sample's VOP header was damaged: FFmpeg refuses it
     bool decode_vop(BitReader& br) {
-        int r = vop_header(br);
+        int r;
+        try {
+            r = vop_header(br);
+        } catch (const Error& e) {
+            // FFmpeg's "header damaged": the sample gives no picture
+            if (std::strncmp(e.what(), "corrupt MPEG-4 video: vop_", 26)) throw;
+            stats[kDamagedHeaders]++;
+            refused = true;
+            return false;
+        }
         skipped_last = r == kSkipped;
         if (r == kSkipped) return false;
         workaround_bugs();
@@ -2089,6 +2110,7 @@ struct Decoder : Codec {
     // one sample: header units, then its first VOP (a packed B-VOP after it
     // kept for the next sample, as FFmpeg keeps DivX's)
     void decode(const uint8_t* data, size_t n) {
+        refused = false;
         if (n >= 3 && data[0] == 0 && data[1] == 0 && (data[2] & 0xfc) == 0x80)
             fail("MPEG-4 short video header (H.263 baseline) streams are not supported");
         std::vector<uint8_t> buf;
@@ -2721,6 +2743,9 @@ int mpeg4_decode(void* dp, const uint8_t* data, long n, int* width, int* height)
         return int(d->out.size());
     });
 }
+
+// 1 when FFmpeg refuses the last sample as a packet ("header damaged")
+int mpeg4_decoder_refused(void* dp) { return static_cast<Decoder*>(dp)->refused; }
 
 // the end of the stream -> the number of pictures waiting
 int mpeg4_decoder_flush(void* dp) {

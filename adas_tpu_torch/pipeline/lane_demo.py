@@ -7,7 +7,8 @@ Images are read and written by ``render/image.py`` (PNG, BMP, JPEG in,
 turned by their EXIF Orientation as cv2 turns them; JPEG, PNG, BMP out)
 and video by ``render/video.py`` (MP4 or AVI with MPEG-4
 Part 2, ``mp4v``, as the JAX package's cv2 writes them, or YUV4MPEG2;
-H.264 and Motion JPEG in MP4 or AVI, and raw H.264, read too), as the
+H.264, H.265 and Motion JPEG in MP4 or AVI, and raw H.264 and H.265, read
+too), as the
 port's ``pipeline/app.py`` serves it.  ``display=True`` is not planned:
 the card's host has no window system.
 
@@ -71,7 +72,8 @@ def run_lane_video(
     device="cuda",
 ) -> int:
     """Lane-only loop over a video (``.mp4``/``.mov`` or ``.avi`` with
-    ``mp4v``, H.264 or Motion JPEG, a raw ``.h264``, or ``.y4m``), the
+    ``mp4v``, H.264, H.265 or Motion JPEG, a raw ``.h264`` or
+    ``.h265``/``.265``/``.hevc``, or ``.y4m``), the
     annotated frames written to ``output_path``: an ``.mp4`` or ``.avi`` at
     30 fps, as the reference writes them, or a ``.y4m`` at the input's
     rate; returns the
@@ -107,7 +109,8 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description="Standalone lane detection")
     ap.add_argument("-i", "--input", required=True,
-                    help="image (.png/.bmp/.jpg) or video (.mp4/.mov/.avi/.h264/.y4m)")
+                    help="image (.png/.bmp/.jpg) or video "
+                         "(.mp4/.mov/.avi/.h264/.h265/.265/.hevc/.y4m)")
     ap.add_argument("-o", "--output", default=None)
     ap.add_argument("--display", action="store_true")
     ap.add_argument("--max-frames", type=int, default=None)

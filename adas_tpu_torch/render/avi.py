@@ -56,13 +56,13 @@ CODECS = {
     **dict.fromkeys(("MP4V", "FMP4", "XVID", "DIVX", "DX50", "M4S2", "MP4S", "3IV2", "RMP4",
                      "DIV1", "BLZ0", "UMP4", "SMP4", "XVIX", "DXGM", "HDX4", "FVFW"), "mp4v"),
     **dict.fromkeys(("H264", "X264", "AVC1", "DAVC", "VSSH", "Q264", "V264", "GAVC"), "h264"),
+    **dict.fromkeys(("HEVC", "H265", "X265", "HVC1", "HEV1"), "hevc"),
     **dict.fromkeys(("MJPG", "AVRN", "ACDV", "QIVG", "SLMJ", "CJPG", "IJPG", "JPGL", "DMB1",
                      "MJPA", "AVI1"), "mjpeg"),
 }
 #: tags the demuxer names when it refuses them
 CODEC_NAMES = {
-    "HEVC": "H.265 (HEVC)", "H265": "H.265 (H265)", "X265": "H.265 (X265)",
-    "HVC1": "H.265 (hvc1)", "HEV1": "H.265 (hev1)", "MJPB": "MJPEG-B (mjpb)",
+    "MJPB": "MJPEG-B (mjpb)",
     "DIB ": "raw DIB frames", "RGB ": "raw RGB frames", "RAW ": "raw frames",
     "MPG2": "MPEG-2 video", "MPG1": "MPEG-1 video", "WMV3": "WMV9 (WMV3)", "VP80": "VP8",
     "VP90": "VP9", "AV01": "AV1", "DVSD": "DV", "MJ2C": "Motion JPEG 2000",
@@ -213,7 +213,8 @@ class Demuxer:
             if key not in CODECS:
                 name = CODEC_NAMES.get(key, f"codec {tag!r}")
                 raise ValueError(f"{name} video in an AVI is not supported: the port reads "
-                                 f"MPEG-4 Part 2 (mp4v, XVID, DIVX, ...), H.264 and Motion JPEG")
+                                 f"MPEG-4 Part 2 (mp4v, XVID, DIVX, ...), H.264, H.265 and Motion "
+                                 f"JPEG")
             scale, rate = struct.unpack_from("<II", strh, 20)
             extradata = strf[max(40, min(bi_size, len(strf))):]
             return Stream(number, tag, CODECS[key], width, abs(height), rate, scale, extradata)

@@ -25,11 +25,17 @@ them (``native/error_resilience.h``), at the end of each ``decode`` call
 (a packet), and a gap in frame_num is filled as FFmpeg fills it;
 ``stats()`` counts ``concealed_mbs``, ``damaged_pictures``,
 ``damaged_slices``, ``gap_frames`` and the microseconds spent concealing
-(``conceal_us``).  SP and SI slices, field pictures and MBAFF, chroma
+(``conceal_us``).  A parameter set or slice header FFmpeg cannot read is
+skipped as FFmpeg skips it (``skipped_headers``): the parameter set before
+it stays, the slice's macroblocks are concealed, a picture without a
+readable slice gives no frame.  A stream that starts without an IDR
+picture decodes as FFmpeg's does: missing references are gray, and a
+picture comes out only from FFmpeg's recovery point on (an IDR picture,
+or an I picture its marking heuristic takes; ``unrecovered_pictures``
+counts those left out).  SP and SI slices, field pictures and MBAFF, chroma
 formats other than 4:2:0, bit depths above 8, slice groups, redundant
-pictures, data partitioning, transform bypass, what FFmpeg itself refuses
-(damaged parameter sets and slice headers, a NAL unit that runs past its
-sample) and pictures of more than ``MAX_PIXELS`` raise a ``ValueError``
+pictures, data partitioning, transform bypass, a NAL unit that runs past
+its sample and pictures of more than ``MAX_PIXELS`` raise a ``ValueError``
 carrying the library's message, which names the tool.  The library is
 built with g++ into ``adas_tpu_torch/_build/libh264.so`` on first use
 (``native/gxx.py``); a failed build raises.
@@ -68,7 +74,13 @@ STATS = ("i_slices", "p_slices", "idr_pictures", "pictures", "cavlc_slices", "ca
          "implicit_weight_slices", "explicit_bipred_slices", "ref_list1_modifications",
          "b_mbs_from_long_term", "reference_b_pictures", "direct_4x4_mbs", "dropped_pictures",
          "reorder_delay", "concealed_mbs", "damaged_pictures", "damaged_slices", "gap_frames",
-         "conceal_us")
+         "conceal_us", "skipped_headers", "unrecovered_pictures")
+
+
+class Refused(ValueError):
+    """A packet FFmpeg's decoder refuses as a whole (an error from its
+    decode call): cv2's ``grab`` fails there, and its reading ends.  The
+    frames let out before it stand; those the decoder still held are lost."""
 
 
 def _native():
@@ -83,7 +95,7 @@ def _native():
                     "h264_decoder_new": ([], p), "h264_decoder_free": ([p], None),
                     "h264_decoder_error": ([p], ctypes.c_char_p),
                     "h264_decode": ([p, p, l, i], i), "h264_flush": ([p], i),
-                    "h264_set_delay": ([p, i], None), "h264_last_poc": ([p], i),
+                    "h264_set_delay": ([p, i], None), "h264_refused": ([p], i), "h264_last_poc": ([p], i),
                     "h264_size": ([p, ip, ip], None), "h264_fps": ([p], ctypes.c_double),
                     "h264_next_frame": ([p, p, l, ip, ip], i),
                     "h264_next_frame_bytes": ([p], l), "h264_stats": ([p, p, i], i),
@@ -167,6 +179,9 @@ class Decoder:
         """Feeds an access unit (or any run of NAL units); the frames now
         ready for output, in display order."""
         self._feed(data, self._length_size)
+        if self._lib.h264_refused(self._d):
+            raise Refused("corrupt H.264 data: no slice of the packet could be read (FFmpeg "
+                          "refuses the packet, and cv2 stops reading there)")
         return self._take()
 
     def flush(self) -> List[np.ndarray]:
@@ -279,5 +294,5 @@ def annexb(nals: List[bytes]) -> bytes:
     return b"".join(b"\x00\x00\x00\x01" + n for n in nals)
 
 
-__all__ = ["Decoder", "STATS", "MAX_PIXELS", "parse_avcc", "nal_units", "access_units", "annexb",
+__all__ = ["Decoder", "Refused", "STATS", "MAX_PIXELS", "parse_avcc", "nal_units", "access_units", "annexb",
            "probe_delay"]

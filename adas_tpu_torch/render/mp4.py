@@ -7,7 +7,9 @@ track.
 other track is ignored).  From it: the sample entry, either ``mp4v`` with
 its ``esds`` DecoderSpecificInfo (the MPEG-4 Visual VOS/VO/VOL headers,
 objectTypeIndication 0x20), H.264's ``avc1`` / ``avc3`` with its
-``avcC`` record (``avc3`` may carry its parameter sets in band), or Motion
+``avcC`` record (``avc3`` may carry its parameter sets in band), H.265's
+``hvc1`` / ``hev1`` with its ``hvcC`` record (``codec`` ``"hevc"``;
+``hev1`` carries its parameter sets in band), or Motion
 JPEG: ``jpeg`` and ``mjpa`` entries, and ``mp4v`` entries whose esds
 names JPEG (0x6C, as cv2 writes ``MJPG`` into an ``.mp4``); the
 samples' offsets and sizes from ``stsz``, ``stsc`` and ``stco``/``co64``,
@@ -20,7 +22,7 @@ clockwise turn, 0, 90, 180 or 270 degrees, that cv2's FFmpeg backend gives
 the frames for the track's display matrix (``tkhd``'s after ``mvhd``'s,
 ``display_rotation``).  An edit list that cuts
 frames raises, as does one that is not a single edit (after an empty
-one).  Another sample entry (``hvc1``, ``av01``, ``mjpb``, ...) or object
+one).  Another sample entry (``av01``, ``mjpb``, ...) or object
 type, and fragmented MP4 (``moof``), raise a ``ValueError`` that names the
 codec or the feature; so does a box that runs past its parent or a sample
 past the file.
@@ -44,12 +46,13 @@ from typing import BinaryIO, List, Optional, Sequence, Tuple
 
 #: the H.264 sample entries the demuxer reads (their ``avcC`` record)
 AVC_ENTRIES = {b"avc1": "H.264 (avc1)", b"avc3": "H.264 (avc3)"}
+#: the H.265 sample entries the demuxer reads (their ``hvcC`` record)
+HEVC_ENTRIES = {b"hvc1": "H.265 (hvc1)", b"hev1": "H.265 (hev1)"}
 #: the Motion JPEG sample entries the demuxer reads
 MJPEG_ENTRIES = (b"jpeg", b"mjpa")
 #: sample entries the demuxer names when it refuses them
 CODEC_NAMES = {
-    b"hvc1": "H.265 (hvc1)",
-    b"hev1": "H.265 (hev1)", b"av01": "AV1 (av01)", b"vp08": "VP8 (vp08)",
+    b"av01": "AV1 (av01)", b"vp08": "VP8 (vp08)",
     b"vp09": "VP9 (vp09)", b"mjpb": "MJPEG-B (mjpb)",
     b"s263": "H.263 (s263)", b"encv": "encrypted video (encv)",
 }
@@ -348,11 +351,12 @@ def _video_track(data: bytes, trak: Tuple[int, int], file_size: int,
     if entry + 8 > stsd[1]:
         raise ValueError("truncated stsd")
     size, fourcc = struct.unpack_from(">I4s", data, entry)
-    if fourcc != b"mp4v" and fourcc not in AVC_ENTRIES and fourcc not in MJPEG_ENTRIES:
+    if (fourcc != b"mp4v" and fourcc not in AVC_ENTRIES and fourcc not in HEVC_ENTRIES
+            and fourcc not in MJPEG_ENTRIES):
         name = CODEC_NAMES.get(fourcc, f"codec {fourcc.decode('latin-1')!r}")
         raise ValueError(f"{name} video in an MP4 is not supported: the port reads MPEG-4 Part 2 "
-                         f"(mp4v), as cv2.VideoWriter writes it, H.264 (avc1, avc3) and Motion "
-                         f"JPEG (jpeg, mjpa)")
+                         f"(mp4v), as cv2.VideoWriter writes it, H.264 (avc1, avc3), H.265 "
+                         f"(hvc1, hev1) and Motion JPEG (jpeg, mjpa)")
     if size < 86 or entry + size > stsd[1]:
         raise ValueError(f"corrupt MP4: short {fourcc.decode('latin-1')} sample entry")
     width, height = struct.unpack_from(">HH", data, entry + 32)
@@ -362,6 +366,12 @@ def _video_track(data: bytes, trak: Tuple[int, int], file_size: int,
     elif fourcc == b"mp4v":
         oti, dsi = parse_esds(data, *_need(data, entry + 86, entry + size, b"esds"))
         codec = "mjpeg" if oti == JPEG_OBJECT else codec
+    elif fourcc in HEVC_ENTRIES:
+        hvcc = _find(data, entry + 86, entry + size, b"hvcC")
+        if hvcc is None:
+            raise ValueError(f"corrupt MP4: an {HEVC_ENTRIES[fourcc]} sample entry without an "
+                             f"hvcC box")
+        codec, dsi = "hevc", data[hvcc[0]:hvcc[1]]
     else:
         avcc = _find(data, entry + 86, entry + size, b"avcC")
         if avcc is None:
@@ -624,4 +634,4 @@ def rate(fps: float) -> Tuple[int, int]:
 
 __all__ = ["Demuxer", "Muxer", "Track", "build_moov", "box", "full_box", "esds_box",
            "parse_esds", "iter_boxes", "rate", "visual_sample_entry", "guess_video_delay", "FTYP",
-           "CODEC_NAMES", "AVC_ENTRIES", "MJPEG_ENTRIES", "MAX_REORDER_DELAY"]
+           "CODEC_NAMES", "AVC_ENTRIES", "HEVC_ENTRIES", "MJPEG_ENTRIES", "MAX_REORDER_DELAY"]

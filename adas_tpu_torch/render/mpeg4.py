@@ -40,6 +40,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from ..native.gxx import build_library
+from .h264 import Refused
 
 _NATIVE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
 _SRC = os.path.join(_NATIVE, "mpeg4.cpp")
@@ -65,7 +66,8 @@ STATS = ("i_vops", "p_vops", "p_rounding_0", "p_rounding_1", "intra_mbs_in_i", "
          "b_skipped_mbs", "dbquant_mbs", "max_bcode", "qpel_vops", "mpeg_quant_vops",
          "custom_matrices", "video_packets", "hec_packets", "packed_b_vops", "xvid_idct_vops",
          "interlaced_vops", "alt_scan_vops", "field_mbs", "field_dct_mbs", "field_direct_mbs",
-         "concealed_mbs", "damaged_vops", "damaged_packets", "resyncs", "conceal_us")
+         "concealed_mbs", "damaged_vops", "damaged_packets", "resyncs", "conceal_us",
+         "time_bits_guessed", "damaged_headers")
 #: the VOP types of ``Decoder.last_type``
 TYPES = "IPB"
 
@@ -84,7 +86,7 @@ def _native():
                     "mpeg4_decoder_tag": ([p, ctypes.c_uint], None),
                     "mpeg4_decoder_config": ([p, p, l, ip, ip], i),
                     "mpeg4_decode": ([p, p, l, ip, ip], i),
-                    "mpeg4_decoder_flush": ([p], i),
+                    "mpeg4_decoder_flush": ([p], i), "mpeg4_decoder_refused": ([p], i),
                     "mpeg4_decoder_output": ([p, p, l, ip], i),
                     "mpeg4_decoder_stats": ([p, p, i], i),
                     "mpeg4_encoder_new": ([], p), "mpeg4_encoder_free": ([p], None),
@@ -153,8 +155,12 @@ class Decoder:
         new array): none for a VOP that is not coded or before the reorder
         delay is filled, one otherwise."""
         w, h = ctypes.c_int(), ctypes.c_int()
-        return self._take(self._lib.mpeg4_decode(self._d, sample, len(sample), ctypes.byref(w),
-                                                 ctypes.byref(h)))
+        frames = self._take(self._lib.mpeg4_decode(self._d, sample, len(sample), ctypes.byref(w),
+                                                   ctypes.byref(h)))
+        if self._lib.mpeg4_decoder_refused(self._d):
+            raise Refused("corrupt MPEG-4 video: the VOP header is damaged (FFmpeg refuses the "
+                          "packet, and cv2 stops reading there)")
+        return frames
 
     def flush(self) -> List[np.ndarray]:
         """The end of the stream: the frames still held back."""

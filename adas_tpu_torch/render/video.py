@@ -1,6 +1,7 @@
 """Video I/O without cv2: MP4 (``.mp4``, ``.m4v``, ``.mov``) and AVI
-(``.avi``) with MPEG-4 Part 2, H.264 or Motion JPEG video, raw H.264 Annex
-B streams (``.h264``, ``.264``), and YUV4MPEG2 (``.y4m``) 4:2:0 streams.
+(``.avi``) with MPEG-4 Part 2, H.264, H.265 or Motion JPEG video, raw
+H.264 and H.265 Annex B streams (``.h264``, ``.264``; ``.h265``, ``.265``,
+``.hevc``), and YUV4MPEG2 (``.y4m``) 4:2:0 streams.
 
 The JAX package reads and writes video through ``cv2.VideoCapture`` /
 ``cv2.VideoWriter`` (fourcc ``mp4v``, 30 fps, the container the suffix
@@ -10,13 +11,15 @@ suffix:
 
 - MP4: ``render/mp4.py`` (the container), ``render/mpeg4.py`` (the
   ``mp4v`` decoder and encoder, ``native/mpeg4.cpp``), ``render/h264.py``
-  (the H.264 decoder, ``native/h264.cpp``) and ``render/mjpeg.py`` (the
-  Motion JPEG decoder, ``native/mjpeg.cpp``).  ``MP4Reader`` takes the
+  (the H.264 decoder, ``native/h264.cpp``), ``render/hevc.py`` (the H.265
+  decoder of I/P pictures, ``native/hevc.cpp``) and ``render/mjpeg.py``
+  (the Motion JPEG decoder, ``native/mjpeg.cpp``).  ``MP4Reader`` takes the
   ``mp4v`` streams of cv2, the port, XviD and DivX (Simple and Advanced
   Simple: B-VOPs, DivX's packed B-VOPs, 4MV, quarter-sample, MPEG
   quantisation, video packets; in FFmpeg's delay and order), the I/P/B
   H.264 of dash-cams, phones and FFmpeg's muxer (``ctts``,
-  ``edts``/``elst``) and Motion JPEG (``jpeg``, ``mjpa``, and ``mp4v``
+  ``edts``/``elst``), the I/P H.265 of newer dash-cams (``hvc1``,
+  ``hev1``) and Motion JPEG (``jpeg``, ``mjpa``, and ``mp4v``
   entries of object type 0x6C, as cv2 writes ``MJPG`` into an ``.mp4``),
   giving the frames cv2 gives in cv2's order and count; other codecs, and
   tools the decoders refuse, raise a ``ValueError`` that names them.
@@ -33,9 +36,13 @@ suffix:
   error_resilience.h``); ``AVIWriter`` writes what
   ``MP4Writer`` writes in FFmpeg's AVI layout, the VOS/VOL headers in band
   before each I-VOP, as cv2 writes an ``.avi``.
-- H.264 Annex B: ``AnnexBReader``, read only, split into access units at
-  each picture's first slice; the rate of the SPS's VUI timing, else 25
-  (FFmpeg's for a raw stream).
+- H.264 and H.265 Annex B: ``AnnexBReader``, read only, split into access
+  units at each picture's first slice; the rate of the SPS's VUI timing,
+  else 25 (FFmpeg's for a raw stream).
+
+A packet FFmpeg's decoder refuses as a whole (an H.264 packet whose every
+slice header is unreadable, an ``mp4v`` VOP header damaged) ends the
+stream, as cv2's reading ends there (``render/h264.Refused``).
 
 The H.264 readers first decode the stream's opening access units as
 FFmpeg's stream probe does (``render/h264.probe_delay``, from the delay an
@@ -67,7 +74,7 @@ import numpy as np
 
 from ..native.draw import i420_to_bgr
 from ..ops.preprocess import bgr_to_i420
-from . import avi, h264, mjpeg, mp4, mpeg4
+from . import avi, h264, hevc, mjpeg, mp4, mpeg4
 
 MAGIC = b"YUV4MPEG2"
 CHROMA_420 = ("420", "420jpeg", "420mpeg2", "420paldv")
@@ -75,7 +82,8 @@ Y4M_SUFFIXES = (".y4m",)
 MP4_SUFFIXES = (".mp4", ".m4v", ".mov")
 AVI_SUFFIXES = (".avi",)
 H264_SUFFIXES = (".h264", ".264")
-#: the rate of a raw H.264 stream without VUI timing (FFmpeg's default)
+HEVC_SUFFIXES = (".h265", ".265", ".hevc")
+#: the rate of a raw H.264 or H.265 stream without VUI timing (FFmpeg's default)
 H264_FPS = 25.0
 #: bytes an Annex B reader takes from the file at a time
 CHUNK = 1 << 20
@@ -91,10 +99,10 @@ def _check_path(path: str, suffixes) -> None:
     if _suffix(path) not in suffixes:
         raise ValueError(
             f"{path}: the port reads and writes MP4 ({', '.join(MP4_SUFFIXES)}) and AVI "
-            f"({', '.join(AVI_SUFFIXES)}) with MPEG-4 Part 2 video (H.264 and Motion JPEG read "
-            f"too) and YUV4MPEG2 ({', '.join(Y4M_SUFFIXES)}) video, and reads raw H.264 "
-            f"({', '.join(H264_SUFFIXES)}); this class takes {', '.join(suffixes)} "
-            f"(open_reader / open_writer pick by the suffix)")
+            f"({', '.join(AVI_SUFFIXES)}) with MPEG-4 Part 2 video (H.264, H.265 and Motion JPEG "
+            f"read too) and YUV4MPEG2 ({', '.join(Y4M_SUFFIXES)}) video, and reads raw H.264 "
+            f"({', '.join(H264_SUFFIXES)}) and H.265 ({', '.join(HEVC_SUFFIXES)}); this class "
+            f"takes {', '.join(suffixes)} (open_reader / open_writer pick by the suffix)")
 
 
 def output_fps(path: str, input_fps: float) -> float:
@@ -111,7 +119,7 @@ def open_reader(path: str):
         return MP4Reader(path)
     if _suffix(path) in AVI_SUFFIXES:
         return AVIReader(path)
-    if _suffix(path) in H264_SUFFIXES:
+    if _suffix(path) in H264_SUFFIXES + HEVC_SUFFIXES:
         return AnnexBReader(path)
     _check_path(path, Y4M_SUFFIXES + MP4_SUFFIXES + AVI_SUFFIXES)
     return Y4MReader(path)
@@ -194,28 +202,47 @@ class _Queued(_Frames):
                                  f"{w}x{h}: a change of size is not supported")
         self._pending.extend(frames)
 
-    def _h264_start(self, path: str) -> None:
-        """The size of the first SPS: access units are decoded (their
-        frames kept) until one is active."""
+    def _h264_start(self, path: str, size: Optional[Tuple[int, int]] = None) -> None:
+        """The size of the first SPS (H.264 or H.265): access units are
+        decoded (their frames kept) until one is active.  A packet FFmpeg
+        refuses before then ends the stream without a frame, at the
+        container's ``size`` (cv2 opens such a file and reads nothing)."""
         frames: List[np.ndarray] = []
         while not self._decoder.width:
             au = self._next_access_unit()
             if au is None:
-                raise ValueError(f"{path}: an H.264 stream without a sequence parameter set")
-            frames += self._decoder.decode(au)
+                name = "H.265" if isinstance(self._decoder, hevc.Decoder) else "H.264"
+                raise ValueError(f"{path}: an {name} stream without a sequence parameter set")
+            try:
+                frames += self._decoder.decode(au)
+            except h264.Refused:
+                if size is None:
+                    raise
+                self.width, self.height = size
+                self._flushed = True
+                return
         self.width, self.height = self._decoder.width, self._decoder.height
         self._queue(frames)
+
+    def _step(self) -> None:
+        """Decodes the next access unit (at the end, flushes) into the queue.
+        A packet FFmpeg refuses ends the stream, as cv2's reading ends there:
+        the frames the decoder still holds are lost."""
+        au = self._next_access_unit()
+        if au is None:
+            self._flushed = True
+            self._queue(self._flush())
+            return
+        try:
+            self._queue(self._decode(au))
+        except h264.Refused:
+            self._flushed = True
 
     def read_planes(self):
         """The next frame's planes as the decoder gives them, or None at the
         end: (H*3/2, W) I420 planes (Motion JPEG: ``render/mjpeg``'s)."""
         while not self._pending and not self._flushed:
-            au = self._next_access_unit()
-            if au is None:
-                self._flushed = True
-                self._queue(self._flush())
-            else:
-                self._queue(self._decode(au))
+            self._step()
         return self._pending.popleft() if self._pending else None
 
     def read_i420(self) -> Optional[np.ndarray]:
@@ -224,14 +251,15 @@ class _Queued(_Frames):
 
     def stats(self) -> dict:
         """The decoder's counts of the stream's tools (``render/mpeg4.STATS``,
-        ``render/h264.STATS`` or ``render/mjpeg.STATS``)."""
+        ``render/h264.STATS``, ``render/hevc.STATS`` or ``render/mjpeg.STATS``)."""
         return self._decoder.stats()
 
 
 class _SampleReader(_Queued):
     """Frames of a container's video samples (``_demux``: ``len`` and
     ``read(i)``) through the decoder of their codec: ``mp4v`` (MPEG-4 Part
-    2), ``mjpeg`` (Motion JPEG) or H.264 (``avc1``, ``avc3``, ``h264``)."""
+    2), ``mjpeg`` (Motion JPEG), H.264 (``avc1``, ``avc3``, ``h264``) or
+    H.265 (``hevc``: an MP4's ``hvc1``/``hev1``, Annex B in an AVI)."""
 
     _demux = None
 
@@ -254,11 +282,15 @@ class _SampleReader(_Queued):
             else:
                 self._queue(self._decode(first))
             return
+        elif codec == "hevc":
+            # FFmpeg's H.265 output does not depend on a probed delay
+            self._decoder = hevc.Decoder(config or None)
+            self._h264_start(path, container_size)
         else:
             samples = (self._demux.read(i) for i in range(len(self._demux)))
             delay = h264.probe_delay(samples, config, delay)
             self._decoder = h264.Decoder(config, delay)
-            self._h264_start(path)
+            self._h264_start(path, container_size)
         if self.width % 2 or self.height % 2:
             raise ValueError(f"{path}: 4:2:0 frames need even sides, got "
                              f"{self.width}x{self.height}")
@@ -326,12 +358,7 @@ class _SampleReader(_Queued):
         # until that sample has been tried
         if len(self._pending) == 1 and not self._flushed and self._cut_h264_mp4():
             while not self._flushed and len(self._pending) < 2:
-                au = self._next_access_unit()
-                if au is None:
-                    self._flushed = True
-                    self._queue(self._flush())
-                else:
-                    self._queue(self._decode(au))
+                self._step()
         return super().read_planes()
 
     def _flush(self) -> List[np.ndarray]:
@@ -392,7 +419,7 @@ def turn_i420(yuv: np.ndarray, width: int, height: int, rotation: int) -> np.nda
 
 class MP4Reader(_SampleReader):
     """Frames of the first video track of an MP4 (``mp4v``, ``avc1``,
-    ``avc3``, or Motion JPEG: ``codec`` ``"mjpeg"``) as BGR uint8 arrays,
+    ``avc3``, ``hvc1``, ``hev1``, or Motion JPEG: ``codec`` ``"mjpeg"``) as BGR uint8 arrays,
     in display order; ``width``, ``height`` and ``fps`` from the track (an
     H.264 track's size from its SPS, a Motion JPEG one's from its first
     frame).  A display matrix that turns the picture by 90, 180 or 270
@@ -432,7 +459,7 @@ class MP4Reader(_SampleReader):
 
 class AVIReader(_SampleReader):
     """Frames of the first video stream of an AVI (``mp4v``/``XVID``/
-    ``DIVX``-family, H.264 or Motion JPEG; ``render/avi.CODECS``) as BGR
+    ``DIVX``-family, H.264, H.265 or Motion JPEG; ``render/avi.CODECS``) as BGR
     uint8 arrays, in display order, as cv2 reads them; ``width``,
     ``height`` and ``fps`` (``dwRate / dwScale``) from the stream."""
 
@@ -479,25 +506,30 @@ def _file_nals(f) -> Iterator[bytes]:
         buf, pos = buf[keep:] + chunk, 0
 
 
-def _file_access_units(f) -> Iterator[bytes]:
-    return (h264.annexb(au) for au in h264.access_units(_file_nals(f)))
+def _file_access_units(f, codec=h264) -> Iterator[bytes]:
+    return (codec.annexb(au) for au in codec.access_units(_file_nals(f)))
 
 
 class AnnexBReader(_Queued):
-    """Frames of a raw H.264 Annex B stream (``.h264``, ``.264``) as BGR
-    uint8 arrays, in display order; ``width`` and ``height`` from its SPS,
-    ``fps`` from the SPS's VUI timing or ``H264_FPS``."""
+    """Frames of a raw H.264 (``.h264``, ``.264``) or H.265 (``.h265``,
+    ``.265``, ``.hevc``) Annex B stream as BGR uint8 arrays, in display
+    order; ``width`` and ``height`` from its SPS, ``fps`` from the SPS's
+    VUI timing or ``H264_FPS`` (FFmpeg's default for a raw stream)."""
 
     def __init__(self, path: str):
-        _check_path(path, H264_SUFFIXES)
+        _check_path(path, H264_SUFFIXES + HEVC_SUFFIXES)
         self._f = open(path, "rb")
-        self._aus = _file_access_units(self._f)
+        codec = hevc if _suffix(path) in HEVC_SUFFIXES else h264
+        self._aus = _file_access_units(self._f, codec)
         self._decoder = None
         self._pending, self._flushed = deque(), False
         try:
-            with open(path, "rb") as probe:
-                delay = h264.probe_delay(_file_access_units(probe))
-            self._decoder = h264.Decoder(None, delay)
+            if codec is hevc:
+                self._decoder = hevc.Decoder(None)
+            else:
+                with open(path, "rb") as probe:
+                    delay = h264.probe_delay(_file_access_units(probe))
+                self._decoder = h264.Decoder(None, delay)
             self._h264_start(path)
             if self.width % 2 or self.height % 2:
                 raise ValueError(f"{path}: 4:2:0 frames need even sides, got "

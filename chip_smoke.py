@@ -288,7 +288,13 @@ Phases, each of which raises (exit code 1) on failure:
     cv2's digests and counts, the 720p ASP clip (12 frames, IBBP) rebuilt
     by the writer and decoded to its digests with the ms per I, P and B
     VOP, and ``run_video`` over it as an ``XVID`` ``.avi`` (stem 2, IoU 1,
-    walk 1 per frame, 12 frames);
+    walk 1 per frame, 12 frames); the damaged clips (``video_conceal``);
+    then H.265 input (``video_hevc``): the 720p H.265 content clip (a PCM
+    IDR picture, then 59 P pictures of a pan by merge and AMVP, WPP on)
+    rebuilt by ``tests/data/video/hevc_writer.py`` and decoded to the
+    digests cv2 made of it (``tests/data/video/hevc/sha256.json``) with
+    the ms per IRAP and P picture, and ``run_video`` over it as an
+    ``hvc1`` ``.mp4`` (stem 2, IoU 1, walk 1 per frame, 60 frames);
     ``[train-ufldv2]``, UFLDv2-CULane res18 with the aux head at
     320x1600, batch 8, 20 SGD steps in f32 (no kernel launches; the loss
     falls; the first step's loss, outputs and gradient within rel 1e-6,
@@ -4005,8 +4011,102 @@ def video_phase(mods, smi, torch, np):
     rotated_run = video_rotated(mods, smi, torch, np)
     asp_run = video_mpeg4_asp(mods, smi, torch, np)
     conceal_run = video_conceal(mods, smi, torch, np)
+    hevc_run = video_hevc(mods, smi, torch, np)
     return {k: synthetic_run[k] + video_run[k] + lanes_run[k] + h264_run[k] + avi_run[k] +
-            rotated_run[k] + asp_run[k] + conceal_run[k] for k in KERNELS}
+            rotated_run[k] + asp_run[k] + conceal_run[k] + hevc_run[k] for k in KERNELS}
+
+
+def video_hevc(mods, smi, torch, np):
+    """``[video]``, H.265 input (``render/hevc.py``, ``native/hevc.cpp``
+    built by g++): the 720p content clip (``tests/data/video/hevc_writer.py``'s
+    ``content_720p``: a PCM IDR picture of ``tests/data/images/frame_720p.png``,
+    then 59 P pictures of a quarter-sample pan by merge and AMVP, 64x64 CTBs,
+    WPP, TMVP and deblocking on) is rebuilt by the stream writer and decodes
+    to the digests cv2 made of it (``tests/data/video/hevc/sha256.json``),
+    timed per access unit; then ``run_video`` over it as an ``hvc1``
+    ``.mp4`` with ``ADASPipeline``'s defaults to an ``.mp4``: stem 2, IoU 1
+    and walk 1 per frame, every frame written.  The decoder and the writer
+    build at once.  Prints the g++ build times and the host ms per IRAP and
+    P picture (p50 and max).  Returns the launches."""
+    import hashlib
+    import shutil
+    import tempfile
+    import threading
+
+    from adas_tpu_torch.pipeline import app
+    from adas_tpu_torch.render import hevc, video
+
+    tag = "video"
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "video")
+    sys.path.insert(0, data)
+    import hevc_writer
+
+    with open(os.path.join(data, "hevc", "sha256.json")) as f:
+        want = json.load(f)["content_720p"]
+    built = {}
+
+    def build(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        built[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=build, args=("decoder", hevc._native)),
+               threading.Thread(target=build, args=("writer", hevc_writer._native))]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    build_s = time.perf_counter() - t
+    check(set(built) == {"decoder", "writer"}, f"{tag}: an H.265 library did not build")
+    t = time.perf_counter()
+    stream = hevc_writer.content_720p()
+    write_s = time.perf_counter() - t
+    decoder = hevc.Decoder(None)
+    frames, ms, irap = [], [], []
+    for au in hevc.access_units(hevc.nal_units(stream)):
+        t0 = time.perf_counter()
+        frames += decoder.decode(hevc.annexb(au))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        irap.append(any(16 <= hevc.nal_type(n) <= 23 for n in au))
+    frames += decoder.flush()
+    clip_stats = decoder.stats()
+    decoder.close()
+    check(len(frames) == want["frames"] and
+          [hashlib.sha256(p[:720].tobytes()).hexdigest() for p in frames] == want["y_sha256"],
+          f"{tag}: the 720p H.265 content clip's Y planes differ from cv2's decode")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hevc_")
+    try:
+        clip = os.path.join(tmp, "clip.mp4")
+        hevc_writer.to_mp4(stream, clip, b"hvc1")
+        out = os.path.join(tmp, "clip_out.mp4")
+        reset(mods)
+        t = time.perf_counter()
+        n = app.run_video(clip, out, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        run = counts(mods)
+        per_frame = {"stem": 2, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1}
+        for k, per in per_frame.items():
+            check(run[k] == per * want["frames"],
+                  f"{tag}: run_video over H.265 {k} launches {run[k]}, expected {per} per frame")
+        with video.MP4Reader(out) as r:
+            drawn = list(r)
+        check(n == len(drawn) == want["frames"] and all(f.shape == (720, 1280, 3) for f in drawn),
+              f"{tag}: run_video over H.265 wrote {len(drawn)} of {n} frames")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    i_ms = [v for v, k in zip(ms, irap) if k]
+    p_ms = [v for v, k in zip(ms, irap) if not k]
+    print(f"[{tag}] H.265: native/hevc.cpp and the stream writer built at once in {build_s:.2f} s "
+          f"(decoder {built['decoder']:.2f} s, writer {built['writer']:.2f} s); the 720p content "
+          f"clip ({want['frames']} frames, pan {want['pan']} quarter samples) rebuilt in "
+          f"{write_s:.2f} s and decoded to cv2's digests: decode ms per 720p picture (host) IRAP "
+          f"(PCM) p50 {np.median(i_ms):.2f} max {max(i_ms):.2f}, P p50 {np.median(p_ms):.2f} max "
+          f"{max(p_ms):.2f}; non-zero counts { {k: v for k, v in clip_stats.items() if v} }; "
+          f"run_video over it as hvc1 .mp4 (ADASPipeline defaults) to .mp4: {n} frames in "
+          f"{run_s:.2f} s, launches {run} (per frame {per_frame}) ({smi})", flush=True)
+    return run
 
 
 def video_conceal(mods, smi, torch, np):

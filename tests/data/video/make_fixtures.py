@@ -204,6 +204,31 @@ def h264_main():
         f.write("\n")
 
 
+HEVC_DIR = os.path.join(HERE, "hevc")
+
+
+def hevc_main():
+    """cv2's Y digests of the 720p H.265 content clip
+    (``hevc_writer.content_720p``), which ``chip_smoke.py`` decodes on the
+    card, in ``hevc/sha256.json``."""
+    sys.path.insert(0, HERE)
+    import hevc_writer
+
+    os.makedirs(HEVC_DIR, exist_ok=True)
+    tmp = os.path.join(HEVC_DIR, "content_720p.h265")
+    with open(tmp, "wb") as f:
+        f.write(hevc_writer.content_720p())
+    ys = cv2_decode(tmp, False)
+    os.remove(tmp)
+    spec = hevc_writer.CONTENT_720P
+    assert len(ys) == spec["frames"]
+    digests = {"content_720p": {**spec, "height": 720, "width": 1280,
+                                "y_sha256": [hashlib.sha256(y.tobytes()).hexdigest() for y in ys]}}
+    with open(os.path.join(HEVC_DIR, "sha256.json"), "w") as f:
+        json.dump(digests, f, indent=1)
+        f.write("\n")
+
+
 AVI_DIR = os.path.join(HERE, "avi")
 #: the cv2-written AVI fixtures: file name -> the writer's fourcc
 AVI_FIXTURES = {"cv2_mp4v_96x64.avi": "mp4v", "cv2_xvid_96x64.avi": "XVID",
@@ -619,6 +644,9 @@ def main():
         return
     if sys.argv[1:] == ["h264"]:
         h264_main()
+        return
+    if sys.argv[1:] == ["hevc"]:
+        hevc_main()
         return
     if sys.argv[1:] == ["avi", "swscale"]:
         swscale_main()

@@ -372,6 +372,252 @@ def test_annexb_stream_cut_mid_nal(tmp_path, cabac):
     assert stats["concealed_mbs"] > 0
 
 
+# ------------------------------------------------------------------ headers
+
+def _escape(rbsp: bytes) -> bytes:
+    out, zeros = bytearray(), 0
+    for b in rbsp:
+        if zeros >= 2 and b <= 3:
+            out.append(3)
+            zeros = 0
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return bytes(out)
+
+
+def _unescape(payload: bytes) -> bytes:
+    out, zeros = bytearray(), 0
+    for b in payload:
+        if zeros >= 2 and b == 3:
+            zeros = 0
+            continue
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return bytes(out)
+
+
+def _with_pps_id(nal: bytes, pps_id: int) -> bytes:
+    """A slice NAL unit with its pic_parameter_set_id rewritten: the header
+    a damaged byte leaves pointing at a parameter set never sent."""
+    bits = "".join(f"{b:08b}" for b in _unescape(nal[1:]))
+    pos = 0
+
+    def ue():
+        nonlocal pos
+        z = 0
+        while bits[pos] == "0":
+            z, pos = z + 1, pos + 1
+        pos += 1 + z
+
+    ue()
+    ue()
+    start = pos
+    ue()
+    v = pps_id + 1
+    new = "0" * (v.bit_length() - 1) + f"{v:b}"
+    bits = bits[:start] + new + bits[pos:]
+    bits += "0" * (-len(bits) % 8)
+    rbsp = bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+    return nal[:1] + _escape(rbsp)
+
+
+def _annexb_case(tmp_path, name, aus):
+    path = str(tmp_path / name)
+    with open(path, "wb") as f:
+        f.write(b"".join(h264.annexb(au) for au in aus))
+    return path
+
+
+def assert_reads_as_cv2(path):
+    """The port's frames of ``path`` are cv2's (count and Y) and FFmpeg's
+    one-thread decode (every plane).  Returns the port's counters."""
+    want = libavformat_planes(path)
+    got, stats = _port(path)
+    theirs = _cv2_ys(path)
+    assert len(got) == len(want) == len(theirs) > 0
+    for k, (g, r) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g[0], theirs[k], err_msg=f"frame {k}")
+        for c in range(3):
+            np.testing.assert_array_equal(g[c], r[c], err_msg=f"frame {k} plane {c}")
+    return stats
+
+
+NON_IDR = {"p": {}, "refs3": {"refs": 3}, "b": {"bframes": 2}, "intra": {"intra_in_p": 100}}
+
+
+@pytest.mark.parametrize("start", [1, 2])
+@pytest.mark.parametrize("kind", sorted(NON_IDR))
+@pytest.mark.parametrize("cabac", [0, 1], ids=["cavlc", "cabac"])
+def test_h264_stream_starting_without_idr_reads_as_cv2(tmp_path, cabac, kind, start):
+    """A clip cut from a longer recording without re-encoding: it starts at
+    a non-IDR picture.  FFmpeg fills the missing references gray and
+    outputs from its recovery point on (the next IDR picture, or an I
+    picture its marking heuristic takes); cv2's count and frames."""
+    stream = h264_writer.exercise(frames=12, width=64, height=48, seed=start + 2 * cabac,
+                                  cabac=cabac, idr_every=6, **NON_IDR[kind])
+    aus = [list(au) for au in h264.access_units(h264.nal_units(stream))]
+    params = [n for n in aus[0] if n[0] & 0x1F in (7, 8)]
+    cut = [params + aus[start]] + aus[start + 1:]
+    stats = assert_reads_as_cv2(_annexb_case(tmp_path, "cut.h264", cut))
+    assert stats["idr_pictures"] == 1 and stats["unrecovered_pictures"] > 0
+
+
+def _with_ue(nal: bytes, skip_bits: int, skip_ues: int, value: int) -> bytes:
+    """A NAL unit with the Exp-Golomb field after ``skip_bits`` bits and
+    ``skip_ues`` fields of its RBSP rewritten to ``value``."""
+    bits = "".join(f"{b:08b}" for b in _unescape(nal[1:]))
+    pos = skip_bits
+
+    def ue():
+        nonlocal pos
+        z = 0
+        while bits[pos] == "0":
+            z, pos = z + 1, pos + 1
+        pos += 1 + z
+
+    for _ in range(skip_ues):
+        ue()
+    start = pos
+    ue()
+    v = value + 1
+    bits = bits[:start] + "0" * (v.bit_length() - 1) + f"{v:b}" + bits[pos:]
+    bits += "0" * (-len(bits) % 8)
+    return nal[:1] + _escape(bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8)))
+
+
+#: a parameter set FFmpeg refuses: an SPS id past 31, a PPS naming an SPS
+#: never sent, or the unit lost
+PARAM_DAMAGE = {
+    "sps-id": lambda n: _with_ue(n, 24, 0, 40) if n[0] & 0x1F == 7 else n,
+    "pps-sps-id": lambda n: _with_ue(n, 0, 1, 5) if n[0] & 0x1F == 8 else n,
+    "pps-missing": lambda n: None if n[0] & 0x1F == 8 else n,
+}
+
+
+def _params_case(tmp_path, cabac, damage, at):
+    """The exerciser's stream with its SPS and PPS sent again before the
+    second IDR picture, the units of access unit ``at`` damaged."""
+    stream = h264_writer.exercise(frames=12, width=64, height=48, seed=4, cabac=cabac,
+                                  idr_every=6)
+    aus = [list(au) for au in h264.access_units(h264.nal_units(stream))]
+    params = [n for n in aus[0] if n[0] & 0x1F in (7, 8)]
+    aus[6] = params + aus[6]
+    aus[at] = [m for m in map(PARAM_DAMAGE[damage], aus[at]) if m is not None]
+    bad = str(tmp_path / "bad.avi")
+    _mux_h264(bad, aus, 64, 48)
+    return bad
+
+
+@pytest.mark.parametrize("damage", ["sps-id", "pps-sps-id"])
+@pytest.mark.parametrize("cabac", [0, 1], ids=["cavlc", "cabac"])
+def test_h264_damaged_parameter_set_copy_is_skipped(tmp_path, cabac, damage):
+    """A copy of the SPS or PPS sent again mid-stream and damaged: FFmpeg
+    skips it and the IDR picture after it decodes with the set before; cv2
+    reads every frame."""
+    stats = assert_reads_as_cv2(_params_case(tmp_path, cabac, damage, 6))
+    assert stats["skipped_headers"] == 1 and stats["pictures"] == 12
+
+
+@pytest.mark.parametrize("damage", sorted(PARAM_DAMAGE))
+@pytest.mark.parametrize("cabac", [0, 1], ids=["cavlc", "cabac"])
+def test_h264_unreadable_first_packet_ends_the_read(tmp_path, cabac, damage):
+    """The stream's first SPS or PPS damaged or lost: no slice of the first
+    packet can be read, FFmpeg refuses the packet ("no frame!") and cv2's
+    reading ends there, before any frame, though the sets come again later
+    (FFmpeg on one thread would read on from them).  The port gives cv2's
+    none, at the container's size."""
+    bad = _params_case(tmp_path, cabac, damage, 0)
+    assert len(_cv2_ys(bad)) == 0 and len(libavformat_planes(bad)) == 6
+    with open_reader(bad) as r:
+        assert r.read_planes() is None and (r.width, r.height) == (64, 48)
+        assert r.stats()["skipped_headers"] >= 1
+
+
+@pytest.mark.parametrize("slices", [1, 3])
+@pytest.mark.parametrize("cabac", [0, 1], ids=["cavlc", "cabac"])
+def test_h264_damaged_slice_header_is_skipped(tmp_path, cabac, slices):
+    """A P picture's slice header damaged so that it names a PPS never sent:
+    FFmpeg skips the slice.  With other slices in the picture, they are
+    decoded and the skipped one is concealed, and cv2 reads on (FFmpeg's
+    one-thread planes, cv2's count, cv2's Y where the damage does not
+    reach).  A picture of one slice leaves a packet FFmpeg refuses, and
+    cv2's reading ends there: the frames before it."""
+    src = str(tmp_path / "v.avi")
+    aus = _h264(src, cabac, slices=slices, width=96, height=64, frames=8, bframes=0, seed=6)
+    k = _pick([_au_type(au) for au in aus], H264_TYPES["P"])
+    au = list(aus[k])
+    j = [i for i, n in enumerate(au) if n[0] & 0x1F in (1, 5)][-1]
+    au[j] = _with_pps_id(au[j], 7)
+    aus[k] = au
+    bad = str(tmp_path / "bad.avi")
+    _mux_h264(bad, aus, 96, 64)
+    if slices > 1:
+        stats = assert_concealed_as_ffmpeg(bad, src)
+        assert stats["skipped_headers"] == 1 and stats["concealed_mbs"] > 0
+        return
+    got, stats = _port(bad)
+    theirs, whole = _cv2_ys(bad), libavformat_planes(src)
+    assert 0 < len(got) == len(theirs) <= k and stats["skipped_headers"] == 1
+    for i, (g, t) in enumerate(zip(got, theirs)):
+        np.testing.assert_array_equal(g[0], t, err_msg=f"frame {i}")
+        for c in range(3):
+            np.testing.assert_array_equal(g[c], whole[i][c], err_msg=f"frame {i} plane {c}")
+
+
+def _vop_fields(vop: bytes, time_bits: int = 5):
+    """Bit offsets of a P-VOP's header fields (cv2's writer: no interlace,
+    ``time_bits`` of vop_time_increment)."""
+    bits = "".join(f"{b:08b}" for b in vop[:16])
+    assert bits[:32] == f"{0x1B6:032b}" and bits[32:34] == "01"
+    pos = 34
+    while bits[pos] == "1":
+        pos += 1
+    marker1 = pos + 1
+    marker2 = marker1 + 1 + time_bits
+    quant = marker2 + 1 + 1 + 1 + 3  # vop_coded, rounding, intra_dc_vlc_thr
+    assert bits[marker1] == bits[marker2] == "1" and bits[quant:quant + 5] == "00100"
+    return {"marker": marker2, "quant": quant, "fcode": quant + 5}
+
+
+def _set_bits(data: bytes, at: int, value: str) -> bytes:
+    bits = list("".join(f"{b:08b}" for b in data))
+    bits[at:at + len(value)] = value
+    s = "".join(bits)
+    return bytes(int(s[i:i + 8], 2) for i in range(0, len(s), 8))
+
+
+VOP_DAMAGE = {"quant0": ("quant", "00000"), "fcode0": ("fcode", "000"),
+              "marker": ("marker", "0")}
+
+
+@pytest.mark.parametrize("damage", sorted(VOP_DAMAGE))
+def test_mp4v_damaged_vop_header_reads_as_cv2(tmp_path, damage):
+    """A P-VOP header damaged.  vop_quant or vop_fcode_forward 0 is FFmpeg's
+    "header damaged": it refuses the packet and cv2's reading ends there,
+    with the frames before it.  A missing marker after vop_time_increment
+    only makes FFmpeg guess the field's width from the bits that follow,
+    and keep it: cv2 reads on.  cv2's count and Y, FFmpeg's planes."""
+    src = str(tmp_path / "v.avi")
+    samples, types = _mp4v_simple(src, frames=14)
+    k = [i for i, t in enumerate(types) if t == 1][3]
+    field, value = VOP_DAMAGE[damage]
+    samples[k] = _set_bits(samples[k], _vop_fields(samples[k])[field], value)
+    bad = str(tmp_path / "bad.avi")
+    _mux_mp4v(bad, samples, types, b"FMP4")
+    got, stats = _port(bad)
+    theirs = _cv2_ys(bad)
+    want = libavformat_planes(bad)[:len(theirs)]
+    assert len(got) == len(theirs) == len(want) > 0
+    for i, (g, r) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g[0], theirs[i], err_msg=f"frame {i}")
+        for c in range(3):
+            np.testing.assert_array_equal(g[c], r[c], err_msg=f"frame {i} plane {c}")
+    if damage == "marker":
+        assert stats["time_bits_guessed"] == 1
+    else:
+        assert stats["damaged_headers"] == 1 and len(got) == k
+
+
 # ------------------------------------------------------------------ 720p
 
 import conceal_clips  # noqa: E402

@@ -269,6 +269,46 @@ def test_main_writes_jax_default_names(tmp_path, small_nets, monkeypatch):
         app.main(["--display", "-i", str(src)])
 
 
+@pytest.mark.parametrize("src_suffix", [".mp4", ".h265"])
+def test_run_video_reads_hevc(tmp_path, small_nets, src_suffix):
+    """``run_video`` over an H.265 clip (a PCM IDR picture, then P pictures
+    of a quarter-sample pan by merge and AMVP) writes one drawn frame for
+    every frame cv2 reads, drawn over the port's decode, which is cv2's to
+    the bit in Y."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "video"))
+    import hevc_writer as hw
+
+    hw_ = (96, 160)
+    stream = hw.content(bgr_to_i420(_smooth(1, hw_, seed=7)[0]), n_p=3, pan=(6, -3))
+    src, out = str(tmp_path / f"clip{src_suffix}"), str(tmp_path / "clip_out.y4m")
+    if src_suffix == ".mp4":
+        hw.to_mp4(stream, src, fps=12.0)
+    else:
+        with open(src, "wb") as f:
+            f.write(stream)
+    ys = _cv2_frames_y(src)
+    assert app.run_video(src, out, device="cpu") == len(ys) == 4
+    from adas_tpu_torch.render.video import open_reader
+
+    with open_reader(src) as r:
+        # the clip's VUI timing (30 fps) or the MP4's rate
+        assert r.fps == (12.0 if src_suffix == ".mp4" else 30.0)
+        decoded = list(r.i420_frames())
+    for d, y in zip(decoded, ys):
+        np.testing.assert_array_equal(d[:hw_[0]], y)
+    from adas_tpu_torch.native.draw import i420_to_bgr
+
+    want = _loop(small_nets, hw_, [i420_to_bgr(d, *hw_) for d in decoded])
+    with Y4MReader(out) as r:
+        got = list(r.i420_frames())
+    assert len(got) == 4
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
 @pytest.mark.parametrize("src_suffix", [".mp4", ".h264"])
 def test_run_video_reads_h264(tmp_path, small_nets, src_suffix):
     """``run_video`` over an H.264 clip (an I_PCM IDR, then P pictures of a
