@@ -1,12 +1,14 @@
-// H.265 / HEVC decoder of 8-bit 4:2:0 Main-profile I and P pictures, for
-// the demo's video input (render/hevc.py).  Built with g++ into
+// H.265 / HEVC decoder of 8-bit 4:2:0 Main-profile I, P and B pictures,
+// for the demo's video input (render/hevc.py).  Built with g++ into
 // adas_tpu_torch/_build/libhevc.so at first use (native/gxx.py).
 //
 // What it decodes: NAL units from Annex B byte streams or from
 // length-prefixed samples (1, 2 or 4 bytes), with emulation prevention;
 // VPS, SPS and PPS (profile_tier_level with sub-layers, the VUI with HRD
 // parameters, the conformance window, scaling lists with their prediction,
-// st_ref_pic_set with inter-RPS prediction); I and P slice segment headers;
+// st_ref_pic_set with inter-RPS prediction); I, P and B slice segment
+// headers with both reference lists, their modification and the explicit
+// weighted prediction table;
 // POC with the MSB wrap from the previous TemporalId-0 picture; the RPS,
 // the DPB and FFmpeg's output (bumping by sps_max_num_reorder_pics and
 // sps_max_dec_pic_buffering, pic_output_flag, RASL pictures skipped after
@@ -19,15 +21,18 @@
 // offsets, scaling lists); the 35 intra modes with reference substitution,
 // constrained intra prediction, reference filtering and strong intra
 // smoothing; the 4x4 DST and the 4-32 DCT; merge (spatial, temporal and
-// zero candidates, log2_parallel_merge_level), AMVP with spatial scaling
-// and TMVP with MV scaling; the 8-tap luma and 4-tap chroma filters over
-// several reference pictures; PCM with pcm_loop_filter_disabled_flag; the
+// combined bi-predictive and zero candidates, log2_parallel_merge_level),
+// AMVP over both lists with spatial scaling and TMVP with MV scaling
+// (FFmpeg's choice of the co-located list); the 8-tap luma and 4-tap
+// chroma filters over several reference pictures to 14-bit intermediates,
+// averaged for bi-prediction or weighted explicitly (FFmpeg's
+// put_hevc_*_uni_w / *_bi_w); PCM with pcm_loop_filter_disabled_flag; the
 // deblocking filter and SAO, as FFmpeg's hevc decoder runs them (which cv2
 // runs): boundary strengths written per transform unit and coding unit as
 // FFmpeg writes them, and SAO's slice edges by the current CTB's flag.
 //
-// What it refuses, with an error that names the tool: B slices, long-term
-// reference pictures, weighted prediction, tiles, dependent slice segments,
+// What it refuses, with an error that names the tool: long-term reference
+// pictures, tiles, dependent slice segments,
 // cu_transquant_bypass, bit depths above 8 and chroma formats other than
 // 4:2:0 (the range extensions), layers above 0, and pictures of more than
 // kMaxPixels.  Damaged data decodes or raises a ValueError (FFmpeg's hevc
@@ -1234,8 +1239,18 @@ struct SliceHeader {
   int temporal_mvp = 0, sao_luma = 0, sao_chroma = 0;
   int num_long_term_pics = 0;  // written only, to make a stream a reader refuses
   int num_ref_idx_override = 0, num_ref_idx[2] = {0, 0};
-  int list_mod = 0, list_entry[16];
+  int list_mod[2] = {0, 0}, list_entry[2][16] = {};
+  int mvd_l1_zero = 0, collocated_from_l0 = 1;
   int cabac_init = 0, collocated_ref_idx = 0, max_merge_cand = 5;
+  // pred_weight_table: the syntax as coded (the writer sets it) ...
+  int luma_denom = 0, chroma_denom_delta = 0;
+  uint8_t luma_w_flag[2][16] = {}, chroma_w_flag[2][16] = {};
+  int delta_luma_w[2][16] = {}, luma_off[2][16] = {};
+  int delta_chroma_w[2][16][2] = {}, delta_chroma_off[2][16][2] = {};
+  // ... and the weights it gives (FFmpeg's luma_weight_lX, luma_offset_lX,
+  // chroma_weight_lX, chroma_offset_lX)
+  int chroma_denom = 0;
+  int lw[2][16] = {}, lo[2][16] = {}, cw[2][16][2] = {}, co[2][16][2] = {};
   int qp_delta = 0, cb_qp_offset = 0, cr_qp_offset = 0;
   int deblocking_override = 0, deblocking_disabled = 0, beta_offset_div2 = 0, tc_offset_div2 = 0;
   int loop_filter_across_slices = 0;
@@ -1245,6 +1260,47 @@ struct SliceHeader {
   const ShortTermRps* rps = nullptr;
   int num_pic_total_curr = 0, slice_qp = 26;
 };
+
+// pred_weight_table (7.3.6.3) as FFmpeg's pred_weight_table reads and
+// checks it, with the chroma offset's derivation and clip
+template <class E>
+static void pred_weight_table(E& e, SliceHeader& h) {
+  h.luma_denom = e.ue(h.luma_denom);
+  if (h.luma_denom < 0 || h.luma_denom > 7) fail("corrupt H.265 data: luma_log2_weight_denom %d", h.luma_denom);
+  h.chroma_denom_delta = e.se(h.chroma_denom_delta);
+  long cd = (long)h.luma_denom + h.chroma_denom_delta;
+  if (cd < 0 || cd > 7) fail("corrupt H.265 data: chroma_log2_weight_denom %ld", cd);
+  h.chroma_denom = (int)cd;
+  for (int l = 0; l < (h.type == SLICE_B ? 2 : 1); l++) {
+    const int n = h.num_ref_idx[l];
+    for (int i = 0; i < n; i++) h.luma_w_flag[l][i] = (uint8_t)e.u(1, h.luma_w_flag[l][i]);
+    for (int i = 0; i < n; i++) h.chroma_w_flag[l][i] = (uint8_t)e.u(1, h.chroma_w_flag[l][i]);
+    for (int i = 0; i < n; i++) {
+      h.lw[l][i] = 1 << h.luma_denom;
+      h.lo[l][i] = 0;
+      if (h.luma_w_flag[l][i]) {
+        h.delta_luma_w[l][i] = e.se(h.delta_luma_w[l][i]);
+        h.luma_off[l][i] = e.se(h.luma_off[l][i]);
+        // FFmpeg checks the weight's delta, not the offset's range
+        if (h.delta_luma_w[l][i] < -128 || h.delta_luma_w[l][i] > 127)
+          fail("corrupt H.265 data: delta_luma_weight %d", h.delta_luma_w[l][i]);
+        h.lw[l][i] += h.delta_luma_w[l][i];
+        h.lo[l][i] = (int16_t)h.luma_off[l][i];  // FFmpeg keeps it in 16 bits
+      }
+      for (int j = 0; j < 2; j++) {
+        h.cw[l][i][j] = 1 << h.chroma_denom;
+        h.co[l][i][j] = 0;
+        if (!h.chroma_w_flag[l][i]) continue;
+        int dw = h.delta_chroma_w[l][i][j] = e.se(h.delta_chroma_w[l][i][j]);
+        int doff = h.delta_chroma_off[l][i][j] = e.se(h.delta_chroma_off[l][i][j]);
+        if (dw < -128 || dw > 127 || doff < -(1 << 17) || doff > (1 << 17))
+          fail("corrupt H.265 data: delta_chroma_weight %d, delta_chroma_offset %d", dw, doff);
+        h.cw[l][i][j] += dw;
+        h.co[l][i][j] = clip3(-128, 127, doff - ((128 * h.cw[l][i][j]) >> h.chroma_denom) + 128);
+      }
+    }
+  }
+}
 
 template <class E>
 static void slice_header_syntax(E& e, SliceHeader& h, const Pps* const* pps_table, const Sps* const* sps_table,
@@ -1271,8 +1327,7 @@ static void slice_header_syntax(E& e, SliceHeader& h, const Pps* const* pps_tabl
   for (int i = 0; i < p.num_extra_bits; i++) e.u(1, 0);
   h.type = e.ue(h.type);
   if (h.type > 2) fail("corrupt H.265 data: slice_type %d", h.type);
-  if (!E::W && h.type == SLICE_B) fail("H.265 B slices are not supported");
-  if (is_irap(h.nal_type) && h.type != SLICE_I) fail("corrupt H.265 data: an IRAP picture with a P slice");
+  if (is_irap(h.nal_type) && h.type != SLICE_I) fail("corrupt H.265 data: an IRAP picture with a P or B slice");
   h.pic_output = p.output_flag_present ? e.u(1, h.pic_output) : 1;
   h.num_pic_total_curr = 0;
   h.rps = nullptr;
@@ -1311,32 +1366,47 @@ static void slice_header_syntax(E& e, SliceHeader& h, const Pps* const* pps_tabl
   }
   if (!E::W || h.type == SLICE_I) {
     h.num_ref_idx[0] = h.num_ref_idx[1] = 0;
-    h.list_mod = 0;
+    h.list_mod[0] = h.list_mod[1] = 0;
+    h.mvd_l1_zero = 0;
     h.cabac_init = 0;
+    h.collocated_from_l0 = 1;
     h.collocated_ref_idx = 0;
     h.max_merge_cand = 5;
   }
-  if (h.type == SLICE_P) {
+  if (h.type != SLICE_I) {
+    const bool b = h.type == SLICE_B;
     h.num_ref_idx_override = e.u(1, h.num_ref_idx_override);
     h.num_ref_idx[0] = h.num_ref_idx_override ? e.ue(h.num_ref_idx[0] - 1) + 1 : p.num_ref_idx_default[0];
-    if (h.num_ref_idx[0] > 15) fail("corrupt H.265 data: num_ref_idx_l0_active %d", h.num_ref_idx[0]);
-    if (!(p.lists_modification && h.num_pic_total_curr > 1)) h.list_mod = 0;
-    if (p.lists_modification && h.num_pic_total_curr > 1) {
-      h.list_mod = e.u(1, h.list_mod);
-      if (h.list_mod)
-        for (int i = 0; i < h.num_ref_idx[0]; i++) {
-          h.list_entry[i] = e.u(ceil_log2(h.num_pic_total_curr), h.list_entry[i]);
-          if (h.list_entry[i] >= h.num_pic_total_curr) fail("corrupt H.265 data: list_entry_l0 %d", h.list_entry[i]);
-        }
+    h.num_ref_idx[1] = !b ? 0 : h.num_ref_idx_override ? e.ue(h.num_ref_idx[1] - 1) + 1 : p.num_ref_idx_default[1];
+    for (int l = 0; l < 2; l++)
+      if (h.num_ref_idx[l] < (l == 0 || b) || h.num_ref_idx[l] > 15)
+        fail("corrupt H.265 data: num_ref_idx_l%d_active %d", l, h.num_ref_idx[l]);
+    // the entries are checked against the lists they index (FFmpeg's
+    // ff_hevc_slice_rpl)
+    const bool mod = p.lists_modification && h.num_pic_total_curr > 1;
+    for (int l = 0; l < 2; l++) {
+      if (!mod || (l == 1 && !b)) {
+        h.list_mod[l] = 0;
+        continue;
+      }
+      h.list_mod[l] = e.u(1, h.list_mod[l]);
+      if (h.list_mod[l])
+        for (int i = 0; i < h.num_ref_idx[l]; i++)
+          h.list_entry[l][i] = e.u(ceil_log2(h.num_pic_total_curr), h.list_entry[l][i]);
     }
+    h.mvd_l1_zero = b ? e.u(1, h.mvd_l1_zero) : 0;
     if (!p.cabac_init_present) h.cabac_init = 0;
     if (p.cabac_init_present) h.cabac_init = e.u(1, h.cabac_init);
-    if (!(h.temporal_mvp && h.num_ref_idx[0] > 1)) h.collocated_ref_idx = 0;
-    if (h.temporal_mvp && h.num_ref_idx[0] > 1) {
+    if (!b || !h.temporal_mvp) h.collocated_from_l0 = 1;
+    if (b && h.temporal_mvp) h.collocated_from_l0 = e.u(1, h.collocated_from_l0);
+    const int col_list = !h.collocated_from_l0;
+    if (!(h.temporal_mvp && h.num_ref_idx[col_list] > 1)) h.collocated_ref_idx = 0;
+    if (h.temporal_mvp && h.num_ref_idx[col_list] > 1) {
       h.collocated_ref_idx = e.ue(h.collocated_ref_idx);
-      if (h.collocated_ref_idx >= h.num_ref_idx[0]) fail("corrupt H.265 data: collocated_ref_idx %d", h.collocated_ref_idx);
+      if (h.collocated_ref_idx < 0 || h.collocated_ref_idx >= h.num_ref_idx[col_list])
+        fail("corrupt H.265 data: collocated_ref_idx %d", h.collocated_ref_idx);
     }
-    if (!E::W && p.weighted_pred) fail("H.265 weighted prediction (weighted_pred_flag) is not supported");
+    if ((p.weighted_pred && !b) || (p.weighted_bipred && b)) pred_weight_table(e, h);
     h.max_merge_cand = 5 - e.ue(5 - h.max_merge_cand);
     if (h.max_merge_cand < 1 || h.max_merge_cand > 5) fail("corrupt H.265 data: MaxNumMergeCand %d", h.max_merge_cand);
   }
@@ -1406,11 +1476,27 @@ struct Mv {
   bool operator!=(const Mv& o) const { return !(*this == o); }
 };
 
-// A prediction block's motion (list 0; pred 0: intra or none)
+// A prediction block's motion, FFmpeg's MvField: pred 0 intra or none, 1
+// list 0, 2 list 1, 3 both (PF_INTRA, PF_L0, PF_L1, PF_BI); the vector and
+// index of a list the block does not use are not read
+enum { PF_INTRA = 0, PF_L0 = 1, PF_L1 = 2, PF_BI = 3 };
 struct MvField {
-  Mv mv;
-  int8_t ref = -1;
-  uint8_t pred = 0;
+  Mv mv[2];
+  int8_t ref[2] = {-1, -1};
+  uint8_t pred = PF_INTRA;
+};
+
+// FFmpeg's compare_mv_ref_idx: the same motion in the lists both use
+static inline bool same_motion(const MvField& a, const MvField& b) {
+  if (a.pred != b.pred || a.pred == PF_INTRA) return false;
+  for (int l = 0; l < 2; l++)
+    if ((a.pred >> l & 1) && (a.mv[l] != b.mv[l] || a.ref[l] != b.ref[l])) return false;
+  return true;
+}
+
+// the POCs of a slice's two reference lists
+struct RefPocs {
+  std::vector<int> l[2];
 };
 
 enum { F_OUTPUT = 1, F_SHORT_REF = 2 };
@@ -1423,10 +1509,10 @@ struct Picture {
   bool missing = false;
   int crop[4] = {0, 0, 0, 0};  // left, right, top, bottom in luma samples
   // motion for TMVP: per 4x4 block, the slice of each CTB and each slice's
-  // list 0 (POCs)
+  // lists (POCs), as FFmpeg's rpl_tab keeps them per CTB
   std::vector<MvField> mvf;
   std::vector<int16_t> ctb_slice;
-  std::vector<std::vector<int>> slice_refs;
+  std::vector<RefPocs> slice_refs;
   void alloc(int wl, int hl) {
     w = wl;
     h = hl;
@@ -1455,9 +1541,11 @@ struct CuChoice {
 };
 
 struct PuChoice {
-  int merge = 0, merge_idx = 0, ref_idx = 0, mvp = 0;
-  int use_target = 0;  // mvd = target - the chosen predictor
-  Mv mvd, target;
+  int merge = 0, merge_idx = 0;
+  int inter_pred = 0;  // 0 list 0, 1 list 1, 2 both (inter_pred_idc)
+  int ref_idx[2] = {0, 0}, mvp[2] = {0, 0};
+  int use_target[2] = {0, 0};  // mvd = target - the chosen predictor
+  Mv mvd[2], target[2];
 };
 
 struct Policy {
@@ -1485,7 +1573,9 @@ enum Stat {
   ST_CHROMA_QP_OFFSET, ST_CIP, ST_STRONG_SMOOTHING, ST_TMVP, ST_SCALED_MV, ST_MULTI_REF, ST_MERGE_LEVEL,
   ST_DEBLOCK_OFF, ST_DEBLOCKED_EDGES, ST_SAO_BAND, ST_SAO_EDGE, ST_SAO_MERGE, ST_WPP_ROWS, ST_CABAC_INIT,
   ST_CROPPED, ST_INTER_RPS, ST_RASL_SKIPPED, ST_MISSING_REFS, ST_NOT_OUTPUT, ST_REORDER, ST_LIST_MOD,
-  ST_PCM_NO_FILTER, ST_SLICE_ACROSS_OFF, ST_DROPPED_PICTURES, ST_CIP_BLOCKS, ST_COUNT
+  ST_PCM_NO_FILTER, ST_SLICE_ACROSS_OFF, ST_DROPPED_PICTURES, ST_CIP_BLOCKS, ST_B_SLICES, ST_BI_PUS,
+  ST_L1_PUS, ST_COMBINED_BI, ST_TMVP_L1, ST_COL_FROM_L1, ST_MVD_L1_ZERO, ST_LIST_MOD_L1, ST_BI_TO_L0,
+  ST_WEIGHTED_PUS, ST_WEIGHTED_SLICES, ST_ZERO_MERGE_B, ST_COUNT
 };
 
 enum { PART_2Nx2N, PART_2NxN, PART_Nx2N, PART_NxN, PART_2NxnU, PART_2NxnD, PART_nLx2N, PART_nRx2N };
@@ -1535,10 +1625,13 @@ struct Decoder {
   int cu_intra = 0, cu_part = 0, cu_pcm = 0, cu_skip = 0, cu_merge2nx2n = 0, intra_split = 0, max_trafo_depth = 0;
   int pu_luma_mode[4] = {1, 1, 1, 1}, pu_chroma_mode = 1, tu_luma_mode = 1;
 
-  // the reference pictures of the current slice (list 0)
-  std::vector<Picture*> ref_list;
-  std::vector<int> ref_poc;
+  // the reference pictures of the current slice's lists, their POCs, and
+  // the co-located picture
+  std::vector<Picture*> ref_list[2];
+  RefPocs ref_poc;
   Picture* col_pic = nullptr;
+  int cu_depth = 0;  // CtDepth of the current coding unit
+  bool weighted = false;  // explicit weights for the slice's type (the PPS's flag)
 
   // ---------------------------------------------------------------- helpers
 
@@ -1833,6 +1926,7 @@ struct Decoder {
   template <class E>
   void coding_unit(E& e, int x0, int y0, int log2, int depth) {
     int n = 1 << log2;
+    cu_depth = depth;
     CuChoice ch;
     if (E::W) {
       MvField mc[5];
@@ -2002,24 +2096,40 @@ struct Decoder {
     return {s(m.x), s(m.y)};
   }
 
-  // the collocated motion (8.5.3.2.8, FFmpeg's temporal_luma_motion_vector)
-  bool tmvp(int x0, int y0, int w, int h, int ref_idx, Mv& out) {
+  // the collocated motion of the target list X (8.5.3.2.8, FFmpeg's
+  // temporal_luma_motion_vector and derive_temporal_colocated_mvs): the
+  // co-located block's own slice's lists give its references; of a
+  // bi-predicted block, list X when no reference of the current slice
+  // follows the current picture (NoBackwardPredFlag), else the list
+  // collocated_from_l0_flag names
+  bool tmvp(int x0, int y0, int w, int h, int ref_idx, int X, Mv& out) {
     if (!col_pic || col_pic->missing) return false;
     auto col = [&](int x, int y) -> bool {
       x &= ~15;
       y &= ~15;
       const MvField& f = col_pic->mvf[at4(x, y)];
-      if (!f.pred) return false;
+      if (f.pred == PF_INTRA) return false;
+      int l;
+      if (!(f.pred & PF_L0)) {
+        l = 1;
+      } else if (f.pred == PF_L0) {
+        l = 0;
+      } else {
+        bool backward = false;
+        for (int j = 0; j < 2; j++)
+          for (int poc : ref_poc.l[j]) backward |= poc > cur->poc;
+        l = !backward ? X : sh.collocated_from_l0 ? 1 : 0;
+      }
       int si = col_pic->ctb_slice[(size_t)ctb_of(x, y)];
       if (si < 0 || si >= (int)col_pic->slice_refs.size()) return false;
-      const std::vector<int>& refs = col_pic->slice_refs[(size_t)si];
-      if (f.ref < 0 || f.ref >= (int)refs.size()) return false;
-      int col_diff = col_pic->poc - refs[(size_t)f.ref];
-      int cur_diff = cur->poc - ref_poc[(size_t)ref_idx];
+      const std::vector<int>& refs = col_pic->slice_refs[(size_t)si].l[l];
+      if (f.ref[l] < 0 || f.ref[l] >= (int)refs.size()) return false;
+      int col_diff = col_pic->poc - refs[(size_t)f.ref[l]];
+      int cur_diff = cur->poc - ref_poc.l[X][(size_t)ref_idx];
       if (col_diff == cur_diff || !col_diff)
-        out = f.mv;
+        out = f.mv[l];
       else {
-        out = scale_mv(f.mv, col_diff, cur_diff);
+        out = scale_mv(f.mv[l], col_diff, cur_diff);
         stats[ST_SCALED_MV]++;
       }
       return true;
@@ -2029,7 +2139,12 @@ struct Decoder {
     return col(x0 + (w >> 1), y0 + (h >> 1));
   }
 
-  // the merge candidates of a prediction block (8.5.3.2.2-5), list 0
+  // what each merge candidate of the last list is (the counters')
+  enum { MC_SPATIAL, MC_TEMPORAL, MC_COMBINED, MC_ZERO };
+  int merge_kind[5] = {0, 0, 0, 0, 0};
+
+  // the merge candidates of a prediction block (8.5.3.2.2-5, FFmpeg's
+  // derive_spatial_merge_candidates)
   int merge_candidates(int xCb, int yCb, int nCbS, int xPb, int yPb, int nPbW, int nPbH, int part_idx, int part,
                        MvField* out) {
     if (ap.log2_parallel_merge > 2 && nCbS == 8) {
@@ -2044,68 +2159,98 @@ struct Decoder {
       return avail_pb(xCb, yCb, nCbS, xPb, yPb, nPbW, nPbH, part_idx, xn, yn);
     };
     auto mf = [&](int x, int y) -> const MvField& { return cur->mvf[at4(x, y)]; };
-    auto same = [&](int xa, int ya, int xb, int yb) {
-      const MvField &a = mf(xa, ya), &b = mf(xb, yb);
-      return a.mv == b.mv && a.ref == b.ref;
-    };
+    auto same = [&](int xa, int ya, int xb, int yb) { return same_motion(mf(xa, ya), mf(xb, yb)); };
     int n = 0;
+    auto add = [&](const MvField& f, int kind) {
+      merge_kind[n] = kind;
+      out[n++] = f;
+    };
     const int xA1 = xPb - 1, yA1 = yPb + nPbH - 1, xB1 = xPb + nPbW - 1, yB1 = yPb - 1;
     const int xB0 = xPb + nPbW, yB0 = yPb - 1, xA0 = xPb - 1, yA0 = yPb + nPbH, xB2 = xPb - 1, yB2 = yPb - 1;
     bool a1 = ok(xA1, yA1) &&
               !(part_idx == 1 && (part == PART_Nx2N || part == PART_nLx2N || part == PART_nRx2N));
-    if (a1) out[n++] = mf(xA1, yA1);
+    if (a1) add(mf(xA1, yA1), MC_SPATIAL);
     bool b1 = ok(xB1, yB1) &&
               !(part_idx == 1 && (part == PART_2NxN || part == PART_2NxnU || part == PART_2NxnD));
-    if (b1 && !(a1 && same(xA1, yA1, xB1, yB1))) out[n++] = mf(xB1, yB1);
+    if (b1 && !(a1 && same(xA1, yA1, xB1, yB1))) add(mf(xB1, yB1), MC_SPATIAL);
     bool b0 = ok(xB0, yB0);
-    if (b0 && !(b1 && same(xB1, yB1, xB0, yB0))) out[n++] = mf(xB0, yB0);
+    if (b0 && !(b1 && same(xB1, yB1, xB0, yB0))) add(mf(xB0, yB0), MC_SPATIAL);
     bool a0 = ok(xA0, yA0);
-    if (a0 && !(a1 && same(xA1, yA1, xA0, yA0))) out[n++] = mf(xA0, yA0);
+    if (a0 && !(a1 && same(xA1, yA1, xA0, yA0))) add(mf(xA0, yA0), MC_SPATIAL);
     bool b2 = ok(xB2, yB2);
     if (b2 && !(a1 && same(xA1, yA1, xB2, yB2)) && !(b1 && same(xB1, yB1, xB2, yB2)) && n != 4)
-      out[n++] = mf(xB2, yB2);
+      add(mf(xB2, yB2), MC_SPATIAL);
+    const bool b = sh.type == SLICE_B;
     if (sh.temporal_mvp && n < sh.max_merge_cand) {
-      Mv m;
-      if (tmvp(xPb, yPb, nPbW, nPbH, 0, m)) {
-        out[n].mv = m;
-        out[n].ref = 0;
-        out[n].pred = 1;
-        n++;
-        stats[ST_TMVP]++;
+      MvField t;
+      bool l0 = tmvp(xPb, yPb, nPbW, nPbH, 0, 0, t.mv[0]);
+      bool l1 = b && tmvp(xPb, yPb, nPbW, nPbH, 0, 1, t.mv[1]);
+      if (l0 || l1) {
+        t.pred = (uint8_t)(l0 + 2 * l1);
+        t.ref[0] = t.ref[1] = 0;
+        add(t, MC_TEMPORAL);
       }
     }
-    for (int z = 0; n < sh.max_merge_cand; z++, n++) {
-      out[n].mv = Mv();
-      out[n].ref = (int8_t)(z < sh.num_ref_idx[0] ? z : 0);
-      out[n].pred = 1;
+    // the combined bi-predictive candidates (8.5.3.2.4)
+    static const int kComb[12][2] = {{0, 1}, {1, 0}, {0, 2}, {2, 0}, {1, 2}, {2, 1},
+                                     {0, 3}, {3, 0}, {1, 3}, {3, 1}, {2, 3}, {3, 2}};
+    const int orig = n;
+    if (b && orig > 1 && orig < sh.max_merge_cand)
+      for (int c = 0; n < sh.max_merge_cand && c < orig * (orig - 1); c++) {
+        const MvField &p0 = out[kComb[c][0]], &p1 = out[kComb[c][1]];
+        if ((p0.pred & PF_L0) && (p1.pred & PF_L1) &&
+            (ref_poc.l[0][(size_t)p0.ref[0]] != ref_poc.l[1][(size_t)p1.ref[1]] || p0.mv[0] != p1.mv[1])) {
+          MvField f;
+          f.pred = PF_BI;
+          f.ref[0] = p0.ref[0];
+          f.ref[1] = p1.ref[1];
+          f.mv[0] = p0.mv[0];
+          f.mv[1] = p1.mv[1];
+          add(f, MC_COMBINED);
+        }
+      }
+    const int nb_refs = b ? std::min(sh.num_ref_idx[0], sh.num_ref_idx[1]) : sh.num_ref_idx[0];
+    for (int z = 0; n < sh.max_merge_cand; z++) {
+      MvField f;
+      f.pred = b ? PF_BI : PF_L0;
+      f.ref[0] = f.ref[1] = (int8_t)(z < nb_refs ? z : 0);
+      add(f, MC_ZERO);
     }
     return std::min(n, sh.max_merge_cand);
   }
 
-  // the two motion vector predictors (8.5.3.2.6-7, FFmpeg's order)
-  void amvp(int xCb, int yCb, int nCbS, int xPb, int yPb, int nPbW, int nPbH, int part_idx, int ref, Mv* cand) {
+  // the two motion vector predictors of list X (8.5.3.2.6-7, FFmpeg's
+  // ff_hevc_luma_mv_mvp_mode): each neighbour looked up in list X, then
+  // in the other list, by POC, then scaled
+  void amvp(int xCb, int yCb, int nCbS, int xPb, int yPb, int nPbW, int nPbH, int part_idx, int X, int ref,
+            Mv* cand) {
     auto okb = [&](int xn, int yn) { return avail_pb(xCb, yCb, nCbS, xPb, yPb, nPbW, nPbH, part_idx, xn, yn); };
     auto mf = [&](int x, int y) -> const MvField& { return cur->mvf[at4(x, y)]; };
-    const int want_poc = ref_poc[(size_t)ref];
+    const int want_poc = ref_poc.l[X][(size_t)ref];
+    const int lists[2] = {X, 1 - X};
     auto mx = [&](int x, int y, Mv& m) {
       const MvField& f = mf(x, y);
-      if (f.pred && ref_poc[(size_t)f.ref] == want_poc) {
-        m = f.mv;
-        return true;
-      }
+      for (int l : lists)
+        if ((f.pred >> l & 1) && ref_poc.l[l][(size_t)f.ref[l]] == want_poc) {
+          m = f.mv[l];
+          return true;
+        }
       return false;
     };
     auto mx_scaled = [&](int x, int y, Mv& m) {
       const MvField& f = mf(x, y);
-      if (!f.pred) return false;
-      m = f.mv;
-      int rp = ref_poc[(size_t)f.ref];
-      if (rp != want_poc) {
-        int d = cur->poc - rp;
-        m = scale_mv(m, d ? d : 1, cur->poc - want_poc);
-        stats[ST_SCALED_MV]++;
+      for (int l : lists) {
+        if (!(f.pred >> l & 1)) continue;
+        m = f.mv[l];
+        int rp = ref_poc.l[l][(size_t)f.ref[l]];
+        if (rp != want_poc) {
+          int d = cur->poc - rp;
+          m = scale_mv(m, d ? d : 1, cur->poc - want_poc);
+          stats[ST_SCALED_MV]++;
+        }
+        return true;
       }
-      return true;
+      return false;
     };
     const int xA0 = xPb - 1, yA0 = yPb + nPbH, xA1 = xPb - 1, yA1 = yPb + nPbH - 1;
     bool a0 = okb(xA0, yA0), a1 = okb(xA1, yA1);
@@ -2137,9 +2282,10 @@ struct Decoder {
     if (fb && (!fa || mA != mB)) cand[n++] = mB;
     if (n < 2 && sh.temporal_mvp) {
       Mv m;
-      if (tmvp(xPb, yPb, nPbW, nPbH, ref, m)) {
+      if (tmvp(xPb, yPb, nPbW, nPbH, ref, X, m)) {
         cand[n++] = m;
         stats[ST_TMVP]++;
+        if (X) stats[ST_TMVP_L1]++;
       }
     }
   }
@@ -2180,35 +2326,78 @@ struct Decoder {
       int n = merge_candidates(xCb, yCb, nCbS, xPb, yPb, w, h, part_idx, cu_part, mc);
       if (idx >= n) fail("corrupt H.265 data: merge_idx %d", idx);
       f = mc[idx];
+      if (merge_kind[idx] == MC_TEMPORAL) {
+        stats[ST_TMVP]++;
+        if (f.pred & PF_L1) stats[ST_TMVP_L1]++;
+      } else if (merge_kind[idx] == MC_COMBINED) {
+        stats[ST_COMBINED_BI]++;
+      } else if (merge_kind[idx] == MC_ZERO && sh.type == SLICE_B) {
+        stats[ST_ZERO_MERGE_B]++;
+      }
+      // an 8x4 or 4x8 block is not bi-predicted
+      if (f.pred == PF_BI && w + h == 12) {
+        f.pred = PF_L0;
+        stats[ST_BI_TO_L0]++;
+      }
       if (part_idx == 0) cu_merge2nx2n = 1;
       stats[ST_MERGE]++;
       if (ap.log2_parallel_merge > 2) stats[ST_MERGE_LEVEL]++;
     } else {
-      int ref = 0, cmax = sh.num_ref_idx[0] - 1;
-      while (ref < cmax) {
-        int b = ref < 2 ? e.bin(C_REF_IDX + ref, pc.ref_idx > ref) : e.byp(pc.ref_idx > ref);
-        if (!b) break;
-        ref++;
+      int pred = PF_L0;
+      if (sh.type == SLICE_B) {  // inter_pred_idc
+        int idc;
+        if (w + h == 12)
+          idc = e.bin(C_INTER_PRED + 4, pc.inter_pred == 1);
+        else if (e.bin(C_INTER_PRED + cu_depth, pc.inter_pred == 2))
+          idc = 2;
+        else
+          idc = e.bin(C_INTER_PRED + 4, pc.inter_pred == 1);
+        pred = idc + 1;
       }
-      Mv cand[2];
-      amvp(xCb, yCb, nCbS, xPb, yPb, w, h, part_idx, ref, cand);
-      Mv want = pc.mvd;
-      if (E::W && pc.use_target)
-        want = {(int16_t)(pc.target.x - cand[pc.mvp].x), (int16_t)(pc.target.y - cand[pc.mvp].y)};
-      int gx = e.bin(C_MVD_GT0, want.x != 0), gy = e.bin(C_MVD_GT0, want.y != 0);
-      int g1x = gx ? e.bin(C_MVD_GT1, std::abs(want.x) > 1) : 0;
-      int g1y = gy ? e.bin(C_MVD_GT1, std::abs(want.y) > 1) : 0;
-      int dx = mvd_component(e, gx, g1x, want.x), dy = mvd_component(e, gy, g1y, want.y);
-      int mvp = e.bin(C_MVP_FLAG, pc.mvp);
-      f.mv.x = (int16_t)(uint16_t)(cand[mvp].x + dx);
-      f.mv.y = (int16_t)(uint16_t)(cand[mvp].y + dy);
-      f.ref = (int8_t)ref;
-      f.pred = 1;
+      f.pred = (uint8_t)pred;
+      for (int X = 0; X < 2; X++) {
+        if (!(pred >> X & 1)) continue;
+        int ref = 0, cmax = sh.num_ref_idx[X] - 1;
+        while (ref < cmax) {
+          int b = ref < 2 ? e.bin(C_REF_IDX + ref, pc.ref_idx[X] > ref) : e.byp(pc.ref_idx[X] > ref);
+          if (!b) break;
+          ref++;
+        }
+        Mv cand[2];
+        amvp(xCb, yCb, nCbS, xPb, yPb, w, h, part_idx, X, ref, cand);
+        int dx = 0, dy = 0;
+        if (X == 1 && sh.mvd_l1_zero && pred == PF_BI) {
+          stats[ST_MVD_L1_ZERO]++;
+        } else {
+          Mv want = pc.mvd[X];
+          if (E::W && pc.use_target[X])
+            want = {(int16_t)(pc.target[X].x - cand[pc.mvp[X]].x), (int16_t)(pc.target[X].y - cand[pc.mvp[X]].y)};
+          int gx = e.bin(C_MVD_GT0, want.x != 0), gy = e.bin(C_MVD_GT0, want.y != 0);
+          int g1x = gx ? e.bin(C_MVD_GT1, std::abs(want.x) > 1) : 0;
+          int g1y = gy ? e.bin(C_MVD_GT1, std::abs(want.y) > 1) : 0;
+          dx = mvd_component(e, gx, g1x, want.x);
+          dy = mvd_component(e, gy, g1y, want.y);
+        }
+        int mvp = e.bin(C_MVP_FLAG, pc.mvp[X]);
+        f.mv[X].x = (int16_t)(uint16_t)(cand[mvp].x + dx);
+        f.mv[X].y = (int16_t)(uint16_t)(cand[mvp].y + dy);
+        f.ref[X] = (int8_t)ref;
+      }
       stats[ST_AMVP]++;
     }
-    if (f.ref > 0) stats[ST_MULTI_REF]++;
-    if (f.ref >= (int)ref_list.size() || !ref_list[(size_t)f.ref])
-      fail("corrupt H.265 data: a reference index past the reference list");
+    if (f.pred == PF_BI)
+      stats[ST_BI_PUS]++;
+    else if (f.pred == PF_L1)
+      stats[ST_L1_PUS]++;
+    bool explicit_weights = false;
+    for (int X = 0; X < 2; X++) {
+      if (!(f.pred >> X & 1)) continue;
+      if (f.ref[X] > 0) stats[ST_MULTI_REF]++;
+      if (f.ref[X] < 0 || f.ref[X] >= (int)ref_list[X].size() || !ref_list[X][(size_t)f.ref[X]])
+        fail("corrupt H.265 data: a reference index past the reference list");
+      explicit_weights |= weighted && (sh.luma_w_flag[X][f.ref[X]] || sh.chroma_w_flag[X][f.ref[X]]);
+    }
+    if (explicit_weights) stats[ST_WEIGHTED_PUS]++;
     for (int y = yPb; y < yPb + h; y += 4)
       for (int x = xPb; x < xPb + w; x += 4) cur->mvf[at4(x, y)] = f;
     predict_inter(xPb, yPb, w, h, f);
@@ -2216,80 +2405,76 @@ struct Decoder {
 
   // ---------------------------------------------------------------- inter prediction
 
-  // 8.5.3.3: the 8-tap luma and 4-tap chroma filters, 14-bit intermediates,
-  // references clamped at the picture's edges, the default weighting
+  // 8.5.3.3.3, FFmpeg's put_hevc_qpel / put_hevc_epel: the 14-bit
+  // intermediate of a w x h block of component c (luma 8-tap at quarter
+  // samples, chroma 4-tap at eighth samples), references clamped at the
+  // picture's edges
+  void mc_block(const Picture* ref, int c, Mv mv, int x0, int y0, int w, int h, int16_t* out) const {
+    const int taps = c ? 4 : 8, before = c ? 1 : 3, fbits = c ? 3 : 2;
+    const int pw = c ? W / 2 : W, ph = c ? H / 2 : H;
+    const int fx = mv.x & ((1 << fbits) - 1), fy = mv.y & ((1 << fbits) - 1);
+    const int bx = x0 + (mv.x >> fbits), by = y0 + (mv.y >> fbits);
+    const uint8_t* src = c == 0 ? ref->y.data() : c == 1 ? ref->u.data() : ref->v.data();
+    const int8_t* cx = c ? kChromaFilter[fx] : kLumaFilter[fx];
+    const int8_t* cy = c ? kChromaFilter[fy] : kLumaFilter[fy];
+    auto at = [&](int x, int y) { return (int)src[(size_t)clip3(0, ph - 1, y) * pw + clip3(0, pw - 1, x)]; };
+    int tmp[(64 + 7) * 64];
+    for (int y = -before; y < h + taps - before - 1; y++)
+      for (int x = 0; x < w; x++) {
+        int s = 0;
+        if (fx) {
+          for (int i = 0; i < taps; i++) s += cx[i] * at(bx + x + i - before, by + y);
+        } else {
+          s = at(bx + x, by + y) << 6;
+        }
+        tmp[(size_t)(y + before) * w + x] = s;
+      }
+    for (int y = 0; y < h; y++)
+      for (int x = 0; x < w; x++) {
+        int v;
+        if (fy) {
+          int s = 0;
+          if (fx) {
+            for (int i = 0; i < taps; i++) s += cy[i] * tmp[(size_t)(y + i) * w + x];
+            v = s >> 6;
+          } else {
+            for (int i = 0; i < taps; i++) s += cy[i] * at(bx + x, by + y + i - before);
+            v = s;
+          }
+        } else {
+          v = tmp[(size_t)(y + before) * w + x];
+        }
+        out[(size_t)y * w + x] = (int16_t)v;
+      }
+  }
+
+  // the prediction of a block from its one or two lists: the default
+  // weighting (FFmpeg's *_uni, *_bi), or under weighted_pred_flag /
+  // weighted_bipred_flag the explicit one (*_uni_w, *_bi_w)
   void predict_inter(int xPb, int yPb, int w, int h, const MvField& f) {
-    const Picture* ref = ref_list[(size_t)f.ref];
-    int16_t tmp[(64 + 7) * 64];
-    // luma
-    {
-      int fx = f.mv.x & 3, fy = f.mv.y & 3;
-      int bx = xPb + (f.mv.x >> 2), by = yPb + (f.mv.y >> 2);
-      const uint8_t* src = ref->y.data();
-      auto at = [&](int x, int y) { return (int)src[(size_t)clip3(0, H - 1, y) * W + clip3(0, W - 1, x)]; };
-      for (int y = -3; y < h + 4; y++)
-        for (int x = 0; x < w; x++) {
-          int s = 0;
-          if (fx) {
-            for (int i = 0; i < 8; i++) s += kLumaFilter[fx][i] * at(bx + x + i - 3, by + y);
-          } else {
-            s = at(bx + x, by + y) << 6;
-          }
-          tmp[(size_t)(y + 3) * w + x] = (int16_t)s;
-        }
-      uint8_t* dst = cur->y.data();
-      for (int y = 0; y < h; y++)
-        for (int x = 0; x < w; x++) {
+    int16_t a[64 * 64], b[64 * 64];
+    const bool bi = f.pred == PF_BI;
+    const int la = f.pred == PF_L1 ? 1 : 0;
+    const int ra = f.ref[la], rb = bi ? f.ref[1] : 0;
+    for (int c = 0; c < 3; c++) {
+      const int sx = c ? 1 : 0, pw = W >> sx, x0 = xPb >> sx, y0 = yPb >> sx, bw = w >> sx, bh = h >> sx;
+      mc_block(ref_list[la][(size_t)ra], c, f.mv[la], x0, y0, bw, bh, a);
+      if (bi) mc_block(ref_list[1][(size_t)rb], c, f.mv[1], x0, y0, bw, bh, b);
+      uint8_t* dst = (c == 0 ? cur->y.data() : c == 1 ? cur->u.data() : cur->v.data()) + (size_t)y0 * pw + x0;
+      const int denom = c ? sh.chroma_denom : sh.luma_denom;
+      const int w0 = c ? sh.cw[la][ra][c - 1] : sh.lw[la][ra], o0 = c ? sh.co[la][ra][c - 1] : sh.lo[la][ra];
+      const int w1 = c ? sh.cw[1][rb][c - 1] : sh.lw[1][rb], o1 = c ? sh.co[1][rb][c - 1] : sh.lo[1][rb];
+      for (int y = 0; y < bh; y++)
+        for (int x = 0; x < bw; x++) {
+          const int k = y * bw + x, p = a[k];
           int v;
-          if (fy) {
-            int s = 0;
-            if (fx) {
-              for (int i = 0; i < 8; i++) s += kLumaFilter[fy][i] * tmp[(size_t)(y + i) * w + x];
-              v = s >> 6;
-            } else {
-              for (int i = 0; i < 8; i++) s += kLumaFilter[fy][i] * at(bx + x, by + y + i - 3);
-              v = s;
-            }
-          } else {
-            v = tmp[(size_t)(y + 3) * w + x];
-          }
-          dst[(size_t)(yPb + y) * W + xPb + x] = clip1((v + 32) >> 6);
-        }
-    }
-    // chroma
-    int cw = w / 2, ch = h / 2, xc = xPb / 2, yc = yPb / 2, Wc = W / 2, Hc = H / 2;
-    int fx = f.mv.x & 7, fy = f.mv.y & 7;
-    int bx = xc + (f.mv.x >> 3), by = yc + (f.mv.y >> 3);
-    for (int c = 0; c < 2; c++) {
-      const uint8_t* src = c ? ref->v.data() : ref->u.data();
-      uint8_t* dst = c ? cur->v.data() : cur->u.data();
-      auto at = [&](int x, int y) { return (int)src[(size_t)clip3(0, Hc - 1, y) * Wc + clip3(0, Wc - 1, x)]; };
-      for (int y = -1; y < ch + 2; y++)
-        for (int x = 0; x < cw; x++) {
-          int s = 0;
-          if (fx) {
-            for (int i = 0; i < 4; i++) s += kChromaFilter[fx][i] * at(bx + x + i - 1, by + y);
-          } else {
-            s = at(bx + x, by + y) << 6;
-          }
-          tmp[(size_t)(y + 1) * cw + x] = (int16_t)s;
-        }
-      for (int y = 0; y < ch; y++)
-        for (int x = 0; x < cw; x++) {
-          int v;
-          if (fy) {
-            int s = 0;
-            if (fx) {
-              for (int i = 0; i < 4; i++) s += kChromaFilter[fy][i] * tmp[(size_t)(y + i) * cw + x];
-              v = s >> 6;
-            } else {
-              for (int i = 0; i < 4; i++) s += kChromaFilter[fy][i] * at(bx + x, by + y + i - 1);
-              v = s;
-            }
-          } else {
-            v = tmp[(size_t)(y + 1) * cw + x];
-          }
-          dst[(size_t)(yc + y) * Wc + xc + x] = clip1((v + 32) >> 6);
+          if (!bi)
+            v = weighted ? ((p * w0 + (1 << (denom + 5))) >> (denom + 6)) + o0 : (p + 32) >> 6;
+          else if (!weighted)
+            v = (p + b[k] + 64) >> 7;
+          else
+            v = (b[k] * w1 + p * w0 + (o0 + o1 + 1) * (1 << (denom + 6))) >> (denom + 7);
+          dst[(size_t)y * pw + x] = clip1(v);
         }
     }
   }
@@ -2968,11 +3153,30 @@ struct Decoder {
 
   // ---------------------------------------------------------------- deblocking
 
-  // FFmpeg's boundary_strength of two inter blocks (list 0)
-  int bs_motion(const MvField& p, const MvField& q, const std::vector<int>& refs_p) const {
-    int rp = refs_p[(size_t)p.ref], rq = ref_poc[(size_t)q.ref];
-    if (rp != rq) return 1;
-    return std::abs(p.mv.x - q.mv.x) >= 4 || std::abs(p.mv.y - q.mv.y) >= 4;
+  // FFmpeg's boundary_strength of two inter blocks: the current block `c`
+  // with the current slice's lists, its neighbour `n` with those of the
+  // neighbour's slice; the same reference pictures by POC, both pairings of
+  // two vectors, 4 quarter samples apart
+  int bs_motion(const MvField& c, const MvField& n, const RefPocs& nr) const {
+    const RefPocs& cr = ref_poc;
+    auto far = [](Mv a, Mv b) { return std::abs(a.x - b.x) >= 4 || std::abs(a.y - b.y) >= 4; };
+    auto poc = [](const RefPocs& r, int l, int i) {
+      return i >= 0 && i < (int)r.l[l].size() ? r.l[l][(size_t)i] : INT_MIN + l;
+    };
+    if (c.pred == PF_BI && n.pred == PF_BI) {
+      int c0 = poc(cr, 0, c.ref[0]), c1 = poc(cr, 1, c.ref[1]), n0 = poc(nr, 0, n.ref[0]), n1 = poc(nr, 1, n.ref[1]);
+      if (c0 == n0 && c0 == c1 && n0 == n1)
+        return (far(n.mv[0], c.mv[0]) || far(n.mv[1], c.mv[1])) && (far(n.mv[1], c.mv[0]) || far(n.mv[0], c.mv[1]));
+      if (n0 == c0 && n1 == c1) return far(n.mv[0], c.mv[0]) || far(n.mv[1], c.mv[1]);
+      if (n1 == c0 && n0 == c1) return far(n.mv[1], c.mv[0]) || far(n.mv[0], c.mv[1]);
+      return 1;
+    }
+    if (c.pred != PF_BI && n.pred != PF_BI) {
+      int lc = c.pred & PF_L0 ? 0 : 1, ln = n.pred & PF_L0 ? 0 : 1;
+      if (poc(cr, lc, c.ref[lc]) != poc(nr, ln, n.ref[ln])) return 1;
+      return far(c.mv[lc], n.mv[ln]);
+    }
+    return 1;
   }
 
   // FFmpeg's ff_hevc_deblocking_boundary_strengths for a transform unit
@@ -2981,12 +3185,12 @@ struct Decoder {
   void deblock_bs(int x0, int y0, int log2) {
     const int n = 1 << log2;
     const bool intra = intra4[at4(x0, y0)];
-    const std::vector<int>& own = ref_poc;
+    const RefPocs& own = ref_poc;
     bool up = y0 > 0 && !(y0 & 7);
     bool upper_slice = up && !(y0 & (ctb - 1)) && ctb_slice_addr[(size_t)ctb_of(x0, y0 - 1)] != slice_addr;
     if (up && !sh.loop_filter_across_slices && upper_slice) up = false;
     if (up) {
-      const std::vector<int>& refs = upper_slice ? cur->slice_refs[(size_t)cur->ctb_slice[(size_t)ctb_of(x0, y0 - 1)]] : own;
+      const RefPocs& refs = upper_slice ? cur->slice_refs[(size_t)cur->ctb_slice[(size_t)ctb_of(x0, y0 - 1)]] : own;
       for (int i = 0; i < n; i += 4) {
         const MvField &t = cur->mvf[at4(x0 + i, y0 - 1)], &c = cur->mvf[at4(x0 + i, y0)];
         int b;
@@ -2995,7 +3199,7 @@ struct Decoder {
         else if (cbf4[at4(x0 + i, y0)] || cbf4[at4(x0 + i, y0 - 1)])
           b = 1;
         else
-          b = bs_motion(t, c, refs);
+          b = bs_motion(c, t, refs);
         hbs[at4(x0 + i, y0)] = (uint8_t)b;
       }
     }
@@ -3003,7 +3207,7 @@ struct Decoder {
     bool left_slice = left && !(x0 & (ctb - 1)) && ctb_slice_addr[(size_t)ctb_of(x0 - 1, y0)] != slice_addr;
     if (left && !sh.loop_filter_across_slices && left_slice) left = false;
     if (left) {
-      const std::vector<int>& refs = left_slice ? cur->slice_refs[(size_t)cur->ctb_slice[(size_t)ctb_of(x0 - 1, y0)]] : own;
+      const RefPocs& refs = left_slice ? cur->slice_refs[(size_t)cur->ctb_slice[(size_t)ctb_of(x0 - 1, y0)]] : own;
       for (int i = 0; i < n; i += 4) {
         const MvField &l = cur->mvf[at4(x0 - 1, y0 + i)], &c = cur->mvf[at4(x0, y0 + i)];
         int b;
@@ -3012,17 +3216,17 @@ struct Decoder {
         else if (cbf4[at4(x0, y0 + i)] || cbf4[at4(x0 - 1, y0 + i)])
           b = 1;
         else
-          b = bs_motion(l, c, refs);
+          b = bs_motion(c, l, refs);
         vbs[at4(x0, y0 + i)] = (uint8_t)b;
       }
     }
     if (log2 > as.log2_min_cb - 1 && !intra) {
       for (int j = 8; j < n; j += 8)
         for (int i = 0; i < n; i += 4)
-          hbs[at4(x0 + i, y0 + j)] = (uint8_t)bs_motion(cur->mvf[at4(x0 + i, y0 + j - 1)], cur->mvf[at4(x0 + i, y0 + j)], own);
+          hbs[at4(x0 + i, y0 + j)] = (uint8_t)bs_motion(cur->mvf[at4(x0 + i, y0 + j)], cur->mvf[at4(x0 + i, y0 + j - 1)], own);
       for (int j = 0; j < n; j += 4)
         for (int i = 8; i < n; i += 8)
-          vbs[at4(x0 + i, y0 + j)] = (uint8_t)bs_motion(cur->mvf[at4(x0 + i - 1, y0 + j)], cur->mvf[at4(x0 + i, y0 + j)], own);
+          vbs[at4(x0 + i, y0 + j)] = (uint8_t)bs_motion(cur->mvf[at4(x0 + i, y0 + j)], cur->mvf[at4(x0 + i - 1, y0 + j)], own);
     }
   }
 
@@ -3306,6 +3510,7 @@ struct Decoder {
   int next_id = 0;
   int poc_tid0 = 0, max_ra = INT_MAX, eos = 0, last_eos = 0, no_rasl_output = 0;
   bool skipping = false;  // the current picture is a RASL picture FFmpeg skips
+  int last_poc = 0;       // the POC of the last picture started
   struct Frame {
     int w, h;
     std::vector<uint8_t> data;  // I420, cropped
@@ -3456,6 +3661,7 @@ struct Decoder {
     cur = nullptr;
     cur = new_picture();
     cur->poc = poc;
+    last_poc = poc;
     cur->flags = (sh.pic_output ? F_OUTPUT : 0) | F_SHORT_REF;
     if (!sh.pic_output) stats[ST_NOT_OUTPUT]++;
     cur->crop[0] = 2 * s.conf_left;
@@ -3584,39 +3790,53 @@ struct Decoder {
     slice_index++;
     last_beta_div2 = sh.beta_offset_div2;
     last_tc_div2 = sh.tc_offset_div2;
-    stats[sh.type == SLICE_I ? ST_I_SLICES : ST_P_SLICES]++;
+    stats[sh.type == SLICE_I ? ST_I_SLICES : sh.type == SLICE_P ? ST_P_SLICES : ST_B_SLICES]++;
     if (slice_index > 0) stats[ST_SLICES_2PLUS]++;
     if (sh.deblocking_disabled) stats[ST_DEBLOCK_OFF]++;
     if (!sh.loop_filter_across_slices) stats[ST_SLICE_ACROSS_OFF]++;
     if (ap.cb_qp_offset || ap.cr_qp_offset || sh.cb_qp_offset || sh.cr_qp_offset) stats[ST_CHROMA_QP_OFFSET]++;
-    init_type = sh.type == SLICE_I ? 0 : sh.cabac_init ? 2 : 1;
+    // FFmpeg's init_type: 2 - slice_type, swapped between 1 and 2 by cabac_init_flag
+    init_type = sh.type == SLICE_I ? 0 : (2 - sh.type) ^ (sh.cabac_init ? 3 : 0);
     if (sh.cabac_init) stats[ST_CABAC_INIT]++;
-    // list 0 (8.3.4, FFmpeg's ff_hevc_slice_rpl)
-    ref_list.clear();
-    ref_poc.clear();
+    // the lists (8.3.4, FFmpeg's ff_hevc_slice_rpl): list 0 StCurrBefore
+    // then StCurrAfter, list 1 the other way round, repeated up to the
+    // slice's count, then the entries of a modification
+    ref_list[0].clear();
+    ref_list[1].clear();
+    ref_poc = RefPocs();
     col_pic = nullptr;
-    if (sh.type == SLICE_P) {
-      std::vector<Picture*> tmp;
-      if (st_before.empty() && st_after.empty()) fail("corrupt H.265 data: a P slice without references (zero refs in the RPS)");
-      while ((int)tmp.size() < sh.num_ref_idx[0]) {
-        for (Picture* p : st_before)
-          if (tmp.size() < 16) tmp.push_back(p);
-        for (Picture* p : st_after)
-          if (tmp.size() < 16) tmp.push_back(p);
-      }
-      if (sh.list_mod) {
-        stats[ST_LIST_MOD]++;
-        for (int i = 0; i < sh.num_ref_idx[0]; i++) {
-          if (sh.list_entry[i] >= (int)tmp.size()) fail("corrupt H.265 data: list_entry_l0 %d", sh.list_entry[i]);
-          ref_list.push_back(tmp[(size_t)sh.list_entry[i]]);
+    if (sh.type != SLICE_I) {
+      if (st_before.empty() && st_after.empty())
+        fail("corrupt H.265 data: a P or B slice without references (zero refs in the RPS)");
+      for (int l = 0; l < (sh.type == SLICE_B ? 2 : 1); l++) {
+        const std::vector<Picture*>& first = l ? st_after : st_before;
+        const std::vector<Picture*>& second = l ? st_before : st_after;
+        std::vector<Picture*> tmp;
+        while ((int)tmp.size() < sh.num_ref_idx[l]) {
+          for (Picture* p : first)
+            if (tmp.size() < 16) tmp.push_back(p);
+          for (Picture* p : second)
+            if (tmp.size() < 16) tmp.push_back(p);
         }
-      } else {
-        ref_list.assign(tmp.begin(), tmp.begin() + std::min<size_t>(tmp.size(), (size_t)sh.num_ref_idx[0]));
+        if (sh.list_mod[l]) {
+          stats[l ? ST_LIST_MOD_L1 : ST_LIST_MOD]++;
+          for (int i = 0; i < sh.num_ref_idx[l]; i++) {
+            if (sh.list_entry[l][i] >= (int)tmp.size())
+              fail("corrupt H.265 data: list_entry_l%d %d", l, sh.list_entry[l][i]);
+            ref_list[l].push_back(tmp[(size_t)sh.list_entry[l][i]]);
+          }
+        } else {
+          ref_list[l].assign(tmp.begin(), tmp.begin() + std::min<size_t>(tmp.size(), (size_t)sh.num_ref_idx[l]));
+        }
+        for (Picture* p : ref_list[l]) ref_poc.l[l].push_back(p->poc);
       }
-      for (Picture* p : ref_list) ref_poc.push_back(p->poc);
-      if (sh.temporal_mvp && sh.collocated_ref_idx < (int)ref_list.size()) col_pic = ref_list[(size_t)sh.collocated_ref_idx];
+      const std::vector<Picture*>& cl = ref_list[!sh.collocated_from_l0];
+      if (sh.temporal_mvp && sh.collocated_ref_idx < (int)cl.size()) col_pic = cl[(size_t)sh.collocated_ref_idx];
       if (col_pic && (col_pic->w != W || col_pic->h != H)) col_pic = nullptr;
+      if (sh.temporal_mvp && !sh.collocated_from_l0) stats[ST_COL_FROM_L1]++;
     }
+    weighted = (sh.type == SLICE_P && ap.weighted_pred) || (sh.type == SLICE_B && ap.weighted_bipred);
+    if (weighted) stats[ST_WEIGHTED_SLICES]++;
     cur->slice_refs.push_back(ref_poc);
   }
 
@@ -3810,6 +4030,8 @@ int hevc_next_frame(HevcHandle* h, uint8_t* out, long size, int* w, int* ht) {
   }
   return 0;
 }
+
+int hevc_last_poc(HevcHandle* h) { return h->d.last_poc; }
 
 int hevc_stats(HevcHandle* h, long* out, int n) {
   int k = std::min(n, (int)hevc::ST_COUNT);

@@ -89,14 +89,16 @@ const Code kIntraMcbpc[9] = {{1, 1}, {1, 3}, {2, 3}, {3, 3}, {1, 4},
                              {1, 6}, {2, 6}, {3, 6}, {1, 9}};
 constexpr int kIntraMcbpcStuffing = 8;
 // mcbpc of P-VOPs (Table B-7), indexed by cbpc | 4 (intra) | 8 (dquant) |
-// 16 (inter4v); 20 is stuffing
-const Code kInterMcbpc[21] = {
-    {1, 1}, {3, 4}, {2, 4}, {5, 6},   // inter
-    {3, 5}, {4, 8}, {3, 8}, {3, 7},   // intra
-    {3, 3}, {7, 7}, {6, 7}, {5, 9},   // inter+q
-    {4, 6}, {4, 9}, {3, 9}, {2, 9},   // intra+q
-    {2, 3}, {5, 7}, {4, 7}, {5, 8},   // inter4v
-    {1, 9}};                          // stuffing
+// 16 (inter4v); 20 is stuffing; 24-27, H.263's inter4v+q, are not MPEG-4's
+// but FFmpeg's table, shared by both, reads them (a damaged stream's)
+const Code kInterMcbpc[28] = {
+    {1, 1}, {3, 4}, {2, 4}, {5, 6},       // inter
+    {3, 5}, {4, 8}, {3, 8}, {3, 7},       // intra
+    {3, 3}, {7, 7}, {6, 7}, {5, 9},       // inter+q
+    {4, 6}, {4, 9}, {3, 9}, {2, 9},       // intra+q
+    {2, 3}, {5, 7}, {4, 7}, {5, 8},       // inter4v
+    {1, 9}, {0, 0}, {0, 0}, {0, 0},       // stuffing
+    {2, 11}, {12, 13}, {14, 13}, {15, 13}};  // inter4v+q
 constexpr int kInterMcbpcStuffing = 20;
 // cbpy (Table B-8) of intra macroblocks; inter ones code 15 - cbpy
 const Code kCbpy[16] = {{3, 4}, {5, 5}, {4, 5}, {9, 4}, {3, 5}, {7, 4}, {2, 6}, {11, 4},
@@ -276,7 +278,7 @@ struct Escapes {
 };
 
 struct Tables {
-    Vlc intra_mcbpc{kIntraMcbpc, 9}, inter_mcbpc{kInterMcbpc, 21}, cbpy{kCbpy, 16},
+    Vlc intra_mcbpc{kIntraMcbpc, 9}, inter_mcbpc{kInterMcbpc, 28}, cbpy{kCbpy, 16},
         mvd{kMvd, 33}, dc_luma{kDcLuma, 13}, dc_chroma{kDcChroma, 13},
         intra_tcoef{kIntraTcoef.codes, 103}, inter_tcoef{kInterTcoef.codes, 103};
     Escapes intra_esc{kIntraTcoef}, inter_esc{kInterTcoef};
@@ -577,9 +579,12 @@ struct Picture {
     std::vector<uint8_t> kind;  // MbKind per macroblock
     std::vector<uint8_t> skip;  // not_coded per macroblock (P-VOPs)
     // a field-predicted P macroblock's field selects and vectors
-    // (FFmpeg's ref_index and p_field_mv_table)
+    // (FFmpeg's p_field_mv_table), and FFmpeg's ref_index[0], which
+    // concealment reads: 4 per macroblock (a padding column a row), a field
+    // macroblock's selects over what the pooled table held (Decoder::ref_free)
     std::vector<uint8_t> field_sel;
     std::vector<int16_t> field_mv;
+    std::vector<int8_t> ref_index;
     int vop_type = 0;
 };
 using PicturePtr = std::shared_ptr<Picture>;
@@ -727,7 +732,7 @@ struct Decoder : Codec {
     // error resilience: the macroblock being decoded (FFmpeg's mb_x, mb_y),
     // where the video packet's data began, the padding bug detection, the
     // motion state FFmpeg writes back for a macroblock that fails (its
-    // mb_intra, mv[0][0] and whether the vectors were 8x8), FFmpeg's
+    // mb_intra, mv_type and mv[0][0..1]), FFmpeg's
     // decoder-wide skip table (1 for a skipped or B macroblock, kept across
     // VOPs), and the VOP's tables in concealment's layout (one padding
     // column a row)
@@ -735,10 +740,16 @@ struct Decoder : Codec {
     size_t last_resync_pos = 0;
     int padding_bug_score = 0;
     bool no_padding = false;
-    bool ff_intra = false, ff_four = false;
-    int ff_mv[2] = {0, 0};
+    enum { kFf16x16, kFfField, kFf8x8 };  // FFmpeg's MV_TYPE_16X16, _FIELD, _8X8
+    bool ff_intra = false;
+    int ff_mv_type = kFf16x16;
+    int ff_mv[2][2] = {};
     std::vector<uint8_t> mbskip, er_type;
-    std::vector<int8_t> ref0;
+    // FFmpeg's pool of ref_index tables: one goes back when no work picture
+    // (cur, last, next) holds its picture, and the last given back is handed
+    // out first, as it was left (its pool does not clear them; the motion
+    // tables' pool does)
+    std::vector<std::vector<int8_t>> ref_free;
     struct Er : er::Context {
         Decoder* d = nullptr;
         void decode_mb(int, int mv_dir, const int (*mv)[2], int x, int y) override {
@@ -754,7 +765,7 @@ struct Decoder : Codec {
         er.init(mbw, mbh, false);
         mbskip.assign(size_t(mbw + 1) * mbh, 0);
         er_type.assign(size_t(mbw + 1) * mbh, 0);
-        ref0.assign(size_t(mbw + 1) * mbh * 4, 0);
+        ref_free.clear();
         last.reset();
         next.reset();
         cur.reset();
@@ -1280,10 +1291,12 @@ struct Decoder : Codec {
     void intra_block(int mbx, int mby, int n, int16_t* blk) {
         int scale = n < 4 ? luma_dc_scale(q) : chroma_dc_scale(q);
         blk[0] = int16_t(blk[0] * scale);
-        if (vol.mpeg_quant) {  // dct_unquantize_mpeg2_intra, its qscale doubled
+        if (vol.mpeg_quant) {  // dct_unquantize_mpeg2_intra_mmx, its qscale doubled
             for (int i = 1; i < 64; i++)
                 if (blk[i]) {
-                    int l = std::abs(int(blk[i])) * 2 * q * intra_matrix[i] >> 4;
+                    // 16-bit lanes: |level| * q wraps, then an arithmetic shift
+                    uint16_t qm = uint16_t(2 * q * intra_matrix[i]);
+                    int l = int16_t(uint16_t(uint32_t(uint16_t(std::abs(int(blk[i])))) * qm)) >> 4;
                     blk[i] = int16_t(blk[i] < 0 ? -l : l);
                 }
         } else {
@@ -1302,7 +1315,10 @@ struct Decoder : Codec {
             int sum = -1;
             for (int i = 0; i < 64; i++)
                 if (blk[i]) {
-                    int l = ((2 * std::abs(int(blk[i])) + 1) * 2 * q * inter_matrix[i]) >> 5;
+                    // dct_unquantize_mpeg2_inter_mmx's 16-bit lanes: (2|level| + 1) * q
+                    // wraps, then a logical shift
+                    uint16_t qm = uint16_t(2 * q * inter_matrix[i]);
+                    int l = uint16_t(uint32_t(uint16_t(2 * std::abs(int(blk[i])))) * qm + qm) >> 5;
                     blk[i] = int16_t(blk[i] < 0 ? -l : l);
                     sum += blk[i];
                 }
@@ -1459,7 +1475,7 @@ struct Decoder : Codec {
         do {
             if (br.get1()) {  // not_coded
                 ff_intra = false;
-                ff_mv[0] = ff_mv[1] = 0;
+                ff_mv[0][0] = ff_mv[0][1] = 0;
                 int zero[1][2] = {{0, 0}};
                 for (int n = 0; n < 4; n++) {
                     int16_t* mv = block_mv(mbx, mby, n);
@@ -1491,14 +1507,20 @@ struct Decoder : Codec {
         if (idct_field) stats[kFieldDctMb]++;
         int mv[4][2];
         bool four = cbpc & 16;
-        if (four) ff_four = true;
+        if (four) ff_mv_type = kFf8x8;
         if (!four && vol.interlaced && br.get1()) {  // 16x8 field prediction
+            ff_mv_type = kFfField;
             int sel[2] = {br.get1(), br.get1()};
+            int8_t* ri = &cur->ref_index[size_t(mby * (mbw + 1) + mbx) * 4];
+            ri[0] = ri[1] = int8_t(sel[0]);
+            ri[2] = ri[3] = int8_t(sel[1]);
             int px, py;
             pred_motion(mbx, mby, 0, px, py);
             for (int i = 0; i < 2; i++) {
                 mv[i][0] = decode_motion(br, px, fcode);
                 mv[i][1] = decode_motion(br, py / 2, fcode);
+                ff_mv[i][0] = mv[i][0];
+                ff_mv[i][1] = mv[i][1];
                 cur->field_sel[mi * 2 + i] = uint8_t(sel[i]);
                 cur->field_mv[mi * 4 + i * 2] = int16_t(mv[i][0]);
                 cur->field_mv[mi * 4 + i * 2 + 1] = int16_t(mv[i][1]);
@@ -1525,9 +1547,9 @@ struct Decoder : Codec {
             pred_motion(mbx, mby, n, px, py);
             mv[n][0] = decode_motion(br, px, fcode);
             mv[n][1] = decode_motion(br, py, fcode);
-            if (n == 0) {
-                ff_mv[0] = mv[0][0];
-                ff_mv[1] = mv[0][1];
+            if (n < 2) {
+                ff_mv[n][0] = mv[n][0];
+                ff_mv[n][1] = mv[n][1];
             }
             if (four) {
                 int16_t* m = block_mv(mbx, mby, n);
@@ -1819,14 +1841,25 @@ struct Decoder : Codec {
         return kSliceEnd;
     }
 
-    // ff_h263_update_motion_val for a macroblock that failed: FFmpeg writes
-    // its last vector (0 if intra) unless the vectors were 8x8
+    // ff_h263_update_motion_val for a macroblock that failed, on the state
+    // its parse left (decode_slice sets mv_type to 16X16 before each
+    // macroblock; mv keeps the last vectors written, of any macroblock):
+    // nothing if the vectors were 8x8, else 0 if intra, mv[0][0], or the
+    // two field vectors' x averaged (odd rounded up) and y summed
     void failed_motion(int mbx, int mby) {
-        if (ff_four) return;
+        if (ff_mv_type == kFf8x8) return;
+        int x = ff_mv[0][0], y = ff_mv[0][1];
+        if (ff_intra) {
+            x = y = 0;
+        } else if (ff_mv_type == kFfField) {
+            x += ff_mv[1][0];
+            y += ff_mv[1][1];
+            x = (x >> 1) | (x & 1);
+        }
         for (int n = 0; n < 4; n++) {
             int16_t* m = block_mv(mbx, mby, n);
-            m[0] = int16_t(ff_intra ? 0 : ff_mv[0]);
-            m[1] = int16_t(ff_intra ? 0 : ff_mv[1]);
+            m[0] = int16_t(x);
+            m[1] = int16_t(y);
         }
     }
 
@@ -1840,7 +1873,7 @@ struct Decoder : Codec {
         for (; cy < mbh; cy++) {
             for (; cx < mbw; cx++) {
                 if (resync_x == cx && resync_y + 1 == cy) first_line = false;
-                ff_four = false;
+                ff_mv_type = kFf16x16;
                 int r;
                 try {
                     r = decode_mb(br);
@@ -1888,8 +1921,11 @@ struct Decoder : Codec {
         }
         no_padding = padding_bug_score > -2;
         if (no_padding) {
-            // junk after the picture, or an overread, leaves the packet unmarked
-            if (left >= 0 && left <= 7) er.add_slice(resync_x, resync_y, cx - 1, cy, er::kMbEnd);
+            // FF_BUG_NO_PADDING: the picture may end anywhere before its
+            // packet's end (FFmpeg's max_extra is 7 + 2^30 bits unless
+            // err_recognition asks for AV_EF_BUFFER or AV_EF_AGGRESSIVE,
+            // which cv2 does not); an overread leaves the packet unmarked
+            if (left >= 0) er.add_slice(resync_x, resync_y, cx - 1, cy, er::kMbEnd);
             return 0;
         }
         er.add_slice(resync_x, resync_y, cx, cy, er::kMbEnd);  // "slice end not reached"
@@ -1930,7 +1966,7 @@ struct Decoder : Codec {
                 e.planes.linesize[c] = c ? cs : ys;
             }
             e.motion_val = reinterpret_cast<int16_t(*)[2]>(p->mv.data() + size_t(b8s) * 2);
-            e.ref_index = ref0.data();
+            e.ref_index = p->ref_index.data();
             return e;
         };
         er.cur = pic(cur.get());
@@ -2058,6 +2094,12 @@ struct Decoder : Codec {
         p->skip.assign(size_t(mbw) * mbh, 0);
         p->field_sel.assign(size_t(mbw) * mbh * 2, 0);
         p->field_mv.assign(size_t(mbw) * mbh * 4, 0);
+        if (ref_free.empty()) {
+            p->ref_index.assign(size_t(mbw + 1) * mbh * 4, 0);
+        } else {
+            p->ref_index = std::move(ref_free.back());
+            ref_free.pop_back();
+        }
         p->vop_type = type;
         return p;
     }
@@ -2085,10 +2127,20 @@ struct Decoder : Codec {
                  "filter) is not supported");
         if (type == 2 && !last) return false;  // FFmpeg skips B-VOPs without references
         if (type == 1 && !next) fail("MPEG-4 video: a P-VOP without a reference picture");
+        // ff_mpv_frame_start: the previous picture let go, the new one's
+        // tables taken, then (not a B-VOP) the last reference replaced
+        auto let_go = [&](Picture* p) {
+            if (p && p != cur.get() && p != last.get() && p != next.get() && !p->ref_index.empty())
+                ref_free.push_back(std::move(p->ref_index));
+        };
+        PicturePtr prev = std::move(cur);
+        let_go(prev.get());
         cur = new_picture();
         if (type != 2) {
+            PicturePtr old_last = std::move(last);
             last = next;
             next = cur;
+            let_go(old_last.get());
         }
         stats[type == 0 ? kIVops : type == 1 ? kPVops : kBVops]++;
         if (type == 1) stats[rounding ? kRound1 : kRound0]++;

@@ -1,14 +1,19 @@
-// FFmpeg's "simple" integer IDCT (libavcodec/simple_idct: the 8-bit C
-// version, W4 = 16383, the row pass with its DC shortcut, the column pass
-// with its rounding folded into the DC term), the IDCT libavcodec's
-// idctdsp picks for 8-bit MPEG-4 Part 2 and Motion JPEG: idct<false> puts
-// the clipped block onto 8x8 pixels, idct<true> adds it to them.  Shared
-// by mpeg4.cpp and mjpeg.cpp, each of which includes it inside its own
-// anonymous namespace.
+// FFmpeg's "simple" integer IDCT (libavcodec/simple_idct: W4 = 16383, the
+// row pass with its DC shortcut, the column pass with its rounding folded
+// into the DC term) as x86 builds of libavcodec run it for 8-bit MPEG-4
+// Part 2 and Motion JPEG (ff_simple_idct8_sse2, cv2's among them): the C
+// version's arithmetic, but each row result packed to 16 bits with
+// saturation and the column's rounding added to its DC in a 16-bit lane,
+// so equal to that version for any block, the extreme ones of damaged
+// streams included.  idct<false> puts the clipped block onto 8x8 pixels,
+// idct<true> adds it to them.  Shared by mpeg4.cpp and mjpeg.cpp, each of
+// which includes it inside its own anonymous namespace.
 #pragma once
 constexpr int W1 = 22725, W2 = 21407, W3 = 19266, W4 = 16383, W5 = 12873, W6 = 8867,
               W7 = 4520;
 constexpr int kRowShift = 11, kColShift = 20, kDcShift = 3;
+
+inline int16_t saturate16(int v) { return int16_t(v < -32768 ? -32768 : v > 32767 ? 32767 : v); }
 
 inline void idct_row(int16_t* row) {
     bool ac = row[1] | row[2] | row[3] | row[4] | row[5] | row[6] | row[7];
@@ -37,14 +42,14 @@ inline void idct_row(int16_t* row) {
         b2 += unsigned(W7) * row[5] + unsigned(W3) * row[7];
         b3 += unsigned(W3) * row[5] - unsigned(W1) * row[7];
     }
-    row[0] = int16_t(int(a0 + b0) >> kRowShift);
-    row[7] = int16_t(int(a0 - b0) >> kRowShift);
-    row[1] = int16_t(int(a1 + b1) >> kRowShift);
-    row[6] = int16_t(int(a1 - b1) >> kRowShift);
-    row[2] = int16_t(int(a2 + b2) >> kRowShift);
-    row[5] = int16_t(int(a2 - b2) >> kRowShift);
-    row[3] = int16_t(int(a3 + b3) >> kRowShift);
-    row[4] = int16_t(int(a3 - b3) >> kRowShift);
+    row[0] = saturate16(int(a0 + b0) >> kRowShift);
+    row[7] = saturate16(int(a0 - b0) >> kRowShift);
+    row[1] = saturate16(int(a1 + b1) >> kRowShift);
+    row[6] = saturate16(int(a1 - b1) >> kRowShift);
+    row[2] = saturate16(int(a2 + b2) >> kRowShift);
+    row[5] = saturate16(int(a2 - b2) >> kRowShift);
+    row[3] = saturate16(int(a3 + b3) >> kRowShift);
+    row[4] = saturate16(int(a3 - b3) >> kRowShift);
 }
 
 inline uint8_t clip_pixel(int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); }
@@ -52,7 +57,8 @@ inline uint8_t clip_pixel(int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v)
 // one column of the block into 8 pixels of `dst` (add: onto them)
 template <bool kAdd>
 inline void idct_col(uint8_t* dst, int stride, const int16_t* col) {
-    unsigned a0 = unsigned(W4) * unsigned(col[0] + ((1 << (kColShift - 1)) / W4));
+    // the rounding added to the DC in 16 bits (paddw), where it may wrap
+    unsigned a0 = unsigned(W4) * unsigned(int16_t(col[0] + ((1 << (kColShift - 1)) / W4)));
     unsigned a1 = a0, a2 = a0, a3 = a0;
     a0 += unsigned(W2) * col[16];
     a1 += unsigned(W6) * col[16];

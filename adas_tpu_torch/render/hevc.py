@@ -1,6 +1,6 @@
 """ctypes binding of ``native/hevc.cpp``: the H.265 / HEVC decoder of the
-demo's video input (``render/video.py``), for I and P pictures of 8-bit
-4:2:0 Main-profile streams.
+demo's video input (``render/video.py``), for I, P and B pictures of 8-bit
+4:2:0 Main-profile streams, with explicit weighted prediction.
 
 ``Decoder(hvcc)`` takes an MP4 track's ``hvcC`` record (its parameter sets
 and the NAL length size), or None for an Annex B byte stream.
@@ -10,15 +10,15 @@ output, in display order: each a (height * 3 / 2, width) uint8 array of
 I420 planes, cropped to the conformance window.  ``flush()`` at the end
 gives the rest.  ``stats()`` counts the tools the stream used
 (``STATS``).  ``width``, ``height`` and ``fps`` are those of the active SPS
-(0 before one is active).
+(0 before one is active); ``last_poc`` that of the last picture started.
 
 Output follows FFmpeg's, which cv2 runs: a picture comes out when more
 pictures wait than ``sps_max_num_reorder_pics`` or the DPB holds more than
 ``sps_max_dec_pic_buffering``, lowest POC first; pictures with
 ``pic_output_flag`` 0 never come out; RASL pictures of a CRA picture that
 starts the stream are skipped; a stream that does not start with an IRAP
-picture decodes from gray missing references.  B slices, long-term
-reference pictures, weighted prediction, tiles, dependent slice segments,
+picture decodes from gray missing references.  Long-term reference
+pictures, tiles, dependent slice segments,
 ``cu_transquant_bypass``, bit depths above 8 and chroma other than 4:2:0
 (Main 10 and the range extensions), full-range video, field-coded video,
 layers above 0 and pictures of more than ``MAX_PIXELS`` raise a
@@ -59,7 +59,10 @@ STATS = ("pictures", "idr_pictures", "cra_pictures", "other_irap_pictures", "i_s
          "deblocking_off_slices", "deblocked_edges", "sao_band", "sao_edge", "sao_merges",
          "wpp_rows", "cabac_init_slices", "cropped_pictures", "inter_rps_pictures",
          "rasl_skipped", "missing_refs", "not_output", "reordered_outputs", "list_modifications",
-         "pcm_unfiltered", "slices_not_across", "dropped_pictures", "constrained_intra_blocks")
+         "pcm_unfiltered", "slices_not_across", "dropped_pictures", "constrained_intra_blocks",
+         "b_slices", "bi_pus", "l1_pus", "combined_bi_merges", "tmvp_l1", "collocated_from_l1_slices",
+         "mvd_l1_zero_pus", "list_modifications_l1", "bi_merges_to_l0", "weighted_pus",
+         "weighted_slices", "zero_merges_b")
 
 
 def _native():
@@ -77,6 +80,7 @@ def _native():
                     "hevc_size": ([p, ip, ip], None), "hevc_fps": ([p], ctypes.c_double),
                     "hevc_next_frame": ([p, p, l, ip, ip], i),
                     "hevc_next_frame_bytes": ([p], l), "hevc_stats": ([p, p, i], i),
+                    "hevc_last_poc": ([p], i),
                 }
                 for name, (args, res) in sigs.items():
                     f = getattr(lib, name)
@@ -173,6 +177,11 @@ class Decoder:
         w, h = ctypes.c_int(), ctypes.c_int()
         self._lib.hevc_size(self._d, ctypes.byref(w), ctypes.byref(h))
         return w.value, h.value
+
+    @property
+    def last_poc(self) -> int:
+        """The POC of the last picture whose decode started."""
+        return int(self._lib.hevc_last_poc(self._d))
 
     @property
     def fps(self) -> float:

@@ -294,7 +294,12 @@ Phases, each of which raises (exit code 1) on failure:
     rebuilt by ``tests/data/video/hevc_writer.py`` and decoded to the
     digests cv2 made of it (``tests/data/video/hevc/sha256.json``) with
     the ms per IRAP and P picture, and ``run_video`` over it as an
-    ``hvc1`` ``.mp4`` (stem 2, IoU 1, walk 1 per frame, 60 frames);
+    ``hvc1`` ``.mp4`` (stem 2, IoU 1, walk 1 per frame, 60 frames), and
+    the 720p H.265 B clip (``video_hevc_b``: GOPs of a P anchor and three
+    hierarchical B pictures over the pan and a luma fade by explicit
+    weights) to its digests with the ms per IRAP, P and B picture, and
+    ``run_video`` over it as an ``hvc1`` ``.mp4`` with ``ctts``/``elst``
+    (stem 2, IoU 1, walk 1 per frame, 60 frames);
     ``[train-ufldv2]``, UFLDv2-CULane res18 with the aux head at
     320x1600, batch 8, 20 SGD steps in f32 (no kernel launches; the loss
     falls; the first step's loss, outputs and gradient within rel 1e-6,
@@ -4027,7 +4032,8 @@ def video_hevc(mods, smi, torch, np):
     ``.mp4`` with ``ADASPipeline``'s defaults to an ``.mp4``: stem 2, IoU 1
     and walk 1 per frame, every frame written.  The decoder and the writer
     build at once.  Prints the g++ build times and the host ms per IRAP and
-    P picture (p50 and max).  Returns the launches."""
+    P picture (p50 and max).  Then the B clip (``video_hevc_b``).  Returns
+    the launches of both runs."""
     import hashlib
     import shutil
     import tempfile
@@ -4106,6 +4112,96 @@ def video_hevc(mods, smi, torch, np):
           f"{max(p_ms):.2f}; non-zero counts { {k: v for k, v in clip_stats.items() if v} }; "
           f"run_video over it as hvc1 .mp4 (ADASPipeline defaults) to .mp4: {n} frames in "
           f"{run_s:.2f} s, launches {run} (per frame {per_frame}) ({smi})", flush=True)
+    b_run = video_hevc_b(mods, smi, torch, np)
+    return {k: run[k] + b_run[k] for k in KERNELS}
+
+
+def video_hevc_b(mods, smi, torch, np):
+    """``[video]``'s 720p H.265 B clip (``hevc_writer.content_720p_b``: a
+    PCM IDR picture, then GOPs of a P anchor and three hierarchical B
+    pictures, b-pyramid with a reorder depth of 2, over the content clip's
+    pan and a luma fade of 1.5% a picture carried by explicit weights in P
+    and B slices): rebuilt by the writer, decoded to cv2's digests and
+    count, each access unit timed by its picture's kind (IRAP, P, B; p50
+    and max on the host); then ``run_video`` over it as an ``hvc1``
+    ``.mp4`` (``ctts``, ``elst``) with ``ADASPipeline``'s defaults: stem 2,
+    IoU 1 and walk 1 per frame, every frame written.  Returns the
+    launches."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import hevc_writer
+
+    from adas_tpu_torch.pipeline import app
+    from adas_tpu_torch.render import hevc, mp4, video
+
+    tag = "video"
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "video")
+    with open(os.path.join(data, "hevc", "sha256.json")) as f:
+        want = json.load(f)["content_720p_b"]
+    t = time.perf_counter()
+    stream = hevc_writer.content_720p_b()
+    write_s = time.perf_counter() - t
+    decoder = hevc.Decoder(None)
+    frames, ms = [], {"IRAP": [], "P": [], "B": []}
+    before = decoder.stats()
+    for au in hevc.access_units(hevc.nal_units(stream)):
+        t0 = time.perf_counter()
+        frames += decoder.decode(hevc.annexb(au))
+        dt = (time.perf_counter() - t0) * 1e3
+        after = decoder.stats()
+        kind = ("B" if after["b_slices"] > before["b_slices"]
+                else "P" if after["p_slices"] > before["p_slices"] else "IRAP")
+        ms[kind].append(dt)
+        before = after
+    frames += decoder.flush()
+    stats = decoder.stats()
+    decoder.close()
+    check(len(frames) == want["frames"] and
+          [hashlib.sha256(p[:720].tobytes()).hexdigest() for p in frames] == want["y_sha256"],
+          f"{tag}: the 720p H.265 B clip's Y planes differ from cv2's decode")
+    check(stats["b_slices"] > 0 and stats["bi_pus"] > 0 and stats["weighted_pus"] > 0
+          and stats["reordered_outputs"] > 0, f"{tag}: the 720p H.265 B clip lacks a tool: {stats}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hevcb_")
+    try:
+        clip = os.path.join(tmp, "clip_b.mp4")
+        hevc_writer.to_mp4(stream, clip, b"hvc1")
+        demux = mp4.Demuxer(clip)
+        cts = demux.track.cts
+        demux.close()
+        delta = mp4.rate(30.0)[1]
+        check(cts is not None and
+              mp4.guess_video_delay([i * delta + c for i, c in enumerate(cts)]) == 2,
+              f"{tag}: the H.265 B clip's MP4 has no ctts of depth 2")
+        out = os.path.join(tmp, "clip_b_out.mp4")
+        reset(mods)
+        t = time.perf_counter()
+        n = app.run_video(clip, out, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        run = counts(mods)
+        per_frame = {"stem": 2, "int8_conv": 0, "block": 0, "iou": 1, "nms": 1}
+        for k, per in per_frame.items():
+            check(run[k] == per * want["frames"],
+                  f"{tag}: run_video over the H.265 B clip {k} launches {run[k]}, expected "
+                  f"{per} per frame")
+        with video.MP4Reader(out) as r:
+            drawn = list(r)
+        check(n == len(drawn) == want["frames"] and all(f.shape == (720, 1280, 3) for f in drawn),
+              f"{tag}: run_video over the H.265 B clip wrote {len(drawn)} of {n} frames")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = {k: (f"p50 {np.median(v):.2f} max {max(v):.2f} ({len(v)} pictures)" if v else "none")
+               for k, v in ms.items()}
+    print(f"[{tag}] H.265 B pictures: the 720p B clip ({want['frames']} frames, P anchors and "
+          f"{want['bframes']} hierarchical B pictures, pan {want['pan']} quarter samples, luma "
+          f"fade {want['fade']}/1000 a picture by explicit weights) rebuilt in {write_s:.2f} s and "
+          f"decoded to cv2's digests and count: decode ms per 720p picture (host) IRAP (PCM) "
+          f"{summary['IRAP']}, P {summary['P']}, B {summary['B']}; non-zero counts "
+          f"{ {k: v for k, v in stats.items() if v} }; run_video over it as hvc1 .mp4 with ctts "
+          f"(ADASPipeline defaults) to .mp4: {n} frames in {run_s:.2f} s, launches {run} (per "
+          f"frame {per_frame}) ({smi})", flush=True)
     return run
 
 

@@ -25,6 +25,88 @@
 namespace h264w {
 using namespace h264;
 
+// The spec's dequantisation and transforms of levels, which the writer
+// uses to keep every block's transform inside 16 bits (the decoder runs
+// FFmpeg's own over its coefficient buffer).
+// The scaled 4x4 coefficients d (raster) of levels in scan order; from
+// index 1 when the DC comes from a DC transform.
+static void dequant4(const int16_t* lev, int qp, const int* ls, int* d, int first) {
+  int q6 = qp / 6;
+  for (int k = first; k < 16; k++) {
+    int r = kZigzag4[k];
+    int c = lev[k];
+    if (!c) {
+      d[r] = 0;
+      continue;
+    }
+    d[r] = q6 >= 4 ? c * ls[r] * (1 << (q6 - 4)) : (c * ls[r] + (1 << (3 - q6))) >> (4 - q6);
+  }
+}
+
+static void dequant8(const int16_t* lev, int qp, const int* ls, int* d) {
+  int q6 = qp / 6;
+  for (int k = 0; k < 64; k++) {
+    int r = kZigzag8[k];
+    int c = lev[k];
+    if (!c) {
+      d[r] = 0;
+      continue;
+    }
+    d[r] = q6 >= 6 ? c * ls[r] * (1 << (q6 - 6)) : (c * ls[r] + (1 << (5 - q6))) >> (6 - q6);
+  }
+}
+
+static void idct8_1d(const int* in, int step, int* out, int ostep) {
+  int d0 = in[0], d1 = in[step], d2 = in[2 * step], d3 = in[3 * step], d4 = in[4 * step],
+      d5 = in[5 * step], d6 = in[6 * step], d7 = in[7 * step];
+  int a0 = d0 + d4, a4 = d0 - d4, a2 = (d2 >> 1) - d6, a6 = d2 + (d6 >> 1);
+  int b0 = a0 + a6, b2 = a4 + a2, b4 = a4 - a2, b6 = a0 - a6;
+  int a1 = -d3 + d5 - d7 - (d7 >> 1), a3 = d1 + d7 - d3 - (d3 >> 1);
+  int a5 = -d1 + d7 + d5 + (d5 >> 1), a7 = d3 + d5 + d1 + (d1 >> 1);
+  int b1 = a1 + (a7 >> 2), b7 = a7 - (a1 >> 2), b3 = a3 + (a5 >> 2), b5 = (a3 >> 2) - a5;
+  out[0] = b0 + b7;
+  out[ostep] = b2 + b5;
+  out[2 * ostep] = b4 + b3;
+  out[3 * ostep] = b6 + b1;
+  out[4 * ostep] = b6 - b1;
+  out[5 * ostep] = b4 - b3;
+  out[6 * ostep] = b2 - b5;
+  out[7 * ostep] = b0 - b7;
+}
+
+// Intra16x16 DC: inverse Hadamard and scaling (8.5.10); out in raster order
+// of the 4x4 blocks
+static void luma_dc(const int16_t* lev, int qp, int ls0, int* out) {
+  int c[16], f[16], t[16];
+  for (int k = 0; k < 16; k++) c[kZigzag4[k]] = lev[k];
+  for (int i = 0; i < 4; i++) {  // rows
+    const int* r = c + 4 * i;
+    int s0 = r[0] + r[1], s1 = r[0] - r[1], s2 = r[2] + r[3], s3 = r[2] - r[3];
+    t[4 * i + 0] = s0 + s2;
+    t[4 * i + 1] = s0 - s2;
+    t[4 * i + 2] = s1 - s3;
+    t[4 * i + 3] = s1 + s3;
+  }
+  for (int j = 0; j < 4; j++) {
+    int s0 = t[j] + t[4 + j], s1 = t[j] - t[4 + j], s2 = t[8 + j] + t[12 + j],
+        s3 = t[8 + j] - t[12 + j];
+    f[j] = s0 + s2;
+    f[4 + j] = s0 - s2;
+    f[8 + j] = s1 - s3;
+    f[12 + j] = s1 + s3;
+  }
+  int q6 = qp / 6;
+  for (int k = 0; k < 16; k++)
+    out[k] = q6 >= 6 ? f[k] * ls0 * (1 << (q6 - 6)) : (f[k] * ls0 + (1 << (5 - q6))) >> (6 - q6);
+}
+
+static void chroma_dc(const int16_t* lev, int qp, int ls0, int* out) {
+  int f0 = lev[0] + lev[1] + lev[2] + lev[3], f1 = lev[0] - lev[1] + lev[2] - lev[3];
+  int f2 = lev[0] + lev[1] - lev[2] - lev[3], f3 = lev[0] - lev[1] - lev[2] + lev[3];
+  int f[4] = {f0, f1, f2, f3};
+  for (int k = 0; k < 4; k++) out[k] = (f[k] * ls0 * (1 << (qp / 6))) >> 5;
+}
+
 struct Rng {
   uint64_t s;
   explicit Rng(uint64_t seed) : s(seed * 0x9E3779B97F4A7C15ull + 0x1234567ull) {}

@@ -1,4 +1,4 @@
-// A writer of legal H.265 I/P streams from a seed, for the tests of the
+// A writer of legal H.265 I/P/B streams from a seed, for the tests of the
 // port's decoder (adas_tpu_torch/native/hevc.cpp).  It includes the
 // decoder's source for its syntax layer: parameter sets, slice headers and
 // coding tree units are written by the same functions that read them,
@@ -10,11 +10,14 @@
 // Two modes:
 // - exerciser: random legal syntax over the decoder's tools, not pictures,
 //   with options that turn each tool on and off (O_*);
-// - content: PCM pictures of given frames, then P pictures of a
-//   quarter-sample pan, each coding unit a merge (skip) or an AMVP
-//   prediction with no residual.
+// - content: PCM pictures of given frames, then P pictures (or GOPs of a P
+//   anchor and hierarchical B pictures) of a quarter-sample pan, each
+//   coding unit a merge (skip) or an AMVP prediction with no residual,
+//   optionally over a luma fade carried by explicit weights.
 #include "../../../adas_tpu_torch/native/hevc.cpp"
 
+#include <cmath>
+#include <functional>
 #include <map>
 
 namespace hevcw {
@@ -42,13 +45,16 @@ enum Opt {
   O_SKIP, O_PCM, O_PCM_BITS, O_PCM_LF, O_TSKIP, O_SIGN_HIDING, O_QP_DELTA, O_CHROMA_QP, O_SCALING,
   O_CIP, O_STRONG, O_TMVP, O_REFS, O_MERGE_LEVEL, O_MAX_MERGE, O_DEBLOCK, O_SAO, O_WPP, O_SLICES,
   O_ACROSS, O_CABAC_INIT, O_QP_MIN, O_QP_MAX, O_IDR_EVERY, O_CRA, O_REORDER, O_OUTPUT_FLAG,
-  O_CONF_WIN, O_SPS_RPS, O_LIST_MOD, O_VUI, O_LOG2_POC_LSB, O_BIG_LEVELS, O_TRAIL_START, O_COUNT
+  O_CONF_WIN, O_SPS_RPS, O_LIST_MOD, O_VUI, O_LOG2_POC_LSB, O_BIG_LEVELS, O_TRAIL_START, O_BFRAMES,
+  O_PYRAMID, O_GPB, O_BI, O_MVD_L1_ZERO, O_COL, O_WP, O_WP_OFFSETS, O_COUNT
 };
 
 struct Pic {
   int poc = 0, type = NAL_TRAIL_R, output = 1;
   std::vector<int> rps;        // POC deltas kept (sorted as FFmpeg keeps them)
   std::vector<uint8_t> used;   // which are references of the picture
+  bool b = false;              // a B picture between two anchors (B slices)
+  int lo = 0, hi = 0;          // its nearest references before and after (content mode)
 };
 
 struct Writer : Policy {
@@ -64,6 +70,8 @@ struct Writer : Policy {
   // content mode
   std::vector<uint8_t> planes;  // the PCM pictures, CTB-aligned copies
   int pcm_index = 0, pan_x = 0, pan_y = 0, content_w = 0, content_h = 0;
+  int fade = 0;        // the luma gain from picture to picture, in 1/1000 (0: none)
+  const Pic* cur_pic = nullptr;
   std::vector<int> slice_starts;  // the CTB of each slice of the current picture
   int pic_qp = 26;
 
@@ -107,10 +115,10 @@ struct Writer : Policy {
         c.part = PART_2Nx2N;
         return;
       }
-      Mv want = pan_mv();
+      MvField want = content_motion();
       c.skip = 0;
       for (int i = 0; i < nmerge; i++)
-        if (merge[i].ref == 0 && merge[i].mv == want) c.skip = 1;
+        if (same_motion(merge[i], want)) c.skip = 1;
       c.part = PART_2Nx2N;
       c.rqt_root_cbf = 0;
       return;
@@ -138,35 +146,57 @@ struct Writer : Policy {
     c.rqt_root_cbf = rng.chance(60);
   }
 
-  Mv pan_mv() const { return {(int16_t)pan_x, (int16_t)pan_y}; }
+  // the pan from a picture `d` display positions away
+  Mv pan_mv(int d) const { return {(int16_t)(pan_x * d), (int16_t)(pan_y * d)}; }
 
-  void pu(int, int, int, int, int, const MvField* merge, int nmerge, PuChoice& c) override {
+  // content mode: a P picture predicts from its one reference, a B picture
+  // from both of its neighbours (index 0 of each list)
+  MvField content_motion() const {
+    MvField f;
+    const Pic& p = *cur_pic;
+    f.pred = p.b ? PF_BI : PF_L0;
+    f.ref[0] = 0;
+    f.ref[1] = p.b ? 0 : -1;
+    f.mv[0] = pan_mv(p.poc - p.lo);
+    if (p.b) f.mv[1] = pan_mv(p.poc - p.hi);
+    return f;
+  }
+
+  void pu(int, int, int w, int h, int, const MvField* merge, int nmerge, PuChoice& c) override {
     if (content) {
-      Mv want = pan_mv();
+      MvField want = content_motion();
       for (int i = 0; i < nmerge; i++)
-        if (merge[i].ref == 0 && merge[i].mv == want) {
+        if (same_motion(merge[i], want)) {
           c.merge = 1;
           c.merge_idx = i;
           return;
         }
       c.merge = 0;
-      c.ref_idx = 0;
-      c.use_target = 1;
-      c.target = want;
-      c.mvp = 0;
+      c.inter_pred = want.pred - 1;
+      for (int X = 0; X < 2; X++) {
+        c.ref_idx[X] = 0;
+        c.use_target[X] = 1;
+        c.target[X] = want.mv[X];
+        c.mvp[X] = 0;
+      }
       return;
     }
     c.merge = rng.chance(45);
     c.merge_idx = rng.range(0, std::max(0, nmerge - 1));
-    c.ref_idx = rng.range(0, dec.sh.num_ref_idx[0] - 1);
-    c.mvp = rng.range(0, 1);
-    if (rng.chance(70)) {
-      c.use_target = 1;
-      int r = rng.chance(20) ? 256 : 48;
-      c.target = {(int16_t)rng.range(-r, r), (int16_t)rng.range(-r, r)};
-    } else {
-      int r = rng.chance(10) ? 300 : 9;
-      c.mvd = {(int16_t)rng.range(-r, r), (int16_t)rng.range(-r, r)};
+    c.inter_pred = 0;
+    if (dec.sh.type == SLICE_B)  // a PU of 8x4 or 4x8 cannot code both lists
+      c.inter_pred = w + h != 12 && rng.chance(o[O_BI]) ? 2 : rng.range(0, 1);
+    for (int X = 0; X < (dec.sh.type == SLICE_B ? 2 : 1); X++) {  // (P streams draw as before B)
+      c.ref_idx[X] = rng.range(0, std::max(1, dec.sh.num_ref_idx[X]) - 1);
+      c.mvp[X] = rng.range(0, 1);
+      if (rng.chance(70)) {
+        c.use_target[X] = 1;
+        int r = rng.chance(20) ? 256 : 48;
+        c.target[X] = {(int16_t)rng.range(-r, r), (int16_t)rng.range(-r, r)};
+      } else {
+        int r = rng.chance(10) ? 300 : 9;
+        c.mvd[X] = {(int16_t)rng.range(-r, r), (int16_t)rng.range(-r, r)};
+      }
     }
   }
 
@@ -389,8 +419,101 @@ struct Writer : Policy {
 
   std::vector<Pic> plan;
 
+  // The pictures with B pictures (O_BFRAMES between anchors), in decoding
+  // order: each anchor (a P picture, or a CRA picture where the GOP
+  // crosses a multiple of O_IDR_EVERY), then the B pictures before it in
+  // display order, middle first and used as references under O_PYRAMID
+  // (x265's b-pyramid), else in display order.  The B pictures of a CRA
+  // anchor are its leading (RASL) pictures.  Each picture's RPS holds the
+  // reference pictures decoded before it that it or a later one uses;
+  // the SPS's reorder depth and DPB size follow from the plan.
+  void plan_b(int frames) {
+    struct Node {
+      int d, type;
+      bool ref, b;
+      int lo, hi;
+      std::vector<int> uses;
+    };
+    const int nb = o[O_BFRAMES], every = o[O_IDR_EVERY], refs = std::max(1, o[O_REFS]);
+    if (every && !o[O_CRA]) fail("H.265 writer: B pictures take their IRAP pictures as CRA pictures (cra)");
+    std::vector<Node> order;
+    order.push_back({0, o[O_TRAIL_START] ? NAL_TRAIL_R : NAL_IDR_W_RADL, true, false, 0, 0, {}});
+    std::vector<int> held = {0};  // the reference pictures so far (display order)
+    int cra = INT_MIN;            // the last CRA picture: later trailing pictures refer to none before it
+    // `want` references: `must` first, then the nearest others held (at or after `floor`)
+    auto pick = [&](std::vector<int> must, int d, int floor) {
+      std::vector<int> cand;
+      for (int q : held)
+        if (q >= floor && std::find(must.begin(), must.end(), q) == must.end()) cand.push_back(q);
+      std::sort(cand.begin(), cand.end(), [&](int a, int b) { return std::abs(a - d) < std::abs(b - d); });
+      for (int q : cand)
+        if ((int)must.size() < refs) must.push_back(q);
+      return must;
+    };
+    for (int a0 = 0; a0 < frames - 1;) {
+      int a = std::min(a0 + nb + 1, frames - 1);
+      bool is_cra = every && a / every > a0 / every;
+      Node an{a, is_cra ? NAL_CRA : NAL_TRAIL_R, true, false, a0, a0, {}};
+      if (!is_cra) an.uses = pick({a0}, a, cra == INT_MIN ? 0 : cra);
+      order.push_back(an);
+      std::vector<Node> bs;
+      std::function<void(int, int)> split = [&](int lo, int hi) {
+        if (hi - lo < 2) return;
+        int m = (lo + hi) / 2;
+        bool ref = hi - lo > 2;
+        bs.push_back({m, 0, ref, true, lo, hi, {}});
+        split(lo, m);
+        split(m, hi);
+      };
+      if (o[O_PYRAMID]) {
+        split(a0, a);
+      } else {
+        for (int m = a0 + 1; m < a; m++) bs.push_back({m, 0, false, true, a0, a, {}});
+      }
+      if (is_cra) cra = a;
+      for (Node& b : bs) {
+        b.type = is_cra ? (b.ref ? NAL_RASL_R : NAL_RASL_N) : (b.ref ? NAL_TRAIL_R : NAL_TRAIL_N);
+        b.uses = pick({b.lo, b.hi}, b.d, is_cra || cra == INT_MIN ? 0 : cra);
+        order.push_back(b);
+        if (b.ref) held.push_back(b.d);
+      }
+      held.push_back(a);
+      a0 = a;
+    }
+    // the RPS of each picture, and the reorder depth and DPB size
+    int reorder = 0, dpb = 1;
+    for (size_t k = 0; k < order.size(); k++) {
+      const Node& n = order[k];
+      Pic p;
+      p.poc = n.d;
+      p.type = n.type;
+      p.b = n.b;
+      p.lo = n.lo;
+      p.hi = n.hi;
+      p.output = !o[O_OUTPUT_FLAG] || rng.chance(80);
+      if (n.type != NAL_IDR_W_RADL)
+        for (size_t j = 0; j < k; j++) {
+          if (!order[j].ref) continue;
+          bool needed = false;
+          for (size_t m = k; m < order.size(); m++)
+            needed |= std::find(order[m].uses.begin(), order[m].uses.end(), order[j].d) != order[m].uses.end();
+          if (!needed) continue;
+          p.rps.push_back(order[j].d - n.d);
+          p.used.push_back(std::find(n.uses.begin(), n.uses.end(), order[j].d) != n.uses.end());
+        }
+      int later = 0;
+      for (size_t j = 0; j < k; j++) later += order[j].d > n.d;
+      reorder = std::max(reorder, later);
+      dpb = std::max(dpb, (int)p.rps.size() + 1);
+      plan.push_back(p);
+    }
+    sps.ordering[0].num_reorder = reorder;
+    sps.ordering[0].max_dec_pic_buffering = std::min(16, dpb + reorder + 1);
+  }
+
   // the pictures in decoding order: POCs, types, RPSs
   void plan_gop(int frames) {
+    if (o[O_BFRAMES]) return plan_b(frames);
     int refs = std::max(1, o[O_REFS]);
     int every = o[O_IDR_EVERY];
     // display order indices in decoding order
@@ -563,6 +686,8 @@ struct Writer : Policy {
         }
     }
     pps.lists_modification = o[O_LIST_MOD];
+    pps.weighted_pred = o[O_WP] & 1;
+    pps.weighted_bipred = (o[O_WP] >> 1) & 1;
     pps.log2_parallel_merge = std::min(ctb_log2, 2 + o[O_MERGE_LEVEL]);
     pps.output_flag_present = o[O_OUTPUT_FLAG];
   }
@@ -608,14 +733,54 @@ struct Writer : Policy {
     for (size_t i = 0; i < sets.size(); i++) sps.st_rps[i] = sets[i];
   }
 
+  // a random explicit weighted prediction table for the slice's lists
+  void random_weights(SliceHeader& h) {
+    h.luma_denom = rng.range(0, 7);
+    h.chroma_denom_delta = rng.range(0, 7) - h.luma_denom;
+    int cd = h.luma_denom + h.chroma_denom_delta;
+    auto delta = [&](int denom) {
+      int r = std::max(8, 1 << denom) / 2;
+      return rng.chance(10) ? rng.range(-128, 127) : clip3(-128, 127, rng.range(-r, r));
+    };
+    for (int l = 0; l < (h.type == SLICE_B ? 2 : 1); l++)
+      for (int i = 0; i < h.num_ref_idx[l]; i++) {
+        h.luma_w_flag[l][i] = (uint8_t)rng.chance(60);
+        h.chroma_w_flag[l][i] = (uint8_t)rng.chance(50);
+        h.delta_luma_w[l][i] = delta(h.luma_denom);
+        const int wide = o[O_WP_OFFSETS] ? o[O_WP_OFFSETS] : 128;  // past the standard's range: FFmpeg reads it
+        h.luma_off[l][i] = rng.chance(10) ? rng.range(-wide, wide - 1) : rng.range(-20, 20);
+        for (int j = 0; j < 2; j++) {
+          h.delta_chroma_w[l][i][j] = delta(cd);
+          h.delta_chroma_off[l][i][j] = rng.chance(10) ? rng.range(-512, 511) : rng.range(-40, 40);
+        }
+      }
+  }
+
+  // content mode: luma weights that carry the fade from each reference
+  // (denominator 6, no offsets, chroma unweighted)
+  void fade_weights(SliceHeader& h, const Pic& p) {
+    h.luma_denom = 6;
+    h.chroma_denom_delta = 0;
+    for (int l = 0; l < (h.type == SLICE_B ? 2 : 1); l++) {
+      int from = l ? p.hi : p.lo;
+      double gain = std::pow(fade / 1000.0, p.poc - from);
+      h.luma_w_flag[l][0] = 1;
+      h.chroma_w_flag[l][0] = 0;
+      h.delta_luma_w[l][0] = clip3(-128, 127, (int)std::lround(64 * gain) - 64);
+      h.luma_off[l][0] = 0;
+    }
+  }
+
   void picture(const Pic& p) {
     dec.begin_packet();
+    cur_pic = &p;
     SliceHeader h;
     h.nal_type = p.type;
     h.first_slice = 1;
     h.pps_id = 0;
     h.type = is_irap(p.type) || p.rps.empty() ? SLICE_I : (rng.chance(o[O_INTRA_IN_P] > 90 ? 30 : 3) ? SLICE_I : SLICE_P);
-    if (content) h.type = is_irap(p.type) ? SLICE_I : SLICE_P;
+    if (h.type == SLICE_P && (p.b ? rng.chance(90) : o[O_GPB] && rng.chance(o[O_GPB]))) h.type = SLICE_B;
+    if (content) h.type = is_irap(p.type) ? SLICE_I : p.b ? SLICE_B : SLICE_P;
     h.pic_output = p.output;
     h.poc_lsb = p.poc & ((1 << sps.log2_max_poc_lsb) - 1);
     h.temporal_mvp = o[O_TMVP];
@@ -658,7 +823,7 @@ struct Writer : Policy {
         }
       }
     }
-    if (nref == 0 && h.type == SLICE_P) h.type = SLICE_I;
+    if (nref == 0 && h.type != SLICE_I) h.type = SLICE_I;
     pic_qp = content ? 26 : rng.range(o[O_QP_MIN], o[O_QP_MAX]);
     h.qp_delta = pic_qp - pps.init_qp;
     int cr = o[O_CHROMA_QP] ? rng.range(-6, 6) : 0, cb = o[O_CHROMA_QP] ? rng.range(-6, 6) : 0;
@@ -670,13 +835,27 @@ struct Writer : Policy {
     h.tc_offset_div2 = h.deblocking_override ? rng.range(-6, 6) : pps.tc_offset_div2;
     h.loop_filter_across_slices = o[O_ACROSS] == 2 ? rng.chance(50) : o[O_ACROSS];
     int total_refs = nref;
-    h.num_ref_idx[0] = std::min(15, rng.range(1, std::max(1, total_refs) + (rng.chance(20) ? 2 : 0)));
-    if (content) h.num_ref_idx[0] = 1;
-    h.num_ref_idx_override = h.num_ref_idx[0] != pps.num_ref_idx_default[0];
-    h.list_mod = o[O_LIST_MOD] && nref > 1 && rng.chance(60);
-    for (int i = 0; i < h.num_ref_idx[0]; i++) h.list_entry[i] = rng.range(0, std::max(0, nref - 1));
+    const bool b = h.type == SLICE_B;
+    for (int l = 0; l < (b ? 2 : 1); l++) {
+      h.num_ref_idx[l] = std::min(15, rng.range(1, std::max(1, total_refs) + (rng.chance(20) ? 2 : 0)));
+      if (content) h.num_ref_idx[l] = 1;
+      h.list_mod[l] = o[O_LIST_MOD] && nref > 1 && rng.chance(60);
+      for (int i = 0; i < h.num_ref_idx[l]; i++) h.list_entry[l][i] = rng.range(0, std::max(0, nref - 1));
+    }
+    if (!b) h.num_ref_idx[1] = 0;
+    h.num_ref_idx_override = h.num_ref_idx[0] != pps.num_ref_idx_default[0] ||
+                             (b && h.num_ref_idx[1] != pps.num_ref_idx_default[1]);
+    h.mvd_l1_zero = b && rng.chance(o[O_MVD_L1_ZERO]);
+    h.collocated_from_l0 = !b || (o[O_COL] == 1 ? 1 : o[O_COL] == 2 ? 0 : rng.chance(50));
+    if (content) h.collocated_from_l0 = 1;
     h.cabac_init = o[O_CABAC_INIT] && rng.chance(50);
-    h.collocated_ref_idx = rng.range(0, h.num_ref_idx[0] - 1);
+    h.collocated_ref_idx = rng.range(0, std::max(1, h.num_ref_idx[!h.collocated_from_l0]) - 1);
+    if ((pps.weighted_pred && h.type == SLICE_P) || (pps.weighted_bipred && b)) {
+      if (content)
+        fade_weights(h, p);
+      else
+        random_weights(h);
+    }
     h.max_merge_cand = o[O_MAX_MERGE] ? o[O_MAX_MERGE] : 5;
     h.slice_qp = pic_qp;
     // the decoder needs the PPS's SPS to plan slices
@@ -706,7 +885,7 @@ struct Writer : Policy {
         hk.qp_delta = sq - pps.init_qp;
         hk.slice_qp = sq;
       }
-      if (hk.type == SLICE_P && !content && k > 0 && h.type == SLICE_P && rng.chance(15)) hk.type = SLICE_I;
+      if (hk.type != SLICE_I && !content && k > 0 && rng.chance(15)) hk.type = SLICE_I;
       if (hk.deblocking_override && hk.deblocking_disabled) {  // offsets not coded: the last ones stay
         hk.beta_offset_div2 = dec.last_beta_div2;
         hk.tc_offset_div2 = dec.last_tc_div2;
@@ -760,9 +939,12 @@ int hevcw_exercise(Writer* w, const int* opts, int n) {
 
 // Content: `n_pcm` PCM pictures of the packed I420 `frames` (width x
 // height, even), then `n_p` P pictures panning (pan_x, pan_y) quarter
-// samples a picture, with WPP on when `wpp`.  Returns 0, or -1.
+// samples a picture, with WPP on when `wpp`.  With `bframes`, one PCM
+// picture and then GOPs of a P anchor and `bframes` hierarchical B
+// pictures; with `fade`, the luma gain from picture to picture in 1/1000,
+// carried by explicit weights in P and B slices.  Returns 0, or -1.
 int hevcw_content(Writer* w, const uint8_t* frames, int n_pcm, int width, int height, int n_p, int pan_x,
-                  int pan_y, int wpp) {
+                  int pan_y, int wpp, int bframes, int fade) {
   try {
     using namespace hevcw;
     std::memset(w->o, 0, sizeof w->o);
@@ -779,6 +961,11 @@ int hevcw_content(Writer* w, const uint8_t* frames, int n_pcm, int width, int he
     w->o[O_SLICES] = 1;
     w->o[O_ACROSS] = 1;
     w->o[O_VUI] = 1;
+    w->o[O_BFRAMES] = bframes;
+    w->o[O_PYRAMID] = 1;
+    w->o[O_WP] = fade ? 3 : 0;
+    w->fade = fade;
+    if (bframes && n_pcm != 1) hevc::fail("hevcw_content: B pictures follow one PCM picture");
     w->setup(width, height);
     int W = w->sps.width, H = w->sps.height;
     w->planes.assign((size_t)n_pcm * W * H * 3 / 2, 0);
@@ -801,9 +988,10 @@ int hevcw_content(Writer* w, const uint8_t* frames, int n_pcm, int width, int he
     for (int i = 0; i < n_pcm; i++) w->plan[(size_t)i].type = i == 0 ? hevc::NAL_IDR_W_RADL : hevc::NAL_CRA;
     // PCM pictures after the first are CRA pictures keeping nothing; the P pictures refer to the one before
     int poc = 0;
-    for (size_t i = 0; i < w->plan.size(); i++) {
+    for (size_t i = 0; i < w->plan.size() && !bframes; i++) {
       Pic& p = w->plan[i];
       p.poc = poc++;
+      p.lo = p.poc - 1;
       p.output = 1;
       p.rps.clear();
       p.used.clear();
@@ -825,9 +1013,9 @@ int hevcw_content(Writer* w, const uint8_t* frames, int n_pcm, int width, int he
 }
 
 // A stream the decoder refuses by name: its parameter sets and one slice
-// header carry the tool `kind` (1 B slices, 2 long-term references, 3
-// weighted prediction, 4 tiles, 5 dependent slice segments, 6
-// cu_transquant_bypass, 7 Main 10, 8 4:2:2, 9 a layer above 0).
+// header carry the tool `kind` (2 long-term references, 4 tiles, 5
+// dependent slice segments, 6 cu_transquant_bypass, 7 Main 10, 8 4:2:2, 9
+// a layer above 0).
 // Returns 0, or -1.
 int hevcw_refused(Writer* w, int kind) {
   try {
@@ -852,9 +1040,7 @@ int hevcw_refused(Writer* w, int kind) {
     h.slice_qp = 30;
     h.qp_delta = 30 - p.init_qp;
     switch (kind) {
-      case 1: h.type = SLICE_B; break;
       case 2: s.long_term_present = 1; h.num_long_term_pics = 1; break;
-      case 3: p.weighted_pred = 1; break;
       case 4: p.tiles = 1; break;
       case 5: p.dependent_slices = 1; h.first_slice = 0; h.dependent = 1; h.address = 1; break;
       case 6: p.transquant_bypass = 1; break;

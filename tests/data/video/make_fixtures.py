@@ -208,22 +208,26 @@ HEVC_DIR = os.path.join(HERE, "hevc")
 
 
 def hevc_main():
-    """cv2's Y digests of the 720p H.265 content clip
-    (``hevc_writer.content_720p``), which ``chip_smoke.py`` decodes on the
-    card, in ``hevc/sha256.json``."""
+    """cv2's Y digests of the 720p H.265 content clips
+    (``hevc_writer.content_720p``: I/P; ``content_720p_b``: hierarchical B
+    pictures and weighted prediction), which ``chip_smoke.py`` decodes on
+    the card, in ``hevc/sha256.json``."""
     sys.path.insert(0, HERE)
     import hevc_writer
 
     os.makedirs(HEVC_DIR, exist_ok=True)
-    tmp = os.path.join(HEVC_DIR, "content_720p.h265")
-    with open(tmp, "wb") as f:
-        f.write(hevc_writer.content_720p())
-    ys = cv2_decode(tmp, False)
-    os.remove(tmp)
-    spec = hevc_writer.CONTENT_720P
-    assert len(ys) == spec["frames"]
-    digests = {"content_720p": {**spec, "height": 720, "width": 1280,
-                                "y_sha256": [hashlib.sha256(y.tobytes()).hexdigest() for y in ys]}}
+    digests = {}
+    for key, make, spec in (("content_720p", hevc_writer.content_720p, hevc_writer.CONTENT_720P),
+                            ("content_720p_b", hevc_writer.content_720p_b,
+                             hevc_writer.CONTENT_720P_B)):
+        tmp = os.path.join(HEVC_DIR, f"{key}.h265")
+        with open(tmp, "wb") as f:
+            f.write(make())
+        ys = cv2_decode(tmp, False)
+        os.remove(tmp)
+        assert len(ys) == spec["frames"]
+        digests[key] = {**spec, "height": 720, "width": 1280,
+                        "y_sha256": [hashlib.sha256(y.tobytes()).hexdigest() for y in ys]}
     with open(os.path.join(HEVC_DIR, "sha256.json"), "w") as f:
         json.dump(digests, f, indent=1)
         f.write("\n")

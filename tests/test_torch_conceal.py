@@ -38,6 +38,7 @@ from adas_tpu_torch.render.video import AVIWriter, open_reader  # noqa: E402
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "video")
 sys.path.insert(0, DATA)
+import conceal_clips  # noqa: E402
 import h264_writer  # noqa: E402
 import mpeg4_writer  # noqa: E402
 from make_fixtures import libavformat_planes  # noqa: E402
@@ -73,20 +74,17 @@ def _samples(path):
 
 #: cases where the port departs from libavcodec (ROADMAP §3), each pinned
 #: here: cv2's count and the frames the damage does not reach are held as
-#: in every case, the rest must still differ.  In each a macroblock failed
-#: in its residual: FFmpeg leaves the coefficients it had read in its
-#: block buffer, and the next transform that finds them there (a later
-#: macroblock's, or concealment's chroma DC add) takes them in; the port
-#: keeps no such buffer.
-DEPARTURES = {"h264-cavlc-I-1", "h264-cavlc-P-2", "h264-cavlc-B-2"}
+#: in every case, the rest must still differ.  None is open.
+DEPARTURES = set()
 
 
-def assert_concealed_as_ffmpeg(path, clean, case=""):
+def assert_concealed_as_ffmpeg(path, clean, case="", cv2_y=True):
     """The port's frames of ``path`` are FFmpeg's one-thread decode of it,
     every plane; cv2 gives as many, and those the damage leaves equal to the
-    undamaged file's (``clean``) decode are cv2's Y.  A case of
-    ``DEPARTURES`` is held to all of that but the concealed frames, which
-    must still differ.  Returns the port's counters."""
+    undamaged file's (``clean``) decode are cv2's Y (unless ``cv2_y`` is
+    false: cv2 returns its buffer unconverted for interlaced ``mp4v``).  A
+    case of ``DEPARTURES`` is held to all of that but the concealed frames,
+    which must still differ.  Returns the port's counters."""
     want = libavformat_planes(path)
     whole = libavformat_planes(clean)
     got, stats = _port(path)
@@ -94,7 +92,8 @@ def assert_concealed_as_ffmpeg(path, clean, case=""):
     assert len(got) == len(want) == len(theirs) > 0
     for k, (r, w) in enumerate(zip(want, whole)):
         if all(np.array_equal(a, b) for a, b in zip(r, w)):
-            np.testing.assert_array_equal(got[k][0], theirs[k], err_msg=f"frame {k} (undamaged)")
+            if cv2_y:
+                np.testing.assert_array_equal(got[k][0], theirs[k], err_msg=f"frame {k} (undamaged)")
             np.testing.assert_array_equal(got[k][0], r[0], err_msg=f"frame {k} (undamaged)")
     same = [all(np.array_equal(g[c], r[c]) for c in range(3)) for g, r in zip(got, want)]
     if case in DEPARTURES:
@@ -229,6 +228,110 @@ def test_mp4v_cut_mid_chunk_is_concealed(tmp_path, kind, pic):
     assert_concealed_as_ffmpeg(str(bad), src, f"mp4v-cut-{kind}-{pic}")
 
 
+#: damaged P-VOPs of the Advanced Simple exerciser (96x64, IBBP) followed
+#: by the B-VOPs that predict from them: writer options, the sample, and
+#: the damage: 3-40 bytes replaced from a seed (``_damage``) or 20 bytes in
+#: the VOP's middle (``conceal_clips._replace``).  The first is the sweep
+#: case where an earlier B-VOP's end set FFmpeg's padding-bug workaround
+#: (the tests' ``ASP`` stream).
+ASP_SWEEP = {
+    "asp-sample4": (dict(ASP), 4, "random", 21),
+    "seed5-packets-4mv-qpel-mpegquant": (dict(ASP, frames=8, intra=10), 1, "middle", 0),
+    "seed0-4mv": (dict(width=96, height=64, frames=8, bframes=2, seed=0, four_mv=30), 1, "middle", 22),
+    "seed5-packets": (dict(width=96, height=64, frames=8, bframes=2, seed=5, packets=1), 1, "middle", 0),
+    "ibbp-seed0": (dict(width=96, height=64, frames=10, bframes=2, seed=0), 1, "random", 0),
+    "ibbp-4mv-seed3": (dict(width=96, height=64, frames=10, bframes=2, seed=3, four_mv=30), 1, "random", 1),
+    "ibbp-packets-seed5-b": (dict(width=96, height=64, frames=10, bframes=2, seed=5, packets=1), 2, "random", 1),
+}
+
+
+@pytest.mark.parametrize("case", list(ASP_SWEEP))
+def test_mp4v_asp_sweep_damaged_p_vop_is_concealed(tmp_path, case):
+    """A P-VOP (or B-VOP) damaged; the B-VOPs after it read without error
+    but stop short of their packets' ends,
+    which FFmpeg takes as whole pictures once its padding-bug score says
+    the stream pads badly (``FF_BUG_NO_PADDING``), as an earlier B-VOP's
+    end moves it: every plane FFmpeg's."""
+    options, k, damage, seed = ASP_SWEEP[case]
+    st = mpeg4_writer.exercise(**options)
+    src = str(tmp_path / "v.avi")
+    mpeg4_writer.to_avi(st, src)
+    samples = list(st.samples)
+    assert st.types[k] in (1, 2)
+    lo = samples[k].rfind(b"\x00\x00\x01\xb6") + 12
+    if damage == "random":
+        samples[k] = _damage(samples[k], lo, seed)
+    else:
+        samples[k] = conceal_clips._replace(samples[k], lo, len(samples[k]), seed)
+    bad = str(tmp_path / "bad.avi")
+    _mux_mp4v(bad, samples, st.types, b"XVID")
+    stats = assert_concealed_as_ffmpeg(bad, src, f"mp4v-asp-sweep-{case}")
+    assert stats["b_vops"] > 0
+
+
+FIELD_PACKETS = dict(width=96, height=64, frames=10, interlaced=1, packets=1, bframes=1,
+                     user=mpeg4_writer.XVID)
+#: VOPs (64x48 unless named) damaged into valid syntax, where what FFmpeg
+#: does with data no encoder writes decides the picture: the 16-bit lanes
+#: of its MPEG-2 unquantisers (``dct_unquantize_mpeg2_{intra,inter}_mmx``),
+#: its SSE2 IDCTs, simple and XviD, which saturate, and H.263's inter4v+q
+#: mcbpc codes, which its table shared with MPEG-4 reads (the P-VOP is then
+#: concealed whole, by the vectors it read); and in interlaced VOPs, the
+#: motion FFmpeg writes back for a macroblock that fails after a field
+#: macroblock (its mv_type and two vectors) and the field selects its
+#: concealment reads as reference indices, from tables its pool hands out
+#: again uncleared.  Writer options, the damaged
+#: sample, the damage (as ``ASP_SWEEP``'s), its seed and the AVI's fourcc.
+GARBAGE = {
+    "mpeg-inter-p": (dict(seed=5, packets=1, bframes=2, four_mv=30, qpel=1, mpeg_quant=1), 1,
+                     "middle", 0, b"XVID"),
+    "mpeg-inter-b": (dict(seed=5, packets=1, bframes=2, four_mv=30, qpel=1, mpeg_quant=1), 4,
+                     "random", 49, b"XVID"),
+    "mpeg-inter-4mv-96x64": (dict(width=96, height=64, frames=10, packets=1, mpeg_quant=1,
+                                  four_mv=30), 1, "random", 0, b"XVID"),
+    "mpeg-intra-i": (dict(seed=3, packets=1, bframes=2, four_mv=30, qpel=1, mpeg_quant=1), 0,
+                     "random", 0, b"DX50"),
+    "mpeg-intra-4mv-i": (dict(seed=3, packets=1, mpeg_quant=1, four_mv=30), 0, "random", 0,
+                         b"DX50"),
+    "simple-idct-i": (dict(packets=1, qpel=1), 0, "random", 1, b"XVID"),
+    "xvid-idct-i": (dict(packets=1, qpel=1, user=mpeg4_writer.XVID), 0, "random", 1, b"XVID"),
+    "inter4v-q-qpel-p": (dict(packets=1, qpel=1), 5, "random", 1, b"DX50"),
+    "inter4v-q-mpeg-p": (dict(seed=3, bframes=2, mpeg_quant=1), 7, "random", 1, b"DX50"),
+    "field-failed-mb-4mv": (dict(seed=4, interlaced=1, four_mv=30, mpeg_quant=1), 1, "random", 3,
+                            b"DX50"),
+    "field-failed-mb-b": (dict(seed=4, interlaced=1, bframes=2), 7, "random", 3, b"DX50"),
+    "field-select-refs": (dict(FIELD_PACKETS, seed=9), 3, "random", 2, b"XVID"),
+    "field-select-refs-2": (dict(FIELD_PACKETS, seed=6), 5, "random", 3, b"DX50"),
+    "field-select-refs-pooled": (dict(FIELD_PACKETS, seed=7), 7, "random", 3, b"DX50"),
+}
+
+
+@pytest.mark.parametrize("case", list(GARBAGE))
+def test_mp4v_vop_damaged_into_valid_syntax_decodes_as_ffmpeg(tmp_path, case):
+    """A VOP damaged into syntax FFmpeg reads without an error, with levels
+    and codes no encoder writes: dequantised and transformed as x86
+    libavcodec does (16-bit products that wrap, sums that saturate), its
+    mcbpc read by FFmpeg's table, every plane FFmpeg's."""
+    options, k, damage, seed, fourcc = GARBAGE[case]
+    st = mpeg4_writer.exercise(**options)
+    samples = list(st.samples)
+    src = str(tmp_path / "v.avi")
+    _mux_mp4v(src, samples, st.types, fourcc)
+    lo = samples[k].rfind(b"\x00\x00\x01\xb6") + 12
+    if damage == "random":
+        samples[k] = _damage(samples[k], lo, seed)
+    else:
+        samples[k] = conceal_clips._replace(samples[k], lo, len(samples[k]), seed)
+    bad = str(tmp_path / "bad.avi")
+    _mux_mp4v(bad, samples, st.types, fourcc)
+    stats = assert_concealed_as_ffmpeg(bad, src, f"mp4v-garbage-{case}",
+                                       cv2_y=not options.get("interlaced"))
+    assert (stats["xvid_idct_vops"] > 0) == (options.get("user") == mpeg4_writer.XVID)
+    assert (stats["interlaced_vops"] > 0) == bool(options.get("interlaced"))
+    if case.startswith("inter4v-q"):
+        assert stats["concealed_mbs"] == 12 and stats["inter4v_mbs"] > 0
+
+
 def test_mp4v_dropped_packet_is_concealed(tmp_path):
     """One video packet of a P-VOP left out: the next packet's resync
     marker is found, the missing macroblocks concealed."""
@@ -300,6 +403,22 @@ def test_h264_damaged_slice_is_concealed(tmp_path, cabac, pic, seed):
     bad = str(tmp_path / "bad.avi")
     _mux_h264(bad, aus, 64, 48)
     assert_concealed_as_ffmpeg(bad, src, f"h264-{_codec(cabac)}-{pic}-{seed}")
+
+
+#: damaged slices of a sweep (the streams and damage of
+#: ``test_h264_damaged_slice_is_concealed`` over more seeds) where the port
+#: once departed from FFmpeg: a block's coefficients read before its
+#: macroblock failed, FFmpeg's 16-bit 8x8 transform, vectors and
+#: mb_qp_delta past the standard's range (FFmpeg wraps them), an intra
+#: mode checked before the residual is read
+SWEEP = [(0, "I", 8), (0, "P", 11), (0, "B", 22), (0, "P", 19), (0, "P", 41), (0, "I", 74),
+         (1, "P", 3), (1, "P", 30), (1, "I", 59), (1, "I", 85)]
+
+
+@pytest.mark.parametrize("cabac,pic,seed", SWEEP,
+                         ids=[f"{_codec(c)}-{p}-{s}" for c, p, s in SWEEP])
+def test_h264_sweep_damaged_slice_is_concealed(tmp_path, cabac, pic, seed):
+    test_h264_damaged_slice_is_concealed(tmp_path, cabac, pic, seed)
 
 
 @pytest.mark.parametrize("pic", ["I", "P", "B"])

@@ -3,7 +3,7 @@ and ``render/video.MP4Reader`` / ``AVIReader`` / ``AnnexBReader``) against
 cv2's FFmpeg, on the CPU.
 
 The streams come from ``tests/data/video/hevc_writer.cpp``, a writer of
-legal I/P syntax from a seed that shares the decoder's syntax layer; cv2
+legal I/P/B syntax from a seed that shares the decoder's syntax layer; cv2
 is the independent judge of what the two share.
 
 * Every tool: on exerciser streams over a grid of tools x seeds, the port
@@ -11,15 +11,20 @@ is the independent judge of what the two share.
   (``CAP_PROP_CONVERT_RGB`` 0 returns the decoded luma plane) and every
   plane equal to cv2's bundled libavcodec on one thread, read as cv2 reads
   the file (``make_fixtures.libavformat_planes``); each case's counter
-  shows its tool ran.  So does the 720p content clip (a PCM IDR picture,
-  then P pictures of a quarter-sample pan by merge and AMVP), by the
-  digests cv2 made of it.
+  shows its tool ran: x265's default tools among them (hierarchical B
+  pictures, weighted prediction), and low-delay B, list 1's modification,
+  combined bi-predictive merges, mvd_l1_zero_flag and both co-located
+  lists.  So do the 720p content clips (a PCM IDR picture, then P
+  pictures of a quarter-sample pan by merge and AMVP; or GOPs of a P
+  anchor and three hierarchical B pictures over a luma fade by explicit
+  weights), by the digests cv2 made of them.
 * Output: FFmpeg's bumping by the SPS's reorder depth and DPB size,
   ``pic_output_flag``, RASL pictures after a CRA picture that starts the
   stream, and a stream that starts without an IRAP picture (a picture
   that refers to a missing reference is not decoded).
-* Inputs: Annex B, ``hvc1`` and ``hev1`` MP4 and AVI give the same frames;
-  the conformance window crops as cv2 does.
+* Inputs: Annex B, ``hvc1`` and ``hev1`` MP4 (``ctts`` and ``elst`` for
+  B pictures) and AVI give the same frames; the conformance window crops
+  as cv2 does.
 * Refusals: every tool the decoder does not take raises ``ValueError``
   naming it; truncated and mutated streams decode or raise ``ValueError``,
   in a child process that must not crash.
@@ -89,6 +94,24 @@ TOOLS = {
     "sps_rps": (dict(sps_rps=1, refs=3, frames=8), "inter_rps_pictures"),
     "poc_wrap": (dict(log2_poc_lsb=4, frames=20, width=32, height=32), "pictures"),
     "slices": (dict(slices=4, ctb=16), "slices_after_the_first"),
+    # B slices and weighted prediction
+    "b_flat": (dict(bframes=2, frames=8), "b_slices"),
+    "b_pyramid": (dict(bframes=3, pyramid=1, frames=9, tmvp=1), "bi_pus"),
+    "b_pyramid_cra_rasl": (dict(bframes=3, pyramid=1, frames=13, cra=1, idr_every=8, tmvp=1),
+                           "cra_pictures"),
+    "gpb": (dict(gpb=100, refs=2), "l1_pus"),
+    "list_mod_l1": (dict(gpb=100, refs=3, list_mod=1, frames=8), "list_modifications_l1"),
+    "bi_merge": (dict(gpb=100, refs=2, skip=40, tmvp=1), "combined_bi_merges"),
+    "bi_merge_8x4": (dict(bframes=1, frames=7, min_cb=8, ctb=16, bi=90), "bi_merges_to_l0"),
+    "mvd_l1_zero": (dict(bframes=3, pyramid=1, frames=9, mvd_l1_zero=100, bi=90), "mvd_l1_zero_pus"),
+    "collocated_l0": (dict(bframes=2, frames=8, tmvp=1, col=1, refs=2), "tmvp_l1"),
+    "collocated_l1": (dict(bframes=2, frames=8, tmvp=1, col=2, refs=2), "collocated_from_l1_slices"),
+    "weighted_p": (dict(wp=1, refs=2), "weighted_pus"),
+    "weighted_b": (dict(wp=2, bframes=3, pyramid=1, frames=9, tmvp=1), "weighted_pus"),
+    "weighted_wide_offsets": (dict(wp=3, bframes=2, frames=10, refs=3, wp_offsets=40000),
+                              "weighted_pus"),
+    "b_filters_slices": (dict(bframes=3, pyramid=1, frames=9, deblock=2, slices=3, across=2, sao=1,
+                              amp=1, ctb=32), "deblocked_edges"),
 }
 SEEDS = (0, 1)
 
@@ -174,6 +197,39 @@ def test_containers_give_the_same_frames(tmp_path, container):
             np.testing.assert_array_equal(g[c], r[c])
 
 
+@pytest.mark.parametrize("container", ["h265", "hvc1", "hev1", "avi"])
+def test_b_containers_give_the_same_frames(tmp_path, container):
+    """A stream of hierarchical B pictures with weighted prediction as raw
+    Annex B, ``hvc1`` and ``hev1`` (``ctts`` with the reorder and an
+    ``elst`` from the first frame) and AVI: cv2's frames each time, and
+    the same frames."""
+    from adas_tpu_torch.render import mp4
+
+    stream = hw.exercise(frames=10, seed=4, bframes=3, pyramid=1, tmvp=1, refs=2, wp=3, ctb=32,
+                         sao=1, deblock=2, amp=1)
+    if container == "h265":
+        path = _write(tmp_path, stream)
+    elif container == "avi":
+        path = str(tmp_path / "s.avi")
+        hw.to_avi(stream, path, b"HEVC")
+    else:
+        path = str(tmp_path / "s.mp4")
+        hw.to_mp4(stream, path, container.encode())
+        d = mp4.Demuxer(path)
+        cts = d.track.cts
+        d.close()
+        delta = mp4.rate(30.0)[1]  # to_mp4's sample duration
+        assert mp4.guess_video_delay([i * delta + c for i, c in enumerate(cts)]) == 2
+    stats = assert_reads_as_cv2(path)
+    assert stats["b_slices"] > 0 and stats["reordered_outputs"] > 0
+    got, _, _ = _port(path)
+    ref, _, _ = _port(_write(tmp_path, stream, "ref.h265"))
+    assert len(got) == len(ref) == 10
+    for g, r in zip(got, ref):
+        for c in range(3):
+            np.testing.assert_array_equal(g[c], r[c])
+
+
 @pytest.mark.parametrize("tag", ["HEVC", "H265", "X265", "HVC1", "HEV1"])
 def test_avi_fourccs_read_as_hevc(tmp_path, tag):
     path = str(tmp_path / "s.avi")
@@ -228,6 +284,19 @@ def test_stream_without_an_irap_start_reads_as_cv2(tmp_path, start):
                    [params + [n for n in aus[start] if hevc.nal_type(n) < 32]] + aus[start + 1:])
     stats = assert_reads_as_cv2(_write(tmp_path, cut))
     assert stats["dropped_pictures"] == 6 - start
+
+
+def test_b_stream_cut_at_a_cra_picture_skips_its_rasl_pictures(tmp_path):
+    """An open-GOP B stream cut at its CRA picture: the hierarchical B
+    pictures that lead it refer to pictures before the cut and are
+    skipped, as FFmpeg skips them."""
+    stream = hw.exercise(frames=13, seed=2, bframes=3, pyramid=1, cra=1, idr_every=8, tmvp=1)
+    aus = list(hevc.access_units(hevc.nal_units(stream)))
+    params = [n for n in aus[0] if hevc.nal_type(n) in (32, 33, 34)]
+    k = next(i for i, au in enumerate(aus) if any(hevc.nal_type(n) == 21 for n in au))
+    cut = b"".join(hevc.annexb(au) for au in [params + aus[k]] + aus[k + 1:])
+    stats = assert_reads_as_cv2(_write(tmp_path, cut))
+    assert stats["rasl_skipped"] == 3 and stats["b_slices"] > 0
 
 
 def test_stream_starting_with_a_trailing_i_picture_reads_as_cv2(tmp_path):
@@ -290,14 +359,20 @@ FUZZ_SCRIPT = textwrap.dedent(
     from adas_tpu_torch.render import hevc
 
     rng = random.Random(int(sys.argv[1]))
+    b_tools = sys.argv[3] == "b"
     decoded = refused = 0
     for it in range(int(sys.argv[2])):
-        stream = bytearray(hw.exercise(
+        extra = {}
+        if b_tools:
+            extra = dict(bframes=rng.choice([0, 1, 3]), pyramid=rng.randint(0, 1), gpb=rng.choice([0, 100]),
+                         wp=rng.randint(0, 3), mvd_l1_zero=rng.choice([0, 50]), col=rng.randint(0, 2),
+                         list_mod=rng.randint(0, 1), frames=rng.randint(2, 6))
+        stream = bytearray(hw.exercise(**{**dict(
             seed=rng.randint(0, 10 ** 6), frames=rng.randint(1, 4), ctb=rng.choice([16, 32, 64]),
             amp=1, pcm=10, tskip=1, sign_hiding=1, qp_delta=rng.randint(0, 2), scaling=rng.randint(0, 3),
             cip=rng.randint(0, 1), tmvp=1, refs=rng.randint(1, 3), deblock=2, sao=1,
             wpp=rng.randint(0, 1), slices=rng.randint(1, 3), across=2, reorder=rng.randint(0, 1),
-            width=rng.choice([16, 48, 64]), height=rng.choice([16, 32, 48])))
+            width=rng.choice([16, 48, 64]), height=rng.choice([16, 32, 48])), **extra}))
         kind = it % 3
         if kind == 0:
             stream = stream[:rng.randint(0, len(stream))]
@@ -319,15 +394,26 @@ FUZZ_SCRIPT = textwrap.dedent(
 )
 
 
-@pytest.mark.parametrize("seed", [1, 2])
-def test_truncated_and_mutated_streams_decode_or_raise(seed):
-    """Truncated streams and streams with bytes replaced or bits flipped
-    decode or raise ``ValueError``; the process never crashes."""
-    proc = subprocess.run([sys.executable, "-c", FUZZ_SCRIPT, str(seed), "120"], cwd=REPO,
+def _fuzz(seed, tools):
+    proc = subprocess.run([sys.executable, "-c", FUZZ_SCRIPT, str(seed), "120", tools], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     decoded, refused = map(int, proc.stdout.split())
     assert decoded + refused == 120 and refused > 0
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_truncated_and_mutated_streams_decode_or_raise(seed):
+    """Truncated streams and streams with bytes replaced or bits flipped
+    decode or raise ``ValueError``; the process never crashes."""
+    _fuzz(seed, "ip")
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_truncated_and_mutated_b_streams_decode_or_raise(seed):
+    """The same over streams of B slices (hierarchical, low-delay) with
+    weighted prediction, both co-located lists and list modification."""
+    _fuzz(seed, "b")
 
 
 # ------------------------------------------------------------------ the 720p clip
@@ -351,3 +437,34 @@ def test_720p_content_clip_gives_cv2s_digests(tmp_path):
     assert ys == want["y_sha256"] and len(ys) == want["frames"]
     assert stats["pcm_cus"] > 0 and stats["merge_pus"] > 0 and stats["amvp_pus"] > 0
     assert stats["wpp_rows"] > 0 and stats["skip_cus"] > 0
+
+
+@pytest.fixture(scope="module")
+def content_720p_b():
+    return hw.content_720p_b()
+
+
+@pytest.mark.parametrize("container", ["hvc1", "avi", "h265"])
+def test_720p_b_clip_gives_cv2s_digests(tmp_path, content_720p_b, container):
+    """The 720p B clip of ``chip_smoke.py`` (a PCM IDR picture, then GOPs of
+    a P anchor and three hierarchical B pictures, b-pyramid with a reorder
+    depth of 2, over the pan of the content clip and a luma fade carried
+    by explicit weights in P and B slices) as an ``hvc1`` MP4 with
+    ``ctts``/``elst``, an AVI and Annex B: cv2's frame count and Y digests,
+    committed by ``make_fixtures.py hevc``."""
+    want = DIGESTS["content_720p_b"]
+    if container == "hvc1":
+        path = str(tmp_path / "c.mp4")
+        hw.to_mp4(content_720p_b, path)
+    elif container == "avi":
+        path = str(tmp_path / "c.avi")
+        hw.to_avi(content_720p_b, path, b"HEVC", 1280, 720)
+    else:
+        path = _write(tmp_path, content_720p_b, "c.h265")
+    with open_reader(path) as r:
+        ys = [hashlib.sha256(np.ascontiguousarray(f[:720]).tobytes()).hexdigest()
+              for f in r.i420_frames()]
+        stats = r.stats()
+    assert ys == want["y_sha256"] and len(ys) == want["frames"]
+    assert stats["b_slices"] > 0 and stats["bi_pus"] > 0 and stats["weighted_pus"] > 0
+    assert stats["reordered_outputs"] > 0 and stats["weighted_slices"] == want["frames"] - 1
